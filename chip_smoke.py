@@ -9,18 +9,25 @@ Phases (any failure exits non-zero and prints no result line):
    limit and builds every kernel of ``transmogrifai_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel);
 2. kernels — each kernel runs at the dense main path's shapes (1,000,000 x
-   28, 3 CV lanes, a depth-3 level) against its plain-PyTorch twin on the
-   same inputs, with its time, the twin's time, its bound and (where one
-   PyTorch call computes the same function) that call's time;
-3. main path — the dense binary workload: 28 RealNN features → transmogrify
-   → sanity_check → BinaryClassificationModelSelector (3-fold CV with racing
-   over logistic regression x4 and GBT 20 rounds x depth 3) → train, evaluate
-   (AuROC) and score on the card, with every kernel's launch count read
-   around that run; the same workflow at a small size is then held against
-   the twins on the CPU.
+   28) against its plain-PyTorch twin on the same inputs, with its time, the
+   twin's time, its bound and (where one PyTorch call computes the same
+   function) that call's time: the GBT shapes (3 CV lanes, a depth-3 level)
+   and the forest shapes (60 lanes = 3 folds x 20 trees, Poisson-weighted
+   gini statistics, per-node feature subsets, levels 0 and 5 of a depth-6
+   tree, walks of 20 depth-6 trees);
+3. main path — the dense binary workload of ``bench.run_dense``: 28 RealNN
+   features → transmogrify → sanity_check →
+   BinaryClassificationModelSelector (3-fold CV with racing over logistic
+   regression x4, a random forest of 20 depth-6 trees and GBT 20 rounds x
+   depth 3) → train, evaluate (AuROC) and score on the card, with every
+   kernel's launch count read around that run; the same workflow at 20,000
+   rows is then run on the card (forest draws made on the card, and made on
+   the host) and on the CPU twins (draws on the host), and held to the JAX
+   package's forest CV AuPR at that size.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it is the ``{"kernels": [...]}`` table.  Imports nothing of JAX.
+line before it is the ``{"kernels": [...]}`` table, the one before that the
+card's name and power limit.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -35,8 +42,18 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_ROWS, N_FEATS, N_BINS, N_FOLDS = 1_000_000, 28, 32, 3
+N_TREES, RF_DEPTH = 20, 6         # the bench's forest candidate
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
+# The JAX package's forest at 20,000 rows (make_data seed 0, RF seed 42,
+# CPU): CV AuPR 0.7068 (BENCH_STANDING.json run 0), winner LR.  The port's
+# forest draws other random numbers, so its CV AuPR must land within
+# RF_CV_AUPR_TOL = max(0.01, 3 x the JAX package's spread of that AuPR over
+# 5 RF seeds), measured by `python tests/test_torch_forest.py` (PERF.md).
+JAX_20K_RF_CV_AUPR = 0.7068
+JAX_20K_WINNER = "OpLogisticRegression"
+RF_CV_AUPR_TOL = 0.0306            # 3 x 0.0102, the JAX package's spread
+                                   # over RF seeds 42, 0, 1, 2, 3
 
 
 def make_data(n: int, d: int = N_FEATS, seed: int = 0):
@@ -114,9 +131,11 @@ def kernel_inputs(device, n: int, seed: int = 1):
             "offset": 3, "P": 4}
 
 
-def _random_trees(device, n_trees: int, depth: int, d: int, seed: int = 2):
+def _random_trees(device, n_trees: int, depth: int, d: int, seed: int = 2,
+                  classes: int = 0):
     """``n_trees`` perfect-heap trees of ``depth`` with a leaf above the
-    bottom level in every tree and +inf thresholds under it."""
+    bottom level in every tree and +inf thresholds under it; one leaf value
+    per node, or with ``classes`` the class shares of a gini leaf."""
     import torch
     rng = np.random.default_rng(seed)
     T = 2 ** (depth + 1) - 1
@@ -127,7 +146,11 @@ def _random_trees(device, n_trees: int, depth: int, d: int, seed: int = 2):
     is_leaf[:, 2] = True                       # an early leaf
     threshold[:, 5:7] = np.inf                 # never taken
     feature[is_leaf] = -1
-    leaf = rng.normal(scale=0.1, size=(n_trees, T, 1)).astype(np.float32)
+    if classes:
+        leaf = rng.random((n_trees, T, classes)).astype(np.float32)
+        leaf /= leaf.sum(axis=2, keepdims=True)
+    else:
+        leaf = rng.normal(scale=0.1, size=(n_trees, T, 1)).astype(np.float32)
     return tuple(torch.as_tensor(a, device=device)
                  for a in (feature, threshold, is_leaf, leaf))
 
@@ -258,6 +281,196 @@ def check_kernels(device, n: int = N_ROWS, reps: int = 20):
     return rows
 
 
+def _fold_weights(y: np.ndarray) -> np.ndarray:
+    from transmogrifai_tpu_torch.tuning import OpCrossValidation
+    W = np.zeros((N_FOLDS, len(y)), np.float32)
+    for f, (tr, _) in enumerate(OpCrossValidation(N_FOLDS).splits(y)):
+        W[f, tr] = 1.0
+    return W
+
+
+def forest_inputs(device, n: int, seed: int = 4):
+    """Inputs of the main path's forest fit: 60 lanes (3 folds x 20 trees,
+    lane = fold*20 + tree) of gini statistics (w, w·[y=0], w·[y=1]) with
+    w = Poisson(1) draw x fold weight, the per-node subsets of the forest's
+    draws, and rows spread over level 5's 32 nodes (offset 31), some parked
+    at level-4 leaves."""
+    import torch
+
+    from transmogrifai_tpu_torch.models.trees import binned, forest_draws
+
+    X, y = make_data(n)
+    Xd = torch.as_tensor(X, device=device)
+    _, sp_t, B = binned(Xd, Xd, N_BINS)
+    D = B.shape[1]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dr = forest_draws(gen, n_trees=N_TREES, n_rows=n, rates=[1.0],
+                      max_depth=RF_DEPTH,
+                      fmask=torch.ones(D, dtype=torch.bool, device=device),
+                      features_per_node=int(np.sqrt(D)))
+    W = torch.as_tensor(_fold_weights(y), device=device)
+    K = N_FOLDS * N_TREES
+    bw = (W[:, None, :] * dr.boot[1.0][None]).reshape(K, n)
+    yd = torch.as_tensor(y, device=device)
+    base = torch.stack([torch.ones_like(yd), 1.0 - yd, yd], dim=1)
+    stats = (base[None] * bw[:, :, None]).contiguous()
+    tree_of_lane = torch.arange(K, device=device) % N_TREES
+    rng = np.random.default_rng(seed)
+    row_node = torch.as_tensor(
+        rng.integers(25, 63, size=(K, n)).astype(np.int32), device=device)
+    return {"X": Xd, "B": B, "splits": sp_t, "stats": stats,
+            "row_node": row_node,
+            "masks": [m[tree_of_lane].contiguous() for m in dr.subsets]}
+
+
+def check_forest_kernels(device, n: int = N_ROWS, reps: int = 10):
+    """The forest's kernels at the main path's forest shapes.  Returns the
+    ``tree_split_gini`` row of the kernels line and a dict of the other
+    kernels' forest-shape checks and times (printed on their own line)."""
+    import torch
+
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+
+    from transmogrifai_tpu_torch.models.trees import forest_draws
+
+    inp = forest_inputs(device, n)
+    B, stats, row_node = inp["B"], inp["stats"], inp["row_node"]
+    K, D = row_node.shape[0], B.shape[1]
+    S = stats.shape[2]
+    off, P = 31, 32
+    facts = {"forest_draws_s": {}}
+
+    # the forest's draws at the main path's shape, by a host generator and
+    # by one on the card (host clock, one call each after a warm-up)
+    for where in ("cpu", device):
+        def draw():
+            gen = torch.Generator(device=where).manual_seed(0)
+            forest_draws(gen, n_trees=N_TREES, n_rows=n, rates=[1.0],
+                         max_depth=RF_DEPTH,
+                         fmask=torch.ones(D, dtype=torch.bool, device=where),
+                         features_per_node=int(np.sqrt(D)))
+            if where != "cpu":
+                torch.cuda.synchronize()
+        draw()
+        t0 = time.perf_counter()
+        draw()
+        facts["forest_draws_s"][str(where)] = time.perf_counter() - t0
+
+    # tree_hist at level 5: the 60-lane kernel call against the twin run in
+    # f64 one lane at a time (the 60-lane twin needs > 50 GB); the kernel
+    # passing over zero-weight rows must give the same histogram as the one
+    # adding them (the integer counts are exact in f32 either way)
+    hist, tot = tk.tree_hist(B, row_node, stats, off, P, N_BINS)
+    hist_all, tot_all = tk.tree_hist(B, row_node, stats, off, P, N_BINS,
+                                     skip_zero=False)
+    if not (torch.equal(hist, hist_all) and torch.equal(tot, tot_all)):
+        raise AssertionError("tree_hist: skipping zero rows changed a sum")
+    err = 0.0
+    for k in range(K):
+        ht, tt = tk.tree_hist_twin(B, row_node[k:k + 1], stats[k:k + 1].double(),
+                                   off, P, N_BINS)
+        e_h = (hist[k:k + 1].double() - ht).abs()
+        e_t = (tot[k:k + 1].double() - tt).abs()
+        # statistics are >= 0, so the twin's sums are the cells' mass
+        if bool((e_h > 1e-5 + 1e-5 * ht).any() or (e_t > 1e-5 + 1e-5 * tt).any()):
+            raise AssertionError(f"tree_hist (forest level 5, lane {k}) "
+                                 "disagrees with its twin")
+        err = max(err, float(e_h.max()), float(e_t.max()))
+    at = row_node - off
+    in_level = (at >= 0) & (at < P)
+    live = int((in_level & (stats[..., 0] != 0)).sum())
+    bt, _ = bound(B.numel() + 4 * row_node.numel() + 4 * stats.numel()
+                  + 4 * (hist.numel() + tot.numel()), live * D * S)
+    facts["tree_hist"] = {
+        "lanes": K, "P": P, "max_abs_err": err,
+        "rows_in_level": int(in_level.sum()), "rows_nonzero": live,
+        "ms_skip_zero": time_ms(lambda: tk.tree_hist(
+            B, row_node, stats, off, P, N_BINS), reps),
+        "ms_all_rows": time_ms(lambda: tk.tree_hist(
+            B, row_node, stats, off, P, N_BINS, skip_zero=False), reps),
+        "bound_ms": bt}
+
+    # tree_split_gini at levels 0 (P = 1) and 5 (P = 32) with the forest's
+    # per-node subsets; gains within 1e-6 of wgini(parent), the terms they
+    # are a difference of; choices equal where best - runner-up > 1e-5 of it
+    fmask = torch.ones(D, dtype=torch.bool, device=device)
+    lane = lambda v: torch.full((K,), v, dtype=torch.float32, device=device)
+    h0, t0 = tk.tree_hist(B, torch.zeros_like(row_node), stats, 0, 1, N_BINS)
+    gerr = 0.0
+    for h, t, m in ((h0, t0, inp["masks"][0]), (hist, tot, inp["masks"][5])):
+        args = (h, t, fmask, m, inp["splits"], lane(10.0), lane(0.0))
+        sk, st = tk.tree_split_gini(*args), tk.tree_split_gini_twin(*args)
+        fin = torch.isfinite(st["gain"])
+        if not torch.equal(fin, torch.isfinite(sk["gain"])):
+            raise AssertionError("tree_split_gini: finite gains differ")
+        scale = tk.wgini(t)
+        e = torch.where(fin, (sk["gain"] - st["gain"]).abs(), 0.0)
+        if bool((e > 1e-6 * scale).any()):
+            raise AssertionError("tree_split_gini gains disagree with the twin")
+        gap = tk.split_gap_gini(h, t, fmask, m, args[5])
+        clear = gap > 1e-5 * scale
+        same = ((sk["feature"] == st["feature"]) & (sk["bin"] == st["bin"])
+                & (sk["is_leaf"] == st["is_leaf"])
+                & (sk["threshold"] == st["threshold"]))
+        if bool((clear & ~same).any()):
+            raise AssertionError("tree_split_gini picked another split than "
+                                 "the twin")
+        gerr = max(gerr, float(e.max()))
+    m5 = inp["masks"][5]
+    read = int(m5.sum()) * N_BINS * S * 4        # histograms of kept features
+    bt, by = bound(read + 4 * tot.numel() + m5.numel() + D
+                   + 4 * inp["splits"].numel() + 8 * K + 17 * K * P,
+                   23 * int(m5.sum()) * N_BINS)
+    args = (hist, tot, fmask, m5, inp["splits"], lane(10.0), lane(0.0))
+    row = {"name": "tree_split_gini", "max_abs_err": gerr,
+           "ms": time_ms(lambda: tk.tree_split_gini(*args), reps),
+           "plain_ms": time_ms(lambda: tk.tree_split_gini_twin(*args), reps),
+           "bound_ms": bt, "bound_by": by, "library_ms": None}
+
+    # tree_route at level 5 of 60 lanes: exact
+    sp = tk.tree_split_gini_twin(*args)
+    rk = tk.tree_route(B, row_node, sp["feature"], sp["bin"], sp["is_leaf"], off)
+    rt = tk.tree_route_twin(B, row_node, sp["feature"], sp["bin"],
+                            sp["is_leaf"], off)
+    if not torch.equal(rk, rt):
+        raise AssertionError("tree_route (forest level 5) disagrees with its twin")
+    facts["tree_route"] = {"lanes": K, "P": P, "ms": time_ms(
+        lambda: tk.tree_route(B, row_node, sp["feature"], sp["bin"],
+                              sp["is_leaf"], off), reps),
+        "bound_ms": bound(8 * row_node.numel() + int(in_level.sum()),
+                          int(in_level.sum()))[0]}
+
+    # tree_walk at the forest's shapes, V = 2 class shares, 7 steps: the
+    # model's mean over 20 trees and the CV panel's 3 members x 20 trees sum
+    X = inp["X"]
+    werr = 0.0
+    for n_trees, members, op in ((N_TREES, 1, "mean"),
+                                 (N_FOLDS * N_TREES, N_FOLDS, "sum")):
+        trees = _random_trees(device, n_trees, RF_DEPTH, D, classes=2)
+        wk = tk.tree_walk(X, *trees, RF_DEPTH + 1, members, op)
+        wt = tk.tree_walk_twin(X, *trees, RF_DEPTH + 1, members, op)
+        e = float((wk - wt).abs().max())
+        if e > 1e-6:
+            raise AssertionError(f"tree_walk disagrees with its twin at "
+                                 f"{n_trees} trees x {members} members ({op})")
+        werr = max(werr, e)
+        if members == 1:
+            used = int(torch.unique(trees[0][trees[0] >= 0]).numel())
+            facts["tree_walk"] = {
+                "trees": n_trees, "V": 2, "op": op, "ms": time_ms(
+                    lambda: tk.tree_walk(X, *trees, RF_DEPTH + 1, 1, op),
+                    reps),
+                "bound_ms": bound(4 * n * used + 8 * n
+                                  + sum(t.numel() * t.element_size()
+                                        for t in trees),
+                                  n * n_trees * (RF_DEPTH + 2))[0]}
+    facts["tree_walk"]["max_abs_err"] = werr
+    row.update(route="cuda",
+               source="transmogrifai_tpu_torch/csrc/tree_split_gini.cu",
+               replaces=tk.REPLACES["tree_split_gini"])
+    return row, facts
+
+
 def _check_hist(tk, B, row_node, stats, off: int, P: int, with_hist: bool):
     """``tree_hist`` against its twin at one level; returns (hist, totals,
     max abs error).  A node total sums ~10^5 f32 values, where any f32 order
@@ -288,14 +501,17 @@ def _check_hist(tk, B, row_node, stats, off: int, P: int, with_hist: bool):
 # phase 3: the main path
 # --------------------------------------------------------------------------
 
-def build_workflow(X, y, device):
-    """The dense workload of ``bench.run_dense`` minus the random forest:
-    LR reg_param x4 (elastic_net 0.1, max_iter 50) + GBT (20 rounds, depth 3,
-    min_instances 10), 3-fold CV ranked by AuPR."""
+def build_workflow(X, y, device, draw_device=None):
+    """The dense workload of ``bench.run_dense``: LR reg_param x4
+    (elastic_net 0.1, max_iter 50) + RF (20 trees, depth 6, min_instances
+    10, "auto" subsets, bootstrap) + GBT (20 rounds, depth 3, min_instances
+    10), 3-fold CV ranked by AuPR.  ``draw_device`` is where the forest's
+    generator draws (default: the fit's device)."""
     from transmogrifai_tpu_torch.columns import Column, ColumnBatch
     from transmogrifai_tpu_torch.features import FeatureBuilder
     from transmogrifai_tpu_torch.models.linear import OpLogisticRegression
-    from transmogrifai_tpu_torch.models.trees import OpGBTClassifier
+    from transmogrifai_tpu_torch.models.trees import (OpGBTClassifier,
+                                                      OpRandomForestClassifier)
     from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
     from transmogrifai_tpu_torch.selector import (
         BinaryClassificationModelSelector, ModelCandidate, grid)
@@ -311,6 +527,10 @@ def build_workflow(X, y, device):
                        grid(reg_param=[0.001, 0.01, 0.1, 0.2],
                             elastic_net_param=[0.1], max_iter=[50]),
                        "OpLogisticRegression"),
+        ModelCandidate(OpRandomForestClassifier(draw_device=draw_device),
+                       grid(num_trees=[N_TREES], max_depth=[RF_DEPTH],
+                            min_instances_per_node=[10]),
+                       "OpRandomForestClassifier"),
         ModelCandidate(OpGBTClassifier(),
                        grid(max_iter=[20], max_depth=[3],
                             min_instances_per_node=[10]),
@@ -324,13 +544,13 @@ def build_workflow(X, y, device):
     return Workflow(device=device).set_input_batch(batch).set_result_features(pred), batch
 
 
-def run_main_path(device, n: int):
+def run_main_path(device, n: int, draw_device=None):
     """Train, evaluate and score; returns the run's facts."""
     import torch
 
     from transmogrifai_tpu_torch.evaluators import Evaluators
     X, y = make_data(n)
-    wf, batch = build_workflow(X, y, device)
+    wf, batch = build_workflow(X, y, device, draw_device)
     t0 = time.perf_counter()
     model = wf.train()
     if device == "cuda":
@@ -351,7 +571,42 @@ def run_main_path(device, n: int):
             fam[r.model_name] = float(v)
     return {"train_wall_s": wall, "best_model": summ.best_model_name,
             "family_cv_metrics": fam, "train_auroc": auroc,
-            "phase_seconds": model.phase_seconds}
+            "phase_seconds": model.phase_seconds,
+            "selector_seconds": model.selected_model.selector_seconds}
+
+
+def check_small_runs() -> dict:
+    """The workflow at 20,000 rows: on the card with the forest's draws made
+    on the card (the main path's default) and made on the host, and on the
+    CPU twins with host draws.  Host draws on both devices give the same
+    forest up to float rounding, so every family agrees within 1e-3; card
+    draws are another stream, held statistically: each run's forest CV AuPR
+    within RF_CV_AUPR_TOL of the JAX package's and the JAX package's
+    winner."""
+    runs = {"card_card_draws": run_main_path("cuda", 20_000),
+            "card_host_draws": run_main_path("cuda", 20_000, "cpu"),
+            "cpu_host_draws": run_main_path("cpu", 20_000, "cpu")}
+    for name, r in runs.items():
+        rf = r["family_cv_metrics"]["OpRandomForestClassifier"]
+        if abs(rf - JAX_20K_RF_CV_AUPR) > RF_CV_AUPR_TOL:
+            raise AssertionError(f"small run {name}: forest CV AuPR {rf} is "
+                                 f"more than {RF_CV_AUPR_TOL} from the JAX "
+                                 f"package's {JAX_20K_RF_CV_AUPR}")
+        if r["best_model"] != JAX_20K_WINNER:
+            raise AssertionError(f"small run {name}: winner {r['best_model']}"
+                                 f", the JAX package's is {JAX_20K_WINNER}")
+    gpu, cpu = runs["card_host_draws"], runs["cpu_host_draws"]
+    for fam, v in cpu["family_cv_metrics"].items():
+        if abs(gpu["family_cv_metrics"][fam] - v) > 1e-3:
+            raise AssertionError(f"small run: {fam} CV metric "
+                                 f"{gpu['family_cv_metrics'][fam]} on the card "
+                                 f"vs {v} on the CPU (same draws)")
+    if abs(gpu["train_auroc"] - cpu["train_auroc"]) > 1e-3:
+        raise AssertionError("small run: train AuROC differs card vs CPU")
+    return {name: {"family_cv_metrics": r["family_cv_metrics"],
+                   "best_model": r["best_model"],
+                   "train_auroc": r["train_auroc"]}
+            for name, r in runs.items()}
 
 
 def main() -> int:
@@ -375,11 +630,14 @@ def main() -> int:
 
     # phase 2: kernels vs twins
     rows = check_kernels("cuda")
+    gini_row, forest_facts = check_forest_kernels("cuda")
+    rows.insert(2, gini_row)
     for r in rows:
         print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.3g} "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"library_ms={r['library_ms']}", flush=True)
+    print("forest shapes: " + json.dumps(forest_facts), flush=True)
     torch.cuda.empty_cache()
 
     # phase 3: the main path, launches counted around it alone
@@ -393,22 +651,11 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if facts["train_auroc"] <= 0.7:
         raise AssertionError(f"train AuROC {facts['train_auroc']} <= 0.7")
+    torch.cuda.empty_cache()
 
-    # the same workflow at a small size: kernels on the card vs twins on CPU
-    small_gpu = run_main_path("cuda", 20_000)
-    small_cpu = run_main_path("cpu", 20_000)
-    if small_gpu["best_model"] != small_cpu["best_model"]:
-        raise AssertionError(f"small run: best model {small_gpu['best_model']} "
-                             f"on the card vs {small_cpu['best_model']} on CPU")
-    for fam, v in small_cpu["family_cv_metrics"].items():
-        if abs(small_gpu["family_cv_metrics"][fam] - v) > 1e-3:
-            raise AssertionError(f"small run: {fam} CV metric "
-                                 f"{small_gpu['family_cv_metrics'][fam]} vs {v}")
-    if abs(small_gpu["train_auroc"] - small_cpu["train_auroc"]) > 1e-3:
-        raise AssertionError("small run: train AuROC differs card vs CPU")
-    print("small run card vs CPU twins: " + json.dumps(
-        {"card": small_gpu["family_cv_metrics"],
-         "cpu": small_cpu["family_cv_metrics"]}), flush=True)
+    # the same workflow at 20,000 rows: card vs CPU twins vs the JAX package
+    print("small runs (20000 rows): " + json.dumps(check_small_runs()),
+          flush=True)
 
     for r in rows:
         r["launches"] = launches[r["name"]]

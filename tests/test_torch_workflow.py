@@ -1,9 +1,11 @@
 """The port's dense binary slice end to end against the JAX package, on the
 CPU: RealNN features → transmogrify → sanity_check →
-BinaryClassificationModelSelector (3-fold CV, racing over LR x4 + GBT) →
-train / evaluate / score, and ``convert`` scoring a JAX-fitted model in the
-port.  Tolerances: folds, raced-out set and winner exact; per-candidate CV
-metrics and train AuROC 1e-4; scores of models each package trained rtol
+BinaryClassificationModelSelector (3-fold CV, racing over LR x4 + GBT, and
+the bench's full LR x4 + RF + GBT set) → train / evaluate / score, and
+``convert`` scoring a JAX-fitted model in the port.  Tolerances: folds,
+raced-out set and winner exact; per-candidate LR and GBT CV metrics and
+train AuROC 1e-4; the forest's CV AuPR within ``RF_CV_AUPR_TOL`` (its draws
+are torch's, not jax.random's); scores of models each package trained rtol
 1e-4 / atol 1e-5 (LR coefficients agree to 1e-4); scores of one JAX-fitted
 model scored by both packages rtol 1e-5 / atol 1e-6."""
 
@@ -15,6 +17,10 @@ torch = pytest.importorskip("torch")
 import importlib  # noqa: E402
 
 N, D = 400, 6
+# max(0.01, 3 x the JAX package's spread 0.0280 of the bench forest's CV
+# AuPR over RF seeds 42, 0, 1, 2, 3 on these 400 x 6 rows, measured by
+# `python tests/test_torch_forest.py`)
+RF_CV_AUPR_TOL = 0.084
 
 
 def _data(seed=0):
@@ -32,8 +38,9 @@ def _mod(pkg, name):
 
 
 def _build(pkg, X, y, families=("lr", "gbt"), **wf_kw):
-    """The bench's dense workflow (minus RF) in package ``pkg``, cut to
-    6 features and a 3-round depth-2 GBT."""
+    """The bench's dense workflow in package ``pkg``, cut to 6 features and
+    a 3-round depth-2 GBT; the forest, when asked for, is the bench's (20
+    trees, depth 6)."""
     C, F = _mod(pkg, "columns"), _mod(pkg, "features")
     S, TY = _mod(pkg, "selector"), _mod(pkg, "types")
     label = F.FeatureBuilder.RealNN("label").as_response()
@@ -46,6 +53,11 @@ def _build(pkg, X, y, families=("lr", "gbt"), **wf_kw):
             _mod(pkg, "models.linear").OpLogisticRegression(),
             S.grid(reg_param=[0.001, 0.01, 0.1, 0.2], elastic_net_param=[0.1],
                    max_iter=[50]), "OpLogisticRegression"))
+    if "rf" in families:
+        models.append(S.ModelCandidate(
+            _mod(pkg, "models.trees").OpRandomForestClassifier(),
+            S.grid(num_trees=[20], max_depth=[6], min_instances_per_node=[10]),
+            "OpRandomForestClassifier"))
     if "gbt" in families:
         models.append(S.ModelCandidate(
             _mod(pkg, "models.trees").OpGBTClassifier(),
@@ -84,6 +96,21 @@ def gbt_runs():
             _train("transmogrifai_tpu_torch", ("gbt",)))
 
 
+@pytest.fixture(scope="module")
+def full_runs():
+    """The bench's full candidate set: LR x4 + RF + GBT."""
+    fams = ("lr", "rf", "gbt")
+    return (_train("transmogrifai_tpu", fams),
+            _train("transmogrifai_tpu_torch", fams))
+
+
+@pytest.fixture(scope="module")
+def rf_runs():
+    """The forest as the only family, so the selected model is a forest."""
+    return (_train("transmogrifai_tpu", ("rf",)),
+            _train("transmogrifai_tpu_torch", ("rf",)))
+
+
 def _results(run):
     return [(r.model_name, r.params, r.metric_values["AuPR"], r.raced_out)
             for r in run["model"].selected_model.summary.validation_results]
@@ -110,6 +137,52 @@ def test_winner_raced_out_set_and_cv_metrics_match_jax(slice_runs):
     assert (port["model"].selected_model.summary.best_model_name
             == ref["model"].selected_model.summary.best_model_name)
     assert abs(port["auroc"] - ref["auroc"]) <= 1e-4
+
+
+def test_full_candidate_set_matches_jax(full_runs):
+    """Same folds and raced-out set, the same winner; LR and GBT CV metrics
+    as tight as without the forest, the forest's within RF_CV_AUPR_TOL."""
+    ref, port = full_runs
+    rs, ps = _results(ref), _results(port)
+    assert [(n, p, r) for n, p, _, r in ps] == [(n, p, r) for n, p, _, r in rs]
+    for (name, _, pm, _), (_, _, jm, _) in zip(ps, rs):
+        tol = RF_CV_AUPR_TOL if name == "OpRandomForestClassifier" else 1e-4
+        assert abs(pm - jm) <= tol, (name, pm, jm)
+    assert (port["model"].selected_model.summary.best_model_name
+            == ref["model"].selected_model.summary.best_model_name)
+    assert abs(port["auroc"] - ref["auroc"]) <= 1e-4
+    secs = port["model"].selected_model.selector_seconds
+    assert set(secs) == {"OpLogisticRegression", "OpRandomForestClassifier",
+                         "OpGBTClassifier", "refit", "train_evaluation"}
+
+
+def test_forest_winner_scores_and_converts(rf_runs):
+    """A forest winner: the port's scores are a forest's (class shares that
+    sum to 1, log-share raw predictions), its train AuROC within the CV
+    tolerance of the JAX package's; the JAX-trained forest converted into
+    the port scores as the JAX package scores it."""
+    ref, port = rf_runs
+    assert (port["model"].selected_model.summary.best_model_name
+            == "OpRandomForestClassifier")
+    assert abs(port["auroc"] - ref["auroc"]) <= RF_CV_AUPR_TOL
+    name = port["pred"].name
+    got = port["model"].score(port["batch"])[name].values
+    prob = got["probability"]
+    torch.testing.assert_close(prob.sum(dim=1), torch.ones(N))
+    torch.testing.assert_close(got["rawPrediction"],
+                               torch.log(torch.clamp(prob, min=1e-12)))
+    from transmogrifai_tpu_torch import convert
+    _, batch, pred = _build("transmogrifai_tpu_torch", ref["X"], ref["y"],
+                            ("rf",), device="cpu")
+    model = convert.workflow_model([pred], _export(ref["model"]),
+                                   device="cpu")
+    conv = model.score(batch)[pred.name].values
+    want = ref["model"].score(ref["batch"])[ref["pred"].name].values
+    np.testing.assert_allclose(conv["probability"].numpy(),
+                               np.asarray(want["probability"]), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_array_equal(conv["prediction"].numpy(),
+                                  np.asarray(want["prediction"]))
 
 
 def test_feature_vector_and_sanity_checker_match_jax(slice_runs):

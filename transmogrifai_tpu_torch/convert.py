@@ -9,9 +9,11 @@ order).  The dicts this slice reads, by the fitted stage's class name:
 * ``RealVectorizerModel``: ``fills`` [F];
 * ``SanityCheckerModel``: ``indices_to_keep`` [D'] and optionally ``summary``;
 * ``SelectedModel``: ``model`` = ``"LinearPredictionModel"`` (``coef`` [D],
-  ``intercept`` [1]) or ``"TreeEnsembleModel"`` (``feature``, ``threshold``,
-  ``is_leaf`` [R, T], ``leaf`` [R, T, 1], ``eta``, ``base``, ``max_depth``),
-  with those arrays under ``fitted``.
+  ``intercept`` [1]) or ``"TreeEnsembleModel"`` — a GBT (``kind`` "gbt":
+  ``feature``, ``threshold``, ``is_leaf`` [R, T], ``leaf`` [R, T, 1],
+  ``eta``, ``base``, ``max_depth``) or a forest (``kind`` "forest": ``task``,
+  ``n_classes``, ``feature``, ``threshold``, ``is_leaf`` [R, T], ``leaf``
+  [R, T, C], ``max_depth``) — with those arrays under ``fitted``.
 """
 
 from __future__ import annotations
@@ -53,10 +55,18 @@ def _model_fitted(name: str, fitted: Dict[str, Any], device) -> Dict[str, Any]:
         out["is_leaf"] = _tensor(fitted["is_leaf"], device, torch.bool)
         leaf = _tensor(fitted["leaf"], device, torch.float32)
         out["leaf"] = leaf if leaf.ndim == 3 else leaf[..., None]
-        out["eta"] = float(fitted["eta"])
-        out["base"] = float(fitted["base"])
         out["max_depth"] = int(fitted["max_depth"])
         out.setdefault("kind", "gbt")
+        if out["kind"] == "gbt":
+            out["eta"] = float(fitted["eta"])
+            out["base"] = float(fitted["base"])
+        elif out["kind"] != "forest":
+            raise NotImplementedError(
+                f"convert: no port model for tree kind {out['kind']!r}")
+        elif out.get("task", "classification") != "classification":
+            raise NotImplementedError(
+                "convert: forest regression comes with the port's regression "
+                "slice")
     else:
         raise NotImplementedError(f"convert: no port model for {name!r}")
     return out

@@ -14,6 +14,10 @@
 // into the global histogram with f32 atomics.  Grid: x = row ranges,
 // y = lanes, z = feature chunks (a chunk's histogram has to fit the block's
 // shared memory).  Atomics make the f32 sums order-dependent run to run.
+// With skip_zero, a row whose S statistics are all zero adds nothing: it is
+// exact, since x + (+-0.0) == x for every x, and it spares the atomics of
+// out-of-bag and held-out rows (a forest lane's weight is 0 on ~60% of its
+// rows: Poisson(1) zeros times the fold's held-out third).
 //
 // Bound: device-memory bytes.  Per lane and level it must read B once
 // (N*D bytes), the row's node id (4N) and statistics (4SN) — at 1M x 28,
@@ -27,7 +31,8 @@ __global__ void tree_hist_kernel(const int8_t* __restrict__ B,
                                  float* __restrict__ hist,
                                  float* __restrict__ totals,
                                  long long N, int D, int NB, int S,
-                                 int offset, int P, int Dc, int with_hist) {
+                                 int offset, int P, int Dc, int with_hist,
+                                 int skip_zero) {
   extern __shared__ float sm[];
   const int k = blockIdx.y;
   const int d0 = blockIdx.z * Dc;
@@ -51,9 +56,14 @@ __global__ void tree_hist_kernel(const int8_t* __restrict__ B,
       const int dl = (int)(e - n * dc);
       const int p = rn[n] - offset;
       if (p < 0 || p >= P) continue;
+      const float* s = sk + n * S;
+      if (skip_zero) {
+        bool any = false;
+        for (int j = 0; j < S; ++j) any |= s[j] != 0.f;
+        if (!any) continue;
+      }
       const int b = B[n * D + d0 + dl];
       float* h = sh + ((p * Dc + dl) * NB + b) * S;
-      const float* s = sk + n * S;
       for (int j = 0; j < S; ++j) atomicAdd(h + j, s[j]);
       if (do_tot && dl == 0)
         for (int j = 0; j < S; ++j) atomicAdd(st + p * S + j, s[j]);
@@ -63,7 +73,9 @@ __global__ void tree_hist_kernel(const int8_t* __restrict__ B,
          n < N; n += stride) {
       const int p = rn[n] - offset;
       if (p < 0 || p >= P) continue;
-      for (int j = 0; j < S; ++j) atomicAdd(st + p * S + j, sk[n * S + j]);
+      for (int j = 0; j < S; ++j)
+        if (!skip_zero || sk[n * S + j] != 0.f)
+          atomicAdd(st + p * S + j, sk[n * S + j]);
     }
   }
   __syncthreads();
@@ -90,7 +102,7 @@ extern "C" int tree_hist_launch(const void* B, const void* row_node,
                                 const void* stats, void* hist, void* totals,
                                 long long N, int D, int NB, int S, int K,
                                 int offset, int P, int Dc, int with_hist,
-                                int grid_x, void* stream) {
+                                int grid_x, int skip_zero, void* stream) {
   const int n_chunks = with_hist ? (D + Dc - 1) / Dc : 1;
   const size_t smem =
       sizeof(float) * ((with_hist ? (size_t)P * Dc * NB * S : 0) + P * S);
@@ -101,6 +113,7 @@ extern "C" int tree_hist_launch(const void* B, const void* row_node,
   dim3 grid(grid_x, K, n_chunks);
   tree_hist_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
       (const int8_t*)B, (const int32_t*)row_node, (const float*)stats,
-      (float*)hist, (float*)totals, N, D, NB, S, offset, P, Dc, with_hist);
+      (float*)hist, (float*)totals, N, D, NB, S, offset, P, Dc, with_hist,
+      skip_zero);
   return (int)cudaGetLastError();
 }

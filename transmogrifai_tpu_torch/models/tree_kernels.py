@@ -8,12 +8,13 @@ raises.  There is no fallback from a CUDA tensor to the twin.  Each wrapper
 adds one to ``LAUNCHES[<name>]`` where it launches its kernel, and nowhere
 else.
 
-| kernel      | replaces (transmogrifai_tpu/models/trees.py)                 |
-|-------------|---------------------------------------------------------------|
-| tree_hist   | ``_fit_tree_compact`` node_stats + histogram einsums (:313-338) |
-| tree_split  | ``scan_chunk`` gain/argmax + leaf flag/threshold/value (:339-364) |
-| tree_route  | the routing block (:373-391)                                   |
-| tree_walk   | ``_predict_trees_block`` (:668-702)                             |
+| kernel          | replaces (transmogrifai_tpu/models/trees.py)                  |
+|-----------------|----------------------------------------------------------------|
+| tree_hist       | ``_fit_tree_compact`` node_stats + histogram einsums (:313-338) |
+| tree_split      | ``scan_chunk`` xgb gain/argmax + leaf flag/threshold/value (:339-364) |
+| tree_split_gini | ``scan_chunk`` gini gain over per-node subsets (:320-326, :331-366) |
+| tree_route      | the routing block (:373-391)                                    |
+| tree_walk       | ``_predict_trees_block`` (:668-702)                              |
 """
 
 from __future__ import annotations
@@ -26,13 +27,15 @@ import torch
 from .. import cuda_build
 
 LAUNCHES: Dict[str, int] = {"tree_hist": 0, "tree_split": 0,
-                            "tree_route": 0, "tree_walk": 0}
+                            "tree_split_gini": 0, "tree_route": 0,
+                            "tree_walk": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "tree_hist": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                  _P],
+                  _I, _P],
     "tree_split": [_P] * 13 + [_I, _I, _I, _I, _P],
+    "tree_split_gini": [_P] * 12 + [_I, _I, _I, _I, _I, _P],
     "tree_route": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _P],
     "tree_walk": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -97,13 +100,16 @@ def tree_hist_twin(B, row_node, stats, offset: int, P: int, n_bins: int,
 
 
 def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
-              offset: int, P: int, n_bins: int, with_hist: bool = True):
+              offset: int, P: int, n_bins: int, with_hist: bool = True,
+              skip_zero: bool = True):
     """Histograms of one tree level for K lanes at once.
 
     B int8 [N, D] bin ids (< n_bins); row_node int32 [K, N] heap node ids;
     stats f32 [K, N, S] per-row statistics.  Rows whose node lies in
     [offset, offset + P) contribute.  Returns (hist f32 [K, P, D, n_bins, S]
-    or None when ``with_hist`` is False, totals f32 [K, P, S])."""
+    or None when ``with_hist`` is False, totals f32 [K, P, S]).
+    ``skip_zero`` lets the kernel pass over rows whose statistics are all
+    zero (exact: adding zero changes no sum); False adds every row."""
     dev = B.device
     _check("tree_hist B", B, torch.int8, 2, dev)
     _check("tree_hist row_node", row_node, torch.int32, 2, dev)
@@ -122,7 +128,7 @@ def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
                 stats.data_ptr(), totals.data_ptr(), totals.data_ptr(), N, D,
                 n_bins, S, K, offset, P, D, 0,
                 max(1, min(-(-N // 256), _BLOCKS_IN_FLIGHT // K + 1)),
-                _stream(B))
+                int(skip_zero), _stream(B))
         return None, totals
     # a block's histogram covers Pc nodes x Dc features; deep levels run as
     # several node windows, wide matrices as several feature chunks
@@ -139,7 +145,8 @@ def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
         t = torch.zeros((K, pc, S), dtype=torch.float32, device=dev)
         _launch("tree_hist", B.data_ptr(), row_node.data_ptr(),
                 stats.data_ptr(), h.data_ptr(), t.data_ptr(), N, D, n_bins, S,
-                K, offset + p0, pc, Dc, 1, grid_x, _stream(B))
+                K, offset + p0, pc, Dc, 1, grid_x, int(skip_zero),
+                _stream(B))
         hists.append(h)
         totals.append(t)
     if len(hists) == 1:
@@ -151,48 +158,70 @@ def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
 # tree_split
 # --------------------------------------------------------------------------
 
-def split_gains(hist, totals, fmask, min_inst, lam) -> torch.Tensor:
-    """The twin's gain table [K, P, D*NB]: xgb gain of every (feature, bin)
-    split, -inf where the split is not allowed."""
+def _gain_table(hist, totals, fmask, min_inst, gain_fn,
+                node_mask=None) -> torch.Tensor:
+    """Gain [K, P, D*NB] of every (feature, bin) split of a level: the bin
+    prefix is the left side, parent - prefix the right; -inf where either
+    side's count is below min_inst, the feature is outside ``fmask`` or the
+    node's subset ``node_mask`` [K, P, D] (None: all), or bin = NB-1."""
     K, P, D, NB, S = hist.shape
-    lam4 = lam[:, None, None, None]
     left = torch.cumsum(hist, dim=3)
     parent = totals[:, :, None, None, :]
     right = parent - left
-
-    def score(s):
-        return s[..., 1] ** 2 / (s[..., 2] + lam4)
-
-    gains = 0.5 * ((score(left) + score(right)) - score(parent))
+    gains = gain_fn(left, right, parent)
     mi = min_inst[:, None, None, None]
     ok = ((left[..., 0] >= mi) & (right[..., 0] >= mi)
           & fmask.bool()[None, None, :, None]
           & (torch.arange(NB, device=hist.device) < NB - 1))
+    if node_mask is not None:
+        ok = ok & node_mask.bool()[..., None]
     return torch.where(ok, gains, float("-inf")).reshape(K, P, D * NB)
 
 
-def split_gap(hist, totals, fmask, min_inst, lam) -> torch.Tensor:
-    """Best minus runner-up gain per (lane, node) [K, P]: the chosen split
-    is well defined only where this gap is clear of rounding."""
-    top = torch.topk(split_gains(hist, totals, fmask, min_inst, lam), 2,
-                     dim=2).values
+def _top2_gap(gains: torch.Tensor) -> torch.Tensor:
+    top = torch.topk(gains, 2, dim=2).values
     return top[..., 0] - top[..., 1]
 
 
-def tree_split_twin(hist, totals, fmask, splits, min_inst, min_gain, lam):
-    """Plain-PyTorch twin of ``tree_split`` (see :func:`tree_split`)."""
-    NB = hist.shape[3]
-    gains = split_gains(hist, totals, fmask, min_inst, lam)
-    # first max over (feature, bin): lowest feature, then lowest bin
+def _first_max(gains, splits, min_gain) -> Dict[str, torch.Tensor]:
+    """The split each (lane, node) takes from its gain table: the first max
+    over (feature, bin) — lowest feature, then lowest bin — its leaf flag
+    and threshold."""
+    NB = splits.shape[1] + 1
     idx = torch.argmax(gains, dim=2)
     best = torch.gather(gains, 2, idx[..., None])[..., 0]
     feat = (idx // NB).to(torch.int32)
     bin_ = (idx % NB).to(torch.int32)
     leaf = ~(torch.isfinite(best) & (best > min_gain[:, None]))
     thr = splits[feat.long(), torch.clamp(bin_, 0, NB - 2).long()]
-    value = -(totals[..., 1] / (totals[..., 2] + lam[:, None]))
     return {"gain": best, "feature": feat, "bin": bin_, "is_leaf": leaf,
-            "threshold": thr, "value": value}
+            "threshold": thr}
+
+
+def split_gains(hist, totals, fmask, min_inst, lam) -> torch.Tensor:
+    """The twin's gain table [K, P, D*NB]: xgb gain of every (feature, bin)
+    split, -inf where the split is not allowed."""
+    lam4 = lam[:, None, None, None]
+
+    def score(s):
+        return s[..., 1] ** 2 / (s[..., 2] + lam4)
+
+    return _gain_table(hist, totals, fmask, min_inst,
+                       lambda l, r, p: 0.5 * ((score(l) + score(r)) - score(p)))
+
+
+def split_gap(hist, totals, fmask, min_inst, lam) -> torch.Tensor:
+    """Best minus runner-up gain per (lane, node) [K, P]: the chosen split
+    is well defined only where this gap is clear of rounding."""
+    return _top2_gap(split_gains(hist, totals, fmask, min_inst, lam))
+
+
+def tree_split_twin(hist, totals, fmask, splits, min_inst, min_gain, lam):
+    """Plain-PyTorch twin of ``tree_split`` (see :func:`tree_split`)."""
+    out = _first_max(split_gains(hist, totals, fmask, min_inst, lam), splits,
+                     min_gain)
+    out["value"] = -(totals[..., 1] / (totals[..., 2] + lam[:, None]))
+    return out
 
 
 def tree_split(hist: torch.Tensor, totals: torch.Tensor, fmask: torch.Tensor,
@@ -237,6 +266,104 @@ def tree_split(hist: torch.Tensor, totals: torch.Tensor, fmask: torch.Tensor,
             *(out[k].data_ptr() for k in ("gain", "feature", "bin",
                                           "is_leaf", "threshold", "value")),
             K, P, D, NB, _stream(hist))
+    return out
+
+
+# --------------------------------------------------------------------------
+# tree_split_gini
+# --------------------------------------------------------------------------
+
+def wgini(s: torch.Tensor) -> torch.Tensor:
+    """Count-weighted gini impurity of stats ``s [..., 1+C]``: cnt·(1 -
+    Σ_c (s_c/cnt)²), cnt = max(s_0, 1e-12), the class squares summed in
+    class order (as the kernel does)."""
+    cnt = torch.clamp(s[..., 0], min=1e-12)
+    q = s[..., 1:] / cnt[..., None]
+    sq = q[..., 0] * q[..., 0]
+    for c in range(1, q.shape[-1]):
+        sq = sq + q[..., c] * q[..., c]
+    return cnt * (1.0 - sq)
+
+
+def gini_gain(left: torch.Tensor, right: torch.Tensor,
+              parent: torch.Tensor) -> torch.Tensor:
+    """``_gain_gini`` in its f32 order: wgini(parent) - wgini(left) -
+    wgini(right)."""
+    return (wgini(parent) - wgini(left)) - wgini(right)
+
+
+def split_gains_gini(hist, totals, fmask, node_mask, min_inst) -> torch.Tensor:
+    """The gini twin's gain table [K, P, D*NB]: gain of every (feature, bin)
+    split, -inf where min_inst, the tree's feature mask, the node's subset
+    (``node_mask`` [K, P, D] or None for all) or ``bin < NB-1`` rule it
+    out."""
+    return _gain_table(hist, totals, fmask, min_inst, gini_gain, node_mask)
+
+
+def split_gap_gini(hist, totals, fmask, node_mask, min_inst) -> torch.Tensor:
+    """Best minus runner-up gini gain per (lane, node) [K, P]."""
+    return _top2_gap(split_gains_gini(hist, totals, fmask, node_mask,
+                                      min_inst))
+
+
+def tree_split_gini_twin(hist, totals, fmask, node_mask, splits, min_inst,
+                         min_gain):
+    """Plain-PyTorch twin of ``tree_split_gini`` (see
+    :func:`tree_split_gini`)."""
+    return _first_max(split_gains_gini(hist, totals, fmask, node_mask,
+                                       min_inst), splits, min_gain)
+
+
+def tree_split_gini(hist: torch.Tensor, totals: torch.Tensor,
+                    fmask: torch.Tensor, node_mask, splits: torch.Tensor,
+                    min_inst: torch.Tensor,
+                    min_gain: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Best gini split per (lane, node), over each node's feature subset.
+
+    hist f32 [K, P, D, NB, 1+C] and totals f32 [K, P, 1+C] of (w, w·[y=0],
+    .., w·[y=C-1]); fmask bool [D] (the tree's features); node_mask bool
+    [K, P, D] (each node's drawn subset) or None for all features; splits
+    f32 [D, NB-1]; min_inst / min_gain f32 [K].  The gain is ``_gain_gini``
+    over the bin prefix, masked by min_inst on the weighted counts of both
+    sides, both masks and ``bin < NB-1``; the FIRST max over (feature, bin)
+    wins.  Returns per-node gain, feature, bin, is_leaf (gain <= min_gain or
+    non-finite) and threshold ``splits[feature, bin]``, each [K, P].  The
+    kernel takes C = 2..4 classes and NB <= 32 bins."""
+    dev = hist.device
+    _check("tree_split_gini hist", hist, torch.float32, 5, dev)
+    _check("tree_split_gini totals", totals, torch.float32, 3, dev)
+    _check("tree_split_gini fmask", fmask, torch.bool, 1, dev)
+    _check("tree_split_gini splits", splits, torch.float32, 2, dev)
+    for name, t in (("min_inst", min_inst), ("min_gain", min_gain)):
+        _check(f"tree_split_gini {name}", t, torch.float32, 1, dev)
+    K, P, D, NB, S = hist.shape
+    if (S < 3 or totals.shape != (K, P, S) or splits.shape != (D, NB - 1)
+            or fmask.shape != (D,)):
+        raise ValueError("tree_split_gini: shapes of hist/totals/splits/fmask "
+                         "disagree")
+    if node_mask is not None:
+        _check("tree_split_gini node_mask", node_mask, torch.bool, 3, dev)
+        if node_mask.shape != (K, P, D):
+            raise ValueError("tree_split_gini: node_mask must be [K, P, D]")
+    if dev.type == "cpu":
+        return tree_split_gini_twin(hist, totals, fmask, node_mask, splits,
+                                    min_inst, min_gain)
+    if dev.type != "cuda":
+        raise ValueError(f"tree_split_gini: unsupported device {dev}")
+    if NB > 32 or S > 5:
+        raise ValueError("tree_split_gini: the kernel takes at most 32 bins "
+                         "and 4 classes")
+    out = {"gain": torch.empty((K, P), dtype=torch.float32, device=dev),
+           "feature": torch.empty((K, P), dtype=torch.int32, device=dev),
+           "bin": torch.empty((K, P), dtype=torch.int32, device=dev),
+           "is_leaf": torch.empty((K, P), dtype=torch.bool, device=dev),
+           "threshold": torch.empty((K, P), dtype=torch.float32, device=dev)}
+    _launch("tree_split_gini", hist.data_ptr(), totals.data_ptr(),
+            fmask.data_ptr(), 0 if node_mask is None else node_mask.data_ptr(),
+            splits.data_ptr(), min_inst.data_ptr(), min_gain.data_ptr(),
+            *(out[k].data_ptr() for k in ("gain", "feature", "bin",
+                                          "is_leaf", "threshold")),
+            K, P, D, NB, S - 1, _stream(hist))
     return out
 
 
@@ -360,6 +487,7 @@ def launch_counts() -> Dict[str, int]:
 REPLACES = {
     "tree_hist": "transmogrifai_tpu/models/trees.py:313",
     "tree_split": "transmogrifai_tpu/models/trees.py:339",
+    "tree_split_gini": "transmogrifai_tpu/models/trees.py:331",
     "tree_route": "transmogrifai_tpu/models/trees.py:373",
     "tree_walk": "transmogrifai_tpu/models/trees.py:668",
 }

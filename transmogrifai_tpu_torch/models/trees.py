@@ -1,23 +1,27 @@
-"""Gradient-boosted trees on the hand-written tree kernels (port of the GBT
-classifier path of ``transmogrifai_tpu/models/trees.py``; reference:
-OpGBTClassifier.scala).
+"""Tree classifiers on the hand-written tree kernels (port of the GBT,
+random-forest and decision-tree classifier paths of
+``transmogrifai_tpu/models/trees.py``; reference: OpGBTClassifier.scala,
+OpRandomForestClassifier.scala, OpDecisionTreeClassifier.scala).
 
 Features are quantile-binned once into an int8 matrix ``B [N, D]``; trees
-grow level-wise as perfect heaps (feature, threshold, is_leaf, leaf value).
+grow level-wise as perfect heaps (feature, threshold, is_leaf, leaf values).
 Each level is three kernels — ``tree_hist`` (per-node, per-feature, per-bin
-statistics), ``tree_split`` (prefix over bins, xgb gain, first-max argmax)
-and ``tree_route`` (rows to children) — run for all (fold × grid-point)
-lanes at once; each boosting round's margin update and every scoring pass is
-``tree_walk``.  The rounds and levels are a plain Python loop.
+statistics), ``tree_split`` (xgb gain) or ``tree_split_gini`` (gini gain over
+each node's feature subset), both a prefix over bins and a first-max argmax,
+and ``tree_route`` (rows to children) — run for all (fold × grid-point ×
+tree) lanes at once; each boosting round's margin update and every scoring
+pass is ``tree_walk``.  The rounds and levels are a plain Python loop.
 
-Random forests (gini statistics, torch-generator bootstraps and per-node
-feature subsets) come with the next slice of the port.
+Forests draw their Poisson bootstraps and per-node feature subsets from one
+``torch.Generator`` in :func:`forest_draws`.  Trees deeper than the compact
+form's limit (``_fit_tree_unrolled``) come with a later slice.
 """
 
 from __future__ import annotations
 
+import math
 from collections import defaultdict
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,7 +29,9 @@ import torch
 from ..columns import device_matrix, to_device_f32
 from ..device import tensor_device
 from .base import PredictionModel, PredictorEstimator
-from .tree_kernels import tree_hist, tree_route, tree_split, tree_walk
+from .linear import _n_classes
+from .tree_kernels import (tree_hist, tree_route, tree_split, tree_split_gini,
+                           tree_walk)
 
 MAX_BINS_DEFAULT = 32
 
@@ -97,40 +103,62 @@ class TreeArrays(NamedTuple):
     feature: torch.Tensor    # [K, T] int32 (split feature; -1 at leaves)
     threshold: torch.Tensor  # [K, T] f32 raw split threshold
     is_leaf: torch.Tensor    # [K, T] bool
-    leaf: torch.Tensor       # [K, T] f32 leaf value
+    leaf: torch.Tensor       # [K, T, V] f32 leaf values (xgb V = 1, gini V = C)
     gain: torch.Tensor       # [K, D] per-feature gain sum over splits
+
+
+def _leaf_gini(totals: torch.Tensor) -> torch.Tensor:
+    """Class shares of node totals [..., 1+C] → [..., C] (≙ ``_leaf_gini``,
+    trees.py:216-217)."""
+    return totals[..., 1:] / torch.clamp(totals[..., :1], min=1e-12)
 
 
 def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
               fmask: torch.Tensor, *, max_depth: int, n_bins: int,
               min_instances: torch.Tensor, min_gain: torch.Tensor,
-              lam: torch.Tensor) -> TreeArrays:
-    """Grow K xgb trees, one per lane, level by level (≙ ``fit_tree`` in its
+              lam: Optional[torch.Tensor] = None, impurity: str = "xgb",
+              node_masks: Optional[Sequence[torch.Tensor]] = None
+              ) -> TreeArrays:
+    """Grow K trees, one per lane, level by level (≙ ``fit_tree`` in its
     compact form, trees.py:224-250 and :274-416).
 
-    B int8 [N, D]; splits f32 [D, n_bins-1]; stats f32 [K, N, 3] =
-    (w, w·g, w·h); fmask bool [D]; min_instances/min_gain/lam f32 [K].
-    Returns perfect-heap arrays with T = 2^(max_depth+1) - 1 nodes.  Rows
-    whose node became a leaf keep a node id below the next level and drop
-    out of every later histogram and route."""
-    K, N, _ = stats.shape
+    B int8 [N, D]; splits f32 [D, n_bins-1]; fmask bool [D];
+    min_instances/min_gain f32 [K].  ``impurity`` "xgb": stats f32 [K, N, 3]
+    = (w, w·g, w·h), ``lam`` f32 [K], one leaf value per node.  "gini":
+    stats f32 [K, N, 1+C] = (w, w·[y=0], .., w·[y=C-1]), C leaf values
+    (class shares) per node, and ``node_masks`` per level a bool [K, 2^lvl,
+    D] of each node's feature subset (None: every feature).  Returns
+    perfect-heap arrays with T = 2^(max_depth+1) - 1 nodes.  Rows whose node
+    became a leaf keep a node id below the next level and drop out of every
+    later histogram and route."""
+    if impurity not in ("xgb", "gini"):
+        raise ValueError(f"fit_trees: impurity {impurity!r}")
+    K, N, S = stats.shape
     D = B.shape[1]
     dev = B.device
     T = 2 ** (max_depth + 1) - 1
+    V = 1 if impurity == "xgb" else S - 1
     feature = torch.full((K, T), -1, dtype=torch.int32, device=dev)
     threshold = torch.full((K, T), float("inf"), dtype=torch.float32,
                            device=dev)
     is_leaf = torch.zeros((K, T), dtype=torch.bool, device=dev)
-    leaf = torch.zeros((K, T), dtype=torch.float32, device=dev)
+    leaf = torch.zeros((K, T, V), dtype=torch.float32, device=dev)
     gain = torch.zeros((K, D), dtype=torch.float32, device=dev)
     row_node = torch.zeros((K, N), dtype=torch.int32, device=dev)
     for lvl in range(max_depth):
         off, P = (1 << lvl) - 1, 1 << lvl
         hist, totals = tree_hist(B, row_node, stats, off, P, n_bins)
-        sp = tree_split(hist, totals, fmask, splits, min_instances, min_gain,
-                        lam)
+        if impurity == "xgb":
+            sp = tree_split(hist, totals, fmask, splits, min_instances,
+                            min_gain, lam)
+            leaf[:, off:off + P, 0] = sp["value"]
+        else:
+            sp = tree_split_gini(
+                hist, totals, fmask,
+                None if node_masks is None else node_masks[lvl], splits,
+                min_instances, min_gain)
+            leaf[:, off:off + P] = _leaf_gini(totals)
         lf = sp["is_leaf"]
-        leaf[:, off:off + P] = sp["value"]
         is_leaf[:, off:off + P] = lf
         feature[:, off:off + P] = torch.where(lf, -1, sp["feature"])
         threshold[:, off:off + P] = sp["threshold"]
@@ -140,7 +168,10 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
     # the bottom level is all leaves
     off, P = (1 << max_depth) - 1, 1 << max_depth
     _, totals = tree_hist(B, row_node, stats, off, P, n_bins, with_hist=False)
-    leaf[:, off:] = -(totals[..., 1] / (totals[..., 2] + lam[:, None]))
+    if impurity == "xgb":
+        leaf[:, off:, 0] = -(totals[..., 1] / (totals[..., 2] + lam[:, None]))
+    else:
+        leaf[:, off:] = _leaf_gini(totals)
     is_leaf[:, off:] = True
     return TreeArrays(feature, threshold, is_leaf, leaf, gain)
 
@@ -191,7 +222,7 @@ def _gbt_grid_fit(B, splits, X, y, margins, W, fmask, mis, mgs, lams, etas,
                          n_bins=n_bins, min_instances=mis, min_gain=mgs,
                          lam=lams)
         pred = predict_trees_raw(X, tree.feature, tree.threshold,
-                                 tree.is_leaf, tree.leaf[:, :, None],
+                                 tree.is_leaf, tree.leaf,
                                  max_depth + 1)[:, :, 0]           # [N, K]
         margins = margins + etas[:, None] * pred.T
         rounds.append(tree)
@@ -227,36 +258,133 @@ def fit_gbt(X, y, *, n_rounds: int, max_depth: int, max_bins: int,
             "feature": rounds.feature[:, 0].contiguous(),
             "threshold": rounds.threshold[:, 0].contiguous(),
             "is_leaf": rounds.is_leaf[:, 0].contiguous(),
-            "leaf": rounds.leaf[:, 0, :, None].contiguous(),
+            "leaf": rounds.leaf[:, 0].contiguous(),
             "feature_gain": rounds.gain[:, 0].sum(dim=0),
             "bin_splits": splits}
+
+
+# --------------------------------------------------------------------------
+# random forests and decision trees (≙ trees.py:736-925, :1085-1265)
+# --------------------------------------------------------------------------
+
+def _features_per_node(strategy: str, d: int) -> Optional[int]:
+    """Per-node candidate count for a featureSubsetStrategy name; None = all
+    (≙ ``_features_per_node``, trees.py:736-742)."""
+    if strategy == "all":
+        return None
+    k = {"sqrt": max(1, int(math.sqrt(d))),
+         "onethird": max(1, d // 3)}.get(strategy)
+    return None if k is None or k >= d else k
+
+
+class ForestDraws(NamedTuple):
+    # subsampling rate → f32 [n_trees, N] Poisson(rate) row counts; empty
+    # when bootstrap is off
+    boot: Dict[float, torch.Tensor]
+    # per level lvl: bool [n_trees, 2^lvl, D] node feature subsets; None
+    # when every node sees every feature
+    subsets: Optional[List[torch.Tensor]]
+
+
+def forest_draws(generator: torch.Generator, *, n_trees: int, n_rows: int,
+                 rates: Sequence[float], max_depth: int, fmask: torch.Tensor,
+                 features_per_node: Optional[int]) -> ForestDraws:
+    """Every random draw of one forest shape group, made in one fixed order
+    from ``generator`` on the generator's own device (``generator.device``):
+    the same seed on the same device gives the same draws, and so the same
+    forest on the CPU; a CUDA generator draws another stream than a CPU
+    one.  Per tree index (≙ trees.py:1186-1192, :912-915, :320-325):
+
+    * one Poisson(rate) count per row for each subsampling rate in ``rates``
+      (drawn in the order given; pass none to turn bootstrap off);
+    * per level and node, uniform scores over the D features, +inf outside
+      ``fmask``; the node keeps the ``features_per_node`` lowest (``topk``
+      breaks ties, so a subset has exactly that many features).
+
+    Every fold and grid point of the group shares these draws."""
+    dev = generator.device
+    boot = {float(r): torch.poisson(
+        torch.full((n_trees, n_rows), float(r), device=dev),
+        generator=generator) for r in rates}
+    if features_per_node is None:
+        return ForestDraws(boot, None)
+    fm = fmask.to(dev)
+    D = fm.shape[0]
+    subsets = []
+    for lvl in range(max_depth):
+        scores = torch.rand((n_trees, 1 << lvl, D), generator=generator,
+                            device=dev)
+        scores = torch.where(fm, scores, float("inf"))
+        keep = torch.topk(scores, features_per_node, dim=2,
+                          largest=False).indices
+        m = torch.zeros(scores.shape, dtype=torch.bool, device=dev)
+        subsets.append(m.scatter_(2, keep, True) & fm)
+    return ForestDraws(boot, subsets)
+
+
+def _forest_grid_fit(B, splits, base_stats, fold_w, draws: ForestDraws,
+                     lane_rates, mis, mgs, *, n_trees: int, max_depth: int,
+                     n_bins: int) -> TreeArrays:
+    """Every (fold × grid-point × tree) tree of one forest shape group in
+    one level loop (≙ ``_forest_grid_fitter``, trees.py:890-925).  Lane
+    ``(k·Gg + j)·n_trees + t`` fits tree t of grid point j on fold k with
+    statistics base × (Poisson draw of tree t at point j's rate × fold
+    weight); ``lane_rates`` gives point j's rate (or None: no bootstrap)."""
+    dev = B.device
+    N, D = B.shape
+    boot = {r: b.to(dev) for r, b in draws.boot.items()}
+    bw = torch.stack([
+        fold_w[k].expand(n_trees, N) if r is None else boot[r] * fold_w[k]
+        for k in range(fold_w.shape[0]) for r in lane_rates])
+    Kc = bw.shape[0] * n_trees
+    stats = (base_stats[None] * bw.reshape(Kc, N)[:, :, None]).contiguous()
+    masks = None
+    if draws.subsets is not None:
+        tree_of_lane = torch.arange(Kc, device=dev) % n_trees
+        masks = [m.to(dev)[tree_of_lane].contiguous() for m in draws.subsets]
+    fmask = torch.ones(D, dtype=torch.bool, device=dev)
+    return fit_trees(B, splits, stats, fmask, max_depth=max_depth,
+                     n_bins=n_bins, min_instances=mis, min_gain=mgs,
+                     impurity="gini", node_masks=masks)
 
 
 # --------------------------------------------------------------------------
 # prediction model + estimator stages
 # --------------------------------------------------------------------------
 
-def gbt_margin(X: torch.Tensor, fitted: Dict[str, Any]) -> torch.Tensor:
-    """base + eta · (leaf sum over the rounds' trees) → [N]."""
+def _walk_agg(X: torch.Tensor, fitted: Dict[str, Any], op: str) -> torch.Tensor:
+    """Mean or sum over the fitted trees of the reached leaves → [N, V]."""
     dev = X.device
     leaf = to_device_f32(fitted["leaf"], dev)
     if leaf.ndim == 2:
         leaf = leaf[:, :, None]
-    s = predict_trees_agg(
+    return predict_trees_agg(
         X, torch.as_tensor(fitted["feature"], device=dev,
                            dtype=torch.int32).contiguous(),
         to_device_f32(fitted["threshold"], dev).contiguous(),
         torch.as_tensor(fitted["is_leaf"], device=dev,
                         dtype=torch.bool).contiguous(),
-        leaf.contiguous(), int(fitted["max_depth"]) + 1, op="sum")
-    return fitted["base"] + fitted["eta"] * s[:, 0]
+        leaf.contiguous(), int(fitted["max_depth"]) + 1, op=op)
 
 
 class TreeEnsembleModel(PredictionModel):
-    """Fitted GBT classifier (≙ ``TreeEnsembleModel``, trees.py device path)."""
+    """Fitted GBT or forest classifier (≙ ``TreeEnsembleModel``,
+    trees.py:1006-1027, the device path)."""
 
     def device_scores(self, X, full: bool = False) -> Dict[str, Any]:
-        margin = gbt_margin(X, self.fitted)
+        f = self.fitted
+        if f["kind"] == "forest":
+            prob = _walk_agg(X, f, "mean")                           # [N, C]
+            prob = prob / torch.clamp(prob.sum(dim=1, keepdim=True),
+                                      min=1e-12)
+            out = {"prediction": torch.argmax(prob, dim=1).to(torch.float32),
+                   "probability": prob}
+            if prob.shape[1] == 2:
+                out["scores"] = prob[:, 1]
+            if full:
+                out["rawPrediction"] = torch.log(torch.clamp(prob, min=1e-12))
+            return out
+        margin = f["base"] + f["eta"] * _walk_agg(X, f, "sum")[:, 0]
         p1 = torch.sigmoid(margin)
         out = {"prediction": (p1 > 0.5).to(torch.float32), "scores": p1,
                "margin": margin}
@@ -264,6 +392,136 @@ class TreeEnsembleModel(PredictionModel):
             out["probability"] = torch.stack([1.0 - p1, p1], dim=1)
             out["rawPrediction"] = torch.stack([-margin, margin], dim=1)
         return out
+
+
+class _ForestEstimatorBase(PredictorEstimator):
+    """Random-forest classifier family (≙ ``_ForestEstimatorBase``,
+    trees.py:1085-1240).  ``draw_device`` names the device whose
+    ``torch.Generator`` (seeded with ``seed``) makes the draws; by default
+    the fit's own device.  Give ``"cpu"`` to make a card fit draw exactly
+    what the same fit on the CPU draws."""
+
+    model_cls = TreeEnsembleModel
+    default_feature_strategy = "sqrt"
+
+    def __init__(self, num_trees: int = 20, max_depth: int = 5,
+                 max_bins: int = MAX_BINS_DEFAULT,
+                 min_instances_per_node: int = 1, min_info_gain: float = 0.0,
+                 subsampling_rate: float = 1.0,
+                 feature_subset_strategy: str = "auto", seed: int = 42,
+                 bootstrap: bool = True, **kw):
+        super().__init__(num_trees=num_trees, max_depth=max_depth,
+                         max_bins=max_bins,
+                         min_instances_per_node=min_instances_per_node,
+                         min_info_gain=min_info_gain,
+                         subsampling_rate=subsampling_rate,
+                         feature_subset_strategy=feature_subset_strategy,
+                         seed=seed, bootstrap=bootstrap, **kw)
+
+    def _strategy(self, m: Dict[str, Any]) -> str:
+        """"auto" → the family's default with several trees, else "all"
+        (≙ trees.py:1100-1103)."""
+        strategy = m.get("feature_subset_strategy", "auto")
+        if strategy == "auto":
+            strategy = (self.default_feature_strategy
+                        if int(m.get("num_trees", 20)) > 1 else "all")
+        return strategy
+
+    def fit_arrays(self, X, y, sample_weight=None,
+                   device=None) -> Dict[str, Any]:
+        """One forest (≙ ``fit_forest``, trees.py:745-795): the grid fitter
+        with one fold whose row weights are ``sample_weight`` (or ones)."""
+        dev = tensor_device(X, device)
+        N = X.shape[0]
+        w = (torch.ones((1, N), dtype=torch.float32, device=dev)
+             if sample_weight is None
+             else to_device_f32(sample_weight, dev)[None, :])
+        return self.fit_arrays_grid(X, y, w, [{}], device=dev)[0][0]
+
+    def fit_arrays_grid(self, X, y, fold_weights, grids, device=None):
+        """Every (fold × grid-point × tree) fit of a static tree shape
+        trains as one lane block over one shared binned matrix (≙
+        ``_ForestEstimatorBase.fit_arrays_grid``, trees.py:1119-1240)."""
+        dev = tensor_device(X, device)
+        Xd = device_matrix(X, dev)
+        N, D = Xd.shape
+        K, G = len(fold_weights), len(grids)
+        out: list = [[None] * G for _ in range(K)]
+        n_classes = max(_n_classes(y), 2)
+        groups = defaultdict(list)
+        for gi, p in enumerate(grids):
+            m = {**self._params, **p}
+            groups[(int(m.get("num_trees", 20)), int(m.get("max_depth", 5)),
+                    int(m.get("max_bins", MAX_BINS_DEFAULT)),
+                    self._strategy(m), bool(m.get("bootstrap", True)),
+                    int(m.get("seed", 42)))].append(gi)
+        yd = to_device_f32(y, dev)
+        base_stats = torch.cat(
+            [torch.ones((N, 1), dtype=torch.float32, device=dev),
+             torch.nn.functional.one_hot(yd.long(), n_classes).to(
+                 torch.float32)], dim=1)
+        fold_w = to_device_f32(fold_weights, dev)
+        fmask = torch.ones(D, dtype=torch.bool, device=dev)
+        binned_by: Dict[int, tuple] = {}
+
+        def mval(gi, name, default):
+            return float({**self._params, **grids[gi]}.get(name, default))
+
+        for (n_trees, max_depth, max_bins, strategy, bootstrap,
+             seed), gidx in groups.items():
+            if max_bins not in binned_by:
+                binned_by[max_bins] = binned(X, Xd, max_bins)
+            splits, sp_t, B = binned_by[max_bins]
+            rates = [mval(gi, "subsampling_rate", 1.0) if bootstrap else None
+                     for gi in gidx]
+            gen = torch.Generator(
+                device=self._params.get("draw_device") or dev)
+            gen.manual_seed(seed)
+            draws = forest_draws(
+                gen, n_trees=n_trees, n_rows=N,
+                rates=list(dict.fromkeys(r for r in rates if r is not None)),
+                max_depth=max_depth, fmask=fmask,
+                features_per_node=(_features_per_node(strategy, D)
+                                   if n_trees > 1 else None))
+
+            def per_tree(name, default):
+                vals = [mval(gi, name, default) for gi in gidx]
+                return _lane_params(np.tile(np.repeat(vals, n_trees), K), dev)
+
+            trees = _forest_grid_fit(
+                B, sp_t, base_stats, fold_w, draws, rates,
+                per_tree("min_instances_per_node", 1),
+                per_tree("min_info_gain", 0.0), n_trees=n_trees,
+                max_depth=max_depth, n_bins=max_bins)
+            for k in range(K):
+                for j, gi in enumerate(gidx):
+                    s = (k * len(gidx) + j) * n_trees
+                    out[k][gi] = {
+                        "kind": "forest", "task": "classification",
+                        "n_classes": n_classes, "max_depth": max_depth,
+                        "feature": trees.feature[s:s + n_trees],
+                        "threshold": trees.threshold[s:s + n_trees],
+                        "is_leaf": trees.is_leaf[s:s + n_trees],
+                        "leaf": trees.leaf[s:s + n_trees],
+                        "feature_gain": trees.gain[s:s + n_trees].sum(dim=0),
+                        "bin_splits": splits}
+        return out
+
+
+class OpRandomForestClassifier(_ForestEstimatorBase):
+    """≙ OpRandomForestClassifier.scala:58."""
+
+
+class OpDecisionTreeClassifier(_ForestEstimatorBase):
+    """≙ OpDecisionTreeClassifier: a single deterministic tree — no
+    bootstrap, all features (like Spark's DecisionTreeClassifier)."""
+
+    def __init__(self, max_depth: int = 5, **kw):
+        kw.setdefault("num_trees", 1)
+        kw.setdefault("feature_subset_strategy", "all")
+        kw.setdefault("subsampling_rate", 1.0)
+        kw.setdefault("bootstrap", False)
+        super().__init__(max_depth=max_depth, **kw)
 
 
 class OpGBTClassifier(PredictorEstimator):
@@ -348,7 +606,7 @@ class OpGBTClassifier(PredictorEstimator):
                         "feature": rounds.feature[:, kc].contiguous(),
                         "threshold": rounds.threshold[:, kc].contiguous(),
                         "is_leaf": rounds.is_leaf[:, kc].contiguous(),
-                        "leaf": rounds.leaf[:, kc, :, None].contiguous(),
+                        "leaf": rounds.leaf[:, kc].contiguous(),
                         "feature_gain": rounds.gain[:, kc].sum(dim=0),
                         "bin_splits": splits}
         return out

@@ -21,7 +21,8 @@ from .evaluators import (Evaluators, OpBinaryClassificationEvaluator,
                          OpEvaluatorBase)
 from .models.base import PredictionModel, extract_xy
 from .stages.base import Estimator
-from .tuning import ModelCandidate, OpCrossValidation, OpValidator
+from .tuning import (ModelCandidate, OpCrossValidation, OpValidator,
+                     device_wall_clock)
 from .types import OPVector, Prediction, RealNN
 
 __all__ = ["ModelCandidate", "grid", "ModelSelector", "SelectedModel",
@@ -83,6 +84,9 @@ class SelectedModel(PredictionModel):
         self._best_model: Optional[PredictionModel] = params.pop("best_model", None)
         super().__init__(**params)
         self.summary: Optional[ModelSelectorSummary] = None
+        # wall seconds of the fit: each candidate family's CV block, the
+        # winner's refit and the train evaluation
+        self.selector_seconds: Dict[str, float] = {}
 
     @property
     def best_model(self) -> PredictionModel:
@@ -119,17 +123,20 @@ class ModelSelector(Estimator):
         # the full-data refit runs the family's batched grid program with one
         # all-ones fold and the winner's params, the program the JAX package
         # reuses for its refit
+        t0 = device_wall_clock(X.device)
         ones = torch.ones((1, X.shape[0]), dtype=torch.float32,
                           device=X.device)
         fitted = best_est.fit_arrays_grid(X, y, ones,
                                           [dict(result.best_params)])[0][0]
         best_model = best_est.model_cls(fitted=fitted, **best_est._params)
+        t1 = device_wall_clock(X.device)
 
         y_dev = torch.as_tensor(y, device=X.device)
         dev_out = best_model.device_scores(X, full=True)
         train_eval = {ev.name: ev.evaluate_all_device(
             y_dev, dev_out, torch.ones_like(y_dev)).to_json()
             for ev in self.evaluators}
+        t2 = device_wall_clock(X.device)
 
         v = self.validator
         summary = ModelSelectorSummary(
@@ -152,6 +159,8 @@ class ModelSelector(Estimator):
             train_evaluation=train_eval)
         model = SelectedModel(best_model=best_model, **self._params)
         model.summary = summary
+        model.selector_seconds = {**result.family_seconds, "refit": t1 - t0,
+                                  "train_evaluation": t2 - t1}
         model.metadata["summary"] = summary.to_json()
         model.fitted = {"best_model_class": type(best_model).__name__,
                         "best_metric": float(result.best_metric)}
@@ -171,8 +180,10 @@ class BinaryClassificationModelSelector(ModelSelector):
         if not models:
             raise ValueError(
                 "BinaryClassificationModelSelector: pass models=[...] — the "
-                "reference's default grid includes random forests and SVC, "
-                "which later slices of the port bring")
+                "reference's default grid includes OpLinearSVC and trees "
+                "of depth up to 12 (the unrolled fit), which the port's next "
+                "slice brings; LR, GBT, random forests and decision trees run "
+                "now")
         ev = validation_metric or Evaluators.BinaryClassification.auPR()
         validator = OpCrossValidation(num_folds, ev, seed, stratify)
         super().__init__(validator, models, [OpBinaryClassificationEvaluator()],

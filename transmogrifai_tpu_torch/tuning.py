@@ -14,6 +14,7 @@ AOT and telemetry seams have no counterpart here.
 from __future__ import annotations
 
 import copy
+import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -26,6 +27,13 @@ from .evaluators import OpEvaluatorBase
 from .models.trees import predict_trees_sum_grouped
 
 _NO_FOLD = 255      # assignment of a row that is in no validation fold
+
+
+def device_wall_clock(device: torch.device) -> float:
+    """The host clock once ``device`` has finished its queued work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
 
 
 def _fold_masks_from_assignment(assign: torch.Tensor, n_folds: int):
@@ -80,6 +88,8 @@ class ValidationResult:
     validation_type: str
     metric_name: str
     is_larger_better: bool
+    # wall seconds per candidate family: its fits and CV metric panels
+    family_seconds: Dict[str, float] = field(default_factory=dict)
 
 
 class OpValidator:
@@ -139,31 +149,37 @@ class OpValidator:
             y, S.reshape(S.shape[0], F, G), masks).cpu().numpy()
 
     def _tree_panel(self, fitted_grid, X, y, masks) -> np.ndarray:
-        """(fold × grid) metrics of a GBT family (≙
-        ``_record_tree_grid_metrics``, tuning.py:618-700): per (fold, tree
-        shape) group the members' tree stacks concatenate and ONE walk sums
-        each member's leaves; candidates are scored on sigmoid(base +
-        eta·sum) in f32, exactly as the per-candidate path scores them
-        (f32 saturation makes tie groups that the raw sums would not)."""
+        """(fold × grid) metrics of a GBT or forest family (≙
+        ``_record_tree_grid_metrics``, tuning.py:618-700): per (fold, kind,
+        tree shape) group the members' tree stacks concatenate and ONE walk
+        sums each member's leaves.  A forest scores on its class-1 leaf sum,
+        as the JAX package ranks it (f32 rounding makes ties differ between
+        that sum and the normalised mean, and AUC sees ties); a GBT on
+        sigmoid(base + eta·sum) in f32, exactly as the per-candidate path
+        scores it (f32 saturation makes tie groups that the raw sums would
+        not)."""
         F, G = len(fitted_grid), len(fitted_grid[0])
         out = np.full((F, G), np.nan)
         groups = defaultdict(list)
         for f in range(F):
             for g in range(G):
                 fit = fitted_grid[f][g]
-                groups[(f, tuple(fit["feature"].shape),
+                groups[(f, fit["kind"], tuple(fit["feature"].shape),
                         int(fit["max_depth"]))].append((g, fit))
-        for (f, _shape, md), members in groups.items():
+        for (f, kind, _shape, md), members in groups.items():
             cat = {k: torch.cat([m[k] for _, m in members])
                    for k in ("feature", "threshold", "is_leaf", "leaf")}
             sums = predict_trees_sum_grouped(
                 X, cat["feature"], cat["threshold"], cat["is_leaf"],
-                cat["leaf"], md + 1, len(members))[..., 0]     # [N, K]
-            eta = torch.tensor([m["eta"] for _, m in members],
-                               dtype=torch.float32, device=X.device)
-            base = torch.tensor([m["base"] for _, m in members],
-                                dtype=torch.float32, device=X.device)
-            S = torch.sigmoid(base[None, :] + eta[None, :] * sums)
+                cat["leaf"], md + 1, len(members))             # [N, K, V]
+            if kind == "forest":
+                S = sums[..., 1]
+            else:
+                eta = torch.tensor([m["eta"] for _, m in members],
+                                   dtype=torch.float32, device=X.device)
+                base = torch.tensor([m["base"] for _, m in members],
+                                    dtype=torch.float32, device=X.device)
+                S = torch.sigmoid(base[None, :] + eta[None, :] * sums[..., 0])
             vals = self.evaluator.evaluate_masked_grid(y, S, masks[f])
             for j, (g, _) in enumerate(members):
                 out[f, g] = float(vals[j])
@@ -173,7 +189,7 @@ class OpValidator:
         kinds = {fit["kind"] for row in fitted_grid for fit in row}
         if kinds == {"binary"}:
             return self._linear_panel(fitted_grid, X, y, masks)
-        if kinds == {"gbt"}:
+        if kinds <= {"forest", "gbt"}:
             return self._tree_panel(fitted_grid, X, y, masks)
         raise NotImplementedError(f"no CV metric panel for model kinds {kinds}")
 
@@ -198,6 +214,7 @@ class OpValidator:
                  and self._survivor_count(len(c.grid)) < len(c.grid)
                  for c in candidates]
         results: Dict[Tuple[int, int], ValidatedCandidate] = {}
+        seconds: Dict[str, float] = defaultdict(float)
 
         def record(cand, ci, gi, params, metric):
             key = (ci, gi)
@@ -207,12 +224,14 @@ class OpValidator:
             results[key].metric_values.append(float(metric))
 
         def fit_and_score(cand, ci, grid, f0, n_folds, grid_index):
+            t0 = device_wall_clock(dev)
             fitted = cand.estimator.fit_arrays_grid(
                 X, y, W[f0:f0 + n_folds], grid)
             panel = self._panel(fitted, X, y, VA[f0:f0 + n_folds])
             for f in range(n_folds):
                 for j, params in enumerate(grid):
                     record(cand, ci, grid_index[j], params, panel[f, j])
+            seconds[cand.model_name] += device_wall_clock(dev) - t0
 
         # round A: raced families screen the full grid on fold 0; unraced
         # families run their full CV block
@@ -258,7 +277,8 @@ class OpValidator:
             all_results=all_results,
             validation_type=self.validation_type,
             metric_name=self.evaluator.default_metric,
-            is_larger_better=self.evaluator.is_larger_better)
+            is_larger_better=self.evaluator.is_larger_better,
+            family_seconds=dict(seconds))
 
 
 class OpCrossValidation(OpValidator):
