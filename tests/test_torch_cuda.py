@@ -14,7 +14,10 @@ gains within 1e-6 of wgini(parent) (the kernel rounds as the twin does, so
 they agree bit for bit on these integer counts), choices identical where
 the gap passes 1e-5 of it and on exact ties; a forest fitted on the card
 with the draws made on the host equals the CPU twins' forest in structure,
-leaves at rtol 1e-6.
+leaves at rtol 1e-6; ``fista_step`` within 1e-5 of each output's absolute
+mass of the twin run in f64 (tile and block sums in another order than
+cuBLAS), and the same bits on two launches; the one-pass deep histogram
+like ``tree_hist``.
 """
 
 import numpy as np
@@ -157,18 +160,25 @@ def forest_level(cuda):
 
 
 def test_tree_hist_gini_stats_with_zero_weight_rows(forest_level):
+    """Integer gini counts with many zero-weight rows are exact in f32: the
+    kernel equals the f64 twin cell for cell, and at the P = 4 level also
+    with the nodes' feature subsets (the masked shared-memory form)."""
+    from transmogrifai_tpu_torch.models import kernels
     from transmogrifai_tpu_torch.models import tree_kernels as tk
-    _, B, _, stats, row_node, _ = forest_level
+    _, B, _, stats, row_node, mask = forest_level
     assert float((stats[..., 0] == 0).float().mean()) > 0.5
-    for off, P, with_hist in ((3, 4, True), (0, 1, True), (7, 8, False)):
-        got = tk.tree_hist(B, row_node, stats, off, P, 32, with_hist)
-        every = tk.tree_hist(B, row_node, stats, off, P, 32, with_hist,
-                             skip_zero=False)
+    kernels.reset_launch_counts()
+    for off, P, with_hist, nm in ((3, 4, True, None), (3, 4, True, mask),
+                                  (0, 1, True, None), (7, 8, False, None)):
+        got = tk.tree_hist(B, row_node, stats, off, P, 32, with_hist,
+                           node_mask=nm)
         want = tk.tree_hist_twin(B, row_node, stats.double(), off, P, 32,
-                                 with_hist)
-        for g, e, w in zip(got, every, want):
+                                 with_hist, node_mask=nm)
+        for g, w in zip(got, want):
             if w is not None:       # integer counts: exact in f32
-                assert torch.equal(g.double(), w) and torch.equal(g, e)
+                assert torch.equal(g.double(), w)
+    assert kernels.launch_counts()["tree_hist"] == 4
+    assert kernels.launch_counts()["tree_hist_deep"] == 0
 
 
 def test_tree_split_gini_matches_twin_with_node_masks_and_ties(forest_level):
@@ -220,7 +230,7 @@ def test_forest_fit_on_the_card_matches_cpu_twins_with_host_draws(cuda):
     """With the draws made by one CPU generator, the 3-fold x 10-tree forest
     block fitted on the card equals the one fitted by the CPU twins: the
     gini counts are integers, exact in f32 in any order."""
-    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    from transmogrifai_tpu_torch.models import kernels
     from transmogrifai_tpu_torch.models.trees import OpRandomForestClassifier
     rng = np.random.default_rng(6)
     N, D = 20_000, 12
@@ -231,9 +241,9 @@ def test_forest_fit_on_the_card_matches_cpu_twins_with_host_draws(cuda):
     est = OpRandomForestClassifier(num_trees=10, max_depth=5,
                                    min_instances_per_node=10,
                                    draw_device="cpu")
-    tk.reset_launch_counts()
+    kernels.reset_launch_counts()
     gpu = est.fit_arrays_grid(torch.as_tensor(X, device=cuda), y, W, [{}])
-    assert tk.launch_counts()["tree_split_gini"] == 5
+    assert kernels.launch_counts()["tree_split_gini"] == 5
     cpu = est.fit_arrays_grid(torch.as_tensor(X), y, W, [{}])
     for k in range(3):
         for key in ("feature", "threshold", "is_leaf"):
@@ -285,10 +295,81 @@ def _small_main_path(device, n):
 
 
 def test_small_main_path_on_the_card_matches_the_twins(cuda):
-    from transmogrifai_tpu_torch.models import tree_kernels as tk
-    tk.reset_launch_counts()
+    from transmogrifai_tpu_torch.models import kernels
+    kernels.reset_launch_counts()
     gpu = _small_main_path("cuda", 5000)
-    assert all(v > 0 for v in tk.launch_counts().values())
+    # depth-4 and depth-3 trees never need the one-pass deep histogram
+    assert all(v > 0 for k, v in kernels.launch_counts().items()
+               if k != "tree_hist_deep")
     cpu = _small_main_path("cpu", 5000)
     assert gpu[0] == cpu[0]
     np.testing.assert_allclose(gpu[1], cpu[1], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("loss,G,D", [("logistic", 8, 28),
+                                      ("squared_hinge", 4, 28),
+                                      ("gram", 1, 28),
+                                      # too wide for one tile of 24 lanes:
+                                      # the wrapper launches lane chunks
+                                      ("logistic", 8, 1200)])
+def test_fista_step_matches_twin_and_repeats_bit_for_bit(cuda, loss, G, D):
+    from transmogrifai_tpu_torch.models import linear_kernels as lk
+    rng = np.random.default_rng(2)
+    N, F = 70_001, 3
+    L = F * G
+    X = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32),
+                        device=cuda)
+    W = torch.as_tensor((rng.random((F, N)) > 1 / 3).astype(np.float32),
+                        device=cuda)
+    y = torch.as_tensor((rng.random(N) > 0.5).astype(np.float32), device=cuda)
+    V = torch.as_tensor(rng.normal(scale=0.3, size=(L, D)).astype(np.float32),
+                        device=cuda)
+    muv = torch.as_tensor(rng.normal(size=L).astype(np.float32), device=cuda)
+    b = torch.as_tensor(rng.normal(size=L).astype(np.float32), device=cuda)
+    tgt = None if loss == "gram" else (2 * y - 1 if loss == "squared_hinge"
+                                       else y)
+    ws = W.sum(dim=1)[torch.arange(L, device=cuda) // G]
+    args = (X, V, muv, b, W, tgt, ws, G, loss)
+    gx, gs = lk.fista_step(*args)
+    gx2, gs2 = lk.fista_step(*args)
+    assert torch.equal(gx, gx2) and torch.equal(gs, gs2)
+    a64 = tuple(a.double() if isinstance(a, torch.Tensor) else a for a in args)
+    g64 = lk.fista_row_grads(*a64)
+    X64 = X.double()
+    assert bool(((gx.double() - g64 @ X64).abs()
+                 <= 1e-5 * (g64.abs() @ X64.abs()) + 1e-12).all())
+    assert bool(((gs.double() - g64.sum(dim=1)).abs()
+                 <= 1e-5 * g64.abs().sum(dim=1) + 1e-12).all())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_tree_hist_deep_level_matches_twin(cuda, masked):
+    """A level of 512 nodes (past one block's shared memory) runs the
+    one-pass kernel: held to the f64 twin, with and without node subsets,
+    totals counting every row whatever the mask."""
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    from transmogrifai_tpu_torch.models.trees import binned
+    rng = np.random.default_rng(4)
+    N, D, K, P, off = 60_000, 28, 4, 512, 511
+    X = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32), device=cuda)
+    _, _, B = binned(X, X, 32)
+    stats = torch.as_tensor(rng.normal(size=(K, N, 3)).astype(np.float32),
+                            device=cuda)
+    stats[..., 0] = torch.as_tensor(rng.poisson(1.0, size=(K, N)).astype(
+        np.float32), device=cuda)
+    row_node = torch.as_tensor(rng.integers(off - 40, off + P, size=(K, N))
+                               .astype(np.int32), device=cuda)
+    mask = (torch.as_tensor(rng.random((K, P, D)) > 0.6, device=cuda)
+            if masked else None)
+    kernels.reset_launch_counts()
+    h, t = tk.tree_hist(B, row_node, stats, off, P, 32, node_mask=mask)
+    assert kernels.launch_counts()["tree_hist_deep"] == 1
+    s64 = stats.double()
+    ht, tt = tk.tree_hist_twin(B, row_node, s64, off, P, 32, node_mask=mask)
+    mass, mt = tk.tree_hist_twin(B, row_node, s64.abs(), off, P, 32,
+                                 node_mask=mask)
+    assert bool(((t.double() - tt).abs() <= 1e-5 + 1e-5 * mt).all())
+    assert bool(((h.double() - ht).abs() <= 1e-5 + 1e-5 * mass).all())
+    if masked:
+        assert bool((h[~mask] == 0).all())

@@ -18,9 +18,13 @@ Run as a script, this file measures the JAX package's spread of the bench
 forest's CV AuPR over RF seeds on ``bench.make_data`` at 20,000 x 28 and at
 400 x 6 (the tolerances of the port's forest in ``chip_smoke.py`` and
 ``tests/test_torch_workflow.py``; PERF.md), and the held-out AuROC spread
-behind ``HELDOUT_AUROC_TOL``:
+behind ``HELDOUT_AUROC_TOL``; with ``--offset-seeds N`` instead the mean
+difference of that CV AuPR (port minus JAX) over N forest seeds at 20,000
+rows and its standard error:
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_forest.py
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_forest.py \
+        --offset-seeds 20
 """
 
 import numpy as np
@@ -371,10 +375,34 @@ def rf_cv_aupr(pkg: str, X, y, seed: int, **wf_kw) -> float:
     return float(next(iter(res[0].metric_values.values())))
 
 
+def forest_offset(n_seeds: int, rows: int = 20_000) -> dict:
+    """Mean difference (port CPU twins - JAX) of the bench forest's CV AuPR
+    over forest seeds 0 .. n_seeds-1 on ``bench.make_data(rows, 28)``, and
+    its standard error (the per-seed differences' sd / sqrt(n))."""
+    from bench import make_data
+    X, y = make_data(rows, 28)
+    seeds = list(range(n_seeds))
+    jax_v = [rf_cv_aupr("transmogrifai_tpu", X, y, s) for s in seeds]
+    port_v = [rf_cv_aupr("transmogrifai_tpu_torch", X, y, s, device="cpu")
+              for s in seeds]
+    diff = np.asarray(port_v) - np.asarray(jax_v)
+    se = float(diff.std(ddof=1) / np.sqrt(n_seeds))
+    return {"rows": rows, "seeds": seeds, "jax_rf_cv_aupr": jax_v,
+            "port_cpu_rf_cv_aupr": port_v, "mean_difference":
+            float(diff.mean()), "standard_error": se,
+            "jax_mean": float(np.mean(jax_v)),
+            "port_mean": float(np.mean(port_v))}
+
+
 def main() -> None:
     import json
+    import sys
 
     from bench import make_data
+    if "--offset-seeds" in sys.argv:
+        n = int(sys.argv[sys.argv.index("--offset-seeds") + 1])
+        print(json.dumps(forest_offset(n)))
+        return
     seeds = (42, 0, 1, 2, 3)
     for n, d in ((20_000, 28), (400, 6)):
         X, y = make_data(n, d)

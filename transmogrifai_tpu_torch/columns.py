@@ -108,6 +108,25 @@ class ColumnBatch:
             out._length = len(next(iter(cols.values())))
         return out
 
+    def take_rows(self, idx) -> "ColumnBatch":
+        """The rows ``idx`` (an integer array) of every column, in that
+        order."""
+        idx = np.asarray(idx, dtype=np.int64)
+
+        def take(v):
+            if v is None:
+                return None
+            if isinstance(v, dict):
+                return {k: take(a) for k, a in v.items()}
+            if isinstance(v, torch.Tensor):
+                return v[torch.as_tensor(idx, device=v.device)]
+            return np.asarray(v)[idx]
+
+        return ColumnBatch({n: Column(c.kind, take(c.values), take(c.mask),
+                                      c.meta)
+                            for n, c in self._cols.items()}, len(idx),
+                           self._device)
+
     def select(self, names: Sequence[str]) -> "ColumnBatch":
         return self._like({n: self._cols[n] for n in names})
 

@@ -9,11 +9,18 @@ order).  The dicts this slice reads, by the fitted stage's class name:
 * ``RealVectorizerModel``: ``fills`` [F];
 * ``SanityCheckerModel``: ``indices_to_keep`` [D'] and optionally ``summary``;
 * ``SelectedModel``: ``model`` = ``"LinearPredictionModel"`` (``coef`` [D],
-  ``intercept`` [1]) or ``"TreeEnsembleModel"`` — a GBT (``kind`` "gbt":
+  ``intercept`` [1], ``kind`` "binary" for logistic regression or "svc" for
+  a linear SVC) or ``"TreeEnsembleModel"`` — a GBT (``kind`` "gbt":
   ``feature``, ``threshold``, ``is_leaf`` [R, T], ``leaf`` [R, T, 1],
   ``eta``, ``base``, ``max_depth``) or a forest (``kind`` "forest": ``task``,
   ``n_classes``, ``feature``, ``threshold``, ``is_leaf`` [R, T], ``leaf``
   [R, T, C], ``max_depth``) — with those arrays under ``fitted``.
+
+Tree arrays are taken as the JAX package writes them in either form of its
+tree fit.  Trees deeper than 7 come from ``_fit_tree_unrolled``, whose
+nodes below a leaf carry thresholds and leaf values of the rows it routed on
+past the leaf; the port's walk stops at the first leaf, as the JAX walk
+does, so those nodes are never read.
 """
 
 from __future__ import annotations
@@ -49,6 +56,9 @@ def _model_fitted(name: str, fitted: Dict[str, Any], device) -> Dict[str, Any]:
         out["intercept"] = _tensor(fitted["intercept"], device,
                                    torch.float32).reshape(-1)
         out.setdefault("kind", "binary")
+        if out["kind"] not in ("binary", "svc"):
+            raise NotImplementedError(
+                f"convert: no port model for linear kind {out['kind']!r}")
     elif name == "TreeEnsembleModel":
         out["feature"] = _tensor(fitted["feature"], device, torch.int32)
         out["threshold"] = _tensor(fitted["threshold"], device, torch.float32)

@@ -14,10 +14,16 @@
 // into the global histogram with f32 atomics.  Grid: x = row ranges,
 // y = lanes, z = feature chunks (a chunk's histogram has to fit the block's
 // shared memory).  Atomics make the f32 sums order-dependent run to run.
-// With skip_zero, a row whose S statistics are all zero adds nothing: it is
-// exact, since x + (+-0.0) == x for every x, and it spares the atomics of
-// out-of-bag and held-out rows (a forest lane's weight is 0 on ~60% of its
-// rows: Poisson(1) zeros times the fold's held-out third).
+// A row whose S statistics are all zero adds nothing: it is exact, since
+// x + (+-0.0) == x for every x, and it spares the atomics of out-of-bag and
+// held-out rows (a forest lane's weight is 0 on ~60% of its
+// rows: Poisson(1) zeros times the fold's held-out third).  With a node mask
+// ([K, P, D] bytes, each node's drawn feature subset), cells of features
+// outside a node's subset are left at zero: the split search never reads
+// them.  The node totals count every row whatever the mask.
+//
+// A level whose nodes do not fit one block's shared memory (more than ~130
+// nodes at S = 3) goes to tree_hist_deep.cu instead, in one pass.
 //
 // Bound: device-memory bytes.  Per lane and level it must read B once
 // (N*D bytes), the row's node id (4N) and statistics (4SN) — at 1M x 28,
@@ -28,11 +34,11 @@
 __global__ void tree_hist_kernel(const int8_t* __restrict__ B,
                                  const int32_t* __restrict__ row_node,
                                  const float* __restrict__ stats,
+                                 const uint8_t* __restrict__ node_mask,
                                  float* __restrict__ hist,
                                  float* __restrict__ totals,
                                  long long N, int D, int NB, int S,
-                                 int offset, int P, int Dc, int with_hist,
-                                 int skip_zero) {
+                                 int offset, int P, int Dc, int with_hist) {
   extern __shared__ float sm[];
   const int k = blockIdx.y;
   const int d0 = blockIdx.z * Dc;
@@ -57,16 +63,16 @@ __global__ void tree_hist_kernel(const int8_t* __restrict__ B,
       const int p = rn[n] - offset;
       if (p < 0 || p >= P) continue;
       const float* s = sk + n * S;
-      if (skip_zero) {
-        bool any = false;
-        for (int j = 0; j < S; ++j) any |= s[j] != 0.f;
-        if (!any) continue;
-      }
+      bool any = false;
+      for (int j = 0; j < S; ++j) any |= s[j] != 0.f;
+      if (!any) continue;
+      if (do_tot && dl == 0)
+        for (int j = 0; j < S; ++j) atomicAdd(st + p * S + j, s[j]);
+      if (node_mask &&
+          !node_mask[((long long)k * P + p) * D + d0 + dl]) continue;
       const int b = B[n * D + d0 + dl];
       float* h = sh + ((p * Dc + dl) * NB + b) * S;
       for (int j = 0; j < S; ++j) atomicAdd(h + j, s[j]);
-      if (do_tot && dl == 0)
-        for (int j = 0; j < S; ++j) atomicAdd(st + p * S + j, s[j]);
     }
   } else {
     for (long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -74,7 +80,7 @@ __global__ void tree_hist_kernel(const int8_t* __restrict__ B,
       const int p = rn[n] - offset;
       if (p < 0 || p >= P) continue;
       for (int j = 0; j < S; ++j)
-        if (!skip_zero || sk[n * S + j] != 0.f)
+        if (sk[n * S + j] != 0.f)
           atomicAdd(st + p * S + j, sk[n * S + j]);
     }
   }
@@ -99,10 +105,11 @@ __global__ void tree_hist_kernel(const int8_t* __restrict__ B,
 }
 
 extern "C" int tree_hist_launch(const void* B, const void* row_node,
-                                const void* stats, void* hist, void* totals,
-                                long long N, int D, int NB, int S, int K,
-                                int offset, int P, int Dc, int with_hist,
-                                int grid_x, int skip_zero, void* stream) {
+                                const void* stats, const void* node_mask,
+                                void* hist, void* totals, long long N, int D,
+                                int NB, int S, int K, int offset, int P,
+                                int Dc, int with_hist, int grid_x,
+                                void* stream) {
   const int n_chunks = with_hist ? (D + Dc - 1) / Dc : 1;
   const size_t smem =
       sizeof(float) * ((with_hist ? (size_t)P * Dc * NB * S : 0) + P * S);
@@ -113,7 +120,7 @@ extern "C" int tree_hist_launch(const void* B, const void* row_node,
   dim3 grid(grid_x, K, n_chunks);
   tree_hist_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
       (const int8_t*)B, (const int32_t*)row_node, (const float*)stats,
-      (float*)hist, (float*)totals, N, D, NB, S, offset, P, Dc, with_hist,
-      skip_zero);
+      (const uint8_t*)node_mask, (float*)hist, (float*)totals, N, D, NB, S,
+      offset, P, Dc, with_hist);
   return (int)cudaGetLastError();
 }

@@ -21,8 +21,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
-KERNEL_SOURCES = ("tree_hist", "tree_split", "tree_split_gini", "tree_route",
-                  "tree_walk")
+KERNEL_SOURCES = ("tree_hist", "tree_hist_deep", "tree_split",
+                  "tree_split_gini", "tree_route", "tree_walk", "fista_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -85,8 +85,9 @@ class OpBinaryClassificationEvaluator(OpEvaluatorBase):
         """The full metric panel from a model's ``device_scores`` output:
         confusion counts, AuROC, AuPR and the per-threshold counts."""
         s = device_out.get("scores")
-        if s is None:
-            s = device_out["probability"][:, 1]
+        if s is None:      # a Prediction column: probability, else margin
+            s = device_out.get("probability", device_out.get("rawPrediction"))
+            s = s[:, 1]
         pred = device_out["prediction"]
         conf = masked_binary_confusion(y, pred, w)
         order = np.argsort(np.asarray(self.thresholds, np.float64),

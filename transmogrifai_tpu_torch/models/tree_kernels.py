@@ -1,16 +1,10 @@
-"""The tree kernels of the port: wrappers, launch counters and plain-PyTorch
-twins.
-
-Each public function here takes tensors and dispatches on their device: on a
-CPU tensor it runs the plain-PyTorch twin beside it; on a CUDA tensor it
-launches the hand-written kernel from ``csrc/`` (built on first use) or
-raises.  There is no fallback from a CUDA tensor to the twin.  Each wrapper
-adds one to ``LAUNCHES[<name>]`` where it launches its kernel, and nowhere
-else.
+"""The tree kernels of the port: wrappers and plain-PyTorch twins (the
+dispatch rule and launch counters are in ``kernels.py``).
 
 | kernel          | replaces (transmogrifai_tpu/models/trees.py)                  |
 |-----------------|----------------------------------------------------------------|
 | tree_hist       | ``_fit_tree_compact`` node_stats + histogram einsums (:313-338) |
+| tree_hist_deep  | ``_fit_tree_unrolled``'s segment-sum histograms (:520-531)     |
 | tree_split      | ``scan_chunk`` xgb gain/argmax + leaf flag/threshold/value (:339-364) |
 | tree_split_gini | ``scan_chunk`` gini gain over per-node subsets (:320-326, :331-366) |
 | tree_route      | the routing block (:373-391)                                    |
@@ -24,51 +18,24 @@ from typing import Dict
 
 import torch
 
-from .. import cuda_build
-
-LAUNCHES: Dict[str, int] = {"tree_hist": 0, "tree_split": 0,
-                            "tree_split_gini": 0, "tree_route": 0,
-                            "tree_walk": 0}
+from .kernels import check as _check, launch, stream as _stream
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "tree_hist": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                  _I, _P],
+    "tree_hist": [_P] * 6 + [_L] + [_I] * 9 + [_P],
+    "tree_hist_deep": [_P] * 6 + [_L] + [_I] * 8 + [_P],
     "tree_split": [_P] * 13 + [_I, _I, _I, _I, _P],
     "tree_split_gini": [_P] * 12 + [_I, _I, _I, _I, _I, _P],
     "tree_route": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _P],
     "tree_walk": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 _HIST_SMEM_TARGET = 99 * 1024     # leaves room for two blocks per SM
+_HIST_SMEM_MAX = 227 * 1024       # what one block can hold
 _BLOCKS_IN_FLIGHT = 132 * 4       # SMs x resident blocks to aim for
 
 
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
 def _launch(name: str, *args) -> None:
-    fn = getattr(cuda_build.load(name, _ARGTYPES[name]), f"{name}_launch")
-    cuda_build.check(name, fn(*args))
-    LAUNCHES[name] += 1
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if t.ndim != ndim:
-        raise ValueError(f"{name}: {t.ndim}-d tensor, expected {ndim}-d")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
+    launch(name, _ARGTYPES[name], *args)
 
 
 # --------------------------------------------------------------------------
@@ -76,40 +43,50 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
 # --------------------------------------------------------------------------
 
 def tree_hist_twin(B, row_node, stats, offset: int, P: int, n_bins: int,
-                   with_hist: bool = True):
-    """Plain-PyTorch twin of ``tree_hist`` (see :func:`tree_hist`)."""
+                   with_hist: bool = True, node_mask=None):
+    """Plain-PyTorch twin of ``tree_hist`` (see :func:`tree_hist`).  Rows
+    outside the level or with all-zero statistics are left out of the
+    scatter: adding zero changes no sum."""
     K, N = row_node.shape
     S = stats.shape[2]
     D = B.shape[1]
     p = row_node.long() - offset
-    at = (p >= 0) & (p < P)
-    pk = torch.where(at, p, 0) + torch.arange(K, device=p.device)[:, None] * P
-    w = stats * at[..., None].to(stats.dtype)
+    kk, nn = torch.nonzero((p >= 0) & (p < P) & (stats != 0).any(dim=2),
+                           as_tuple=True)
+    pk = p[kk, nn] + kk * P
+    w = stats[kk, nn]                                        # [M, S]
     totals = torch.zeros((K * P, S), dtype=stats.dtype, device=stats.device)
-    totals.index_add_(0, pk.reshape(-1), w.reshape(-1, S))
+    totals.index_add_(0, pk, w)
     totals = totals.reshape(K, P, S)
     if not with_hist:
         return None, totals
-    cell = ((pk[:, :, None] * D + torch.arange(D, device=p.device))
-            * n_bins + B.long()[None])                       # [K, N, D]
+    cell = ((pk[:, None] * D + torch.arange(D, device=p.device))
+            * n_bins + B[nn].long())                         # [M, D]
+    vals = w[:, None, :].expand(w.shape[0], D, S)
+    if node_mask is not None:               # cells outside a subset stay 0
+        keep = node_mask.reshape(K * P, D)[pk]
+        cell, vals = cell[keep], vals[keep]
     hist = torch.zeros((K * P * D * n_bins, S), dtype=stats.dtype,
                        device=stats.device)
-    hist.index_add_(0, cell.reshape(-1),
-                    w[:, :, None, :].expand(K, N, D, S).reshape(-1, S))
+    hist.index_add_(0, cell.reshape(-1), vals.reshape(-1, S))
     return hist.reshape(K, P, D, n_bins, S), totals
 
 
 def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
               offset: int, P: int, n_bins: int, with_hist: bool = True,
-              skip_zero: bool = True):
+              node_mask=None):
     """Histograms of one tree level for K lanes at once.
 
     B int8 [N, D] bin ids (< n_bins); row_node int32 [K, N] heap node ids;
     stats f32 [K, N, S] per-row statistics.  Rows whose node lies in
     [offset, offset + P) contribute.  Returns (hist f32 [K, P, D, n_bins, S]
     or None when ``with_hist`` is False, totals f32 [K, P, S]).
-    ``skip_zero`` lets the kernel pass over rows whose statistics are all
-    zero (exact: adding zero changes no sum); False adds every row."""
+    ``node_mask`` bool [K, P, D] (each node's feature subset) leaves the
+    cells of features outside a node's subset at zero; None keeps every
+    feature.  Rows whose statistics are all zero add nothing (exact: adding
+    zero changes no sum).  A level whose nodes fit one block's shared memory
+    runs ``tree_hist``; a deeper one ``tree_hist_deep``, one pass adding
+    into device memory."""
     dev = B.device
     _check("tree_hist B", B, torch.int8, 2, dev)
     _check("tree_hist row_node", row_node, torch.int32, 2, dev)
@@ -118,40 +95,47 @@ def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
     K, S = row_node.shape[0], stats.shape[2]
     if row_node.shape[1] != N or stats.shape[:2] != (K, N):
         raise ValueError("tree_hist: B, row_node and stats disagree on N/K")
+    if node_mask is not None:
+        _check("tree_hist node_mask", node_mask, torch.bool, 3, dev)
+        if node_mask.shape != (K, P, D):
+            raise ValueError("tree_hist: node_mask must be [K, P, D]")
     if dev.type == "cpu":
-        return tree_hist_twin(B, row_node, stats, offset, P, n_bins, with_hist)
+        return tree_hist_twin(B, row_node, stats, offset, P, n_bins,
+                              with_hist, node_mask)
     if dev.type != "cuda":
         raise ValueError(f"tree_hist: unsupported device {dev}")
-    if not with_hist:
-        totals = torch.zeros((K, P, S), dtype=torch.float32, device=dev)
-        _launch("tree_hist", B.data_ptr(), row_node.data_ptr(),
-                stats.data_ptr(), totals.data_ptr(), totals.data_ptr(), N, D,
-                n_bins, S, K, offset, P, D, 0,
-                max(1, min(-(-N // 256), _BLOCKS_IN_FLIGHT // K + 1)),
-                int(skip_zero), _stream(B))
-        return None, totals
-    # a block's histogram covers Pc nodes x Dc features; deep levels run as
-    # several node windows, wide matrices as several feature chunks
+    totals = torch.zeros((K, P, S), dtype=torch.float32, device=dev)
+    mask_ptr = 0 if node_mask is None else node_mask.data_ptr()
     per_cell = n_bins * S * 4
-    Pc = min(P, max(1, _HIST_SMEM_TARGET // (2 * per_cell)))
-    Dc = min(D, (_HIST_SMEM_TARGET - Pc * S * 4) // (Pc * per_cell))
+    deep = (P * S * 4 > _HIST_SMEM_MAX if not with_hist
+            else 2 * P * per_cell > _HIST_SMEM_TARGET)
+    if deep:
+        hist = (torch.zeros((K, P, D, n_bins, S), dtype=torch.float32,
+                            device=dev) if with_hist else totals)
+        grid_x = max(1, min(-(-N // 256), 132 * 16 // K + 1))
+        _launch("tree_hist_deep", B.data_ptr(), row_node.data_ptr(),
+                stats.data_ptr(), mask_ptr, hist.data_ptr(),
+                totals.data_ptr(), N, D, n_bins, S, K, offset, P,
+                int(with_hist), grid_x, _stream(B))
+        return (hist if with_hist else None), totals
+    if not with_hist:
+        _launch("tree_hist", B.data_ptr(), row_node.data_ptr(),
+                stats.data_ptr(), 0, totals.data_ptr(), totals.data_ptr(), N,
+                D, n_bins, S, K, offset, P, D, 0,
+                max(1, min(-(-N // 256), _BLOCKS_IN_FLIGHT // K + 1)),
+                _stream(B))
+        return None, totals
+    # a block's histogram covers the level's P nodes x Dc features; wide
+    # matrices run as several feature chunks
+    Dc = min(D, (_HIST_SMEM_TARGET - P * S * 4) // (P * per_cell))
     n_chunks = -(-D // Dc)
     grid_x = max(1, min(-(-(N * Dc) // 256),
                         _BLOCKS_IN_FLIGHT // (K * n_chunks) + 1))
-    hists, totals = [], []
-    for p0 in range(0, P, Pc):
-        pc = min(Pc, P - p0)
-        h = torch.zeros((K, pc, D, n_bins, S), dtype=torch.float32, device=dev)
-        t = torch.zeros((K, pc, S), dtype=torch.float32, device=dev)
-        _launch("tree_hist", B.data_ptr(), row_node.data_ptr(),
-                stats.data_ptr(), h.data_ptr(), t.data_ptr(), N, D, n_bins, S,
-                K, offset + p0, pc, Dc, 1, grid_x, int(skip_zero),
-                _stream(B))
-        hists.append(h)
-        totals.append(t)
-    if len(hists) == 1:
-        return hists[0], totals[0]
-    return torch.cat(hists, dim=1), torch.cat(totals, dim=1)
+    hist = torch.zeros((K, P, D, n_bins, S), dtype=torch.float32, device=dev)
+    _launch("tree_hist", B.data_ptr(), row_node.data_ptr(), stats.data_ptr(),
+            mask_ptr, hist.data_ptr(), totals.data_ptr(), N, D, n_bins, S, K,
+            offset, P, Dc, 1, grid_x, _stream(B))
+    return hist, totals
 
 
 # --------------------------------------------------------------------------
@@ -183,31 +167,78 @@ def _top2_gap(gains: torch.Tensor) -> torch.Tensor:
     return top[..., 0] - top[..., 1]
 
 
-def _first_max(gains, splits, min_gain) -> Dict[str, torch.Tensor]:
-    """The split each (lane, node) takes from its gain table: the first max
-    over (feature, bin) — lowest feature, then lowest bin — its leaf flag
-    and threshold."""
+def _split_out(best, feat, bin_, splits, min_gain) -> Dict[str, torch.Tensor]:
     NB = splits.shape[1] + 1
-    idx = torch.argmax(gains, dim=2)
-    best = torch.gather(gains, 2, idx[..., None])[..., 0]
-    feat = (idx // NB).to(torch.int32)
-    bin_ = (idx % NB).to(torch.int32)
     leaf = ~(torch.isfinite(best) & (best > min_gain[:, None]))
     thr = splits[feat.long(), torch.clamp(bin_, 0, NB - 2).long()]
     return {"gain": best, "feature": feat, "bin": bin_, "is_leaf": leaf,
             "threshold": thr}
 
 
-def split_gains(hist, totals, fmask, min_inst, lam) -> torch.Tensor:
-    """The twin's gain table [K, P, D*NB]: xgb gain of every (feature, bin)
-    split, -inf where the split is not allowed."""
+def _empty_nodes(K, P, S, fmask, node_mask, min_inst, gain_fn, dtype,
+                 device):
+    """(best, feature, bin) [K, P] of the first max of ``_gain_table`` at
+    nodes whose histogram and totals are all zero: every cell of such a
+    table is the gain of three zero statistics where the split is allowed
+    (0 >= min_inst, the feature in ``fmask`` and the node's subset, bin <
+    NB-1) and -inf elsewhere, so the first max is the first allowed cell,
+    (first allowed feature, bin 0), or (0, 0) at -inf when none is."""
+    D = fmask.shape[0]
+    zero = torch.zeros((K, 1, 1, 1, S), dtype=dtype, device=device)
+    g0 = gain_fn(zero, zero, zero).reshape(K, 1)
+    allowed = fmask.bool()[None, None, :] & (0.0 >= min_inst)[:, None, None]
+    if node_mask is not None:
+        allowed = allowed & node_mask.bool()
+    allowed = allowed.expand(K, P, D)
+    any_ok = allowed.any(dim=2)
+    best = torch.where(any_ok, g0.expand(K, P), float("-inf"))
+    feat = torch.where(any_ok, torch.argmax(allowed.to(torch.int32), dim=2),
+                       0).to(torch.int32)
+    return best, feat, torch.zeros((K, P), dtype=torch.int32, device=device)
+
+
+def _split_twin(hist, totals, fmask, node_mask, splits, min_inst, min_gain,
+                gain_fn_of) -> Dict[str, torch.Tensor]:
+    """The split each (lane, node) takes from its ``_gain_table``: the first
+    max over (feature, bin) — lowest feature, then lowest bin — with its
+    leaf flag and threshold.  The table is built only at nodes with a
+    non-zero histogram or total; the many empty nodes of a deep level take
+    the same value in closed form (``_empty_nodes``).  ``gain_fn_of(lanes)``
+    is the gain function for those lanes' parameters."""
+    K, P, D, NB, S = hist.shape
+    live = ((hist.reshape(K, P, -1) != 0).any(dim=2)
+            | (totals != 0).any(dim=2))
+    best, feat, bin_ = _empty_nodes(
+        K, P, S, fmask, node_mask, min_inst,
+        gain_fn_of(torch.arange(K, device=hist.device)), hist.dtype,
+        hist.device)
+    kk, pp = torch.nonzero(live, as_tuple=True)
+    if kk.numel():
+        table = _gain_table(
+            hist[kk, pp][:, None], totals[kk, pp][:, None], fmask,
+            min_inst[kk], gain_fn_of(kk),
+            None if node_mask is None else node_mask[kk, pp][:, None])
+        idx = torch.argmax(table, dim=2)[:, 0]
+        best[kk, pp] = torch.gather(table[:, 0], 1, idx[:, None])[:, 0]
+        feat[kk, pp] = (idx // NB).to(torch.int32)
+        bin_[kk, pp] = (idx % NB).to(torch.int32)
+    return _split_out(best, feat, bin_, splits, min_gain)
+
+
+def _xgb_gain(lam):
+    """``_gain_xgb`` with per-lane ``lam`` [K] for tables [K, ...]."""
     lam4 = lam[:, None, None, None]
 
     def score(s):
         return s[..., 1] ** 2 / (s[..., 2] + lam4)
 
-    return _gain_table(hist, totals, fmask, min_inst,
-                       lambda l, r, p: 0.5 * ((score(l) + score(r)) - score(p)))
+    return lambda l, r, p: 0.5 * ((score(l) + score(r)) - score(p))
+
+
+def split_gains(hist, totals, fmask, min_inst, lam) -> torch.Tensor:
+    """The twin's gain table [K, P, D*NB]: xgb gain of every (feature, bin)
+    split, -inf where the split is not allowed."""
+    return _gain_table(hist, totals, fmask, min_inst, _xgb_gain(lam))
 
 
 def split_gap(hist, totals, fmask, min_inst, lam) -> torch.Tensor:
@@ -218,8 +249,8 @@ def split_gap(hist, totals, fmask, min_inst, lam) -> torch.Tensor:
 
 def tree_split_twin(hist, totals, fmask, splits, min_inst, min_gain, lam):
     """Plain-PyTorch twin of ``tree_split`` (see :func:`tree_split`)."""
-    out = _first_max(split_gains(hist, totals, fmask, min_inst, lam), splits,
-                     min_gain)
+    out = _split_twin(hist, totals, fmask, None, splits, min_inst, min_gain,
+                      lambda lanes: _xgb_gain(lam[lanes]))
     out["value"] = -(totals[..., 1] / (totals[..., 2] + lam[:, None]))
     return out
 
@@ -310,8 +341,8 @@ def tree_split_gini_twin(hist, totals, fmask, node_mask, splits, min_inst,
                          min_gain):
     """Plain-PyTorch twin of ``tree_split_gini`` (see
     :func:`tree_split_gini`)."""
-    return _first_max(split_gains_gini(hist, totals, fmask, node_mask,
-                                       min_inst), splits, min_gain)
+    return _split_twin(hist, totals, fmask, node_mask, splits, min_inst,
+                       min_gain, lambda lanes: gini_gain)
 
 
 def tree_split_gini(hist: torch.Tensor, totals: torch.Tensor,
@@ -477,17 +508,3 @@ def tree_walk(X: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
             out.data_ptr(), N, D, Tr // members, T, V, members, steps,
             int(op == "mean"), _stream(X))
     return out
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
-
-
-# kernel → the JAX program it replaces (file:line)
-REPLACES = {
-    "tree_hist": "transmogrifai_tpu/models/trees.py:313",
-    "tree_split": "transmogrifai_tpu/models/trees.py:339",
-    "tree_split_gini": "transmogrifai_tpu/models/trees.py:331",
-    "tree_route": "transmogrifai_tpu/models/trees.py:373",
-    "tree_walk": "transmogrifai_tpu/models/trees.py:668",
-}

@@ -6,15 +6,17 @@ OpRandomForestClassifier.scala, OpDecisionTreeClassifier.scala).
 Features are quantile-binned once into an int8 matrix ``B [N, D]``; trees
 grow level-wise as perfect heaps (feature, threshold, is_leaf, leaf values).
 Each level is three kernels — ``tree_hist`` (per-node, per-feature, per-bin
-statistics), ``tree_split`` (xgb gain) or ``tree_split_gini`` (gini gain over
-each node's feature subset), both a prefix over bins and a first-max argmax,
-and ``tree_route`` (rows to children) — run for all (fold × grid-point ×
+statistics; ``tree_hist_deep`` once a level's nodes outgrow shared memory),
+``tree_split`` (xgb gain) or ``tree_split_gini`` (gini gain over each node's
+feature subset), both a prefix over bins and a first-max argmax, and
+``tree_route`` (rows to children) — run for a batch of (fold × grid-point ×
 tree) lanes at once; each boosting round's margin update and every scoring
-pass is ``tree_walk``.  The rounds and levels are a plain Python loop.
+pass is ``tree_walk``.  The rounds and levels are a plain Python loop, the
+same for every depth: it is the counterpart of both the compact and the
+unrolled form of the JAX package's ``fit_tree``.
 
 Forests draw their Poisson bootstraps and per-node feature subsets from one
-``torch.Generator`` in :func:`forest_draws`.  Trees deeper than the compact
-form's limit (``_fit_tree_unrolled``) come with a later slice.
+``torch.Generator`` in :func:`forest_draws`.
 """
 
 from __future__ import annotations
@@ -34,6 +36,10 @@ from .tree_kernels import (tree_hist, tree_route, tree_split, tree_split_gini,
                            tree_walk)
 
 MAX_BINS_DEFAULT = 32
+# Device bytes a batch of lanes may hold while its trees grow (statistics,
+# node ids, the widest level's histogram; on the CPU also the twins'
+# temporaries): lanes past it fit in further batches, one after another.
+LANE_BUDGET_BYTES = {"cuda": 16 << 30, "cpu": 4 << 30}
 
 
 # --------------------------------------------------------------------------
@@ -113,14 +119,51 @@ def _leaf_gini(totals: torch.Tensor) -> torch.Tensor:
     return totals[..., 1:] / torch.clamp(totals[..., :1], min=1e-12)
 
 
+def lane_bytes(n_rows: int, n_feats: int, n_stats: int, n_bins: int,
+               max_depth: int, device: torch.device) -> int:
+    """Bytes one lane holds while its tree grows: its statistics and node
+    ids, each twice (the caller's temporaries while it builds the
+    statistics; a route writes new ids beside the old), and its row weight,
+    ``4·N·(2·S + 4)``; and the widest level's histogram (2^(depth-1) nodes ×
+    D × bins × S f32).  The CPU twins add ~2 histograms (the empty-node
+    test, the split's tables at non-empty nodes) and the scatter's indices
+    and values (``N·D·(8 + 4·S)``)."""
+    hist = 4 * (1 << max(max_depth - 1, 0)) * n_feats * n_bins * n_stats
+    rows = 4 * n_rows * (2 * n_stats + 4)
+    if device.type == "cuda":
+        return rows + hist
+    return rows + 3 * hist + n_rows * n_feats * (8 + 4 * n_stats)
+
+
+def lane_batches(n_lanes: int, per_lane: int,
+                 device: torch.device) -> List[slice]:
+    """Consecutive lane ranges whose working set stays within
+    ``LANE_BUDGET_BYTES`` of the device's type, each of at least one lane,
+    as few as that allows and of near-equal sizes."""
+    budget = LANE_BUDGET_BYTES.get(device.type, LANE_BUDGET_BYTES["cpu"])
+    most = max(1, min(n_lanes, budget // max(per_lane, 1)))
+    n_batches = -(-n_lanes // most)
+    per = -(-n_lanes // n_batches)
+    return [slice(a, min(a + per, n_lanes)) for a in range(0, n_lanes, per)]
+
+
+def cat_trees(parts: Sequence["TreeArrays"]) -> "TreeArrays":
+    """Lane batches' trees joined along the lane axis."""
+    if len(parts) == 1:
+        return parts[0]
+    return TreeArrays(*(torch.cat(a) for a in zip(*parts)))
+
+
 def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
               fmask: torch.Tensor, *, max_depth: int, n_bins: int,
               min_instances: torch.Tensor, min_gain: torch.Tensor,
               lam: Optional[torch.Tensor] = None, impurity: str = "xgb",
               node_masks: Optional[Sequence[torch.Tensor]] = None
               ) -> TreeArrays:
-    """Grow K trees, one per lane, level by level (≙ ``fit_tree`` in its
-    compact form, trees.py:224-250 and :274-416).
+    """Grow K trees, one per lane, level by level (≙ ``fit_tree``,
+    trees.py:224-250, in both its forms: ``_fit_tree_compact`` :274-416 and,
+    past depth 7, ``_fit_tree_unrolled`` :419-585).  All K lanes grow in one
+    batch; callers bound K with :func:`lane_batches`.
 
     B int8 [N, D]; splits f32 [D, n_bins-1]; fmask bool [D];
     min_instances/min_gain f32 [K].  ``impurity`` "xgb": stats f32 [K, N, 3]
@@ -128,9 +171,16 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
     stats f32 [K, N, 1+C] = (w, w·[y=0], .., w·[y=C-1]), C leaf values
     (class shares) per node, and ``node_masks`` per level a bool [K, 2^lvl,
     D] of each node's feature subset (None: every feature).  Returns
-    perfect-heap arrays with T = 2^(max_depth+1) - 1 nodes.  Rows whose node
-    became a leaf keep a node id below the next level and drop out of every
-    later histogram and route."""
+    perfect-heap arrays with T = 2^(max_depth+1) - 1 nodes.
+
+    Nodes below a leaf.  Rows whose node became a leaf keep that node id and
+    drop out of every later histogram and route (the compact form's rule),
+    so every node below a leaf is itself a leaf with feature -1 and all-zero
+    leaf values and statistics; its threshold is that of an empty node.  The
+    unrolled form instead routes those rows on through the dead node's best
+    split and gives the nodes below it leaf values and thresholds from them.
+    The two agree on every node a walk can reach (a walk stops at the first
+    leaf), which is all that scoring and the per-feature gains read."""
     if impurity not in ("xgb", "gini"):
         raise ValueError(f"fit_trees: impurity {impurity!r}")
     K, N, S = stats.shape
@@ -145,18 +195,26 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
     leaf = torch.zeros((K, T, V), dtype=torch.float32, device=dev)
     gain = torch.zeros((K, D), dtype=torch.float32, device=dev)
     row_node = torch.zeros((K, N), dtype=torch.int32, device=dev)
-    for lvl in range(max_depth):
+    for lvl in range(max_depth + 1):
         off, P = (1 << lvl) - 1, 1 << lvl
-        hist, totals = tree_hist(B, row_node, stats, off, P, n_bins)
+        bottom = lvl == max_depth
+        nm = None if node_masks is None or bottom else node_masks[lvl]
+        hist, totals = tree_hist(B, row_node, stats, off, P, n_bins,
+                                 with_hist=not bottom, node_mask=nm)
+        if bottom:
+            break
         if impurity == "xgb":
             sp = tree_split(hist, totals, fmask, splits, min_instances,
                             min_gain, lam)
+        else:
+            sp = tree_split_gini(hist, totals, fmask, nm, splits,
+                                 min_instances, min_gain)
+        del hist
+        row_node = tree_route(B, row_node, sp["feature"], sp["bin"],
+                              sp["is_leaf"], off)
+        if impurity == "xgb":
             leaf[:, off:off + P, 0] = sp["value"]
         else:
-            sp = tree_split_gini(
-                hist, totals, fmask,
-                None if node_masks is None else node_masks[lvl], splits,
-                min_instances, min_gain)
             leaf[:, off:off + P] = _leaf_gini(totals)
         lf = sp["is_leaf"]
         is_leaf[:, off:off + P] = lf
@@ -164,10 +222,7 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
         threshold[:, off:off + P] = sp["threshold"]
         gain.scatter_add_(1, sp["feature"].long(),
                           torch.where(lf, 0.0, sp["gain"]))
-        row_node = tree_route(B, row_node, sp["feature"], sp["bin"], lf, off)
     # the bottom level is all leaves
-    off, P = (1 << max_depth) - 1, 1 << max_depth
-    _, totals = tree_hist(B, row_node, stats, off, P, n_bins, with_hist=False)
     if impurity == "xgb":
         leaf[:, off:, 0] = -(totals[..., 1] / (totals[..., 2] + lam[:, None]))
     else:
@@ -209,6 +264,8 @@ def _gbt_grid_fit(B, splits, X, y, margins, W, fmask, mis, mgs, lams, etas,
     (≙ ``_gbt_grid_scan_fitter`` / ``_gbt_grid_round_body``,
     trees.py:928-970).  Returns (final margins [K, N], per-round TreeArrays
     stacked to [R, K, ...])."""
+    N, D = B.shape
+    per_lane = lane_bytes(N, D, 3, n_bins, max_depth, B.device)
     rounds = []
     for _ in range(n_rounds):
         p = torch.sigmoid(margins)
@@ -218,9 +275,11 @@ def _gbt_grid_fit(B, splits, X, y, margins, W, fmask, mis, mgs, lams, etas,
         # excluded from min_instances feasibility too
         stats = (torch.stack([torch.ones_like(g), g, h], dim=2)
                  * W[:, :, None]).contiguous()
-        tree = fit_trees(B, splits, stats, fmask, max_depth=max_depth,
-                         n_bins=n_bins, min_instances=mis, min_gain=mgs,
-                         lam=lams)
+        tree = cat_trees([
+            fit_trees(B, splits, stats[sl], fmask, max_depth=max_depth,
+                      n_bins=n_bins, min_instances=mis[sl], min_gain=mgs[sl],
+                      lam=lams[sl])
+            for sl in lane_batches(stats.shape[0], per_lane, B.device)])
         pred = predict_trees_raw(X, tree.feature, tree.threshold,
                                  tree.is_leaf, tree.leaf,
                                  max_depth + 1)[:, :, 0]           # [N, K]
@@ -326,26 +385,45 @@ def _forest_grid_fit(B, splits, base_stats, fold_w, draws: ForestDraws,
                      lane_rates, mis, mgs, *, n_trees: int, max_depth: int,
                      n_bins: int) -> TreeArrays:
     """Every (fold × grid-point × tree) tree of one forest shape group in
-    one level loop (≙ ``_forest_grid_fitter``, trees.py:890-925).  Lane
-    ``(k·Gg + j)·n_trees + t`` fits tree t of grid point j on fold k with
-    statistics base × (Poisson draw of tree t at point j's rate × fold
-    weight); ``lane_rates`` gives point j's rate (or None: no bootstrap)."""
+    level loops over lane batches (≙ ``_forest_grid_fitter``,
+    trees.py:890-925, whose ``lax.map`` batches bound memory the same way).
+    Lane ``(k·Gg + j)·n_trees + t`` fits tree t of grid point j on fold k
+    with statistics base × (Poisson draw of tree t at point j's rate × fold
+    weight); ``lane_rates`` gives point j's rate (or None: no bootstrap).
+    A batch's statistics and node subsets are made when it grows."""
     dev = B.device
     N, D = B.shape
+    Gg = len(lane_rates)
+    Kc = fold_w.shape[0] * Gg * n_trees
     boot = {r: b.to(dev) for r, b in draws.boot.items()}
-    bw = torch.stack([
-        fold_w[k].expand(n_trees, N) if r is None else boot[r] * fold_w[k]
-        for k in range(fold_w.shape[0]) for r in lane_rates])
-    Kc = bw.shape[0] * n_trees
-    stats = (base_stats[None] * bw.reshape(Kc, N)[:, :, None]).contiguous()
-    masks = None
-    if draws.subsets is not None:
-        tree_of_lane = torch.arange(Kc, device=dev) % n_trees
-        masks = [m.to(dev)[tree_of_lane].contiguous() for m in draws.subsets]
+    subsets = (None if draws.subsets is None
+               else [m.to(dev) for m in draws.subsets])
     fmask = torch.ones(D, dtype=torch.bool, device=dev)
-    return fit_trees(B, splits, stats, fmask, max_depth=max_depth,
-                     n_bins=n_bins, min_instances=mis, min_gain=mgs,
-                     impurity="gini", node_masks=masks)
+    per_lane = lane_bytes(N, D, base_stats.shape[1], n_bins, max_depth, dev)
+    parts = []
+    for sl in lane_batches(Kc, per_lane, dev):
+        w = torch.empty((sl.stop - sl.start, N), dtype=torch.float32,
+                        device=dev)
+        for grp in range(sl.start // n_trees, (sl.stop - 1) // n_trees + 1):
+            k, j = divmod(grp, Gg)
+            lo = max(sl.start, grp * n_trees)
+            hi = min(sl.stop, (grp + 1) * n_trees)
+            t0, t1 = lo - grp * n_trees, hi - grp * n_trees
+            r = lane_rates[j]
+            w[lo - sl.start:hi - sl.start] = (
+                fold_w[k] if r is None else boot[r][t0:t1] * fold_w[k])
+        stats = (base_stats[None] * w[:, :, None]).contiguous()
+        del w
+        masks = None
+        if subsets is not None:
+            tree_of_lane = torch.arange(sl.start, sl.stop, device=dev) % n_trees
+            masks = [m[tree_of_lane].contiguous() for m in subsets]
+        parts.append(fit_trees(B, splits, stats, fmask, max_depth=max_depth,
+                               n_bins=n_bins, min_instances=mis[sl],
+                               min_gain=mgs[sl], impurity="gini",
+                               node_masks=masks))
+        del stats, masks
+    return cat_trees(parts)
 
 
 # --------------------------------------------------------------------------

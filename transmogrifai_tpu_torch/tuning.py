@@ -51,6 +51,27 @@ def _grid_margins(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor):
     return X @ C.T + b[None, :]
 
 
+class Splitter:
+    """≙ tuning/Splitter.scala (tuning.py:64-89): an optional test holdout,
+    reserved before any CV.  The reference's per-class preparation hooks
+    come with the balancers that use them."""
+
+    def __init__(self, seed: int = 42, reserve_test_fraction: float = 0.0):
+        self.seed = int(seed)
+        self.reserve_test_fraction = float(reserve_test_fraction)
+
+    def split(self, batch: ColumnBatch) -> Tuple[ColumnBatch, ColumnBatch]:
+        """(train, holdout) rows by the JAX package's permutation draw."""
+        n = len(batch)
+        perm = np.random.default_rng(self.seed).permutation(n)
+        n_test = int(round(n * self.reserve_test_fraction))
+        return batch.take_rows(perm[n_test:]), batch.take_rows(perm[:n_test])
+
+
+class DataSplitter(Splitter):
+    """≙ DataSplitter: plain random split, no rebalancing."""
+
+
 @dataclass
 class ModelCandidate:
     """One estimator + its hyper-parameter grid."""
@@ -137,8 +158,9 @@ class OpValidator:
     def _linear_panel(self, fitted_grid, X, y, masks) -> np.ndarray:
         """(fold × grid) metrics of a linear family: one margin matmul and
         one masked metric panel (≙ ``_record_grid_metrics_batched``,
-        tuning.py:505).  AUC metrics are rank-invariant, so raw margins
-        stand in for the sigmoid scores."""
+        tuning.py:505-580).  AUC metrics are rank-invariant, so raw margins
+        stand in for the sigmoid scores of logistic lanes; an SVC scores on
+        its margin anyway."""
         F, G = len(fitted_grid), len(fitted_grid[0])
         C = torch.stack([fitted_grid[f][g]["coef"]
                          for f in range(F) for g in range(G)])
@@ -187,7 +209,7 @@ class OpValidator:
 
     def _panel(self, fitted_grid, X, y, masks) -> np.ndarray:
         kinds = {fit["kind"] for row in fitted_grid for fit in row}
-        if kinds == {"binary"}:
+        if kinds <= {"binary", "svc"}:
             return self._linear_panel(fitted_grid, X, y, masks)
         if kinds <= {"forest", "gbt"}:
             return self._tree_panel(fitted_grid, X, y, masks)
