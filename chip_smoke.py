@@ -6,8 +6,10 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. device and build — CUDA must be present; prints the card's name and power
-   limit and builds every kernel of ``transmogrifai_tpu_torch/csrc`` (one
-   ``nvcc`` per source, in parallel);
+   limit, builds every kernel of ``transmogrifai_tpu_torch/csrc`` (one
+   ``nvcc`` per source, in parallel) and, beside them, the three native
+   host helpers (``native/textprof.cpp``, ``fasttok.cpp``, ``mapprof.cpp``,
+   one ``g++`` each), and fails if any of them does not build or load;
 2. kernels — each kernel runs at the main paths' shapes (1,000,000 x 28)
    against its plain-PyTorch twin on the same inputs, with its time, the
    twin's time, its bound and (where one PyTorch call computes the same
@@ -35,11 +37,26 @@ Phases (any failure exits non-zero and prints no result line):
    train AuROC, peak device memory and every kernel's launches read around
    that run; then at 5,000 rows on the card (forest draws made on the host)
    and on the CPU twins, held to the JAX package's default-grid run at that
-   size.
+   size;
+5. transmogrification — the workload of ``bench.run_transmog`` at
+   1,000,000 rows (the port's copy of ``bench.make_transmog_columns``: 3
+   free texts, 2 PickLists, a RealMap, 4 Reals with nulls, built before the
+   clock starts): ``hash_counts`` on text1's token stream at 1M x 512
+   against its twin (equal); then RawFeatureFilter → transmogrify →
+   sanity_check → LR selector (``reg_param`` 0.01, 0.1) trained,
+   evaluated and scored on a fresh seed-7 batch, with its train wall,
+   phase seconds, checked width (1,596), Cramér's V, CV AuPR, train AuROC,
+   peak device memory, score rows/s and every kernel's launches read
+   around it; ``fista_step`` at the checked width (6 CV lanes, the refit's
+   1 lane, the power iteration's 3) on that run's own matrix against its
+   f64 twin; and the workflow at 20,000 rows on the card and the CPU twins,
+   held to the JAX package's numbers at that size.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` table (launches: the default
-grid's train), the one before that the card's name and power limit.
+grid's train for the dense rows, the transmog run for ``hash_counts`` and
+the wide ``fista_step`` row), the one before that the card's name and power
+limit.
 Imports nothing of JAX.
 """
 
@@ -50,6 +67,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -82,6 +100,25 @@ REF_CV_AUPR = {"OpLogisticRegression": 0.8241474231084188,
 REF_WINNER = "OpLogisticRegression"
 REF_RF_TOL = 0.0137                # 3 x 0.00458, the JAX package's spread
 DEEP = 12                          # the default grid's deepest trees
+PORT = "transmogrifai_tpu_torch"
+TRANSMOG_HASHES = 512              # SmartTextVectorizer's default width
+TRANSMOG_WIDTH = 1596              # the JAX package's checked width
+# The JAX package's transmogrification workflow at 20,000 rows
+# (bench.make_transmog_columns seed 1, CPU;
+# `PYTHONPATH=. JAX_PLATFORMS=cpu python scripts/transmog_reference.py
+# --package jax --rows 20000`): the port must give the same checked width,
+# dropped columns and winner, Cramér's V within 1e-5, each candidate's CV
+# AuPR and the train AuROC within 1e-4.
+TRANSMOG_REF_ROWS = 20_000
+TRANSMOG_REF = {
+    "width": 1596, "dropped": ["cat1_OTHER_20"],
+    "cramers_v": {"cat1": 0.2112401887961123, "cat2": 0.03364347564720542,
+                  "rmap(a)": None, "rmap(b)": None, "rmap(c)": None,
+                  "r0": None, "r1": None, "r2": None, "r3": None,
+                  "text1": None, "text2": None, "text3": None},
+    "cv_aupr": {"reg_param=0.01": 0.7792084813117981,
+                "reg_param=0.1": 0.7779407501220703},
+    "winner": "reg_param=0.01", "train_auroc": 0.8733430504798889}
 
 
 def make_data(n: int, d: int = N_FEATS, seed: int = 0):
@@ -573,78 +610,109 @@ def _check_split(tk, hist, tot, fmask, node_mask, splits, min_inst,
     return err
 
 
-def check_linear_kernel(device, n: int = N_ROWS, reps: int = 20):
-    """``fista_step`` against its twin at the default grid's linear shapes:
-    3 folds x 8 logistic lanes (LR), 3 folds x 4 squared-hinge lanes (SVC)
-    and the power iteration's 3 "gram" lanes, with random coefficients.
-    Each output is held to the twin run in f64 within 1e-5 of its absolute
-    mass (sum over rows of |x|·|g|: the kernel's tile and block sums add in
-    another order than cuBLAS), and two launches must agree bit for bit.
-    Returns the logistic row of the ``kernels`` line and the other shapes'
-    numbers."""
+def _fista_case(Xd, W, yd, mean, scale, loss: str, G: int, rng,
+                reps: int, chunk: int = 131_072) -> dict:
+    """``fista_step`` for F x G lanes (F = W's folds) with random
+    coefficients (margins of the dense case's size), against its twin run
+    in f64: each output within 1e-5 of
+    its absolute mass (sum over rows of |x|·|g|: the kernel's tile and block
+    sums add in another order than cuBLAS), and two launches bit for bit.
+    The f64 reference is summed over row chunks of ``chunk`` rows, so a
+    wide matrix needs no f64 copy of itself.  Returns the case's row."""
     import torch
 
     from transmogrifai_tpu_torch.models import linear_kernels as lk
+    from transmogrifai_tpu_torch.models.solvers import loss_target
+
+    device = Xd.device
+    n, D = Xd.shape
+    L = W.shape[0] * G
+    lanes = torch.arange(L, device=device) // G
+    # coefficients of sd 0.3 on the dense 28 columns, shrunk on a wider
+    # matrix so margins keep the same size (not a saturated sigmoid, whose
+    # f32 gradient carries no relative precision)
+    sd = 0.3 * min(1.0, (N_FEATS / D) ** 0.5)
+    coef = torch.as_tensor(rng.normal(scale=sd, size=(L, D)).astype(
+        np.float32), device=device)
+    V = (coef / scale[lanes]).contiguous()
+    b = (torch.zeros(L, device=device) if loss == "gram" else
+         torch.as_tensor(rng.normal(scale=0.2, size=L).astype(np.float32),
+                         device=device))
+    args = (Xd, V, (mean[lanes] * V).sum(dim=1), b, W,
+            None if loss == "gram" else loss_target(loss, yd),
+            W.sum(dim=1)[lanes], G, loss)
+    gx, gs = lk.fista_step(*args)
+    gx2, gs2 = lk.fista_step(*args)
+    if not (torch.equal(gx, gx2) and torch.equal(gs, gs2)):
+        raise AssertionError(f"fista_step ({loss}, D={D}): two launches "
+                             "differ")
+    want = torch.zeros((L, D), dtype=torch.float64, device=device)
+    mass = torch.zeros_like(want)
+    gsum = torch.zeros(L, dtype=torch.float64, device=device)
+    gabs = torch.zeros_like(gsum)
+    V64, muv64, b64, ws64 = (a.double() for a in (V, args[2], b, args[6]))
+    for r0 in range(0, n, chunk):
+        sl = slice(r0, min(n, r0 + chunk))
+        x64 = Xd[sl].double()
+        g64 = lk.fista_row_grads(
+            x64, V64, muv64, b64, W[:, sl].double(),
+            None if args[5] is None else args[5][sl].double(), ws64, G, loss)
+        want += g64 @ x64
+        mass += g64.abs() @ x64.abs()
+        gsum += g64.sum(dim=1)
+        gabs += g64.abs().sum(dim=1)
+    err = 0.0
+    for got, w, m in ((gx, want, mass), (gs, gsum, gabs)):
+        e = (got.double() - w).abs()
+        if bool((e > 1e-5 * m + 1e-12).any()):
+            raise AssertionError(f"fista_step ({loss}, D={D}, {L} lanes) "
+                                 "disagrees with its f64 twin")
+        err = max(err, float(e.max()))
+    g32 = lk.fista_row_grads(*args)
+    folds = len(set(lanes.tolist()))
+    bt, by = bound(4 * Xd.numel() + 4 * n * folds
+                   + (0 if loss == "gram" else 4 * n)
+                   + 4 * (2 * L * D + 4 * L), 4 * n * D * L + 8 * n * L)
+    return {"name": "fista_step", "lanes": L, "loss": loss, "features": D,
+            "form": lk.launch_plan(D, L)["form"], "max_abs_err": err,
+            "ms": time_ms(lambda: lk.fista_step(*args), reps),
+            "plain_ms": time_ms(lambda: lk.fista_step_twin(*args), reps),
+            "bound_ms": bt, "bound_by": by,
+            # the twin's cuBLAS pair of products: margins, then X^T g
+            "library_ms": time_ms(lambda: (V @ Xd.T, g32 @ Xd), reps)}
+
+
+def _fista_row(r: dict) -> dict:
+    """A ``_fista_case`` result as a row of the ``kernels`` line."""
     from transmogrifai_tpu_torch.models import kernels
-    from transmogrifai_tpu_torch.models.solvers import (loss_target,
-                                                        standardize_moments)
+    row = {k: v for k, v in r.items()
+           if k not in ("lanes", "loss", "features", "form")}
+    row.update(route="cuda",
+               source="transmogrifai_tpu_torch/csrc/fista_step.cu",
+               replaces=kernels.REPLACES["fista_step"])
+    return row
+
+
+def check_linear_kernel(device, n: int = N_ROWS, reps: int = 20):
+    """``fista_step`` against its twin at the default grid's linear shapes:
+    3 folds x 8 logistic lanes (LR), 3 folds x 4 squared-hinge lanes (SVC)
+    and the power iteration's 3 "gram" lanes, with random coefficients
+    (``_fista_case``).  Returns the logistic row of the ``kernels`` line and
+    the other shapes' numbers."""
+    import torch
+
+    from transmogrifai_tpu_torch.models.solvers import standardize_moments
 
     X, y = make_data(n)
     Xd = torch.as_tensor(X, device=device)
-    X64 = Xd.double()
     W = torch.as_tensor(_fold_weights(y), device=device)
     yd = torch.as_tensor(y, device=device)
     mean, scale = standardize_moments(Xd, W, center=True)
-    D = Xd.shape[1]
     rng = np.random.default_rng(5)
-    out, row = {}, None
-    for loss, G in (("logistic", 8), ("squared_hinge", 4), ("gram", 1)):
-        L = N_FOLDS * G
-        lanes = torch.arange(L, device=device) // G
-        coef = torch.as_tensor(rng.normal(scale=0.3, size=(L, D)).astype(
-            np.float32), device=device)
-        V = (coef / scale[lanes]).contiguous()
-        b = (torch.zeros(L, device=device) if loss == "gram" else
-             torch.as_tensor(rng.normal(scale=0.2, size=L).astype(np.float32),
-                             device=device))
-        args = (Xd, V, (mean[lanes] * V).sum(dim=1), b, W,
-                None if loss == "gram" else loss_target(loss, yd),
-                W.sum(dim=1)[lanes], G, loss)
-        gx, gs = lk.fista_step(*args)
-        gx2, gs2 = lk.fista_step(*args)
-        if not (torch.equal(gx, gx2) and torch.equal(gs, gs2)):
-            raise AssertionError(f"fista_step ({loss}): two launches differ")
-        a64 = tuple(a.double() if isinstance(a, torch.Tensor) else a
-                    for a in args)
-        g64 = lk.fista_row_grads(*a64)
-        err = 0.0
-        for got, want, mass in ((gx, g64 @ X64, g64.abs() @ X64.abs()),
-                                (gs, g64.sum(dim=1), g64.abs().sum(dim=1))):
-            e = (got.double() - want).abs()
-            if bool((e > 1e-5 * mass + 1e-12).any()):
-                raise AssertionError(f"fista_step ({loss}) disagrees with "
-                                     "its f64 twin")
-            err = max(err, float(e.max()))
-        g32 = lk.fista_row_grads(*args)
-        folds = len(set((torch.arange(L) // G).tolist()))
-        bt, by = bound(4 * Xd.numel() + 4 * n * folds
-                       + (0 if loss == "gram" else 4 * n)
-                       + 4 * (2 * L * D + 4 * L), 4 * n * D * L + 8 * n * L)
-        r = {"name": "fista_step", "lanes": L, "loss": loss,
-             "max_abs_err": err,
-             "ms": time_ms(lambda: lk.fista_step(*args), reps),
-             "plain_ms": time_ms(lambda: lk.fista_step_twin(*args), reps),
-             "bound_ms": bt, "bound_by": by,
-             # the twin's cuBLAS pair of products: margins, then X^T g
-             "library_ms": time_ms(lambda: (V @ Xd.T, g32 @ Xd), reps)}
-        out[loss] = r
-        if loss == "logistic":
-            row = dict(r)
-    row.update(route="cuda", source="transmogrifai_tpu_torch/csrc/fista_step.cu",
-               replaces=kernels.REPLACES["fista_step"])
-    for k in ("lanes", "loss"):
-        row.pop(k)
-    return row, out
+    out = {loss: _fista_case(Xd, W, yd, mean, scale, loss, G, rng, reps)
+           for loss, G in (("logistic", 8), ("squared_hinge", 4),
+                           ("gram", 1))}
+    return _fista_row(out["logistic"]), out
 
 
 def check_deep_kernels(device, n: int = N_ROWS, reps: int = 5):
@@ -1080,6 +1148,168 @@ def check_reference_runs() -> dict:
             for name, r in runs.items()}
 
 
+# --------------------------------------------------------------------------
+# phase 5: the transmogrification path
+# --------------------------------------------------------------------------
+
+def _transmog_ref():
+    """``scripts/transmog_reference.py``: the workload's workflow and the
+    numbers it is held to, shared with the tests and the JAX-side run."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import transmog_reference
+    return transmog_reference
+
+
+def check_text_kernel(col, device="cuda", reps: int = 20) -> dict:
+    """``hash_counts`` on a text column's real token stream at
+    ``num_hashes`` = 512 (the packed wire, the null column, the [N, 513]
+    block SmartTextVectorizer writes), equal to its twin run on the card;
+    with the ``index_put_(accumulate=True)`` library time on the unpacked
+    ids.  ``col`` is profiled here, on its own Column instance."""
+    import torch
+
+    from transmogrifai_tpu_torch.columns import Column
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.ops import text_kernels as tk
+    from transmogrifai_tpu_torch.ops.text_profile import column_profile
+
+    H = TRANSMOG_HASHES
+    prof = column_profile(Column(col.kind, col.values))
+    ids, off = prof.device_ids(H, torch.device(device))
+    null = torch.as_tensor(prof.null, device=device).to(torch.uint8)
+    n = off.shape[0] - 1
+    out = torch.empty((n, H + 1), device=device)
+    twin = torch.empty_like(out)
+    tk.hash_counts(ids, off, null, H, out=out)
+    tk.hash_counts_twin(ids, off, null, H, twin)
+    if not torch.equal(out, twin):
+        raise AssertionError("hash_counts disagrees with its twin")
+    tokens = int(off[-1])
+    if float(out[:, :H].sum()) != float(tokens):
+        raise AssertionError("hash_counts lost or invented tokens")
+    flat = tk.unpack_ids3(ids)[:tokens]
+    rows = torch.repeat_interleave(torch.arange(n, device=device),
+                                   off[1:] - off[:-1])
+    lib = torch.zeros((n, H), device=device)
+    one = torch.ones((), device=device)
+    bt, by = bound(4 * out.numel() + 4 * ids.numel() + 8 * off.numel()
+                   + null.numel(), tokens)
+    return {"name": "hash_counts", "route": "cuda",
+            "source": "transmogrifai_tpu_torch/csrc/hash_counts.cu",
+            "replaces": kernels.REPLACES["hash_counts"], "max_abs_err": 0.0,
+            "ms": time_ms(lambda: tk.hash_counts(ids, off, null, H, out=out),
+                          reps),
+            "plain_ms": time_ms(lambda: tk.hash_counts_twin(
+                ids, off, null, H, twin), 5),
+            "bound_ms": bt, "bound_by": by,
+            "library_ms": time_ms(lambda: lib.index_put_(
+                (rows, flat), one, accumulate=True), 5),
+            "rows": n, "tokens": tokens}
+
+
+def check_wide_fista(model, batch, device="cuda", reps: int = 5):
+    """``fista_step`` at the transmogrified width on the main path's own
+    checked matrix (the fitted DAG up to the selector, applied to the train
+    batch): 3 folds x 2 logistic lanes (the CV block), the refit's one lane
+    and the power iteration's 3 "gram" lanes (``_fista_case``).  Returns the
+    CV shape's row and every shape's numbers."""
+    import torch
+
+    from transmogrifai_tpu_torch.dag import apply_dag
+    from transmogrifai_tpu_torch.models.solvers import standardize_moments
+
+    sel = model.selected_model
+    label_f, vec_f = sel.input_features
+    scored = apply_dag(batch.on(device), model.fitted_dag[:-1])
+    Xd = scored[vec_f.name].values.contiguous()
+    del scored
+    y = np.asarray(batch[label_f.name].values, np.float32)
+    yd = torch.as_tensor(y, device=device)
+    W = torch.as_tensor(_fold_weights(y), device=device)
+    rng = np.random.default_rng(6)
+    out = {}
+    for name, Wc, loss, G in (("cv_logistic", W, "logistic", 2),
+                              ("refit_logistic", torch.ones_like(W[:1]),
+                               "logistic", 1),
+                              ("gram", W, "gram", 1)):
+        mean, scale = standardize_moments(Xd, Wc, center=True)
+        out[name] = _fista_case(Xd, Wc, yd, mean, scale, loss, G, rng, reps)
+        del mean, scale
+        torch.cuda.empty_cache()
+    return _fista_row(out["cv_logistic"]), out
+
+
+def run_transmog(device, cols, schema, n: int, score_cols=None) -> tuple:
+    """The transmogrification workflow (``bench.run_transmog``): train,
+    evaluate (AuROC) and, given ``score_cols``, score that fresh batch with
+    its predictions materialised.  Returns (facts, model, batch)."""
+    import torch
+
+    tr = _transmog_ref()
+    wf, batch, pred = tr.build(PORT, cols, schema, n, device=device)
+    t0 = time.perf_counter()
+    model = wf.train()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    facts = {"train_wall_s": time.perf_counter() - t0,
+             **tr.facts(PORT, model, batch),
+             "phase_seconds": model.phase_seconds,
+             "rff_dropped": [f.name for f in model.blacklisted]}
+    if score_cols is not None:
+        from transmogrifai_tpu_torch.columns import ColumnBatch
+        fresh = ColumnBatch(score_cols, n)
+        t0 = time.perf_counter()
+        p = model.score(fresh)[pred.name].values["probability"]
+        float(p[:8].sum())                   # materialised on the host
+        wall = time.perf_counter() - t0
+        if tuple(p.shape) != (n, 2) or not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"transmog scores: shape {tuple(p.shape)} "
+                                 "or non-finite")
+        facts.update(score_wall_s=wall, score_rows_per_s=n / wall)
+        del p
+    return facts, model, batch
+
+
+def check_transmog_reference() -> dict:
+    """The workflow at TRANSMOG_REF_ROWS rows on the card and on the CPU
+    twins, each held to the JAX package's run at that size (constants
+    above): the same checked width, dropped columns and winner, Cramér's V
+    per group within 1e-5, each candidate's CV AuPR and the train AuROC
+    within 1e-4."""
+    from transmogrifai_tpu_torch.synthetic import make_transmog_columns
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        cols, schema = make_transmog_columns(TRANSMOG_REF_ROWS)
+        runs[device], _, _ = run_transmog(device, cols, schema,
+                                          TRANSMOG_REF_ROWS)
+    ref = TRANSMOG_REF
+    for device, r in runs.items():
+        bad = []
+        if r["width"] != ref["width"] or r["dropped"] != ref["dropped"]:
+            bad.append(f"width {r['width']} / dropped {r['dropped']}")
+        if r["winner"] != ref["winner"]:
+            bad.append(f"winner {r['winner']}")
+        if r["cramers_v"].keys() != ref["cramers_v"].keys():
+            bad.append(f"Cramér's V groups {sorted(r['cramers_v'])}")
+        for g, v in ref["cramers_v"].items():
+            got = r["cramers_v"].get(g)
+            if (got is None) != (v is None) or (
+                    v is not None and abs(got - v) > 1e-5):
+                bad.append(f"Cramér's V of {g}: {got}")
+        for c, v in ref["cv_aupr"].items():
+            if abs(r["cv_aupr"][c] - v) > 1e-4:
+                bad.append(f"CV AuPR of {c}: {r['cv_aupr'][c]}")
+        if abs(r["train_auroc"] - ref["train_auroc"]) > 1e-4:
+            bad.append(f"train AuROC {r['train_auroc']}")
+        if bad:
+            raise AssertionError(f"transmog reference run on {device} "
+                                 f"differs from the JAX package's: {bad}")
+    return {d: {k: r[k] for k in ("width", "cv_aupr", "winner",
+                                  "train_auroc", "train_wall_s")}
+            for d, r in runs.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1095,9 +1325,18 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    from transmogrifai_tpu_torch import native
     t0 = time.perf_counter()
-    cuda_build.build_all(verbose=True)
-    print(f"build_s: {time.perf_counter() - t0:.3f}", flush=True)
+    # the host helpers (g++) build while nvcc builds the kernels
+    with ThreadPoolExecutor(1) as pool:
+        helpers = pool.submit(native.build_all)
+        cuda_build.build_all(verbose=True)
+        helpers.result()
+    for name in native.NATIVE_SOURCES:
+        native.load(name)
+    print(f"build_s: {time.perf_counter() - t0:.3f} (kernels "
+          f"{list(cuda_build.KERNEL_SOURCES)}, native helpers "
+          f"{list(native.NATIVE_SOURCES)})", flush=True)
 
     # phase 2: kernels vs twins
     rows = check_kernels("cuda")
@@ -1126,9 +1365,9 @@ def main() -> int:
     print(f"main path {N_ROWS}x{N_FEATS}: " + json.dumps(facts), flush=True)
     print("kernel launches: " + json.dumps(launches), flush=True)
     # the bench set's trees are at most depth 6: no level needs the
-    # one-pass deep histogram
+    # one-pass deep histogram; the dense path hashes no text
     missing = [k for k, v in launches.items()
-               if v <= 0 and k != "tree_hist_deep"]
+               if v <= 0 and k not in ("tree_hist_deep", "hash_counts")]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if facts["train_auroc"] <= 0.7:
@@ -1150,7 +1389,8 @@ def main() -> int:
     print(f"default grid {N_ROWS}x{N_FEATS}: " + json.dumps(grid_facts),
           flush=True)
     print("default grid kernel launches: " + json.dumps(launches), flush=True)
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items()
+               if v <= 0 and k != "hash_counts"]
     if missing:
         raise AssertionError(f"kernels never launched on the default grid: "
                              f"{missing}")
@@ -1163,6 +1403,47 @@ def main() -> int:
 
     for r in rows:
         r["launches"] = launches[r["name"]]
+    torch.cuda.empty_cache()
+
+    # phase 5: the transmogrification path at 1M rows; the batches are made
+    # before the clock starts, hash_counts is checked on a copy of text1
+    from transmogrifai_tpu_torch.synthetic import make_transmog_columns
+    cols, schema = make_transmog_columns(N_ROWS)
+    score_cols, _ = make_transmog_columns(N_ROWS, seed=7)
+    text_row = check_text_kernel(cols["text1"])
+    print("kernel hash_counts: " + json.dumps(text_row), flush=True)
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    tm_facts, tm_model, tm_batch = run_transmog("cuda", cols, schema, N_ROWS,
+                                                score_cols)
+    tm_launches = kernels.launch_counts()
+    tm_facts["peak_device_memory_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    print(f"transmog {N_ROWS} rows: " + json.dumps(tm_facts), flush=True)
+    print("transmog kernel launches: " + json.dumps(tm_launches), flush=True)
+    if tm_facts["width"] != TRANSMOG_WIDTH:
+        raise AssertionError(f"transmog checked width {tm_facts['width']}, "
+                             f"expected {TRANSMOG_WIDTH}")
+    missing = [k for k in ("hash_counts", "fista_step")
+               if tm_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the transmog path: "
+                             f"{missing}")
+    if tm_facts["train_auroc"] <= 0.7:
+        raise AssertionError(f"transmog train AuROC "
+                             f"{tm_facts['train_auroc']} <= 0.7")
+    del score_cols
+    torch.cuda.empty_cache()
+    wide_row, wide_facts = check_wide_fista(tm_model, tm_batch)
+    print("fista_step transmog shapes: " + json.dumps(wide_facts), flush=True)
+    del tm_model, tm_batch, cols
+    torch.cuda.empty_cache()
+    print(f"transmog reference runs ({TRANSMOG_REF_ROWS} rows): "
+          + json.dumps(check_transmog_reference()), flush=True)
+    text_row["launches"] = tm_launches["hash_counts"]
+    wide_row["launches"] = tm_launches["fista_step"]
+    rows += [text_row, wide_row]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card, flush=True)

@@ -17,7 +17,7 @@ with the draws made on the host equals the CPU twins' forest in structure,
 leaves at rtol 1e-6; ``fista_step`` within 1e-5 of each output's absolute
 mass of the twin run in f64 (tile and block sums in another order than
 cuBLAS), and the same bits on two launches; the one-pass deep histogram
-like ``tree_hist``.
+like ``tree_hist``; ``hash_counts`` equal to its twin (integer counts).
 """
 
 import numpy as np
@@ -298,24 +298,33 @@ def test_small_main_path_on_the_card_matches_the_twins(cuda):
     from transmogrifai_tpu_torch.models import kernels
     kernels.reset_launch_counts()
     gpu = _small_main_path("cuda", 5000)
-    # depth-4 and depth-3 trees never need the one-pass deep histogram
+    # depth-4 and depth-3 trees never need the one-pass deep histogram;
+    # the dense path hashes no text
     assert all(v > 0 for k, v in kernels.launch_counts().items()
-               if k != "tree_hist_deep")
+               if k not in ("tree_hist_deep", "hash_counts"))
     cpu = _small_main_path("cpu", 5000)
     assert gpu[0] == cpu[0]
     np.testing.assert_allclose(gpu[1], cpu[1], rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize("loss,G,D", [("logistic", 8, 28),
-                                      ("squared_hinge", 4, 28),
-                                      ("gram", 1, 28),
-                                      # too wide for one tile of 24 lanes:
-                                      # the wrapper launches lane chunks
-                                      ("logistic", 8, 1200)])
-def test_fista_step_matches_twin_and_repeats_bit_for_bit(cuda, loss, G, D):
+@pytest.mark.parametrize("loss,G,D,F", [("logistic", 8, 28, 3),
+                                        ("squared_hinge", 4, 28, 3),
+                                        ("gram", 1, 28, 3),
+                                        # too wide for one tile of 24 lanes:
+                                        # the wide two-pass form
+                                        ("logistic", 8, 1200, 3),
+                                        # the transmogrified width: 24 CV
+                                        # lanes, the refit's one lane, the
+                                        # power iteration, and 48 lanes in
+                                        # two launches of the wide form
+                                        ("logistic", 8, 1597, 3),
+                                        ("logistic", 1, 1597, 1),
+                                        ("gram", 1, 1597, 3),
+                                        ("squared_hinge", 16, 1597, 3)])
+def test_fista_step_matches_twin_and_repeats_bit_for_bit(cuda, loss, G, D, F):
     from transmogrifai_tpu_torch.models import linear_kernels as lk
     rng = np.random.default_rng(2)
-    N, F = 70_001, 3
+    N = 70_001
     L = F * G
     X = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32),
                         device=cuda)
@@ -373,3 +382,84 @@ def test_tree_hist_deep_level_matches_twin(cuda, masked):
     assert bool(((h.double() - ht).abs() <= 1e-5 + 1e-5 * mass).all())
     if masked:
         assert bool((h[~mask] == 0).all())
+
+
+def _hash_stream(rng, n, H, p_null=0.2, max_tok=12):
+    """Per-row token counts (0 on null rows) and bucket ids < H."""
+    null = rng.random(n) < p_null
+    lens = np.where(null, 0, rng.integers(0, max_tok, size=n)).astype(np.int64)
+    flat = rng.integers(0, H, size=int(lens.sum())).astype(np.int32)
+    return null, lens, flat
+
+
+@pytest.mark.parametrize("H,packed", [(512, True), (1023, True),
+                                      (2048, False)])
+def test_hash_counts_matches_twin_with_offset_and_sentinels(cuda, H, packed):
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.ops.text import pack_ids3
+    from transmogrifai_tpu_torch.ops.text_kernels import (hash_counts,
+                                                          hash_counts_twin)
+    rng = np.random.default_rng(7)
+    n = 100_003
+    null, lens, flat = _hash_stream(rng, n, H)
+    flat[::97] = H          # sentinel ids inside rows are dropped too
+    if packed:
+        # the packed wire padded past the last row with sentinel words, as
+        # the JAX package pads it to a size class
+        w = pack_ids3(flat, H)
+        ids = np.concatenate([w, np.full(5, H | (H << 10) | (H << 20),
+                                         np.int32)])
+    else:
+        ids = np.concatenate([flat, np.full(7, H, np.int32)])
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    ids_d = torch.as_tensor(ids, device=cuda)
+    off_d = torch.as_tensor(off, device=cuda)
+    null_d = torch.as_tensor(null, device=cuda)
+    # written at column 5 of a wider matrix whose other columns must stay
+    out = torch.full((n, H + 9), -1.0, device=cuda)
+    kernels.reset_launch_counts()
+    hash_counts(ids_d, off_d, null_d, H, out=out, col0=5, packed=packed)
+    assert kernels.launch_counts()["hash_counts"] == 1
+    want = torch.full((n, H + 9), -1.0)
+    hash_counts_twin(torch.as_tensor(ids), torch.as_tensor(off),
+                     torch.as_tensor(null), H, want, 5, packed)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want)
+    assert float(want[:, 5:5 + H].sum()) == float((flat < H).sum())
+    # no null column: the block alone
+    alone = hash_counts(ids_d, off_d, None, H, packed=packed)
+    assert torch.equal(alone.cpu(), want[:, 5:5 + H])
+
+
+def test_transmog_path_on_the_card_matches_the_twins(cuda):
+    """The transmog workflow at 3,000 rows on the card and on the CPU
+    twins: the same width, dropped set, Cramér's V and winner, CV AuPR and
+    train AuROC within 1e-4, with ``hash_counts`` and ``fista_step``
+    launched on the card."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import transmog_reference as tr
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.synthetic import make_transmog_columns
+    facts = {}
+    for device in ("cuda", "cpu"):
+        cols, schema = make_transmog_columns(3000)
+        kernels.reset_launch_counts()
+        wf, batch, _ = tr.build(tr.PACKAGES["torch"], cols, schema, 3000,
+                                device=device)
+        facts[device] = tr.facts(tr.PACKAGES["torch"], wf.train(), batch)
+        if device == "cuda":
+            launched = kernels.launch_counts()
+            assert launched["hash_counts"] > 0 and launched["fista_step"] > 0
+    a, b = facts["cuda"], facts["cpu"]
+    for k in ("width", "dropped", "winner"):
+        assert a[k] == b[k], k
+    for g, v in b["cramers_v"].items():
+        assert (a["cramers_v"][g] is None) == (v is None)
+        if v is not None:
+            assert abs(a["cramers_v"][g] - v) <= 1e-5
+    for c, v in b["cv_aupr"].items():
+        assert abs(a["cv_aupr"][c] - v) <= 1e-4
+    assert abs(a["train_auroc"] - b["train_auroc"]) <= 1e-4

@@ -40,6 +40,34 @@ def test_import_leaves_jax_and_the_jax_package_out():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_native_helpers_and_the_transmog_path_leave_jax_out():
+    """Building and loading the port's native helpers, profiling text and
+    maps and hashing on the CPU load no JAX."""
+    code = ("import json, sys\n"
+            "import numpy as np, torch\n"
+            "from transmogrifai_tpu_torch import native\n"
+            "for n in native.NATIVE_SOURCES: native.load(n)\n"
+            "from transmogrifai_tpu_torch.synthetic import "
+            "make_transmog_columns\n"
+            "from transmogrifai_tpu_torch.ops.text_profile import "
+            "column_profile\n"
+            "from transmogrifai_tpu_torch.ops.map_profile import "
+            "map_expansion\n"
+            "from transmogrifai_tpu_torch.ops.text_kernels import "
+            "hash_counts\n"
+            "cols, _ = make_transmog_columns(50)\n"
+            "p = column_profile(cols['text1'])\n"
+            "hash_counts(*p.device_ids(512, torch.device('cpu')), None, 512)\n"
+            "map_expansion(cols['rmap'])\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
+            "or m == 'transmogrifai_tpu' or m.startswith('transmogrifai_tpu.'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize("path", [os.path.join(ROOT, "chip_smoke.py")] + sorted(
     os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
     if f.endswith(".py")))

@@ -207,3 +207,23 @@ def test_jax_svc_converted_scores_like_jax(data):
         convert._model_fitted("LinearPredictionModel",
                               {**exported, "kind": "multinomial"},
                               torch.device("cpu"))
+
+
+@pytest.mark.parametrize("D", [28, 1200, 1597, 4096, 16384])
+def test_fista_step_launch_plan_fits_every_width(D):
+    """Every width the linear family meets, up to the JAX package's 16,384
+    hashed columns, has a launch plan for 1 to 24 lanes whose shared memory
+    fits one block and whose tiles meet the kernel's own checks
+    (``fista_step_launch`` refuses anything else)."""
+    for L in range(1, 25):
+        plan = lk.launch_plan(D, L)
+        assert max(plan["smem"]) <= 227 * 1024, (D, L, plan)
+        if plan["form"] == "tile":
+            assert plan["lanes"] == L and plan["TR"] % 32 == 0
+            continue
+        lanes_p = -(-plan["lanes"] // 4) * 4
+        assert 1 <= plan["lanes"] <= lk.WIDE_LANES
+        assert plan["TR"] % 32 == 0 and plan["TR"] * lanes_p // 4 <= 512
+        assert lk._DC_XTG * lanes_p // 4 <= 4 * 256
+    # the dense path keeps the one-tile form at every lane count
+    assert all(lk.launch_plan(28, L)["form"] == "tile" for L in range(1, 97))

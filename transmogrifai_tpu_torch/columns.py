@@ -13,13 +13,14 @@ transfer cache: values cross to the device once, as exact f32.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Type
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Type
 
 import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
-from .types import FeatureType, Prediction
+from .types import (Binary, Date, DateTime, FeatureType, Integral, OPVector,
+                    Prediction, is_numeric_kind, is_text_kind)
 from .vector_meta import VectorMeta
 
 
@@ -45,6 +46,8 @@ class Column:
 
     * numeric kinds — ``values``: numpy [N] or tensor [N]; ``mask``: bool [N]
       (True = present), None for non-nullable kinds.
+    * text kinds    — ``values``: numpy object array [N] of str | None (host).
+    * maps, lists   — ``values``: numpy object array [N] of dict / list (host).
     * OPVector      — ``values``: f32 tensor [N, D]; ``meta``: VectorMeta.
     * Prediction    — ``values``: dict with 'prediction' [N] and optionally
       'probability' / 'rawPrediction' [N, 2] tensors.
@@ -59,6 +62,12 @@ class Column:
         if isinstance(self.values, dict):
             return len(self.values["prediction"])
         return len(self.values)
+
+    def is_host_object(self) -> bool:
+        """True for host-side object columns (text, maps, lists): strings and
+        dicts never reach the device; a fitted vectorizer lowers them."""
+        return (isinstance(self.values, np.ndarray)
+                and self.values.dtype == object)
 
 
 class ColumnBatch:
@@ -86,6 +95,9 @@ class ColumnBatch:
 
     def __getitem__(self, name: str) -> Column:
         return self._cols[name]
+
+    def get(self, name: str) -> Optional[Column]:
+        return self._cols.get(name)
 
     def names(self) -> List[str]:
         return list(self._cols)
@@ -144,3 +156,52 @@ def prediction_column(prediction, probability=None,
     if raw_prediction is not None:
         values["rawPrediction"] = raw_prediction
     return Column(Prediction, values)
+
+
+def numeric_column(kind: Type[FeatureType], values: Iterable) -> Column:
+    """A numeric column from Python values with Nones (≙ ``numeric_column``,
+    ``transmogrifai_tpu/columns.py:271``): f32 values (NaN where empty) and a
+    presence mask; integral and date kinds store int64, binary bool."""
+    vals = list(values)
+    mask = np.array([v is not None for v in vals], dtype=bool)
+    if issubclass(kind, (Date, DateTime, Integral)):
+        cast, zero, dtype = int, 0, np.int64
+    elif issubclass(kind, Binary):
+        cast, zero, dtype = bool, False, bool
+    else:
+        cast, zero, dtype = float, np.nan, np.float32
+    arr = np.array([zero if v is None else cast(v) for v in vals], dtype=dtype)
+    if kind.non_nullable and not mask.all():
+        raise ValueError(f"{kind.__name__} column has {int((~mask).sum())} "
+                         "empty values")
+    return Column(kind, arr, mask=None if kind.non_nullable else mask)
+
+
+def text_column(kind: Type[FeatureType], values: Iterable) -> Column:
+    """Object column of str | None; the empty string is null."""
+    return Column(kind, np.array([None if v is None or v == "" else str(v)
+                                  for v in values], dtype=object))
+
+
+def object_column(kind: Type[FeatureType], values: Iterable) -> Column:
+    """Object column of the values as given (maps, lists)."""
+    return Column(kind, np.array(list(values) + [None], dtype=object)[:-1])
+
+
+def column_from_values(kind: Type[FeatureType], values: Iterable) -> Column:
+    """A column of ``kind`` from Python values (≙ ``column_from_values``,
+    ``transmogrifai_tpu/columns.py:327``)."""
+    if is_numeric_kind(kind):
+        return numeric_column(kind, values)
+    if is_text_kind(kind):
+        return text_column(kind, values)
+    if issubclass(kind, OPVector):
+        rows = [None if v is None else np.asarray(v, dtype=np.float32)
+                for v in values]
+        dim = next((len(r) for r in rows if r is not None and len(r)), 0)
+        arr = np.zeros((len(rows), dim), dtype=np.float32)
+        for i, r in enumerate(rows):
+            if r is not None and len(r):
+                arr[i] = r
+        return Column(OPVector, arr)
+    return object_column(kind, values)

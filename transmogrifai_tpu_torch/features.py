@@ -12,7 +12,7 @@ from __future__ import annotations
 import itertools
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
-from .types import FEATURE_TYPES, FeatureType
+from .types import FEATURE_TYPES, FeatureType, RealNN
 
 _uid_counters: Dict[str, itertools.count] = {}
 
@@ -122,3 +122,19 @@ def _install_typed_constructors():
 
 
 _install_typed_constructors()
+
+
+def features_from_schema(schema: Dict[str, Type[FeatureType]], response: str,
+                         response_kind: Type[FeatureType] = RealNN
+                         ) -> Tuple[Feature, List[Feature]]:
+    """(response, predictors) from a name → kind schema, predictors in the
+    schema's order (≙ ``features_from_schema``, features.py:389;
+    FeatureBuilder.fromDataFrame)."""
+    if response not in schema:
+        raise ValueError(
+            f"response feature {response!r} is not present in the schema; "
+            f"available: {sorted(schema)}")
+    resp = FeatureBuilder(response, response_kind).as_response()
+    predictors = [FeatureBuilder(name, kind).as_predictor()
+                  for name, kind in schema.items() if name != response]
+    return resp, predictors

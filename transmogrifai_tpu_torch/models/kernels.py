@@ -1,5 +1,5 @@
 """Launch bookkeeping shared by the port's kernel wrappers
-(``tree_kernels.py``, ``linear_kernels.py``).
+(``tree_kernels.py``, ``linear_kernels.py``, ``ops/text_kernels.py``).
 
 Each wrapper takes tensors and dispatches on their device: on a CPU tensor it
 runs the plain-PyTorch twin beside it; on a CUDA tensor it launches the
@@ -27,6 +27,7 @@ REPLACES = {
     "tree_route": "transmogrifai_tpu/models/trees.py:373",
     "tree_walk": "transmogrifai_tpu/models/trees.py:668",
     "fista_step": "transmogrifai_tpu/models/solvers.py:160",
+    "hash_counts": "transmogrifai_tpu/ops/text.py:148",
 }
 
 

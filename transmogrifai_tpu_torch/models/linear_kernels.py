@@ -19,9 +19,12 @@ from .kernels import check as _check, launch, stream as _stream
 LOSSES = {"logistic": 0, "squared_hinge": 1, "gram": 2}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 9 + [_L] + [_I] * 7 + [_P]
+_ARGTYPES = [_P] * 10 + [_L] + [_I] * 13 + [_P]
 _SMEM_MAX = 227 * 1024
 _N_BLOCKS = 132 * 4
+WIDE_LANES = 32          # lanes per launch of the wide form
+_DC_MARGIN = 64          # features per chunk, margin pass
+_TR_XTG, _DC_XTG = 64, 128   # rows per tile and features per chunk, X^T g
 
 
 def fista_row_grads(X, V, muv, b, W, y, wsum, G: int, loss: str):
@@ -46,15 +49,37 @@ def fista_step_twin(X, V, muv, b, W, y, wsum, G: int, loss: str):
     return g @ X, g.sum(dim=1)
 
 
+def _tile_smem(D: int, L: int, tr: int) -> int:
+    Lp = -(-L // 4) * 4
+    return 4 * (tr * (D | 1) + tr * Lp + D * Lp + (D + 1) * Lp + 3 * Lp)
+
+
 def _tile_rows(D: int, L: int) -> Optional[int]:
     """Rows per tile (a multiple of 32, at most 128) whose shared memory
-    fits one block; None when not even 32 rows fit."""
-    Lp = -(-L // 4) * 4
-    fixed = D * Lp + (D + 1) * Lp + 3 * Lp
+    fits one block of the one-tile form; None when not even 32 rows fit."""
     for tr in (128, 64, 32):
-        if 4 * (tr * (D | 1) + tr * Lp + fixed) <= _SMEM_MAX:
+        if _tile_smem(D, L, tr) <= _SMEM_MAX:
             return tr
     return None
+
+
+def launch_plan(D: int, L: int) -> dict:
+    """How ``fista_step`` launches for D features and L lanes: the one-tile
+    form (X's row tile and every lane's coefficients in one block's shared
+    memory) where it fits, else the wide two-pass form, 32 lanes at a time.
+    Each form's shared memory in bytes is here, the one place that sizes
+    it; the launch passes it on."""
+    tr = _tile_rows(D, L)
+    if tr is not None:
+        return {"form": "tile", "lanes": L, "TR": tr,
+                "smem": (_tile_smem(D, L, tr),)}
+    lc = min(L, WIDE_LANES)
+    Lp = -(-lc // 4) * 4
+    lg = Lp // 4
+    trm = min(256, 512 // lg) // 32 * 32     # TR * lanes/4 <= 2 per thread
+    return {"form": "wide", "lanes": lc, "TR": trm,
+            "smem": (4 * (trm * (_DC_MARGIN + 1) + _DC_MARGIN * Lp),
+                     4 * (_TR_XTG * (_DC_XTG + 1) + _TR_XTG * Lp))}
 
 
 def fista_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
@@ -92,27 +117,37 @@ def fista_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
         return fista_step_twin(X, V, muv, b, W, y, wsum, G, loss)
     if dev.type != "cuda":
         raise ValueError(f"fista_step: unsupported device {dev}")
-    # lanes per launch: all of them unless a wide matrix needs smaller tiles
-    Lc = L
-    while _tile_rows(D, Lc) is None and Lc > 4:
-        Lc = max(4, Lc // 2)
-    TR = _tile_rows(D, Lc)
-    if TR is None:
-        raise ValueError(f"fista_step: {D} features do not fit the kernel's "
-                         "shared-memory tile")
-    nb = max(1, min(_N_BLOCKS, -(-N // TR)))
+    plan = launch_plan(D, L)
+    lc, tr = plan["lanes"], plan["TR"]
     out = torch.empty((D + 1, L), dtype=torch.float32, device=dev)
-    partial = torch.empty(((D + 1) * Lc, nb), dtype=torch.float32,
-                          device=dev)
     yp = (X if y is None else y).data_ptr()
-    for l0 in range(0, L, Lc):
-        lc = min(Lc, L - l0)
-        o = out if lc == L else torch.empty((D + 1, lc), dtype=torch.float32,
-                                            device=dev)
+    if plan["form"] == "tile":
+        nb = max(1, min(_N_BLOCKS, -(-N // tr)))
+        partial = torch.empty(((D + 1) * L, nb), dtype=torch.float32,
+                              device=dev)
+        launch("fista_step", _ARGTYPES, X.data_ptr(), V.data_ptr(),
+               muv.data_ptr(), b.data_ptr(), W.data_ptr(), yp,
+               wsum.data_ptr(), None, partial.data_ptr(), out.data_ptr(), N,
+               D, L, 0, G, LOSSES[loss], 0, tr, nb, 0, 0, 0, plan["smem"][0],
+               0, _stream(X))
+        return out[:D].T.contiguous(), out[D]
+    # wide: row-tile blocks of the X^T g pass share the card with its
+    # feature chunks; g [N, lanes] round-trips through device memory
+    chunks = -(-D // _DC_XTG) + 1           # + the ones column's blocks
+    nb = max(1, min(-(-N // _TR_XTG), -(-_N_BLOCKS * 2 // chunks)))
+    Lp = -(-lc // 4) * 4
+    gbuf = torch.empty((N, Lp), dtype=torch.float32, device=dev)
+    partial = torch.empty(((D + 1) * lc, nb), dtype=torch.float32,
+                          device=dev)
+    for l0 in range(0, L, lc):
+        n_l = min(lc, L - l0)
+        o = out if n_l == L else torch.empty((D + 1, n_l),
+                                             dtype=torch.float32, device=dev)
         launch("fista_step", _ARGTYPES, X.data_ptr(), V[l0:].data_ptr(),
                muv[l0:].data_ptr(), b[l0:].data_ptr(), W.data_ptr(), yp,
-               wsum[l0:].data_ptr(), partial.data_ptr(), o.data_ptr(), N, D,
-               lc, l0, G, LOSSES[loss], TR, nb, _stream(X))
-        if lc != L:
-            out[:, l0:l0 + lc] = o
+               wsum[l0:].data_ptr(), gbuf.data_ptr(), partial.data_ptr(),
+               o.data_ptr(), N, D, n_l, l0, G, LOSSES[loss], 1, tr, nb,
+               _DC_MARGIN, _TR_XTG, _DC_XTG, *plan["smem"], _stream(X))
+        if n_l != L:
+            out[:, l0:l0 + n_l] = o
     return out[:D].T.contiguous(), out[D]

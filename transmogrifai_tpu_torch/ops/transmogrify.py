@@ -3,9 +3,11 @@
 defaults at TransmogrifierDefaults:52-88).
 
 Groups input features by kind, applies the default vectorizer per group and
-combines the blocks with VectorsCombiner.  This slice vectorizes the real
-kinds; every other kind raises ``NotImplementedError`` naming the slice of the
-port that brings it.
+combines the blocks with VectorsCombiner, the groups in sorted order as in
+the JAX package.  The port vectorizes reals, integrals, binaries, pick-lists
+and their categorical siblings, free text (SmartTextVectorizer) and
+numeric-valued maps; every other kind raises ``NotImplementedError`` naming
+the slice of the port that brings it.
 """
 
 from __future__ import annotations
@@ -13,28 +15,88 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Type
 
 from ..features import Feature
-from ..types import FeatureType, OPVector, Real, RealNN
+from ..types import (ID, URL, Base64, Binary, City, ComboBox, Country,
+                     Currency, Date, DateTime, Email, FeatureType, Geolocation,
+                     Integral, OPMap, OPVector, Percent, Phone, PickList,
+                     PostalCode, Real, RealNN, State, Street, Text, TextArea,
+                     map_value_kind)
 
-TRACK_NULLS = True   # ≙ TransmogrifierDefaults.TrackNulls
+
+class TransmogrifierDefaults:
+    """≙ TransmogrifierDefaults (Transmogrifier.scala:52-88), the JAX
+    package's values."""
+
+    DEFAULT_NUM_OF_FEATURES = 512
+    MAX_NUM_OF_FEATURES = 16384
+    TOP_K = 20
+    MIN_SUPPORT = 10
+    MAX_CATEGORICAL_CARDINALITY = 30
+    FILL_VALUE = 0.0
+    BINARY_FILL_VALUE = False
+    TRACK_NULLS = True
+    TRACK_INVALID = False
+    TRACK_TEXT_LEN = False
+    MIN_DOC_FREQUENCY = 0
+    CIRCULAR_DATE_REPRESENTATIONS = ("HourOfDay", "DayOfWeek", "DayOfMonth",
+                                     "DayOfYear")
+    REFERENCE_DATE_MS = 1500000000000
+
+
+_CATEGORICAL = (PickList, ComboBox, ID, Country, State, City, PostalCode,
+                Street)
+
+
+def _later(kind: Type[FeatureType], what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"transmogrify: {kind.__name__} features ({what}) arrive with a later "
+        "slice of the port (ROADMAP queue 1 item 10)")
 
 
 def _group_key(kind: Type[FeatureType]) -> str:
     if issubclass(kind, RealNN):
         return "realnn"
-    if issubclass(kind, Real):          # Real, Percent, Currency
+    if issubclass(kind, Binary):
+        return "binary"
+    if issubclass(kind, (Date, DateTime)):
+        raise _later(kind, "dates")
+    if issubclass(kind, Integral):
+        return "integral"
+    if issubclass(kind, (Real, Percent, Currency)):
         return "real"
+    if issubclass(kind, _CATEGORICAL):
+        return "categorical"
+    if issubclass(kind, (Email, URL, Phone, Base64)):
+        raise _later(kind, "specialised text")
+    if issubclass(kind, (TextArea, Text)):
+        return "text"
     if issubclass(kind, OPVector):
         return "vector"
-    raise NotImplementedError(
-        f"transmogrify: {kind.__name__} features arrive with the port's "
-        "transmog-path slice (ROADMAP queue 1 item 10)")
+    if issubclass(kind, OPMap):
+        vk = map_value_kind(kind)
+        if issubclass(vk, (Real, Integral)) and not issubclass(
+                vk, (Binary, Date)):
+            return "map"
+        raise _later(kind, "maps of non-numeric values")
+    if issubclass(kind, Geolocation):
+        raise _later(kind, "geolocations")
+    raise _later(kind, "collections")
 
 
 def transmogrify(features: Sequence[Feature],
-                 track_nulls: bool = TRACK_NULLS) -> Feature:
+                 top_k: int = TransmogrifierDefaults.TOP_K,
+                 min_support: int = TransmogrifierDefaults.MIN_SUPPORT,
+                 num_hashes: int = TransmogrifierDefaults.DEFAULT_NUM_OF_FEATURES,
+                 max_categorical_cardinality: int =
+                 TransmogrifierDefaults.MAX_CATEGORICAL_CARDINALITY,
+                 track_nulls: bool = TransmogrifierDefaults.TRACK_NULLS
+                 ) -> Feature:
     """Auto-vectorize a feature list into one OPVector feature."""
+    from .categorical import OneHotEstimator
     from .combiner import VectorsCombiner
-    from .numeric import RealNNVectorizer, RealVectorizer
+    from .maps import MapVectorizer
+    from .numeric import (BinaryVectorizer, IntegralVectorizer,
+                          RealNNVectorizer, RealVectorizer)
+    from .text import SmartTextVectorizer
 
     groups: Dict[str, List[Feature]] = {}
     for f in features:
@@ -46,8 +108,30 @@ def transmogrify(features: Sequence[Feature],
         if key == "vector":
             blocks.extend(feats)
             continue
-        st = (RealNNVectorizer() if key == "realnn"
-              else RealVectorizer(fill_mode="mean", track_nulls=track_nulls))
+        if key == "map":
+            # one MapVectorizer per numeric map (Transmogrifier.scala:142-217)
+            for f in feats:
+                st = MapVectorizer(top_k=top_k, min_support=min_support,
+                                   track_nulls=track_nulls)
+                st.set_input(f)
+                blocks.append(st.get_output())
+            continue
+        if key == "real":
+            st = RealVectorizer(fill_mode="mean", track_nulls=track_nulls)
+        elif key == "realnn":
+            st = RealNNVectorizer()
+        elif key == "integral":
+            st = IntegralVectorizer(fill_mode="mode", track_nulls=track_nulls)
+        elif key == "binary":
+            st = BinaryVectorizer(track_nulls=track_nulls)
+        elif key == "categorical":
+            st = OneHotEstimator(top_k=top_k, min_support=min_support,
+                                 track_nulls=track_nulls)
+        else:  # text
+            st = SmartTextVectorizer(
+                max_cardinality=max_categorical_cardinality, top_k=top_k,
+                min_support=min_support, num_hashes=num_hashes,
+                track_nulls=track_nulls)
         st.set_input(*feats)
         blocks.append(st.get_output())
 

@@ -1,17 +1,20 @@
 """SanityChecker — automatic feature validation / leakage detection (port of
 ``transmogrifai_tpu/preparators/sanity_checker.py``; reference:
-SanityChecker.scala:535-640, SanityCheckerModel:695, OpStatistics.scala:71).
+SanityChecker.scala:535-640, SanityCheckerModel:695, OpStatistics.scala:71,
+188, 234).
 
 The fit is a handful of reductions over the device-resident feature matrix
-(moments, min/max and the label correlation); the model is a gather of the
-kept column indices.  The categorical contingency tests (Cramér's V) come
-with the transmog-path slice: a vector with indicator groups raises for now.
+(moments, min/max and the label correlation) and, where the vector has
+categorical indicator groups, one [C, |union|] contingency product over the
+union of their columns, from which each group's Cramér's V and rule
+confidences are computed on the host; the model is a gather of the kept
+column indices.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,11 +22,15 @@ import torch
 from ..columns import Column, ColumnBatch, to_device_f32
 from ..stages.base import Estimator, TransformerModel
 from ..types import OPVector, RealNN
+from ..utils.stats import contingency_stats
 from ..vector_meta import VectorMeta
 
 DEFAULT_MAX_CORRELATION = 0.95
 DEFAULT_MIN_CORRELATION = 0.0
 DEFAULT_MIN_VARIANCE = 1e-5
+DEFAULT_MAX_CRAMERS_V = 0.95
+DEFAULT_MAX_RULE_CONFIDENCE = 1.0
+DEFAULT_MIN_REQUIRED_RULE_SUPPORT = 1.0
 DEFAULT_SAMPLE_UPPER_LIMIT = 1_000_000
 DEFAULT_CORRELATION_TYPE = "pearson"
 
@@ -68,6 +75,19 @@ def _col_stats(X: torch.Tensor, y: torch.Tensor, spearman: bool = False):
     return mean, var, mn, mx, corr
 
 
+def _col_stats_with_contingency(X: torch.Tensor, y: torch.Tensor,
+                                union_idx: torch.Tensor,
+                                y_classes: torch.Tensor,
+                                spearman: bool = False):
+    """``_col_stats`` stacked [5, D] and the contingency [C, |union|] of
+    the label classes against the union of indicator columns, one product
+    (≙ ``_col_stats_with_contingency``, sanity_checker.py:76-86).  The
+    contingency always contracts the raw indicator values."""
+    stats = torch.stack(_col_stats(X, y, spearman=spearman))
+    yoh = (y[:, None] == y_classes[None, :]).to(torch.float32)
+    return stats, yoh.T @ X[:, union_idx].to(torch.float32)
+
+
 @dataclass
 class SanityCheckerSummary:
     """≙ SanityCheckerSummary metadata."""
@@ -79,6 +99,8 @@ class SanityCheckerSummary:
     means: List[float] = field(default_factory=list)
     mins: List[float] = field(default_factory=list)
     maxs: List[float] = field(default_factory=list)
+    cramers_v_by_group: Dict[str, float] = field(default_factory=dict)
+    contingency_stats_by_group: Dict[str, Any] = field(default_factory=dict)
     dropped: List[str] = field(default_factory=list)
     drop_reasons: Dict[str, List[str]] = field(default_factory=dict)
     sample_size: int = 0
@@ -92,6 +114,9 @@ class SanityCheckerSummary:
             "means": self.means,
             "mins": self.mins,
             "maxs": self.maxs,
+            "categoricalStats": {
+                "cramersV": self.cramers_v_by_group,
+                "contingencyStats": self.contingency_stats_by_group},
             "dropped": self.dropped,
             "dropReasons": self.drop_reasons,
             "sampleSize": self.sample_size,
@@ -125,6 +150,10 @@ class SanityChecker(Estimator):
     def __init__(self, max_correlation: float = DEFAULT_MAX_CORRELATION,
                  min_correlation: float = DEFAULT_MIN_CORRELATION,
                  min_variance: float = DEFAULT_MIN_VARIANCE,
+                 max_cramers_v: float = DEFAULT_MAX_CRAMERS_V,
+                 max_rule_confidence: float = DEFAULT_MAX_RULE_CONFIDENCE,
+                 min_required_rule_support: float =
+                 DEFAULT_MIN_REQUIRED_RULE_SUPPORT,
                  remove_bad_features: bool = True,
                  correlation_type: str = DEFAULT_CORRELATION_TYPE,
                  check_sample_fraction: float = 1.0,
@@ -133,6 +162,9 @@ class SanityChecker(Estimator):
         super().__init__(max_correlation=max_correlation,
                          min_correlation=min_correlation,
                          min_variance=min_variance,
+                         max_cramers_v=max_cramers_v,
+                         max_rule_confidence=max_rule_confidence,
+                         min_required_rule_support=min_required_rule_support,
                          remove_bad_features=remove_bad_features,
                          correlation_type=correlation_type,
                          check_sample_fraction=check_sample_fraction,
@@ -150,12 +182,6 @@ class SanityChecker(Estimator):
         meta = vec.meta or VectorMeta(vec_f.name, [])
         names = (meta.column_names() if meta.size == d
                  else [f"f_{i}" for i in range(d)])
-        if meta.size == d and any(c.indicator_value is not None
-                                  for c in meta.columns):
-            raise NotImplementedError(
-                "SanityChecker: categorical indicator groups (Cramér's V "
-                "contingency tests) arrive with the port's transmog-path "
-                "slice (ROADMAP queue 1 item 10)")
 
         # sampling (≙ SanityChecker sample fraction:524) — the same numpy
         # draw as the JAX package, so both check the same rows
@@ -171,15 +197,68 @@ class SanityChecker(Estimator):
             Xs, ys_host = Xd, y
         ys = to_device_f32(ys_host, Xd.device)
         corr_type = self.get("correlation_type", DEFAULT_CORRELATION_TYPE)
-        stats = _col_stats(Xs, ys, spearman=corr_type == "spearman")
-        mean, var, mn, mx, corr_arr = (
-            a.cpu().numpy() for a in torch.stack(stats).unbind(0))
+        spearman = corr_type == "spearman"
+
+        # Cramér's V and association rules per categorical indicator group
+        # (≙ categoricalTests): a group is the columns with an indicator
+        # value sharing (parent feature, grouping); skipped for a label of
+        # more than 100 classes (a regression label is no category)
+        groups: Dict[Tuple[str, Optional[str]], List[int]] = {}
+        if meta.size == d:
+            for c in meta.columns:
+                if c.indicator_value is not None:
+                    groups.setdefault((c.parent_feature_name, c.grouping),
+                                      []).append(c.index)
+        y_classes = np.unique(ys_host)
+        if len(y_classes) > 100:
+            groups = {}
+        if groups:
+            # ONE product over the union of indicator columns covers every
+            # group's contingency
+            union = sorted({i for idxs in groups.values() for i in idxs})
+            pos_of = {i: p for p, i in enumerate(union)}
+            stacked, cont = _col_stats_with_contingency(
+                Xs, ys, torch.as_tensor(union, device=Xs.device),
+                torch.as_tensor(y_classes, dtype=torch.float32,
+                                device=Xs.device), spearman=spearman)
+            cont_all = cont.cpu().numpy()
+        else:
+            stacked = torch.stack(_col_stats(Xs, ys, spearman=spearman))
+        mean, var, mn, mx, corr_arr = stacked.cpu().numpy()
+
+        cramers: Dict[str, float] = {}
+        contingency_by_group: Dict[str, Dict] = {}
+        group_fail: Dict[int, List[str]] = {}
+        max_rule_conf = float(self.get("max_rule_confidence", 1.0))
+        min_rule_supp = float(self.get("min_required_rule_support", 1.0))
+        for (parent, grouping), idxs in groups.items():
+            contingency = cont_all[:, [pos_of[i] for i in idxs]]  # [C, k]
+            # the reference's rows are the choices: transpose
+            cstats = contingency_stats(contingency.T)
+            v = cstats.cramers_v
+            gname = parent if grouping is None else f"{parent}({grouping})"
+            cramers[gname] = v
+            contingency_by_group[gname] = cstats.to_json()
+            reasons = []
+            if np.isfinite(v) and v > float(self.get("max_cramers_v", 1.0)):
+                reasons.append(f"CramersV {v:.4f} > max")
+            # association rule confidence (leakage): P(label = c | col = 1)
+            conf = np.asarray(cstats.max_confidences)
+            supp = np.asarray(cstats.supports) * contingency.sum() / max(
+                len(ys_host), 1)
+            if max_rule_conf < 1.0 or min_rule_supp < 1.0:
+                if ((conf >= max_rule_conf) & (supp >= min_rule_supp)).any():
+                    reasons.append("rule confidence leakage")
+            if reasons:
+                for i in idxs:
+                    group_fail.setdefault(i, []).extend(reasons)
 
         # per-column drop rules
         max_corr = float(self.get("max_correlation", DEFAULT_MAX_CORRELATION))
         min_corr = float(self.get("min_correlation", DEFAULT_MIN_CORRELATION))
         min_var = float(self.get("min_variance", DEFAULT_MIN_VARIANCE))
-        reasons_by_col: Dict[int, List[str]] = {}
+        reasons_by_col: Dict[int, List[str]] = {
+            i: list(r) for i, r in group_fail.items()}
         for i in range(d):
             c = abs(corr_arr[i])
             if np.isfinite(c):
@@ -205,6 +284,8 @@ class SanityChecker(Estimator):
             correlations_with_label=[float(c) for c in corr_arr],
             variances=[float(v) for v in var], means=[float(m) for m in mean],
             mins=[float(v) for v in mn], maxs=[float(v) for v in mx],
+            cramers_v_by_group=cramers,
+            contingency_stats_by_group=contingency_by_group,
             dropped=[names[i] for i in drop_idx],
             drop_reasons={names[i]: r for i, r in reasons_by_col.items()},
             sample_size=len(ys_host))

@@ -1,0 +1,90 @@
+"""The repository's synthetic transmogrification workload, for the port: the
+same values for the same seed as ``bench.make_transmog_columns``, built with
+fewer Python objects per row.
+
+Rows of mixed raw kinds: 3 free-text columns (20-30% null; 2 words of a
+40-word set, then 4-8 or 3-5 tokens of a 50,000-word vocabulary), 2
+PickLists (20 and 50 levels, 10% and 20% null), a RealMap with keys a, b, c
+(each 80% present) and 4 Reals with 20% nulls; the binary label depends on
+cat1, r0 and the map's key a.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple, Type
+
+import numpy as np
+
+from .columns import Column, text_column
+from .types import FeatureType, PickList, Real, RealMap, RealNN, Text
+
+TRANSMOG_SCHEMA: Dict[str, Type[FeatureType]] = {
+    "label": RealNN, "text1": Text, "text2": Text, "text3": Text,
+    "cat1": PickList, "cat2": PickList, "rmap": RealMap,
+    "r0": Real, "r1": Real, "r2": Real, "r3": Real}
+
+
+def make_transmog_columns(n: int, seed: int = 1
+                          ) -> Tuple[Dict[str, Column], Dict[str, type]]:
+    """(columns by name, schema) of ``n`` rows.  The random draws are those
+    of ``bench.make_transmog_columns`` in the same order."""
+    rng = np.random.default_rng(seed)
+    vocab = [f"tok{i}" for i in range(50_000)]
+    common = [f"word{i}" for i in range(40)]
+
+    def text_col(p_null=0.2, lo=4, hi=9):
+        lens = rng.integers(lo, hi, size=n)
+        toks = rng.integers(0, len(vocab), size=(n, hi)).tolist()
+        salt = rng.integers(0, len(common), size=(n, 2)).tolist()
+        null = (rng.random(n) < p_null).tolist()
+        out = np.empty(n, dtype=object)
+        for i, (ln, t, s, nl) in enumerate(zip(lens.tolist(), toks, salt,
+                                                null)):
+            if not nl:
+                out[i] = " ".join([common[s[0]], common[s[1]]]
+                                  + [vocab[j] for j in t[:ln]])
+        return out
+
+    t1 = text_col()
+    t2 = text_col()
+    t3 = text_col(p_null=0.3, lo=3, hi=6)
+
+    cats1 = np.asarray([f"c{i}" for i in range(20)], dtype=object)
+    cats2 = np.asarray([f"k{i}" for i in range(50)], dtype=object)
+    c1_idx = rng.integers(0, len(cats1), size=n)
+    c1 = cats1[c1_idx]
+    c1[rng.random(n) < 0.1] = None
+    c2 = cats2[rng.integers(0, len(cats2), size=n)]
+    c2[rng.random(n) < 0.2] = None
+
+    rvals = rng.normal(size=(n, 4)).astype(np.float32)
+    rnull = rng.random((n, 4)) < 0.2
+
+    mvals = rng.normal(size=(n, 3)).astype(np.float32)
+    mkeys = ("a", "b", "c")
+    mpresent = rng.random((n, 3)) < 0.8
+    rmap = np.empty(n, dtype=object)
+    for i, (vs, ps) in enumerate(zip(mvals.astype(np.float64).tolist(),
+                                     mpresent.tolist())):
+        rmap[i] = {k: v for k, v, p in zip(mkeys, vs, ps) if p}
+
+    logits = (0.8 * (c1_idx % 3 == 0).astype(np.float32)
+              + np.where(rnull[:, 0], 0.0, rvals[:, 0])
+              + 0.5 * np.where(mpresent[:, 0], mvals[:, 0], 0.0))
+    y = (logits + rng.normal(size=n).astype(np.float32) > 0.4).astype(
+        np.float32)
+
+    cols = {
+        "label": Column(RealNN, y),
+        "text1": text_column(Text, t1),
+        "text2": text_column(Text, t2),
+        "text3": text_column(Text, t3),
+        "cat1": text_column(PickList, c1),
+        "cat2": text_column(PickList, c2),
+        "rmap": Column(RealMap, rmap),
+    }
+    for j in range(4):
+        cols[f"r{j}"] = Column(Real, np.where(rnull[:, j], np.float32(np.nan),
+                                              rvals[:, j]),
+                               mask=~rnull[:, j])
+    return cols, dict(TRANSMOG_SCHEMA)

@@ -1,7 +1,7 @@
-"""Typed feature values — the PyTorch port's copy of the parts of the JAX
-package's ``types.py`` that the dense numeric path uses (reference:
+"""Typed feature values — the PyTorch port's copy of the JAX package's
+``types.py`` (reference:
 features/src/main/scala/com/salesforce/op/features/types/FeatureType.scala:44,
-Numerics.scala, Maps.scala, OPCollection.scala).
+Numerics.scala, Text.scala, Maps.scala, OPCollection.scala).
 
 The port keeps its own copy so that importing it never imports the JAX package.
 
@@ -24,8 +24,19 @@ from __future__ import annotations
 from typing import Any, ClassVar, Dict, List, Optional, Type
 
 __all__ = [
-    "FeatureType", "OPNumeric", "Real", "RealNN", "OPCollection", "OPVector",
-    "OPMap", "RealMap", "Prediction", "FEATURE_TYPES", "feature_type_from_name",
+    "FeatureType", "OPNumeric", "Real", "RealNN", "Binary", "Integral",
+    "Percent", "Currency", "Date", "DateTime",
+    "Text", "Email", "Base64", "Phone", "ID", "URL", "TextArea", "PickList",
+    "ComboBox", "Country", "State", "PostalCode", "City", "Street",
+    "OPCollection", "OPList", "OPSet", "OPVector", "TextList", "DateList",
+    "DateTimeList", "MultiPickList", "Geolocation",
+    "OPMap", "TextMap", "EmailMap", "Base64Map", "PhoneMap", "IDMap", "URLMap",
+    "TextAreaMap", "PickListMap", "ComboBoxMap", "BinaryMap", "IntegralMap",
+    "RealMap", "PercentMap", "CurrencyMap", "DateMap", "DateTimeMap",
+    "MultiPickListMap", "CountryMap", "StateMap", "CityMap", "PostalCodeMap",
+    "StreetMap", "NameStats", "GeolocationMap", "Prediction",
+    "FEATURE_TYPES", "feature_type_from_name", "is_numeric_kind",
+    "is_text_kind", "is_map_kind", "map_value_kind",
 ]
 
 
@@ -104,12 +115,126 @@ class RealNN(Real):
     single_response = True
 
 
+class Binary(OPNumeric):
+    is_categorical = True
+    single_response = True
+
+
+class Integral(OPNumeric):
+    pass
+
+
+class Percent(Real):
+    pass
+
+
+class Currency(Real):
+    pass
+
+
+class Date(Integral):
+    """Milliseconds since epoch, like the reference (joda millis)."""
+
+
+class DateTime(Date):
+    pass
+
+
+# --------------------------------------------------------------------------
+# Text and its subtypes (Text.scala:48-301)
+# --------------------------------------------------------------------------
+
+class Text(FeatureType):
+    pass
+
+
+class Email(Text):
+    pass
+
+
+class Base64(Text):
+    pass
+
+
+class Phone(Text):
+    pass
+
+
+class ID(Text):
+    pass
+
+
+class URL(Text):
+    pass
+
+
+class TextArea(Text):
+    pass
+
+
+class PickList(Text):
+    is_categorical = True
+
+
+class ComboBox(Text):
+    pass
+
+
+class Country(Text):
+    is_location = True
+
+
+class State(Text):
+    is_location = True
+
+
+class PostalCode(Text):
+    is_location = True
+
+
+class City(Text):
+    is_location = True
+
+
+class Street(Text):
+    is_location = True
+
+
 # --------------------------------------------------------------------------
 # Collections and maps (OPCollection.scala:37, OPVector.scala, Maps.scala)
 # --------------------------------------------------------------------------
 
 class OPCollection(FeatureType):
     pass
+
+
+class OPList(OPCollection):
+    pass
+
+
+class OPSet(OPCollection):
+    is_categorical = True
+    multi_response = True
+
+
+class TextList(OPList):
+    pass
+
+
+class DateList(OPList):
+    pass
+
+
+class DateTimeList(DateList):
+    pass
+
+
+class MultiPickList(OPSet):
+    pass
+
+
+class Geolocation(OPList):
+    """(lat, lon, accuracy) triple (Geolocation.scala:47)."""
 
 
 class OPVector(OPCollection):
@@ -142,8 +267,103 @@ class OPMap(OPCollection):
         return len(self.value) == 0
 
 
+class TextMap(OPMap):
+    value_kind = Text
+
+
+class EmailMap(OPMap):
+    value_kind = Email
+
+
+class Base64Map(OPMap):
+    value_kind = Base64
+
+
+class PhoneMap(OPMap):
+    value_kind = Phone
+
+
+class IDMap(OPMap):
+    value_kind = ID
+
+
+class URLMap(OPMap):
+    value_kind = URL
+
+
+class TextAreaMap(OPMap):
+    value_kind = TextArea
+
+
+class PickListMap(OPMap):
+    value_kind = PickList
+    is_categorical = True
+
+
+class ComboBoxMap(OPMap):
+    value_kind = ComboBox
+
+
+class BinaryMap(OPMap):
+    value_kind = Binary
+    is_categorical = True
+
+
+class IntegralMap(OPMap):
+    value_kind = Integral
+
+
 class RealMap(OPMap):
     value_kind = Real
+
+
+class PercentMap(RealMap):
+    value_kind = Percent
+
+
+class CurrencyMap(RealMap):
+    value_kind = Currency
+
+
+class DateMap(OPMap):
+    value_kind = Date
+
+
+class DateTimeMap(DateMap):
+    value_kind = DateTime
+
+
+class MultiPickListMap(OPMap):
+    value_kind = MultiPickList
+    is_categorical = True
+
+
+class CountryMap(TextMap):
+    is_location = True
+
+
+class StateMap(TextMap):
+    is_location = True
+
+
+class CityMap(TextMap):
+    is_location = True
+
+
+class PostalCodeMap(TextMap):
+    is_location = True
+
+
+class StreetMap(TextMap):
+    is_location = True
+
+
+class NameStats(TextMap):
+    """Name-detection stats map (Maps.scala NameStats)."""
+
+
+class GeolocationMap(OPMap):
+    value_kind = Geolocation
 
 
 class Prediction(RealMap):
@@ -191,13 +411,23 @@ class Prediction(RealMap):
 
 
 # --------------------------------------------------------------------------
-# Registry (cf. FeatureType.featureTypeTags, FeatureType.scala:263-300).
-# This slice of the port carries the kinds of the dense numeric path; text,
-# categorical, date, list and the other map kinds come with the transmog slice.
+# Registry & helpers (cf. FeatureType.featureTypeTags,
+# FeatureType.scala:263-300).  Every kind is registered, so a schema of any
+# kinds builds; ``ops/transmogrify.py`` names the kinds the port vectorizes.
 # --------------------------------------------------------------------------
 
 FEATURE_TYPES: Dict[str, Type[FeatureType]] = {
-    c.__name__: c for c in [Real, RealNN, OPVector, RealMap, Prediction]
+    c.__name__: c for c in [
+        Real, RealNN, Binary, Integral, Percent, Currency, Date, DateTime,
+        Text, Email, Base64, Phone, ID, URL, TextArea, PickList, ComboBox,
+        Country, State, PostalCode, City, Street,
+        OPVector, TextList, DateList, DateTimeList, MultiPickList, Geolocation,
+        TextMap, EmailMap, Base64Map, PhoneMap, IDMap, URLMap, TextAreaMap,
+        PickListMap, ComboBoxMap, BinaryMap, IntegralMap, RealMap, PercentMap,
+        CurrencyMap, DateMap, DateTimeMap, MultiPickListMap, CountryMap,
+        StateMap, CityMap, PostalCodeMap, StreetMap, NameStats, GeolocationMap,
+        Prediction,
+    ]
 }
 
 
@@ -206,3 +436,21 @@ def feature_type_from_name(name: str) -> Type[FeatureType]:
         return FEATURE_TYPES[name]
     except KeyError:
         raise ValueError(f"unknown feature type: {name!r}") from None
+
+
+def is_numeric_kind(kind: Type[FeatureType]) -> bool:
+    return issubclass(kind, OPNumeric)
+
+
+def is_text_kind(kind: Type[FeatureType]) -> bool:
+    return issubclass(kind, Text)
+
+
+def is_map_kind(kind: Type[FeatureType]) -> bool:
+    return issubclass(kind, OPMap)
+
+
+def map_value_kind(kind: Type[FeatureType]) -> Type[FeatureType]:
+    if not is_map_kind(kind):
+        raise TypeError(f"{kind.__name__} is not a map kind")
+    return kind.value_kind

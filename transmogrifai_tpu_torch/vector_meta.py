@@ -15,6 +15,7 @@ from dataclasses import dataclass, field, replace
 from typing import List, Optional, Sequence
 
 NULL_INDICATOR = "NullIndicatorValue"   # cf. OpVectorColumnMetadata.NullString
+OTHER_INDICATOR = "OTHER"
 
 
 @dataclass(frozen=True)

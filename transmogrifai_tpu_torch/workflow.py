@@ -2,8 +2,10 @@
 ``transmogrifai_tpu/workflow.py``; reference: OpWorkflow.scala:207,344,
 OpWorkflowModel.scala:184-394).
 
-``train`` reconstructs the stage DAG from the result features, fits it layer
-by layer on the workflow's device and returns a ``WorkflowModel``.  Scoring
+``train`` runs the optional RawFeatureFilter over the raw columns, drops the
+features it rejects from every stage's inputs, reconstructs the stage DAG
+from the result features, fits it layer by layer on the workflow's device
+and returns a ``WorkflowModel``.  Scoring
 applies the fitted stages in DAG order, eagerly, on the device; the JAX
 package's compiled ``ScoreProgram`` and save/load come with later slices.
 """
@@ -16,7 +18,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 
 from .columns import ColumnBatch, to_device_f32
-from .dag import apply_dag, compute_dag, prune_batch
+from .dag import apply_dag, compute_dag, dag_stages, prune_batch
 from .device import DeviceLike, resolve_device
 from .features import Feature
 from .stages.base import Estimator, Transformer
@@ -35,7 +37,9 @@ class Workflow:
         self.device = resolve_device(device)
         self.result_features: tuple = ()
         self.raw_features: List[Feature] = []
+        self.blacklisted: List[Feature] = []
         self._input_batch: Optional[ColumnBatch] = None
+        self._raw_feature_filter = None
 
     def set_input_batch(self, batch: ColumnBatch) -> "Workflow":
         self._input_batch = batch
@@ -52,35 +56,80 @@ class Workflow:
                                    key=lambda f: f.name)
         return self
 
+    def with_raw_feature_filter(self, **kw) -> "Workflow":
+        """≙ withRawFeatureFilter (OpWorkflow.scala:538): ``train`` filters
+        the raw features first (``filters.RawFeatureFilter(**kw)``)."""
+        from .filters import RawFeatureFilter
+        self._raw_feature_filter = RawFeatureFilter(**kw)
+        return self
+
+    def _apply_blacklist(self) -> None:
+        """≙ setBlacklist (OpWorkflow.scala:117): remove blacklisted raw
+        features from every stage's inputs; a stage that loses all its
+        inputs dies and its outputs die with it."""
+        dead = {f.uid for f in self.blacklisted}
+        if not dead:
+            return
+        for st in dag_stages(compute_dag(self.result_features)):
+            if not st.input_features:
+                continue
+            new_inputs = tuple(f for f in st.input_features
+                               if f.uid not in dead)
+            if not new_inputs:
+                dead.update(out.uid for out in st.output_features)
+            elif len(new_inputs) != len(st.input_features):
+                st.input_features = new_inputs
+                for out in st.output_features:
+                    out.parents = new_inputs
+        lost = [f.name for f in self.result_features if f.uid in dead]
+        if lost:
+            raise ValueError(
+                f"RawFeatureFilter removed all inputs of result feature(s) "
+                f"{lost}; relax the filter thresholds or protect features")
+
     def train(self) -> "WorkflowModel":
         """≙ OpWorkflow.train:344 on the plain (no workflow-CV) path.
-        ``model.phase_seconds`` holds the wall time of each DAG layer."""
+        ``model.phase_seconds`` holds the wall time of the RawFeatureFilter
+        and of each stage type (fit and transform of all its stages, the
+        device's queued work included)."""
         if self._input_batch is None:
             raise ValueError("no input batch set — call set_input_batch first")
         batch = self._input_batch.on(self.device)
+        phases: Dict[str, float] = {}
+        rff_results = None
+        if self._raw_feature_filter is not None:
+            t0 = time.perf_counter()
+            batch, self.blacklisted, rff_results = \
+                self._raw_feature_filter.filter_batch(batch,
+                                                      self.raw_features)
+            self._apply_blacklist()
+            phases["RawFeatureFilter"] = time.perf_counter() - t0
         dag = compute_dag(self.result_features)
         keep = ({f.name for f in self.raw_features}
                 | {f.name for f in self.result_features} | {"key"})
-        fitted_dag, phases = [], {}
+        fitted_dag = []
         for i, layer in enumerate(dag):
-            t0 = time.perf_counter()
-            models = [st.fit(batch) if isinstance(st, Estimator) else st
-                      for st in layer]
-            for m in models:
+            models = []
+            for st in layer:
+                t0 = time.perf_counter()
+                m = st.fit(batch) if isinstance(st, Estimator) else st
                 if not isinstance(m, Transformer):
                     raise TypeError(
                         f"stage {m} is neither Transformer nor Estimator")
                 batch = m.transform_batch(batch)
+                _sync(self.device)
+                tag = type(st).__name__
+                phases[tag] = phases.get(tag, 0.0) + time.perf_counter() - t0
+                models.append(m)
             fitted_dag.append(models)
             batch = prune_batch(batch, (s for l in dag[i + 1:] for s in l),
                                 keep)
-            _sync(self.device)
-            tag = "+".join(sorted({type(s).__name__ for s in layer}))
-            phases[tag] = phases.get(tag, 0.0) + time.perf_counter() - t0
         model = WorkflowModel(self.result_features, fitted_dag,
                               self.raw_features, self.device)
         model._input_batch = self._input_batch
         model.phase_seconds = phases
+        model.blacklisted = list(self.blacklisted)
+        model.rff_results = rff_results
         return model
 
 
@@ -97,6 +146,8 @@ class WorkflowModel:
         self.device = resolve_device(device)
         self._input_batch: Optional[ColumnBatch] = None
         self.phase_seconds: Dict[str, float] = {}
+        self.blacklisted: List[Feature] = []
+        self.rff_results = None
 
     @property
     def stages(self) -> List[Transformer]:
