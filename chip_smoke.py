@@ -50,13 +50,26 @@ Phases (any failure exits non-zero and prints no result line):
    around it; ``fista_step`` at the checked width (6 CV lanes, the refit's
    1 lane, the power iteration's 3) on that run's own matrix against its
    f64 twin; and the workflow at 20,000 rows on the card and the CPU twins,
-   held to the JAX package's numbers at that size.
+   held to the JAX package's numbers at that size;
+6. sparse hashed text — the workload of ``bench.run_text_sparse`` at
+   1,000,000 rows (the port's copy of ``bench.make_sparse_text_columns``:
+   8 label-dependent tokens of a 30,000-word vocabulary and one dense Real,
+   built before the clock starts): ``sp_matmat`` and ``sp_rmatmat`` on the
+   run's own 1M x 100,003 matrix at k = 1, 3, 6 and on a skewed synthetic
+   matrix at k = 1, 6, 32 against their f64 twins and bit-repeatable;
+   then transmogrify (100,000 hashes: a SparseMatrix) → LR selector
+   (``reg_param`` 0.01, 0.1) trained, evaluated and scored on a fresh seed-7
+   batch, with its train wall, phase seconds, nnz and density, width
+   (100,003), CV AuPR, train AuROC (> 0.99), peak device memory (< 4 GB),
+   score rows/s and both sparse kernels' launches; and the workflow at
+   3,000 rows on the card and the CPU twins, held to the JAX package's
+   numbers at that size.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` table (launches: the default
 grid's train for the dense rows, the transmog run for ``hash_counts`` and
-the wide ``fista_step`` row), the one before that the card's name and power
-limit.
+the wide ``fista_step`` row, the sparse run for ``sp_matmat`` and
+``sp_rmatmat``), the one before that the card's name and power limit.
 Imports nothing of JAX.
 """
 
@@ -119,6 +132,24 @@ TRANSMOG_REF = {
     "cv_aupr": {"reg_param=0.01": 0.7792084813117981,
                 "reg_param=0.1": 0.7779407501220703},
     "winner": "reg_param=0.01", "train_auroc": 0.8733430504798889}
+SPARSE_HASHES = 100_000            # bench.run_text_sparse's hash width
+SPARSE_WIDTH = 100_003             # the hashes, txt's null, x0 and its null
+SPARSE_PEAK_GB = 4.0               # 1% of the 400 GB dense equivalent
+# The JAX package's sparse-text workflow at 3,000 rows
+# (bench.make_sparse_text_columns seed 3, CPU;
+# `PYTHONPATH=. JAX_PLATFORMS=cpu python scripts/sparse_reference.py
+# --package jax --rows 3000`): the port must give the same width, nnz and
+# winner, each candidate's CV AuPR and the train AuROC within
+# SPARSE_REF_TOL.  The two candidates' AuPRs lie 2.5e-5 apart, so the
+# tolerance sits well below that gap (and well above the ~1e-7 f32
+# disagreement of the two packages).
+SPARSE_REF_ROWS = 3_000
+SPARSE_REF_TOL = 1e-6
+SPARSE_REF = {
+    "width": 100003, "nnz": 26993,
+    "cv_aupr": {"reg_param=0.01": 0.9983513156572977,
+                "reg_param=0.1": 0.9983265399932861},
+    "winner": "reg_param=0.01", "train_auroc": 1.0}
 
 
 def make_data(n: int, d: int = N_FEATS, seed: int = 0):
@@ -1310,6 +1341,206 @@ def check_transmog_reference() -> dict:
             for d, r in runs.items()}
 
 
+# --------------------------------------------------------------------------
+# phase 6: the sparse hashed-text path
+# --------------------------------------------------------------------------
+
+def _sparse_ref():
+    """``scripts/sparse_reference.py``: the workload's workflow and the
+    numbers it is held to, shared with the tests and the JAX-side run."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import sparse_reference
+    return sparse_reference
+
+
+def skewed_coo(n: int = 200_003, d: int = 110_003, seed: int = 8):
+    """COO triples of the sparse kernels' hazards: ~9 random entries a row
+    (duplicates possible), column 7 holding every row but the empty ones
+    (every 13th), row 11 holding 100,000 entries, and empty columns (the
+    last 1,000)."""
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(n), 9)
+    c = rng.integers(0, d - 1000, r.size)
+    r = np.concatenate([r, np.arange(n), np.full(100_000, 11)])
+    c = np.concatenate([c, np.full(n, 7), rng.permutation(d - 1000)[:100_000]])
+    keep = r % 13 != 0
+    r, c = r[keep], c[keep]
+    return r, c, rng.normal(size=r.size).astype(np.float32), n, d
+
+
+def _sparse_case(X, k: int, rng, reps: int = 0) -> dict:
+    """``sp_matmat`` and ``sp_rmatmat`` on ``X`` at ``k`` dense columns
+    against their twins run in f64: each output within 1e-5 of its absolute
+    mass, and two launches bit for bit.  With ``reps``, the times (kernel,
+    the f32 twin, ``torch.sparse.mm`` on a CSR tensor) and the bound."""
+    import torch
+
+    from transmogrifai_tpu_torch.sparse import sparse_kernels as sk
+
+    dev = X.device
+    M = torch.as_tensor(rng.normal(size=(X.n_cols, k)).astype(np.float32),
+                        device=dev)
+    G = torch.as_tensor(rng.normal(size=(X.n_rows, k)).astype(np.float32),
+                        device=dev)
+    out = {}
+    for name, fn, twin, dense, n_out in (
+            ("sp_matmat", sk.sp_matmat, sk.sp_matmat_twin, M, X.n_rows),
+            ("sp_rmatmat", sk.sp_rmatmat, sk.sp_rmatmat_twin, G, X.n_cols)):
+        got, again = fn(X, dense), fn(X, dense)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} (k={k}): two launches differ")
+        args = (X.values.double(), X.indices, X.row_ids)
+        want = twin(*args, dense.double(), n_out)
+        mass = twin(args[0].abs(), *args[1:], dense.double().abs(), n_out)
+        e = (got.double() - want).abs()
+        if bool((e > 1e-5 * mass + 1e-12).any()):
+            raise AssertionError(f"{name} (k={k}, nnz={X.nnz}) disagrees "
+                                 "with its f64 twin")
+        row = {"k": k, "max_abs_err": float(e.max()) if e.numel() else 0.0}
+        if reps:
+            order = X.row_order() if name == "sp_matmat" else X.col_order()
+            csr = torch.sparse_csr_tensor(order.ptr, order.gather.long(),
+                                          order.values,
+                                          size=(n_out, dense.shape[0]))
+            # values and gather index per entry, the pointers (4 bytes
+            # each: nnz < 2^31), the dense operand and the output, each
+            # once; 2 operations an entry and column
+            bt, by = bound(8 * X.nnz + 4 * (n_out + 1) + 4 * dense.numel()
+                           + 4 * n_out * k, 2 * X.nnz * k)
+            row.update(
+                ms=time_ms(lambda: fn(X, dense), reps),
+                plain_ms=time_ms(lambda: twin(X.values, X.indices, X.row_ids,
+                                              dense, n_out), reps),
+                bound_ms=bt, bound_by=by,
+                library_ms=time_ms(lambda: torch.sparse.mm(csr, dense),
+                                   reps))
+        out[name] = row
+    return out
+
+
+def sparse_matrix_of(cols, device="cuda"):
+    """The workload's feature matrix of ``cols`` and the host split of its
+    text stage: transmogrify([txt, x0]) at 100,000 hashes fitted and
+    applied through its own workflow, on copies of the columns (so their
+    text profiles are not cached on the columns that the timed run trains
+    on).  The split times the native text scan, then the host dedupe and
+    upload of the hashed tokens (``sparse_from_hash_flat``) alone, then the
+    workflow, whose SmartTextVectorizer reuses the scan."""
+    import torch
+
+    from transmogrifai_tpu_torch.columns import Column, ColumnBatch
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.ops.text_profile import column_profile
+    from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+    from transmogrifai_tpu_torch.sparse.transform import sparse_from_hash_flat
+    from transmogrifai_tpu_torch.workflow import Workflow
+
+    copies = {k: Column(c.kind, c.values, c.mask) for k, c in cols.items()}
+    t0 = time.perf_counter()
+    prof = column_profile(copies["txt"])
+    t1 = time.perf_counter()
+    sparse_from_hash_flat(*prof.buckets(SPARSE_HASHES), SPARSE_HASHES,
+                          record=False, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    fv = transmogrify([FeatureBuilder.Text("txt").as_predictor(),
+                       FeatureBuilder.Real("x0").as_predictor()],
+                      num_hashes=SPARSE_HASHES)
+    batch = ColumnBatch(copies, len(cols["txt"]))
+    model = (Workflow(device=device).set_input_batch(batch)
+             .set_result_features(fv).train())
+    split = {"text_scan_s": t1 - t0, "dedupe_and_upload_s": t2 - t1,
+             "phase_seconds_after_scan": model.phase_seconds}
+    return model.score()[fv.name].values, split
+
+
+def check_sparse_kernels(X, reps: int = 20):
+    """Both sparse kernels on the 1M run's own matrix ``X`` at k = 1, 3, 6
+    (the refit's and scoring's one lane, the power iteration's 3 folds, the
+    CV block's 6 lanes), timed at k = 6, and on ``skewed_coo`` at k = 1, 6,
+    32 (``_sparse_case``).  Returns the two rows of the ``kernels`` line and
+    every case's numbers."""
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.sparse.matrix import SparseMatrix
+
+    rng = np.random.default_rng(9)
+    facts = {f"run k={k}": _sparse_case(X, k, rng, reps if k == 6 else 0)
+             for k in (1, 3, 6)}
+    skew = SparseMatrix.from_coo(*skewed_coo(), device=X.device)
+    facts.update({f"skewed k={k}": _sparse_case(skew, k, rng)
+                  for k in (1, 6, 32)})
+    rows = []
+    for name in ("sp_matmat", "sp_rmatmat"):
+        r = dict(facts["run k=6"][name])
+        r["max_abs_err"] = max(f[name]["max_abs_err"] for f in facts.values())
+        del r["k"]
+        r.update(name=name, route="cuda",
+                 source=f"transmogrifai_tpu_torch/csrc/{name}.cu",
+                 replaces=kernels.REPLACES[name])
+        rows.append(r)
+    return rows, {"nnz": X.nnz, "skewed_nnz": skew.nnz, **facts}
+
+
+def run_sparse(device, n: int, cols=None, score_cols=None) -> tuple:
+    """The sparse-text workflow (``bench.run_text_sparse``): train, evaluate
+    (AuROC) and, given ``score_cols``, score that fresh batch with its
+    predictions materialised.  Returns (facts, model, batch)."""
+    import torch
+
+    from transmogrifai_tpu_torch.columns import ColumnBatch
+
+    sr = _sparse_ref()
+    wf, batch, pred = sr.build(
+        PORT, n, batch=None if cols is None else ColumnBatch(cols, n),
+        device=device)
+    t0 = time.perf_counter()
+    model = wf.train()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    facts = {"train_wall_s": time.perf_counter() - t0,
+             **sr.facts(PORT, model, batch),
+             "phase_seconds": model.phase_seconds,
+             "selector_seconds": model.selected_model.selector_seconds}
+    if score_cols is not None:
+        fresh = ColumnBatch(score_cols, n)
+        t0 = time.perf_counter()
+        p = model.score(fresh)[pred.name].values["probability"]
+        float(p[:8].sum())                   # materialised on the host
+        wall = time.perf_counter() - t0
+        if tuple(p.shape) != (n, 2) or not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"sparse scores: shape {tuple(p.shape)} or "
+                                 "non-finite")
+        facts.update(score_wall_s=wall, score_rows_per_s=n / wall)
+        del p
+    return facts, model, batch
+
+
+def check_sparse_reference() -> dict:
+    """The workflow at SPARSE_REF_ROWS rows on the card and on the CPU
+    twins, each held to the JAX package's run at that size (SPARSE_REF):
+    the same width, nnz and winner, each candidate's CV AuPR and the train
+    AuROC within SPARSE_REF_TOL."""
+    ref, tol = SPARSE_REF, SPARSE_REF_TOL
+    runs = {}
+    for device in ("cuda", "cpu"):
+        r, _, _ = run_sparse(device, SPARSE_REF_ROWS)
+        bad = [f"{k} {r[k]}" for k in ("width", "nnz", "winner")
+               if r[k] != ref[k]]
+        bad += [f"CV AuPR of {c}: {r['cv_aupr'].get(c)}"
+                for c, v in ref["cv_aupr"].items()
+                if not abs(r["cv_aupr"].get(c, np.inf) - v) <= tol]
+        if not abs(r["train_auroc"] - ref["train_auroc"]) <= tol:
+            bad.append(f"train AuROC {r['train_auroc']}")
+        if bad:
+            raise AssertionError(f"sparse reference run on {device} differs "
+                                 f"from the JAX package's: {bad}")
+        runs[device] = {k: r[k] for k in ("width", "nnz", "cv_aupr",
+                                          "winner", "train_auroc",
+                                          "train_wall_s")}
+    return runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1367,7 +1598,8 @@ def main() -> int:
     # the bench set's trees are at most depth 6: no level needs the
     # one-pass deep histogram; the dense path hashes no text
     missing = [k for k, v in launches.items()
-               if v <= 0 and k not in ("tree_hist_deep", "hash_counts")]
+               if v <= 0 and k not in ("tree_hist_deep", "hash_counts",
+                                       "sp_matmat", "sp_rmatmat")]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if facts["train_auroc"] <= 0.7:
@@ -1390,7 +1622,8 @@ def main() -> int:
           flush=True)
     print("default grid kernel launches: " + json.dumps(launches), flush=True)
     missing = [k for k, v in launches.items()
-               if v <= 0 and k != "hash_counts"]
+               if v <= 0 and k not in ("hash_counts", "sp_matmat",
+                                       "sp_rmatmat")]
     if missing:
         raise AssertionError(f"kernels never launched on the default grid: "
                              f"{missing}")
@@ -1444,6 +1677,51 @@ def main() -> int:
     text_row["launches"] = tm_launches["hash_counts"]
     wide_row["launches"] = tm_launches["fista_step"]
     rows += [text_row, wide_row]
+    torch.cuda.empty_cache()
+
+    # phase 6: sparse hashed text at 1M rows x 100,000 hashes; the batches
+    # are made before the clock starts, and the kernels are checked first
+    # on the run's own matrix (built from copies of the columns)
+    from transmogrifai_tpu_torch.synthetic import make_sparse_text_columns
+    cols, _ = make_sparse_text_columns(N_ROWS)
+    score_cols, _ = make_sparse_text_columns(N_ROWS, seed=7)
+    X, host_split = sparse_matrix_of(cols)
+    print("sparse text stage, host split: " + json.dumps(host_split),
+          flush=True)
+    sp_rows, sp_kfacts = check_sparse_kernels(X)
+    del X
+    print("sparse kernels: " + json.dumps(sp_kfacts), flush=True)
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    sp_facts, _, _ = run_sparse("cuda", N_ROWS, cols, score_cols)
+    sp_launches = kernels.launch_counts()
+    sp_facts["peak_device_memory_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    print(f"sparse text {N_ROWS} rows x {SPARSE_HASHES} hashes: "
+          + json.dumps(sp_facts), flush=True)
+    print("sparse kernel launches: " + json.dumps(sp_launches), flush=True)
+    if sp_facts["width"] != SPARSE_WIDTH:
+        raise AssertionError(f"sparse width {sp_facts['width']}, expected "
+                             f"{SPARSE_WIDTH}")
+    missing = [k for k in ("sp_matmat", "sp_rmatmat") if sp_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the sparse path: "
+                             f"{missing}")
+    if sp_facts["train_auroc"] <= 0.99:
+        raise AssertionError(f"sparse train AuROC {sp_facts['train_auroc']} "
+                             "<= 0.99")
+    if sp_facts["peak_device_memory_gb"] >= SPARSE_PEAK_GB:
+        raise AssertionError(f"sparse peak device memory "
+                             f"{sp_facts['peak_device_memory_gb']} GB >= "
+                             f"{SPARSE_PEAK_GB} GB")
+    del cols, score_cols
+    torch.cuda.empty_cache()
+    print(f"sparse reference runs ({SPARSE_REF_ROWS} rows): "
+          + json.dumps(check_sparse_reference()), flush=True)
+    for r in sp_rows:
+        r["launches"] = sp_launches[r["name"]]
+    rows += sp_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card, flush=True)

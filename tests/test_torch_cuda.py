@@ -17,7 +17,11 @@ with the draws made on the host equals the CPU twins' forest in structure,
 leaves at rtol 1e-6; ``fista_step`` within 1e-5 of each output's absolute
 mass of the twin run in f64 (tile and block sums in another order than
 cuBLAS), and the same bits on two launches; the one-pass deep histogram
-like ``tree_hist``; ``hash_counts`` equal to its twin (integer counts).
+like ``tree_hist``; ``hash_counts`` equal to its twin (integer counts);
+``sp_matmat`` / ``sp_rmatmat`` within 1e-5 of each output's absolute mass
+of the twin run in f64 (chunk partials added in another order), and the
+same bits on two launches; the sparse-text workflow on the card against
+the CPU twins like the transmog one.
 """
 
 import numpy as np
@@ -299,9 +303,10 @@ def test_small_main_path_on_the_card_matches_the_twins(cuda):
     kernels.reset_launch_counts()
     gpu = _small_main_path("cuda", 5000)
     # depth-4 and depth-3 trees never need the one-pass deep histogram;
-    # the dense path hashes no text
+    # the dense path hashes no text and holds no sparse matrix
     assert all(v > 0 for k, v in kernels.launch_counts().items()
-               if k not in ("tree_hist_deep", "hash_counts"))
+               if k not in ("tree_hist_deep", "hash_counts", "sp_matmat",
+                            "sp_rmatmat"))
     cpu = _small_main_path("cpu", 5000)
     assert gpu[0] == cpu[0]
     np.testing.assert_allclose(gpu[1], cpu[1], rtol=0, atol=1e-3)
@@ -460,6 +465,94 @@ def test_transmog_path_on_the_card_matches_the_twins(cuda):
         assert (a["cramers_v"][g] is None) == (v is None)
         if v is not None:
             assert abs(a["cramers_v"][g] - v) <= 1e-5
+    for c, v in b["cv_aupr"].items():
+        assert abs(a["cv_aupr"][c] - v) <= 1e-4
+    assert abs(a["train_auroc"] - b["train_auroc"]) <= 1e-4
+
+
+def _skewed_sparse(device, n=60_013, d=110_003, seed=8):
+    """Random ~9-entry rows (duplicates possible), column 7 holding every
+    non-empty row, row 11 holding 100,000 entries, empty rows (every 13th)
+    and empty columns (the last 1,000)."""
+    from transmogrifai_tpu_torch.sparse.matrix import SparseMatrix
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(n), 9)
+    c = rng.integers(0, d - 1000, r.size)
+    r = np.concatenate([r, np.arange(n), np.full(100_000, 11)])
+    c = np.concatenate([c, np.full(n, 7), rng.permutation(d - 1000)[:100_000]])
+    keep = r % 13 != 0
+    r, c = r[keep], c[keep]
+    perm = rng.permutation(r.size)          # entries in no particular order
+    return SparseMatrix.from_coo(r[perm], c[perm], rng.normal(
+        size=r.size).astype(np.float32), n, d, device=device)
+
+
+@pytest.mark.parametrize("k", [1, 6, 32, 40])
+def test_sparse_kernels_match_twins_and_repeat_bit_for_bit(cuda, k):
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.sparse import sparse_kernels as sk
+    X = _skewed_sparse(cuda)
+    rng = np.random.default_rng(k)
+    M = torch.as_tensor(rng.normal(size=(X.n_cols, k)).astype(np.float32),
+                        device=cuda)
+    G = torch.as_tensor(rng.normal(size=(X.n_rows, k)).astype(np.float32),
+                        device=cuda)
+    for fn, twin, dense, n_out, name in (
+            (sk.sp_matmat, sk.sp_matmat_twin, M, X.n_rows, "sp_matmat"),
+            (sk.sp_rmatmat, sk.sp_rmatmat_twin, G, X.n_cols, "sp_rmatmat")):
+        kernels.reset_launch_counts()
+        got = fn(X, dense)
+        assert kernels.launch_counts()[name] == -(-k // sk.MAX_K)
+        assert torch.equal(got, fn(X, dense))
+        args = (X.values.double(), X.indices, X.row_ids)
+        want = twin(*args, dense.double(), n_out)
+        mass = twin(args[0].abs(), *args[1:], dense.double().abs(), n_out)
+        assert bool(((got.double() - want).abs() <= 1e-5 * mass + 1e-12)
+                    .all())
+    # empty rows and columns come out zero
+    assert bool((sk.sp_matmat(X, M)[::13] == 0).all())
+    assert bool((sk.sp_rmatmat(X, G)[-1000:] == 0).all())
+
+
+def test_sparse_wrappers_on_the_card_take_the_kernels(cuda):
+    """A CUDA matrix launches the kernels (no twin), and an empty matrix
+    launches nothing and returns zeros."""
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.sparse.matrix import SparseMatrix
+    X = SparseMatrix.from_coo([0, 2, 2], [1, 0, 1], [1.0, 2.0, 3.0], 4, 2,
+                              device=cuda)
+    kernels.reset_launch_counts()
+    out = X.matvec(torch.ones(2, device=cuda))
+    assert out.tolist() == [1.0, 0.0, 5.0, 0.0]
+    assert X.rmatvec(torch.ones(4, device=cuda)).tolist() == [2.0, 4.0]
+    assert kernels.launch_counts()["sp_matmat"] == 1
+    assert kernels.launch_counts()["sp_rmatmat"] == 1
+    E = SparseMatrix.from_coo([], [], [], 3, 5, device=cuda)
+    assert bool((E.matmat(torch.ones((5, 2), device=cuda)) == 0).all())
+    assert kernels.launch_counts()["sp_matmat"] == 1
+
+
+def test_sparse_path_on_the_card_matches_the_twins(cuda):
+    """The sparse-text workflow at 3,000 rows x 100,000 hashes on the card
+    and on the CPU twins: the same width, nnz and winner, CV AuPR and train
+    AuROC within 1e-4, with both sparse kernels launched on the card."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import sparse_reference as sr
+    from transmogrifai_tpu_torch.models import kernels
+    facts = {}
+    for device in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        wf, batch, _ = sr.build(sr.PACKAGES["torch"], 3000, device=device)
+        facts[device] = sr.facts(sr.PACKAGES["torch"], wf.train(), batch)
+        if device == "cuda":
+            launched = kernels.launch_counts()
+            assert launched["sp_matmat"] > 0 and launched["sp_rmatmat"] > 0
+    a, b = facts["cuda"], facts["cpu"]
+    for k in ("width", "nnz", "winner"):
+        assert a[k] == b[k], k
     for c, v in b["cv_aupr"].items():
         assert abs(a["cv_aupr"][c] - v) <= 1e-4
     assert abs(a["train_auroc"] - b["train_auroc"]) <= 1e-4

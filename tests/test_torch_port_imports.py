@@ -68,6 +68,27 @@ def test_native_helpers_and_the_transmog_path_leave_jax_out():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_the_sparse_path_leaves_jax_out():
+    """Training and scoring the sparse hashed-text workflow on the CPU (its
+    vectorizer, SparseMatrix, product twins and sparse FISTA) loads no JAX."""
+    code = ("import json, sys\n"
+            "sys.path.insert(0, 'scripts')\n"
+            "import sparse_reference as sr\n"
+            "wf, b, pred = sr.build('transmogrifai_tpu_torch', 200, "
+            "num_hashes=4096, device='cpu')\n"
+            "m = wf.train()\n"
+            "assert type(sr.feature_matrix('transmogrifai_tpu_torch', m, b))"
+            ".__name__ == 'SparseMatrix'\n"
+            "m.score(b)\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
+            "or m == 'transmogrifai_tpu' or m.startswith('transmogrifai_tpu.'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize("path", [os.path.join(ROOT, "chip_smoke.py")] + sorted(
     os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
     if f.endswith(".py")))

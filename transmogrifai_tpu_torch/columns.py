@@ -19,25 +19,31 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
+from .sparse.matrix import SparseMatrix
 from .types import (Binary, Date, DateTime, FeatureType, Integral, OPVector,
                     Prediction, is_numeric_kind, is_text_kind)
 from .vector_meta import VectorMeta
 
 
-def to_device_f32(values, device: DeviceLike) -> torch.Tensor:
+def to_device_f32(values, device: DeviceLike):
     """Exact f32 tensor of ``values`` on ``device`` (≙ ``to_device_f32``,
-    minus the TPU bf16 wire).  A tensor already there passes through;
-    ``None`` means CUDA and raises where CUDA is absent."""
+    minus the TPU bf16 wire).  A tensor already there passes through, and so
+    does a ``SparseMatrix`` (moved to ``device``, never densified); ``None``
+    means CUDA and raises where CUDA is absent."""
     device = resolve_device(device)
+    if isinstance(values, SparseMatrix):
+        return values.to(device)
     if isinstance(values, torch.Tensor):
         return values.to(device=device, dtype=torch.float32)
     return torch.as_tensor(np.asarray(values, dtype=np.float32),
                            device=device)
 
 
-def device_matrix(values, device: DeviceLike) -> torch.Tensor:
-    """Contiguous f32 feature matrix on ``device`` (≙ ``device_matrix``)."""
-    return to_device_f32(values, device).contiguous()
+def device_matrix(values, device: DeviceLike):
+    """Contiguous f32 feature matrix on ``device`` (≙ ``device_matrix``); a
+    ``SparseMatrix`` stays sparse."""
+    m = to_device_f32(values, device)
+    return m if isinstance(m, SparseMatrix) else m.contiguous()
 
 
 @dataclass
@@ -48,7 +54,8 @@ class Column:
       (True = present), None for non-nullable kinds.
     * text kinds    — ``values``: numpy object array [N] of str | None (host).
     * maps, lists   — ``values``: numpy object array [N] of dict / list (host).
-    * OPVector      — ``values``: f32 tensor [N, D]; ``meta``: VectorMeta.
+    * OPVector      — ``values``: f32 tensor [N, D] or a ``SparseMatrix``
+      (wide hashed text); ``meta``: VectorMeta.
     * Prediction    — ``values``: dict with 'prediction' [N] and optionally
       'probability' / 'rawPrediction' [N, 2] tensors.
     """
@@ -130,6 +137,8 @@ class ColumnBatch:
                 return None
             if isinstance(v, dict):
                 return {k: take(a) for k, a in v.items()}
+            if isinstance(v, SparseMatrix):
+                return v.take_rows(idx)
             if isinstance(v, torch.Tensor):
                 return v[torch.as_tensor(idx, device=v.device)]
             return np.asarray(v)[idx]

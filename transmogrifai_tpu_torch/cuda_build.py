@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C launch interface and compiles with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared library
-under ``csrc/_build/`` (named by the source's content hash, so an edited
-source rebuilds), loaded with ``ctypes``.  Nothing is compiled or loaded at
-import time: the first launch of a kernel builds it, and
+under ``csrc/_build/`` (named by the content hash of the source and of the
+``csrc`` headers it includes, so an edited source or header rebuilds the
+libraries built from it and no others), loaded with ``ctypes``.  Nothing is
+compiled or loaded at import time: the first launch of a kernel builds it, and
 :func:`build_all` builds every source at once, one ``nvcc`` per source, all
 running in parallel.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +25,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
 KERNEL_SOURCES = ("tree_hist", "tree_hist_deep", "tree_split",
                   "tree_split_gini", "tree_route", "tree_walk", "fista_step",
-                  "hash_counts")
+                  "hash_counts", "sp_matmat", "sp_rmatmat")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -41,7 +43,11 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> str:
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+        src = fh.read()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    for header in re.findall(rb'#include "([^"]+)"', src):
+        with open(os.path.join(CSRC, header.decode()), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

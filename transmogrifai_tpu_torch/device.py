@@ -26,8 +26,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def tensor_device(x, device: DeviceLike = None) -> torch.device:
-    """The device a fit or score runs on: a tensor input decides it,
-    otherwise ``resolve_device(device)``."""
-    if isinstance(x, torch.Tensor):
+    """The device a fit or score runs on: a tensor or ``SparseMatrix``
+    input decides it, otherwise ``resolve_device(device)``."""
+    from .sparse.matrix import SparseMatrix
+    if isinstance(x, (torch.Tensor, SparseMatrix)):
         return x.device
     return resolve_device(device)

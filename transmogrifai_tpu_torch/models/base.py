@@ -14,17 +14,18 @@ from typing import Any, Dict, Tuple, Type
 import numpy as np
 import torch
 
-from ..columns import Column, ColumnBatch, prediction_column, to_device_f32
+from ..columns import Column, ColumnBatch, device_matrix, prediction_column
 from ..stages.base import Estimator, TransformerModel
 from ..types import OPVector, Prediction, RealNN
 
 
 def extract_xy(batch: ColumnBatch, label_feature, features_feature
-               ) -> Tuple[torch.Tensor, np.ndarray]:
-    """(X [N, D] f32 tensor on the batch's device, y [N] f32 numpy)."""
+               ) -> Tuple[Any, np.ndarray]:
+    """(X [N, D] on the batch's device — a contiguous f32 tensor, or a
+    ``SparseMatrix`` left sparse — and y [N] f32 numpy)."""
     y = np.asarray(batch[label_feature.name].values, dtype=np.float32)
-    X = to_device_f32(batch[features_feature.name].values, batch.device)
-    return X.contiguous(), y
+    return device_matrix(batch[features_feature.name].values,
+                         batch.device), y
 
 
 class PredictionModel(TransformerModel):
@@ -40,8 +41,8 @@ class PredictionModel(TransformerModel):
         raise NotImplementedError
 
     def transform(self, batch: ColumnBatch) -> Column:
-        X = to_device_f32(batch[self.input_features[1].name].values,
-                          batch.device).contiguous()
+        X = device_matrix(batch[self.input_features[1].name].values,
+                          batch.device)
         out = self.device_scores(X, full=True)
         return prediction_column(out["prediction"], out.get("probability"),
                                  out.get("rawPrediction"))

@@ -1,5 +1,6 @@
 """Launch bookkeeping shared by the port's kernel wrappers
-(``tree_kernels.py``, ``linear_kernels.py``, ``ops/text_kernels.py``).
+(``tree_kernels.py``, ``linear_kernels.py``, ``ops/text_kernels.py``,
+``sparse/sparse_kernels.py``).
 
 Each wrapper takes tensors and dispatches on their device: on a CPU tensor it
 runs the plain-PyTorch twin beside it; on a CUDA tensor it launches the
@@ -28,6 +29,8 @@ REPLACES = {
     "tree_walk": "transmogrifai_tpu/models/trees.py:668",
     "fista_step": "transmogrifai_tpu/models/solvers.py:160",
     "hash_counts": "transmogrifai_tpu/ops/text.py:148",
+    "sp_matmat": "transmogrifai_tpu/sparse/matrix.py:60",
+    "sp_rmatmat": "transmogrifai_tpu/sparse/matrix.py:67",
 }
 
 

@@ -2,8 +2,8 @@
 reference: OpLogisticRegression.scala:46, OpLinearSVC.scala).
 
 The port has binary elastic-net logistic regression and the squared-hinge
-linear SVC.  Multinomial, the GLMs, naive Bayes and the MLP come with later
-slices of the port.
+linear SVC, on a dense matrix or a ``SparseMatrix``.  Multinomial, the GLMs,
+naive Bayes and the MLP come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -16,8 +16,9 @@ import torch
 
 from ..columns import device_matrix, to_device_f32
 from ..device import tensor_device
+from ..sparse.matrix import SparseMatrix
 from .base import PredictionModel, PredictorEstimator
-from .solvers import linear_grid_fit
+from .solvers import linear_grid_fit, sparse_linear_grid_fit
 
 
 def _n_classes(y) -> int:
@@ -33,8 +34,9 @@ def _grouped_grid_fit(est, X, y, fold_weights, grids, *, device, loss: str,
     """(fold × grid) batched fit: grid points are grouped by their static
     config (max_iter/intercept/standardization/tol) and each group trains as
     one batched lane loop over (fold weights [F, N]) × (l2s, l1s [G])
-    (≙ ``_grouped_grid_fit``, linear.py:41).  ``l2l1`` maps a point's params
-    to its (l2, l1) penalties.  Returns fitted dicts [F][G]."""
+    (≙ ``_grouped_grid_fit``, linear.py:41); a ``SparseMatrix`` X takes
+    ``sparse_linear_grid_fit`` (linear.py:56-90).  ``l2l1`` maps a point's
+    params to its (l2, l1) penalties.  Returns fitted dicts [F][G]."""
     K, G = len(fold_weights), len(grids)
     out: list = [[None] * G for _ in range(K)]
     groups = defaultdict(list)
@@ -46,9 +48,11 @@ def _grouped_grid_fit(est, X, y, fold_weights, grids, *, device, loss: str,
     Xd = device_matrix(X, device)
     yd = to_device_f32(y, device)
     Wd = to_device_f32(fold_weights, device)
+    fit = (sparse_linear_grid_fit if isinstance(Xd, SparseMatrix)
+           else linear_grid_fit)
     for (max_iter, fit_intercept, standardization, tol), gidx in groups.items():
         pens = [l2l1({**est._params, **grids[gi]}) for gi in gidx]
-        res = linear_grid_fit(
+        res = fit(
             Xd, yd, Wd,
             torch.tensor([p[0] for p in pens], dtype=torch.float32,
                          device=device),
@@ -66,14 +70,16 @@ def _grouped_grid_fit(est, X, y, fold_weights, grids, *, device, loss: str,
     return out
 
 
-def _linear_device_scores(X: torch.Tensor, coef: torch.Tensor,
-                          intercept: torch.Tensor, kind: str = "binary",
-                          full: bool = False):
+def _linear_device_scores(X, coef: torch.Tensor, intercept: torch.Tensor,
+                          kind: str = "binary", full: bool = False):
     """Binary score chain on the device (≙ ``_linear_device_scores`` /
     ``_scores_from_linear``, linear.py:148-184): margin → prediction and
     scores (the sigmoid for logistic, the raw margin for an SVC, which has
-    no probability), with ``full`` also probability and rawPrediction."""
-    margin = X @ coef + intercept.reshape(-1)[0]
+    no probability), with ``full`` also probability and rawPrediction.  A
+    ``SparseMatrix`` X takes its margin from ``sp_matmat`` with k = 1
+    (linear.py:200-210)."""
+    lin = X.matvec(coef) if isinstance(X, SparseMatrix) else X @ coef
+    margin = lin + intercept.reshape(-1)[0]
     out = {"prediction": (margin > 0).to(torch.float32)}
     if kind == "svc":
         out["scores"] = margin

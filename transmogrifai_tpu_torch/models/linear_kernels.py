@@ -5,6 +5,11 @@ plain-PyTorch twin (the dispatch rule and launch counters are in
 | kernel     | replaces (transmogrifai_tpu/models/solvers.py)                     |
 |------------|--------------------------------------------------------------------|
 | fista_step | ``_fista_loop``'s ``smooth_grad`` with ``xs_mv`` / ``xs_tmv`` (:160-166, :270-286); the product of ``_spectral_norm_sq_weighted`` (:112-131) |
+
+For a ``SparseMatrix`` the same gradient evaluation is ``sparse_fista_step``:
+margins by the ``sp_matmat`` kernel, the loss derivative in plain PyTorch,
+Xᵀg by ``sp_rmatmat`` (``sparse/sparse_kernels.py``); :func:`grad_seam`
+picks the one for X.
 """
 
 from __future__ import annotations
@@ -27,19 +32,44 @@ _DC_MARGIN = 64          # features per chunk, margin pass
 _TR_XTG, _DC_XTG = 64, 128   # rows per tile and features per chunk, X^T g
 
 
+def loss_grads(lin, w, y, ws, loss: str):
+    """The loss derivative at margins ``lin`` weighted by ``w / ws``,
+    elementwise with broadcasting (rows and lanes in either layout)."""
+    if loss == "logistic":
+        return w * (torch.sigmoid(lin) - y) / ws
+    if loss == "squared_hinge":
+        viol = torch.clamp(1.0 - y * lin, min=0.0)
+        return w * (-2.0 * viol * y) / ws
+    return (w / ws) * lin
+
+
 def fista_row_grads(X, V, muv, b, W, y, wsum, G: int, loss: str):
     """The per-row gradients g [L, N] of ``fista_step`` (see
     :func:`fista_step`), in plain PyTorch."""
     lane_fold = torch.arange(V.shape[0], device=X.device) // G
-    Wl = W[lane_fold]
     lin = V @ X.T - muv[:, None] + b[:, None]
-    ws = wsum[:, None]
-    if loss == "logistic":
-        return Wl * (torch.sigmoid(lin) - y) / ws
-    if loss == "squared_hinge":
-        viol = torch.clamp(1.0 - y * lin, min=0.0)
-        return Wl * (-2.0 * viol * y) / ws
-    return (Wl / ws) * lin
+    return loss_grads(lin, W[lane_fold], y, wsum[:, None], loss)
+
+
+def sparse_fista_step(X, V, muv, b, W, y, wsum, G: int, loss: str
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fista_step` for a ``SparseMatrix`` X, with the lanes as the
+    products' dense columns: margins [N, L] by one ``sp_matmat``, the
+    arithmetic of :func:`fista_row_grads` on [N, L], Xᵀg [D, L] by one
+    ``sp_rmatmat`` (≙ the sparse ``xs_mv`` / ``xs_tmv``, solvers.py:529-541).
+    Both kernels sum in a fixed order, so this is bit-repeatable too."""
+    lane_fold = torch.arange(V.shape[0], device=X.device) // G
+    lin = X.matmat(V.T.contiguous()) - muv + b
+    g = loss_grads(lin, W[lane_fold].T, None if y is None else y[:, None],
+                   wsum, loss).contiguous()
+    return X.rmatmat(g).T.contiguous(), g.sum(dim=0)
+
+
+def grad_seam(X):
+    """The gradient evaluation for X: ``sparse_fista_step`` for a
+    ``SparseMatrix``, else ``fista_step``."""
+    from ..sparse.matrix import SparseMatrix
+    return sparse_fista_step if isinstance(X, SparseMatrix) else fista_step
 
 
 def fista_step_twin(X, V, muv, b, W, y, wsum, G: int, loss: str):

@@ -1,5 +1,6 @@
-"""Full-batch dense solver for the linear family (port of the dense logistic
-and squared-hinge paths of ``transmogrifai_tpu/models/solvers.py``).
+"""Full-batch solver for the linear family (port of the logistic and
+squared-hinge paths of ``transmogrifai_tpu/models/solvers.py``, dense and
+sparse).
 
 The JAX package vmaps a per-lane ``lax.while_loop`` over the (fold × grid)
 lanes, so a lane that meets its tolerance freezes while the others run.  The
@@ -14,6 +15,12 @@ shares the one device-resident X (the standardized copy never exists).  Each
 gradient evaluation, and each product of the power iteration, is one
 ``fista_step`` (``linear_kernels.py``): on the card a kernel that reads X
 once for all lanes, on the CPU its matmul twin.
+
+A ``SparseMatrix`` X runs the same loop: only the gradient seam differs
+(``grad_seam``: ``sp_matmat`` margins and ``sp_rmatmat`` products over all
+lanes), and standardisation is scale only — the mean stays zero, since
+centring would densify every row (≙ ``sparse_linear_grid_fit``,
+solvers.py:469-578).
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from .linear_kernels import fista_step
+from .linear_kernels import grad_seam
 
 # Lipschitz constant of d²loss/dmargin² per row (≙ ``_LOSS_CURVATURE``)
 _LOSS_CURVATURE = {"logistic": 0.25, "squared_hinge": 2.0}
@@ -61,11 +68,12 @@ def _spectral_norm_sq_weighted(X, W, wsum, mean, scale, iters: int = 16):
     v = torch.full((W.shape[0], d), 1.0 / float(d) ** 0.5,
                    dtype=torch.float32, device=X.device)
     zero = torch.zeros_like(wsum)
+    grad = grad_seam(X)
 
     def mv(v):
         vs = v / scale
-        gx, gs = fista_step(X, vs, (mean * vs).sum(dim=1), zero, W, None,
-                            wsum, 1, "gram")
+        gx, gs = grad(X, vs, (mean * vs).sum(dim=1), zero, W, None, wsum, 1,
+                      "gram")
         return (gx - mean * gs[:, None]) / scale
 
     for _ in range(iters):
@@ -99,6 +107,7 @@ class FistaLoop:
             raise ValueError(f"FistaLoop: loss {loss!r}")
         self.X, self.target, self.W, self.G = X, target, W, G
         self.mu, self.sc, self.loss, self.tol = mu, sc, loss, tol
+        self.grad = grad_seam(X)
         self.fit_intercept = fit_intercept
         lane_fold = torch.arange(mu.shape[0], device=X.device) // G
         self.wsum = W.sum(dim=1)[lane_fold]
@@ -119,8 +128,8 @@ class FistaLoop:
     def step(self, s: FistaState) -> FistaState:
         mu, sc, step = self.mu, self.sc, self.step_size
         v = s.zc / sc
-        gx, g_i = fista_step(self.X, v, (mu * v).sum(dim=1), s.zi, self.W,
-                             self.target, self.wsum, self.G, self.loss)
+        gx, g_i = self.grad(self.X, v, (mu * v).sum(dim=1), s.zi, self.W,
+                            self.target, self.wsum, self.G, self.loss)
         g_c = (gx - mu * g_i[:, None]) / sc + self.l2c * s.zc
         u = s.zc - step * g_c
         new_c = torch.sign(u) * torch.clamp(torch.abs(u) - step * self.l1c,
@@ -175,13 +184,21 @@ def linear_grid_fit(X: torch.Tensor, y: torch.Tensor, W: torch.Tensor,
     l2s/l1s [G] → FitResult with [F, G, ...] leaves.  Moments and λ_max are
     per fold, shared by the fold's grid lanes; lane f·G + g is grid point g
     on fold f."""
-    F, G = W.shape[0], l2s.shape[0]
-    d = X.shape[1]
+    F, d = W.shape[0], X.shape[1]
     if standardization:
         mean, scale = standardize_moments(X, W, center=fit_intercept)
     else:
         mean = torch.zeros((F, d), dtype=torch.float32, device=X.device)
         scale = torch.ones((F, d), dtype=torch.float32, device=X.device)
+    return _grid_fit(X, y, W, l2s, l1s, mean, scale, loss=loss,
+                     fit_intercept=fit_intercept, max_iter=max_iter, tol=tol)
+
+
+def _grid_fit(X, y, W, l2s, l1s, mean, scale, *, loss: str,
+              fit_intercept: bool, max_iter: int, tol: float) -> FitResult:
+    """The (fold × grid) FISTA block given per-fold moments [F, D]: λ_max
+    per fold, the lanes' loop, and the coefficients unscaled."""
+    F, G, d = W.shape[0], l2s.shape[0], X.shape[1]
     sigma_sq = _spectral_norm_sq_weighted(X, W, W.sum(dim=1), mean, scale)
 
     def lanes(a):       # per-fold [F, ...] → per-lane [F*G, ...]
@@ -195,3 +212,47 @@ def linear_grid_fit(X: torch.Tensor, y: torch.Tensor, W: torch.Tensor,
     coef, inter = unscale_params(s.coef, s.inter, lanes(mean), lanes(scale))
     return FitResult(coef.reshape(F, G, d), inter.reshape(F, G, 1),
                      s.k.reshape(F, G))
+
+
+def _sp_col_scale(X, W: torch.Tensor) -> torch.Tensor:
+    """Weighted per-column scale sqrt(E[x²] - E[x]²) per fold row of W
+    [F, N] → [F, D], from the stored entries only: two ``sp_rmatmat``
+    products (values and values² against the normalised weights) (≙
+    ``_sp_col_scale``, solvers.py:469-481).  Absent columns clamp to scale
+    1e-6 and their coefficients stay 0."""
+    wn = (W / W.sum(dim=1, keepdim=True)).T.contiguous()
+    mean = X.rmatmat(wn).T
+    ex2 = X.elementwise(torch.square).rmatmat(wn).T
+    var = torch.clamp(ex2 - mean * mean, min=0.0)
+    return torch.sqrt(torch.clamp(var, min=1e-12))
+
+
+def sparse_linear_grid_fit(X, y: torch.Tensor, W: torch.Tensor,
+                           l2s: torch.Tensor, l1s: torch.Tensor, *,
+                           loss: str = "logistic", fit_intercept: bool = True,
+                           standardization: bool = True, max_iter: int = 100,
+                           tol: float = 1e-6) -> FitResult:
+    """``linear_grid_fit`` for a ``SparseMatrix`` X (≙
+    ``sparse_linear_grid_fit``, solvers.py:502-559): every lane shares the
+    one device-resident entry stream, nothing is ever [N, D].
+    Standardisation is scale only (``_sp_col_scale``), the mean zero; the
+    coefficients come back unscaled."""
+    F, d = W.shape[0], X.shape[1]
+    mean = torch.zeros((F, d), dtype=torch.float32, device=X.device)
+    scale = (_sp_col_scale(X, W) if standardization
+             else torch.ones((F, d), dtype=torch.float32, device=X.device))
+    return _grid_fit(X, y, W, l2s, l1s, mean, scale, loss=loss,
+                     fit_intercept=fit_intercept, max_iter=max_iter, tol=tol)
+
+
+def sparse_fista_fit(X, y: torch.Tensor, sample_weight: torch.Tensor,
+                     l2: float, l1: float, **kw) -> FitResult:
+    """One sparse fit: the one-fold, one-lane case of
+    :func:`sparse_linear_grid_fit` (≙ ``sparse_fista_fit``,
+    solvers.py:562-578).  Returns coef [D], intercept [1], n_iter []."""
+    dev = X.device
+    res = sparse_linear_grid_fit(
+        X, y, sample_weight.reshape(1, -1),
+        torch.tensor([l2], dtype=torch.float32, device=dev),
+        torch.tensor([l1], dtype=torch.float32, device=dev), **kw)
+    return FitResult(res.coef[0, 0], res.intercept[0, 0], res.n_iter[0, 0])

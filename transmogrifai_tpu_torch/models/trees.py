@@ -288,6 +288,20 @@ def _gbt_grid_fit(B, splits, X, y, margins, W, fmask, mis, mgs, lams, etas,
     return margins, TreeArrays(*(torch.stack(a) for a in zip(*rounds)))
 
 
+def _dense_matrix(X, dev) -> torch.Tensor:
+    """The contiguous dense feature matrix of a tree fit; a ``SparseMatrix``
+    raises (the JAX package's resilience layer skips tree families on a
+    sparse matrix, tuning.py:1462-1466)."""
+    from ..sparse.matrix import SparseMatrix
+    if isinstance(X, SparseMatrix):
+        raise NotImplementedError(
+            "tree families on a SparseMatrix (hashed text at >= 4,096 "
+            "hashes) arrive with a later slice of the port (ROADMAP queue 1, "
+            "the sparse path's remainder); use the linear family, or "
+            "sparse_hashing=False on the SmartTextVectorizer")
+    return device_matrix(X, dev)
+
+
 def _lane_params(vals, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(vals, np.float32), device=device)
 
@@ -299,7 +313,7 @@ def fit_gbt(X, y, *, n_rounds: int, max_depth: int, max_bins: int,
     """Binary GBT (XGBoost-style second order) for one candidate
     (≙ ``fit_gbt``, trees.py:822-862): the grid fitter with one lane."""
     dev = tensor_device(X, device)
-    Xd = device_matrix(X, dev)
+    Xd = _dense_matrix(X, dev)
     N, D = Xd.shape
     splits, sp_t, B = binned(X, Xd, max_bins)
     w0 = (torch.ones((1, N), dtype=torch.float32, device=dev)
@@ -521,7 +535,7 @@ class _ForestEstimatorBase(PredictorEstimator):
         trains as one lane block over one shared binned matrix (≙
         ``_ForestEstimatorBase.fit_arrays_grid``, trees.py:1119-1240)."""
         dev = tensor_device(X, device)
-        Xd = device_matrix(X, dev)
+        Xd = _dense_matrix(X, dev)
         N, D = Xd.shape
         K, G = len(fold_weights), len(grids)
         out: list = [[None] * G for _ in range(K)]
@@ -635,7 +649,7 @@ class OpGBTClassifier(PredictorEstimator):
         as one lane block over one shared binned matrix (≙
         ``_GBTEstimatorBase.fit_arrays_grid``, trees.py:1336-1397)."""
         dev = tensor_device(X, device)
-        Xd = device_matrix(X, dev)
+        Xd = _dense_matrix(X, dev)
         N, D = Xd.shape
         K, G = len(fold_weights), len(grids)
         out: list = [[None] * G for _ in range(K)]

@@ -1,13 +1,15 @@
 """VectorsCombiner — assemble feature vectors and merge their lineage
 metadata (port of ``transmogrifai_tpu/ops/combiner.py``; reference:
 VectorsCombiner.scala).  A concat on the device; metadata flattening mirrors
-OpVectorMetadata.flatten.  Sparse blocks come with the sparse slice."""
+OpVectorMetadata.flatten.  Any sparse input block makes the output a
+``SparseMatrix`` with the same column layout and metadata."""
 
 from __future__ import annotations
 
 import torch
 
 from ..columns import Column, ColumnBatch, to_device_f32
+from ..sparse.matrix import SparseMatrix
 from ..stages.base import Transformer
 from ..types import OPVector
 from ..vector_meta import VectorColumnMeta, VectorMeta
@@ -31,5 +33,13 @@ class VectorsCombiner(Transformer):
                 f.name, [VectorColumnMeta(f.name, f.kind.__name__)
                          for _ in range(v.shape[1])]))
         meta = VectorMeta.flatten(self.output_name(), metas)
+        if any(isinstance(a, SparseMatrix) for a in arrays):
+            # dense blocks contribute their nonzero cells at the column
+            # offsets of the dense concat (≙ ``_transform_sparse``,
+            # combiner.py:61-86)
+            from ..sparse.transform import combine_blocks
+            return Column(OPVector, combine_blocks(arrays, len(batch),
+                                                   device=batch.device),
+                          meta=meta)
         return Column(OPVector, torch.cat(arrays, dim=1).contiguous(),
                       meta=meta)

@@ -1,5 +1,5 @@
-"""Text vectorization (port of the dense parts of
-``transmogrifai_tpu/ops/text.py``; reference: SmartTextVectorizer.scala:61,
+"""Text vectorization (port of ``transmogrifai_tpu/ops/text.py``'s
+SmartTextVectorizer and hashing; reference: SmartTextVectorizer.scala:61,
 TextTokenizer.scala, OpHashingTF.scala).
 
 Tokenizing and hashing happen on the host, once per column, in the cached
@@ -12,15 +12,17 @@ straight into their columns of the vectorizer's output.  Hashing is a stable
 
 The SmartTextVectorizer decision (cardinality <= max → pivot one-hot,
 ID-like → ignore, else hash) is made at fit time from one TextStats pass.
-The JAX package's sparse branch (>= 4,096 hashes) and its staged (fused)
-transform come with later slices of the port.
+With ``sparse_hashing="auto"`` a vectorizer that hashes into 4,096 or more
+buckets outputs a ``SparseMatrix`` instead (the host dedupes the bucket
+stream, ``sparse/transform.py``): the dense [N, num_hashes] block is never
+built.  The JAX package's staged (fused) transform comes with a later slice.
 """
 
 from __future__ import annotations
 
 import re
 from collections import Counter
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +37,7 @@ from .text_kernels import hash_counts
 
 _TOKEN_RE = re.compile(r"[A-Za-z0-9_']+")
 
-# the JAX package vectorizes hash spaces this wide as sparse COO matrices
+# hash spaces this wide vectorize as a SparseMatrix under sparse_hashing="auto"
 SPARSE_MIN_HASHES = 4096
 
 
@@ -165,13 +167,47 @@ class SmartTextVectorizerModel(TransformerModel):
                 widths.append(num_hashes + tn)
         return widths
 
-    def transform(self, batch: ColumnBatch) -> Column:
-        """One [N, width] output; each feature's block is written into its
-        own columns: pivots as a device one-hot, hashed text by
-        ``hash_counts`` (counts and null column in one pass)."""
+    def _transform_sparse(self, batch: ColumnBatch) -> Column:
+        """One [N, width] SparseMatrix (≙ ``_transform_sparse``,
+        text.py:496-533): each hashed feature's bucket stream deduped on the
+        host into COO entries, pivot and null blocks riding along as small
+        dense blocks, all stacked on the device by ``combine_blocks``."""
+        from ..sparse.transform import combine_blocks, sparse_from_hash_flat
         from .categorical import one_hot
         from .text_profile import column_profile
 
+        num_hashes = self.get("num_hashes")
+        track_nulls = self.get("track_nulls", True)
+        dev = batch.device
+        blocks: List[Any] = []
+        for f, w in zip(self.input_features, self.block_widths()):
+            strat = self.fitted["strategies"][f.name]
+            col = batch[f.name]
+            prof = column_profile(col)
+            if strat == "pivot":
+                vocab = self.fitted["vocabs"][f.name]
+                blocks.append(one_hot(encode_column(col, vocab, len(vocab)),
+                                      range(w), dev))
+                continue
+            if strat == "hash":
+                lens, flat = prof.buckets(num_hashes)
+                blocks.append(sparse_from_hash_flat(
+                    lens, flat, num_hashes, record=False, device=dev))
+            if track_nulls:
+                blocks.append(torch.from_numpy(prof.null).to(dev)[:, None])
+        return Column(OPVector, combine_blocks(blocks, len(batch), device=dev),
+                      meta=self.fitted["meta"])
+
+    def transform(self, batch: ColumnBatch) -> Column:
+        """One [N, width] output; each feature's block is written into its
+        own columns: pivots as a device one-hot, hashed text by
+        ``hash_counts`` (counts and null column in one pass).  A model fitted
+        sparse returns a ``SparseMatrix`` (``_transform_sparse``)."""
+        from .categorical import one_hot
+        from .text_profile import column_profile
+
+        if self.fitted.get("sparse"):
+            return self._transform_sparse(batch)
         num_hashes = self.get("num_hashes")
         track_nulls = self.get("track_nulls", True)
         dev = batch.device
@@ -205,19 +241,23 @@ class SmartTextVectorizer(Estimator):
     61): one TextStats pass; per feature, cardinality <= max_cardinality →
     pivot one-hot (like categorical); else value-length stddev below
     ``min_length_std_dev`` (ID-like; off by default) → ignore; else
-    tokenize + hash."""
+    tokenize + hash.  ``sparse_hashing``: "auto" outputs a SparseMatrix when
+    ``num_hashes`` >= 4,096 and any feature hashes; True / False force or
+    forbid it (≙ text.py:604-612, :663-673)."""
 
     out_kind = OPVector
 
     def __init__(self, max_cardinality: int = 30, top_k: int = 20,
                  min_support: int = 10, num_hashes: int = 512,
                  track_nulls: bool = True, auto_detect_languages: bool = False,
-                 min_length_std_dev: float = 0.0, **params):
+                 min_length_std_dev: float = 0.0,
+                 sparse_hashing: Any = "auto", **params):
         super().__init__(max_cardinality=max_cardinality, top_k=top_k,
                          min_support=min_support, num_hashes=num_hashes,
                          track_nulls=track_nulls,
                          auto_detect_languages=auto_detect_languages,
-                         min_length_std_dev=min_length_std_dev, **params)
+                         min_length_std_dev=min_length_std_dev,
+                         sparse_hashing=sparse_hashing, **params)
 
     def fit(self, batch: ColumnBatch) -> TransformerModel:
         from .text_profile import column_profile
@@ -256,11 +296,6 @@ class SmartTextVectorizer(Estimator):
                 # ID-like (SmartTextVectorizer.scala:94 Ignore branch)
                 strategies[f.name] = "ignore"
             else:
-                if num_hashes >= SPARSE_MIN_HASHES:
-                    raise NotImplementedError(
-                        f"SmartTextVectorizer: {num_hashes} hashes take the "
-                        "JAX package's sparse COO path, which arrives with "
-                        "the port's sparse slice (ROADMAP queue 1)")
                 strategies[f.name] = "hash"
                 cols_meta.extend(VectorColumnMeta(
                     f.name, kind, descriptor_value=f"hash_{j}")
@@ -269,8 +304,14 @@ class SmartTextVectorizer(Estimator):
                 cols_meta.append(VectorColumnMeta(
                     f.name, kind, indicator_value=NULL_INDICATOR))
         meta = VectorMeta(self.output_name(), cols_meta)
+        mode = self.get("sparse_hashing", "auto")
+        use_sparse = ("hash" in strategies.values()
+                      and (mode is True or (mode == "auto" and num_hashes
+                                            >= SPARSE_MIN_HASHES)))
         model = SmartTextVectorizerModel(
-            fitted={"strategies": strategies, "vocabs": vocabs, "meta": meta},
+            fitted={"strategies": strategies, "vocabs": vocabs, "meta": meta,
+                    "sparse": use_sparse},
             **self.params)
         model.metadata["strategies"] = dict(strategies)
+        model.metadata["sparse"] = use_sparse
         return self._finalize_model(model)

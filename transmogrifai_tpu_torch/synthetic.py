@@ -1,12 +1,15 @@
-"""The repository's synthetic transmogrification workload, for the port: the
-same values for the same seed as ``bench.make_transmog_columns``, built with
-fewer Python objects per row.
+"""The repository's synthetic workloads, for the port: the same values for the
+same seed as ``bench.make_transmog_columns`` and
+``bench.make_sparse_text_columns``, built with fewer Python objects per row.
 
-Rows of mixed raw kinds: 3 free-text columns (20-30% null; 2 words of a
+Transmogrification rows are of mixed raw kinds: 3 free-text columns (20-30% null; 2 words of a
 40-word set, then 4-8 or 3-5 tokens of a 50,000-word vocabulary), 2
 PickLists (20 and 50 levels, 10% and 20% null), a RealMap with keys a, b, c
 (each 80% present) and 4 Reals with 20% nulls; the binary label depends on
 cat1, r0 and the map's key a.
+
+Sparse-text rows hold 8 tokens of a label-dependent half of a 30,000-word
+vocabulary and one dense Real.
 """
 
 from __future__ import annotations
@@ -88,3 +91,29 @@ def make_transmog_columns(n: int, seed: int = 1
                                               rvals[:, j]),
                                mask=~rnull[:, j])
     return cols, dict(TRANSMOG_SCHEMA)
+
+
+SPARSE_TEXT_SCHEMA: Dict[str, Type[FeatureType]] = {
+    "label": RealNN, "txt": Text, "x0": Real}
+
+
+def make_sparse_text_columns(n: int, vocab_size: int = 30_000, seed: int = 3
+                             ) -> Tuple[Dict[str, Column], Dict[str, type]]:
+    """(columns by name, schema) of ``n`` rows: a 0/1 label, ``txt`` — 8
+    tokens of ``pos0..pos{half-1}`` on positive rows and ``neg...`` on
+    negative ones — and one dense Real ``x0``.  The random draws are those of
+    ``bench.make_sparse_text_columns`` in the same order."""
+    rng = np.random.default_rng(seed)
+    half = vocab_size // 2
+    vocab = [f"pos{i}" for i in range(half)] + [f"neg{i}" for i in range(half)]
+    y = rng.integers(0, 2, n)
+    pos = rng.integers(0, half, size=(n, 8))
+    neg = rng.integers(0, half, size=(n, 8)) + half
+    ids = np.where(y[:, None] == 1, pos, neg).tolist()
+    x0 = rng.normal(size=n).astype(np.float32)
+    txt = np.empty(n, dtype=object)
+    txt[:] = [" ".join(map(vocab.__getitem__, row)) for row in ids]
+    cols = {"label": Column(RealNN, y.astype(np.float32)),
+            "txt": Column(Text, txt),
+            "x0": Column(Real, x0, mask=np.ones(n, dtype=bool))}
+    return cols, dict(SPARSE_TEXT_SCHEMA)

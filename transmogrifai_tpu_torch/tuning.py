@@ -7,8 +7,11 @@ masks, so each candidate family trains its whole (fold × grid) block as one
 batched lane program (``fit_arrays_grid``) and is scored by one masked
 metric panel.  Racing screens a family's full grid on fold 0, keeps the top
 ``max(min_survivors, ceil(G/eta))`` points and fits only those on the other
-folds.  The JAX package's mesh, memory-governor, supervisor, checkpoint,
-AOT and telemetry seams have no counterpart here.
+folds.  A ``SparseMatrix`` feature matrix stays sparse throughout (its
+margins are ``sp_matmat`` products).  The JAX package's mesh,
+memory-governor, supervisor, checkpoint, AOT, telemetry and resilience
+seams have no counterpart here: a family that cannot fit the matrix (trees
+on a ``SparseMatrix``) raises instead of being skipped.
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .columns import ColumnBatch, to_device_f32
+from .columns import ColumnBatch, device_matrix, to_device_f32
 from .evaluators import OpEvaluatorBase
 from .models.trees import predict_trees_sum_grouped
+from .sparse.matrix import SparseMatrix
 
 _NO_FOLD = 255      # assignment of a row that is in no validation fold
 
@@ -45,9 +49,12 @@ def _fold_masks_from_assignment(assign: torch.Tensor, n_folds: int):
     return (a != f).to(torch.float32), (a == f).to(torch.float32)
 
 
-def _grid_margins(X: torch.Tensor, C: torch.Tensor, b: torch.Tensor):
+def _grid_margins(X, C: torch.Tensor, b: torch.Tensor):
     """[N, K] linear margins of K candidates (≙ ``_grid_margins``,
-    tuning.py:286-300)."""
+    tuning.py:286-300); one ``sp_matmat`` for a ``SparseMatrix`` X
+    (tuning.py:566-571)."""
+    if isinstance(X, SparseMatrix):
+        return X.matmat(C.T.contiguous()) + b[None, :]
     return X @ C.T + b[None, :]
 
 
@@ -225,7 +232,7 @@ class OpValidator:
         y_all = np.asarray(batch[label].values, dtype=np.float64)
         splits = self.splits(y_all)
         F = len(splits)
-        X = to_device_f32(batch[features].values, dev).contiguous()
+        X = device_matrix(batch[features].values, dev)
         y = to_device_f32(np.asarray(batch[label].values, np.float32), dev)
         assign = np.full(len(y_all), _NO_FOLD, np.uint8)
         for f, (_, va_idx) in enumerate(splits):
