@@ -7,9 +7,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. device and build — CUDA must be present; prints the card's name and power
    limit, builds every kernel of ``transmogrifai_tpu_torch/csrc`` (one
-   ``nvcc`` per source, in parallel) and, beside them, the three native
+   ``nvcc`` per source, in parallel) and, beside them, the four native
    host helpers (``native/textprof.cpp``, ``fasttok.cpp``, ``mapprof.cpp``,
-   one ``g++`` each), and fails if any of them does not build or load;
+   ``locofmt.cpp``, one ``g++`` each), and fails if any of them does not
+   build or load;
 2. kernels — each kernel runs at the main paths' shapes (1,000,000 x 28)
    against its plain-PyTorch twin on the same inputs, with its time, the
    twin's time, its bound and (where one PyTorch call computes the same
@@ -63,13 +64,30 @@ Phases (any failure exits non-zero and prints no result line):
    (100,003), CV AuPR, train AuROC (> 0.99), peak device memory (< 4 GB),
    score rows/s and both sparse kernels' launches; and the workflow at
    3,000 rows on the card and the CPU twins, held to the JAX package's
-   numbers at that size.
+   numbers at that size;
+7. explanations — ``RecordInsightsLOCO`` (top-20) through its transform on
+   the transmog LR winner over its own 1M x 1,596 checked vector (grouped
+   by raw parent), on the default grid's winner (a GBT) over its 1M x 28
+   vector and on the bench set's forest fitted on that vector (one group
+   per feature), with both LOCO kernels' launches read around those three
+   transforms; ``loco_linear`` against its twin on that
+   vector and at ``scripts/bench_loco.py``'s 100,000 x 512 (128 groups and
+   the meta-less 512, with the cuBLAS yardstick; the other strategies, the
+   SVC link and k = G), ``loco_tree`` on the GBT and the forest, each
+   bit-repeatable; the repaired faults: GBT and forest fits and both split
+   kernels at 1,597 features (a cross-chunk tie to the first feature), a
+   6-class forest fitted and scored with ``tree_hist_deep``,
+   ``tree_split_gini`` and ``tree_walk`` against their twins, and
+   ``BinaryClassificationModelSelector()`` on the sparse 1M batch skipping
+   the tree families; then ``RecordInsightsCorr`` fitted and applied and
+   ``WorkflowModel.summary()`` on the default-grid model at 1M x 28.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` table (launches: the default
 grid's train for the dense rows, the transmog run for ``hash_counts`` and
 the wide ``fista_step`` row, the sparse run for ``sp_matmat`` and
-``sp_rmatmat``), the one before that the card's name and power limit.
+``sp_rmatmat``, the three LOCO transforms for ``loco_linear`` and
+``loco_tree``), the one before that the card's name and power limit.
 Imports nothing of JAX.
 """
 
@@ -1095,11 +1113,13 @@ def _family_best(summary) -> dict:
     return best
 
 
-def run_default_grid(device, n: int, draw_device=None) -> dict:
+def run_default_grid(device, n: int, draw_device=None,
+                     with_model: bool = False):
     """``BinaryClassificationModelSelector()`` with no ``models=`` on the
     dense workload: train, evaluate (AuROC) and score; returns the run's
-    facts.  ``draw_device`` is where the forest family's generator draws
-    (default: the fit's device)."""
+    facts (and, ``with_model``, the fitted model and its batch).
+    ``draw_device`` is where the forest family's generator draws (default:
+    the fit's device)."""
     import torch
 
     from transmogrifai_tpu_torch.columns import Column, ColumnBatch
@@ -1142,10 +1162,11 @@ def run_default_grid(device, n: int, draw_device=None) -> dict:
     if tuple(p.shape) != (n, 2) or not bool(torch.isfinite(p).all()):
         raise AssertionError(f"scores: shape {tuple(p.shape)} or non-finite")
     summ = model.selected_model.summary
-    return {"train_wall_s": wall, "best_model": summ.best_model_name,
-            "family_cv_metrics": _family_best(summ), "train_auroc": auroc,
-            "phase_seconds": model.phase_seconds,
-            "selector_seconds": model.selected_model.selector_seconds}
+    facts = {"train_wall_s": wall, "best_model": summ.best_model_name,
+             "family_cv_metrics": _family_best(summ), "train_auroc": auroc,
+             "phase_seconds": model.phase_seconds,
+             "selector_seconds": model.selected_model.selector_seconds}
+    return (facts, model, batch) if with_model else facts
 
 
 def check_reference_runs() -> dict:
@@ -1541,6 +1562,547 @@ def check_sparse_reference() -> dict:
     return runs
 
 
+# --------------------------------------------------------------------------
+# phase 7: explanations
+# --------------------------------------------------------------------------
+
+LOCO_K = 20                        # RecordInsightsLOCO's default top_k
+LOCO_TOL = 1e-5                    # kernel vs twin, of the twin's max|diff|
+BENCH_LOCO = (100_000, 512, 128)   # scripts/bench_loco.py's rows, cols, groups
+
+
+def _loco_case(run, twin, G: int, k: int, strategy: str, reps: int,
+               bytes_moved: float, ops: float, library=None) -> dict:
+    """A LOCO kernel call ``run()`` against ``twin(k)`` (the plain version
+    on the same inputs): the kernel's diff of each group it lists within
+    LOCO_TOL x max|diff| of the twin's diff of that group, the ranks at
+    each of the K places within that of the twin's (so the groups agree
+    wherever the twin's rank gap exceeds it), no group listed twice, and
+    the same bits on two launches.  Returns its numbers."""
+    import torch
+
+    from transmogrifai_tpu_torch.insights_kernels import _rank
+    idx, val = run()
+    idx2, val2 = run()
+    if not (torch.equal(idx, idx2) and torch.equal(val, val2)):
+        raise AssertionError("LOCO kernel: two launches differ")
+    fi, fv = twin(G)                                  # every group, sorted
+    full = torch.empty_like(fv).scatter_(1, fi.long(), fv)
+    tol = LOCO_TOL * float(fv.abs().max())
+    ki = idx.long()
+    err = float((val - torch.gather(full, 1, ki)).abs().max())
+    gap = float((_rank(val, strategy) - _rank(fv[:, :k], strategy))
+                .abs().max())
+    dup = bool((torch.sort(ki, dim=1).values.diff(dim=1) == 0).any())
+    if err > tol or gap > tol or dup:
+        raise AssertionError(f"LOCO kernel disagrees with its twin: diff err "
+                             f"{err}, rank err {gap}, tolerance {tol}, "
+                             f"duplicate groups {dup}")
+    bt, by = bound(bytes_moved, ops)
+    return {"max_abs_err": err, "max_abs_diff": float(fv.abs().max()),
+            "ms": time_ms(run, reps), "plain_ms": time_ms(lambda: twin(k), 1),
+            "bound_ms": bt, "bound_by": by,
+            "library_ms": None if library is None else time_ms(library, 3),
+            "G": G, "k": k}
+
+
+def _linear_library(X, model, col_group, G: int, k: int):
+    """The library yardstick of ``loco_linear``: the group contributions as
+    one cuBLAS product ``X @ (w ⊙ onehot[D, G])``, then the sigmoid, the
+    diffs and ``torch.topk``."""
+    import torch
+    coef = torch.as_tensor(model.fitted["coef"], dtype=torch.float32,
+                           device=X.device).reshape(-1)
+    b = float(torch.as_tensor(model.fitted["intercept"]).reshape(-1)[0])
+    W = torch.zeros((X.shape[1], G), device=X.device)
+    W[torch.arange(X.shape[1], device=X.device), col_group.long()] = coef
+
+    def run():
+        m = X @ coef + b
+        diffs = torch.sigmoid(m)[:, None] - torch.sigmoid(m[:, None] - X @ W)
+        return torch.topk(diffs.abs(), k, dim=1)
+    return run
+
+
+def check_loco_linear(X, model, col_group, G: int, k: int = LOCO_K,
+                      strategy: str = "abs", reps: int = 10,
+                      library: bool = False) -> dict:
+    """``loco_linear`` on X against its twin (``_loco_case``)."""
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    N, D = X.shape
+    return _loco_case(
+        lambda: ik.loco_linear(X, model, col_group, G, k, strategy),
+        lambda kk: ik.loco_topk_twin(
+            X, lambda Z: ik.loco_score(model, Z), col_group, G, kk,
+            strategy), G, k, strategy, reps,
+        4 * N * D + 8 * N * k, 4 * N * D,
+        _linear_library(X, model, col_group, G, k) if library else None)
+
+
+def _loco_walk_steps(X, trees: dict, col_group, G: int) -> int:
+    """Split nodes that LOCO's walks must pass on this run's data: every
+    row's unmasked walk through every tree, and for each group g only the
+    trees whose unmasked walk reads a feature of g, walked again from the
+    first node that reads one (above it the masked walk is the unmasked
+    walk, and a tree that never reads g keeps its leaf)."""
+    import torch
+    feat, thr, leaf = trees["feature"], trees["threshold"], trees["is_leaf"]
+    Tr, T = feat.shape
+    cg = col_group.long()
+    ar = torch.arange(Tr, device=X.device)[None, :]
+    steps = 0
+    for g in [-1] + list(range(G)):                  # -1: the unmasked walk
+        node = torch.zeros((X.shape[0], Tr), dtype=torch.long,
+                           device=X.device)
+        counted = torch.full_like(node, g < 0, dtype=torch.bool)
+        for _ in range(trees["steps"]):
+            live = ~leaf[ar, node]
+            f = torch.clamp(feat[ar, node].long(), min=0)
+            masked = cg[f] == g
+            counted |= live & masked
+            steps += int((live & counted).sum())
+            xf = torch.where(masked, 0.0, torch.gather(X, 1, f))
+            nxt = 2 * node + 1 + (xf > thr[ar, node]).long()
+            node = torch.where(live & (nxt < T), nxt, node)
+    return steps
+
+
+def check_loco_tree(X, model, col_group, G: int, k: int = LOCO_K,
+                    strategy: str = "abs", reps: int = 5) -> dict:
+    """``loco_tree`` on X against its twin (``_loco_case``); its bound counts
+    X read once, the output written once, and a compare per split node of
+    the walks the function needs (``_loco_walk_steps``)."""
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    N, D = X.shape
+    return _loco_case(
+        lambda: ik.loco_tree(X, model, col_group, G, k, strategy),
+        lambda kk: ik.loco_topk_twin(
+            X, lambda Z: ik.loco_score(model, Z), col_group, G, kk,
+            strategy), G, k, strategy, reps,
+        4 * N * D + 8 * N * k,
+        _loco_walk_steps(X, ik.tree_inputs(model.fitted, X.device),
+                         col_group, G))
+
+
+def _loco_stage(model, vec_f, batch, k: int = LOCO_K) -> tuple:
+    """``RecordInsightsLOCO(model, top_k=k)`` on ``batch``'s ``vec_f``
+    column through its transform (the user's entry point), maps included;
+    returns (maps, wall seconds)."""
+    from transmogrifai_tpu_torch.record_insights import RecordInsightsLOCO
+    loco = RecordInsightsLOCO(model=model, top_k=k)
+    loco.set_input(vec_f)
+    t0 = time.perf_counter()
+    maps = loco.transform(batch).values
+    return maps, time.perf_counter() - t0
+
+
+def _check_maps(maps, n: int, k: int, names) -> None:
+    row = maps[n // 2]
+    if len(maps) != n or len(row) != k or not set(row) <= set(names):
+        raise AssertionError(f"LOCO maps: {len(maps)} rows, a row of "
+                             f"{len(row)} groups")
+    for name, payload in row.items():
+        pair = json.loads(payload)
+        if pair[0][0] != name or not np.isfinite(pair[0][1]):
+            raise AssertionError(f"LOCO payload {payload!r}")
+
+
+def run_insights_main_path(tm_model, tm_batch, grid_model, grid_batch,
+                           device="cuda") -> tuple:
+    """The explanation path: ``RecordInsightsLOCO`` (top-20) through its
+    transform on the transmog LR winner over its own 1M x 1,596 checked
+    vector (grouped by raw parent), on the default grid's winner over its
+    own 1M x 28 checked vector (one group per raw feature), and on the
+    bench set's forest (20 trees, depth 6), fitted here on that vector.
+    Returns (facts, the launch counts of the three transforms alone, the
+    inputs of the kernel checks)."""
+    import torch
+
+    from transmogrifai_tpu_torch.dag import apply_dag
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models.trees import (OpRandomForestClassifier,
+                                                      TreeEnsembleModel)
+    from transmogrifai_tpu_torch.record_insights import loco_groups
+
+    def checked(model, batch):
+        sel = model.selected_model
+        vec_f = sel.input_features[1]
+        scored = apply_dag(batch.on(device), model.fitted_dag[:-1])
+        return sel, vec_f, scored.select([vec_f.name])
+
+    tm_sel, tm_f, tm_in = checked(tm_model, tm_batch)
+    gd_sel, gd_f, gd_in = checked(grid_model, grid_batch)
+    label = grid_batch[grid_model.selected_model.input_features[0].name]
+    t0 = time.perf_counter()
+    rf = TreeEnsembleModel(fitted=OpRandomForestClassifier(
+        num_trees=N_TREES, max_depth=RF_DEPTH,
+        min_instances_per_node=10).fit_arrays(
+            gd_in[gd_f.name].values, np.asarray(label.values, np.float32)))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+
+    kernels.reset_launch_counts()
+    maps_tm, wall_tm = _loco_stage(tm_sel, tm_f, tm_in)
+    maps_gd, wall_gd = _loco_stage(gd_sel, gd_f, gd_in)
+    maps_rf, wall_rf = _loco_stage(rf, gd_f, gd_in)
+    launches = kernels.launch_counts()
+    tm_vec, gd_vec = tm_in[tm_f.name], gd_in[gd_f.name]
+    names_tm = list(loco_groups(tm_vec.meta, tm_vec.values.shape[1]))
+    names_gd = list(loco_groups(gd_vec.meta, gd_vec.values.shape[1]))
+    _check_maps(maps_tm, N_ROWS, min(LOCO_K, len(names_tm)), names_tm)
+    _check_maps(maps_gd, N_ROWS, min(LOCO_K, len(names_gd)), names_gd)
+    _check_maps(maps_rf, N_ROWS, min(LOCO_K, len(names_gd)), names_gd)
+    facts = {"transmog_groups": len(names_tm),
+             "transmog_width": int(tm_vec.values.shape[1]),
+             "default_grid_winner": type(gd_sel.best_model).__name__,
+             "default_grid_winner_kind": gd_sel.best_model.fitted.get("kind"),
+             "default_grid_groups": len(names_gd),
+             "loco_wall_s": {"transmog_lr": wall_tm,
+                             "default_grid_winner": wall_gd, "rf": wall_rf},
+             "loco_rows_per_s": {"transmog_lr": N_ROWS / wall_tm,
+                                 "default_grid_winner": N_ROWS / wall_gd,
+                                 "rf": N_ROWS / wall_rf},
+             "rf_fit_s": fit_s, "row0_transmog": maps_tm[0],
+             "row0_default_grid": maps_gd[0]}
+    return facts, launches, {"tm": (tm_vec, tm_sel), "dense": gd_vec,
+                             "winner": gd_sel.best_model, "rf": rf}
+
+
+def check_insights_kernels(inputs, device="cuda") -> tuple:
+    """Both LOCO kernels against their twins: ``loco_linear`` on the
+    transmog LR winner's 1M x 1,596 vector (top-20 of its raw-parent
+    groups) and at ``scripts/bench_loco.py``'s shape (100,000 x 512, 128
+    groups and the meta-less 512, top-20, logistic, an LR fitted there;
+    with the cuBLAS library yardstick), and once each with the "positive"
+    and "negative" strategies and an SVC link; ``loco_tree`` on the default
+    grid's winner (a GBT) and the forest at 1M x 28 (28 groups, top-20).
+    Returns the two rows of the ``kernels`` line (``loco_tree``'s timed on
+    the winner) and every case's numbers."""
+    import torch
+
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models.linear import (LinearPredictionModel,
+                                                       OpLogisticRegression)
+    from transmogrifai_tpu_torch.record_insights import loco_groups
+
+    vec, sel = inputs["tm"]
+    Xt = vec.values.contiguous()
+    groups = list(loco_groups(vec.meta, Xt.shape[1]).values())
+    G = len(groups)
+    cg = ik.col_group_of(groups, Xt.shape[1], device)
+    facts = {"transmog": check_loco_linear(Xt, sel.best_model, cg, G,
+                                           min(LOCO_K, G), library=True)}
+    del Xt
+    torch.cuda.empty_cache()
+
+    n, d, g = BENCH_LOCO
+    rng = np.random.default_rng(0)
+    Xb = rng.normal(size=(n, d)).astype(np.float32)
+    beta = rng.normal(size=d).astype(np.float32)
+    yb = (Xb @ beta > 0).astype(np.float32)
+    fit = OpLogisticRegression(max_iter=20).fit_arrays(Xb, yb, device=device)
+    Xb = torch.as_tensor(Xb, device=device)
+    lr = LinearPredictionModel(fitted=fit)
+    svc = LinearPredictionModel(fitted={**fit, "kind": "svc"})
+    per = d // g
+    cg_b = torch.arange(d, device=device, dtype=torch.int32) // per
+    facts["bench_loco_g128"] = check_loco_linear(Xb, lr, cg_b, g,
+                                                 library=True)
+    cg_m = torch.arange(d, device=device, dtype=torch.int32)
+    facts["bench_loco_metaless_g512"] = check_loco_linear(Xb, lr, cg_m, d,
+                                                          library=True)
+    facts["bench_loco_positive"] = check_loco_linear(
+        Xb, lr, cg_b, g, strategy="positive", reps=2)
+    facts["bench_loco_negative_svc"] = check_loco_linear(
+        Xb, svc, cg_b, g, strategy="negative", reps=2)
+    facts["bench_loco_k_equal_g"] = check_loco_linear(Xb[:20_000], lr, cg_b,
+                                                      g, k=g, reps=2)
+    del Xb
+    Xd = inputs["dense"].values.contiguous()
+    Gd = Xd.shape[1]
+    cg_d = torch.arange(Gd, device=device, dtype=torch.int32)
+    win = inputs["winner"]
+    check = check_loco_linear if "coef" in win.fitted else check_loco_tree
+    facts["default_grid_winner"] = check(Xd, win, cg_d, Gd)
+    facts["rf"] = check_loco_tree(Xd, inputs["rf"], cg_d, Gd)
+    tree_cases = ["rf"] + (["default_grid_winner"] if check is check_loco_tree
+                           else [])
+    rows = []
+    for name, case in (("loco_linear", facts["transmog"]),
+                       ("loco_tree", facts[tree_cases[-1]])):
+        keep = [c for k, c in facts.items()
+                if (k in tree_cases) == (name == "loco_tree")]
+        rows.append({**{k: case[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+                     "max_abs_err": max(c["max_abs_err"] for c in keep),
+                     "name": name, "route": "cuda",
+                     "source": f"transmogrifai_tpu_torch/csrc/{name}.cu",
+                     "replaces": kernels.REPLACES[name]})
+    return rows, facts
+
+
+WIDE_D = 1597                      # the transmog width before the checker
+WIDE_ROWS = 50_000                 # the f64 histogram twin's N x D cells
+FAULT_ROWS = 200_000
+
+
+def check_wide_trees(device="cuda", n: int = WIDE_ROWS) -> dict:
+    """Queue 3's fault 2 pinned on the card: a GBT and a forest fit at
+    1,597 features (two feature chunks of the split kernels), and
+    ``tree_split`` / ``tree_split_gini`` against their twins on a level of
+    that width.  Column 100 is a copy of column 1,500, on which the label
+    hangs, so the best split is an exact tie across the two chunks: the
+    kernels, their twins and the fits must all take feature 100, the first
+    max (on first-round xgb statistics and on integer counts, which sum
+    exactly whatever the atomics' order).  The gini kernel rounds as its
+    twin does, so on integer counts its gains and choices must equal the
+    twin's everywhere."""
+    import torch
+
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    from transmogrifai_tpu_torch.models.trees import (OpGBTClassifier,
+                                                      OpRandomForestClassifier,
+                                                      binned)
+    rng = np.random.default_rng(12)
+    X = rng.normal(size=(n, WIDE_D)).astype(np.float32)
+    X[:, 100] = X[:, 1500]
+    y = (X[:, 1500] + 0.3 * X[:, 3] + 0.5 * rng.normal(size=n) > 0).astype(
+        np.float32)
+    Xd = torch.as_tensor(X, device=device)
+    del X
+    t0 = time.perf_counter()
+    gbt = OpGBTClassifier(max_iter=2, max_depth=3,
+                          min_instances_per_node=10).fit_arrays(Xd, y)
+    rf = OpRandomForestClassifier(num_trees=3, max_depth=3,
+                                  min_instances_per_node=10).fit_arrays(Xd, y)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    if int(gbt["feature"][0, 0]) != 100:
+        raise AssertionError(f"wide GBT: root split on feature "
+                             f"{int(gbt['feature'][0, 0])}, not 100")
+    _, sp_t, B = binned(Xd, Xd, N_BINS)
+    del Xd
+    yd = torch.as_tensor(y, device=device)
+    K, P, off = 3, 2, 1
+    row_node = torch.as_tensor(rng.integers(1, 3, size=(K, n)).astype(
+        np.int32), device=device)
+    row_node[:, :n // 4] = 0                     # a leaf parked above
+    p = torch.sigmoid(torch.as_tensor(rng.normal(size=(K, n)).astype(
+        np.float32), device=device))
+    g, h = p - yd, p * (1 - p)
+    xgb = torch.stack([torch.ones_like(g), g, h], dim=2).contiguous()
+    fmask = torch.ones(WIDE_D, dtype=torch.bool, device=device)
+    lane = lambda v: torch.full((K,), v, device=device)   # noqa: E731
+    hist, tot, _ = _check_hist(tk, B, row_node, xgb, off, P, True)
+    split_args = (hist, tot, fmask, sp_t, lane(10.0), lane(0.0), lane(1.0))
+    err_x = _check_split(tk, hist, tot, fmask, None, sp_t, lane(10.0),
+                         lane(0.0), lane(1.0))
+    # the chunked split's time at this width (K = 3 lanes, P = 2 nodes):
+    # its bound reads the level's histogram once
+    timing = {"ms": time_ms(lambda: tk.tree_split(*split_args), 20),
+              "plain_ms": time_ms(lambda: tk.tree_split_twin(*split_args), 3),
+              "bound_ms": bound(4 * hist.numel() + 4 * tot.numel(), 0)[0]}
+    del hist, split_args
+    cnt = torch.stack([torch.ones_like(yd), 1 - yd, yd], dim=1)
+    gini = (cnt[None] * torch.poisson(torch.ones((K, n), device=device))
+            [:, :, None]).contiguous()
+    hist, tot = tk.tree_hist(B, row_node, gini, off, P, N_BINS)
+    args = (hist, tot, fmask, None, sp_t, lane(10.0), lane(0.0))
+    sk, st = tk.tree_split_gini(*args), tk.tree_split_gini_twin(*args)
+    for key in ("gain", "feature", "bin", "is_leaf", "threshold"):
+        if not torch.equal(sk[key], st[key]):
+            raise AssertionError(f"tree_split_gini at D = {WIDE_D}: {key} "
+                                 "differs from the twin")
+    # the root of every lane: the cross-chunk tie must go to feature 100.
+    # The xgb statistics of a first round (p = 0.5: g = 0.5 - y, h = 0.25)
+    # sum exactly in any order, so the two columns' histograms are equal
+    # and the tie is exact (random p would make the atomics' order decide)
+    rn = torch.zeros((K, n), dtype=torch.int32, device=device)
+    g0 = (0.5 - yd)[None].expand(K, n)
+    xgb0 = torch.stack([torch.ones_like(g0), g0, torch.full_like(g0, 0.25)],
+                       dim=2).contiguous()
+    hx, tx = tk.tree_hist(B, rn, xgb0, 0, 1, N_BINS)
+    root_x = tk.tree_split(hx, tx, fmask, sp_t, lane(10.0), lane(0.0),
+                           lane(1.0))["feature"]
+    hg, tg = tk.tree_hist(B, rn, gini, 0, 1, N_BINS)
+    root_g = tk.tree_split_gini(hg, tg, fmask, None, sp_t, lane(10.0),
+                                lane(0.0))["feature"]
+    if bool((root_x != 100).any() or (root_g != 100).any()):
+        raise AssertionError(f"wide split roots {root_x.tolist()} (xgb), "
+                             f"{root_g.tolist()} (gini): the cross-chunk tie "
+                             "did not go to feature 100")
+    return {"rows": n, "width": WIDE_D, "fit_s": fit_s,
+            "split_plan": tk.split_plan(WIDE_D)._asdict(),
+            "gbt_root_feature": int(gbt["feature"][0, 0]),
+            "rf_features_used": sorted({int(f) for f in rf["feature"].flatten()
+                                        if f >= 0}),
+            "tree_split_max_abs_err": err_x, "tree_split_1597": timing,
+            "tree_split_gini": "equal to twin"}
+
+
+MULTI_CLASSES = 6
+
+
+def check_multiclass_forest(device="cuda", n: int = FAULT_ROWS) -> dict:
+    """Queue 3's fault 3 pinned on the card: a 6-class forest (4 trees,
+    depth 8: levels 6 and 7 take ``tree_hist_deep``, in two launches of 5
+    and 2 statistics) fitted and scored on the card, and ``tree_hist_deep``
+    (level 6, 4 lanes of Poisson-weighted class counts), ``tree_split_gini``
+    (equal to its twin on those integer counts) and ``tree_walk`` (V = 6,
+    within 1e-6) against their twins."""
+    import torch
+
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    from transmogrifai_tpu_torch.models.trees import (OpRandomForestClassifier,
+                                                      TreeEnsembleModel,
+                                                      binned)
+    X, _ = make_data(n)
+    rng = np.random.default_rng(13)
+    z = X[:, 0] + 0.5 * X[:, 1] + 0.3 * rng.normal(size=n)
+    y = np.digitize(z, np.quantile(z, np.linspace(0, 1, MULTI_CLASSES + 1)
+                                   [1:-1])).astype(np.float32)
+    Xd = torch.as_tensor(X, device=device)
+    t0 = time.perf_counter()
+    fit = OpRandomForestClassifier(num_trees=4, max_depth=8,
+                                   min_instances_per_node=5).fit_arrays(Xd, y)
+    prob = TreeEnsembleModel(fitted=fit).device_scores(Xd)["probability"]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    if tuple(prob.shape) != (n, MULTI_CLASSES) or not bool(
+            torch.isfinite(prob).all()):
+        raise AssertionError("6-class forest scores: bad shape or values")
+    walk = (fit["feature"], fit["threshold"], fit["is_leaf"], fit["leaf"], 9)
+    wk = tk.tree_walk(Xd, *walk, op="mean")
+    wt = tk.tree_walk_twin(Xd, *walk, members=1, op="mean")
+    err_w = float((wk - wt).abs().max())
+    if err_w > 1e-6:
+        raise AssertionError(f"tree_walk V = 6 differs from its twin: {err_w}")
+    _, sp_t, B = binned(Xd, Xd, N_BINS)
+    del Xd
+    K, off, P = 4, 63, 64
+    yd = torch.as_tensor(y, device=device).long()
+    cnt = torch.cat([torch.ones((n, 1), device=device),
+                     torch.nn.functional.one_hot(yd, MULTI_CLASSES).float()],
+                    dim=1)
+    stats = (cnt[None] * torch.poisson(torch.ones((K, n), device=device))
+             [:, :, None]).contiguous()
+    row_node = torch.as_tensor(rng.integers(50, 127, size=(K, n)).astype(
+        np.int32), device=device)
+    hist, tot, err_h = _check_hist(tk, B, row_node, stats, off, P, True)
+    fmask = torch.ones(N_FEATS, dtype=torch.bool, device=device)
+    lane = lambda v: torch.full((K,), v, device=device)   # noqa: E731
+    args = (hist, tot, fmask, None, sp_t, lane(5.0), lane(0.0))
+    sk, st = tk.tree_split_gini(*args), tk.tree_split_gini_twin(*args)
+    for key in ("gain", "feature", "bin", "is_leaf", "threshold"):
+        if not torch.equal(sk[key], st[key]):
+            raise AssertionError(f"tree_split_gini at C = {MULTI_CLASSES}: "
+                                 f"{key} differs from the twin")
+    return {"rows": n, "classes": MULTI_CLASSES, "fit_and_score_s": fit_s,
+            "hist_deep_plan": tk.hist_deep_plan(MULTI_CLASSES + 1),
+            "gini_plan": tk.split_plan(N_FEATS, MULTI_CLASSES)._asdict(),
+            "tree_hist_deep_max_abs_err": err_h,
+            "tree_split_gini": "equal to twin", "tree_walk_max_abs_err": err_w}
+
+
+def check_sparse_default_selector(cols, device="cuda") -> dict:
+    """Queue 3's fault 1 pinned on the card: ``BinaryClassificationModel
+    Selector()`` with no ``models=`` on the sparse workload's 1M batch (a
+    SparseMatrix of 100,003 columns) trains, skipping the forest and GBT
+    families (NaN rows, four "skipped" records) and picking among LR and
+    SVC."""
+    import torch
+
+    from transmogrifai_tpu_torch.columns import Column, ColumnBatch
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+    from transmogrifai_tpu_torch.selector import \
+        BinaryClassificationModelSelector
+    from transmogrifai_tpu_torch.workflow import Workflow
+
+    label = FeatureBuilder.RealNN("label").as_response()
+    fv = transmogrify([FeatureBuilder.Text("txt").as_predictor(),
+                       FeatureBuilder.Real("x0").as_predictor()],
+                      num_hashes=SPARSE_HASHES)
+    sel = BinaryClassificationModelSelector()
+    sel.set_input(label, fv)
+    pred = sel.get_output()
+    copies = {k: Column(c.kind, c.values, c.mask) for k, c in cols.items()}
+    n = len(cols["txt"])
+    t0 = time.perf_counter()
+    model = (Workflow(device=device).set_input_batch(ColumnBatch(copies, n))
+             .set_result_features(pred).train())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summ = model.selected_model.summary
+    fam = {}
+    for r in summ.validation_results:
+        fam.setdefault(r.model_name, []).append(
+            float(next(iter(r.metric_values.values()))))
+    skipped = model.selected_model.failure_log.by_action("skipped")
+    trees = ("OpRandomForestClassifier", "OpGBTClassifier")
+    if (summ.best_model_name not in ("OpLogisticRegression", "OpLinearSVC")
+            or not all(np.isnan(fam[t]).all() for t in trees)
+            or not np.isfinite(fam["OpLogisticRegression"]).any()
+            or len(skipped) != 4):
+        raise AssertionError(f"sparse default selector: winner "
+                             f"{summ.best_model_name}, rows {fam}, "
+                             f"{len(skipped)} skipped records")
+    return {"rows": n, "train_wall_s": wall,
+            "winner": summ.best_model_name,
+            "best_cv_aupr": {k: max((v for v in vals if np.isfinite(v)),
+                                    default=None) for k, vals in fam.items()},
+            "skipped_records": len(skipped)}
+
+
+def run_corr_and_summary(model, batch, device="cuda") -> dict:
+    """``RecordInsightsCorr`` (top-20, min-max, Pearson) fitted on the
+    default-grid model's predictions and checked vector at 1M x 28 and
+    transformed over the same rows, then ``WorkflowModel.summary()`` and
+    ``summary_pretty()`` of that model."""
+    import torch
+
+    from transmogrifai_tpu_torch.dag import apply_dag
+    from transmogrifai_tpu_torch.record_insights import RecordInsightsCorr
+    sel = model.selected_model
+    pred_f, vec_f = sel.get_output(), sel.input_features[1]
+    scored = apply_dag(batch.on(device), model.fitted_dag)
+    est = RecordInsightsCorr(top_k=LOCO_K)
+    est.set_input(pred_f, vec_f)
+    t0 = time.perf_counter()
+    corr = est.fit(scored)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    maps = corr.transform(scored).values
+    t2 = time.perf_counter()
+    n = len(batch)
+    row = maps[n // 2]
+    if len(maps) != n or not row or not all(
+            np.isfinite(v) for pairs in row.values()
+            for _, v in json.loads(pairs)):
+        raise AssertionError("RecordInsightsCorr maps: bad rows")
+    if not np.isfinite(corr.fitted["corr"]).all():
+        raise AssertionError("RecordInsightsCorr: non-finite correlations")
+    t3 = time.perf_counter()
+    summ = model.summary()
+    pretty = model.summary_pretty()
+    t4 = time.perf_counter()
+    if (summ["selectedModelInfo"]["bestModelName"]
+            != sel.summary.best_model_name or len(summ["features"]) != N_FEATS
+            or "Top Model Contributions" not in pretty):
+        raise AssertionError("summary: wrong winner, features or rendering")
+    top = summ["features"][0]
+    return {"corr_fit_s": t1 - t0, "corr_transform_s": t2 - t1,
+            "corr_shape": list(corr.fitted["corr"].shape),
+            "corr_row": row, "summary_s": t4 - t3,
+            "summary_best_model": summ["selectedModelInfo"]["bestModelName"],
+            "summary_features": len(summ["features"]),
+            "summary_top_feature": top["featureName"],
+            "summary_top_contribution": max(
+                abs(c["contribution"] or 0.0)
+                for c in top["derivedFeatures"])}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1596,10 +2158,12 @@ def main() -> int:
     print(f"main path {N_ROWS}x{N_FEATS}: " + json.dumps(facts), flush=True)
     print("kernel launches: " + json.dumps(launches), flush=True)
     # the bench set's trees are at most depth 6: no level needs the
-    # one-pass deep histogram; the dense path hashes no text
+    # one-pass deep histogram; the dense path hashes no text and explains
+    # nothing
     missing = [k for k, v in launches.items()
                if v <= 0 and k not in ("tree_hist_deep", "hash_counts",
-                                       "sp_matmat", "sp_rmatmat")]
+                                       "sp_matmat", "sp_rmatmat",
+                                       "loco_linear", "loco_tree")]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if facts["train_auroc"] <= 0.7:
@@ -1614,7 +2178,8 @@ def main() -> int:
     # phase 4: the default grid at 1M, launches and peak memory around it
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    grid_facts = run_default_grid("cuda", N_ROWS)
+    grid_facts, grid_model, grid_batch = run_default_grid("cuda", N_ROWS,
+                                                          with_model=True)
     launches = kernels.launch_counts()
     grid_facts["peak_device_memory_gb"] = \
         torch.cuda.max_memory_allocated() / 1e9
@@ -1623,7 +2188,8 @@ def main() -> int:
     print("default grid kernel launches: " + json.dumps(launches), flush=True)
     missing = [k for k, v in launches.items()
                if v <= 0 and k not in ("hash_counts", "sp_matmat",
-                                       "sp_rmatmat")]
+                                       "sp_rmatmat", "loco_linear",
+                                       "loco_tree")]
     if missing:
         raise AssertionError(f"kernels never launched on the default grid: "
                              f"{missing}")
@@ -1670,7 +2236,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide_row, wide_facts = check_wide_fista(tm_model, tm_batch)
     print("fista_step transmog shapes: " + json.dumps(wide_facts), flush=True)
-    del tm_model, tm_batch, cols
+    del cols
     torch.cuda.empty_cache()
     print(f"transmog reference runs ({TRANSMOG_REF_ROWS} rows): "
           + json.dumps(check_transmog_reference()), flush=True)
@@ -1715,13 +2281,54 @@ def main() -> int:
         raise AssertionError(f"sparse peak device memory "
                              f"{sp_facts['peak_device_memory_gb']} GB >= "
                              f"{SPARSE_PEAK_GB} GB")
-    del cols, score_cols
+    del score_cols
     torch.cuda.empty_cache()
     print(f"sparse reference runs ({SPARSE_REF_ROWS} rows): "
           + json.dumps(check_sparse_reference()), flush=True)
     for r in sp_rows:
         r["launches"] = sp_launches[r["name"]]
     rows += sp_rows
+    torch.cuda.empty_cache()
+
+    # phase 7: explanations, on the models of phases 4 and 5 (and the bench
+    # set's forest, refitted); launches read around the three
+    # RecordInsightsLOCO transforms alone
+    ins_facts, ins_launches, ins_inputs = run_insights_main_path(
+        tm_model, tm_batch, grid_model, grid_batch)
+    del tm_model, tm_batch
+    print(f"insights {N_ROWS} rows: " + json.dumps(ins_facts), flush=True)
+    print("insights kernel launches: " + json.dumps(ins_launches),
+          flush=True)
+    missing = [k for k in ("loco_linear", "loco_tree")
+               if ins_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the insights path: "
+                             f"{missing}")
+    torch.cuda.empty_cache()
+    ins_rows, ins_kfacts = check_insights_kernels(ins_inputs)
+    del ins_inputs
+    print("loco kernels: " + json.dumps(ins_kfacts), flush=True)
+    for r in ins_rows:
+        r["launches"] = ins_launches[r["name"]]
+        print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.3g} "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library_ms={r['library_ms']}", flush=True)
+    rows += ins_rows
+    torch.cuda.empty_cache()
+    print(f"wide trees (D = {WIDE_D}): " + json.dumps(check_wide_trees()),
+          flush=True)
+    torch.cuda.empty_cache()
+    print(f"{MULTI_CLASSES}-class forest: "
+          + json.dumps(check_multiclass_forest()), flush=True)
+    torch.cuda.empty_cache()
+    print("sparse default selector: "
+          + json.dumps(check_sparse_default_selector(cols)), flush=True)
+    del cols
+    torch.cuda.empty_cache()
+    print("corr and summary: " + json.dumps(run_corr_and_summary(
+        grid_model, grid_batch)), flush=True)
+    del grid_model, grid_batch
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card, flush=True)

@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""Time the split kernels, and the bench set's train wall, on one NVIDIA
+card: ``tree_split`` at a depth-3 GBT level (3 lanes, P = 4) and at the
+default grid's GBT level 11 (6 lanes, P = 2048), ``tree_split_gini`` at a
+forest level 5 (60 lanes, P = 32) and at the default grid's RF level 11
+(150 lanes, P = 2048), both with 5-of-28 node subsets, and once more at
+level 5 with 6 classes; then ``chip_smoke.run_main_path`` (the bench set:
+LR x4, RF, GBT with 3-fold CV) at 1,000,000 x 28.
+
+    python3 scripts/split_kernel_time.py [--root DIR] [--reps R]
+        [--rows N] [--train-reps T]
+
+``--root`` is a checkout whose ``transmogrifai_tpu_torch`` and
+``chip_smoke.py`` are timed (default: the one this script is in), so that
+two versions can be compared on one card: run each in its own process, in
+the order A B B A.  A version whose wrapper refuses a shape reports its
+``ValueError`` for it.  The histograms are synthetic (a seeded generator
+on the card, the same in every process): integer counts and class counts
+for gini, (count, w·g, w·h) for xgb, every bin of every node filled, the
+parent totals the sums over one feature's bins.  Times are CUDA events
+over ``--reps`` calls after a warm-up: ``ms`` of the wrapper called from
+Python (at small shapes the host's launch path, not the kernel, sets it)
+and ``graph_ms`` of one replay of the call captured in a CUDA graph (the
+kernel alone).  ``--train-reps 0`` skips the trains; else the first
+train is a warm-up.  Prints one JSON line: the card's name and power
+limit, the root, each shape's ms and graph ms, and the train walls.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+D, NB = 28, 32
+
+
+def time_ms(fn, reps: int) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean ms of one replay of ``fn`` captured in a CUDA graph: the
+    kernel with no Python between launches."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return time_ms(g.replay, reps)
+
+
+def split_inputs(K: int, P: int, C: int, subset: int, gen):
+    """A level's histogram [K, P, D, NB, S] with its totals, the split
+    points, and (``subset`` > 0) each node's drawn features: gini
+    statistics (count, class counts) with C classes, xgb ones with C = 0."""
+    import torch
+    dev = "cuda"
+    if C:
+        cls = torch.randint(0, 40, (K, P, D, NB, C), generator=gen,
+                            device=dev).float()
+        hist = torch.cat([cls.sum(dim=4, keepdim=True), cls], dim=4)
+    else:
+        cnt = torch.randint(0, 40, (K, P, D, NB, 1), generator=gen,
+                            device=dev).float()
+        g = torch.randn((K, P, D, NB, 1), generator=gen, device=dev) * cnt
+        h = torch.rand((K, P, D, NB, 1), generator=gen, device=dev) * cnt
+        hist = torch.cat([cnt, g, h], dim=4)
+    hist = hist.contiguous()
+    totals = hist[:, :, 0].sum(dim=2).contiguous()
+    splits = torch.sort(torch.randn((D, NB - 1), generator=gen, device=dev),
+                        dim=1).values.contiguous()
+    mask = None
+    if subset:
+        keys = torch.rand((K, P, D), generator=gen, device=dev)
+        mask = torch.zeros((K, P, D), dtype=torch.bool, device=dev)
+        mask.scatter_(2, torch.topk(keys, subset, dim=2).indices, True)
+    return hist, totals, splits, mask
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--train-reps", type=int, default=2)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("split_kernel_time: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.root))
+    import chip_smoke
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fmask = torch.ones(D, dtype=torch.bool, device="cuda")
+    out, graph = {}, {}
+    for name, K, P in (("tree_split_gbt_level_3_lanes_P4", 3, 4),
+                       ("tree_split_gbt_level11_6_lanes", 6, 2048)):
+        hist, tot, sp, _ = split_inputs(K, P, 0, 0, gen)
+        one, ten, zero = (torch.full((K,), v, device="cuda")
+                          for v in (1.0, 10.0, 0.0))
+        run = lambda: tk.tree_split(                      # noqa: E731
+            hist, tot, fmask, sp, ten, zero, one)
+        out[name] = time_ms(run, args.reps)
+        graph[name] = graph_ms(run, args.reps)
+        del hist, tot
+    for name, K, P, C in (("tree_split_gini_level5_60_lanes", 60, 32, 2),
+                          ("tree_split_gini_rf_level11_150_lanes", 150, 2048,
+                           2),
+                          ("tree_split_gini_level5_60_lanes_6_classes", 60,
+                           32, 6)):
+        hist, tot, sp, mask = split_inputs(K, P, C, 5, gen)
+        ten, zero = (torch.full((K,), v, device="cuda") for v in (10.0, 0.0))
+        run = lambda: tk.tree_split_gini(                 # noqa: E731
+            hist, tot, fmask, mask, sp, ten, zero)
+        try:
+            out[name] = time_ms(run, args.reps)
+            graph[name] = graph_ms(run, args.reps)
+        except ValueError as e:      # a version whose wrapper refuses C
+            out[name] = graph[name] = f"ValueError: {e}"
+        del hist, tot, mask
+    torch.cuda.empty_cache()
+    walls = []
+    if args.train_reps:
+        chip_smoke.run_main_path("cuda", args.rows)         # warm-up
+        walls = [chip_smoke.run_main_path("cuda", args.rows)["train_wall_s"]
+                 for _ in range(args.train_reps)]
+    print(json.dumps({"card": chip_smoke.nvidia_smi_line(),
+                      "root": args.root, "ms": out, "graph_ms": graph,
+                      "rows": args.rows, "bench_set_train_wall_s": walls}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

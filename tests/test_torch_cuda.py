@@ -303,10 +303,11 @@ def test_small_main_path_on_the_card_matches_the_twins(cuda):
     kernels.reset_launch_counts()
     gpu = _small_main_path("cuda", 5000)
     # depth-4 and depth-3 trees never need the one-pass deep histogram;
-    # the dense path hashes no text and holds no sparse matrix
+    # the dense path hashes no text, holds no sparse matrix and explains
+    # nothing
     assert all(v > 0 for k, v in kernels.launch_counts().items()
                if k not in ("tree_hist_deep", "hash_counts", "sp_matmat",
-                            "sp_rmatmat"))
+                            "sp_rmatmat", "loco_linear", "loco_tree"))
     cpu = _small_main_path("cpu", 5000)
     assert gpu[0] == cpu[0]
     np.testing.assert_allclose(gpu[1], cpu[1], rtol=0, atol=1e-3)
@@ -556,3 +557,229 @@ def test_sparse_path_on_the_card_matches_the_twins(cuda):
     for c, v in b["cv_aupr"].items():
         assert abs(a["cv_aupr"][c] - v) <= 1e-4
     assert abs(a["train_auroc"] - b["train_auroc"]) <= 1e-4
+
+
+# --------------------------------------------------------------------------
+# explanations: the LOCO kernels
+# --------------------------------------------------------------------------
+
+def _assert_loco_matches_twin(run, twin, G, k, strategy):
+    """The kernel's diff of each group it lists within 1e-5 of the twin's
+    max |diff| of the twin's diff of that group, ranks at each place within
+    that, no group twice, the same bits on two launches."""
+    idx, val = run()
+    idx2, val2 = run()
+    assert torch.equal(idx, idx2) and torch.equal(val, val2)
+    fi, fv = twin(G)
+    full = torch.empty_like(fv).scatter_(1, fi.long(), fv)
+    tol = 1e-5 * float(fv.abs().max())
+    assert float((val - torch.gather(full, 1, idx.long())).abs().max()) <= tol
+    rank = {"abs": torch.abs, "positive": lambda d: d,
+            "negative": lambda d: -d}[strategy]
+    assert float((rank(val) - rank(fv[:, :k])).abs().max()) <= tol
+    assert not bool((torch.sort(idx.long(), dim=1).values.diff(dim=1) == 0)
+                    .any())
+    return idx, fi, fv
+
+
+@pytest.mark.parametrize("G,k,strategy,link,contiguous", [
+    (12, 12, "abs", "logistic", False), (128, 20, "positive", "logistic",
+                                         False),
+    (1596, 20, "negative", "svc", False), (1596, 1596, "abs", "logistic",
+                                           False),
+    (12, 12, "abs", "logistic", True), (40, 20, "negative", "logistic",
+                                        True), (300, 20, "abs", "svc", True)])
+def test_loco_linear_matches_twin(cuda, G, k, strategy, link, contiguous):
+    """Groups of uneven sizes, scattered columns (a column's group is not
+    its neighbour's) or contiguous ones (transmogrify's layout: the float4
+    path) and G up to the meta-less 1,596 with k = G; zeroed columns make
+    exact zero diffs, tied with each other: the kernel lists them in the
+    twin's order (the lower group first)."""
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    from transmogrifai_tpu_torch.models.linear import LinearPredictionModel
+    rng = np.random.default_rng(7)
+    N, D = 3000, 1596
+    X = rng.normal(size=(N, D)).astype(np.float32)
+    cg = np.sort(rng.integers(0, G, size=D)).astype(np.int32)
+    cg[:G] = np.arange(G)                               # every group used
+    cg = np.sort(cg) if contiguous else rng.permutation(cg)
+    zero = np.isin(cg, np.arange(0, G, 3))              # groups all zero
+    X[:, zero] = 0.0
+    Xd = torch.as_tensor(X, device=cuda)
+    cgd = torch.as_tensor(cg, device=cuda)
+    model = LinearPredictionModel(fitted={
+        "coef": torch.as_tensor(rng.normal(size=D).astype(np.float32) / 40,
+                                device=cuda),
+        "intercept": torch.tensor([0.3], device=cuda),
+        "kind": "svc" if link == "svc" else "binary"})
+    idx, fi, fv = _assert_loco_matches_twin(
+        lambda: ik.loco_linear(Xd, model, cgd, G, k, strategy),
+        lambda kk: ik.loco_topk_twin(
+            Xd, lambda Z: ik.loco_score(model, Z), cgd, G, kk, strategy),
+        G, k, strategy)
+    if k == G:
+        # the all-zero groups tie at exactly 0: the kernel lists them in
+        # increasing group order, as the twin's stable sort does
+        zg = torch.as_tensor(np.flatnonzero(np.bincount(
+            cg[zero], minlength=G) == np.bincount(cg, minlength=G)),
+            device=cuda)
+        for got in (idx.long(), fi.long()):
+            pos = torch.isin(got, zg)
+            seq = got[pos].reshape(N, -1)
+            assert seq.shape[1] == len(zg)
+            assert bool((seq.diff(dim=1) > 0).all())
+
+
+@pytest.mark.parametrize("link", ["gbt", "forest"])
+def test_loco_tree_matches_twin(cuda, link):
+    """A fitted GBT (5 rounds, depth 3) and forest (5 trees, depth 4) on 28
+    features, one group per feature and one per pair of features, top-5 and
+    k = G."""
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    from transmogrifai_tpu_torch.models.trees import (OpGBTClassifier,
+                                                      OpRandomForestClassifier,
+                                                      TreeEnsembleModel)
+    rng = np.random.default_rng(8)
+    N, D = 5000, 28
+    X = rng.normal(size=(N, D)).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.normal(size=N) > 0).astype(
+        np.float32)
+    Xd = torch.as_tensor(X, device=cuda)
+    fit = (OpGBTClassifier(max_iter=5, max_depth=3).fit_arrays(Xd, y)
+           if link == "gbt" else
+           OpRandomForestClassifier(num_trees=5, max_depth=4).fit_arrays(Xd, y))
+    model = TreeEnsembleModel(fitted=fit)
+    for G, per in ((28, 1), (14, 2)):
+        cgd = torch.arange(D, device=cuda, dtype=torch.int32) // per
+        for k, strategy in ((5, "abs"), (G, "negative")):
+            _assert_loco_matches_twin(
+                lambda: ik.loco_tree(Xd, model, cgd, G, k, strategy),
+                lambda kk: ik.loco_topk_twin(
+                    Xd, lambda Z: ik.loco_score(model, Z), cgd, G, kk,
+                    strategy), G, k, strategy)
+
+
+def test_loco_stage_on_the_card_takes_the_kernels(cuda):
+    """RecordInsightsLOCO on a CUDA batch launches ``loco_linear`` (an LR)
+    and gives the maps of the same stage on the CPU twins, up to 1e-5."""
+    import json
+
+    from transmogrifai_tpu_torch.columns import Column, ColumnBatch
+    from transmogrifai_tpu_torch.features import Feature
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models.linear import (LinearPredictionModel,
+                                                       OpLogisticRegression)
+    from transmogrifai_tpu_torch.record_insights import RecordInsightsLOCO
+    from transmogrifai_tpu_torch.types import OPVector
+    from transmogrifai_tpu_torch.vector_meta import (VectorColumnMeta,
+                                                     VectorMeta)
+    rng = np.random.default_rng(9)
+    X = rng.normal(size=(2000, 12)).astype(np.float32)
+    y = (X[:, 0] - X[:, 5] + rng.normal(size=2000) > 0).astype(np.float32)
+    fit = OpLogisticRegression(max_iter=30).fit_arrays(X, y, device="cpu")
+    meta = VectorMeta("v", [VectorColumnMeta(f"p{i // 3}", "Real", index=i)
+                            for i in range(12)])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = LinearPredictionModel(fitted={
+            "coef": fit["coef"].to(dev), "intercept": fit["intercept"].to(dev),
+            "kind": "binary"})
+        loco = RecordInsightsLOCO(model=model, top_k=4)
+        loco.set_input(Feature("v", OPVector, False, None, parents=()))
+        kernels.reset_launch_counts()
+        out[dev] = loco.transform(ColumnBatch({"v": Column(
+            OPVector, torch.as_tensor(X), meta=meta)}, 2000,
+            device=dev)).values
+        assert kernels.launch_counts()["loco_linear"] == (dev == "cuda")
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert list(a) == list(b)
+        for name in a:
+            assert abs(json.loads(a[name])[0][1]
+                       - json.loads(b[name])[0][1]) <= 1e-5
+
+
+# --------------------------------------------------------------------------
+# the repaired faults: any width, any class count
+# --------------------------------------------------------------------------
+
+def test_split_kernels_at_1597_features_match_twins(cuda):
+    """D = 1,597 (two feature chunks): tree_split within the xgb tolerance,
+    tree_split_gini equal to its twin on integer counts, and a cross-chunk
+    exact tie (column 100 = column 1,500) taken by feature 100 in both."""
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    from transmogrifai_tpu_torch.models.trees import binned
+    rng = np.random.default_rng(10)
+    N, D, K = 20_000, 1597, 2
+    X = rng.normal(size=(N, D)).astype(np.float32)
+    X[:, 100] = X[:, 1500]
+    y = (X[:, 1500] + 0.5 * rng.normal(size=N) > 0).astype(np.float32)
+    Xd = torch.as_tensor(X, device=cuda)
+    _, splits, B = binned(Xd, Xd, 32)
+    yd = torch.as_tensor(y, device=cuda)
+    rn = torch.zeros((K, N), dtype=torch.int32, device=cuda)
+    lane = lambda v: torch.full((K,), v, device=cuda)   # noqa: E731
+    fmask = torch.ones(D, dtype=torch.bool, device=cuda)
+    p = torch.full((K, N), 0.5, device=cuda)
+    xgb = torch.stack([torch.ones_like(p), p - yd, p * (1 - p)],
+                      dim=2).contiguous()
+    h, t = tk.tree_hist(B, rn, xgb, 0, 1, 32)
+    sk = tk.tree_split(h, t, fmask, splits, lane(1.0), lane(0.0), lane(1.0))
+    st = tk.tree_split_twin(h, t, fmask, splits, lane(1.0), lane(0.0),
+                            lane(1.0))
+    assert sk["feature"].tolist() == st["feature"].tolist() == [[100]] * K
+    assert torch.allclose(sk["gain"], st["gain"], rtol=1e-5)
+    cnt = torch.stack([torch.ones_like(yd), 1 - yd, yd], dim=1)
+    gini = cnt[None].expand(K, N, 3).contiguous()
+    h, t = tk.tree_hist(B, rn, gini, 0, 1, 32)
+    args = (h, t, fmask, None, splits, lane(1.0), lane(0.0))
+    gk, gt = tk.tree_split_gini(*args), tk.tree_split_gini_twin(*args)
+    for key in ("gain", "feature", "bin", "is_leaf", "threshold"):
+        assert torch.equal(gk[key], gt[key]), key
+    assert gk["feature"].tolist() == [[100]] * K
+
+
+@pytest.mark.parametrize("n_classes", [6, 40])
+def test_multiclass_forest_kernels_match_twins(cuda, n_classes):
+    """C = 6 and 40: tree_hist_deep (2 and 9 statistic chunks) within the
+    histogram tolerance, tree_split_gini equal to its twin on integer counts
+    (1 and 5 class chunks), a fitted forest's tree_walk (V = C) within
+    1e-6, and the decision tree fitted on the card equal to the CPU twins'."""
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    from transmogrifai_tpu_torch.models.trees import (OpDecisionTreeClassifier,
+                                                      binned)
+    rng = np.random.default_rng(11)
+    N, D, K, P = 20_000, 8, 2, 128
+    X = rng.normal(size=(N, D)).astype(np.float32)
+    y = rng.integers(0, n_classes, size=N).astype(np.float32)
+    y[: n_classes] = np.arange(n_classes)
+    Xd = torch.as_tensor(X, device=cuda)
+    _, splits, B = binned(Xd, Xd, 32)
+    oh = torch.nn.functional.one_hot(torch.as_tensor(y, device=cuda).long(),
+                                     n_classes).float()
+    stats = torch.cat([torch.ones((N, 1), device=cuda), oh], dim=1)
+    stats = (stats[None] * torch.as_tensor(
+        rng.poisson(1.0, size=(K, N, 1)).astype(np.float32),
+        device=cuda)).contiguous()
+    rn = torch.as_tensor(rng.integers(P - 1, 2 * P - 1, size=(K, N)).astype(
+        np.int32), device=cuda)
+    h, t = tk.tree_hist(B, rn, stats, P - 1, P, 32)
+    ht, tt = tk.tree_hist_twin(B, rn, stats.double(), P - 1, P, 32)
+    assert bool(((h.double() - ht).abs() <= 1e-5 + 1e-5 * ht).all())
+    assert bool(((t.double() - tt).abs() <= 1e-5 + 1e-5 * tt).all())
+    lane = lambda v: torch.full((K,), v, device=cuda)   # noqa: E731
+    fmask = torch.ones(D, dtype=torch.bool, device=cuda)
+    args = (h, t, fmask, None, splits, lane(2.0), lane(0.0))
+    gk, gt = tk.tree_split_gini(*args), tk.tree_split_gini_twin(*args)
+    for key in ("gain", "feature", "bin", "is_leaf", "threshold"):
+        assert torch.equal(gk[key], gt[key]), key
+    fit = OpDecisionTreeClassifier(max_depth=8, min_instances_per_node=5)
+    card = fit.fit_arrays(Xd, y)
+    host = fit.fit_arrays(torch.as_tensor(X), y, device="cpu")
+    for key in ("feature", "is_leaf", "threshold"):
+        assert torch.equal(card[key].cpu(), host[key]), key
+    walk = (card["feature"], card["threshold"], card["is_leaf"],
+            card["leaf"], 9)
+    assert card["leaf"].shape[2] == n_classes
+    assert float((tk.tree_walk(Xd, *walk, op="mean")
+                  - tk.tree_walk_twin(Xd, *walk, 1, "mean")).abs().max()) \
+        <= 1e-6

@@ -1,0 +1,266 @@
+"""The port's repaired faults, on the CPU: the selector's candidate-skip seam
+(tree families on a ``SparseMatrix``), the launch plans that let
+``tree_split`` / ``tree_split_gini`` take any number of features and the
+forest kernels any number of classes, and the LOCO kernels' plans.
+
+The CUDA kernels run only on the card (``tests/test_torch_cuda.py``); here
+the plans that size their launches are checked, the first-max rule across
+feature chunks is emulated on the twin's gain table, and forests of 6 and
+40 classes are held against the JAX package on the twins.
+
+Tolerances: the sparse default selector's LR and SVC CV AuPRs within 1e-4
+of the JAX package's (f32 sparse products in another order; the two
+families' best AuPRs lie 0.04 apart), the same winner and NaN for every
+tree-family row; the decision trees identical in structure with leaves at
+rtol 1e-5 on every node a walk reaches, as ``tests/test_torch_forest.py``
+and ``tests/test_torch_deep_trees.py`` hold binary ones.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from transmogrifai_tpu.models import trees as jt  # noqa: E402
+from transmogrifai_tpu_torch import insights_kernels as ik  # noqa: E402
+from transmogrifai_tpu_torch.models import tree_kernels as tk  # noqa: E402
+from transmogrifai_tpu_torch.models import trees as pt  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+
+import sparse_reference as sr  # noqa: E402
+
+JAX, PORT = "transmogrifai_tpu", "transmogrifai_tpu_torch"
+CPU = torch.device("cpu")
+
+
+# --------------------------------------------------------------------------
+# fault 1: the default selector on a SparseMatrix
+# --------------------------------------------------------------------------
+
+def _default_selector_run(pkg, rows=600, hashes=4096):
+    F = sr._mod(pkg, "features")
+    S = sr._mod(pkg, "selector")
+    label = F.FeatureBuilder.RealNN("label").as_response()
+    txt = F.FeatureBuilder.Text("txt").as_predictor()
+    x0 = F.FeatureBuilder.Real("x0").as_predictor()
+    fv = sr._mod(pkg, "ops.transmogrify").transmogrify([txt, x0],
+                                                       num_hashes=hashes)
+    sel = S.BinaryClassificationModelSelector()
+    sel.set_input(label, fv)
+    pred = sel.get_output()
+    kw = {"device": "cpu"} if pkg == PORT else {}
+    wf = sr._mod(pkg, "workflow").Workflow(**kw).set_result_features(pred)
+    batch = sr.raw_batch(pkg, wf.raw_features, rows)
+    return wf.set_input_batch(batch).train()
+
+
+def _family_rows(summary):
+    out = {}
+    for r in summary.validation_results:
+        out.setdefault(r.model_name, []).append(
+            float(next(iter(r.metric_values.values()))))
+    return out
+
+
+@pytest.fixture(scope="module")
+def sparse_default_runs():
+    return {pkg: _default_selector_run(pkg) for pkg in (JAX, PORT)}
+
+
+def test_default_selector_on_a_sparse_matrix_skips_the_tree_families(
+        sparse_default_runs):
+    jm, pm = sparse_default_runs[JAX], sparse_default_runs[PORT]
+    assert type(sr.feature_matrix(PORT, pm, pm._input_batch)).__name__ == \
+        "SparseMatrix"
+    js, ps = jm.selected_model.summary, pm.selected_model.summary
+    assert ps.best_model_name == js.best_model_name == "OpLogisticRegression"
+    jrows, prows = _family_rows(js), _family_rows(ps)
+    for fam in ("OpRandomForestClassifier", "OpGBTClassifier"):
+        assert len(prows[fam]) == len(jrows[fam]) == 18
+        assert np.isnan(prows[fam]).all() and np.isnan(jrows[fam]).all()
+    for fam in ("OpLogisticRegression", "OpLinearSVC"):
+        np.testing.assert_allclose(prows[fam], jrows[fam], atol=1e-4)
+    # one "skipped" record per tree-family block: fold 0's screen of the
+    # full grid, then the survivors on folds 1 and 2
+    log = pm.selected_model.failure_log
+    skipped = log.by_action("skipped")
+    assert {e.stage for e in skipped} == {"OpRandomForestClassifier",
+                                          "OpGBTClassifier"}
+    assert len(skipped) == 4
+    assert all("later slice" in e.cause for e in skipped)
+
+
+class _Boom:
+    """A candidate whose fit raises ``exc``."""
+
+    def __init__(self, exc):
+        self.exc = exc
+
+    def fit_arrays_grid(self, X, y, W, grid):
+        raise self.exc
+
+    def set(self, k, v):
+        return self
+
+
+def _validate(candidates):
+    from transmogrifai_tpu_torch.columns import Column, ColumnBatch
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.tuning import OpCrossValidation
+    from transmogrifai_tpu_torch.types import OPVector, RealNN
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(90, 3)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float32)
+    batch = ColumnBatch({"y": Column(RealNN, y),
+                         "v": Column(OPVector, torch.as_tensor(X))}, 90,
+                        device="cpu")
+    cv = OpCrossValidation(3, Evaluators.BinaryClassification.auPR())
+    return cv.validate(candidates, batch, "y", "v")
+
+
+def test_skip_seam_skips_only_the_reference_exceptions():
+    from transmogrifai_tpu_torch.models.linear import OpLogisticRegression
+    from transmogrifai_tpu_torch.resilience import AllCandidatesFailed
+    from transmogrifai_tpu_torch.tuning import ModelCandidate
+    lr = ModelCandidate(OpLogisticRegression(max_iter=20), [{}], "LR")
+    for exc in (NotImplementedError("no sparse"), TypeError("densify")):
+        res = _validate([ModelCandidate(_Boom(exc), [{}, {}], "Boom"), lr])
+        assert res.best.model_name == "LR"
+        boom = [r for r in res.all_results if r.model_name == "Boom"]
+        assert all(np.isnan(r.mean_metric) for r in boom)
+        assert len(res.failure_log.by_action("skipped")) == 1
+    with pytest.raises(ValueError, match="not a skip"):
+        _validate([ModelCandidate(_Boom(ValueError("not a skip")), [{}],
+                                  "Boom"), lr])
+    with pytest.raises(AllCandidatesFailed, match="Boom: NotImplementedError"):
+        _validate([ModelCandidate(_Boom(NotImplementedError("x")), [{}],
+                                  "Boom")])
+
+
+# --------------------------------------------------------------------------
+# faults 2 and 3: the tree kernels' plans
+# --------------------------------------------------------------------------
+
+def test_split_plans_cover_any_width_and_class_count():
+    p = tk.split_plan(1597)
+    assert (p.d_chunk, p.n_chunks, p.class_chunk) == (1024, 2, 0)
+    assert tk.split_plan(28).n_chunks == 1 and tk.split_plan(28).d_chunk == 28
+    g6 = tk.split_plan(1597, 6)
+    assert (g6.d_chunk, g6.n_chunks, g6.class_chunk, g6.class_chunks) == \
+        (1024, 2, 8, 1)
+    g40 = tk.split_plan(28, 40)
+    assert (g40.class_chunk, g40.class_chunks) == (8, 5)
+    assert [tk.split_plan(28, c).class_chunk for c in (2, 3, 4, 5)] == \
+        [2, 4, 4, 8]
+    assert tk.hist_deep_plan(3) == [(0, 3)]
+    assert tk.hist_deep_plan(7) == [(0, 5), (5, 2)]
+    assert tk.hist_deep_plan(41) == [(0, 5), (5, 5), (10, 5), (15, 5),
+                                     (20, 5), (25, 5), (30, 5), (35, 5),
+                                     (40, 1)]
+    with pytest.raises(ValueError):
+        tk.split_plan(0)
+
+
+def test_feature_chunks_keep_the_first_max_at_1597_features():
+    """At D = 1,597 the features split into chunks of 1,024 and 573.  The
+    best gain sits at an exact tie across the two chunks (features 100 and
+    1,500) and inside the second (1,500 and 1,501): the chunked argmax with
+    a strict ``>`` between chunks picks feature 100, as the twin's argmax
+    over the whole table and the JAX argmax over feature chunks do."""
+    D, NB = 1597, 4
+    plan = tk.split_plan(D)
+    rng = np.random.default_rng(0)
+    gains = torch.as_tensor(rng.random((1, 2, D, NB)).astype(np.float32))
+    gains[..., NB - 1] = float("-inf")
+    gains[0, 0, 100, 2] = gains[0, 0, 1500, 1] = gains[0, 0, 1501, 0] = 5.0
+    gains[0, 1, 1500, 1] = gains[0, 1, 1501, 0] = 6.0
+    table = gains.reshape(1, 2, D * NB)
+    best = torch.full((1, 2), float("-inf"))
+    feat = torch.zeros((1, 2), dtype=torch.long)
+    for c in range(plan.n_chunks):
+        lo, hi = c * plan.d_chunk, min(D, (c + 1) * plan.d_chunk)
+        sub = gains[:, :, lo:hi].reshape(1, 2, -1)
+        cidx = torch.argmax(sub, dim=2)           # first max in the chunk
+        cb = torch.gather(sub, 2, cidx[..., None])[..., 0]
+        take = cb > best
+        best = torch.where(take, cb, best)
+        feat = torch.where(take, lo + cidx // NB, feat)
+    assert feat.tolist() == [[100, 1500]]
+    assert (torch.argmax(table, dim=2) // NB).tolist() == feat.tolist()
+
+
+@pytest.fixture(scope="module")
+def multiclass():
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(1500, 6)).astype(np.float32)
+    X[:, 4] = np.round(X[:, 4], 1)
+    return X, rng
+
+
+@pytest.mark.parametrize("n_classes", [6, 40])
+def test_multiclass_decision_tree_matches_jax(multiclass, n_classes):
+    """A 6-class and a 40-class decision tree (S = 7 and 41 statistics: two
+    and nine ``tree_hist_deep`` launches, one and five gini class chunks on
+    the card) on the twins equal the JAX package's tree, and score V = C
+    leaf values per row."""
+    X, rng = multiclass
+    edges = np.quantile(X[:, 0] + 0.5 * X[:, 1],
+                        np.linspace(0, 1, n_classes + 1)[1:-1])
+    y = np.digitize(X[:, 0] + 0.5 * X[:, 1] + 0.3 * rng.normal(size=len(X)),
+                    edges).astype(np.float32)
+    kw = dict(max_depth=5, min_instances_per_node=3)
+    ref = jt.OpDecisionTreeClassifier(**kw).fit_arrays(X, y)
+    port = pt.OpDecisionTreeClassifier(**kw).fit_arrays(X, y, device="cpu")
+    assert port["n_classes"] == n_classes == port["leaf"].shape[2]
+    np.testing.assert_array_equal(port["feature"].numpy(),
+                                  np.asarray(ref["feature"]))
+    np.testing.assert_array_equal(port["is_leaf"].numpy(),
+                                  np.asarray(ref["is_leaf"]))
+    # leaves on the nodes a walk can reach (every ancestor a split): the
+    # JAX fit also writes values below a leaf, which no walk reads
+    leaf_flag = port["is_leaf"].numpy()[0]
+    reach = np.ones(len(leaf_flag), bool)
+    for node in range(1, len(reach)):
+        parent = (node - 1) // 2
+        reach[node] = reach[parent] and not leaf_flag[parent]
+    np.testing.assert_allclose(port["leaf"].numpy()[0][reach],
+                               np.asarray(ref["leaf"])[0][reach],
+                               rtol=1e-5, atol=1e-7)
+    out = pt.TreeEnsembleModel(fitted=port).device_scores(torch.as_tensor(X))
+    assert tuple(out["probability"].shape) == (len(X), n_classes)
+    assert "scores" not in out
+
+
+# --------------------------------------------------------------------------
+# the LOCO kernels' plans
+# --------------------------------------------------------------------------
+
+def test_loco_plans_at_the_transmog_width():
+    N, D = 1_000_000, 1596
+    for k in (20, 1596):
+        # the meta-less G = 1,596: two windows of group slots, 32 KB a block
+        p = ik.loco_plan("linear", N, D, 1596, k)
+        assert (p.threads, p.group_window, p.smem_bytes) == (256, 1024,
+                                                              32 * 1024)
+        assert p.blocks == ik.BLOCKS_IN_FLIGHT and not p.wide_groups
+    one = ik.loco_plan("linear", N, D, 12, 12)       # raw-parent groups
+    assert (one.group_window, one.smem_bytes) == (12, 12 * 4 * 8)
+    assert one.wide_groups                            # float4 reads
+    assert not ik.loco_plan("linear", 100_000, 512, 128, 20).wide_groups
+    assert not ik.loco_plan("linear", N, 1597, 12, 12).wide_groups
+    assert ik.loco_plan("linear", 5, D, 12, 12).blocks == 1
+    gbt = ik.loco_plan("tree", N, 28, 28, 20, n_nodes=20 * 15)
+    assert gbt.blocks == ik.BLOCKS_IN_FLIGHT
+    assert gbt.smem_bytes == 20 * 15 * 13 + 4 * 28
+    rf = ik.loco_plan("tree", N, 28, 28, 28, n_nodes=20 * 127, forest=True)
+    assert rf.smem_bytes == 20 * 127 * 17 + 4 * 28
+    deep = ik.loco_plan("tree", N, 1596, 1596, 1596, n_nodes=20 * 8191)
+    assert deep.smem_bytes == 0                     # read from device memory
+    for bad in ((0, 1), (5, 6)):
+        with pytest.raises(ValueError, match="K <= G"):
+            ik.loco_plan("linear", N, D, *bad)

@@ -104,3 +104,37 @@ def test_no_source_imports_jax_or_the_jax_package(path):
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib", "transmogrifai_tpu"), (
                 f"{os.path.relpath(path, ROOT)} imports {n}")
+
+
+def test_the_insights_path_leaves_jax_out():
+    """Explaining a model on the CPU (RecordInsightsLOCO through the twin
+    and the native payload formatter, RecordInsightsCorr, the summary)
+    loads no JAX."""
+    code = ("import json, sys\n"
+            "import numpy as np, torch\n"
+            "from transmogrifai_tpu_torch.columns import Column, ColumnBatch\n"
+            "from transmogrifai_tpu_torch.features import Feature\n"
+            "from transmogrifai_tpu_torch.models.linear import "
+            "LinearPredictionModel\n"
+            "from transmogrifai_tpu_torch.record_insights import "
+            "RecordInsightsLOCO, RecordInsightsCorr\n"
+            "from transmogrifai_tpu_torch.types import OPVector\n"
+            "import transmogrifai_tpu_torch.insights\n"
+            "X = torch.randn(50, 4)\n"
+            "m = LinearPredictionModel(fitted={'coef': torch.ones(4), "
+            "'intercept': torch.zeros(1), 'kind': 'binary'})\n"
+            "v = Feature('v', OPVector, False, None, parents=())\n"
+            "p = Feature('p', OPVector, False, None, parents=())\n"
+            "b = ColumnBatch({'v': Column(OPVector, X), 'p': Column(OPVector, "
+            "torch.sigmoid(X[:, :1]))}, 50, device='cpu')\n"
+            "loco = RecordInsightsLOCO(model=m, top_k=2); loco.set_input(v)\n"
+            "assert len(loco.transform(b).values[0]) == 2\n"
+            "c = RecordInsightsCorr(top_k=2); c.set_input(p, v)\n"
+            "c.fit(b).transform(b)\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
+            "or m == 'transmogrifai_tpu' or m.startswith('transmogrifai_tpu.'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

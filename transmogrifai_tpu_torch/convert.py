@@ -14,7 +14,15 @@ order).  The dicts this slice reads, by the fitted stage's class name:
   ``feature``, ``threshold``, ``is_leaf`` [R, T], ``leaf`` [R, T, 1],
   ``eta``, ``base``, ``max_depth``) or a forest (``kind`` "forest": ``task``,
   ``n_classes``, ``feature``, ``threshold``, ``is_leaf`` [R, T], ``leaf``
-  [R, T, C], ``max_depth``) — with those arrays under ``fitted``.
+  [R, T, C], ``max_depth``) — with those arrays under ``fitted``;
+* ``RecordInsightsLOCO``: the explained model as ``model`` / ``fitted``
+  (the ``SelectedModel`` forms above; the stage keeps its own ``top_k`` and
+  ``strategy``);
+* ``RecordInsightsCorrModel``: ``corr`` [P, D], ``s1``, ``s2`` [D] and
+  ``offset``.
+
+A ``SanityCheckerModel`` may also carry ``input_vector_meta`` (the JSON of
+its input vector's meta), which ``WorkflowModel.summary`` reads for lineage.
 
 Tree arrays are taken as the JAX package writes them in either form of its
 tree fit.  Trees deeper than 7 come from ``_fit_tree_unrolled``, whose
@@ -37,6 +45,8 @@ from .models.trees import TreeEnsembleModel
 from .ops.combiner import VectorsCombiner
 from .ops.numeric import RealNNVectorizer, RealVectorizer, RealVectorizerModel
 from .preparators.sanity_checker import SanityChecker, SanityCheckerModel
+from .record_insights import (RecordInsightsCorr, RecordInsightsCorrModel,
+                              RecordInsightsLOCO)
 from .selector import ModelSelector, SelectedModel
 from .workflow import WorkflowModel
 
@@ -82,6 +92,17 @@ def _model_fitted(name: str, fitted: Dict[str, Any], device) -> Dict[str, Any]:
     return out
 
 
+def prediction_model(params: Dict[str, Any], device: torch.device):
+    """The port's fitted model of ``params["model"]`` / ``params["fitted"]``
+    (a ``SelectedModel``'s winner)."""
+    cls = _MODELS.get(params["model"])
+    if cls is None:
+        raise NotImplementedError(
+            f"convert: no port model for {params['model']!r}")
+    return cls(fitted=_model_fitted(params["model"], params["fitted"],
+                                    device))
+
+
 def fitted_stage(stage, params: Dict[str, Any], device: torch.device):
     """The port's fitted counterpart of ``stage`` (an unfitted stage of the
     port's feature graph) carrying ``params``."""
@@ -108,15 +129,25 @@ def fitted_stage(stage, params: Dict[str, Any], device: torch.device):
         model = SanityCheckerModel(fitted={"indices_to_keep": np.asarray(
             params["indices_to_keep"], dtype=np.int64)}, **stage.params)
         model.metadata["summary"] = params.get("summary")
+        if params.get("input_vector_meta") is not None:
+            model.metadata["input_vector_meta"] = params["input_vector_meta"]
+        return stage._finalize_model(model)
+    if isinstance(stage, RecordInsightsLOCO):
+        expect("RecordInsightsLOCO")
+        stage.model = prediction_model(params, device)
+        return stage
+    if isinstance(stage, RecordInsightsCorr):
+        expect("RecordInsightsCorrModel")
+        model = RecordInsightsCorrModel(fitted={
+            "corr": np.asarray(params["corr"], np.float64),
+            "s1": np.asarray(params["s1"], np.float64),
+            "s2": np.asarray(params["s2"], np.float64),
+            "offset": float(params["offset"])},
+            top_k=int(stage.get("top_k", 20)))
         return stage._finalize_model(model)
     if isinstance(stage, ModelSelector):
         expect("SelectedModel")
-        cls = _MODELS.get(params["model"])
-        if cls is None:
-            raise NotImplementedError(
-                f"convert: no port model for {params['model']!r}")
-        best = cls(fitted=_model_fitted(params["model"], params["fitted"],
-                                        device))
+        best = prediction_model(params, device)
         model = SelectedModel(best_model=best, **stage.params)
         model.fitted = {"best_model_class": params["model"]}
         return stage._finalize_model(model)

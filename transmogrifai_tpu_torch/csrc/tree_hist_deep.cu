@@ -27,6 +27,12 @@
 // index arithmetic is 64-bit: at 600 lanes x 2048 nodes the histogram has
 // 3.3e9 cells.
 //
+// Statistics: a thread holds at most MAX_S of a row's S statistics in
+// registers, so the wrapper launches once per chunk [s_lo, s_lo + sn) of at
+// most MAX_S columns (hist_deep_plan; one launch for S <= 5, a forest of up
+// to 4 classes).  A row whose statistics in the chunk are all zero is
+// dropped for that chunk alone: exact, as above.
+//
 // Bound: device-memory bytes.  Per lane and level it must read each row's
 // node id and statistics (4N + 4SN), the bin bytes of the live rows' kept
 // features, and write the histogram (4*P*D*NB*S: 22 MB a lane at P = 2048,
@@ -43,7 +49,8 @@ __global__ void tree_hist_deep_kernel(const int8_t* __restrict__ B,
                                       float* __restrict__ hist,
                                       float* __restrict__ totals,
                                       long long N, int D, int NB, int S,
-                                      int offset, int P, int with_hist) {
+                                      int s_lo, int sn, int offset, int P,
+                                      int with_hist) {
   const long long k = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int32_t* rn = row_node + k * N;
@@ -65,8 +72,8 @@ __global__ void tree_hist_deep_kernel(const int8_t* __restrict__ B,
       if (p >= 0 && p < P) {
 #pragma unroll
         for (int j = 0; j < MAX_S; ++j)
-          if (j < S) {
-            s[j] = sk[n * S + j];
+          if (j < sn) {
+            s[j] = sk[n * S + s_lo + j];
             live |= s[j] != 0.f;
           }
       }
@@ -82,7 +89,7 @@ __global__ void tree_hist_deep_kernel(const int8_t* __restrict__ B,
       if (lane == 0) {
 #pragma unroll
         for (int j = 0; j < MAX_S; ++j)
-          if (j < S) atomicAdd(tk + pr * S + j, sr[j]);
+          if (j < sn) atomicAdd(tk + pr * S + s_lo + j, sr[j]);
       }
       if (!with_hist) continue;
       const long long nr = base + src;
@@ -90,10 +97,10 @@ __global__ void tree_hist_deep_kernel(const int8_t* __restrict__ B,
       for (int d = lane; d < D; d += 32) {
         if (m && !m[d]) continue;
         const long long b = B[nr * D + d];
-        float* h = hk + ((pr * D + d) * NB + b) * S;
+        float* h = hk + ((pr * D + d) * NB + b) * S + s_lo;
 #pragma unroll
         for (int j = 0; j < MAX_S; ++j)
-          if (j < S) atomicAdd(h + j, sr[j]);
+          if (j < sn) atomicAdd(h + j, sr[j]);
       }
     }
   }
@@ -102,14 +109,15 @@ __global__ void tree_hist_deep_kernel(const int8_t* __restrict__ B,
 extern "C" int tree_hist_deep_launch(const void* B, const void* row_node,
                                      const void* stats, const void* node_mask,
                                      void* hist, void* totals, long long N,
-                                     int D, int NB, int S, int K, int offset,
-                                     int P, int with_hist, int grid_x,
-                                     void* stream) {
-  if (S < 1 || S > MAX_S || K > 65535) return (int)cudaErrorInvalidValue;
+                                     int D, int NB, int S, int s_lo, int sn,
+                                     int K, int offset, int P, int with_hist,
+                                     int grid_x, void* stream) {
+  if (sn < 1 || sn > MAX_S || s_lo < 0 || s_lo + sn > S || K > 65535)
+    return (int)cudaErrorInvalidValue;
   dim3 grid(grid_x, K);
   tree_hist_deep_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
       (const int8_t*)B, (const int32_t*)row_node, (const float*)stats,
       (const uint8_t*)node_mask, (float*)hist, (float*)totals, N, D, NB, S,
-      offset, P, with_hist);
+      s_lo, sn, offset, P, with_hist);
   return (int)cudaGetLastError();
 }

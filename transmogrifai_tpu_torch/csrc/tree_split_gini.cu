@@ -17,13 +17,24 @@
 //
 // Design: as tree_split.cu — one block per (node, lane); warp w takes
 // features w, w+nwarps, ...; lane b holds bin b (NB <= 32), so the prefix
-// over bins is a warp shuffle scan of the S = 1 + C running sums and the
-// argmax over bins a warp reduction that keeps the LOWEST bin on equal gain.
-// A feature outside the tree mask or the node's subset skips its histogram
-// read (warp-uniform branch).  Thread 0 then walks the per-feature winners in
-// feature order with a strict `>`, so equal gains resolve to the lowest
-// feature — the first-max rule of the JAX argmax.  C (classes) is a template
-// parameter, instantiated for C = 2, 3, 4.
+// over bins is a warp shuffle scan and the argmax over bins a warp
+// reduction that keeps the LOWEST bin on equal gain.  A feature outside the
+// tree mask or the node's subset skips its histogram read (warp-uniform
+// branch).  The features pass in chunks of `dc` (dynamic shared memory);
+// after each chunk thread 0 walks its per-feature winners in feature order
+// with a strict `>` against the running best, so equal gains resolve to the
+// lowest feature and an earlier chunk wins ties — the first-max rule of the
+// JAX argmax over feature chunks.  Any D runs.
+//
+// Classes: with C <= CT (CT a template parameter, 2, 4 or 8, chosen by the
+// wrapper's split_plan; ONE = true) the counts and all classes are scanned
+// together in registers and the parent's totals are held in registers, so
+// binary gini (CT = 2, whose C is 2) compiles to one unrolled scan of three
+// sums.  Past 8 classes (ONE = false) they pass in chunks of CT: each chunk's
+// running sums are scanned over bins in registers and its squares added to
+// the left and right sums of squares in class order.  Either way the order
+// of the sum is the twin's, and classes past C read as zero counts: each
+// adds (0/cnt)^2 = 0 to the sum, which leaves it unchanged.
 //
 // Bound: device-memory bytes — one read of the [K, P, D, NB, 1+C] histogram
 // (at the forest's deepest level, 60 lanes x 32 nodes x 28 features x 32 bins
@@ -32,21 +43,19 @@
 #include <math.h>
 #include <stdint.h>
 
-#define MAX_D 1024
-
-template <int C>
-__device__ __forceinline__ float wgini(const float* s) {
-  const float cnt = fmaxf(s[0], 1e-12f);
-  float sq = 0.f;
+// the squares of the CT values s_c / cnt, added to sq in class order
+template <int CT>
+__device__ __forceinline__ float add_squares(float sq, const float* s,
+                                             float cnt) {
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float q = __fdiv_rn(s[1 + c], cnt);
-    sq = c == 0 ? __fmul_rn(q, q) : __fadd_rn(sq, __fmul_rn(q, q));
+  for (int c = 0; c < CT; ++c) {
+    const float q = __fdiv_rn(s[c], cnt);
+    sq = __fadd_rn(sq, __fmul_rn(q, q));
   }
-  return __fmul_rn(cnt, __fsub_rn(1.f, sq));
+  return sq;
 }
 
-template <int C>
+template <int CT, bool ONE>
 __global__ void tree_split_gini_kernel(const float* __restrict__ hist,
                                        const float* __restrict__ totals,
                                        const uint8_t* __restrict__ fmask,
@@ -59,62 +68,115 @@ __global__ void tree_split_gini_kernel(const float* __restrict__ hist,
                                        int32_t* __restrict__ out_bin,
                                        uint8_t* __restrict__ out_leaf,
                                        float* __restrict__ out_thr,
-                                       int P, int D, int NB) {
-  constexpr int S = C + 1;
-  __shared__ float fg[MAX_D];
-  __shared__ int fb[MAX_D];
+                                       int P, int D, int NB, int Cr, int dc) {
+  extern __shared__ float fg[];          // [dc] gains, then [dc] bins
+  int* fb = (int*)(fg + dc);
+  const int C = ONE && CT == 2 ? 2 : Cr;   // CT = 2 holds exactly 2 classes
+  const int S = C + 1;
   const int p = blockIdx.x, k = blockIdx.y;
   const long long node = (long long)k * P + p;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const float mi = min_inst[k];
-  float par[S];
+  const float* par_g = totals + node * S;
+  float par[1 + CT];                     // ONE: the parent's totals, padded
 #pragma unroll
-  for (int j = 0; j < S; ++j) par[j] = totals[node * S + j];
-  const float wpar = wgini<C>(par);
+  for (int j = 0; j <= CT; ++j) par[j] = ONE && j <= C ? par_g[j] : 0.f;
+  const float pcnt = fmaxf(par_g[0], 1e-12f);
+  float psq = 0.f;
+  for (int c = 0; c < C; ++c) {
+    const float q = __fdiv_rn(par_g[1 + c], pcnt);
+    psq = __fadd_rn(psq, __fmul_rn(q, q));
+  }
+  const float wpar = __fmul_rn(pcnt, __fsub_rn(1.f, psq));
   const uint8_t* nm = node_mask ? node_mask + node * D : nullptr;
 
-  for (int d = warp; d < D; d += nwarps) {
-    if (!fmask[d] || (nm != nullptr && !nm[d])) {
-      if (lane == 0) { fg[d] = -INFINITY; fb[d] = 0; }
-      continue;
-    }
-    const float* h = hist + (node * D + d) * NB * S;
-    float l[S], r[S];
+  float best = -INFINITY;
+  int bf = 0, bb = 0;
+  for (int d0 = 0; d0 < D; d0 += dc) {
+    const int dn = min(dc, D - d0);
+    for (int dl = warp; dl < dn; dl += nwarps) {
+      const int d = d0 + dl;
+      if (!fmask[d] || (nm != nullptr && !nm[d])) {
+        if (lane == 0) { fg[dl] = -INFINITY; fb[dl] = 0; }
+        continue;
+      }
+      const float* h = hist + (node * D + d) * NB * S;
+      float lc, rc, lsq = 0.f, rsq = 0.f;
+      if (ONE) {
+        // the count and every class: one prefix over bins
+        float l[1 + CT], r[1 + CT];
 #pragma unroll
-    for (int j = 0; j < S; ++j) l[j] = lane < NB ? h[lane * S + j] : 0.f;
-    // inclusive prefix over bins
-    for (int off = 1; off < 32; off <<= 1) {
+        for (int j = 0; j <= CT; ++j)
+          l[j] = lane < NB && j <= C ? h[lane * S + j] : 0.f;
+        for (int off = 1; off < 32; off <<= 1) {
 #pragma unroll
-      for (int j = 0; j < S; ++j) {
-        const float t = __shfl_up_sync(0xffffffffu, l[j], off);
-        if (lane >= off) l[j] = __fadd_rn(l[j], t);
+          for (int j = 0; j <= CT; ++j) {
+            const float t = __shfl_up_sync(0xffffffffu, l[j], off);
+            if (lane >= off) l[j] = __fadd_rn(l[j], t);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j <= CT; ++j) r[j] = __fsub_rn(par[j], l[j]);
+        lc = l[0];
+        rc = r[0];
+        lsq = add_squares<CT>(0.f, l + 1, fmaxf(lc, 1e-12f));
+        rsq = add_squares<CT>(0.f, r + 1, fmaxf(rc, 1e-12f));
+      } else {
+        // the counts: prefix over bins; then the classes CT at a time
+        lc = lane < NB ? h[lane * S] : 0.f;
+        for (int off = 1; off < 32; off <<= 1) {
+          const float t = __shfl_up_sync(0xffffffffu, lc, off);
+          if (lane >= off) lc = __fadd_rn(lc, t);
+        }
+        rc = __fsub_rn(par_g[0], lc);
+        const float lcnt = fmaxf(lc, 1e-12f), rcnt = fmaxf(rc, 1e-12f);
+        for (int c0 = 0; c0 < C; c0 += CT) {
+          float l[CT], r[CT];
+#pragma unroll
+          for (int j = 0; j < CT; ++j)
+            l[j] = lane < NB && c0 + j < C ? h[lane * S + 1 + c0 + j] : 0.f;
+          for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+            for (int j = 0; j < CT; ++j) {
+              const float t = __shfl_up_sync(0xffffffffu, l[j], off);
+              if (lane >= off) l[j] = __fadd_rn(l[j], t);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < CT; ++j)
+            r[j] = c0 + j < C ? __fsub_rn(par_g[1 + c0 + j], l[j]) : 0.f;
+          lsq = add_squares<CT>(lsq, l, lcnt);
+          rsq = add_squares<CT>(rsq, r, rcnt);
+        }
+      }
+      const float wl = __fmul_rn(fmaxf(lc, 1e-12f), __fsub_rn(1.f, lsq));
+      const float wr = __fmul_rn(fmaxf(rc, 1e-12f), __fsub_rn(1.f, rsq));
+      float gain = __fsub_rn(__fsub_rn(wpar, wl), wr);
+      const bool ok = lane < NB - 1 && lc >= mi && rc >= mi;
+      if (!ok) gain = -INFINITY;
+      int bin = lane;
+      // argmax over bins; equal gains keep the lower bin
+      for (int off = 16; off > 0; off >>= 1) {
+        const float og = __shfl_down_sync(0xffffffffu, gain, off);
+        const int ob = __shfl_down_sync(0xffffffffu, bin, off);
+        if (og > gain || (og == gain && ob < bin)) { gain = og; bin = ob; }
+      }
+      if (lane == 0) {
+        // all -inf: bin 0, as jnp.argmax returns
+        fg[dl] = gain;
+        fb[dl] = gain == -INFINITY ? 0 : bin;
       }
     }
-#pragma unroll
-    for (int j = 0; j < S; ++j) r[j] = __fsub_rn(par[j], l[j]);
-    float gain = __fsub_rn(__fsub_rn(wpar, wgini<C>(l)), wgini<C>(r));
-    const bool ok = lane < NB - 1 && l[0] >= mi && r[0] >= mi;
-    if (!ok) gain = -INFINITY;
-    int bin = lane;
-    // argmax over bins; equal gains keep the lower bin
-    for (int off = 16; off > 0; off >>= 1) {
-      const float og = __shfl_down_sync(0xffffffffu, gain, off);
-      const int ob = __shfl_down_sync(0xffffffffu, bin, off);
-      if (og > gain || (og == gain && ob < bin)) { gain = og; bin = ob; }
-    }
-    if (lane == 0) {
-      // all -inf: bin 0, as jnp.argmax returns
-      fg[d] = gain;
-      fb[d] = gain == -INFINITY ? 0 : bin;
-    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int dl = 0; dl < dn; ++dl)
+        if (fg[dl] > best) { best = fg[dl]; bf = d0 + dl; bb = fb[dl]; }
+    // the next chunk reuses fg / fb; after the last, the other warps exit
+    // without waiting for thread 0's walk
+    if (d0 + dc < D) __syncthreads();
   }
-  __syncthreads();
   if (threadIdx.x == 0) {
-    float best = -INFINITY;
-    int bf = 0, bb = 0;
-    for (int d = 0; d < D; ++d)
-      if (fg[d] > best) { best = fg[d]; bf = d; bb = fb[d]; }
     const bool leaf = !(isfinite(best) && best > min_gain[k]);
     const int cb = min(max(bb, 0), NB - 2);
     out_gain[node] = best;
@@ -125,21 +187,22 @@ __global__ void tree_split_gini_kernel(const float* __restrict__ hist,
   }
 }
 
-template <int C>
+template <int CT, bool ONE>
 static cudaError_t launch(const void* hist, const void* totals,
                           const void* fmask, const void* node_mask,
                           const void* splits, const void* min_inst,
                           const void* min_gain, void* out_gain,
                           void* out_feat, void* out_bin, void* out_leaf,
-                          void* out_thr, int K, int P, int D, int NB,
-                          cudaStream_t stream) {
+                          void* out_thr, int K, int P, int D, int NB, int C,
+                          int dc, int threads, cudaStream_t stream) {
   dim3 grid(P, K);
-  tree_split_gini_kernel<C><<<grid, 256, 0, stream>>>(
+  tree_split_gini_kernel<CT, ONE><<<grid, threads, 2 * dc * sizeof(float),
+                               stream>>>(
       (const float*)hist, (const float*)totals, (const uint8_t*)fmask,
       (const uint8_t*)node_mask, (const float*)splits,
       (const float*)min_inst, (const float*)min_gain, (float*)out_gain,
       (int32_t*)out_feat, (int32_t*)out_bin, (uint8_t*)out_leaf,
-      (float*)out_thr, P, D, NB);
+      (float*)out_thr, P, D, NB, C, dc);
   return cudaGetLastError();
 }
 
@@ -151,21 +214,32 @@ extern "C" int tree_split_gini_launch(const void* hist, const void* totals,
                                       const void* min_gain, void* out_gain,
                                       void* out_feat, void* out_bin,
                                       void* out_leaf, void* out_thr, int K,
-                                      int P, int D, int NB, int C,
-                                      void* stream) {
-  if (NB > 32 || NB < 2 || D > MAX_D || P > 65535 || K > 65535)
+                                      int P, int D, int NB, int C, int ct,
+                                      int dc, int threads, void* stream) {
+  if (NB > 32 || NB < 2 || C < 1 || dc < 1 || P > 65535 || K > 65535 ||
+      (ct == 2 && C != 2) || (ct == 4 && C > 4))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (C) {
-    case 2: return (int)launch<2>(hist, totals, fmask, node_mask, splits,
-                                  min_inst, min_gain, out_gain, out_feat,
-                                  out_bin, out_leaf, out_thr, K, P, D, NB, s);
-    case 3: return (int)launch<3>(hist, totals, fmask, node_mask, splits,
-                                  min_inst, min_gain, out_gain, out_feat,
-                                  out_bin, out_leaf, out_thr, K, P, D, NB, s);
-    case 4: return (int)launch<4>(hist, totals, fmask, node_mask, splits,
-                                  min_inst, min_gain, out_gain, out_feat,
-                                  out_bin, out_leaf, out_thr, K, P, D, NB, s);
+  // ct is the smallest of 2 / 4 / 8 that holds C, else 8 (chunks)
+  switch (ct) {
+    case 2: return (int)launch<2, true>(hist, totals, fmask, node_mask,
+                                        splits, min_inst, min_gain, out_gain,
+                                        out_feat, out_bin, out_leaf, out_thr,
+                                        K, P, D, NB, C, dc, threads, s);
+    case 4: return (int)launch<4, true>(hist, totals, fmask, node_mask,
+                                        splits, min_inst, min_gain, out_gain,
+                                        out_feat, out_bin, out_leaf, out_thr,
+                                        K, P, D, NB, C, dc, threads, s);
+    case 8:
+      if (C <= 8)
+        return (int)launch<8, true>(hist, totals, fmask, node_mask, splits,
+                                    min_inst, min_gain, out_gain, out_feat,
+                                    out_bin, out_leaf, out_thr, K, P, D, NB,
+                                    C, dc, threads, s);
+      return (int)launch<8, false>(hist, totals, fmask, node_mask, splits,
+                                   min_inst, min_gain, out_gain, out_feat,
+                                   out_bin, out_leaf, out_thr, K, P, D, NB, C,
+                                   dc, threads, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,6 +11,9 @@
 // threshold is never taken.  Output [N, M, V]: the sum (or mean) over the
 // member's trees of the reached leaf values.
 //
+// Leaf values pass in chunks of 4 (registers): for V > 4 each thread walks
+// its member's trees once per chunk, so any V runs; V <= 4 is one pass.
+//
 // Design: grid (row blocks, members); the member's tree arrays are staged
 // into shared memory once per block (read from device memory instead when
 // they exceed the 227 KB a block can hold); one thread per (row, member) walks the
@@ -61,20 +64,24 @@ __global__ void tree_walk_kernel(const float* __restrict__ X,
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const float* x = X + n * D;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int t = 0; t < Tm; ++t) {
-    const int o = t * T;
-    int node = 0;
-    for (int s = 0; s < steps; ++s) {
-      if (s_isleaf[o + node]) break;
-      const int nxt = 2 * node + 1 + (x[s_feat[o + node]] > s_thr[o + node]);
-      if (nxt >= T) break;      // bottom level: the row stays put
-      node = nxt;
-    }
-    for (int v = 0; v < V; ++v) acc[v] += s_leaf[(o + node) * V + v];
-  }
   float* y = out + (n * M + m) * V;
-  for (int v = 0; v < V; ++v) y[v] = mean ? acc[v] / (float)Tm : acc[v];
+  for (int v0 = 0; v0 < V; v0 += 4) {
+    const int vn = min(4, V - v0);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int t = 0; t < Tm; ++t) {
+      const int o = t * T;
+      int node = 0;
+      for (int s = 0; s < steps; ++s) {
+        if (s_isleaf[o + node]) break;
+        const int nxt = 2 * node + 1 + (x[s_feat[o + node]] > s_thr[o + node]);
+        if (nxt >= T) break;      // bottom level: the row stays put
+        node = nxt;
+      }
+      for (int v = 0; v < vn; ++v) acc[v] += s_leaf[(o + node) * V + v0 + v];
+    }
+    for (int v = 0; v < vn; ++v)
+      y[v0 + v] = mean ? acc[v] / (float)Tm : acc[v];
+  }
 }
 
 extern "C" int tree_walk_launch(const void* X, const void* feature,
@@ -82,7 +89,7 @@ extern "C" int tree_walk_launch(const void* X, const void* feature,
                                 const void* leaf, void* out, long long N,
                                 int D, int Tm, int T, int V, int M, int steps,
                                 int mean, void* stream) {
-  if (V > 4) return (int)cudaErrorInvalidValue;
+  if (V < 1) return (int)cudaErrorInvalidValue;
   const size_t nodes = (size_t)Tm * T;
   size_t smem = nodes * (sizeof(float) * (1 + V) + sizeof(int32_t) + 1);
   const int staged = smem <= 227 * 1024;

@@ -1,0 +1,278 @@
+"""The leave-one-covariate-out kernels of the port: wrappers, launch plans
+and the plain-PyTorch twin (the dispatch rule and launch counters are in
+``models/kernels.py``).
+
+| kernel      | replaces (transmogrifai_tpu/record_insights.py)                 |
+|-------------|------------------------------------------------------------------|
+| loco_linear | ``_device_topk``'s ``loco`` program (:140-160) on LR and SVC     |
+| loco_tree   | ``_device_topk``'s ``loco`` program (:140-160) on GBT, RF and DT |
+
+The JAX program runs a ``lax.map`` of G masked forwards ``score(X * m_g)``
+so that [G, N, D] is never formed, then ``lax.top_k`` over the [N, G]
+diffs.  In both kernels a warp takes a row, computes its G diffs (lane i
+group g0 + i) and keeps the top K as they go (``csrc/loco_topk.cuh``),
+reading X once; neither forms ``X * m_g``.
+``loco_topk_twin`` computes ``base - score(X * m_g)`` one group at a time,
+the score from the model's own ``device_scores`` (``loco_score``), and
+sorts the rank stably: it is what the CPU runs and what the kernels are
+held to.
+
+Groups are given as a column -> group map ``col_group`` int32 [D] with
+values in [0, G) (every column in one group).  A row's output is K (group,
+diff) pairs ordered by rank, highest first, ties to the lower group index
+(``lax.top_k``'s rule): rank = |diff|, diff or -diff for the strategies
+"abs", "positive" and "negative".
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .models.kernels import check as _check, launch, stream as _stream
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ARGTYPES = {
+    "loco_linear": [_P, _P, _F] + [_P] * 5 + [_L] + [_I] * 9 + [_P],
+    "loco_tree": [_P] * 9 + [_L] + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P],
+}
+STRATEGIES = ("abs", "positive", "negative")
+LINKS = {"logistic": 0, "svc": 1, "gbt": 0, "forest": 1}   # kernel codes
+THREADS = 256                    # 8 warps, a row each at a time
+SMEM_MAX = 227 * 1024            # what one block can hold
+BLOCKS_IN_FLIGHT = 132 * 8       # SMs x resident 256-thread blocks
+GROUP_WINDOW = 1024              # loco_linear: group slots a warp holds
+
+
+class LocoPlan(NamedTuple):
+    blocks: int
+    threads: int
+    group_window: int   # loco_linear: groups a pass sums (G: one pass)
+    smem_bytes: int     # linear: the warps' group slots; tree: the staged
+                        # trees and column map (0: read from device memory)
+    wide_groups: bool   # loco_linear: one window of groups of 32+ columns
+                        # on average, D % 4 == 0: float4 reads when the
+                        # groups are contiguous and the rows aligned
+
+
+def loco_plan(kind: str, N: int, D: int, G: int, K: int, n_nodes: int = 0,
+              forest: bool = False) -> LocoPlan:
+    """The launch of ``loco_linear`` (``kind`` "linear") or ``loco_tree``
+    (``kind`` "tree"): one warp per row, a grid-stride loop over rows.  The
+    linear kernel sums the groups in windows of ``GROUP_WINDOW`` slots a
+    warp (one pass over the row when G fits, else a margin pass first); the
+    tree kernel stages the ``n_nodes`` tree nodes and the column map in
+    shared memory when they fit ``SMEM_MAX``.  Any G >= 1 and 1 <= K <= G:
+    past K = 32 the top-K list lives in the output (``loco_topk.cuh``).  Wide groups
+    (``wide_groups``: one window, 32 or more columns a group on average, D
+    a multiple of 4) are read as float4, four columns a lane."""
+    if not 1 <= K <= G or D < 1 or N < 0:
+        raise ValueError(f"loco_plan: need 1 <= K <= G and D >= 1, got "
+                         f"N={N} D={D} G={G} K={K}")
+    blocks = max(1, min(-(-N // (THREADS // 32)), BLOCKS_IN_FLIGHT))
+    if kind == "linear":
+        gw = min(G, GROUP_WINDOW)
+        return LocoPlan(blocks, THREADS, gw, 4 * gw * (THREADS // 32),
+                        G <= gw and D % 4 == 0 and D >= 32 * G)
+    if kind != "tree":
+        raise ValueError(f"loco_plan: kind {kind!r}")
+    smem = n_nodes * (4 * (4 if forest else 3) + 1) + 4 * D
+    return LocoPlan(blocks, THREADS, 0, smem if smem <= SMEM_MAX else 0,
+                    False)
+
+
+def index_dtype(G: int) -> torch.dtype:
+    """The narrowest index type for G groups (int16 up to 0x7FFF), as the
+    JAX program ships indices over the host link."""
+    return torch.int16 if G <= 0x7FFF else torch.int32
+
+
+def _rank(diffs: torch.Tensor, strategy: str) -> torch.Tensor:
+    if strategy == "positive":
+        return diffs
+    if strategy == "negative":
+        return -diffs
+    return diffs.abs()
+
+
+def loco_topk_twin(X: torch.Tensor, score_fn: Callable, col_group, G: int,
+                   k: int, strategy: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-PyTorch twin of the kernels: ``base - score_fn(X * m_g)`` for
+    each group g (one [N, D] masked copy live at a time), then a stable
+    descending sort of the rank, so equal ranks keep the lower group first.
+    Returns (idx [N, k] in ``index_dtype(G)``, diffs [N, k] f32)."""
+    base = score_fn(X)
+    cg = torch.as_tensor(col_group, device=X.device)
+    diffs = torch.empty((X.shape[0], G), dtype=torch.float32, device=X.device)
+    for g in range(G):
+        diffs[:, g] = base - score_fn(X * (cg != g).to(X.dtype)[None, :])
+    order = torch.sort(_rank(diffs, strategy), dim=1, descending=True,
+                       stable=True).indices[:, :k]
+    return order.to(index_dtype(G)), torch.gather(diffs, 1, order)
+
+
+def _check_common(name, X, col_group, G, k, strategy):
+    dev = X.device
+    _check(f"{name} X", X, torch.float32, 2, dev)
+    _check(f"{name} col_group", col_group, torch.int32, 1, dev)
+    if col_group.shape[0] != X.shape[1]:
+        raise ValueError(f"{name}: col_group must have one entry per column")
+    if strategy not in STRATEGIES:
+        raise ValueError(f"{name}: strategy {strategy!r} not in {STRATEGIES}")
+    if not 1 <= k <= G:
+        raise ValueError(f"{name}: need 1 <= k <= G, got k={k}, G={G}")
+
+
+def _outputs(N: int, k: int, dev):
+    return (torch.empty((N, k), dtype=torch.float32, device=dev),
+            torch.empty((N, k), dtype=torch.int32, device=dev))
+
+
+def loco_score(model, X: torch.Tensor) -> torch.Tensor:
+    """The score LOCO explains, from the model's own ``device_scores`` (≙
+    ``_device_score_fn``, record_insights.py:82-112): ``scores`` (logistic
+    p1, SVC margin, GBT p1, binary forest p1), else ``probability[:, -1]``.
+    A tree ensemble walks with ``tree_walk_twin``, so this is plain PyTorch
+    on any device: the twin's score."""
+    from .models.tree_kernels import tree_walk_twin
+    from .models.trees import TreeEnsembleModel
+    out = (model.device_scores(X, walk=tree_walk_twin)
+           if isinstance(model, TreeEnsembleModel) else model.device_scores(X))
+    return out["scores"] if "scores" in out else out["probability"][:, -1]
+
+
+def loco_linear(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
+                k: int, strategy: str = "abs"):
+    """Top-k LOCO (group, diff) pairs per row of a binary linear model
+    (``LinearPredictionModel``: logistic, or an SVC's margin).
+
+    X f32 [N, D]; ``col_group`` int32 [D].  Returns (idx [N, k] in
+    ``index_dtype(G)``, diffs [N, k] f32)."""
+    _check_common("loco_linear", X, col_group, G, k, strategy)
+    dev = X.device
+    if dev.type == "cpu":
+        return loco_topk_twin(X, lambda Z: loco_score(model, Z), col_group,
+                              G, k, strategy)
+    if dev.type != "cuda":
+        raise ValueError(f"loco_linear: unsupported device {dev}")
+    f = model.fitted
+    coef = torch.as_tensor(f["coef"], dtype=torch.float32,
+                           device=dev).reshape(-1).contiguous()
+    intercept = float(torch.as_tensor(f["intercept"]).reshape(-1)[0])
+    link = "svc" if f.get("kind") == "svc" else "logistic"
+    N, D = X.shape
+    _check("loco_linear coef", coef, torch.float32, 1, dev)
+    if coef.shape[0] != D:
+        raise ValueError("loco_linear: coef must have one entry per column")
+    plan = loco_plan("linear", N, D, G, k)
+    sgid, perm = torch.sort(col_group, stable=True)
+    # groups already contiguous (transmogrify's layout): no column gather
+    perm = (None if bool(torch.equal(sgid, col_group))
+            else perm.to(torch.int32))
+    goff = torch.zeros(G + 1, dtype=torch.int32, device=dev)
+    goff[1:] = torch.cumsum(torch.bincount(col_group.long(), minlength=G),
+                            0).to(torch.int32)
+    vec4 = (perm is None and plan.wide_groups and X.data_ptr() % 16 == 0
+            and coef.data_ptr() % 16 == 0)
+    val, idx = _outputs(N, k, dev)
+    launch("loco_linear", _ARGTYPES["loco_linear"], X.data_ptr(),
+           coef.data_ptr(), intercept,
+           0 if perm is None else perm.data_ptr(),
+           sgid.data_ptr(), goff.data_ptr(), val.data_ptr(), idx.data_ptr(),
+           N, D, G, k, STRATEGIES.index(strategy), LINKS[link],
+           plan.group_window, int(vec4), plan.blocks, plan.threads,
+           _stream(X))
+    return idx.to(index_dtype(G)), val
+
+
+def loco_tree(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
+              k: int, strategy: str = "abs"):
+    """Top-k LOCO (group, diff) pairs per row of a tree ensemble
+    (``TreeEnsembleModel``: a binary GBT, or a forest's last class).
+
+    X f32 [N, D]; ``col_group`` int32 [D].  Returns (idx [N, k] in
+    ``index_dtype(G)``, diffs [N, k] f32)."""
+    _check_common("loco_tree", X, col_group, G, k, strategy)
+    dev = X.device
+    if dev.type == "cpu":
+        return loco_topk_twin(X, lambda Z: loco_score(model, Z), col_group,
+                              G, k, strategy)
+    if dev.type != "cuda":
+        raise ValueError(f"loco_tree: unsupported device {dev}")
+    trees = tree_inputs(model.fitted, dev)
+    feat, thr, leaf_flag, leaf = (trees["feature"], trees["threshold"],
+                                  trees["is_leaf"], trees["leaf"])
+    N, D = X.shape
+    Tr, T = feat.shape
+    forest = model.fitted["kind"] != "gbt"
+    plan = loco_plan("tree", N, D, G, k, Tr * T, forest)
+    leaf_a = leaf[..., -1 if forest else 0].contiguous()
+    leaf_b = leaf.sum(dim=2).contiguous() if forest else None
+    val, idx = _outputs(N, k, dev)
+    launch("loco_tree", _ARGTYPES["loco_tree"], X.data_ptr(),
+           feat.data_ptr(), thr.data_ptr(), leaf_flag.data_ptr(),
+           leaf_a.data_ptr(), 0 if leaf_b is None else leaf_b.data_ptr(),
+           col_group.data_ptr(), val.data_ptr(), idx.data_ptr(), N, D, Tr,
+           T, int(trees["steps"]), G, k, STRATEGIES.index(strategy),
+           LINKS["forest" if forest else "gbt"],
+           float(trees.get("base", 0.0)), float(trees.get("eta", 0.0)),
+           plan.blocks, plan.threads, plan.smem_bytes, _stream(X))
+    return idx.to(index_dtype(G)), val
+
+
+def tree_inputs(fitted: dict, device) -> dict:
+    """``loco_tree``'s view of a fitted GBT or forest
+    (``TreeEnsembleModel.fitted``) on ``device``: ``feature`` int32,
+    ``threshold`` f32, ``is_leaf`` bool [Tr, T], ``leaf`` f32 [Tr, T, V],
+    ``steps`` (walk steps: depth + 1) and, for a GBT, ``base`` and
+    ``eta``."""
+    f = fitted
+    leaf = torch.as_tensor(f["leaf"], dtype=torch.float32, device=device)
+    trees = {"feature": torch.as_tensor(f["feature"], dtype=torch.int32,
+                                        device=device).contiguous(),
+             "threshold": torch.as_tensor(f["threshold"], dtype=torch.float32,
+                                          device=device).contiguous(),
+             "is_leaf": torch.as_tensor(f["is_leaf"], dtype=torch.bool,
+                                        device=device).contiguous(),
+             "leaf": (leaf if leaf.ndim == 3 else leaf[..., None]).contiguous(),
+             "steps": int(f["max_depth"]) + 1}
+    if f["kind"] == "gbt":
+        trees.update(base=float(f["base"]), eta=float(f["eta"]))
+    return trees
+
+
+def model_loco(model, X: torch.Tensor, col_group: torch.Tensor, G: int,
+               k: int, strategy: str):
+    """LOCO top-k of a fitted model of the port on X: a binary linear model
+    takes ``loco_linear``, a GBT or a forest ``loco_tree``, each explaining
+    the score ``loco_score`` picks.  Another model raises
+    ``NotImplementedError`` (the JAX package's generic masked forward has no
+    kernel here)."""
+    from .models.linear import LinearPredictionModel
+    from .models.trees import TreeEnsembleModel
+    from .selector import SelectedModel
+    if isinstance(model, SelectedModel):
+        model = model.best_model
+    if isinstance(model, LinearPredictionModel):
+        return loco_linear(X, model, col_group, G, k, strategy)
+    if isinstance(model, TreeEnsembleModel):
+        return loco_tree(X, model, col_group, G, k, strategy)
+    raise NotImplementedError(
+        f"RecordInsightsLOCO: no LOCO kernel for {type(model).__name__}; the "
+        "port explains binary linear models and tree ensembles on the card")
+
+
+def col_group_of(groups, D: int, device) -> torch.Tensor:
+    """int32 [D] column -> group map of ``groups`` (lists of columns, in
+    group order); raises unless every column is in exactly one group."""
+    cg = np.full(D, -1, np.int32)
+    for g, cols in enumerate(groups):
+        if (cg[np.asarray(cols, np.int64)] != -1).any():
+            raise ValueError("LOCO groups overlap")
+        cg[np.asarray(cols, np.int64)] = g
+    if (cg < 0).any():
+        raise ValueError("LOCO groups leave columns out")
+    return torch.as_tensor(cg, device=device)

@@ -1,6 +1,6 @@
 """Launch bookkeeping shared by the port's kernel wrappers
 (``tree_kernels.py``, ``linear_kernels.py``, ``ops/text_kernels.py``,
-``sparse/sparse_kernels.py``).
+``sparse/sparse_kernels.py``, ``insights_kernels.py``).
 
 Each wrapper takes tensors and dispatches on their device: on a CPU tensor it
 runs the plain-PyTorch twin beside it; on a CUDA tensor it launches the
@@ -31,6 +31,8 @@ REPLACES = {
     "hash_counts": "transmogrifai_tpu/ops/text.py:148",
     "sp_matmat": "transmogrifai_tpu/sparse/matrix.py:60",
     "sp_rmatmat": "transmogrifai_tpu/sparse/matrix.py:67",
+    "loco_linear": "transmogrifai_tpu/record_insights.py:140",
+    "loco_tree": "transmogrifai_tpu/record_insights.py:140",
 }
 
 

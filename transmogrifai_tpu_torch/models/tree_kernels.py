@@ -14,7 +14,7 @@ dispatch rule and launch counters are in ``kernels.py``).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -23,19 +23,56 @@ from .kernels import check as _check, launch, stream as _stream
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "tree_hist": [_P] * 6 + [_L] + [_I] * 9 + [_P],
-    "tree_hist_deep": [_P] * 6 + [_L] + [_I] * 8 + [_P],
-    "tree_split": [_P] * 13 + [_I, _I, _I, _I, _P],
-    "tree_split_gini": [_P] * 12 + [_I, _I, _I, _I, _I, _P],
+    "tree_hist_deep": [_P] * 6 + [_L] + [_I] * 10 + [_P],
+    "tree_split": [_P] * 13 + [_I] * 6 + [_P],
+    "tree_split_gini": [_P] * 12 + [_I] * 8 + [_P],
     "tree_route": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _P],
     "tree_walk": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 _HIST_SMEM_TARGET = 99 * 1024     # leaves room for two blocks per SM
 _HIST_SMEM_MAX = 227 * 1024       # what one block can hold
 _BLOCKS_IN_FLIGHT = 132 * 4       # SMs x resident blocks to aim for
+SPLIT_D_CHUNK = 1024              # features per shared-memory pass of a split
+SPLIT_THREADS = 256
+GINI_CLASS_CHUNKS = (2, 4, 8)     # tree_split_gini's class-chunk templates
+HIST_DEEP_MAX_S = 5               # statistics tree_hist_deep holds per row
 
 
 def _launch(name: str, *args) -> None:
     launch(name, _ARGTYPES[name], *args)
+
+
+class SplitPlan(NamedTuple):
+    d_chunk: int        # features per shared-memory pass (a gain and a
+                        # bin each, in dynamic shared memory)
+    n_chunks: int       # passes over the features, argmax carried across
+    threads: int        # threads per (node, lane) block
+    class_chunk: int    # tree_split_gini: classes per register pass (CT)
+    class_chunks: int   # tree_split_gini: register passes over the classes
+
+
+def split_plan(D: int, C: int = 0) -> SplitPlan:
+    """The launch plan of ``tree_split`` (``C`` = 0) and ``tree_split_gini``
+    (``C`` classes) at D features: the features pass in chunks of at most
+    ``SPLIT_D_CHUNK`` and, for gini, the classes in chunks of the smallest
+    template of ``GINI_CLASS_CHUNKS`` that holds C, or of the largest when
+    none does.  Any D >= 1 and C >= 1 have a plan."""
+    if D < 1 or C < 0:
+        raise ValueError(f"split_plan: D={D}, C={C}")
+    dc = min(D, SPLIT_D_CHUNK)
+    ct = next((t for t in GINI_CLASS_CHUNKS if t >= C),
+              GINI_CLASS_CHUNKS[-1]) if C else 0
+    return SplitPlan(dc, -(-D // dc), SPLIT_THREADS, ct,
+                     -(-C // ct) if C else 0)
+
+
+def hist_deep_plan(S: int) -> List[Tuple[int, int]]:
+    """``tree_hist_deep``'s launches at S statistics: (first column, count)
+    chunks of at most ``HIST_DEEP_MAX_S`` columns, one launch each."""
+    if S < 1:
+        raise ValueError(f"hist_deep_plan: S={S}")
+    return [(lo, min(HIST_DEEP_MAX_S, S - lo))
+            for lo in range(0, S, HIST_DEEP_MAX_S)]
 
 
 # --------------------------------------------------------------------------
@@ -113,10 +150,11 @@ def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
         hist = (torch.zeros((K, P, D, n_bins, S), dtype=torch.float32,
                             device=dev) if with_hist else totals)
         grid_x = max(1, min(-(-N // 256), 132 * 16 // K + 1))
-        _launch("tree_hist_deep", B.data_ptr(), row_node.data_ptr(),
-                stats.data_ptr(), mask_ptr, hist.data_ptr(),
-                totals.data_ptr(), N, D, n_bins, S, K, offset, P,
-                int(with_hist), grid_x, _stream(B))
+        for s_lo, sn in hist_deep_plan(S):
+            _launch("tree_hist_deep", B.data_ptr(), row_node.data_ptr(),
+                    stats.data_ptr(), mask_ptr, hist.data_ptr(),
+                    totals.data_ptr(), N, D, n_bins, S, s_lo, sn, K, offset,
+                    P, int(with_hist), grid_x, _stream(B))
         return (hist if with_hist else None), totals
     if not with_hist:
         _launch("tree_hist", B.data_ptr(), row_node.data_ptr(),
@@ -285,6 +323,7 @@ def tree_split(hist: torch.Tensor, totals: torch.Tensor, fmask: torch.Tensor,
         raise ValueError(f"tree_split: unsupported device {dev}")
     if NB > 32:
         raise ValueError("tree_split: the kernel takes at most 32 bins")
+    plan = split_plan(D)
     out = {"gain": torch.empty((K, P), dtype=torch.float32, device=dev),
            "feature": torch.empty((K, P), dtype=torch.int32, device=dev),
            "bin": torch.empty((K, P), dtype=torch.int32, device=dev),
@@ -296,7 +335,7 @@ def tree_split(hist: torch.Tensor, totals: torch.Tensor, fmask: torch.Tensor,
             min_gain.data_ptr(), lam.data_ptr(),
             *(out[k].data_ptr() for k in ("gain", "feature", "bin",
                                           "is_leaf", "threshold", "value")),
-            K, P, D, NB, _stream(hist))
+            K, P, D, NB, plan.d_chunk, plan.threads, _stream(hist))
     return out
 
 
@@ -359,7 +398,7 @@ def tree_split_gini(hist: torch.Tensor, totals: torch.Tensor,
     sides, both masks and ``bin < NB-1``; the FIRST max over (feature, bin)
     wins.  Returns per-node gain, feature, bin, is_leaf (gain <= min_gain or
     non-finite) and threshold ``splits[feature, bin]``, each [K, P].  The
-    kernel takes C = 2..4 classes and NB <= 32 bins."""
+    kernel takes any C >= 2 classes and NB <= 32 bins."""
     dev = hist.device
     _check("tree_split_gini hist", hist, torch.float32, 5, dev)
     _check("tree_split_gini totals", totals, torch.float32, 3, dev)
@@ -381,9 +420,9 @@ def tree_split_gini(hist: torch.Tensor, totals: torch.Tensor,
                                     min_inst, min_gain)
     if dev.type != "cuda":
         raise ValueError(f"tree_split_gini: unsupported device {dev}")
-    if NB > 32 or S > 5:
-        raise ValueError("tree_split_gini: the kernel takes at most 32 bins "
-                         "and 4 classes")
+    if NB > 32:
+        raise ValueError("tree_split_gini: the kernel takes at most 32 bins")
+    plan = split_plan(D, S - 1)
     out = {"gain": torch.empty((K, P), dtype=torch.float32, device=dev),
            "feature": torch.empty((K, P), dtype=torch.int32, device=dev),
            "bin": torch.empty((K, P), dtype=torch.int32, device=dev),
@@ -394,7 +433,8 @@ def tree_split_gini(hist: torch.Tensor, totals: torch.Tensor,
             splits.data_ptr(), min_inst.data_ptr(), min_gain.data_ptr(),
             *(out[k].data_ptr() for k in ("gain", "feature", "bin",
                                           "is_leaf", "threshold")),
-            K, P, D, NB, S - 1, _stream(hist))
+            K, P, D, NB, S - 1, plan.class_chunk, plan.d_chunk, plan.threads,
+            _stream(hist))
     return out
 
 
@@ -480,7 +520,8 @@ def tree_walk(X: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
     X f32 [N, D]; feature int32, threshold f32, is_leaf bool [Tr, T]; leaf
     f32 [Tr, T, V].  The trees are ``members`` equal groups concatenated
     along Tr.  Returns f32 [N, members, V]: the sum (``op="sum"``) or mean
-    (``op="mean"``) of the reached leaves per member."""
+    (``op="mean"``) of the reached leaves per member.  Any V: the kernel
+    walks once per 4 leaf values."""
     dev = X.device
     _check("tree_walk X", X, torch.float32, 2, dev)
     _check("tree_walk feature", feature, torch.int32, 2, dev)
@@ -499,9 +540,6 @@ def tree_walk(X: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
                               members, op)
     if dev.type != "cuda":
         raise ValueError(f"tree_walk: unsupported device {dev}")
-    if V > 4:
-        raise ValueError(f"tree_walk: the kernel takes V <= 4 leaf values, "
-                         f"got {V}")
     out = torch.empty((N, members, V), dtype=torch.float32, device=dev)
     _launch("tree_walk", X.data_ptr(), feature.data_ptr(),
             threshold.data_ptr(), is_leaf.data_ptr(), leaf.data_ptr(),

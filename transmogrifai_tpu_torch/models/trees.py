@@ -444,29 +444,33 @@ def _forest_grid_fit(B, splits, base_stats, fold_w, draws: ForestDraws,
 # prediction model + estimator stages
 # --------------------------------------------------------------------------
 
-def _walk_agg(X: torch.Tensor, fitted: Dict[str, Any], op: str) -> torch.Tensor:
+def _walk_agg(X: torch.Tensor, fitted: Dict[str, Any], op: str,
+              walk=tree_walk) -> torch.Tensor:
     """Mean or sum over the fitted trees of the reached leaves → [N, V]."""
     dev = X.device
     leaf = to_device_f32(fitted["leaf"], dev)
     if leaf.ndim == 2:
         leaf = leaf[:, :, None]
-    return predict_trees_agg(
+    return walk(
         X, torch.as_tensor(fitted["feature"], device=dev,
                            dtype=torch.int32).contiguous(),
         to_device_f32(fitted["threshold"], dev).contiguous(),
         torch.as_tensor(fitted["is_leaf"], device=dev,
                         dtype=torch.bool).contiguous(),
-        leaf.contiguous(), int(fitted["max_depth"]) + 1, op=op)
+        leaf.contiguous(), int(fitted["max_depth"]) + 1, 1, op=op)[:, 0]
 
 
 class TreeEnsembleModel(PredictionModel):
     """Fitted GBT or forest classifier (≙ ``TreeEnsembleModel``,
     trees.py:1006-1027, the device path)."""
 
-    def device_scores(self, X, full: bool = False) -> Dict[str, Any]:
+    def device_scores(self, X, full: bool = False,
+                      walk=tree_walk) -> Dict[str, Any]:
+        """``walk`` walks the trees: the ``tree_walk`` kernel, or its plain
+        twin ``tree_walk_twin`` (the LOCO twin scores through it)."""
         f = self.fitted
         if f["kind"] == "forest":
-            prob = _walk_agg(X, f, "mean")                           # [N, C]
+            prob = _walk_agg(X, f, "mean", walk)                     # [N, C]
             prob = prob / torch.clamp(prob.sum(dim=1, keepdim=True),
                                       min=1e-12)
             out = {"prediction": torch.argmax(prob, dim=1).to(torch.float32),
@@ -476,7 +480,7 @@ class TreeEnsembleModel(PredictionModel):
             if full:
                 out["rawPrediction"] = torch.log(torch.clamp(prob, min=1e-12))
             return out
-        margin = f["base"] + f["eta"] * _walk_agg(X, f, "sum")[:, 0]
+        margin = f["base"] + f["eta"] * _walk_agg(X, f, "sum", walk)[:, 0]
         p1 = torch.sigmoid(margin)
         out = {"prediction": (p1 > 0.5).to(torch.float32), "scores": p1,
                "margin": margin}

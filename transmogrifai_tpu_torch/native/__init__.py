@@ -2,8 +2,9 @@
 repository root, shared with the JAX package and built here on their own).
 
 ``textprof`` (one pass over a text column: nulls, lengths, crc32, tokens and
-their FNV-1a hashes, value interning), ``fasttok`` (tokenize + hash + modulo)
-and ``mapprof`` (columnar expansion of numeric maps) compile with ``g++``
+their FNV-1a hashes, value interning), ``fasttok`` (tokenize + hash + modulo),
+``mapprof`` (columnar expansion of numeric maps) and ``locofmt`` (record
+explanation payload strings) compile with ``g++``
 against Python's and numpy's headers into ``native/_build/`` beside this
 file, each library named by its source's content hash, and load on first use.
 
@@ -25,7 +26,7 @@ import threading
 from types import ModuleType
 from typing import Dict, Iterable
 
-NATIVE_SOURCES = ("textprof", "fasttok", "mapprof")
+NATIVE_SOURCES = ("textprof", "fasttok", "mapprof", "locofmt")
 SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "native")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")

@@ -293,5 +293,7 @@ class SanityChecker(Estimator):
             fitted={"indices_to_keep": np.asarray(keep, dtype=np.int64)},
             **self._params)
         model.metadata["summary"] = summary.to_json()
+        if meta.size == d:  # full input lineage for ModelInsights
+            model.metadata["input_vector_meta"] = meta.to_json()
         model.summary = summary
         return self._finalize_model(model)

@@ -1,0 +1,61 @@
+"""The selector's candidate-skip seam (the port's copy of the parts of
+``transmogrifai_tpu/resilience.py`` it uses: ``FailureLog`` and
+``AllCandidatesFailed``).
+
+A candidate family that cannot fit the feature matrix (a tree family on a
+``SparseMatrix``) is skipped by the validator: its (fold x grid) block gets
+NaN metrics and one "skipped" event here, and the sweep goes on.  The
+selector raises ``AllCandidatesFailed`` only when no candidate is left.
+
+Unlike the JAX package there is no ambient, process-global log: the
+validator owns one ``FailureLog`` per ``validate`` call and hands it to the
+``SelectedModel`` it builds (``failure_log``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional
+
+# the exceptions of a candidate fit that mean "this family cannot fit this
+# matrix" (≙ the skip at transmogrifai_tpu/tuning.py:1395-1407): anything
+# else still raises
+SKIPPABLE = (NotImplementedError, TypeError)
+
+
+class AllCandidatesFailed(RuntimeError):
+    """Every (model x grid-point) candidate of a selector sweep failed;
+    carries the per-candidate causes."""
+
+    def __init__(self, message: str, causes: Optional[Dict[str, str]] = None):
+        self.causes = dict(causes or {})
+        if self.causes:
+            detail = "; ".join(f"{k}: {v}" for k, v in
+                               sorted(self.causes.items()))
+            message = f"{message} — per-candidate causes: {detail}"
+        super().__init__(message)
+
+
+class FailureEvent(NamedTuple):
+    """One skipped unit of work."""
+
+    stage: str                  # model name
+    action: str                 # "skipped"
+    cause: str                  # "ExcType: message"
+    detail: Dict[str, Any]      # e.g. the folds and grid points
+
+
+class FailureLog:
+    """The record of one sweep's skipped work (≙ ``record_failure``,
+    resilience.py:247, with the log passed instead of read from the ambient
+    stack)."""
+
+    def __init__(self):
+        self.events: List[FailureEvent] = []
+
+    def record(self, stage: str, action: str, cause: BaseException,
+               **detail) -> None:
+        self.events.append(FailureEvent(
+            stage, action, f"{type(cause).__name__}: {cause}", detail))
+
+    def by_action(self, action: str) -> List[FailureEvent]:
+        return [e for e in self.events if e.action == action]

@@ -23,6 +23,7 @@ from .columns import ColumnBatch
 from .evaluators import (Evaluators, OpBinaryClassificationEvaluator,
                          OpEvaluatorBase)
 from .models.base import PredictionModel, extract_xy
+from .resilience import FailureLog
 from .stages.base import Estimator
 from .tuning import (DataSplitter, ModelCandidate, OpCrossValidation,
                      OpValidator, Splitter, device_wall_clock)
@@ -70,6 +71,8 @@ class ModelSelectorSummary:
 
     validation_type: str = ""
     validation_parameters: Dict[str, Any] = field(default_factory=dict)
+    data_prep_parameters: Dict[str, Any] = field(default_factory=dict)
+    data_prep_results: Dict[str, Any] = field(default_factory=dict)
     evaluation_metric: str = ""
     problem_type: str = ""
     best_model_uid: str = ""
@@ -83,6 +86,8 @@ class ModelSelectorSummary:
         return {
             "validationType": self.validation_type,
             "validationParameters": self.validation_parameters,
+            "dataPrepParameters": self.data_prep_parameters,
+            "dataPrepResults": self.data_prep_results,
             "evaluationMetric": self.evaluation_metric,
             "problemType": self.problem_type,
             "bestModelUID": self.best_model_uid,
@@ -109,6 +114,8 @@ class SelectedModel(PredictionModel):
         # wall seconds of the fit: each candidate family's CV block, the
         # winner's refit and the train evaluation
         self.selector_seconds: Dict[str, float] = {}
+        # candidate families the sweep skipped (≙ model.failure_log)
+        self.failure_log: Optional[FailureLog] = None
 
     @property
     def best_model(self) -> PredictionModel:
@@ -177,9 +184,17 @@ class ModelSelector(Estimator):
             validation_type=result.validation_type,
             validation_parameters={
                 "seed": v.seed, "stratify": v.stratify,
+                # the families fit one after another: no thread pool
+                "parallelism": 1,
                 "numFolds": getattr(v, "num_folds", None),
                 "racing": {"enabled": v.racing, "eta": v.racing_eta,
                            "minSurvivors": v.racing_min_survivors}},
+            # the splitter's settings (≙ selector.py:438-444); the port's
+            # DataSplitter does no data preparation, so it has no results
+            data_prep_parameters=(
+                {} if self.splitter is None else {
+                    k: v for k, v in vars(self.splitter).items()
+                    if isinstance(v, (int, float, str, bool))}),
             evaluation_metric=result.metric_name,
             problem_type=self.problem_type,
             best_model_uid=best_est.uid,
@@ -195,6 +210,7 @@ class ModelSelector(Estimator):
         model.summary = summary
         model.selector_seconds = {**result.family_seconds, "refit": t1 - t0,
                                   "train_evaluation": t2 - t1}
+        model.failure_log = result.failure_log
         model.metadata["summary"] = summary.to_json()
         model.fitted = {"best_model_class": type(best_model).__name__,
                         "best_metric": float(result.best_metric)}

@@ -8,10 +8,13 @@ batched lane program (``fit_arrays_grid``) and is scored by one masked
 metric panel.  Racing screens a family's full grid on fold 0, keeps the top
 ``max(min_survivors, ceil(G/eta))`` points and fits only those on the other
 folds.  A ``SparseMatrix`` feature matrix stays sparse throughout (its
-margins are ``sp_matmat`` products).  The JAX package's mesh,
-memory-governor, supervisor, checkpoint, AOT, telemetry and resilience
-seams have no counterpart here: a family that cannot fit the matrix (trees
-on a ``SparseMatrix``) raises instead of being skipped.
+margins are ``sp_matmat`` products).  A family that cannot fit the
+matrix (trees on a ``SparseMatrix``: ``NotImplementedError`` or
+``TypeError``) is skipped as the JAX package skips it (tuning.py:1395-1407,
+:1462-1466): its block gets NaN metrics and a "skipped" record in the
+result's ``FailureLog``, and ``AllCandidatesFailed`` is raised only when no
+candidate has a finite metric.  The JAX package's mesh, memory-governor,
+supervisor, checkpoint, AOT and telemetry seams have no counterpart here.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from .columns import ColumnBatch, device_matrix, to_device_f32
 from .evaluators import OpEvaluatorBase
 from .models.trees import predict_trees_sum_grouped
+from .resilience import SKIPPABLE, AllCandidatesFailed, FailureLog
 from .sparse.matrix import SparseMatrix
 
 _NO_FOLD = 255      # assignment of a row that is in no validation fold
@@ -118,6 +122,8 @@ class ValidationResult:
     is_larger_better: bool
     # wall seconds per candidate family: its fits and CV metric panels
     family_seconds: Dict[str, float] = field(default_factory=dict)
+    # the families skipped because they could not fit the matrix
+    failure_log: FailureLog = field(default_factory=FailureLog)
 
 
 class OpValidator:
@@ -244,6 +250,7 @@ class OpValidator:
                  for c in candidates]
         results: Dict[Tuple[int, int], ValidatedCandidate] = {}
         seconds: Dict[str, float] = defaultdict(float)
+        log = FailureLog()
 
         def record(cand, ci, gi, params, metric):
             key = (ci, gi)
@@ -254,9 +261,17 @@ class OpValidator:
 
         def fit_and_score(cand, ci, grid, f0, n_folds, grid_index):
             t0 = device_wall_clock(dev)
-            fitted = cand.estimator.fit_arrays_grid(
-                X, y, W[f0:f0 + n_folds], grid)
-            panel = self._panel(fitted, X, y, VA[f0:f0 + n_folds])
+            try:
+                fitted = cand.estimator.fit_arrays_grid(
+                    X, y, W[f0:f0 + n_folds], grid)
+            except SKIPPABLE as e:
+                # the family cannot fit this matrix: NaN rows, one record
+                log.record(cand.model_name, "skipped", e,
+                           folds=list(range(f0, f0 + n_folds)),
+                           grid_indices=list(grid_index))
+                fitted = None
+            panel = (np.full((n_folds, len(grid)), np.nan) if fitted is None
+                     else self._panel(fitted, X, y, VA[f0:f0 + n_folds]))
             for f in range(n_folds):
                 for j, params in enumerate(grid):
                     record(cand, ci, grid_index[j], params, panel[f, j])
@@ -293,7 +308,12 @@ class OpValidator:
         scored = [(sign * r.mean_metric, r) for r in all_results
                   if np.isfinite(r.mean_metric) and not r.raced_out]
         if not scored:
-            raise RuntimeError("all model candidates failed validation")
+            causes = {e.stage: e.cause for e in log.events}
+            for cand in candidates:
+                causes.setdefault(cand.model_name,
+                                  "no finite validation metric")
+            raise AllCandidatesFailed(
+                "all model candidates failed validation", causes)
         _, best_res = max(scored, key=lambda t: t[0])
         best_est = copy.deepcopy(candidates[best_res.candidate_index].estimator)
         for k, v in best_res.params.items():
@@ -307,7 +327,7 @@ class OpValidator:
             validation_type=self.validation_type,
             metric_name=self.evaluator.default_metric,
             is_larger_better=self.evaluator.is_larger_better,
-            family_seconds=dict(seconds))
+            family_seconds=dict(seconds), failure_log=log)
 
 
 class OpCrossValidation(OpValidator):

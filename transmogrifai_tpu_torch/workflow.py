@@ -8,6 +8,7 @@ from the result features, fits it layer by layer on the workflow's device
 and returns a ``WorkflowModel``.  Scoring
 applies the fitted stages in DAG order, eagerly, on the device; the JAX
 package's compiled ``ScoreProgram`` and save/load come with later slices.
+``summary()`` / ``summary_pretty()`` report the fitted model's insights.
 """
 
 from __future__ import annotations
@@ -194,3 +195,16 @@ class WorkflowModel:
         y = to_device_f32(scored[label.name].values, self.device)
         return evaluator.evaluate_all_device(
             y, dict(scored[pred_f.name].values), torch.ones_like(y)).to_json()
+
+    # -- insights -------------------------------------------------------------
+    def summary(self) -> Dict[str, Any]:
+        """≙ OpWorkflowModel.summary: the ModelInsights JSON
+        (``insights.ModelInsights``; the JAX package's workflow.py:670-678)."""
+        from .insights import ModelInsights
+        return ModelInsights.extract(self).to_json()
+
+    def summary_pretty(self) -> str:
+        """≙ OpWorkflowModel.summaryPretty: ASCII tables of the model
+        evaluation and the top raw-feature contributions."""
+        from .insights import ModelInsights
+        return ModelInsights.extract(self).pretty()
