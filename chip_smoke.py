@@ -80,14 +80,32 @@ Phases (any failure exits non-zero and prints no result line):
    ``tree_split_gini`` and ``tree_walk`` against their twins, and
    ``BinaryClassificationModelSelector()`` on the sparse 1M batch skipping
    the tree families; then ``RecordInsightsCorr`` fitted and applied and
-   ``WorkflowModel.summary()`` on the default-grid model at 1M x 28.
+   ``WorkflowModel.summary()`` on the default-grid model at 1M x 28;
+8. regression — ``tree_split_variance`` against its twin on f64
+   histograms at the RF regressor's level 5 (300 lanes, "onethird" node
+   subsets), level 11 of its depth-12 group and at 1,597 features (a
+   cross-chunk exact tie; a decision-tree regressor fitted there), and
+   ``fista_step`` with the squared loss (3 folds x 8 lanes at 1M x 16, the
+   wide form at 1M x 1,596) against its f64 twin; then
+   ``bench.run_selector_smoke``'s regression workload (the port's copy of
+   its generator, seed 11: 16 RealNN features, y = X @ w + 0.3 noise) at
+   1,000,000 rows: ``RegressionModelSelector()`` with no ``models=`` (LinReg
+   x8, RF regressor x18, GBT regressor x18) trained, evaluated (RMSE, R² >
+   0.9) and scored on a fresh 1M batch, with its train wall, phase and
+   family seconds, per-family best CV RMSE, peak device memory (< 80 GB)
+   and every kernel's launches read around it; ``RecordInsightsLOCO`` on
+   its winner (kernel against twin) and its ``summary()``; the compact grid
+   (ridge x2 + a 20-tree RF regressor) at 1M; and both grids at 4,000 rows
+   on the card held to the JAX package's numbers (``REG_REF``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` table (launches: the default
 grid's train for the dense rows, the transmog run for ``hash_counts`` and
 the wide ``fista_step`` row, the sparse run for ``sp_matmat`` and
 ``sp_rmatmat``, the three LOCO transforms for ``loco_linear`` and
-``loco_tree``), the one before that the card's name and power limit.
+``loco_tree``, the regression default grid's train for
+``tree_split_variance`` and the two squared-loss ``fista_step`` rows), the
+one before that the card's name and power limit.
 Imports nothing of JAX.
 """
 
@@ -2103,6 +2121,465 @@ def run_corr_and_summary(model, batch, device="cuda") -> dict:
                 for c in top["derivedFeatures"])}
 
 
+# --------------------------------------------------------------------------
+# phase 8: the regression family
+# --------------------------------------------------------------------------
+
+REG_FEATS = 16                     # bench.run_selector_smoke's width
+REG_SCORE_SEED = 12                # the fresh batch scored after training
+REG_R2_MIN = 0.9                   # noise sd 0.3 against a signal sd ~4
+REG_PEAK_GB = 80.0                 # the card's memory
+# The JAX package's regression grids at 4,000 rows (bench.run_selector_smoke's
+# generator, seed 11, CPU; `PYTHONPATH=. JAX_PLATFORMS=cpu python
+# scripts/regression_grid_reference.py --package jax --rows 4000 --grid
+# default`, and `--grid compact`): every LinReg / ridge and GBT candidate's
+# CV RMSE by its (reg_param[, elastic_net_param]) or (max_depth,
+# min_instances_per_node, min_info_gain) — a raced-out point's is its fold-0
+# screen — the forest family's best CV RMSE, the winner and the refit's
+# train RMSE.  The card must give the same winner, LinReg and ridge within
+# 1e-4 relative, GBT 1e-3, and the forest within "rf_tol" = 3 x the JAX
+# package's spread of that best over forest seeds 42, 0, 1, 2, 3 (`...
+# --rf-seeds 42,0,1,2,3`; the port's forests draw from torch generators).
+REG_REF_ROWS = 4_000
+REG_REF = {
+    "default": {
+        "winner": "OpLinearRegression", "train_rmse": 0.30047889474137374,
+        "rf_best": 1.8878767887751262, "rf_tol": 0.0301,   # 3 x 0.010046
+        "OpLinearRegression": {
+            (0.001, 0.1): 0.3016411562760671,
+            (0.001, 0.5): 0.3016478419303894,
+            (0.01, 0.1): 0.30883121490478516,
+            (0.01, 0.5): 0.30374061067899066,
+            (0.1, 0.1): 0.4457322955131531,
+            (0.1, 0.5): 0.4638878405094147,
+            (0.2, 0.1): 0.6695189476013184,
+            (0.2, 0.5): 0.7313461303710938},
+        "OpGBTRegressor": {
+            (3, 10, 0.001): 2.4364514350891113,
+            (3, 10, 0.01): 2.4364514350891113,
+            (3, 10, 0.1): 2.4364514350891113,
+            (3, 100, 0.001): 2.444828987121582,
+            (3, 100, 0.01): 2.444828987121582,
+            (3, 100, 0.1): 2.444828987121582,
+            (6, 10, 0.001): 1.9986782471338909,
+            (6, 10, 0.01): 1.9986782471338909,
+            (6, 10, 0.1): 1.9986782471338909,
+            (6, 100, 0.001): 2.16001296043396,
+            (6, 100, 0.01): 2.16001296043396,
+            (6, 100, 0.1): 2.16001296043396,
+            (12, 10, 0.001): 1.8654568990071614,
+            (12, 10, 0.01): 1.8660812377929688,
+            (12, 10, 0.1): 1.8661386966705322,
+            (12, 100, 0.001): 2.134227991104126,
+            (12, 100, 0.01): 2.134227991104126,
+            (12, 100, 0.1): 2.134227991104126}},
+    "compact": {
+        "winner": "OpLinearRegression", "train_rmse": 0.30235740818056006,
+        "rf_best": 2.2065558433532715, "rf_tol": 0.0715,   # 3 x 0.02384
+        "OpLinearRegression": {(0.01,): 0.30345796545346576,
+                               (0.1,): 0.43391429384549457}}}
+REG_TOL = {"OpLinearRegression": 1e-4, "OpGBTRegressor": 1e-3}
+
+
+def _reg_key(params: dict) -> tuple:
+    """A candidate's grid point without the values its family shares."""
+    return tuple(v for k, v in params.items()
+                 if k not in ("max_iter", "max_bins", "num_trees"))
+
+
+def _reg_candidates(summary) -> list:
+    return [[r.model_name, _reg_key(r.params),
+             float(r.metric_values["RootMeanSquaredError"]), r.raced_out]
+            for r in summary.validation_results]
+
+
+def _reg_family_best(cands) -> dict:
+    best = {}
+    for name, _, v, raced in cands:
+        if not raced and np.isfinite(v) and v < best.get(name, np.inf):
+            best[name] = v
+    return best
+
+
+def regression_workflow(n: int, grid: str, device, seed: int = 11):
+    """``bench.run_selector_smoke``'s regression workflow: 16 RealNN
+    features → transmogrify → ``RegressionModelSelector`` with no
+    ``models=`` (``grid`` "default") or its ``compact_models()``.  Returns
+    (workflow, batch, prediction feature)."""
+    from transmogrifai_tpu_torch.columns import Column, ColumnBatch
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+    from transmogrifai_tpu_torch.selector import RegressionModelSelector
+    from transmogrifai_tpu_torch.synthetic import make_regression_data
+    from transmogrifai_tpu_torch.types import RealNN
+    from transmogrifai_tpu_torch.workflow import Workflow
+
+    X, y = make_regression_data(n, REG_FEATS, seed)
+    label = FeatureBuilder.RealNN("label").as_response()
+    feats = [FeatureBuilder.RealNN(f"f{i}").as_predictor()
+             for i in range(REG_FEATS)]
+    sel = RegressionModelSelector(
+        models=None if grid == "default"
+        else RegressionModelSelector.compact_models())
+    sel.set_input(label, transmogrify(feats))
+    pred = sel.get_output()
+    cols = {"label": Column(RealNN, y)}
+    for i in range(REG_FEATS):
+        cols[f"f{i}"] = Column(RealNN, X[:, i])
+    batch = ColumnBatch(cols, n)
+    wf = Workflow(device=device).set_input_batch(batch)
+    return wf.set_result_features(pred), batch, pred
+
+
+def run_regression(device, n: int, grid: str = "default",
+                   score: bool = True) -> tuple:
+    """Train the regression workflow, evaluate it on its train rows (RMSE,
+    R²) and, with ``score``, score a fresh batch of ``n`` rows (seed
+    REG_SCORE_SEED).  Returns (facts, model, batch)."""
+    import torch
+
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    wf, batch, pred = regression_workflow(n, grid, device)
+    t0 = time.perf_counter()
+    model = wf.train()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = model.evaluate(Evaluators.Regression.rmse(), batch=batch)
+    summ = model.selected_model.summary
+    cands = _reg_candidates(summ)
+    facts = {"train_wall_s": wall, "best_model": summ.best_model_name,
+             "family_best_cv_rmse": _reg_family_best(cands),
+             "train_rmse": float(m["RootMeanSquaredError"]),
+             "train_r2": float(m["R2"]),
+             "phase_seconds": model.phase_seconds,
+             "selector_seconds": model.selected_model.selector_seconds,
+             "candidates": cands}
+    if score:
+        _, fresh, _ = regression_workflow(n, grid, device, REG_SCORE_SEED)
+        t0 = time.perf_counter()
+        p = model.score(fresh)[pred.name].values["prediction"]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        facts["score_rows_per_s"] = n / (time.perf_counter() - t0)
+        if tuple(p.shape) != (n,) or not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"regression scores: shape "
+                                 f"{tuple(p.shape)} or non-finite")
+    return facts, model, batch
+
+
+def check_regression_reference(device="cuda") -> dict:
+    """Both grids at REG_REF_ROWS rows on the card against the JAX
+    package's numbers (REG_REF)."""
+    out = {}
+    for grid, ref in REG_REF.items():
+        facts, _, _ = run_regression(device, REG_REF_ROWS, grid, False)
+        if facts["best_model"] != ref["winner"]:
+            raise AssertionError(f"regression reference ({grid}): winner "
+                                 f"{facts['best_model']}, the JAX package's "
+                                 f"is {ref['winner']}")
+        seen = 0
+        for name, key, v, _ in facts["candidates"]:
+            if name in REG_TOL:
+                want = ref[name][key]
+                if abs(v - want) > REG_TOL[name] * abs(want):
+                    raise AssertionError(
+                        f"regression reference ({grid}): {name} {key} CV "
+                        f"RMSE {v}, the JAX package's {want}")
+                seen += 1
+        if seen != sum(len(ref[f]) for f in REG_TOL if f in ref):
+            raise AssertionError(f"regression reference ({grid}): "
+                                 f"{seen} candidates held to the JAX package")
+        rf = facts["family_best_cv_rmse"]["OpRandomForestRegressor"]
+        if abs(rf - ref["rf_best"]) > ref["rf_tol"]:
+            raise AssertionError(f"regression reference ({grid}): forest CV "
+                                 f"RMSE {rf}, the JAX package's "
+                                 f"{ref['rf_best']} (tolerance "
+                                 f"{ref['rf_tol']})")
+        if abs(facts["train_rmse"] - ref["train_rmse"]) \
+                > 1e-4 * ref["train_rmse"]:
+            raise AssertionError(f"regression reference ({grid}): train RMSE "
+                                 f"{facts['train_rmse']}, the JAX package's "
+                                 f"{ref['train_rmse']}")
+        out[grid] = {k: facts[k] for k in ("best_model", "family_best_cv_rmse",
+                                           "train_rmse", "train_wall_s")}
+    return out
+
+
+def _check_split_variance(tk, hist, tot, fmask, node_mask, splits, min_inst,
+                          min_gain, chunk: int = 16) -> float:
+    """``tree_split_variance`` on all lanes at once against its twin run on
+    the f64 histogram, ``chunk`` lanes at a time.  Gains within 1e-5 of the
+    parent's Σw·y² (+1e-6), the terms each gain is a difference of; the
+    chosen feature, bin and threshold equal wherever the f64 best and
+    runner-up differ by more than twice that; the leaf flag wherever the
+    f64 gain is non-finite or further than it from the lane's min_gain.
+    Returns the largest gain error."""
+    import torch
+    out = tk.tree_split_variance(hist, tot, fmask, node_mask, splits,
+                                 min_inst, min_gain)
+    K, err = hist.shape[0], 0.0
+    for a in range(0, K, chunk):
+        sl = slice(a, min(a + chunk, K))
+        h, t = hist[sl].double(), tot[sl].double()
+        m = None if node_mask is None else node_mask[sl]
+        mi, mg = min_inst[sl].double(), min_gain[sl].double()
+        st = tk.tree_split_variance_twin(h, t, fmask, m, splits, mi, mg)
+        tol = 1e-5 * t[..., 2].abs() + 1e-6
+        sk = {k: v[sl] for k, v in out.items()}
+        fin = torch.isfinite(st["gain"])
+        if not torch.equal(fin, torch.isfinite(sk["gain"])):
+            raise AssertionError(f"tree_split_variance (P {h.shape[1]}, lanes "
+                                 f"{a}..): finite gains differ from the twin")
+        e = torch.where(fin, (sk["gain"].double() - st["gain"]).abs(), 0.0)
+        if bool((e > tol).any()):
+            raise AssertionError(f"tree_split_variance (P {h.shape[1]}, lanes "
+                                 f"{a}..): gains disagree with the twin")
+        gap = tk.split_gap_variance(h, t, fmask, m, mi)
+        same = ((sk["feature"] == st["feature"]) & (sk["bin"] == st["bin"])
+                & (sk["threshold"] == st["threshold"]))
+        if bool(((gap > 2 * tol) & ~same).any()):
+            raise AssertionError(f"tree_split_variance (P {h.shape[1]}, lanes "
+                                 f"{a}..): another split than the twin's")
+        leaf_clear = ~fin | ((st["gain"] - mg[:, None]).abs() > tol)
+        if bool((leaf_clear & (sk["is_leaf"] != st["is_leaf"])).any()):
+            raise AssertionError(f"tree_split_variance (P {h.shape[1]}, lanes "
+                                 f"{a}..): leaf flags disagree with the twin")
+        err = max(err, float(e.max()))
+    return err
+
+
+def regression_forest_inputs(device, n: int, depth: int, seed: int = 13):
+    """Fold 0 of the default grid's RF regressor group of depth ``depth``
+    (6 grid points x 50 trees; "onethird" of 16 = 5 features a node) at the
+    first lane batch ``lane_batches`` gives it on the card: (1, y, y²) x
+    Poisson(1) draw x fold weight per lane, the draws' node subsets, each
+    lane its grid point's min_instances and min_info_gain."""
+    import itertools
+
+    import torch
+
+    from transmogrifai_tpu_torch.models.trees import (binned, forest_draws,
+                                                      lane_batches,
+                                                      lane_bytes)
+    from transmogrifai_tpu_torch.synthetic import make_regression_data
+    X, y = make_regression_data(n, REG_FEATS)
+    Xd = torch.as_tensor(X, device=device)
+    _, sp_t, B = binned(Xd, Xd, N_BINS)
+    dev = torch.device(device)
+    n_trees = 50
+    first = lane_batches(6 * n_trees, lane_bytes(n, REG_FEATS, 3, N_BINS,
+                                                  depth, dev), dev)[0]
+    K = first.stop - first.start
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dr = forest_draws(gen, n_trees=n_trees, n_rows=n, rates=[1.0],
+                      max_depth=depth,
+                      fmask=torch.ones(REG_FEATS, dtype=torch.bool,
+                                       device=device),
+                      features_per_node=REG_FEATS // 3)
+    W = torch.as_tensor(_fold_weights(y), device=device)
+    yd = torch.as_tensor(y, device=device)
+    base = torch.stack([torch.ones_like(yd), yd, yd * yd], dim=1)
+    tree_of_lane = torch.arange(K, device=device) % n_trees
+    stats = (base[None] * (dr.boot[1.0][tree_of_lane] * W[0])[:, :, None]
+             ).contiguous()
+    points = list(itertools.product((10.0, 100.0), (0.001, 0.01, 0.1)))
+    lane = lambda i: torch.tensor([points[k // n_trees][i] for k in range(K)],
+                                  dtype=torch.float32, device=device)
+    return {"X": Xd, "B": B, "splits": sp_t, "stats": stats,
+            "masks": [m[tree_of_lane].contiguous() for m in dr.subsets],
+            "min_inst": lane(0), "min_gain": lane(1), "lanes": K}
+
+
+def check_variance_split(device="cuda", n: int = N_ROWS, reps: int = 10):
+    """``tree_split_variance`` against its twin (``_check_split_variance``)
+    at the regression path's shapes: the RF regressor's level 5 (P = 32;
+    the depth-6 group's fold-0 lanes, node subsets), level 11 of its depth-12
+    group (P = 2048), and a root and level 1 at 1,597 features (two feature
+    chunks; column 100 a copy of column 1,500, on which an integer label
+    hangs, so the two columns' histograms are equal and the best split an
+    exact cross-chunk tie, taken by feature 100; a decision-tree regressor
+    fitted there splits its root on 100 too).  Returns the kernels line's
+    row (level 5) and the other shapes' numbers."""
+    import torch
+
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    from transmogrifai_tpu_torch.models.trees import (OpDecisionTreeRegressor,
+                                                      binned)
+    facts = {}
+    fmask = torch.ones(REG_FEATS, dtype=torch.bool, device=device)
+    row = None
+    for depth, lvl in ((RF_DEPTH, 5), (DEEP, DEEP - 1)):
+        inp = regression_forest_inputs(device, n, depth)
+        B, stats, K = inp["B"], inp["stats"], inp["lanes"]
+        off, P = (1 << lvl) - 1, 1 << lvl
+        rng = np.random.default_rng(lvl)
+        row_node = torch.as_tensor(rng.integers(max(off - 6, 0), off + P,
+                                                size=(K, n)).astype(np.int32),
+                                   device=device)
+        mask = inp["masks"][lvl]
+        hist, tot = tk.tree_hist(B, row_node, stats, off, P, N_BINS,
+                                 node_mask=mask)
+        del row_node
+        args = (hist, tot, fmask, mask, inp["splits"], inp["min_inst"],
+                inp["min_gain"])
+        err = _check_split_variance(tk, *args)
+        kept = int(mask.sum())
+        bt, by = bound(kept * N_BINS * 3 * 4 + 4 * tot.numel() + mask.numel()
+                       + REG_FEATS + 4 * inp["splits"].numel() + 8 * K
+                       + 17 * K * P, 20 * kept * N_BINS)
+        # the twin's gain tables at level 11 take GBs for all lanes: there
+        # it is timed on the first 16, beside the kernel on the same
+        sub = args if lvl < 8 else tuple(
+            a[:16] if isinstance(a, torch.Tensor) and a.shape[0] == K else a
+            for a in args)
+        case = {"lanes": K, "P": P, "max_abs_err": err,
+                "ms": time_ms(lambda: tk.tree_split_variance(*args), reps),
+                "plain_lanes": sub[0].shape[0],
+                "plain_ms": time_ms(
+                    lambda: tk.tree_split_variance_twin(*sub), 2),
+                "ms_plain_lanes": time_ms(
+                    lambda: tk.tree_split_variance(*sub), reps),
+                "bound_ms": bt, "bound_by": by}
+        facts[f"level_{lvl}"] = case
+        if row is None:
+            row = {"name": "tree_split_variance", "route": "cuda",
+                   "source": "transmogrifai_tpu_torch/csrc/"
+                             "tree_split_variance.cu",
+                   "replaces": kernels.REPLACES["tree_split_variance"],
+                   "library_ms": None,
+                   **{k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by")}}
+        del hist, tot, inp, stats, mask, args
+        torch.cuda.empty_cache()
+    row["max_abs_err"] = max(c["max_abs_err"] for c in facts.values())
+
+    # 1,597 features: two chunks, an exact cross-chunk tie
+    wn = WIDE_ROWS
+    rng = np.random.default_rng(14)
+    X = rng.normal(size=(wn, WIDE_D)).astype(np.float32)
+    X[:, 100] = X[:, 1500]
+    y = np.round(2 * X[:, 1500] + 0.3 * rng.normal(size=wn)).astype(
+        np.float32)
+    Xd = torch.as_tensor(X, device=device)
+    del X
+    dt = OpDecisionTreeRegressor(max_depth=3,
+                                 min_instances_per_node=10).fit_arrays(Xd, y)
+    if int(dt["feature"][0, 0]) != 100:
+        raise AssertionError(f"wide regression tree: root split on feature "
+                             f"{int(dt['feature'][0, 0])}, not 100")
+    _, sp_t, B = binned(Xd, Xd, N_BINS)
+    del Xd
+    K = 3
+    yd = torch.as_tensor(y, device=device)
+    w = torch.poisson(torch.ones((K, wn), device=device))
+    st = (torch.stack([torch.ones_like(yd), yd, yd * yd], dim=1)[None]
+          * w[:, :, None]).contiguous()
+    wf = torch.ones(WIDE_D, dtype=torch.bool, device=device)
+    lane = lambda v: torch.full((K,), v, device=device)   # noqa: E731
+    errs = []
+    for off, P in ((0, 1), (1, 2)):
+        rn = torch.as_tensor(rng.integers(off, off + P, size=(K, wn)).astype(
+            np.int32), device=device)
+        h, t = tk.tree_hist(B, rn, st, off, P, N_BINS)
+        errs.append(_check_split_variance(tk, h, t, wf, None, sp_t,
+                                          lane(10.0), lane(0.0)))
+        if off == 0:
+            root = tk.tree_split_variance(h, t, wf, None, sp_t, lane(10.0),
+                                          lane(0.0))["feature"]
+            if bool((root != 100).any()):
+                raise AssertionError(f"tree_split_variance at D = {WIDE_D}: "
+                                     f"roots {root.tolist()}, not 100")
+    facts["width_1597"] = {"rows": wn, "max_abs_err": max(errs),
+                           "dt_root_feature": int(dt["feature"][0, 0]),
+                           "split_plan": tk.split_plan(WIDE_D)._asdict()}
+    row["max_abs_err"] = max(row["max_abs_err"], max(errs))
+    return row, facts
+
+
+def check_fista_squared(device="cuda", n: int = N_ROWS, reps: int = 10):
+    """``fista_step`` with the squared loss against its f64 twin
+    (``_fista_case``): the LinReg CV block (3 folds x 8 lanes) on the
+    regression workload's 1M x 16 matrix, and the wide two-pass form on a
+    1M x 1,596 matrix (24 lanes in one launch).  Returns the two rows of the
+    kernels line and their numbers."""
+    import torch
+
+    from transmogrifai_tpu_torch.models.solvers import standardize_moments
+    from transmogrifai_tpu_torch.synthetic import make_regression_data
+    X, y = make_regression_data(n, REG_FEATS)
+    rng = np.random.default_rng(15)
+    W = torch.as_tensor(_fold_weights(y), device=device)
+    out = {}
+    Xd = torch.as_tensor(X, device=device)
+    yd = torch.as_tensor(y, device=device)
+    mean, scale = standardize_moments(Xd, W, center=True)
+    out["narrow"] = _fista_case(Xd, W, yd, mean, scale, "squared", 8, rng,
+                                reps)
+    del Xd, mean, scale
+    gen = torch.Generator(device=device).manual_seed(15)
+    Xw = torch.randn((n, TRANSMOG_WIDTH), generator=gen, device=device)
+    mean, scale = standardize_moments(Xw, W, center=True)
+    out["wide"] = _fista_case(Xw, W, yd, mean, scale, "squared", 8, rng,
+                              max(2, reps // 4))
+    del Xw
+    torch.cuda.empty_cache()
+    return [_fista_row(out["narrow"]), _fista_row(out["wide"])], out
+
+
+def run_regression_insights(model, batch, device="cuda") -> dict:
+    """``RecordInsightsLOCO`` (top-16: every raw feature) through its
+    transform on the regression winner over its own 1M x 16 vector, its
+    kernel against the twin on that vector (``check_loco_linear`` /
+    ``check_loco_tree``: 1e-5 of the max |diff|), the diffs of a
+    regression's prediction (a sigmoid would keep them inside (-1, 1)), and
+    ``WorkflowModel.summary()``.  Returns the facts and the launches of the
+    transform alone."""
+    import torch
+
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    from transmogrifai_tpu_torch.dag import apply_dag
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.record_insights import loco_groups
+    sel = model.selected_model
+    vec_f = sel.input_features[1]
+    scored = apply_dag(batch.on(device), model.fitted_dag[:-1]).select(
+        [vec_f.name])
+    vec = scored[vec_f.name]
+    names = list(loco_groups(vec.meta, vec.values.shape[1]))
+    G = len(names)
+    kernels.reset_launch_counts()
+    maps, wall = _loco_stage(sel, vec_f, scored, k=G)
+    launches = kernels.launch_counts()
+    _check_maps(maps, len(batch), G, names)
+    best = sel.best_model
+    X = vec.values.contiguous()
+    cg = ik.col_group_of(list(loco_groups(vec.meta, X.shape[1]).values()),
+                         X.shape[1], device)
+    check = check_loco_linear if "coef" in best.fitted else check_loco_tree
+    case = check(X, best, cg, G, G)
+    if case["max_abs_diff"] <= 1.0:
+        raise AssertionError(f"regression LOCO: max |diff| "
+                             f"{case['max_abs_diff']}: not the prediction's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summ = model.summary()
+    t1 = time.perf_counter()
+    info = summ["selectedModelInfo"]
+    # the workflow has no SanityChecker, so (as in the JAX package) the
+    # summary lists no per-feature insights
+    if (info["bestModelName"] != sel.summary.best_model_name
+            or info["problemType"] != "Regression"):
+        raise AssertionError("regression summary: wrong winner or problem "
+                             "type")
+    return {"winner": type(best).__name__,
+            "winner_kind": best.fitted.get("kind"), "groups": G,
+            "loco_wall_s": wall, "loco_rows_per_s": len(batch) / wall,
+            "loco_kernel": case, "row0": maps[0], "summary_s": t1 - t0}, \
+        launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2158,12 +2635,13 @@ def main() -> int:
     print(f"main path {N_ROWS}x{N_FEATS}: " + json.dumps(facts), flush=True)
     print("kernel launches: " + json.dumps(launches), flush=True)
     # the bench set's trees are at most depth 6: no level needs the
-    # one-pass deep histogram; the dense path hashes no text and explains
-    # nothing
+    # one-pass deep histogram; the dense path hashes no text, explains
+    # nothing and fits no regression tree
     missing = [k for k, v in launches.items()
                if v <= 0 and k not in ("tree_hist_deep", "hash_counts",
                                        "sp_matmat", "sp_rmatmat",
-                                       "loco_linear", "loco_tree")]
+                                       "loco_linear", "loco_tree",
+                                       "tree_split_variance")]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if facts["train_auroc"] <= 0.7:
@@ -2189,7 +2667,7 @@ def main() -> int:
     missing = [k for k, v in launches.items()
                if v <= 0 and k not in ("hash_counts", "sp_matmat",
                                        "sp_rmatmat", "loco_linear",
-                                       "loco_tree")]
+                                       "loco_tree", "tree_split_variance")]
     if missing:
         raise AssertionError(f"kernels never launched on the default grid: "
                              f"{missing}")
@@ -2329,6 +2807,69 @@ def main() -> int:
     print("corr and summary: " + json.dumps(run_corr_and_summary(
         grid_model, grid_batch)), flush=True)
     del grid_model, grid_batch
+    torch.cuda.empty_cache()
+
+    # phase 8: the regression family — the variance split and the squared
+    # loss against their twins, then the default grid at 1M rows with the
+    # launches and peak memory read around its train and score, its LOCO
+    # and summary, the compact grid, and both grids at 4,000 rows against
+    # the JAX package
+    var_row, var_facts = check_variance_split()
+    print("tree_split_variance shapes: " + json.dumps(var_facts), flush=True)
+    torch.cuda.empty_cache()
+    sq_rows, sq_facts = check_fista_squared()
+    print("fista_step squared shapes: " + json.dumps(sq_facts), flush=True)
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    reg_facts, reg_model, reg_batch = run_regression("cuda", N_ROWS)
+    reg_launches = kernels.launch_counts()
+    reg_facts["peak_device_memory_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    print(f"regression default grid {N_ROWS}x{REG_FEATS}: "
+          + json.dumps(reg_facts), flush=True)
+    print("regression kernel launches: " + json.dumps(reg_launches),
+          flush=True)
+    missing = [k for k in ("tree_hist", "tree_hist_deep", "tree_split",
+                           "tree_split_variance", "tree_route", "tree_walk",
+                           "fista_step") if reg_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the regression "
+                             f"path: {missing}")
+    if reg_facts["train_r2"] <= REG_R2_MIN:
+        raise AssertionError(f"regression train R2 {reg_facts['train_r2']} "
+                             f"<= {REG_R2_MIN}")
+    if reg_facts["peak_device_memory_gb"] >= REG_PEAK_GB:
+        raise AssertionError(f"regression peak device memory "
+                             f"{reg_facts['peak_device_memory_gb']} GB")
+    torch.cuda.empty_cache()
+    reg_ins, ins_launches = run_regression_insights(reg_model, reg_batch)
+    print("regression insights: " + json.dumps(reg_ins), flush=True)
+    if ins_launches["loco_linear"] + ins_launches["loco_tree"] <= 0:
+        raise AssertionError("regression LOCO launched no kernel")
+    del reg_model, reg_batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cmp_facts, _, _ = run_regression("cuda", N_ROWS, "compact")
+    cmp_facts["peak_device_memory_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    print(f"regression compact grid {N_ROWS}x{REG_FEATS}: "
+          + json.dumps(cmp_facts), flush=True)
+    if cmp_facts["train_r2"] <= REG_R2_MIN:
+        raise AssertionError(f"regression compact train R2 "
+                             f"{cmp_facts['train_r2']} <= {REG_R2_MIN}")
+    torch.cuda.empty_cache()
+    print(f"regression reference runs ({REG_REF_ROWS} rows): "
+          + json.dumps(check_regression_reference()), flush=True)
+    var_row["launches"] = reg_launches["tree_split_variance"]
+    for r in sq_rows:
+        r["launches"] = reg_launches["fista_step"]
+    for r in [var_row] + sq_rows:
+        print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.3g} "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library_ms={r['library_ms']}", flush=True)
+    rows += [var_row] + sq_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card, flush=True)

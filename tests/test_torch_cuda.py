@@ -16,7 +16,12 @@ the gap passes 1e-5 of it and on exact ties; a forest fitted on the card
 with the draws made on the host equals the CPU twins' forest in structure,
 leaves at rtol 1e-6; ``fista_step`` within 1e-5 of each output's absolute
 mass of the twin run in f64 (tile and block sums in another order than
-cuBLAS), and the same bits on two launches; the one-pass deep histogram
+cuBLAS), and the same bits on two launches (the squared loss too); variance
+split gains within 1e-5 of the parent's Σw·y² (+1e-6: the terms they are a
+difference of) of the twin run on the f64 histogram, choices identical
+where the f64 runner-up gap passes twice that, cross-chunk exact ties to
+the first feature; LOCO on regression models (the prediction: identity
+links) like the classifiers'; the one-pass deep histogram
 like ``tree_hist``; ``hash_counts`` equal to its twin (integer counts);
 ``sp_matmat`` / ``sp_rmatmat`` within 1e-5 of each output's absolute mass
 of the twin run in f64 (chunk partials added in another order), and the
@@ -303,11 +308,12 @@ def test_small_main_path_on_the_card_matches_the_twins(cuda):
     kernels.reset_launch_counts()
     gpu = _small_main_path("cuda", 5000)
     # depth-4 and depth-3 trees never need the one-pass deep histogram;
-    # the dense path hashes no text, holds no sparse matrix and explains
-    # nothing
+    # the dense binary path hashes no text, holds no sparse matrix, fits no
+    # regression tree and explains nothing
     assert all(v > 0 for k, v in kernels.launch_counts().items()
                if k not in ("tree_hist_deep", "hash_counts", "sp_matmat",
-                            "sp_rmatmat", "loco_linear", "loco_tree"))
+                            "sp_rmatmat", "loco_linear", "loco_tree",
+                            "tree_split_variance"))
     cpu = _small_main_path("cpu", 5000)
     assert gpu[0] == cpu[0]
     np.testing.assert_allclose(gpu[1], cpu[1], rtol=0, atol=1e-3)
@@ -326,7 +332,11 @@ def test_small_main_path_on_the_card_matches_the_twins(cuda):
                                         ("logistic", 8, 1597, 3),
                                         ("logistic", 1, 1597, 1),
                                         ("gram", 1, 1597, 3),
-                                        ("squared_hinge", 16, 1597, 3)])
+                                        ("squared_hinge", 16, 1597, 3),
+                                        # linear regression: the CV block
+                                        # and the wide form
+                                        ("squared", 8, 16, 3),
+                                        ("squared", 8, 1597, 3)])
 def test_fista_step_matches_twin_and_repeats_bit_for_bit(cuda, loss, G, D, F):
     from transmogrifai_tpu_torch.models import linear_kernels as lk
     rng = np.random.default_rng(2)
@@ -588,7 +598,8 @@ def _assert_loco_matches_twin(run, twin, G, k, strategy):
     (1596, 20, "negative", "svc", False), (1596, 1596, "abs", "logistic",
                                            False),
     (12, 12, "abs", "logistic", True), (40, 20, "negative", "logistic",
-                                        True), (300, 20, "abs", "svc", True)])
+                                        True), (300, 20, "abs", "svc", True),
+    (40, 20, "abs", "regression", True)])
 def test_loco_linear_matches_twin(cuda, G, k, strategy, link, contiguous):
     """Groups of uneven sizes, scattered columns (a column's group is not
     its neighbour's) or contiguous ones (transmogrify's layout: the float4
@@ -611,7 +622,7 @@ def test_loco_linear_matches_twin(cuda, G, k, strategy, link, contiguous):
         "coef": torch.as_tensor(rng.normal(size=D).astype(np.float32) / 40,
                                 device=cuda),
         "intercept": torch.tensor([0.3], device=cuda),
-        "kind": "svc" if link == "svc" else "binary"})
+        "kind": "binary" if link == "logistic" else link})
     idx, fi, fv = _assert_loco_matches_twin(
         lambda: ik.loco_linear(Xd, model, cgd, G, k, strategy),
         lambda kk: ik.loco_topk_twin(
@@ -630,24 +641,31 @@ def test_loco_linear_matches_twin(cuda, G, k, strategy, link, contiguous):
             assert bool((seq.diff(dim=1) > 0).all())
 
 
-@pytest.mark.parametrize("link", ["gbt", "forest"])
+@pytest.mark.parametrize("link", ["gbt", "forest", "gbt_regression",
+                                  "forest_regression"])
 def test_loco_tree_matches_twin(cuda, link):
-    """A fitted GBT (5 rounds, depth 3) and forest (5 trees, depth 4) on 28
-    features, one group per feature and one per pair of features, top-5 and
-    k = G."""
+    """A fitted GBT (5 rounds, depth 3) and forest (5 trees, depth 4),
+    classifiers and regressors, on 28 features, one group per feature and
+    one per pair of features, top-5 and k = G."""
     from transmogrifai_tpu_torch import insights_kernels as ik
-    from transmogrifai_tpu_torch.models.trees import (OpGBTClassifier,
-                                                      OpRandomForestClassifier,
-                                                      TreeEnsembleModel)
+    from transmogrifai_tpu_torch.models import trees as pt
+    from transmogrifai_tpu_torch.models.trees import TreeEnsembleModel
     rng = np.random.default_rng(8)
     N, D = 5000, 28
     X = rng.normal(size=(N, D)).astype(np.float32)
-    y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.normal(size=N) > 0).astype(
-        np.float32)
+    y = X[:, 0] + X[:, 1] * X[:, 2] + rng.normal(size=N).astype(np.float32)
+    regression = link.endswith("_regression")
+    if not regression:
+        y = (y > 0).astype(np.float32)
     Xd = torch.as_tensor(X, device=cuda)
-    fit = (OpGBTClassifier(max_iter=5, max_depth=3).fit_arrays(Xd, y)
-           if link == "gbt" else
-           OpRandomForestClassifier(num_trees=5, max_depth=4).fit_arrays(Xd, y))
+    est = {"gbt": lambda: pt.OpGBTClassifier(max_iter=5, max_depth=3),
+           "forest": lambda: pt.OpRandomForestClassifier(num_trees=5,
+                                                         max_depth=4),
+           "gbt_regression": lambda: pt.OpGBTRegressor(max_iter=5,
+                                                       max_depth=3),
+           "forest_regression": lambda: pt.OpRandomForestRegressor(
+               num_trees=5, max_depth=4)}[link]()
+    fit = est.fit_arrays(Xd, y)
     model = TreeEnsembleModel(fitted=fit)
     for G, per in ((28, 1), (14, 2)):
         cgd = torch.arange(D, device=cuda, dtype=torch.int32) // per
@@ -783,3 +801,69 @@ def test_multiclass_forest_kernels_match_twins(cuda, n_classes):
     assert float((tk.tree_walk(Xd, *walk, op="mean")
                   - tk.tree_walk_twin(Xd, *walk, 1, "mean")).abs().max()) \
         <= 1e-6
+
+
+# --------------------------------------------------------------------------
+# the regression family: tree_split_variance
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("P,D", [(32, 16), (2048, 16), (1, 1597)])
+def test_tree_split_variance_matches_twin(cuda, P, D):
+    """An RF regressor's level 5 (P = 32) and a depth-12 grid's level 11
+    (P = 2048) over 16 features with "onethird" node subsets (5 of 16), and
+    a root over 1,597 features (two chunks) whose columns 100 and 1,500 are
+    equal and carry an integer label (exact sums: the two histograms are
+    equal, the best split an exact cross-chunk tie): against the twin on
+    the f64 histogram."""
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    from transmogrifai_tpu_torch.models.trees import binned
+    rng = np.random.default_rng(12)
+    N, K = (20_000 if D > 1000 else 50_000), 4
+    X = rng.normal(size=(N, D)).astype(np.float32)
+    if D > 1000:
+        X[:, 100] = X[:, 1500]
+        y = np.round(2 * X[:, 1500] + 0.3 * rng.normal(size=N))
+    else:
+        y = 2 * X[:, 0] + X[:, 1] * X[:, 2] + rng.normal(size=N)
+    y = y.astype(np.float32)
+    Xd = torch.as_tensor(X, device=cuda)
+    _, splits, B = binned(Xd, Xd, 32)
+    w = rng.poisson(1.0, size=(K, N)) * (rng.random((K, N)) > 0.33)
+    base = np.stack([np.ones(N), y, y * y], axis=1)
+    stats = torch.as_tensor((base[None] * w[:, :, None]).astype(np.float32),
+                            device=cuda)
+    rn = torch.as_tensor(rng.integers(P - 1, 2 * P - 1, size=(K, N)).astype(
+        np.int32), device=cuda)
+    mask = None
+    if D < 1000:
+        m = np.zeros((K, P, D), bool)
+        for k in range(K):
+            for p in range(P):
+                m[k, p, rng.choice(D, D // 3, replace=False)] = True
+        mask = torch.as_tensor(m, device=cuda)
+    h, t = tk.tree_hist(B, rn, stats, P - 1, P, 32, node_mask=mask)
+    lane = lambda v: torch.full((K,), v, device=cuda)   # noqa: E731
+    fmask = torch.ones(D, dtype=torch.bool, device=cuda)
+    args = (h, t, fmask, mask, splits, lane(10.0), lane(0.001))
+    kernels.reset_launch_counts()
+    sk = tk.tree_split_variance(*args)
+    assert kernels.launch_counts()["tree_split_variance"] == 1
+    a64 = (h.double(), t.double(), fmask, mask, splits, lane(10.0).double(),
+           lane(0.001).double())
+    st = tk.tree_split_variance_twin(*a64)
+    tol = 1e-5 * t[..., 2].double() + 1e-6
+    fin = torch.isfinite(st["gain"])
+    assert torch.equal(fin, torch.isfinite(sk["gain"]))
+    assert bool(((sk["gain"].double() - st["gain"]).abs()[fin]
+                 <= tol[fin]).all())
+    clear = tk.split_gap_variance(h.double(), t.double(), fmask, mask,
+                                  lane(10.0).double()) > 2 * tol
+    # at 1,597 features the root's best split is the exact tie itself
+    assert bool(clear.any()) or D > 1000
+    for key in ("feature", "bin", "threshold"):
+        assert torch.equal(sk[key][clear], st[key][clear]), key
+    leaf_clear = ~fin | ((st["gain"] - 0.001).abs() > tol)
+    assert torch.equal(sk["is_leaf"][leaf_clear], st["is_leaf"][leaf_clear])
+    if D > 1000:
+        assert sk["feature"].tolist() == [[100]] * K

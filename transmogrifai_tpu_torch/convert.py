@@ -9,12 +9,15 @@ order).  The dicts this slice reads, by the fitted stage's class name:
 * ``RealVectorizerModel``: ``fills`` [F];
 * ``SanityCheckerModel``: ``indices_to_keep`` [D'] and optionally ``summary``;
 * ``SelectedModel``: ``model`` = ``"LinearPredictionModel"`` (``coef`` [D],
-  ``intercept`` [1], ``kind`` "binary" for logistic regression or "svc" for
-  a linear SVC) or ``"TreeEnsembleModel"`` — a GBT (``kind`` "gbt":
-  ``feature``, ``threshold``, ``is_leaf`` [R, T], ``leaf`` [R, T, 1],
-  ``eta``, ``base``, ``max_depth``) or a forest (``kind`` "forest": ``task``,
-  ``n_classes``, ``feature``, ``threshold``, ``is_leaf`` [R, T], ``leaf``
-  [R, T, C], ``max_depth``) — with those arrays under ``fitted``;
+  ``intercept`` [1], ``kind`` "binary" for logistic regression, "svc" for
+  a linear SVC or "regression" for a linear regression) or
+  ``"TreeEnsembleModel"`` — a GBT (``kind`` "gbt": ``task``, ``feature``,
+  ``threshold``, ``is_leaf`` [R, T], ``leaf`` [R, T, 1], ``eta``, ``base``,
+  ``max_depth``) or a forest (``kind`` "forest": ``task``, ``n_classes``,
+  ``feature``, ``threshold``, ``is_leaf`` [R, T], ``leaf`` [R, T, C] or,
+  for a regressor, [R, T, 1], ``max_depth``) — with those arrays under
+  ``fitted``; ``task`` is "classification" (the default) or
+  "regression";
 * ``RecordInsightsLOCO``: the explained model as ``model`` / ``fitted``
   (the ``SelectedModel`` forms above; the stage keeps its own ``top_k`` and
   ``strategy``);
@@ -66,7 +69,7 @@ def _model_fitted(name: str, fitted: Dict[str, Any], device) -> Dict[str, Any]:
         out["intercept"] = _tensor(fitted["intercept"], device,
                                    torch.float32).reshape(-1)
         out.setdefault("kind", "binary")
-        if out["kind"] not in ("binary", "svc"):
+        if out["kind"] not in ("binary", "svc", "regression"):
             raise NotImplementedError(
                 f"convert: no port model for linear kind {out['kind']!r}")
     elif name == "TreeEnsembleModel":
@@ -83,10 +86,10 @@ def _model_fitted(name: str, fitted: Dict[str, Any], device) -> Dict[str, Any]:
         elif out["kind"] != "forest":
             raise NotImplementedError(
                 f"convert: no port model for tree kind {out['kind']!r}")
-        elif out.get("task", "classification") != "classification":
+        if out.setdefault("task", "classification") not in (
+                "classification", "regression"):
             raise NotImplementedError(
-                "convert: forest regression comes with the port's regression "
-                "slice")
+                f"convert: no port model for tree task {out['task']!r}")
     else:
         raise NotImplementedError(f"convert: no port model for {name!r}")
     return out

@@ -4,7 +4,8 @@
 // Replaces (JAX): transmogrifai_tpu/models/solvers.py:_fista_loop's
 // smooth_grad (:160-166) with the dense closures xs_mv / xs_tmv (:270-286),
 // vmapped over the (fold x grid) lanes by linear_grid_fit (:334-376), and the
-// power iteration's product of _spectral_norm_sq_weighted (:112-131).  XLA
+// power iteration's product of _spectral_norm_sq_weighted (:112-131); the
+// squared loss's row gradient is _squared_loss_grad (:53-56).  XLA
 // runs that as two matmuls per iteration that each read X from memory, with
 // the loss gradient between them.
 //
@@ -13,6 +14,7 @@
 //   g[n,l] = logistic:       W[f,n] * (sigmoid(m) - y[n]) / wsum[l]
 //            squared hinge:  W[f,n] * (-2 * max(0, 1 - y[n]*m) * y[n]) / wsum[l]
 //            gram:           (W[f,n] / wsum[l]) * m
+//            squared:        W[f,n] * (m - y[n]) / wsum[l]
 //   out[d, l] = sum_n X[n,d] * g[n,l]   (d < D),   out[D, l] = sum_n g[n,l]
 // (V = coef / scale, muv = mean . V: the caller un-standardises.)
 //
@@ -59,7 +61,8 @@
 #include <math.h>
 #include <stdint.h>
 
-enum { LOSS_LOGISTIC = 0, LOSS_SQUARED_HINGE = 1, LOSS_GRAM = 2 };
+enum { LOSS_LOGISTIC = 0, LOSS_SQUARED_HINGE = 1, LOSS_GRAM = 2,
+       LOSS_SQUARED = 3 };
 
 __global__ void fista_partials_kernel(const float* __restrict__ X,
                                       const float* __restrict__ V,
@@ -135,6 +138,8 @@ __global__ void fista_partials_kernel(const float* __restrict__ X,
           } else if (loss == LOSS_SQUARED_HINGE) {
             const float viol = fmaxf(0.f, 1.f - yn * mm);
             g[j] = w * (-2.f * viol * yn) / ws;
+          } else if (loss == LOSS_SQUARED) {
+            g[j] = w * (mm - yn) / ws;
           } else {
             g[j] = (w / ws) * mm;
           }
@@ -291,6 +296,8 @@ __global__ void fista_margin_kernel(const float* __restrict__ X,
       } else if (loss == LOSS_SQUARED_HINGE) {
         const float viol = fmaxf(0.f, 1.f - yn * mm);
         g[j] = w * (-2.f * viol * yn) / ws;
+      } else if (loss == LOSS_SQUARED) {
+        g[j] = w * (mm - yn) / ws;
       } else {
         g[j] = (w / ws) * mm;
       }
@@ -379,7 +386,7 @@ extern "C" int fista_step_launch(const void* X, const void* V,
                                  int lane0, int G, int loss, int wide, int TR,
                                  int n_blocks, int DCm, int TRx, int DCx,
                                  int smem_a, int smem_b, void* stream) {
-  if (L < 1 || D < 1 || TR < 1 || n_blocks < 1 || loss < 0 || loss > 2)
+  if (L < 1 || D < 1 || TR < 1 || n_blocks < 1 || loss < 0 || loss > 3)
     return (int)cudaErrorInvalidValue;
   const int Lp = (L + 3) / 4 * 4;
   const cudaStream_t s = (cudaStream_t)stream;

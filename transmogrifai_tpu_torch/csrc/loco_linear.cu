@@ -1,5 +1,6 @@
-// loco_linear — leave-one-covariate-out explanations of a binary linear
-// model (logistic regression or linear SVC) with each row's top-K groups.
+// loco_linear — leave-one-covariate-out explanations of a linear model
+// (logistic regression, linear SVC or linear regression) with each row's
+// top-K groups.
 //
 // Replaces (JAX): transmogrifai_tpu/record_insights.py:_device_topk's `loco`
 // program (:140-160) on a linear model: the base forward, a lax.map of G
@@ -11,7 +12,8 @@
 // c_g = sum_{j in g} x_j w_j from the margin m = x . w + b: each row needs
 // one read of its own columns, and
 //   score_g = link(m - c_g),  diff_g = link(m) - score_g,
-// with link the sigmoid (logistic) or the identity (SVC margin).  Only the
+// with link the sigmoid (logistic) or the identity (an SVC's margin, a
+// linear regression's prediction).  Only the
 // f32 summation order differs from the reference's masked forwards, and a
 // group whose columns are all zero has c_g = 0 and a diff of exactly 0.
 //

@@ -1,5 +1,6 @@
-// loco_tree — leave-one-covariate-out explanations of a binary tree
-// ensemble (GBT, random forest, decision tree) with each row's top-K groups.
+// loco_tree — leave-one-covariate-out explanations of a tree ensemble (GBT,
+// random forest, decision tree; binary classifier or regressor) with each
+// row's top-K groups.
 //
 // Replaces (JAX): transmogrifai_tpu/record_insights.py:_device_topk's `loco`
 // program (:140-160) on a tree model: the base forward, a lax.map of G
@@ -11,11 +12,16 @@
 // compares 0 instead of x_f — so nothing the size of X * m_g is formed.  The
 // walk keeps tree_walk.cu's rules: a leaf stops it, a child index >= T
 // leaves the row at its node, the compare is x > threshold.  The score:
-//   GBT     sigmoid(base + eta * sum_t leaf_a)                (link 0)
-//   forest  (sum_t leaf_a / Tr) / max(sum_t leaf_b / Tr, 1e-12)  (link 1)
-// where for a forest leaf_a is a node's last class share (column 1 of a
-// binary forest, the reference's probability[:, -1]) and leaf_b the sum of
-// its class shares: the normalised mean of TreeEnsembleModel.device_scores.
+//   GBT classifier     sigmoid(base + eta * sum_t leaf_a)             (link 0)
+//   forest classifier  (sum_t leaf_a / Tr) / max(sum_t leaf_b / Tr, 1e-12)
+//                                                                    (link 1)
+//   GBT regressor      base + eta * sum_t leaf_a                      (link 2)
+//   forest regressor   sum_t leaf_a / Tr                              (link 3)
+// where for a forest classifier leaf_a is a node's last class share (column
+// 1 of a binary forest, the reference's probability[:, -1]) and leaf_b the
+// sum of its class shares: the normalised mean of
+// TreeEnsembleModel.device_scores.  A regressor's leaf_a is its one leaf
+// value, and the score its prediction (no sigmoid, no second leaf value).
 // The sums run over the trees in order, as the twin's walk sums them.
 //
 // Design: one warp per row (grid-stride over rows); lanes 0-30 walk groups
@@ -90,7 +96,9 @@ __device__ __forceinline__ float tree_score(const Trees& t, const float* x,
   }
   if (link == 0)
     return loco_sigmoid(__fadd_rn(base0, __fmul_rn(eta, sa)));
+  if (link == 2) return __fadd_rn(base0, __fmul_rn(eta, sa));
   const float tr = (float)Tr;
+  if (link == 3) return __fdiv_rn(sa, tr);
   return __fdiv_rn(__fdiv_rn(sa, tr), fmaxf(__fdiv_rn(sb, tr), 1e-12f));
 }
 
@@ -158,7 +166,7 @@ extern "C" int loco_tree_launch(const void* X, const void* feature,
                                 float base0, float eta, int blocks,
                                 int threads, int smem, void* stream) {
   if (K < 1 || K > G || threads % 32 || strategy < 0 || strategy > 2 ||
-      link < 0 || link > 1 || (link == 1 && leaf_b == nullptr))
+      link < 0 || link > 3 || (link == 1 && leaf_b == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       loco_tree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

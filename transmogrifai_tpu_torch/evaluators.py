@@ -1,11 +1,12 @@
-"""Evaluators (port of the binary family of ``transmogrifai_tpu/evaluators.py``;
-reference: OpEvaluatorBase.scala:113, OpBinaryClassificationEvaluator
-.scala:67-185, Evaluators.scala:40).
+"""Evaluators (port of the binary and regression families of
+``transmogrifai_tpu/evaluators.py``; reference: OpEvaluatorBase.scala:113,
+OpBinaryClassificationEvaluator.scala:67-185, OpRegressionEvaluator.scala,
+Evaluators.scala:40).
 
 The port scores on the device only: a model's ``device_scores`` output and a
 0/1 row mask go in, and the metric panel comes out of masked reductions
-(``metrics_device``).  Multiclass and regression evaluators come with the
-slices that port those model families.
+(``metrics_device``).  The multiclass evaluator comes with the slice that
+ports that model family.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import torch
 from .metrics_device import (masked_aupr, masked_aupr_fold_grid,
                              masked_aupr_grid, masked_auroc,
                              masked_auroc_fold_grid, masked_auroc_grid,
-                             masked_binary_confusion,
+                             masked_binary_confusion, masked_reg_errors,
+                             masked_reg_metric_fold_grid,
+                             masked_reg_metric_grid,
                              masked_threshold_confusion)
 
 DEFAULT_THRESHOLDS = np.linspace(0.0, 1.0, 101)
@@ -119,8 +122,64 @@ class OpBinaryClassificationEvaluator(OpEvaluatorBase):
             "falseNegativesByThreshold": tfn.tolist()})
 
 
+class OpRegressionEvaluator(OpEvaluatorBase):
+    """≙ OpRegressionEvaluator (evaluators.py:476-586): RMSE, MSE, MAE, R²
+    and the signed-error histogram."""
+
+    name = "regEval"
+    default_metric = "RootMeanSquaredError"
+    is_larger_better = False
+
+    def __init__(self, hist_bins: int = 20, **kw):
+        super().__init__(**kw)
+        self.hist_bins = hist_bins
+
+    def evaluate_masked_grid(self, y, S, W) -> torch.Tensor:
+        """Default metric of K prediction columns S [N, K] over the mask W
+        ([N] shared or [K, N]) → [K]."""
+        return masked_reg_metric_grid(y, S, W, self.default_metric)
+
+    def evaluate_masked_fold_grid(self, y, S, W) -> torch.Tensor:
+        """Default metric of the (fold × grid) prediction panel S [N, F, G]
+        with fold validation masks W [F, N] → [F, G]."""
+        return masked_reg_metric_fold_grid(y, S, W, self.default_metric)
+
+    def evaluate_all_device(self, y, device_out: Dict[str, Any],
+                            w) -> EvaluationMetrics:
+        """The full panel from a model's ``device_scores`` output: the
+        errors, R² against the masked labels' variance, and a ``hist_bins``
+        histogram of the signed errors (prediction - label) over their
+        masked range, each error in the bin ``searchsorted(inner edges,
+        side="right")`` gives it (edges in f32, as the JAX package
+        compares them)."""
+        pred = device_out["prediction"]
+        mse, mae = (float(v) for v in
+                    masked_reg_errors(y, pred, w).cpu().numpy())
+        wsum = torch.clamp(torch.sum(w), min=1e-12)
+        ym = torch.sum(w * y) / wsum
+        var = float(torch.sum(w * (y - ym) ** 2) / wsum)
+        err = pred - y
+        lo = float(torch.min(torch.where(w > 0, err, float("inf"))))
+        hi = float(torch.max(torch.where(w > 0, err, float("-inf"))))
+        edges = np.linspace(lo, hi if hi > lo else lo + 1.0,
+                            self.hist_bins + 1)
+        inner = torch.as_tensor(edges[1:-1], dtype=torch.float32,
+                                device=y.device)
+        idx = torch.clamp(torch.bucketize(err, inner, right=True), 0,
+                          self.hist_bins - 1)
+        counts = torch.bincount(idx, weights=w, minlength=self.hist_bins)
+        return EvaluationMetrics({
+            "RootMeanSquaredError": float(np.sqrt(mse)),
+            "MeanSquaredError": mse,
+            "MeanAbsoluteError": mae,
+            "R2": 1.0 - mse / var if var > 0 else 0.0,
+            "SignedPercentageErrorHistogram": {
+                "counts": [int(c) for c in counts.cpu().numpy()],
+                "bins": edges.tolist()}})
+
+
 class Evaluators:
-    """≙ Evaluators.scala:40 factory (binary family)."""
+    """≙ Evaluators.scala:40 factory (binary and regression families)."""
 
     class BinaryClassification:
         @staticmethod
@@ -130,3 +189,21 @@ class Evaluators:
         @staticmethod
         def auROC() -> OpBinaryClassificationEvaluator:
             return OpBinaryClassificationEvaluator(default_metric="AuROC")
+
+    class Regression:
+        @staticmethod
+        def rmse() -> OpRegressionEvaluator:
+            return OpRegressionEvaluator(default_metric="RootMeanSquaredError")
+
+        @staticmethod
+        def mse() -> OpRegressionEvaluator:
+            return OpRegressionEvaluator(default_metric="MeanSquaredError")
+
+        @staticmethod
+        def mae() -> OpRegressionEvaluator:
+            return OpRegressionEvaluator(default_metric="MeanAbsoluteError")
+
+        @staticmethod
+        def r2() -> OpRegressionEvaluator:
+            return OpRegressionEvaluator(default_metric="R2",
+                                         is_larger_better=True)

@@ -4,8 +4,8 @@ and the plain-PyTorch twin (the dispatch rule and launch counters are in
 
 | kernel      | replaces (transmogrifai_tpu/record_insights.py)                 |
 |-------------|------------------------------------------------------------------|
-| loco_linear | ``_device_topk``'s ``loco`` program (:140-160) on LR and SVC     |
-| loco_tree   | ``_device_topk``'s ``loco`` program (:140-160) on GBT, RF and DT |
+| loco_linear | ``_device_topk``'s ``loco`` program (:140-160) on LR, SVC and LinReg |
+| loco_tree   | ``_device_topk``'s ``loco`` program (:140-160) on GBT, RF and DT, classifiers and regressors |
 
 The JAX program runs a ``lax.map`` of G masked forwards ``score(X * m_g)``
 so that [G, N, D] is never formed, then ``lax.top_k`` over the [N, G]
@@ -40,7 +40,11 @@ _ARGTYPES = {
     "loco_tree": [_P] * 9 + [_L] + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P],
 }
 STRATEGIES = ("abs", "positive", "negative")
-LINKS = {"logistic": 0, "svc": 1, "gbt": 0, "forest": 1}   # kernel codes
+# kernel codes: loco_linear's sigmoid or identity (an SVC's margin, a linear
+# regression's prediction); loco_tree's GBT and forest scores, classifier
+# (probability of the last class) or regressor (prediction)
+LINKS = {"logistic": 0, "identity": 1, "gbt": 0, "forest": 1,
+         "gbt_regression": 2, "forest_regression": 3}
 THREADS = 256                    # 8 warps, a row each at a time
 SMEM_MAX = 227 * 1024            # what one block can hold
 BLOCKS_IN_FLIGHT = 132 * 8       # SMs x resident 256-thread blocks
@@ -64,8 +68,9 @@ def loco_plan(kind: str, N: int, D: int, G: int, K: int, n_nodes: int = 0,
     (``kind`` "tree"): one warp per row, a grid-stride loop over rows.  The
     linear kernel sums the groups in windows of ``GROUP_WINDOW`` slots a
     warp (one pass over the row when G fits, else a margin pass first); the
-    tree kernel stages the ``n_nodes`` tree nodes and the column map in
-    shared memory when they fit ``SMEM_MAX``.  Any G >= 1 and 1 <= K <= G:
+    tree kernel stages the ``n_nodes`` tree nodes (with ``forest``, a forest
+    classifier's, two leaf values a node) and the column map in shared
+    memory when they fit ``SMEM_MAX``.  Any G >= 1 and 1 <= K <= G:
     past K = 32 the top-K list lives in the output (``loco_topk.cuh``).  Wide groups
     (``wide_groups``: one window, 32 or more columns a group on average, D
     a multiple of 4) are read as float4, four columns a lane."""
@@ -134,20 +139,26 @@ def _outputs(N: int, k: int, dev):
 def loco_score(model, X: torch.Tensor) -> torch.Tensor:
     """The score LOCO explains, from the model's own ``device_scores`` (≙
     ``_device_score_fn``, record_insights.py:82-112): ``scores`` (logistic
-    p1, SVC margin, GBT p1, binary forest p1), else ``probability[:, -1]``.
-    A tree ensemble walks with ``tree_walk_twin``, so this is plain PyTorch
-    on any device: the twin's score."""
+    p1, SVC margin, GBT p1, binary forest p1), else ``probability[:, -1]``,
+    else ``prediction`` (a regressor's).  A tree ensemble walks with
+    ``tree_walk_twin``, so this is plain PyTorch on any device: the twin's
+    score."""
     from .models.tree_kernels import tree_walk_twin
     from .models.trees import TreeEnsembleModel
     out = (model.device_scores(X, walk=tree_walk_twin)
            if isinstance(model, TreeEnsembleModel) else model.device_scores(X))
-    return out["scores"] if "scores" in out else out["probability"][:, -1]
+    if "scores" in out:
+        return out["scores"]
+    if "probability" in out:
+        return out["probability"][:, -1]
+    return out["prediction"]
 
 
 def loco_linear(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
                 k: int, strategy: str = "abs"):
-    """Top-k LOCO (group, diff) pairs per row of a binary linear model
-    (``LinearPredictionModel``: logistic, or an SVC's margin).
+    """Top-k LOCO (group, diff) pairs per row of a linear model
+    (``LinearPredictionModel``: logistic, an SVC's margin, or a linear
+    regression's prediction).
 
     X f32 [N, D]; ``col_group`` int32 [D].  Returns (idx [N, k] in
     ``index_dtype(G)``, diffs [N, k] f32)."""
@@ -162,7 +173,8 @@ def loco_linear(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
     coef = torch.as_tensor(f["coef"], dtype=torch.float32,
                            device=dev).reshape(-1).contiguous()
     intercept = float(torch.as_tensor(f["intercept"]).reshape(-1)[0])
-    link = "svc" if f.get("kind") == "svc" else "logistic"
+    link = ("identity" if f.get("kind") in ("svc", "regression")
+            else "logistic")
     N, D = X.shape
     _check("loco_linear coef", coef, torch.float32, 1, dev)
     if coef.shape[0] != D:
@@ -191,7 +203,8 @@ def loco_linear(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
 def loco_tree(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
               k: int, strategy: str = "abs"):
     """Top-k LOCO (group, diff) pairs per row of a tree ensemble
-    (``TreeEnsembleModel``: a binary GBT, or a forest's last class).
+    (``TreeEnsembleModel``: a binary GBT, a forest's last class, or a GBT or
+    forest regressor's prediction).
 
     X f32 [N, D]; ``col_group`` int32 [D].  Returns (idx [N, k] in
     ``index_dtype(G)``, diffs [N, k] f32)."""
@@ -207,17 +220,20 @@ def loco_tree(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
                                   trees["is_leaf"], trees["leaf"])
     N, D = X.shape
     Tr, T = feat.shape
-    forest = model.fitted["kind"] != "gbt"
-    plan = loco_plan("tree", N, D, G, k, Tr * T, forest)
-    leaf_a = leaf[..., -1 if forest else 0].contiguous()
-    leaf_b = leaf.sum(dim=2).contiguous() if forest else None
+    link = model.fitted["kind"]                  # "gbt" or "forest"
+    if model.fitted.get("task") == "regression":
+        link += "_regression"
+    shares = link == "forest"                    # normalised class shares
+    plan = loco_plan("tree", N, D, G, k, Tr * T, shares)
+    leaf_a = leaf[..., -1 if shares else 0].contiguous()
+    leaf_b = leaf.sum(dim=2).contiguous() if shares else None
     val, idx = _outputs(N, k, dev)
     launch("loco_tree", _ARGTYPES["loco_tree"], X.data_ptr(),
            feat.data_ptr(), thr.data_ptr(), leaf_flag.data_ptr(),
            leaf_a.data_ptr(), 0 if leaf_b is None else leaf_b.data_ptr(),
            col_group.data_ptr(), val.data_ptr(), idx.data_ptr(), N, D, Tr,
            T, int(trees["steps"]), G, k, STRATEGIES.index(strategy),
-           LINKS["forest" if forest else "gbt"],
+           LINKS[link],
            float(trees.get("base", 0.0)), float(trees.get("eta", 0.0)),
            plan.blocks, plan.threads, plan.smem_bytes, _stream(X))
     return idx.to(index_dtype(G)), val
@@ -246,9 +262,9 @@ def tree_inputs(fitted: dict, device) -> dict:
 
 def model_loco(model, X: torch.Tensor, col_group: torch.Tensor, G: int,
                k: int, strategy: str):
-    """LOCO top-k of a fitted model of the port on X: a binary linear model
-    takes ``loco_linear``, a GBT or a forest ``loco_tree``, each explaining
-    the score ``loco_score`` picks.  Another model raises
+    """LOCO top-k of a fitted model of the port on X: a linear model (binary
+    or regression) takes ``loco_linear``, a GBT or a forest ``loco_tree``,
+    each explaining the score ``loco_score`` picks.  Another model raises
     ``NotImplementedError`` (the JAX package's generic masked forward has no
     kernel here)."""
     from .models.linear import LinearPredictionModel
@@ -262,7 +278,7 @@ def model_loco(model, X: torch.Tensor, col_group: torch.Tensor, G: int,
         return loco_tree(X, model, col_group, G, k, strategy)
     raise NotImplementedError(
         f"RecordInsightsLOCO: no LOCO kernel for {type(model).__name__}; the "
-        "port explains binary linear models and tree ensembles on the card")
+        "port explains linear models and tree ensembles on the card")
 
 
 def col_group_of(groups, D: int, device) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Masked on-device metrics for the CV loop (port of
-``transmogrifai_tpu/metrics_device.py``; ≙ OpBinaryClassificationEvaluator
-.scala:67-185 semantics).
+"""Masked on-device metrics for the CV loop (port of the binary and
+regression panels of ``transmogrifai_tpu/metrics_device.py``; ≙
+OpBinaryClassificationEvaluator.scala:67-185 and OpRegressionEvaluator
+semantics).
 
 Every validation metric is a reduction over the FULL row set with a 0/1
 validation mask, so folds never change shapes.  Ties are exact: for sorted
@@ -109,3 +110,51 @@ def masked_threshold_confusion(y, scores, w, thresholds):
     tp = torch.flip(torch.cumsum(torch.flip(pos_hist, [0]), 0), [0])[1:]
     fp = torch.flip(torch.cumsum(torch.flip(neg_hist, [0]), 0), [0])[1:]
     return torch.stack([tp, fp, torch.sum(wneg) - fp, torch.sum(wpos) - tp])
+
+
+REG_METRICS = ("RootMeanSquaredError", "MeanSquaredError",
+               "MeanAbsoluteError", "R2")
+
+
+def masked_reg_errors(y: torch.Tensor, yhat: torch.Tensor, w: torch.Tensor):
+    """Weighted (mse, mae) over the last axis as one stacked [..., 2]
+    tensor (≙ ``masked_reg_errors``, metrics_device.py:124-130)."""
+    wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-12)
+    err = yhat - y
+    return torch.stack([torch.sum(w * err * err, dim=-1) / wsum,
+                        torch.sum(w * torch.abs(err), dim=-1) / wsum], dim=-1)
+
+
+def _masked_reg_metric(y, yhat, w, metric: str):
+    """One regression metric over the last axis: RMSE, MSE, MAE, or R² =
+    1 - mse / (the masked labels' weighted variance; 0 where that is 0)."""
+    if metric not in REG_METRICS:
+        raise ValueError(f"regression metric {metric!r}")
+    y, yhat, w = torch.broadcast_tensors(y, yhat, w)
+    errs = masked_reg_errors(y, yhat, w)
+    if metric == "RootMeanSquaredError":
+        return torch.sqrt(errs[..., 0])
+    if metric == "MeanSquaredError":
+        return errs[..., 0]
+    if metric == "MeanAbsoluteError":
+        return errs[..., 1]
+    wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-12)
+    ym = torch.sum(w * y, dim=-1, keepdim=True) / wsum[..., None]
+    var = torch.sum(w * (y - ym) ** 2, dim=-1) / wsum
+    return torch.where(var > 0, 1.0 - errs[..., 0] / torch.where(
+        var > 0, var, 1.0), 0.0)
+
+
+def masked_reg_metric_grid(y, S, W, metric: str):
+    """One regression metric of K prediction columns S [N, K] (linear
+    regression margins ARE the predictions) over W, one shared [N] mask or
+    per-candidate [K, N] masks → [K] (≙ ``masked_reg_metric_grid``,
+    metrics_device.py:142-155)."""
+    return _masked_reg_metric(y, S.T, W, metric)
+
+
+def masked_reg_metric_fold_grid(y, S, W, metric: str):
+    """The (fold × grid) regression panel: S [N, F, G] predictions, W [F, N]
+    fold masks → [F, G] (≙ ``masked_reg_metric_fold_grid``,
+    metrics_device.py:158-167)."""
+    return _masked_reg_metric(y, S.permute(1, 2, 0), W[:, None, :], metric)

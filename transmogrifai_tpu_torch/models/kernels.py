@@ -25,6 +25,7 @@ REPLACES = {
     "tree_hist_deep": "transmogrifai_tpu/models/trees.py:520",
     "tree_split": "transmogrifai_tpu/models/trees.py:339",
     "tree_split_gini": "transmogrifai_tpu/models/trees.py:331",
+    "tree_split_variance": "transmogrifai_tpu/models/trees.py:331",
     "tree_route": "transmogrifai_tpu/models/trees.py:373",
     "tree_walk": "transmogrifai_tpu/models/trees.py:668",
     "fista_step": "transmogrifai_tpu/models/solvers.py:160",

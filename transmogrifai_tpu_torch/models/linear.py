@@ -1,9 +1,12 @@
 """Linear-family models (port of ``transmogrifai_tpu/models/linear.py``;
-reference: OpLogisticRegression.scala:46, OpLinearSVC.scala).
+reference: OpLogisticRegression.scala:46, OpLinearSVC.scala,
+OpLinearRegression.scala).
 
 The port has binary elastic-net logistic regression and the squared-hinge
-linear SVC, on a dense matrix or a ``SparseMatrix``.  Multinomial, the GLMs,
-naive Bayes and the MLP come with later slices of the port.
+linear SVC, on a dense matrix or a ``SparseMatrix``, and elastic-net linear
+regression on a dense matrix (closed-form ridge when no grid point has an
+l1 penalty).  Sparse regression, multinomial, the GLMs, naive Bayes and the
+MLP come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ from ..columns import device_matrix, to_device_f32
 from ..device import tensor_device
 from ..sparse.matrix import SparseMatrix
 from .base import PredictionModel, PredictorEstimator
-from .solvers import linear_grid_fit, sparse_linear_grid_fit
+from .solvers import (linear_grid_fit, ridge_fit, ridge_grid_fit,
+                      sparse_linear_grid_fit, standardize_moments,
+                      unscale_params)
 
 
 def _n_classes(y) -> int:
@@ -35,8 +40,10 @@ def _grouped_grid_fit(est, X, y, fold_weights, grids, *, device, loss: str,
     config (max_iter/intercept/standardization/tol) and each group trains as
     one batched lane loop over (fold weights [F, N]) × (l2s, l1s [G])
     (≙ ``_grouped_grid_fit``, linear.py:41); a ``SparseMatrix`` X takes
-    ``sparse_linear_grid_fit`` (linear.py:56-90).  ``l2l1`` maps a point's
-    params to its (l2, l1) penalties.  Returns fitted dicts [F][G]."""
+    ``sparse_linear_grid_fit`` (linear.py:56-90), and the squared loss with
+    no l1 penalty in the group the closed-form ``ridge_grid_fit``
+    (linear.py:92-97).  ``l2l1`` maps a point's params to its (l2, l1)
+    penalties.  Returns fitted dicts [F][G]."""
     K, G = len(fold_weights), len(grids)
     out: list = [[None] * G for _ in range(K)]
     groups = defaultdict(list)
@@ -48,18 +55,21 @@ def _grouped_grid_fit(est, X, y, fold_weights, grids, *, device, loss: str,
     Xd = device_matrix(X, device)
     yd = to_device_f32(y, device)
     Wd = to_device_f32(fold_weights, device)
-    fit = (sparse_linear_grid_fit if isinstance(Xd, SparseMatrix)
-           else linear_grid_fit)
+    sparse = isinstance(Xd, SparseMatrix)
+    fit = sparse_linear_grid_fit if sparse else linear_grid_fit
     for (max_iter, fit_intercept, standardization, tol), gidx in groups.items():
         pens = [l2l1({**est._params, **grids[gi]}) for gi in gidx]
-        res = fit(
-            Xd, yd, Wd,
-            torch.tensor([p[0] for p in pens], dtype=torch.float32,
-                         device=device),
-            torch.tensor([p[1] for p in pens], dtype=torch.float32,
-                         device=device),
-            loss=loss, fit_intercept=fit_intercept,
-            standardization=standardization, max_iter=max_iter, tol=tol)
+        l2s, l1s = (torch.tensor(v, dtype=torch.float32, device=device)
+                    for v in zip(*pens))
+        if loss == "squared" and not sparse and not bool(l1s.any()):
+            res = ridge_grid_fit(Xd, yd, Wd, l2s,
+                                 fit_intercept=fit_intercept,
+                                 standardization=standardization)
+        else:
+            res = fit(Xd, yd, Wd, l2s, l1s, loss=loss,
+                      fit_intercept=fit_intercept,
+                      standardization=standardization, max_iter=max_iter,
+                      tol=tol)
         n_it = res.n_iter.cpu().numpy()
         for j, gi in enumerate(gidx):
             for k in range(K):
@@ -72,14 +82,17 @@ def _grouped_grid_fit(est, X, y, fold_weights, grids, *, device, loss: str,
 
 def _linear_device_scores(X, coef: torch.Tensor, intercept: torch.Tensor,
                           kind: str = "binary", full: bool = False):
-    """Binary score chain on the device (≙ ``_linear_device_scores`` /
+    """Score chain on the device (≙ ``_linear_device_scores`` /
     ``_scores_from_linear``, linear.py:148-184): margin → prediction and
     scores (the sigmoid for logistic, the raw margin for an SVC, which has
-    no probability), with ``full`` also probability and rawPrediction.  A
-    ``SparseMatrix`` X takes its margin from ``sp_matmat`` with k = 1
+    no probability), with ``full`` also probability and rawPrediction; a
+    regression's prediction is the margin itself, and it has nothing else.
+    A ``SparseMatrix`` X takes its margin from ``sp_matmat`` with k = 1
     (linear.py:200-210)."""
     lin = X.matvec(coef) if isinstance(X, SparseMatrix) else X @ coef
     margin = lin + intercept.reshape(-1)[0]
+    if kind == "regression":
+        return {"prediction": margin}
     out = {"prediction": (margin > 0).to(torch.float32)}
     if kind == "svc":
         out["scores"] = margin
@@ -94,8 +107,8 @@ def _linear_device_scores(X, coef: torch.Tensor, intercept: torch.Tensor,
 
 
 class LinearPredictionModel(PredictionModel):
-    """Fitted binary linear model; ``fitted``: coef [D], intercept [1],
-    kind "binary" (logistic) or "svc"."""
+    """Fitted linear model; ``fitted``: coef [D], intercept [1], kind
+    "binary" (logistic), "svc" or "regression"."""
 
     def device_scores(self, X, full: bool = False) -> Dict[str, Any]:
         return _linear_device_scores(
@@ -105,7 +118,7 @@ class LinearPredictionModel(PredictionModel):
 
 
 class _LinearGridEstimator(PredictorEstimator):
-    """A binary linear estimator trained by the (fold × grid) FISTA program:
+    """A linear estimator trained by the (fold × grid) program:
     ``loss`` names the solver's loss, ``kind`` the fitted model's scoring,
     ``_l2l1`` maps a grid point's params to its (l2, l1) penalties."""
 
@@ -176,3 +189,59 @@ class OpLinearSVC(_LinearGridEstimator):
         super().__init__(reg_param=reg_param, max_iter=max_iter, tol=tol,
                          fit_intercept=fit_intercept,
                          standardization=standardization, **kw)
+
+
+class OpLinearRegression(_LinearGridEstimator):
+    """≙ OpLinearRegression (elastic-net least squares, linear.py:351-410):
+    l1 = reg·en, l2 = reg·(1 - en); closed-form ridge when l1 = 0, else
+    FISTA on the squared loss.  Dense matrices only in this slice."""
+
+    loss, kind = "squared", "regression"
+
+    @staticmethod
+    def _l2l1(m) -> tuple:
+        return OpLogisticRegression._l2l1(m)
+
+    def __init__(self, reg_param: float = 0.0, elastic_net_param: float = 0.0,
+                 max_iter: int = 100, tol: float = 1e-6,
+                 fit_intercept: bool = True, standardization: bool = True, **kw):
+        super().__init__(reg_param=reg_param, elastic_net_param=elastic_net_param,
+                         max_iter=max_iter, tol=tol, fit_intercept=fit_intercept,
+                         standardization=standardization, **kw)
+
+    def fit_arrays_grid(self, X, y, fold_weights, grids, device=None):
+        if isinstance(X, SparseMatrix):
+            # the selector's skip seam passes over the family (TypeError)
+            raise TypeError(
+                "OpLinearRegression on a SparseMatrix arrives with the "
+                "port's sparse regression (ROADMAP queue 1 item 8); use a "
+                "dense feature vector")
+        return super().fit_arrays_grid(X, y, fold_weights, grids,
+                                       device=device)
+
+    def fit_arrays(self, X, y, sample_weight=None,
+                   device=None) -> Dict[str, Any]:
+        """One fit (≙ ``OpLinearRegression.fit_arrays``, linear.py:366-399):
+        with no l1 penalty, ``ridge_fit`` on the explicitly standardised
+        matrix; else the grid program with one fold and one lane."""
+        l2, l1 = self._l2l1(self._params)
+        if l1 != 0.0 or isinstance(X, SparseMatrix):
+            return super().fit_arrays(X, y, sample_weight, device)
+        dev = tensor_device(X, device)
+        Xd = device_matrix(X, dev)
+        yd = to_device_f32(y, dev)
+        w = (torch.ones(Xd.shape[0], dtype=torch.float32, device=dev)
+             if sample_weight is None else to_device_f32(sample_weight, dev))
+        fit_intercept = bool(self.get("fit_intercept", True))
+        if self.get("standardization", True):
+            mean, scale = standardize_moments(Xd, w[None], fit_intercept)
+            mean, scale = mean[0], scale[0]
+            Xs = (Xd - mean) / scale
+        else:
+            mean = torch.zeros(Xd.shape[1], dtype=torch.float32, device=dev)
+            scale = torch.ones_like(mean)
+            Xs = Xd
+        res = ridge_fit(Xs, yd, w, l2, fit_intercept=fit_intercept)
+        coef, intercept = unscale_params(res.coef, res.intercept, mean, scale)
+        return {"coef": coef, "intercept": intercept, "n_iter": 0,
+                "kind": "regression", "n_classes": 2}

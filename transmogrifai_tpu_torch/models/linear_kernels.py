@@ -4,7 +4,7 @@ plain-PyTorch twin (the dispatch rule and launch counters are in
 
 | kernel     | replaces (transmogrifai_tpu/models/solvers.py)                     |
 |------------|--------------------------------------------------------------------|
-| fista_step | ``_fista_loop``'s ``smooth_grad`` with ``xs_mv`` / ``xs_tmv`` (:160-166, :270-286); the product of ``_spectral_norm_sq_weighted`` (:112-131) |
+| fista_step | ``_fista_loop``'s ``smooth_grad`` with ``xs_mv`` / ``xs_tmv`` (:160-166, :270-286) for the logistic, squared-hinge and squared (:53-56) losses; the product of ``_spectral_norm_sq_weighted`` (:112-131) |
 
 For a ``SparseMatrix`` the same gradient evaluation is ``sparse_fista_step``:
 margins by the ``sp_matmat`` kernel, the loss derivative in plain PyTorch,
@@ -21,7 +21,7 @@ import torch
 
 from .kernels import check as _check, launch, stream as _stream
 
-LOSSES = {"logistic": 0, "squared_hinge": 1, "gram": 2}
+LOSSES = {"logistic": 0, "squared_hinge": 1, "gram": 2, "squared": 3}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 10 + [_L] + [_I] * 13 + [_P]
@@ -40,6 +40,8 @@ def loss_grads(lin, w, y, ws, loss: str):
     if loss == "squared_hinge":
         viol = torch.clamp(1.0 - y * lin, min=0.0)
         return w * (-2.0 * viol * y) / ws
+    if loss == "squared":
+        return w * (lin - y) / ws
     return (w / ws) * lin
 
 
@@ -121,7 +123,8 @@ def fista_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
     X f32 [N, D]; V f32 [L, D] the lanes' scaled coefficients (coef /
     scale); muv f32 [L] = mean · V; b f32 [L] intercepts; W f32 [F, N] fold
     row weights, lane l reading fold ``l // G``; y f32 [N] the loss target
-    (0/1 logistic, ±1 squared hinge; ignored by "gram"); wsum f32 [L].  With
+    (0/1 logistic, ±1 squared hinge, the label itself for "squared";
+    ignored by "gram"); wsum f32 [L].  With
     margins m = (X V_l - muv_l) + b_l and g the loss derivative weighted by
     ``W / wsum`` ("gram": g = (W / wsum) · m, the product of the power
     iteration), returns (Xᵀ g [L, D], Σ_n g [L]).  The card's sums run in

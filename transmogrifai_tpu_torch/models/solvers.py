@@ -1,6 +1,7 @@
-"""Full-batch solver for the linear family (port of the logistic and
-squared-hinge paths of ``transmogrifai_tpu/models/solvers.py``, dense and
-sparse).
+"""Full-batch solvers for the linear family (port of the logistic,
+squared-hinge and squared-loss paths of
+``transmogrifai_tpu/models/solvers.py``, dense and sparse, and of its
+closed-form ridge).
 
 The JAX package vmaps a per-lane ``lax.while_loop`` over the (fold × grid)
 lanes, so a lane that meets its tolerance freezes while the others run.  The
@@ -21,6 +22,10 @@ A ``SparseMatrix`` X runs the same loop: only the gradient seam differs
 lanes), and standardisation is scale only — the mean stays zero, since
 centring would densify every row (≙ ``sparse_linear_grid_fit``,
 solvers.py:469-578).
+
+Ridge (squared loss with no l1 penalty) is closed form, in plain PyTorch:
+one weighted Gram per fold and an f32 Cholesky solve per grid point
+(:func:`ridge_grid_fit`, :func:`ridge_fit`).
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch
 from .linear_kernels import grad_seam
 
 # Lipschitz constant of d²loss/dmargin² per row (≙ ``_LOSS_CURVATURE``)
-_LOSS_CURVATURE = {"logistic": 0.25, "squared_hinge": 2.0}
+_LOSS_CURVATURE = {"logistic": 0.25, "squared_hinge": 2.0, "squared": 1.0}
 
 
 class FitResult(NamedTuple):
@@ -53,8 +58,8 @@ def standardize_moments(X: torch.Tensor, W: torch.Tensor, center: bool):
 
 
 def loss_target(loss: str, y: torch.Tensor) -> torch.Tensor:
-    """The loss's target from 0/1 labels: ±1 for the squared hinge (≙
-    ``_loss_target``, solvers.py:134-141)."""
+    """The loss's target: ±1 from 0/1 labels for the squared hinge, the
+    labels themselves otherwise (≙ ``_loss_target``, solvers.py:134-141)."""
     if loss == "squared_hinge":
         return torch.where(y > 0.5, 1.0, -1.0).to(torch.float32)
     return y.to(torch.float32)
@@ -94,7 +99,7 @@ class FistaState(NamedTuple):
 
 class FistaLoop:
     """FISTA with adaptive restart for L lanes at once (≙ ``_fista_loop``,
-    solvers.py:143-289, for the dense "logistic" and "squared_hinge"
+    solvers.py:143-289, for the "logistic", "squared_hinge" and "squared"
     losses).  Lane l trains on fold row ``W[l // G]`` with penalties l2[l],
     l1[l] and standardisation mu[l], sc[l]; it minimises
     mean_loss(Xs w + b) + l2/2 ||w||² + l1 ||w||₁ in the standardized
@@ -179,7 +184,7 @@ def linear_grid_fit(X: torch.Tensor, y: torch.Tensor, W: torch.Tensor,
                     loss: str = "logistic", fit_intercept: bool = True,
                     standardization: bool = True, max_iter: int = 100,
                     tol: float = 1e-6) -> FitResult:
-    """The whole (fold × grid-point) CV block of a binary linear loss
+    """The whole (fold × grid-point) CV block of a linear loss
     (≙ ``linear_grid_fit``, solvers.py:334-376): W [F, N] fold weights,
     l2s/l1s [G] → FitResult with [F, G, ...] leaves.  Moments and λ_max are
     per fold, shared by the fold's grid lanes; lane f·G + g is grid point g
@@ -212,6 +217,91 @@ def _grid_fit(X, y, W, l2s, l1s, mean, scale, *, loss: str,
     coef, inter = unscale_params(s.coef, s.inter, lanes(mean), lanes(scale))
     return FitResult(coef.reshape(F, G, d), inter.reshape(F, G, 1),
                      s.k.reshape(F, G))
+
+
+def ridge_fit(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Tensor,
+              l2: float, *, fit_intercept: bool = True) -> FitResult:
+    """Closed-form weighted ridge regression by its normal equations (≙
+    ``ridge_fit``, solvers.py:293-316): with the weighted means removed,
+    (Xcᵀ W Xc / Σw + l2·I) coef = Xcᵀ W yc / Σw, solved by an f32
+    Cholesky.  Returns coef [D], intercept [1], n_iter 0."""
+    d = X.shape[1]
+    w = sample_weight.to(torch.float32)
+    wsum = w.sum()
+    if fit_intercept:
+        xm = (w @ X) / wsum
+        ym = (w * y).sum() / wsum
+        Xc, yc = X - xm, y - ym
+    else:
+        Xc, yc = X, y
+    Xw = Xc * w[:, None]
+    A = (Xc.T @ Xw) / wsum + l2 * torch.eye(d, dtype=torch.float32,
+                                            device=X.device)
+    b = (Xw.T @ yc) / wsum
+    coef = torch.cholesky_solve(b[:, None], torch.linalg.cholesky(A))[:, 0]
+    intercept = (ym - xm @ coef if fit_intercept
+                 else torch.zeros((), dtype=torch.float32, device=X.device))
+    return FitResult(coef, intercept.reshape(1),
+                     torch.zeros((), dtype=torch.int32, device=X.device))
+
+
+def ridge_grid_fit(X: torch.Tensor, y: torch.Tensor, W: torch.Tensor,
+                   l2s: torch.Tensor, *, fit_intercept: bool = True,
+                   standardization: bool = True) -> FitResult:
+    """Closed-form ridge over the (fold × l2-grid) block (≙
+    ``ridge_grid_fit``, solvers.py:381-444), the l1 = 0 path of
+    ``OpLinearRegression``: W [F, N] fold weights, l2s [G] → FitResult with
+    [F, G, ...] leaves.
+
+    With an intercept, X is first shifted by its global column means (one
+    [N, D] copy): centring a raw Gram algebraically would cancel
+    catastrophically in f32 for features of large mean.  Each fold then
+    takes one weighted Gram (XᵀWX)/Σw, is centred by its weighted mean and
+    standardised on those O(variance) entries, and every grid point is one
+    f32 Cholesky solve of the fold's standardised system.  The folds run one
+    after another, each with one [N, D] weighted scratch, as the JAX
+    package's ``lax.map`` does."""
+    F, d = W.shape[0], X.shape[1]
+    dev = X.device
+    if fit_intercept:
+        g = X.mean(dim=0)
+        X = X - g
+    else:
+        g = torch.zeros(d, dtype=torch.float32, device=dev)
+    eye = torch.eye(d, dtype=torch.float32, device=dev)
+    coefs, inters = [], []
+    for f in range(F):
+        w = W[f]
+        s = w.sum()
+        Xw = X * w[:, None]                       # the fold's scratch [N, D]
+        G = (X.T @ Xw) / s
+        p = (X.T @ (w * y)) / s
+        m = (w @ X) / s
+        ym = (w * y).sum() / s
+        del Xw
+        if standardization:
+            scale = torch.sqrt(torch.clamp(torch.diagonal(G) - m * m,
+                                           min=1e-12))
+        else:
+            scale = torch.ones(d, dtype=torch.float32, device=dev)
+        if fit_intercept:
+            Gc, bc, y0, mean_u = G - torch.outer(m, m), p - m * ym, ym, m
+        else:
+            Gc, bc = G, p
+            y0 = torch.zeros((), dtype=torch.float32, device=dev)
+            mean_u = torch.zeros(d, dtype=torch.float32, device=dev)
+        A0 = Gc / (scale[:, None] * scale[None, :])
+        b = bc / scale
+        A = A0[None] + l2s[:, None, None] * eye               # [G, D, D]
+        coef = torch.cholesky_solve(
+            b[None, :, None].expand(A.shape[0], d, 1).contiguous(),
+            torch.linalg.cholesky(A))[..., 0]                  # [G, D]
+        c, inter = unscale_params(coef, y0.expand(A.shape[0]), mean_u, scale)
+        coefs.append(c)
+        inters.append(inter - c @ g)      # undo the global shift
+    return FitResult(torch.stack(coefs), torch.stack(inters)[..., None],
+                     torch.zeros((F, l2s.shape[0]), dtype=torch.int32,
+                                 device=dev))
 
 
 def _sp_col_scale(X, W: torch.Tensor) -> torch.Tensor:

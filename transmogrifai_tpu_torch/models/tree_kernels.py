@@ -7,6 +7,7 @@ dispatch rule and launch counters are in ``kernels.py``).
 | tree_hist_deep  | ``_fit_tree_unrolled``'s segment-sum histograms (:520-531)     |
 | tree_split      | ``scan_chunk`` xgb gain/argmax + leaf flag/threshold/value (:339-364) |
 | tree_split_gini | ``scan_chunk`` gini gain over per-node subsets (:320-326, :331-366) |
+| tree_split_variance | ``scan_chunk`` variance gain over per-node subsets (:186-191, :331-366) |
 | tree_route      | the routing block (:373-391)                                    |
 | tree_walk       | ``_predict_trees_block`` (:668-702)                              |
 """
@@ -26,6 +27,7 @@ _ARGTYPES = {
     "tree_hist_deep": [_P] * 6 + [_L] + [_I] * 10 + [_P],
     "tree_split": [_P] * 13 + [_I] * 6 + [_P],
     "tree_split_gini": [_P] * 12 + [_I] * 8 + [_P],
+    "tree_split_variance": [_P] * 12 + [_I] * 6 + [_P],
     "tree_route": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _P],
     "tree_walk": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -52,11 +54,12 @@ class SplitPlan(NamedTuple):
 
 
 def split_plan(D: int, C: int = 0) -> SplitPlan:
-    """The launch plan of ``tree_split`` (``C`` = 0) and ``tree_split_gini``
-    (``C`` classes) at D features: the features pass in chunks of at most
-    ``SPLIT_D_CHUNK`` and, for gini, the classes in chunks of the smallest
-    template of ``GINI_CLASS_CHUNKS`` that holds C, or of the largest when
-    none does.  Any D >= 1 and C >= 1 have a plan."""
+    """The launch plan of ``tree_split`` and ``tree_split_variance`` (``C``
+    = 0) and ``tree_split_gini`` (``C`` classes) at D features: the
+    features pass in chunks of at most ``SPLIT_D_CHUNK`` and, for gini, the
+    classes in chunks of the smallest template of ``GINI_CLASS_CHUNKS`` that
+    holds C, or of the largest when none does.  Any D >= 1 and C >= 1 have
+    a plan."""
     if D < 1 or C < 0:
         raise ValueError(f"split_plan: D={D}, C={C}")
     dc = min(D, SPLIT_D_CHUNK)
@@ -435,6 +438,104 @@ def tree_split_gini(hist: torch.Tensor, totals: torch.Tensor,
                                           "is_leaf", "threshold")),
             K, P, D, NB, S - 1, plan.class_chunk, plan.d_chunk, plan.threads,
             _stream(hist))
+    return out
+
+
+# --------------------------------------------------------------------------
+# tree_split_variance
+# --------------------------------------------------------------------------
+
+def sse(s: torch.Tensor) -> torch.Tensor:
+    """Sum of squared errors of stats ``s [..., 3]`` = (w, w·y, w·y²):
+    s₂ - s₁²/cnt, cnt = max(s₀, 1e-12), in that f32 order (as the kernel
+    computes it)."""
+    return s[..., 2] - (s[..., 1] * s[..., 1]) / torch.clamp(s[..., 0],
+                                                             min=1e-12)
+
+
+def variance_gain(left: torch.Tensor, right: torch.Tensor,
+                  parent: torch.Tensor) -> torch.Tensor:
+    """``_gain_variance`` in its f32 order: sse(parent) - sse(left) -
+    sse(right)."""
+    return (sse(parent) - sse(left)) - sse(right)
+
+
+def split_gains_variance(hist, totals, fmask, node_mask,
+                         min_inst) -> torch.Tensor:
+    """The variance twin's gain table [K, P, D*NB] (see
+    :func:`split_gains_gini`)."""
+    return _gain_table(hist, totals, fmask, min_inst, variance_gain,
+                       node_mask)
+
+
+def split_gap_variance(hist, totals, fmask, node_mask,
+                       min_inst) -> torch.Tensor:
+    """Best minus runner-up variance gain per (lane, node) [K, P]."""
+    return _top2_gap(split_gains_variance(hist, totals, fmask, node_mask,
+                                          min_inst))
+
+
+def tree_split_variance_twin(hist, totals, fmask, node_mask, splits,
+                             min_inst, min_gain):
+    """Plain-PyTorch twin of ``tree_split_variance`` (see
+    :func:`tree_split_variance`)."""
+    return _split_twin(hist, totals, fmask, node_mask, splits, min_inst,
+                       min_gain, lambda lanes: variance_gain)
+
+
+def tree_split_variance(hist: torch.Tensor, totals: torch.Tensor,
+                        fmask: torch.Tensor, node_mask, splits: torch.Tensor,
+                        min_inst: torch.Tensor,
+                        min_gain: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Best variance (regression) split per (lane, node), over each node's
+    feature subset.
+
+    hist f32 [K, P, D, NB, 3] and totals f32 [K, P, 3] of (w, w·y, w·y²);
+    fmask bool [D] (the tree's features); node_mask bool [K, P, D] (each
+    node's drawn subset) or None for all features; splits f32 [D, NB-1];
+    min_inst / min_gain f32 [K].  The gain is ``_gain_variance`` over the
+    bin prefix, masked by min_inst on the weighted counts of both sides,
+    both masks and ``bin < NB-1``; the FIRST max over (feature, bin) wins.
+    Returns per-node gain, feature, bin, is_leaf (gain <= min_gain or
+    non-finite) and threshold ``splits[feature, bin]``, each [K, P].  The
+    kernel takes NB <= 32 bins and any D."""
+    dev = hist.device
+    _check("tree_split_variance hist", hist, torch.float32, 5, dev)
+    _check("tree_split_variance totals", totals, torch.float32, 3, dev)
+    _check("tree_split_variance fmask", fmask, torch.bool, 1, dev)
+    _check("tree_split_variance splits", splits, torch.float32, 2, dev)
+    for name, t in (("min_inst", min_inst), ("min_gain", min_gain)):
+        _check(f"tree_split_variance {name}", t, torch.float32, 1, dev)
+    K, P, D, NB, S = hist.shape
+    if (S != 3 or totals.shape != (K, P, 3) or splits.shape != (D, NB - 1)
+            or fmask.shape != (D,)):
+        raise ValueError("tree_split_variance: shapes of hist/totals/splits/"
+                         "fmask disagree")
+    if node_mask is not None:
+        _check("tree_split_variance node_mask", node_mask, torch.bool, 3, dev)
+        if node_mask.shape != (K, P, D):
+            raise ValueError("tree_split_variance: node_mask must be "
+                             "[K, P, D]")
+    if dev.type == "cpu":
+        return tree_split_variance_twin(hist, totals, fmask, node_mask,
+                                        splits, min_inst, min_gain)
+    if dev.type != "cuda":
+        raise ValueError(f"tree_split_variance: unsupported device {dev}")
+    if NB > 32:
+        raise ValueError("tree_split_variance: the kernel takes at most 32 "
+                         "bins")
+    plan = split_plan(D)
+    out = {"gain": torch.empty((K, P), dtype=torch.float32, device=dev),
+           "feature": torch.empty((K, P), dtype=torch.int32, device=dev),
+           "bin": torch.empty((K, P), dtype=torch.int32, device=dev),
+           "is_leaf": torch.empty((K, P), dtype=torch.bool, device=dev),
+           "threshold": torch.empty((K, P), dtype=torch.float32, device=dev)}
+    _launch("tree_split_variance", hist.data_ptr(), totals.data_ptr(),
+            fmask.data_ptr(), 0 if node_mask is None else node_mask.data_ptr(),
+            splits.data_ptr(), min_inst.data_ptr(), min_gain.data_ptr(),
+            *(out[k].data_ptr() for k in ("gain", "feature", "bin",
+                                          "is_leaf", "threshold")),
+            K, P, D, NB, plan.d_chunk, plan.threads, _stream(hist))
     return out
 
 

@@ -1,14 +1,16 @@
-"""Tree classifiers on the hand-written tree kernels (port of the GBT,
-random-forest and decision-tree classifier paths of
+"""Tree ensembles on the hand-written tree kernels (port of the GBT,
+random-forest and decision-tree classifier and regressor paths of
 ``transmogrifai_tpu/models/trees.py``; reference: OpGBTClassifier.scala,
-OpRandomForestClassifier.scala, OpDecisionTreeClassifier.scala).
+OpRandomForestClassifier.scala, OpDecisionTreeClassifier.scala and their
+regressors).
 
 Features are quantile-binned once into an int8 matrix ``B [N, D]``; trees
 grow level-wise as perfect heaps (feature, threshold, is_leaf, leaf values).
 Each level is three kernels — ``tree_hist`` (per-node, per-feature, per-bin
 statistics; ``tree_hist_deep`` once a level's nodes outgrow shared memory),
-``tree_split`` (xgb gain) or ``tree_split_gini`` (gini gain over each node's
-feature subset), both a prefix over bins and a first-max argmax, and
+``tree_split`` (xgb gain), ``tree_split_gini`` or ``tree_split_variance``
+(gini or variance gain over each node's feature subset), each a prefix over
+bins and a first-max argmax, and
 ``tree_route`` (rows to children) — run for a batch of (fold × grid-point ×
 tree) lanes at once; each boosting round's margin update and every scoring
 pass is ``tree_walk``.  The rounds and levels are a plain Python loop, the
@@ -33,7 +35,7 @@ from ..device import tensor_device
 from .base import PredictionModel, PredictorEstimator
 from .linear import _n_classes
 from .tree_kernels import (tree_hist, tree_route, tree_split, tree_split_gini,
-                           tree_walk)
+                           tree_split_variance, tree_walk)
 
 MAX_BINS_DEFAULT = 32
 # Device bytes a batch of lanes may hold while its trees grow (statistics,
@@ -109,7 +111,8 @@ class TreeArrays(NamedTuple):
     feature: torch.Tensor    # [K, T] int32 (split feature; -1 at leaves)
     threshold: torch.Tensor  # [K, T] f32 raw split threshold
     is_leaf: torch.Tensor    # [K, T] bool
-    leaf: torch.Tensor       # [K, T, V] f32 leaf values (xgb V = 1, gini V = C)
+    leaf: torch.Tensor       # [K, T, V] f32 leaf values (xgb and variance
+                             # V = 1, gini V = C)
     gain: torch.Tensor       # [K, D] per-feature gain sum over splits
 
 
@@ -117,6 +120,12 @@ def _leaf_gini(totals: torch.Tensor) -> torch.Tensor:
     """Class shares of node totals [..., 1+C] → [..., C] (≙ ``_leaf_gini``,
     trees.py:216-217)."""
     return totals[..., 1:] / torch.clamp(totals[..., :1], min=1e-12)
+
+
+def _leaf_variance(totals: torch.Tensor) -> torch.Tensor:
+    """Mean label of node totals [..., 3] → [..., 1] (≙ ``_leaf_variance``,
+    trees.py:212-213)."""
+    return totals[..., 1:2] / torch.clamp(totals[..., 0:1], min=1e-12)
 
 
 def lane_bytes(n_rows: int, n_feats: int, n_stats: int, n_bins: int,
@@ -169,9 +178,11 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
     min_instances/min_gain f32 [K].  ``impurity`` "xgb": stats f32 [K, N, 3]
     = (w, w·g, w·h), ``lam`` f32 [K], one leaf value per node.  "gini":
     stats f32 [K, N, 1+C] = (w, w·[y=0], .., w·[y=C-1]), C leaf values
-    (class shares) per node, and ``node_masks`` per level a bool [K, 2^lvl,
-    D] of each node's feature subset (None: every feature).  Returns
-    perfect-heap arrays with T = 2^(max_depth+1) - 1 nodes.
+    (class shares) per node.  "variance": stats f32 [K, N, 3] = (w, w·y,
+    w·y²), one leaf value (the mean label) per node.  For gini and variance
+    ``node_masks`` per level is a bool [K, 2^lvl, D] of each node's feature
+    subset (None: every feature).  Returns perfect-heap arrays with
+    T = 2^(max_depth+1) - 1 nodes.
 
     Nodes below a leaf.  Rows whose node became a leaf keep that node id and
     drop out of every later histogram and route (the compact form's rule),
@@ -181,13 +192,14 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
     split and gives the nodes below it leaf values and thresholds from them.
     The two agree on every node a walk can reach (a walk stops at the first
     leaf), which is all that scoring and the per-feature gains read."""
-    if impurity not in ("xgb", "gini"):
+    if impurity not in ("xgb", "gini", "variance"):
         raise ValueError(f"fit_trees: impurity {impurity!r}")
     K, N, S = stats.shape
     D = B.shape[1]
     dev = B.device
     T = 2 ** (max_depth + 1) - 1
-    V = 1 if impurity == "xgb" else S - 1
+    V = S - 1 if impurity == "gini" else 1
+    node_leaf = _leaf_gini if impurity == "gini" else _leaf_variance
     feature = torch.full((K, T), -1, dtype=torch.int32, device=dev)
     threshold = torch.full((K, T), float("inf"), dtype=torch.float32,
                            device=dev)
@@ -207,15 +219,17 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
             sp = tree_split(hist, totals, fmask, splits, min_instances,
                             min_gain, lam)
         else:
-            sp = tree_split_gini(hist, totals, fmask, nm, splits,
-                                 min_instances, min_gain)
+            split = (tree_split_gini if impurity == "gini"
+                     else tree_split_variance)
+            sp = split(hist, totals, fmask, nm, splits, min_instances,
+                       min_gain)
         del hist
         row_node = tree_route(B, row_node, sp["feature"], sp["bin"],
                               sp["is_leaf"], off)
         if impurity == "xgb":
             leaf[:, off:off + P, 0] = sp["value"]
         else:
-            leaf[:, off:off + P] = _leaf_gini(totals)
+            leaf[:, off:off + P] = node_leaf(totals)
         lf = sp["is_leaf"]
         is_leaf[:, off:off + P] = lf
         feature[:, off:off + P] = torch.where(lf, -1, sp["feature"])
@@ -226,7 +240,7 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
     if impurity == "xgb":
         leaf[:, off:, 0] = -(totals[..., 1] / (totals[..., 2] + lam[:, None]))
     else:
-        leaf[:, off:] = _leaf_gini(totals)
+        leaf[:, off:] = node_leaf(totals)
     is_leaf[:, off:] = True
     return TreeArrays(feature, threshold, is_leaf, leaf, gain)
 
@@ -259,18 +273,24 @@ def predict_trees_agg(X, feature, threshold, is_leaf, leaf, max_depth: int,
 
 
 def _gbt_grid_fit(B, splits, X, y, margins, W, fmask, mis, mgs, lams, etas,
-                  *, max_depth: int, n_bins: int, n_rounds: int):
+                  *, max_depth: int, n_bins: int, n_rounds: int,
+                  task: str = "classification"):
     """All boosting rounds of K (fold × grid-point) GBT candidates at once
     (≙ ``_gbt_grid_scan_fitter`` / ``_gbt_grid_round_body``,
-    trees.py:928-970).  Returns (final margins [K, N], per-round TreeArrays
-    stacked to [R, K, ...])."""
+    trees.py:928-970): the logistic loss's gradients for a classifier, the
+    squared loss's (g = margin - y, h = 1) for a regressor.  Returns (final
+    margins [K, N], per-round TreeArrays stacked to [R, K, ...])."""
     N, D = B.shape
     per_lane = lane_bytes(N, D, 3, n_bins, max_depth, B.device)
     rounds = []
     for _ in range(n_rounds):
-        p = torch.sigmoid(margins)
-        g = p - y
-        h = torch.clamp(p * (1 - p), min=1e-6)
+        if task == "classification":
+            p = torch.sigmoid(margins)
+            g = p - y
+            h = torch.clamp(p * (1 - p), min=1e-6)
+        else:
+            g = margins - y
+            h = torch.ones_like(margins)
         # weight ALL stat columns (incl. count) so zero-weight rows are
         # excluded from min_instances feasibility too
         stats = (torch.stack([torch.ones_like(g), g, h], dim=2)
@@ -309,9 +329,11 @@ def _lane_params(vals, device) -> torch.Tensor:
 def fit_gbt(X, y, *, n_rounds: int, max_depth: int, max_bins: int,
             min_instances: float, min_gain: float, eta: float, lam: float,
             min_child_weight: float = 0.0, sample_weight=None,
-            device=None) -> Dict[str, Any]:
-    """Binary GBT (XGBoost-style second order) for one candidate
-    (≙ ``fit_gbt``, trees.py:822-862): the grid fitter with one lane."""
+            task: str = "classification", device=None) -> Dict[str, Any]:
+    """GBT (XGBoost-style second order) for one candidate (≙ ``fit_gbt``,
+    trees.py:822-862): the grid fitter with one lane.  A regressor starts
+    from the label mean (``jnp.mean(y)``, unweighted as in the JAX
+    package), a classifier from 0."""
     dev = tensor_device(X, device)
     Xd = _dense_matrix(X, dev)
     N, D = Xd.shape
@@ -320,14 +342,16 @@ def fit_gbt(X, y, *, n_rounds: int, max_depth: int, max_bins: int,
           if sample_weight is None
           else to_device_f32(sample_weight, dev)[None, :])
     mi = max(float(min_instances), float(min_child_weight))
+    yd = to_device_f32(y, dev)
+    base = 0.0 if task == "classification" else float(yd.mean())
     _, rounds = _gbt_grid_fit(
-        B, sp_t, Xd, to_device_f32(y, dev),
-        torch.zeros((1, N), dtype=torch.float32, device=dev), w0,
+        B, sp_t, Xd, yd,
+        torch.full((1, N), base, dtype=torch.float32, device=dev), w0,
         torch.ones(D, dtype=torch.bool, device=dev),
         *(_lane_params([v], dev) for v in (mi, min_gain, lam, eta)),
-        max_depth=max_depth, n_bins=max_bins, n_rounds=n_rounds)
-    return {"kind": "gbt", "task": "classification", "n_classes": 2,
-            "max_depth": max_depth, "eta": eta, "base": 0.0,
+        max_depth=max_depth, n_bins=max_bins, n_rounds=n_rounds, task=task)
+    return {"kind": "gbt", "task": task, "n_classes": 2,
+            "max_depth": max_depth, "eta": eta, "base": base,
             "feature": rounds.feature[:, 0].contiguous(),
             "threshold": rounds.threshold[:, 0].contiguous(),
             "is_leaf": rounds.is_leaf[:, 0].contiguous(),
@@ -397,14 +421,15 @@ def forest_draws(generator: torch.Generator, *, n_trees: int, n_rows: int,
 
 def _forest_grid_fit(B, splits, base_stats, fold_w, draws: ForestDraws,
                      lane_rates, mis, mgs, *, n_trees: int, max_depth: int,
-                     n_bins: int) -> TreeArrays:
+                     n_bins: int, impurity: str = "gini") -> TreeArrays:
     """Every (fold × grid-point × tree) tree of one forest shape group in
     level loops over lane batches (≙ ``_forest_grid_fitter``,
     trees.py:890-925, whose ``lax.map`` batches bound memory the same way).
     Lane ``(k·Gg + j)·n_trees + t`` fits tree t of grid point j on fold k
     with statistics base × (Poisson draw of tree t at point j's rate × fold
     weight); ``lane_rates`` gives point j's rate (or None: no bootstrap).
-    A batch's statistics and node subsets are made when it grows."""
+    ``impurity`` is "gini" (classes) or "variance" (regression).  A batch's
+    statistics and node subsets are made when it grows."""
     dev = B.device
     N, D = B.shape
     Gg = len(lane_rates)
@@ -434,7 +459,7 @@ def _forest_grid_fit(B, splits, base_stats, fold_w, draws: ForestDraws,
             masks = [m[tree_of_lane].contiguous() for m in subsets]
         parts.append(fit_trees(B, splits, stats, fmask, max_depth=max_depth,
                                n_bins=n_bins, min_instances=mis[sl],
-                               min_gain=mgs[sl], impurity="gini",
+                               min_gain=mgs[sl], impurity=impurity,
                                node_masks=masks))
         del stats, masks
     return cat_trees(parts)
@@ -461,14 +486,19 @@ def _walk_agg(X: torch.Tensor, fitted: Dict[str, Any], op: str,
 
 
 class TreeEnsembleModel(PredictionModel):
-    """Fitted GBT or forest classifier (≙ ``TreeEnsembleModel``,
-    trees.py:1006-1027, the device path)."""
+    """Fitted GBT or forest, classifier or regressor (≙
+    ``TreeEnsembleModel``, trees.py:1006-1030, the device path)."""
 
     def device_scores(self, X, full: bool = False,
                       walk=tree_walk) -> Dict[str, Any]:
         """``walk`` walks the trees: the ``tree_walk`` kernel, or its plain
-        twin ``tree_walk_twin`` (the LOCO twin scores through it)."""
+        twin ``tree_walk_twin`` (the LOCO twin scores through it).  A
+        regressor's only output is its ``prediction``: a forest's mean leaf,
+        a GBT's ``base + eta·Σ leaves``."""
         f = self.fitted
+        regression = f.get("task", "classification") == "regression"
+        if f["kind"] == "forest" and regression:
+            return {"prediction": _walk_agg(X, f, "mean", walk)[:, 0]}
         if f["kind"] == "forest":
             prob = _walk_agg(X, f, "mean", walk)                     # [N, C]
             prob = prob / torch.clamp(prob.sum(dim=1, keepdim=True),
@@ -481,6 +511,8 @@ class TreeEnsembleModel(PredictionModel):
                 out["rawPrediction"] = torch.log(torch.clamp(prob, min=1e-12))
             return out
         margin = f["base"] + f["eta"] * _walk_agg(X, f, "sum", walk)[:, 0]
+        if regression:
+            return {"prediction": margin}
         p1 = torch.sigmoid(margin)
         out = {"prediction": (p1 > 0.5).to(torch.float32), "scores": p1,
                "margin": margin}
@@ -491,13 +523,15 @@ class TreeEnsembleModel(PredictionModel):
 
 
 class _ForestEstimatorBase(PredictorEstimator):
-    """Random-forest classifier family (≙ ``_ForestEstimatorBase``,
-    trees.py:1085-1240).  ``draw_device`` names the device whose
-    ``torch.Generator`` (seeded with ``seed``) makes the draws; by default
-    the fit's own device.  Give ``"cpu"`` to make a card fit draw exactly
-    what the same fit on the CPU draws."""
+    """Random-forest family, gini classifier or variance regressor by
+    ``task`` (≙ ``_ForestEstimatorBase``, trees.py:1085-1240).
+    ``draw_device`` names the device whose ``torch.Generator`` (seeded with
+    ``seed``) makes the draws; by default the fit's own device.  Give
+    ``"cpu"`` to make a card fit draw exactly what the same fit on the CPU
+    draws."""
 
     model_cls = TreeEnsembleModel
+    task = "classification"
     default_feature_strategy = "sqrt"
 
     def __init__(self, num_trees: int = 20, max_depth: int = 5,
@@ -543,7 +577,8 @@ class _ForestEstimatorBase(PredictorEstimator):
         N, D = Xd.shape
         K, G = len(fold_weights), len(grids)
         out: list = [[None] * G for _ in range(K)]
-        n_classes = max(_n_classes(y), 2)
+        regression = self.task == "regression"
+        n_classes = 2 if regression else max(_n_classes(y), 2)
         groups = defaultdict(list)
         for gi, p in enumerate(grids):
             m = {**self._params, **p}
@@ -552,10 +587,14 @@ class _ForestEstimatorBase(PredictorEstimator):
                     self._strategy(m), bool(m.get("bootstrap", True)),
                     int(m.get("seed", 42)))].append(gi)
         yd = to_device_f32(y, dev)
-        base_stats = torch.cat(
-            [torch.ones((N, 1), dtype=torch.float32, device=dev),
-             torch.nn.functional.one_hot(yd.long(), n_classes).to(
-                 torch.float32)], dim=1)
+        if regression:     # (1, y, y²) (≙ trees.py:1158-1162)
+            base_stats = torch.stack([torch.ones_like(yd), yd, yd * yd],
+                                     dim=1)
+        else:
+            base_stats = torch.cat(
+                [torch.ones((N, 1), dtype=torch.float32, device=dev),
+                 torch.nn.functional.one_hot(yd.long(), n_classes).to(
+                     torch.float32)], dim=1)
         fold_w = to_device_f32(fold_weights, dev)
         fmask = torch.ones(D, dtype=torch.bool, device=dev)
         binned_by: Dict[int, tuple] = {}
@@ -588,12 +627,13 @@ class _ForestEstimatorBase(PredictorEstimator):
                 B, sp_t, base_stats, fold_w, draws, rates,
                 per_tree("min_instances_per_node", 1),
                 per_tree("min_info_gain", 0.0), n_trees=n_trees,
-                max_depth=max_depth, n_bins=max_bins)
+                max_depth=max_depth, n_bins=max_bins,
+                impurity="variance" if regression else "gini")
             for k in range(K):
                 for j, gi in enumerate(gidx):
                     s = (k * len(gidx) + j) * n_trees
                     out[k][gi] = {
-                        "kind": "forest", "task": "classification",
+                        "kind": "forest", "task": self.task,
                         "n_classes": n_classes, "max_depth": max_depth,
                         "feature": trees.feature[s:s + n_trees],
                         "threshold": trees.threshold[s:s + n_trees],
@@ -608,6 +648,14 @@ class OpRandomForestClassifier(_ForestEstimatorBase):
     """≙ OpRandomForestClassifier.scala:58."""
 
 
+class OpRandomForestRegressor(_ForestEstimatorBase):
+    """≙ OpRandomForestRegressor: variance splits over "onethird" of the
+    features per node."""
+
+    task = "regression"
+    default_feature_strategy = "onethird"
+
+
 class OpDecisionTreeClassifier(_ForestEstimatorBase):
     """≙ OpDecisionTreeClassifier: a single deterministic tree — no
     bootstrap, all features (like Spark's DecisionTreeClassifier)."""
@@ -620,11 +668,20 @@ class OpDecisionTreeClassifier(_ForestEstimatorBase):
         super().__init__(max_depth=max_depth, **kw)
 
 
-class OpGBTClassifier(PredictorEstimator):
-    """≙ OpGBTClassifier (binary, like Spark's GBTClassifier).  Fits are
-    deterministic: no random draws."""
+class OpDecisionTreeRegressor(OpDecisionTreeClassifier):
+    """≙ OpDecisionTreeRegressor: one variance tree, every feature, no
+    bootstrap."""
+
+    task = "regression"
+
+
+class _GBTEstimatorBase(PredictorEstimator):
+    """Gradient-boosted trees (≙ ``_GBTEstimatorBase``, trees.py:1268-1400):
+    the logistic loss for a classifier, the squared loss for a regressor
+    (``task``).  Fits are deterministic: no random draws."""
 
     model_cls = TreeEnsembleModel
+    task = "classification"
 
     def __init__(self, max_iter: int = 20, max_depth: int = 5,
                  max_bins: int = MAX_BINS_DEFAULT, min_instances_per_node: int = 1,
@@ -646,7 +703,7 @@ class OpGBTClassifier(PredictorEstimator):
             eta=float(self.get("step_size", 0.1)),
             lam=float(self.get("reg_lambda", 1.0)),
             min_child_weight=float(self.get("min_child_weight", 0.0)),
-            sample_weight=sample_weight, device=device)
+            sample_weight=sample_weight, task=self.task, device=device)
 
     def fit_arrays_grid(self, X, y, fold_weights, grids, device=None):
         """Every (fold × grid-point) candidate of a static tree shape trains
@@ -686,19 +743,27 @@ class OpGBTClassifier(PredictorEstimator):
             mgs = per_cand([mval(gi, "min_info_gain", 0.0) for gi in gidx])
             lams = per_cand([mval(gi, "reg_lambda", 1.0) for gi in gidx])
             etas = per_cand([mval(gi, "step_size", 0.1) for gi in gidx])
+            if self.task == "classification":
+                base = torch.zeros(Kc, dtype=torch.float32, device=dev)
+            else:   # each fold's weighted label mean (≙ trees.py:1345-1349)
+                base = (fold_w @ yd) / torch.clamp(fold_w.sum(dim=1),
+                                                   min=1e-12)
+                base = base.repeat_interleave(Gg)
             _, rounds = _gbt_grid_fit(
                 B, sp_t, Xd, yd,
-                torch.zeros((Kc, N), dtype=torch.float32, device=dev),
+                base[:, None].expand(Kc, N).contiguous(),
                 fold_w.repeat_interleave(Gg, dim=0).contiguous(), fmask,
                 *(_lane_params(a, dev) for a in (mis, mgs, lams, etas)),
-                max_depth=max_depth, n_bins=max_bins, n_rounds=n_rounds)
+                max_depth=max_depth, n_bins=max_bins, n_rounds=n_rounds,
+                task=self.task)
+            base_h = base.cpu().numpy()
             for k in range(K):
                 for j, gi in enumerate(gidx):
                     kc = k * Gg + j
                     out[k][gi] = {
-                        "kind": "gbt", "task": "classification",
+                        "kind": "gbt", "task": self.task,
                         "n_classes": 2, "max_depth": max_depth,
-                        "eta": float(etas[kc]), "base": 0.0,
+                        "eta": float(etas[kc]), "base": float(base_h[kc]),
                         "feature": rounds.feature[:, kc].contiguous(),
                         "threshold": rounds.threshold[:, kc].contiguous(),
                         "is_leaf": rounds.is_leaf[:, kc].contiguous(),
@@ -707,3 +772,14 @@ class OpGBTClassifier(PredictorEstimator):
                         "bin_splits": splits}
         return out
 
+
+
+class OpGBTClassifier(_GBTEstimatorBase):
+    """≙ OpGBTClassifier (binary, like Spark's GBTClassifier)."""
+
+
+class OpGBTRegressor(_GBTEstimatorBase):
+    """≙ OpGBTRegressor: squared-loss boosting from each fold's label
+    mean."""
+
+    task = "regression"

@@ -4,7 +4,7 @@ RecordInsightsLOCO.scala:100-240 and RecordInsightsCorr.scala:56-225).
 
 ``RecordInsightsLOCO`` (leave one covariate out) re-scores each row with each
 raw-feature group's columns zeroed and reports the K groups whose removal
-moves the score most.  On the card a binary linear model runs the
+moves the score most.  On the card a linear model runs the
 ``loco_linear`` kernel and a tree ensemble ``loco_tree``
 (``insights_kernels.py``), each reading X once and keeping every row's top K
 as it goes; on the CPU both run their plain twin.  A model with no
@@ -66,7 +66,8 @@ class RecordInsightsLOCO(Transformer):
     (|diff|), "positive" (diff) or "negative" (-diff), where diff = base
     score - the score with the group's columns zeroed.  The score is the
     model's ``scores`` (logistic p1, SVC margin, GBT p1, binary forest p1),
-    else ``probability[:, -1]``, else ``prediction``."""
+    else ``probability[:, -1]``, else ``prediction`` (a regressor's: never
+    a sigmoid of it)."""
 
     in_kinds = (OPVector,)
     out_kind = TextMap

@@ -8,7 +8,8 @@ through the same batched grid program (one fold, one lane), evaluate every
 evaluator on the training rows (and the holdout), and return a
 ``SelectedModel`` carrying the ``ModelSelectorSummary``.  With no
 ``models=`` the binary selector runs the reference's default grid
-(``DefaultSelectorParams``): LR x8, RF x18, GBT x18, LinearSVC x4.
+(``DefaultSelectorParams``): LR x8, RF x18, GBT x18, LinearSVC x4; the
+regression selector LinReg x8, RF regressor x18 and GBT regressor x18.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from .columns import ColumnBatch
 from .evaluators import (Evaluators, OpBinaryClassificationEvaluator,
-                         OpEvaluatorBase)
+                         OpEvaluatorBase, OpRegressionEvaluator)
 from .models.base import PredictionModel, extract_xy
 from .resilience import FailureLog
 from .stages.base import Estimator
@@ -30,14 +31,14 @@ from .tuning import (DataSplitter, ModelCandidate, OpCrossValidation,
 from .types import OPVector, Prediction, RealNN
 
 __all__ = ["ModelCandidate", "grid", "ModelSelector", "SelectedModel",
-           "BinaryClassificationModelSelector", "ModelSelectorSummary",
-           "DefaultSelectorParams"]
+           "BinaryClassificationModelSelector", "RegressionModelSelector",
+           "ModelSelectorSummary", "DefaultSelectorParams"]
 
 
 class DefaultSelectorParams:
     """≙ DefaultSelectorParams.scala:36-68 — the pinned reference grid
-    values (the JAX package's selector.py:35-56; those the binary default
-    grid reads)."""
+    values (the JAX package's selector.py:35-56; those the binary and
+    regression default grids read)."""
 
     MAX_DEPTH = [3, 6, 12]
     MAX_BIN = [32]
@@ -252,6 +253,15 @@ def _gbt_classifier(p=DefaultSelectorParams) -> ModelCandidate:
         "OpGBTClassifier")
 
 
+def _compact_models(linear_cls, forest_cls) -> List[ModelCandidate]:
+    """Fast starter grid (≙ ``_compact_models``, selector.py:551-562): a
+    linear ``reg_param`` sweep and one 20-tree depth-6 forest."""
+    return [ModelCandidate(linear_cls(), grid(reg_param=[0.01, 0.1]),
+                           linear_cls.__name__),
+            ModelCandidate(forest_cls(), grid(num_trees=[20], max_depth=[6]),
+                           forest_cls.__name__)]
+
+
 def _svc_candidates(p=DefaultSelectorParams) -> ModelCandidate:
     from .models.linear import OpLinearSVC
     return ModelCandidate(
@@ -284,13 +294,73 @@ class BinaryClassificationModelSelector(ModelSelector):
 
     @staticmethod
     def compact_models() -> List[ModelCandidate]:
-        """Fast starter grid (≙ ``_compact_models``, selector.py:551-562):
-        an LR reg_param sweep and one 20-tree depth-6 forest."""
+        """An LR ``reg_param`` sweep and one 20-tree depth-6 forest."""
         from .models.linear import OpLogisticRegression
         from .models.trees import OpRandomForestClassifier
-        return [ModelCandidate(OpLogisticRegression(),
-                               grid(reg_param=[0.01, 0.1]),
-                               "OpLogisticRegression"),
-                ModelCandidate(OpRandomForestClassifier(),
-                               grid(num_trees=[20], max_depth=[6]),
-                               "OpRandomForestClassifier")]
+        return _compact_models(OpLogisticRegression, OpRandomForestClassifier)
+
+
+# --------------------------------------------------------------------------
+# the reference's default regression grid (≙ selector.py:522-549)
+# --------------------------------------------------------------------------
+
+def _linreg_candidates(p=DefaultSelectorParams) -> ModelCandidate:
+    from .models.linear import OpLinearRegression
+    return ModelCandidate(
+        OpLinearRegression(),
+        grid(reg_param=p.REGULARIZATION, elastic_net_param=p.ELASTIC_NET,
+             max_iter=p.MAX_ITER_LIN),
+        "OpLinearRegression")
+
+
+def _rf_regressor(p=DefaultSelectorParams) -> ModelCandidate:
+    from .models.trees import OpRandomForestRegressor
+    return ModelCandidate(
+        OpRandomForestRegressor(),
+        grid(max_depth=p.MAX_DEPTH,
+             min_instances_per_node=p.MIN_INSTANCES_PER_NODE,
+             min_info_gain=p.MIN_INFO_GAIN, num_trees=p.MAX_TREES,
+             max_bins=p.MAX_BIN),
+        "OpRandomForestRegressor")
+
+
+def _gbt_regressor(p=DefaultSelectorParams) -> ModelCandidate:
+    from .models.trees import OpGBTRegressor
+    return ModelCandidate(
+        OpGBTRegressor(),
+        grid(max_depth=p.MAX_DEPTH,
+             min_instances_per_node=p.MIN_INSTANCES_PER_NODE,
+             min_info_gain=p.MIN_INFO_GAIN, max_iter=p.MAX_ITER_TREE,
+             max_bins=p.MAX_BIN),
+        "OpGBTRegressor")
+
+
+class RegressionModelSelector(ModelSelector):
+    """≙ RegressionModelSelector.scala:61 (selector.py:622-646): 3-fold CV
+    ranked by RMSE (smaller is better) by default and a
+    ``DataSplitter(seed)``; with no ``models`` the reference's default
+    candidates LinReg, RF regressor and GBT regressor."""
+
+    problem_type = "Regression"
+
+    def __init__(self, num_folds: int = 3, seed: int = 42,
+                 validation_metric: Optional[OpEvaluatorBase] = None,
+                 splitter: Optional[Splitter] = None,
+                 models: Optional[Sequence[ModelCandidate]] = None, **kw):
+        ev = validation_metric or Evaluators.Regression.rmse()
+        validator = OpCrossValidation(num_folds, ev, seed, False)
+        if models is None:
+            models = [_linreg_candidates(), _rf_regressor(),
+                      _gbt_regressor()]
+        super().__init__(validator,
+                         splitter if splitter is not None
+                         else DataSplitter(seed),
+                         models, [OpRegressionEvaluator()], **kw)
+
+    @staticmethod
+    def compact_models() -> List[ModelCandidate]:
+        """A ridge ``reg_param`` sweep and one 20-tree depth-6 RF
+        regressor."""
+        from .models.linear import OpLinearRegression
+        from .models.trees import OpRandomForestRegressor
+        return _compact_models(OpLinearRegression, OpRandomForestRegressor)

@@ -10,6 +10,10 @@ cat1, r0 and the map's key a.
 
 Sparse-text rows hold 8 tokens of a label-dependent half of a 30,000-word
 vocabulary and one dense Real.
+
+Regression rows (``bench.run_selector_smoke``'s regression half) hold 16
+standard-normal features and a label that is their weighted sum plus noise
+of sd 0.3.
 """
 
 from __future__ import annotations
@@ -117,3 +121,20 @@ def make_sparse_text_columns(n: int, vocab_size: int = 30_000, seed: int = 3
             "txt": Column(Text, txt),
             "x0": Column(Real, x0, mask=np.ones(n, dtype=bool))}
     return cols, dict(SPARSE_TEXT_SCHEMA)
+
+
+def make_regression_data(n: int, d: int = 16, seed: int = 11
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """(X [n, d] f32, y [n] f32) of ``bench.run_selector_smoke``'s
+    regression workload: ``y = X @ w + 0.3 * noise``.  The bench draws its
+    multiclass data from the same generator first (labels, class centres,
+    rows), so those draws are made here too, in the bench's order, and
+    dropped."""
+    rng = np.random.default_rng(seed)
+    ym = rng.integers(0, 4, n)
+    centers = rng.normal(size=(4, d)) * 2.5
+    _ = (centers[ym] + rng.normal(size=(n, d))).astype(np.float32)
+    w = rng.normal(size=d).astype(np.float32)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = X @ w + 0.3 * rng.normal(size=n).astype(np.float32)
+    return X, y.astype(np.float32)

@@ -173,7 +173,8 @@ class OpValidator:
         one masked metric panel (≙ ``_record_grid_metrics_batched``,
         tuning.py:505-580).  AUC metrics are rank-invariant, so raw margins
         stand in for the sigmoid scores of logistic lanes; an SVC scores on
-        its margin anyway."""
+        its margin anyway; a linear regression's margins ARE its
+        predictions (tuning.py:574-581)."""
         F, G = len(fitted_grid), len(fitted_grid[0])
         C = torch.stack([fitted_grid[f][g]["coef"]
                          for f in range(F) for g in range(G)])
@@ -192,7 +193,9 @@ class OpValidator:
         that sum and the normalised mean, and AUC sees ties); a GBT on
         sigmoid(base + eta·sum) in f32, exactly as the per-candidate path
         scores it (f32 saturation makes tie groups that the raw sums would
-        not)."""
+        not).  Regressors give their predictions as they are
+        (tuning.py:644-646, :671-689): a forest's leaf sum over its trees,
+        a GBT's base + eta·sum."""
         F, G = len(fitted_grid), len(fitted_grid[0])
         out = np.full((F, G), np.nan)
         groups = defaultdict(list)
@@ -201,20 +204,24 @@ class OpValidator:
                 fit = fitted_grid[f][g]
                 groups[(f, fit["kind"], tuple(fit["feature"].shape),
                         int(fit["max_depth"]))].append((g, fit))
-        for (f, kind, _shape, md), members in groups.items():
+        for (f, kind, shape, md), members in groups.items():
             cat = {k: torch.cat([m[k] for _, m in members])
                    for k in ("feature", "threshold", "is_leaf", "leaf")}
             sums = predict_trees_sum_grouped(
                 X, cat["feature"], cat["threshold"], cat["is_leaf"],
                 cat["leaf"], md + 1, len(members))             # [N, K, V]
+            regression = members[0][1].get("task") == "regression"
             if kind == "forest":
-                S = sums[..., 1]
+                S = (sums[..., 0] / float(shape[0]) if regression
+                     else sums[..., 1])
             else:
                 eta = torch.tensor([m["eta"] for _, m in members],
                                    dtype=torch.float32, device=X.device)
                 base = torch.tensor([m["base"] for _, m in members],
                                     dtype=torch.float32, device=X.device)
-                S = torch.sigmoid(base[None, :] + eta[None, :] * sums[..., 0])
+                S = base[None, :] + eta[None, :] * sums[..., 0]
+                if not regression:
+                    S = torch.sigmoid(S)
             vals = self.evaluator.evaluate_masked_grid(y, S, masks[f])
             for j, (g, _) in enumerate(members):
                 out[f, g] = float(vals[j])
@@ -222,7 +229,7 @@ class OpValidator:
 
     def _panel(self, fitted_grid, X, y, masks) -> np.ndarray:
         kinds = {fit["kind"] for row in fitted_grid for fit in row}
-        if kinds <= {"binary", "svc"}:
+        if kinds <= {"binary", "svc"} or kinds == {"regression"}:
             return self._linear_panel(fitted_grid, X, y, masks)
         if kinds <= {"forest", "gbt"}:
             return self._tree_panel(fitted_grid, X, y, masks)
