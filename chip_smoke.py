@@ -96,7 +96,22 @@ Phases (any failure exits non-zero and prints no result line):
    and every kernel's launches read around it; ``RecordInsightsLOCO`` on
    its winner (kernel against twin) and its ``summary()``; the compact grid
    (ridge x2 + a 20-tree RF regressor) at 1M; and both grids at 4,000 rows
-   on the card held to the JAX package's numbers (``REG_REF``).
+   on the card held to the JAX package's numbers (``REG_REF``);
+9. multiclass — ``fista_softmax`` against its f64 twin (the fold-0
+   screen's 8 lanes and 3 folds x 8 lanes of 4 classes and 8 lanes of 40
+   at 1M x 16, the wide form at 200,000 x 1,596) and
+   ``multiclass_confusion`` against its twin (1M rows x 24 candidates of 4
+   and of 40 classes: equal on 0/1 masks, 1e-6 on other weights), each
+   bit-repeatable; then ``bench.run_selector_smoke``'s multiclass workload
+   (the port's copy of its generator, seed 11: 16 RealNN features around 4
+   class centres) at 1,000,000 rows: ``MultiClassificationModelSelector()``
+   with no ``models=`` (softmax LR x8, RF x18, ``DataCutter``) trained,
+   evaluated (F1 > 0.9) and scored on a fresh 1M batch (seed 12), with its
+   train wall, phase and family seconds, per-family best CV F1, peak device
+   memory (< 80 GB) and every kernel's launches read around it; the
+   compact grid, and naive Bayes with the MLP, at 1M; and iris (default and
+   compact grids) and the default LR candidates at 4,000 bench rows on the
+   card held to the JAX package's numbers (``MC_REF``, ``MC_BENCH_REF``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` table (launches: the default
@@ -104,8 +119,10 @@ grid's train for the dense rows, the transmog run for ``hash_counts`` and
 the wide ``fista_step`` row, the sparse run for ``sp_matmat`` and
 ``sp_rmatmat``, the three LOCO transforms for ``loco_linear`` and
 ``loco_tree``, the regression default grid's train for
-``tree_split_variance`` and the two squared-loss ``fista_step`` rows), the
-one before that the card's name and power limit.
+``tree_split_variance`` and the two squared-loss ``fista_step`` rows, the
+multiclass default grid's train for ``fista_softmax`` and
+``multiclass_confusion``), the one before that the card's name and power
+limit.
 Imports nothing of JAX.
 """
 
@@ -2580,6 +2597,433 @@ def run_regression_insights(model, batch, device="cuda") -> dict:
         launches
 
 
+# --------------------------------------------------------------------------
+# phase 9: the multiclass family
+# --------------------------------------------------------------------------
+
+MC_FEATS = 16                      # bench.run_selector_smoke's width
+MC_CLASSES = 4
+MC_SCORE_SEED = 12                 # the fresh batch scored after training
+MC_F1_MIN = 0.9                    # 4 centres of sd 2.5 against unit noise
+MC_PEAK_GB = 80.0                  # the card's memory
+MC_WIDE = (200_000, TRANSMOG_WIDTH)   # the wide form's check: rows, width
+# The JAX package's multiclass grids on iris (data/iris/iris.csv, CPU;
+# `PYTHONPATH=. JAX_PLATFORMS=cpu python scripts/multiclass_grid_reference.py
+# --package jax --data iris --grid default`, and `--grid compact`): every LR
+# candidate's CV F1 by its (reg_param[, elastic_net_param]) — a raced-out
+# point's is its fold-0 screen — the forest family's best CV F1, the winner
+# and the refit's train F1.  The card must give the same winner, every LR
+# candidate's CV F1 equal, and the forest within "rf_tol" = 3 x the JAX
+# package's spread of that best over forest seeds 42, 0, 1, 2, 3 (`...
+# --rf-seeds 42,0,1,2,3`; the port's forests draw from torch generators).
+MC_REF = {
+    "default": {
+        "winner": "OpLogisticRegression", "train_f1": 0.9733226623982926,
+        "rf_best": 0.9270751476287842, "rf_tol": 0.0587,   # 3 x 0.019537
+        "OpLogisticRegression": {
+            (0.001, 0.1): 0.9663655757904053,
+            (0.001, 0.5): 0.9663655757904053,
+            (0.01, 0.1): 0.9595350424448649,
+            (0.01, 0.5): 0.9600000381469727,
+            (0.1, 0.1): 0.8794078826904297,
+            (0.1, 0.5): 0.8794078826904297,
+            (0.2, 0.1): 0.8794078826904297,
+            (0.2, 0.5): 0.8794078826904297}},
+    "compact": {
+        "winner": "OpLogisticRegression", "train_f1": 0.96,
+        "rf_best": 0.9462923804918925, "rf_tol": 0.0401,   # 3 x 0.013345
+        "OpLogisticRegression": {(0.01,): 0.9595350424448649,
+                                 (0.1,): 0.9067966739336649}}}
+# The JAX package's default LR candidates on the bench's multiclass data at
+# 4,000 rows (`... --package jax --data bench --rows 4000 --grid lr`):
+# every candidate's CV F1 is 1.0, the winner (0.001, 0.1), and its refit's
+# coefficients [16, 4] and intercepts [4], which the card must give within
+# 1e-3 of max |coef|.
+MC_BENCH_ROWS = 4_000
+MC_BENCH_REF = {
+    "winner": (0.001, 0.1),
+    "coef": [
+        [0.18828359246253967, -0.12894241511821747, -0.19695013761520386, 0.13760961592197418],
+        [0.2203100323677063, 0.1293533891439438, 0.00644611706957221, -0.375114768743515],
+        [0.11392915993928909, 0.2827840745449066, -0.008963901549577713, -0.38774874806404114],
+        [0.34343263506889343, -0.06565540283918381, 0.007963654585182667, -0.28562140464782715],
+        [0.1240682452917099, -0.3166394531726837, 0.10282047092914581, 0.08276592940092087],
+        [-0.23676671087741852, -0.21577449142932892, 0.1849386990070343, 0.2676023542881012],
+        [0.02062372677028179, -0.131395161151886, 0.4063716232776642, -0.29559850692749023],
+        [-0.33725646138191223, 0.17817917466163635, -0.048424988985061646, 0.20750115811824799],
+        [-0.004209570121020079, -0.33227041363716125, -0.057813867926597595, 0.41437140107154846],
+        [-0.07230577617883682, -0.37961065769195557, 0.3318261206150055, 0.12009069323539734],
+        [-0.0, 0.09132836014032364, -0.3601132035255432, 0.262184202671051],
+        [-0.3583819270133972, 0.11226556450128555, 0.21315494179725647, 0.01938129961490631],
+        [0.3183816373348236, -0.2620977759361267, -0.0019053388386964798, -0.04310864955186844],
+        [-0.009855832904577255, 0.13430793583393097, 0.28159284591674805, -0.40604761242866516],
+        [-0.30656495690345764, 0.07334978133440018, -0.04320095479488373, 0.27641621232032776],
+        [0.0727837011218071, 0.2047126442193985, -0.3114890158176422, 0.025327926501631737]],
+    "intercept": [-0.956790566444397, 0.9071950912475586, -0.20493905246257782,
+                  0.2457958459854126]}
+
+
+def _softmax_case(Xd, W, yi, mean, scale, G: int, C: int, rng, reps: int,
+                  chunk: int = 131_072) -> dict:
+    """``fista_softmax_step`` for F x G lanes of C classes (F = W's folds)
+    with random coefficients, against its twin run in f64: each output
+    within 1e-5 of its absolute mass (sum over rows of |x|·|g|), and two
+    launches bit for bit.  The f64 reference is summed over row chunks.
+    Returns the case's facts (a row of the kernels line without its
+    names)."""
+    import torch
+
+    from transmogrifai_tpu_torch.models import linear_kernels as lk
+
+    device = Xd.device
+    n, D = Xd.shape
+    L = W.shape[0] * G
+    lanes = torch.arange(L, device=device) // G
+    # margins of a few units: sd 0.3 on 28 unit columns, shrunk by width
+    sd = 0.3 * min(1.0, (N_FEATS / D) ** 0.5) / float(scale.mean())
+    V = torch.as_tensor(rng.normal(scale=sd, size=(L, C, D)).astype(
+        np.float32), device=device)
+    b = torch.as_tensor(rng.normal(scale=0.2, size=(L, C)).astype(
+        np.float32), device=device)
+    muv = (mean[lanes][:, None, :] * V).sum(dim=-1)
+    args = (Xd, V, muv, b, W, yi, W.sum(dim=1)[lanes], G)
+    gx, gs = lk.fista_softmax_step(*args)
+    gx2, gs2 = lk.fista_softmax_step(*args)
+    if not (torch.equal(gx, gx2) and torch.equal(gs, gs2)):
+        raise AssertionError(f"fista_softmax (C={C}, D={D}): two launches "
+                             "differ")
+    want = torch.zeros((L, C, D), dtype=torch.float64, device=device)
+    mass = torch.zeros_like(want)
+    gsum = torch.zeros((L, C), dtype=torch.float64, device=device)
+    gabs = torch.zeros_like(gsum)
+    V64, muv64, b64, ws64 = (a.double() for a in (V, muv, b, args[6]))
+    for r0 in range(0, n, chunk):
+        sl = slice(r0, min(n, r0 + chunk))
+        x64 = Xd[sl].double()
+        g64 = lk.fista_softmax_row_grads(x64, V64, muv64, b64,
+                                         W[:, sl].double(), yi[sl], ws64, G)
+        want += (g64.reshape(L * C, -1) @ x64).reshape(L, C, D)
+        mass += (g64.abs().reshape(L * C, -1) @ x64.abs()).reshape(L, C, D)
+        gsum += g64.sum(dim=2)
+        gabs += g64.abs().sum(dim=2)
+    err = 0.0
+    for got, w, m in ((gx, want, mass), (gs, gsum, gabs)):
+        e = (got.double() - w).abs()
+        if bool((e > 1e-5 * m + 1e-12).any()):
+            raise AssertionError(f"fista_softmax (C={C}, D={D}, {L} lanes) "
+                                 "disagrees with its f64 twin")
+        err = max(err, float(e.max()))
+    J = L * C
+
+    def cublas_pair():      # margins, softmax, Xᵀg: timed only
+        m = (V.reshape(J, D) @ Xd.T).reshape(L, C, n)
+        return torch.softmax(m, dim=1).reshape(J, n) @ Xd
+
+    folds = len(set(lanes.tolist()))
+    bt, by = bound(4 * Xd.numel() + 4 * n * folds + 4 * n
+                   + 4 * (2 * J * D + 3 * J + L), 4 * n * D * J)
+    return {"lanes": L, "classes": C, "features": D, "rows": n,
+            "form": lk.softmax_launch_plan(D, L, C)["form"],
+            "max_abs_err": err,
+            "ms": time_ms(lambda: lk.fista_softmax_step(*args), reps),
+            "plain_ms": time_ms(lambda: lk.fista_softmax_step_twin(*args),
+                                max(2, reps // 4)),
+            "bound_ms": bt, "bound_by": by,
+            "library_ms": time_ms(cublas_pair, max(2, reps // 4))}
+
+
+def _kernel_row(name: str, case: dict) -> dict:
+    from transmogrifai_tpu_torch.models import kernels
+    return {"name": name, "route": "cuda",
+            "source": f"transmogrifai_tpu_torch/csrc/{name}.cu",
+            "replaces": kernels.REPLACES[name],
+            **{k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}}
+
+
+def check_softmax_kernel(device="cuda", n: int = N_ROWS, reps: int = 10):
+    """``fista_softmax_step`` against its f64 twin (``_softmax_case``) on
+    the multiclass workload's 1M x 16 matrix: the fold-0 screen's 8 lanes
+    and the 3 folds x 8 lanes of 4 classes, 8 lanes of 40 classes, and the
+    wide two-pass form on a random 200,000 x 1,596 matrix (3 folds x 2
+    lanes of 4 classes).  Returns the two rows of the kernels line (the
+    8-lane screen, the wide form) and every case's numbers."""
+    import torch
+
+    from transmogrifai_tpu_torch.models.solvers import standardize_moments
+    from transmogrifai_tpu_torch.synthetic import make_multiclass_data
+    X, y = make_multiclass_data(n, MC_FEATS)
+    rng = np.random.default_rng(16)
+    W = torch.as_tensor(_fold_weights(y), device=device)
+    Xd = torch.as_tensor(X, device=device)
+    yi = torch.as_tensor(y, device=device).to(torch.int32)
+    mean, scale = standardize_moments(Xd, W, center=True)
+    out = {"screen": _softmax_case(Xd, W[:1], yi, mean[:1], scale[:1], 8,
+                                   MC_CLASSES, rng, reps),
+           "cv": _softmax_case(Xd, W, yi, mean, scale, 8, MC_CLASSES, rng,
+                               reps)}
+    y40 = torch.as_tensor(rng.integers(0, 40, n).astype(np.int32),
+                          device=device)
+    out["classes_40"] = _softmax_case(Xd, W[:1], y40, mean[:1], scale[:1],
+                                      8, 40, rng, max(2, reps // 2))
+    del Xd, y40
+    wn, wd = MC_WIDE
+    gen = torch.Generator(device=device).manual_seed(16)
+    Xw = torch.randn((wn, wd), generator=gen, device=device)
+    Ww = torch.as_tensor(_fold_weights(y[:wn]), device=device)
+    mean, scale = standardize_moments(Xw, Ww, center=True)
+    out["wide"] = _softmax_case(Xw, Ww, yi[:wn], mean, scale, 2, MC_CLASSES,
+                                rng, max(2, reps // 2))
+    del Xw
+    torch.cuda.empty_cache()
+    return [_kernel_row("fista_softmax", out["screen"]),
+            _kernel_row("fista_softmax", out["wide"])], out
+
+
+def check_confusion_kernel(device="cuda", n: int = N_ROWS, reps: int = 20):
+    """``multiclass_confusion`` against its twin at the CV panel's shape:
+    1M rows x 24 candidates (3 folds x 8, candidate k reading fold k // 8)
+    of 4 and of 40 classes: equal on the 0/1 fold masks, within 1e-6 of
+    the f64 sums on non-0/1 weights, and bit-repeatable.  The library
+    yardstick is one weighted ``torch.bincount`` of y·C + p per candidate.
+    Returns the row of the kernels line (C = 4) and every case's
+    numbers."""
+    import torch
+
+    from transmogrifai_tpu_torch import metrics_kernels as mk
+    from transmogrifai_tpu_torch.synthetic import make_multiclass_data
+    _, y = make_multiclass_data(n, MC_FEATS)
+    rng = np.random.default_rng(17)
+    K, G = 3 * 8, 8
+    out = {}
+    for C in (MC_CLASSES, 40):
+        yc = y if C == MC_CLASSES else rng.integers(0, C, n).astype(
+            np.float32)
+        P = np.where(rng.random((n, K)) < 0.8, yc[:, None].astype(np.int32),
+                     rng.integers(0, C, (n, K))).astype(np.int32)
+        yi = torch.as_tensor(yc.astype(np.int32), device=device)
+        Pd = torch.as_tensor(P, device=device)
+        Wm = torch.as_tensor(1.0 - _fold_weights(yc), device=device)
+        conf = mk.multiclass_confusion(yi, Pd, Wm, G, C)
+        twin = mk.multiclass_confusion_twin(yi, Pd, Wm, G, C)
+        if not torch.equal(conf, twin):
+            raise AssertionError(f"multiclass_confusion (C={C}): differs "
+                                 "from its twin on 0/1 masks")
+        Wr = torch.as_tensor(rng.random((N_FOLDS, n)).astype(np.float32),
+                             device=device)
+        got = mk.multiclass_confusion(yi, Pd, Wr, G, C)
+        if not torch.equal(got, mk.multiclass_confusion(yi, Pd, Wr, G, C)):
+            raise AssertionError(f"multiclass_confusion (C={C}): two "
+                                 "launches differ")
+        want = mk.multiclass_confusion_twin(yi, Pd, Wr.double(), G, C)
+        rel = float(((got.double() - want).abs()
+                     / want.abs().clamp(min=1.0)).max())
+        if rel > 1e-6:
+            raise AssertionError(f"multiclass_confusion (C={C}): {rel} "
+                                 "relative to the f64 sums")
+        keys = (yi.long() * C)[None, :] + Pd.T.long()
+
+        def bincounts():
+            return [torch.bincount(keys[k], weights=Wm[k // G],
+                                   minlength=C * C) for k in range(K)]
+
+        bt, by = bound(4 * n * K + 4 * n + 4 * n * N_FOLDS + 4 * K * C * C,
+                       2 * n * K)
+        out[f"classes_{C}"] = {
+            "candidates": K, "classes": C, "rows": n,
+            "plan": mk.confusion_plan(K, C)._asdict(),
+            "max_abs_err": float((conf - twin).abs().max()),
+            "rel_err_weights": rel,
+            "ms": time_ms(lambda: mk.multiclass_confusion(yi, Pd, Wm, G, C),
+                          reps),
+            "plain_ms": time_ms(
+                lambda: mk.multiclass_confusion_twin(yi, Pd, Wm, G, C),
+                max(2, reps // 4)),
+            "bound_ms": bt, "bound_by": by,
+            "library_ms": time_ms(bincounts, max(2, reps // 4))}
+        del Pd, Wm, Wr, keys
+        torch.cuda.empty_cache()
+    return _kernel_row("multiclass_confusion",
+                       out[f"classes_{MC_CLASSES}"]), out
+
+
+def _mc_key(params: dict) -> tuple:
+    """A candidate's grid point without the values its family shares."""
+    return tuple(v for k, v in params.items()
+                 if k not in ("max_iter", "max_bins", "num_trees"))
+
+
+def _mc_candidates(summary) -> list:
+    return [[r.model_name, _mc_key(r.params), float(r.metric_values["F1"]),
+             r.raced_out] for r in summary.validation_results]
+
+
+def _mc_family_best(cands) -> dict:
+    best = {}
+    for name, _, v, raced in cands:
+        if not raced and np.isfinite(v) and v > best.get(name, -np.inf):
+            best[name] = v
+    return best
+
+
+def multiclass_batch(X, y):
+    """The raw columns: ``label`` and RealNN ``f0..f{d-1}``."""
+    from transmogrifai_tpu_torch.columns import Column, ColumnBatch
+    from transmogrifai_tpu_torch.types import RealNN
+    cols = {"label": Column(RealNN, y)}
+    for i in range(X.shape[1]):
+        cols[f"f{i}"] = Column(RealNN, X[:, i])
+    return ColumnBatch(cols, len(y))
+
+
+def multiclass_workflow(X, y, models, device):
+    """RealNN features → transmogrify → ``MultiClassificationModelSelector``
+    (``models`` None: the default grid).  Returns (workflow, batch,
+    prediction feature)."""
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+    from transmogrifai_tpu_torch.selector import (
+        MultiClassificationModelSelector)
+    from transmogrifai_tpu_torch.workflow import Workflow
+
+    label = FeatureBuilder.RealNN("label").as_response()
+    feats = [FeatureBuilder.RealNN(f"f{i}").as_predictor()
+             for i in range(X.shape[1])]
+    sel = MultiClassificationModelSelector(models=models)
+    sel.set_input(label, transmogrify(feats))
+    pred = sel.get_output()
+    batch = multiclass_batch(X, y)
+    wf = Workflow(device=device).set_input_batch(batch)
+    return wf.set_result_features(pred), batch, pred
+
+
+def _mc_models(grid: str):
+    from transmogrifai_tpu_torch.models.linear import (
+        OpMultilayerPerceptronClassifier, OpNaiveBayes)
+    from transmogrifai_tpu_torch.selector import (
+        ModelCandidate, MultiClassificationModelSelector, _lr_candidates)
+    if grid == "default":
+        return None
+    if grid == "compact":
+        return MultiClassificationModelSelector.compact_models()
+    if grid == "lr":
+        return [_lr_candidates()]
+    return [ModelCandidate(OpNaiveBayes(), [{}], "OpNaiveBayes"),
+            ModelCandidate(OpMultilayerPerceptronClassifier(), [{}],
+                           "OpMultilayerPerceptronClassifier")]
+
+
+def run_multiclass(device, X, y, grid: str = "default",
+                   fresh=None) -> tuple:
+    """Train the multiclass workflow on (X, y), evaluate it on its train
+    rows (F1) and, given ``fresh`` (X, y), score that batch.  Returns
+    (facts, model, batch)."""
+    import torch
+
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    wf, batch, pred = multiclass_workflow(X, y, _mc_models(grid), device)
+    t0 = time.perf_counter()
+    model = wf.train()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = model.evaluate(Evaluators.MultiClassification.f1(), batch=batch)
+    summ = model.selected_model.summary
+    cands = _mc_candidates(summ)
+    best = model.selected_model.best_model
+    facts = {"train_wall_s": wall, "best_model": summ.best_model_name,
+             "winner_kind": best.fitted.get("kind"),
+             "family_best_cv_f1": _mc_family_best(cands),
+             "train_f1": float(m["F1"]), "train_error": float(m["Error"]),
+             "data_prep_results": summ.data_prep_results,
+             "phase_seconds": model.phase_seconds,
+             "selector_seconds": model.selected_model.selector_seconds,
+             "candidates": cands}
+    if fresh is not None:
+        n = len(fresh[1])
+        fresh = multiclass_batch(*fresh)
+        t0 = time.perf_counter()
+        out = model.score(fresh)[pred.name].values
+        if device == "cuda":
+            torch.cuda.synchronize()
+        facts["score_rows_per_s"] = n / (time.perf_counter() - t0)
+        p, prob = out["prediction"], out["probability"]
+        if (tuple(p.shape) != (n,) or tuple(prob.shape) != (n, MC_CLASSES)
+                or not bool(torch.isfinite(prob).all())
+                or float((prob.sum(dim=1) - 1).abs().max()) > 1e-4):
+            raise AssertionError("multiclass scores: wrong shape, "
+                                 "non-finite or not a distribution")
+    return facts, model, batch
+
+
+def check_multiclass_reference(device="cuda") -> dict:
+    """Iris, the default and compact grids on the card, against the JAX
+    package's numbers (MC_REF); then the default LR candidates at 4,000
+    bench rows, their winner and refit coefficients against
+    MC_BENCH_REF."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import multiclass_grid_reference as mgr
+    from transmogrifai_tpu_torch.synthetic import make_multiclass_data
+    out = {}
+    X, y = mgr.iris()
+    for grid, ref in MC_REF.items():
+        facts, _, _ = run_multiclass(device, X, y, grid)
+        if facts["best_model"] != ref["winner"]:
+            raise AssertionError(f"iris ({grid}): winner "
+                                 f"{facts['best_model']}, the JAX package's "
+                                 f"is {ref['winner']}")
+        lr = {key: v for name, key, v, _ in facts["candidates"]
+              if name == "OpLogisticRegression"}
+        if lr != ref["OpLogisticRegression"]:
+            raise AssertionError(f"iris ({grid}): LR CV F1 {lr}, the JAX "
+                                 f"package's {ref['OpLogisticRegression']}")
+        rf = facts["family_best_cv_f1"]["OpRandomForestClassifier"]
+        if abs(rf - ref["rf_best"]) > ref["rf_tol"]:
+            raise AssertionError(f"iris ({grid}): forest CV F1 {rf}, the "
+                                 f"JAX package's {ref['rf_best']} "
+                                 f"(tolerance {ref['rf_tol']})")
+        if abs(facts["train_f1"] - ref["train_f1"]) > 1e-9:
+            raise AssertionError(f"iris ({grid}): train F1 "
+                                 f"{facts['train_f1']}, the JAX package's "
+                                 f"{ref['train_f1']}")
+        out[f"iris_{grid}"] = {k: facts[k] for k in (
+            "best_model", "family_best_cv_f1", "train_f1", "train_wall_s")}
+    X, y = make_multiclass_data(MC_BENCH_ROWS, MC_FEATS)
+    facts, model, _ = run_multiclass(device, X, y, "lr")
+    best = model.selected_model
+    cands = [r for r in best.summary.validation_results
+             if not r.raced_out and r.metric_values["F1"]
+             == best.fitted["best_metric"]]
+    if _mc_key(cands[0].params) != MC_BENCH_REF["winner"]:
+        raise AssertionError(f"bench LR: winner {cands[0].params}, the JAX "
+                             f"package's {MC_BENCH_REF['winner']}")
+    coef = best.best_model.fitted["coef"].double().cpu().numpy()
+    inter = best.best_model.fitted["intercept"].double().cpu().numpy()
+    want_c = np.asarray(MC_BENCH_REF["coef"])
+    scale = np.abs(want_c).max()
+    err = max(np.abs(coef - want_c).max(),
+              np.abs(inter - np.asarray(MC_BENCH_REF["intercept"])).max())
+    if err > 1e-3 * scale:
+        raise AssertionError(f"bench LR: refit coefficients {err} from the "
+                             f"JAX package's (max |coef| {scale})")
+    out["bench_lr"] = {"rows": MC_BENCH_ROWS,
+                       "winner": _mc_key(cands[0].params),
+                       "coef_max_abs_err": float(err),
+                       "train_f1": facts["train_f1"]}
+    return out
+
+
+def run_nb_mlp(device, X, y) -> dict:
+    """``OpNaiveBayes`` and ``OpMultilayerPerceptronClassifier`` as the
+    selector's candidates at the workload's size: they fit and score
+    candidate by candidate (no batched panel).  Returns their walls and
+    CV F1."""
+    facts, _, _ = run_multiclass(device, X, y, "nb_mlp")
+    return {k: facts[k] for k in ("train_wall_s", "best_model",
+                                  "family_best_cv_f1", "train_f1",
+                                  "selector_seconds")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2641,7 +3085,9 @@ def main() -> int:
                if v <= 0 and k not in ("tree_hist_deep", "hash_counts",
                                        "sp_matmat", "sp_rmatmat",
                                        "loco_linear", "loco_tree",
-                                       "tree_split_variance")]
+                                       "tree_split_variance",
+                                       "fista_softmax",
+                                       "multiclass_confusion")]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if facts["train_auroc"] <= 0.7:
@@ -2667,7 +3113,9 @@ def main() -> int:
     missing = [k for k, v in launches.items()
                if v <= 0 and k not in ("hash_counts", "sp_matmat",
                                        "sp_rmatmat", "loco_linear",
-                                       "loco_tree", "tree_split_variance")]
+                                       "loco_tree", "tree_split_variance",
+                                       "fista_softmax",
+                                       "multiclass_confusion")]
     if missing:
         raise AssertionError(f"kernels never launched on the default grid: "
                              f"{missing}")
@@ -2870,6 +3318,66 @@ def main() -> int:
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"library_ms={r['library_ms']}", flush=True)
     rows += [var_row] + sq_rows
+    torch.cuda.empty_cache()
+
+    # phase 9: the multiclass family — both kernels against their twins,
+    # then the default grid at 1M rows with the launches and peak memory
+    # read around its train and score, the compact grid, naive Bayes and
+    # the MLP, and the reference runs against the JAX package
+    sm_rows, sm_facts = check_softmax_kernel()
+    print("fista_softmax shapes: " + json.dumps(sm_facts), flush=True)
+    cf_row, cf_facts = check_confusion_kernel()
+    print("multiclass_confusion shapes: " + json.dumps(cf_facts), flush=True)
+    torch.cuda.empty_cache()
+    from transmogrifai_tpu_torch.synthetic import make_multiclass_data
+    mc_X, mc_y = make_multiclass_data(N_ROWS, MC_FEATS)
+    mc_fresh = make_multiclass_data(N_ROWS, MC_FEATS, MC_SCORE_SEED)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mc_facts, _, _ = run_multiclass("cuda", mc_X, mc_y, "default", mc_fresh)
+    mc_launches = kernels.launch_counts()
+    mc_facts["peak_device_memory_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    print(f"multiclass default grid {N_ROWS}x{MC_FEATS}: "
+          + json.dumps(mc_facts), flush=True)
+    print("multiclass kernel launches: " + json.dumps(mc_launches),
+          flush=True)
+    missing = [k for k in ("fista_softmax", "multiclass_confusion",
+                           "fista_step", "tree_hist", "tree_hist_deep",
+                           "tree_split_gini", "tree_route", "tree_walk")
+               if mc_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the multiclass "
+                             f"path: {missing}")
+    if mc_facts["train_f1"] <= MC_F1_MIN:
+        raise AssertionError(f"multiclass train F1 {mc_facts['train_f1']} "
+                             f"<= {MC_F1_MIN}")
+    if mc_facts["peak_device_memory_gb"] >= MC_PEAK_GB:
+        raise AssertionError(f"multiclass peak device memory "
+                             f"{mc_facts['peak_device_memory_gb']} GB")
+    torch.cuda.empty_cache()
+    cmp_facts, _, _ = run_multiclass("cuda", mc_X, mc_y, "compact")
+    print(f"multiclass compact grid {N_ROWS}x{MC_FEATS}: "
+          + json.dumps(cmp_facts), flush=True)
+    if cmp_facts["train_f1"] <= MC_F1_MIN:
+        raise AssertionError(f"multiclass compact train F1 "
+                             f"{cmp_facts['train_f1']} <= {MC_F1_MIN}")
+    torch.cuda.empty_cache()
+    print(f"naive Bayes and MLP {N_ROWS}x{MC_FEATS}: "
+          + json.dumps(run_nb_mlp("cuda", mc_X, mc_y)), flush=True)
+    del mc_X, mc_y, mc_fresh
+    torch.cuda.empty_cache()
+    print("multiclass reference runs: "
+          + json.dumps(check_multiclass_reference()), flush=True)
+    for r in sm_rows:
+        r["launches"] = mc_launches["fista_softmax"]
+    cf_row["launches"] = mc_launches["multiclass_confusion"]
+    for r in sm_rows + [cf_row]:
+        print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.3g} "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library_ms={r['library_ms']}", flush=True)
+    rows += sm_rows + [cf_row]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card, flush=True)

@@ -26,7 +26,11 @@ like ``tree_hist``; ``hash_counts`` equal to its twin (integer counts);
 ``sp_matmat`` / ``sp_rmatmat`` within 1e-5 of each output's absolute mass
 of the twin run in f64 (chunk partials added in another order), and the
 same bits on two launches; the sparse-text workflow on the card against
-the CPU twins like the transmog one.
+the CPU twins like the transmog one; ``fista_softmax`` like
+``fista_step`` (within 1e-5 of each output's absolute mass of the f64 twin,
+the same bits twice); ``multiclass_confusion`` equal to its twin on 0/1
+masks and within 1e-6 of the f64 sums on other weights, the same bits
+twice; the multiclass selector on the card like the CPU twins.
 """
 
 import numpy as np
@@ -309,11 +313,12 @@ def test_small_main_path_on_the_card_matches_the_twins(cuda):
     gpu = _small_main_path("cuda", 5000)
     # depth-4 and depth-3 trees never need the one-pass deep histogram;
     # the dense binary path hashes no text, holds no sparse matrix, fits no
-    # regression tree and explains nothing
+    # regression tree or multinomial model and explains nothing
     assert all(v > 0 for k, v in kernels.launch_counts().items()
                if k not in ("tree_hist_deep", "hash_counts", "sp_matmat",
                             "sp_rmatmat", "loco_linear", "loco_tree",
-                            "tree_split_variance"))
+                            "tree_split_variance", "fista_softmax",
+                            "multiclass_confusion"))
     cpu = _small_main_path("cpu", 5000)
     assert gpu[0] == cpu[0]
     np.testing.assert_allclose(gpu[1], cpu[1], rtol=0, atol=1e-3)
@@ -867,3 +872,119 @@ def test_tree_split_variance_matches_twin(cuda, P, D):
     assert torch.equal(sk["is_leaf"][leaf_clear], st["is_leaf"][leaf_clear])
     if D > 1000:
         assert sk["feature"].tolist() == [[100]] * K
+
+
+# --------------------------------------------------------------------------
+# the multiclass family: fista_softmax and multiclass_confusion
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("G,D,F,C", [(8, 16, 1, 4),     # the fold-0 screen
+                                     (8, 16, 3, 4),     # the CV block
+                                     (8, 16, 1, 40),    # 40 classes
+                                     (8, 16, 3, 40),    # lanes in chunks
+                                     (2, 1596, 3, 4),   # the wide form
+                                     (8, 1596, 3, 4)])  # wide, 3 launches
+def test_fista_softmax_matches_twin_and_repeats_bit_for_bit(cuda, G, D, F,
+                                                            C):
+    """Within 1e-5 of each output's absolute mass of the twin run in f64,
+    and the same bits on two launches."""
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models import linear_kernels as lk
+    rng = np.random.default_rng(21)
+    N, L = 50_001, F * G
+    X = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32),
+                        device=cuda)
+    W = torch.as_tensor((rng.random((F, N)) > 1 / 3).astype(np.float32),
+                        device=cuda)
+    y = torch.as_tensor(rng.integers(0, C, N).astype(np.int32), device=cuda)
+    sd = 0.3 * min(1.0, (16 / D) ** 0.5)
+    V = torch.as_tensor(rng.normal(scale=sd, size=(L, C, D)).astype(
+        np.float32), device=cuda)
+    muv = torch.as_tensor(rng.normal(size=(L, C)).astype(np.float32),
+                          device=cuda)
+    b = torch.as_tensor(rng.normal(size=(L, C)).astype(np.float32),
+                        device=cuda)
+    ws = W.sum(dim=1)[torch.arange(L, device=cuda) // G]
+    args = (X, V, muv, b, W, y, ws, G)
+    kernels.reset_launch_counts()
+    gx, gs = lk.fista_softmax_step(*args)
+    plan = lk.softmax_launch_plan(D, L, C)
+    assert kernels.launch_counts()["fista_softmax"] == \
+        -(-L // plan["lanes"])
+    gx2, gs2 = lk.fista_softmax_step(*args)
+    assert torch.equal(gx, gx2) and torch.equal(gs, gs2)
+    a64 = (X.double(), V.double(), muv.double(), b.double(), W.double(), y,
+           ws.double(), G)
+    g64 = lk.fista_softmax_row_grads(*a64).reshape(L * C, N)
+    X64 = X.double()
+    want = (g64 @ X64).reshape(L, C, D)
+    mass = (g64.abs() @ X64.abs()).reshape(L, C, D)
+    assert bool(((gx.double() - want).abs() <= 1e-5 * mass + 1e-12).all())
+    assert bool(((gs.double() - g64.sum(dim=1).reshape(L, C)).abs()
+                 <= 1e-5 * g64.abs().sum(dim=1).reshape(L, C)
+                 + 1e-12).all())
+
+
+@pytest.mark.parametrize("K,G,C", [(24, 8, 4), (1, 1, 3), (24, 8, 40),
+                                   (5, 5, 300)])
+def test_multiclass_confusion_matches_twin(cuda, K, G, C):
+    """Equal to the twin on 0/1 masks (integer sums), within 1e-6 of the
+    f64 sums on other weights, and the same bits on two launches, at every
+    plan: all candidates in a block, candidate chunks, class chunks."""
+    from transmogrifai_tpu_torch import metrics_kernels as mk
+    rng = np.random.default_rng(22)
+    N = 100_003
+    F = -(-K // G)
+    y = torch.as_tensor(rng.integers(0, C, N).astype(np.int32), device=cuda)
+    P = torch.as_tensor(np.where(rng.random((N, K)) < 0.7,
+                                 y.cpu().numpy()[:, None],
+                                 rng.integers(0, C, (N, K))).astype(np.int32),
+                        device=cuda)
+    W01 = torch.as_tensor((rng.random((F, N)) < 0.5).astype(np.float32),
+                          device=cuda)
+    assert torch.equal(mk.multiclass_confusion(y, P, W01, G, C),
+                       mk.multiclass_confusion_twin(y, P, W01, G, C))
+    Wr = torch.as_tensor(rng.random((F, N)).astype(np.float32), device=cuda)
+    got = mk.multiclass_confusion(y, P, Wr, G, C)
+    assert torch.equal(got, mk.multiclass_confusion(y, P, Wr, G, C))
+    want = mk.multiclass_confusion_twin(y, P, Wr.double(), G, C)
+    assert bool(((got.double() - want).abs()
+                 <= 1e-6 * want.abs().clamp(min=1.0)).all())
+
+
+def test_multiclass_selector_on_the_card_matches_the_twins(cuda):
+    """4,000 rows of the bench's multiclass data, the default LR candidates
+    and a 10-tree forest with the draws made on the host: the card and the
+    CPU twins give the same CV F1 and winner, the LR refit within 1e-4 of
+    max |coef|, and both new kernels launch."""
+    import importlib
+    import os
+    import sys
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.synthetic import make_multiclass_data
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))), "scripts"))
+    mgr = importlib.import_module("multiclass_grid_reference")
+    S = importlib.import_module("transmogrifai_tpu_torch.selector")
+    T = importlib.import_module("transmogrifai_tpu_torch.models.trees")
+    X, y = make_multiclass_data(4000)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        models = [S._lr_candidates(), S.ModelCandidate(
+            T.OpRandomForestClassifier(num_trees=10, max_depth=6,
+                                       draw_device="cpu"),
+            [{}], "OpRandomForestClassifier")]
+        kernels.reset_launch_counts()
+        runs[dev] = mgr.train(mgr.PACKAGES["torch"], X, y, models,
+                              device=dev)[0]
+        if dev == "cuda":
+            launches = kernels.launch_counts()
+    assert launches["fista_softmax"] > 0
+    assert launches["multiclass_confusion"] > 0
+    gc, cc = mgr.candidates(runs["cuda"]), mgr.candidates(runs["cpu"])
+    assert [(n, p, r) for n, p, _, r in gc] == [(n, p, r) for n, p, _, r in cc]
+    assert [v for *_, v, _ in gc] == [v for *_, v, _ in cc]
+    bg = runs["cuda"].selected_model.best_model.fitted
+    bc = runs["cpu"].selected_model.best_model.fitted
+    scale = float(bc["coef"].abs().max())
+    assert float((bg["coef"].cpu() - bc["coef"]).abs().max()) <= 1e-4 * scale

@@ -495,13 +495,17 @@ def test_summary_matches_jax():
 
 
 def test_naive_bayes_contributions_name_the_slice():
+    """Naive Bayes contributions arrived with the multiclass slice: the
+    spread of each column's class log-probabilities, as the JAX package
+    computes it (insights.py:286-288)."""
+    from transmogrifai_tpu import insights as jins
     from transmogrifai_tpu_torch.insights import _model_contributions
+    lp = np.log(np.random.default_rng(3).dirichlet(np.ones(3), size=2))
 
     class _Sel:
-        best_model = type("NB", (), {"fitted": {"log_prob": np.zeros((2, 3))}})
+        best_model = type("NB", (), {"fitted": {"log_prob": lp}})
 
-    with pytest.raises(NotImplementedError, match="multiclass slice"):
-        _model_contributions(_Sel())
+    assert _model_contributions(_Sel()) == jins._model_contributions(_Sel())
 
 
 def test_loco_multiclass_forest_explains_the_last_class_like_jax():

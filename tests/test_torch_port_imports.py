@@ -138,3 +138,34 @@ def test_the_insights_path_leaves_jax_out():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_multiclass_path_leaves_jax_out():
+    """Training, evaluating and scoring the multiclass workflow on the CPU
+    (softmax FISTA, the confusion panels, DataCutter, naive Bayes and the
+    MLP) loads no JAX."""
+    code = ("import json, sys\n"
+            "sys.path.insert(0, 'scripts')\n"
+            "import multiclass_grid_reference as mgr\n"
+            "from transmogrifai_tpu_torch.evaluators import Evaluators\n"
+            "from transmogrifai_tpu_torch.models.linear import (OpNaiveBayes, "
+            "OpMultilayerPerceptronClassifier)\n"
+            "from transmogrifai_tpu_torch.selector import ModelCandidate\n"
+            "from transmogrifai_tpu_torch.synthetic import "
+            "make_multiclass_data\n"
+            "X, y = make_multiclass_data(300)\n"
+            "models = mgr.grid_models('transmogrifai_tpu_torch', 'compact') + "
+            "[ModelCandidate(OpNaiveBayes(), [{}], 'OpNaiveBayes'), "
+            "ModelCandidate(OpMultilayerPerceptronClassifier(max_iter=5), "
+            "[{}], 'OpMultilayerPerceptronClassifier')]\n"
+            "m, b, _ = mgr.train('transmogrifai_tpu_torch', X, y, models, "
+            "device='cpu')\n"
+            "m.evaluate(Evaluators.MultiClassification.f1(), batch=b)\n"
+            "m.score(b)\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
+            "or m == 'transmogrifai_tpu' or m.startswith('transmogrifai_tpu.'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -10,7 +10,11 @@ order).  The dicts this slice reads, by the fitted stage's class name:
 * ``SanityCheckerModel``: ``indices_to_keep`` [D'] and optionally ``summary``;
 * ``SelectedModel``: ``model`` = ``"LinearPredictionModel"`` (``coef`` [D],
   ``intercept`` [1], ``kind`` "binary" for logistic regression, "svc" for
-  a linear SVC or "regression" for a linear regression) or
+  a linear SVC or "regression" for a linear regression; or ``coef`` [D, C],
+  ``intercept`` [C], ``kind`` "multinomial"), ``"NaiveBayesModel"``
+  (``log_prior`` [C], ``log_prob`` [C, D]),
+  ``"MLPClassificationModel"`` (``n_layers``, ``W{i}`` [d_i, d_i+1],
+  ``b{i}``) or
   ``"TreeEnsembleModel"`` — a GBT (``kind`` "gbt": ``task``, ``feature``,
   ``threshold``, ``is_leaf`` [R, T], ``leaf`` [R, T, 1], ``eta``, ``base``,
   ``max_depth``) or a forest (``kind`` "forest": ``task``, ``n_classes``,
@@ -43,7 +47,8 @@ import torch
 
 from .dag import compute_dag
 from .device import DeviceLike, resolve_device
-from .models.linear import LinearPredictionModel
+from .models.linear import (LinearPredictionModel, MLPClassificationModel,
+                            NaiveBayesModel)
 from .models.trees import TreeEnsembleModel
 from .ops.combiner import VectorsCombiner
 from .ops.numeric import RealNNVectorizer, RealVectorizer, RealVectorizerModel
@@ -54,7 +59,9 @@ from .selector import ModelSelector, SelectedModel
 from .workflow import WorkflowModel
 
 _MODELS = {"LinearPredictionModel": LinearPredictionModel,
-           "TreeEnsembleModel": TreeEnsembleModel}
+           "TreeEnsembleModel": TreeEnsembleModel,
+           "NaiveBayesModel": NaiveBayesModel,
+           "MLPClassificationModel": MLPClassificationModel}
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -69,7 +76,7 @@ def _model_fitted(name: str, fitted: Dict[str, Any], device) -> Dict[str, Any]:
         out["intercept"] = _tensor(fitted["intercept"], device,
                                    torch.float32).reshape(-1)
         out.setdefault("kind", "binary")
-        if out["kind"] not in ("binary", "svc", "regression"):
+        if out["kind"] not in ("binary", "svc", "regression", "multinomial"):
             raise NotImplementedError(
                 f"convert: no port model for linear kind {out['kind']!r}")
     elif name == "TreeEnsembleModel":
@@ -90,6 +97,16 @@ def _model_fitted(name: str, fitted: Dict[str, Any], device) -> Dict[str, Any]:
                 "classification", "regression"):
             raise NotImplementedError(
                 f"convert: no port model for tree task {out['task']!r}")
+    elif name == "NaiveBayesModel":
+        out["log_prior"] = _tensor(fitted["log_prior"], device, torch.float32)
+        out["log_prob"] = _tensor(fitted["log_prob"], device, torch.float32)
+        out["kind"] = "naive_bayes"
+    elif name == "MLPClassificationModel":
+        out["n_layers"] = int(fitted["n_layers"])
+        for i in range(out["n_layers"]):
+            out[f"W{i}"] = _tensor(fitted[f"W{i}"], device, torch.float32)
+            out[f"b{i}"] = _tensor(fitted[f"b{i}"], device, torch.float32)
+        out["kind"] = "mlp"
     else:
         raise NotImplementedError(f"convert: no port model for {name!r}")
     return out

@@ -1,27 +1,30 @@
-"""Evaluators (port of the binary and regression families of
+"""Evaluators (port of the binary, regression and multiclass families of
 ``transmogrifai_tpu/evaluators.py``; reference: OpEvaluatorBase.scala:113,
 OpBinaryClassificationEvaluator.scala:67-185, OpRegressionEvaluator.scala,
-Evaluators.scala:40).
+OpMultiClassificationEvaluator.scala, Evaluators.scala:40).
 
-The port scores on the device only: a model's ``device_scores`` output and a
+The port scores on the device: a model's ``device_scores`` output and a
 0/1 row mask go in, and the metric panel comes out of masked reductions
-(``metrics_device``).  The multiclass evaluator comes with the slice that
-ports that model family.
+(``metrics_device``); the multiclass evaluator also keeps the JAX
+package's host form (``evaluate_all``, numpy).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .metrics_device import (masked_aupr, masked_aupr_fold_grid,
-                             masked_aupr_grid, masked_auroc,
-                             masked_auroc_fold_grid, masked_auroc_grid,
-                             masked_binary_confusion, masked_reg_errors,
-                             masked_reg_metric_fold_grid,
+from .metrics_device import (MULTI_METRICS, masked_aupr,
+                             masked_aupr_fold_grid, masked_aupr_grid,
+                             masked_auroc, masked_auroc_fold_grid,
+                             masked_auroc_grid, masked_binary_confusion,
+                             masked_multiclass_confusion,
+                             masked_multiclass_metric_fold_grid,
+                             masked_multiclass_metric_grid,
+                             masked_reg_errors, masked_reg_metric_fold_grid,
                              masked_reg_metric_grid,
                              masked_threshold_confusion)
 
@@ -43,6 +46,9 @@ class OpEvaluatorBase:
     name: str = "evaluator"
     default_metric: str = ""
     is_larger_better: bool = True
+    # what the CV panels give ``evaluate_masked_grid``: score columns, or
+    # integer class predictions (the multiclass evaluator)
+    grid_panel_input: str = "scores"
 
     def __init__(self, default_metric: Optional[str] = None,
                  is_larger_better: Optional[bool] = None):
@@ -50,6 +56,27 @@ class OpEvaluatorBase:
             self.default_metric = default_metric
         if is_larger_better is not None:
             self.is_larger_better = is_larger_better
+
+    def evaluate_masked_grid(self, y, S, W) -> torch.Tensor:
+        raise NotImplementedError
+
+    def evaluate_masked(self, y, device_out: Dict[str, Any], w) -> float:
+        """The default metric of one model's ``device_scores`` output over
+        the row mask ``w`` (the per-candidate CV path of a family with no
+        batched panel, ≙ ``device_metric``, tuning.py:910-922): its panel
+        column through ``evaluate_masked_grid``."""
+        return float(self.evaluate_masked_grid(
+            y, self.panel_column(device_out)[:, None], w)[0])
+
+    @staticmethod
+    def panel_column(device_out: Dict[str, Any]) -> torch.Tensor:
+        """The column a panel ranks: ``scores``, else probability[:, 1],
+        else the prediction (a regressor's)."""
+        if "scores" in device_out:
+            return device_out["scores"]
+        if "probability" in device_out:
+            return device_out["probability"][:, 1]
+        return device_out["prediction"]
 
 
 class OpBinaryClassificationEvaluator(OpEvaluatorBase):
@@ -178,8 +205,152 @@ class OpRegressionEvaluator(OpEvaluatorBase):
                 "bins": edges.tolist()}})
 
 
+class OpMultiClassificationEvaluator(OpEvaluatorBase):
+    """≙ OpMultiClassificationEvaluator (evaluators.py:334-473): weighted
+    precision / recall / F1 / error from the confusion matrix, and the
+    top-N correctness by bin of the top probability (≙
+    calculateThresholdMetrics).  The CV panels take integer predictions;
+    C = max(label, prediction) + 1 from the data, so a class no candidate
+    predicts still counts in the support."""
+
+    name = "multiEval"
+    default_metric = "F1"
+    grid_panel_input = "predictions"
+
+    def __init__(self, top_ns: Sequence[int] = (1, 3), n_bins: int = 10,
+                 **kw):
+        super().__init__(**kw)
+        self.top_ns = tuple(top_ns)
+        self.n_bins = n_bins
+
+    def _metric(self) -> str:
+        if self.default_metric not in MULTI_METRICS:
+            raise NotImplementedError(
+                f"multiclass CV metric {self.default_metric!r}: the port "
+                f"ranks by one of {MULTI_METRICS}")
+        return self.default_metric
+
+    @staticmethod
+    def _conf_panel(conf: np.ndarray) -> Dict[str, Any]:
+        """Weighted precision / recall / F1 / error from a [C, C] confusion
+        matrix in f64 (the host and device paths share it)."""
+        C = conf.shape[0]
+        support = conf.sum(axis=1)
+        tp = np.diag(conf)
+        pred_count = conf.sum(axis=0)
+        prec_c = np.divide(tp, pred_count, out=np.zeros(C),
+                           where=pred_count > 0)
+        rec_c = np.divide(tp, support, out=np.zeros(C), where=support > 0)
+        f1_c = np.divide(2 * prec_c * rec_c, prec_c + rec_c,
+                         out=np.zeros(C), where=(prec_c + rec_c) > 0)
+        wts = support / max(support.sum(), 1.0)
+        return {
+            "Precision": float(wts @ prec_c), "Recall": float(wts @ rec_c),
+            "F1": float(wts @ f1_c),
+            "Error": 1.0 - float(tp.sum() / max(support.sum(), 1.0)),
+            "confusionMatrix": conf.tolist(),
+        }
+
+    def evaluate_all(self, y, pred: Dict[str, Any]) -> EvaluationMetrics:
+        """The panel on the host from label and prediction arrays (numpy or
+        tensors), unweighted (≙ ``evaluate_all``, evaluators.py:367-394)."""
+        y = np.asarray(_host(y), dtype=np.int64)
+        yhat = np.asarray(_host(pred["prediction"]), dtype=np.int64)
+        C = int(max(y.max(initial=0), yhat.max(initial=0))) + 1
+        conf = np.zeros((C, C), dtype=np.float64)
+        np.add.at(conf, (y, yhat), 1.0)
+        m: Dict[str, Any] = self._conf_panel(conf)
+        prob = pred.get("probability")
+        if prob is not None:
+            prob = np.asarray(_host(prob), dtype=np.float64)
+            order = np.argsort(-prob, axis=1)
+            maxprob = prob[np.arange(len(y)), order[:, 0]]
+            bins = np.clip((maxprob * self.n_bins).astype(int), 0,
+                           self.n_bins - 1)
+            topns = {}
+            for n in self.top_ns:
+                correct = (order[:, :n] == y[:, None]).any(axis=1)
+                counts = np.zeros(self.n_bins)
+                corr = np.zeros(self.n_bins)
+                np.add.at(counts, bins, 1.0)
+                np.add.at(corr, bins, correct.astype(np.float64))
+                topns[str(n)] = {"topNCorrectByBin": corr.tolist(),
+                                 "topNCountByBin": counts.tolist()}
+            m["ThresholdMetrics"] = {"topNs": list(self.top_ns),
+                                     "nBins": self.n_bins, "byTopN": topns}
+        return EvaluationMetrics(m)
+
+    @staticmethod
+    def _n_classes(y, pred) -> int:
+        return int(torch.maximum(torch.max(y), torch.max(pred))) + 1
+
+    def evaluate_masked(self, y, device_out: Dict[str, Any], w) -> float:
+        """The default metric of one model's predictions over the row mask
+        ``w``: the f32 confusion matrix, the panel in f64 (≙
+        ``evaluate_masked``, evaluators.py:403-416)."""
+        metric = self._metric()
+        pred = device_out["prediction"]
+        conf = masked_multiclass_confusion(
+            y, pred, w, n_classes=self._n_classes(y, pred))
+        return self._conf_panel(conf.cpu().numpy().astype(np.float64))[
+            metric]
+
+    def evaluate_masked_grid(self, y, S, W) -> torch.Tensor:
+        """Default metric of K integer prediction columns S [N, K] over the
+        mask W ([N] shared or [K, N]) → [K] f32."""
+        return masked_multiclass_metric_grid(
+            y, S, W, n_classes=self._n_classes(y, S), metric=self._metric())
+
+    def evaluate_masked_fold_grid(self, y, S, W) -> torch.Tensor:
+        """Default metric of the (fold × grid) prediction panel S [N, F, G]
+        with fold validation masks W [F, N] → [F, G] f32."""
+        return masked_multiclass_metric_fold_grid(
+            y, S, W, n_classes=self._n_classes(y, S), metric=self._metric())
+
+    def evaluate_all_device(self, y, device_out: Dict[str, Any],
+                            w) -> Optional[EvaluationMetrics]:
+        """The full panel from a model's ``device_scores`` output over the
+        row weights ``w`` (≙ ``evaluate_all_device``, evaluators.py:
+        431-473): the f32 confusion matrix, and the top-N panel from a
+        STABLE descending sort of the probabilities (ties, common in forest
+        probabilities, keep the lower class first, as ``jnp.argsort``)
+        binned by the top probability with weighted counts.  None for no
+        rows."""
+        pred = device_out["prediction"]
+        if not len(y):
+            return None
+        conf = masked_multiclass_confusion(
+            y, pred, w, n_classes=self._n_classes(y, pred))
+        m: Dict[str, Any] = self._conf_panel(
+            conf.cpu().numpy().astype(np.float64))
+        prob = device_out.get("probability")
+        if prob is not None and prob.ndim == 2:
+            order = torch.argsort(-prob, dim=1, stable=True)
+            maxprob = torch.max(prob, dim=1).values
+            bins = torch.clamp((maxprob * self.n_bins).to(torch.int32), 0,
+                               self.n_bins - 1)
+            yi = y.to(torch.int64)
+            counts = torch.bincount(bins, weights=w, minlength=self.n_bins)
+            topns = {}
+            for n in self.top_ns:
+                correct = (order[:, :n] == yi[:, None]).any(dim=1)
+                corr = torch.bincount(bins, weights=w * correct.to(w.dtype),
+                                      minlength=self.n_bins)
+                topns[str(n)] = {
+                    "topNCorrectByBin": corr.cpu().double().tolist(),
+                    "topNCountByBin": counts.cpu().double().tolist()}
+            m["ThresholdMetrics"] = {"topNs": list(self.top_ns),
+                                     "nBins": self.n_bins, "byTopN": topns}
+        return EvaluationMetrics(m)
+
+
+def _host(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+
 class Evaluators:
-    """≙ Evaluators.scala:40 factory (binary and regression families)."""
+    """≙ Evaluators.scala:40 factory (binary, regression and multiclass
+    families)."""
 
     class BinaryClassification:
         @staticmethod
@@ -189,6 +360,24 @@ class Evaluators:
         @staticmethod
         def auROC() -> OpBinaryClassificationEvaluator:
             return OpBinaryClassificationEvaluator(default_metric="AuROC")
+
+    class MultiClassification:
+        @staticmethod
+        def precision() -> OpMultiClassificationEvaluator:
+            return OpMultiClassificationEvaluator(default_metric="Precision")
+
+        @staticmethod
+        def recall() -> OpMultiClassificationEvaluator:
+            return OpMultiClassificationEvaluator(default_metric="Recall")
+
+        @staticmethod
+        def f1() -> OpMultiClassificationEvaluator:
+            return OpMultiClassificationEvaluator(default_metric="F1")
+
+        @staticmethod
+        def error() -> OpMultiClassificationEvaluator:
+            return OpMultiClassificationEvaluator(
+                default_metric="Error", is_larger_better=False)
 
     class Regression:
         @staticmethod

@@ -278,8 +278,7 @@ def _model_contributions(sel) -> List[float]:
         d = int(feats.max()) + 1
         counts = np.bincount(feats, minlength=d).astype(np.float64)
         return (counts / counts.sum()).tolist()
-    if "log_prob" in fitted:
-        raise NotImplementedError(
-            "ModelInsights: naive Bayes contributions come with OpNaiveBayes "
-            "in the port's multiclass slice (ROADMAP queue 1 item 4)")
+    if "log_prob" in fitted:  # naive Bayes: spread of the class log-probs
+        lp = _host(fitted["log_prob"])
+        return np.abs(lp - lp.mean(axis=0)).max(axis=0).tolist()
     return []

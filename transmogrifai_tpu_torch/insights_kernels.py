@@ -264,21 +264,27 @@ def model_loco(model, X: torch.Tensor, col_group: torch.Tensor, G: int,
                k: int, strategy: str):
     """LOCO top-k of a fitted model of the port on X: a linear model (binary
     or regression) takes ``loco_linear``, a GBT or a forest ``loco_tree``,
-    each explaining the score ``loco_score`` picks.  Another model raises
-    ``NotImplementedError`` (the JAX package's generic masked forward has no
-    kernel here)."""
+    each explaining the score ``loco_score`` picks.  Another model — a
+    multinomial linear model, naive Bayes, the MLP — raises
+    ``NotImplementedError`` on every device: the JAX package explains them
+    through its softmax link, which has no kernel here yet (ROADMAP queue
+    2, "K8, the softmax link")."""
     from .models.linear import LinearPredictionModel
     from .models.trees import TreeEnsembleModel
     from .selector import SelectedModel
     if isinstance(model, SelectedModel):
         model = model.best_model
-    if isinstance(model, LinearPredictionModel):
+    if (isinstance(model, LinearPredictionModel)
+            and model.fitted.get("kind") != "multinomial"):
         return loco_linear(X, model, col_group, G, k, strategy)
     if isinstance(model, TreeEnsembleModel):
         return loco_tree(X, model, col_group, G, k, strategy)
+    kind = model.fitted.get("kind", type(model).__name__)
     raise NotImplementedError(
-        f"RecordInsightsLOCO: no LOCO kernel for {type(model).__name__}; the "
-        "port explains linear models and tree ensembles on the card")
+        f"RecordInsightsLOCO: no LOCO kernel for {type(model).__name__} "
+        f"(kind {kind!r}); the port explains binary and regression linear "
+        "models and tree ensembles — the softmax link of multinomial, naive "
+        "Bayes and MLP models is ROADMAP queue 2, \"K8, the softmax link\"")
 
 
 def col_group_of(groups, D: int, device) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""Masked on-device metrics for the CV loop (port of the binary and
-regression panels of ``transmogrifai_tpu/metrics_device.py``; ≙
-OpBinaryClassificationEvaluator.scala:67-185 and OpRegressionEvaluator
-semantics).
+"""Masked on-device metrics for the CV loop (port of the binary,
+regression and multiclass panels of ``transmogrifai_tpu/metrics_device.py``;
+≙ OpBinaryClassificationEvaluator.scala:67-185, OpRegressionEvaluator and
+OpMultiClassificationEvaluator semantics).
 
 Every validation metric is a reduction over the FULL row set with a 0/1
 validation mask, so folds never change shapes.  Ties are exact: for sorted
@@ -14,6 +14,8 @@ a whole (fold × grid) panel.
 from __future__ import annotations
 
 import torch
+
+from .metrics_kernels import multiclass_confusion
 
 
 def _sorted_by(scores, *cols, descending=False):
@@ -158,3 +160,86 @@ def masked_reg_metric_fold_grid(y, S, W, metric: str):
     fold masks → [F, G] (≙ ``masked_reg_metric_fold_grid``,
     metrics_device.py:158-167)."""
     return _masked_reg_metric(y, S.permute(1, 2, 0), W[:, None, :], metric)
+
+
+MULTI_METRICS = ("Precision", "Recall", "F1", "Error")
+
+
+def masked_multiclass_confusion(y, yhat, w, *, n_classes: int):
+    """Weighted [C, C] confusion matrix of one prediction column, in f32
+    (≙ ``masked_multiclass_confusion``, metrics_device.py:134-141): y, yhat
+    [N] class ids (any dtype), w [N] — the ``multiclass_confusion`` kernel
+    with one candidate."""
+    return multiclass_confusion(
+        y.to(torch.int32).contiguous(),
+        yhat.to(torch.int32).reshape(-1, 1).contiguous(),
+        w.to(torch.float32).reshape(1, -1).contiguous(), 1, n_classes)[0]
+
+
+def conf_metric(conf, metric: str):
+    """Weighted Precision / Recall / F1 / Error of [..., C, C] confusion
+    matrices, in f32 with the JAX panel's zero guards (≙ ``_conf_metric``,
+    metrics_device.py:177-199) → [...]."""
+    if metric not in MULTI_METRICS:
+        raise ValueError(f"multiclass metric {metric!r}")
+    support = conf.sum(dim=-1)
+    tp = torch.diagonal(conf, dim1=-2, dim2=-1)
+    if metric == "Error":
+        return 1.0 - tp.sum(dim=-1) / torch.clamp(support.sum(dim=-1),
+                                                  min=1.0)
+    pred_count = conf.sum(dim=-2)
+    prec_c = torch.where(pred_count > 0,
+                         tp / torch.clamp(pred_count, min=1e-30), 0.0)
+    rec_c = torch.where(support > 0, tp / torch.clamp(support, min=1e-30),
+                        0.0)
+    wts = support / torch.clamp(support.sum(dim=-1, keepdim=True), min=1.0)
+    if metric == "Precision":
+        x = prec_c
+    elif metric == "Recall":
+        x = rec_c
+    else:
+        x = torch.where(prec_c + rec_c > 0, 2.0 * prec_c * rec_c
+                        / torch.clamp(prec_c + rec_c, min=1e-30), 0.0)
+    # the class-weighted sum in the order XLA's f32 dot takes on the CPU
+    # (measured for C <= 8): one fused multiply-add a class for a single
+    # matrix or two classes (emulated in f64, where the f32 product is
+    # exact), rounded products added class by class for a batch of
+    # matrices, so racing ranks see the JAX package's bits
+    fused = conf[..., 0, 0].numel() == 1 or conf.shape[-1] == 2
+    acc = wts[..., 0] * x[..., 0]
+    for c in range(1, conf.shape[-1]):
+        if fused:
+            acc = (wts[..., c].double() * x[..., c].double()
+                   + acc.double()).float()
+        else:
+            acc = acc + wts[..., c] * x[..., c]
+    return acc
+
+
+def masked_multiclass_metric_grid(y, P, W, *, n_classes: int, metric: str):
+    """One multiclass metric of K integer prediction columns P [N, K] over W,
+    one shared [N] mask or per-candidate [K, N] masks → [K] (≙
+    ``masked_multiclass_metric_grid``, metrics_device.py:202-215).  Classes
+    absent from the data add no support, so a generous ``n_classes`` is
+    exact."""
+    K = P.shape[1]
+    Wm = W.reshape(1, -1) if W.ndim == 1 else W
+    conf = multiclass_confusion(
+        y.to(torch.int32).contiguous(), P.to(torch.int32).contiguous(),
+        Wm.to(torch.float32).contiguous(), K if W.ndim == 1 else 1,
+        n_classes)
+    return conf_metric(conf, metric)
+
+
+def masked_multiclass_metric_fold_grid(y, P, W, *, n_classes: int,
+                                       metric: str):
+    """The (fold × grid) multiclass panel: P [N, F, G] integer predictions,
+    W [F, N] fold masks → [F, G] (≙ ``masked_multiclass_metric_fold_grid``,
+    metrics_device.py:218-230): one ``multiclass_confusion`` launch for
+    every (fold, candidate)."""
+    N, F, G = P.shape
+    conf = multiclass_confusion(
+        y.to(torch.int32).contiguous(),
+        P.to(torch.int32).reshape(N, F * G).contiguous(),
+        W.to(torch.float32).contiguous(), G, n_classes)
+    return conf_metric(conf, metric).reshape(F, G)

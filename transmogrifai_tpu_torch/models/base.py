@@ -9,6 +9,7 @@ the entry points the ModelSelector's CV grid calls directly, so the
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Tuple, Type
 
 import numpy as np
@@ -65,8 +66,21 @@ class PredictorEstimator(Estimator):
                         device=None) -> list:
         """Batched (fold × grid-point) training: fitted dicts indexed
         ``[fold][grid_point]``; ``fold_weights`` [F, N] are per-fold row
-        weights over the SAME matrix (0 == held out)."""
-        raise NotImplementedError
+        weights over the SAME matrix (0 == held out).  This default fits
+        each (fold, grid point) in turn with the fold's weights as
+        ``sample_weight`` (≙ ``PredictorEstimator.fit_arrays_grid``,
+        base.py:142-166); the linear and tree families batch them."""
+        out = []
+        for w in fold_weights:
+            row = []
+            for params in grids:
+                est = copy.deepcopy(self)
+                for k, v in params.items():
+                    est.set(k, v)
+                row.append(est.fit_arrays(X, y, sample_weight=w,
+                                          device=device))
+            out.append(row)
+        return out
 
     def fit(self, batch: ColumnBatch) -> PredictionModel:
         label, feats = self.input_features

@@ -1,6 +1,7 @@
 """Launch bookkeeping shared by the port's kernel wrappers
 (``tree_kernels.py``, ``linear_kernels.py``, ``ops/text_kernels.py``,
-``sparse/sparse_kernels.py``, ``insights_kernels.py``).
+``sparse/sparse_kernels.py``, ``insights_kernels.py``,
+``metrics_kernels.py``).
 
 Each wrapper takes tensors and dispatches on their device: on a CPU tensor it
 runs the plain-PyTorch twin beside it; on a CUDA tensor it launches the
@@ -29,6 +30,8 @@ REPLACES = {
     "tree_route": "transmogrifai_tpu/models/trees.py:373",
     "tree_walk": "transmogrifai_tpu/models/trees.py:668",
     "fista_step": "transmogrifai_tpu/models/solvers.py:160",
+    "fista_softmax": "transmogrifai_tpu/models/solvers.py:44",
+    "multiclass_confusion": "transmogrifai_tpu/metrics_device.py:135",
     "hash_counts": "transmogrifai_tpu/ops/text.py:148",
     "sp_matmat": "transmogrifai_tpu/sparse/matrix.py:60",
     "sp_rmatmat": "transmogrifai_tpu/sparse/matrix.py:67",

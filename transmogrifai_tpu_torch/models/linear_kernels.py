@@ -1,10 +1,11 @@
-"""The linear family's kernel: ``fista_step``, its wrapper and its
-plain-PyTorch twin (the dispatch rule and launch counters are in
-``kernels.py``).
+"""The linear family's kernels: ``fista_step`` and ``fista_softmax``, their
+wrappers and their plain-PyTorch twins (the dispatch rule and launch
+counters are in ``kernels.py``).
 
-| kernel     | replaces (transmogrifai_tpu/models/solvers.py)                     |
-|------------|--------------------------------------------------------------------|
-| fista_step | ``_fista_loop``'s ``smooth_grad`` with ``xs_mv`` / ``xs_tmv`` (:160-166, :270-286) for the logistic, squared-hinge and squared (:53-56) losses; the product of ``_spectral_norm_sq_weighted`` (:112-131) |
+| kernel        | replaces (transmogrifai_tpu/models/solvers.py)                  |
+|---------------|-----------------------------------------------------------------|
+| fista_step    | ``_fista_loop``'s ``smooth_grad`` with ``xs_mv`` / ``xs_tmv`` (:160-166, :270-286) for the logistic, squared-hinge and squared (:53-56) losses; the product of ``_spectral_norm_sq_weighted`` (:112-131) |
+| fista_softmax | the same ``smooth_grad`` for the multinomial loss ``_softmax_loss_grad`` (:44-50): C margins a lane (wrapper :func:`fista_softmax_step`) |
 
 For a ``SparseMatrix`` the same gradient evaluation is ``sparse_fista_step``:
 margins by the ``sp_matmat`` kernel, the loss derivative in plain PyTorch,
@@ -24,7 +25,7 @@ from .kernels import check as _check, launch, stream as _stream
 LOSSES = {"logistic": 0, "squared_hinge": 1, "gram": 2, "squared": 3}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 10 + [_L] + [_I] * 13 + [_P]
+_ARGTYPES = [_P] * 10 + [_L] + [_I] * 13 + [_P]     # both kernels' launch
 _SMEM_MAX = 227 * 1024
 _N_BLOCKS = 132 * 4
 WIDE_LANES = 32          # lanes per launch of the wide form
@@ -67,11 +68,21 @@ def sparse_fista_step(X, V, muv, b, W, y, wsum, G: int, loss: str
     return X.rmatmat(g).T.contiguous(), g.sum(dim=0)
 
 
-def grad_seam(X):
-    """The gradient evaluation for X: ``sparse_fista_step`` for a
-    ``SparseMatrix``, else ``fista_step``."""
+def grad_seam(X, loss: str = "logistic"):
+    """The gradient evaluation for X and ``loss``: ``sparse_fista_step``
+    for a ``SparseMatrix``, :func:`fista_softmax_step` for the multinomial
+    loss on a dense X, else ``fista_step``."""
     from ..sparse.matrix import SparseMatrix
-    return sparse_fista_step if isinstance(X, SparseMatrix) else fista_step
+    if isinstance(X, SparseMatrix):
+        if loss == "softmax":
+            raise TypeError("the multinomial loss on a SparseMatrix arrives "
+                            "with the port's sparse multinomial fits "
+                            "(ROADMAP queue 1 item 8)")
+        return sparse_fista_step
+    if loss == "softmax":
+        return lambda X, V, muv, b, W, y, wsum, G, loss: fista_softmax_step(
+            X, V, muv, b, W, y, wsum, G)
+    return fista_step
 
 
 def fista_step_twin(X, V, muv, b, W, y, wsum, G: int, loss: str):
@@ -184,3 +195,142 @@ def fista_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
         if n_l != L:
             out[:, l0:l0 + n_l] = o
     return out[:D].T.contiguous(), out[D]
+
+
+# --------------------------------------------------------------------------
+# the multinomial (softmax) loss: fista_softmax
+# --------------------------------------------------------------------------
+
+SOFTMAX_WIDE_COLS = 32   # (lane, class) columns a launch of the wide form
+
+
+def fista_softmax_row_grads(X, V, muv, b, W, y, wsum, G: int):
+    """The per-row gradients g [L, C, N] of :func:`fista_softmax_step`, in
+    plain PyTorch (≙ ``_softmax_loss_grad``, solvers.py:44-50, per lane)."""
+    L, C, D = V.shape
+    N = X.shape[0]
+    lane_fold = torch.arange(L, device=X.device) // G
+    lin = ((V.reshape(L * C, D) @ X.T).reshape(L, C, N)
+           - muv[..., None] + b[..., None])
+    p = torch.softmax(lin, dim=1)
+    onehot = torch.nn.functional.one_hot(y.long(), C).T.to(X.dtype)
+    return W[lane_fold][:, None, :] * (p - onehot) / wsum[:, None, None]
+
+
+def fista_softmax_step_twin(X, V, muv, b, W, y, wsum, G: int):
+    """Plain-PyTorch twin of :func:`fista_softmax_step`: the two matmuls
+    and the softmax between them, as XLA runs the JAX package's loop."""
+    g = fista_softmax_row_grads(X, V, muv, b, W, y, wsum, G)
+    L, C, N = g.shape
+    return (g.reshape(L * C, N) @ X).reshape(L, C, -1), g.sum(dim=2)
+
+
+def _softmax_tile_smem(D: int, L: int, C: int, tr: int) -> int:
+    Jp = -(-L * C // 4) * 4
+    return 4 * (tr * (D | 1) + tr * Jp + D * Jp + (D + 1) * Jp + 2 * Jp + L)
+
+
+def _softmax_tile_rows(D: int, L: int, C: int) -> Optional[int]:
+    for tr in (128, 64, 32):
+        if _softmax_tile_smem(D, L, C, tr) <= _SMEM_MAX:
+            return tr
+    return None
+
+
+def _softmax_tile(D: int, lanes: int, C: int, tr: int) -> dict:
+    return {"form": "tile", "lanes": lanes, "TR": tr,
+            "smem": (_softmax_tile_smem(D, lanes, C, tr),)}
+
+
+def softmax_launch_plan(D: int, L: int, C: int) -> dict:
+    """How ``fista_softmax`` launches for D features and L lanes of C
+    classes: the one-tile form with every lane where X's row tile and all
+    L·C coefficient columns fit one block's shared memory; else the wide
+    two-pass form, ``SOFTMAX_WIDE_COLS // C`` lanes a launch (C ≤ 32: a
+    lane's classes never straddle two launches); else the one-tile form
+    with as many lanes a launch as fit.  Raises ValueError for a shape that
+    fits no form.  Each form's shared memory in bytes is here, the one
+    place that sizes it."""
+    if C < 2 or L < 1 or D < 1:
+        raise ValueError(f"fista_softmax: {L} lanes, {C} classes, {D} "
+                         "features")
+    tr = _softmax_tile_rows(D, L, C)
+    if tr is not None:
+        return _softmax_tile(D, L, C, tr)
+    if C <= SOFTMAX_WIDE_COLS:
+        lc = min(L, SOFTMAX_WIDE_COLS // C)
+        Jp = -(-lc * C // 4) * 4
+        trm = min(256, 512 // (Jp // 4)) // 32 * 32
+        return {"form": "wide", "lanes": lc, "TR": trm,
+                "smem": (4 * (trm * (_DC_MARGIN + 1) + _DC_MARGIN * Jp),
+                         4 * (_TR_XTG * (_DC_XTG + 1) + _TR_XTG * Jp))}
+    for lc in range(L - 1, 0, -1):
+        tr = _softmax_tile_rows(D, lc, C)
+        if tr is not None:
+            return _softmax_tile(D, lc, C, tr)
+    raise ValueError(f"fista_softmax: no launch form holds {C} classes at "
+                     f"{D} features")
+
+
+def fista_softmax_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
+                       b: torch.Tensor, W: torch.Tensor, y: torch.Tensor,
+                       wsum: torch.Tensor, G: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One gradient evaluation of FISTA for L lanes of the multinomial loss
+    over one X.
+
+    X f32 [N, D]; V f32 [L, C, D] the lanes' scaled coefficients per class
+    (coef / scale); muv f32 [L, C] = mean · V; b f32 [L, C] intercepts; W
+    f32 [F, N] fold row weights, lane l reading fold ``l // G``; y int32
+    [N] class ids (< C); wsum f32 [L].  With margins m = (X V_lc - muv_lc)
+    + b_lc, p the softmax of a lane's C margins and g = W·(p - onehot(y)) /
+    wsum, returns (Xᵀ g [L, C, D], Σ_n g [L, C]).  The card's sums run in
+    a fixed order: the same inputs give the same bits on every run."""
+    dev = X.device
+    _check("fista_softmax X", X, torch.float32, 2, dev)
+    _check("fista_softmax V", V, torch.float32, 3, dev)
+    _check("fista_softmax W", W, torch.float32, 2, dev)
+    _check("fista_softmax y", y, torch.int32, 1, dev)
+    for name, t, nd in (("muv", muv, 2), ("b", b, 2), ("wsum", wsum, 1)):
+        _check(f"fista_softmax {name}", t, torch.float32, nd, dev)
+    N, D = X.shape
+    L, C = V.shape[:2]
+    if (V.shape[2] != D or W.shape[1] != N or muv.shape != (L, C)
+            or b.shape != (L, C) or wsum.shape != (L,) or y.shape != (N,)
+            or (L - 1) // G >= W.shape[0]):
+        raise ValueError("fista_softmax: shapes of X/V/W/y and lanes "
+                         "disagree")
+    if dev.type == "cpu":
+        return fista_softmax_step_twin(X, V, muv, b, W, y, wsum, G)
+    if dev.type != "cuda":
+        raise ValueError(f"fista_softmax: unsupported device {dev}")
+    plan = softmax_launch_plan(D, L, C)
+    lc, tr = plan["lanes"], plan["TR"]
+    wide = plan["form"] == "wide"
+    if wide:
+        # row-tile blocks of the X^T g pass share the card with its feature
+        # chunks; g [N, columns] round-trips through device memory
+        chunks = -(-D // _DC_XTG) + 1
+        nb = max(1, min(-(-N // _TR_XTG), -(-_N_BLOCKS * 2 // chunks)))
+        gbuf = torch.empty((N, -(-lc * C // 4) * 4), dtype=torch.float32,
+                           device=dev)
+    else:
+        nb = max(1, min(_N_BLOCKS, -(-N // tr)))
+        gbuf = None
+    partial = torch.empty(((D + 1) * lc * C, nb), dtype=torch.float32,
+                          device=dev)
+    gx = torch.empty((L, C, D), dtype=torch.float32, device=dev)
+    gs = torch.empty((L, C), dtype=torch.float32, device=dev)
+    smem = plan["smem"] + (0,)
+    for l0 in range(0, L, lc):
+        n_l = min(lc, L - l0)
+        out = torch.empty((D + 1, n_l * C), dtype=torch.float32, device=dev)
+        launch("fista_softmax", _ARGTYPES, X.data_ptr(),
+               V[l0:].data_ptr(), muv[l0:].data_ptr(), b[l0:].data_ptr(),
+               W.data_ptr(), y.data_ptr(), wsum[l0:].data_ptr(),
+               None if gbuf is None else gbuf.data_ptr(), partial.data_ptr(),
+               out.data_ptr(), N, D, n_l, C, l0, G, int(wide), tr, nb,
+               _DC_MARGIN, _TR_XTG, _DC_XTG, smem[0], smem[1], _stream(X))
+        gx[l0:l0 + n_l] = out[:D].T.reshape(n_l, C, D)
+        gs[l0:l0 + n_l] = out[D].reshape(n_l, C)
+    return gx, gs

@@ -1,7 +1,7 @@
 """Full-batch solvers for the linear family (port of the logistic,
-squared-hinge and squared-loss paths of
-``transmogrifai_tpu/models/solvers.py``, dense and sparse, and of its
-closed-form ridge).
+squared-hinge, squared-loss and (dense) multinomial paths of
+``transmogrifai_tpu/models/solvers.py``, dense and sparse, of its
+closed-form ridge and of its naive Bayes).
 
 The JAX package vmaps a per-lane ``lax.while_loop`` over the (fold × grid)
 lanes, so a lane that meets its tolerance freezes while the others run.  The
@@ -15,7 +15,10 @@ X enters only through the implicitly standardized products
 shares the one device-resident X (the standardized copy never exists).  Each
 gradient evaluation, and each product of the power iteration, is one
 ``fista_step`` (``linear_kernels.py``): on the card a kernel that reads X
-once for all lanes, on the CPU its matmul twin.
+once for all lanes, on the CPU its matmul twin.  The multinomial loss
+("softmax") keeps C coefficient rows a lane (coef [L, C, D]) and takes its
+gradients from ``fista_softmax_step``; its restart test and stop rule
+reduce over all of a lane's classes, as the JAX package's do.
 
 A ``SparseMatrix`` X runs the same loop: only the gradient seam differs
 (``grad_seam``: ``sp_matmat`` margins and ``sp_rmatmat`` products over all
@@ -37,12 +40,13 @@ import torch
 from .linear_kernels import grad_seam
 
 # Lipschitz constant of d²loss/dmargin² per row (≙ ``_LOSS_CURVATURE``)
-_LOSS_CURVATURE = {"logistic": 0.25, "squared_hinge": 2.0, "squared": 1.0}
+_LOSS_CURVATURE = {"logistic": 0.25, "squared_hinge": 2.0, "squared": 1.0,
+                   "softmax": 0.5}
 
 
 class FitResult(NamedTuple):
-    coef: torch.Tensor       # [F, G, D]
-    intercept: torch.Tensor  # [F, G, 1]
+    coef: torch.Tensor       # [F, G, D]; softmax [F, G, D, C]
+    intercept: torch.Tensor  # [F, G, 1]; softmax [F, G, C]
     n_iter: torch.Tensor     # [F, G] int32
 
 
@@ -58,8 +62,11 @@ def standardize_moments(X: torch.Tensor, W: torch.Tensor, center: bool):
 
 
 def loss_target(loss: str, y: torch.Tensor) -> torch.Tensor:
-    """The loss's target: ±1 from 0/1 labels for the squared hinge, the
-    labels themselves otherwise (≙ ``_loss_target``, solvers.py:134-141)."""
+    """The loss's target: int32 class ids for the multinomial loss (the
+    kernel's one-hot), ±1 from 0/1 labels for the squared hinge, the
+    labels themselves otherwise (≙ ``_loss_target``, solvers.py:133-140)."""
+    if loss == "softmax":
+        return y.to(torch.int32)
     if loss == "squared_hinge":
         return torch.where(y > 0.5, 1.0, -1.0).to(torch.float32)
     return y.to(torch.float32)
@@ -88,10 +95,10 @@ def _spectral_norm_sq_weighted(X, W, wsum, mean, scale, iters: int = 16):
 
 
 class FistaState(NamedTuple):
-    coef: torch.Tensor     # [L, D]
-    inter: torch.Tensor    # [L]
-    zc: torch.Tensor       # [L, D] extrapolated point
-    zi: torch.Tensor       # [L]
+    coef: torch.Tensor     # [L, D]; softmax [L, C, D]
+    inter: torch.Tensor    # [L]; softmax [L, C]
+    zc: torch.Tensor       # like coef: the extrapolated point
+    zi: torch.Tensor       # like inter
     t: torch.Tensor        # [L] momentum
     k: torch.Tensor        # [L] int32 iterations taken
     active: torch.Tensor   # [L] bool: not yet within tol
@@ -99,63 +106,80 @@ class FistaState(NamedTuple):
 
 class FistaLoop:
     """FISTA with adaptive restart for L lanes at once (≙ ``_fista_loop``,
-    solvers.py:143-289, for the "logistic", "squared_hinge" and "squared"
-    losses).  Lane l trains on fold row ``W[l // G]`` with penalties l2[l],
-    l1[l] and standardisation mu[l], sc[l]; it minimises
+    solvers.py:143-289, for the "logistic", "squared_hinge", "squared" and
+    "softmax" losses).  Lane l trains on fold row ``W[l // G]`` with
+    penalties l2[l], l1[l] and standardisation mu[l], sc[l]; it minimises
     mean_loss(Xs w + b) + l2/2 ||w||² + l1 ||w||₁ in the standardized
     basis.  ``step`` is one iteration of every lane; a lane whose update
-    moved less than ``tol`` is frozen from then on."""
+    moved less than ``tol`` (max |Δcoef| + max |Δintercept| over its
+    classes) is frozen from then on."""
 
     def __init__(self, X, target, W, G: int, l2, l1, mu, sc, sigma_sq, *,
-                 loss: str, fit_intercept: bool, tol: float):
+                 loss: str, fit_intercept: bool, tol: float,
+                 n_classes: int = 1):
         if loss not in _LOSS_CURVATURE:
             raise ValueError(f"FistaLoop: loss {loss!r}")
+        self.C = n_classes if loss == "softmax" else 1
+        if loss == "softmax" and self.C < 2:
+            raise ValueError("FistaLoop: the softmax loss needs n_classes")
         self.X, self.target, self.W, self.G = X, target, W, G
-        self.mu, self.sc, self.loss, self.tol = mu, sc, loss, tol
-        self.grad = grad_seam(X)
+        self.loss, self.tol = loss, tol
+        self.grad = grad_seam(X, loss)
         self.fit_intercept = fit_intercept
         lane_fold = torch.arange(mu.shape[0], device=X.device) // G
         self.wsum = W.sum(dim=1)[lane_fold]
-        self.step_size = (1.0 / torch.clamp(
-            _LOSS_CURVATURE[loss] * sigma_sq + l2, min=1e-12))[:, None]
-        self.l2c, self.l1c = l2[:, None], l1[:, None]
+        step = 1.0 / torch.clamp(_LOSS_CURVATURE[loss] * sigma_sq + l2,
+                                 min=1e-12)
+        # per-lane values broadcast against coef ([L, D] or [L, C, D]) and
+        # against the intercepts ([L] or [L, C])
+        multi = self.C > 1
+        self._c = ((lambda a: a[:, None, None]) if multi
+                   else (lambda a: a[:, None]))
+        self._i = (lambda a: a[:, None]) if multi else (lambda a: a)
+        self.mu = mu[:, None, :] if multi else mu
+        self.sc = sc[:, None, :] if multi else sc
+        self.step_c, self.step_i = self._c(step), self._i(step)
+        self.l2c, self.l1c = self._c(l2), self._c(l1)
 
     def start(self) -> FistaState:
-        L, d = self.mu.shape
+        L, d = self.mu.shape[0], self.mu.shape[-1]
         dev = self.X.device
-        coef = torch.zeros((L, d), dtype=torch.float32, device=dev)
-        inter = torch.zeros((L,), dtype=torch.float32, device=dev)
+        cshape = (L, self.C, d) if self.C > 1 else (L, d)
+        coef = torch.zeros(cshape, dtype=torch.float32, device=dev)
+        inter = torch.zeros(cshape[:-1], dtype=torch.float32, device=dev)
         return FistaState(coef, inter, coef.clone(), inter.clone(),
                           torch.ones((L,), dtype=torch.float32, device=dev),
                           torch.zeros((L,), dtype=torch.int32, device=dev),
                           torch.ones((L,), dtype=torch.bool, device=dev))
 
     def step(self, s: FistaState) -> FistaState:
-        mu, sc, step = self.mu, self.sc, self.step_size
+        mu, sc, step = self.mu, self.sc, self.step_c
         v = s.zc / sc
-        gx, g_i = self.grad(self.X, v, (mu * v).sum(dim=1), s.zi, self.W,
+        gx, g_i = self.grad(self.X, v, (mu * v).sum(dim=-1), s.zi, self.W,
                             self.target, self.wsum, self.G, self.loss)
-        g_c = (gx - mu * g_i[:, None]) / sc + self.l2c * s.zc
+        g_c = (gx - mu * g_i[..., None]) / sc + self.l2c * s.zc
         u = s.zc - step * g_c
         new_c = torch.sign(u) * torch.clamp(torch.abs(u) - step * self.l1c,
                                             min=0.0)
-        new_i = s.zi - step[:, 0] * g_i if self.fit_intercept else s.zi
+        new_i = s.zi - self.step_i * g_i if self.fit_intercept else s.zi
         t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * s.t * s.t))
         beta = (s.t - 1.0) / t_new
         # adaptive restart on a non-descent direction
-        restart = ((s.zc - new_c) * (new_c - s.coef)).sum(dim=1) > 0.0
+        restart = ((s.zc - new_c) * (new_c - s.coef)).flatten(1).sum(
+            dim=1) > 0.0
         beta = torch.where(restart, 0.0, beta)
         t_new = torch.where(restart, 1.0, t_new)
-        zc_next = new_c + beta[:, None] * (new_c - s.coef)
-        zi_next = new_i + beta * (new_i - s.inter)
-        delta = (torch.abs(new_c - s.coef).amax(dim=1)
-                 + torch.abs(new_i - s.inter))
+        zc_next = new_c + self._c(beta) * (new_c - s.coef)
+        zi_next = new_i + self._i(beta) * (new_i - s.inter)
+        d_i = torch.abs(new_i - s.inter)
+        delta = (torch.abs(new_c - s.coef).flatten(1).amax(dim=1)
+                 + (d_i.amax(dim=1) if self.C > 1 else d_i))
         # frozen lanes keep the state their own loop stopped at
-        a, act = s.active[:, None], s.active
+        a, ai, act = self._c(s.active), self._i(s.active), s.active
         return FistaState(torch.where(a, new_c, s.coef),
-                          torch.where(act, new_i, s.inter),
+                          torch.where(ai, new_i, s.inter),
                           torch.where(a, zc_next, s.zc),
-                          torch.where(act, zi_next, s.zi),
+                          torch.where(ai, zi_next, s.zi),
                           torch.where(act, t_new, s.t),
                           s.k + act.to(torch.int32),
                           act & (delta > self.tol))
@@ -173,8 +197,14 @@ def fista_fit(loop: FistaLoop, max_iter: int) -> FistaState:
     return s
 
 
-def unscale_params(coef, intercept, mean, scale):
-    """Standardized-basis (coef, intercept) → raw-feature basis."""
+def unscale_params(coef, intercept, mean, scale, n_classes: int = 1):
+    """Standardized-basis (coef, intercept) → raw-feature basis (≙
+    ``unscale_params``, solvers.py:580-588).  coef [..., D] with mean and
+    scale [..., D]; with ``n_classes`` > 1, coef [..., D, C] and intercept
+    [..., C]."""
+    if n_classes > 1:
+        c = coef / scale[..., :, None]
+        return c, intercept - (mean[..., :, None] * c).sum(dim=-2)
     c = coef / scale
     return c, intercept - (mean * c).sum(dim=-1)
 
@@ -183,12 +213,13 @@ def linear_grid_fit(X: torch.Tensor, y: torch.Tensor, W: torch.Tensor,
                     l2s: torch.Tensor, l1s: torch.Tensor, *,
                     loss: str = "logistic", fit_intercept: bool = True,
                     standardization: bool = True, max_iter: int = 100,
-                    tol: float = 1e-6) -> FitResult:
+                    tol: float = 1e-6, n_classes: int = 1) -> FitResult:
     """The whole (fold × grid-point) CV block of a linear loss
     (≙ ``linear_grid_fit``, solvers.py:334-376): W [F, N] fold weights,
     l2s/l1s [G] → FitResult with [F, G, ...] leaves.  Moments and λ_max are
     per fold, shared by the fold's grid lanes; lane f·G + g is grid point g
-    on fold f."""
+    on fold f.  ``loss="softmax"`` fits ``n_classes`` classes (y holds
+    class ids): coef [F, G, D, C], intercept [F, G, C]."""
     F, d = W.shape[0], X.shape[1]
     if standardization:
         mean, scale = standardize_moments(X, W, center=fit_intercept)
@@ -196,11 +227,13 @@ def linear_grid_fit(X: torch.Tensor, y: torch.Tensor, W: torch.Tensor,
         mean = torch.zeros((F, d), dtype=torch.float32, device=X.device)
         scale = torch.ones((F, d), dtype=torch.float32, device=X.device)
     return _grid_fit(X, y, W, l2s, l1s, mean, scale, loss=loss,
-                     fit_intercept=fit_intercept, max_iter=max_iter, tol=tol)
+                     fit_intercept=fit_intercept, max_iter=max_iter, tol=tol,
+                     n_classes=n_classes)
 
 
 def _grid_fit(X, y, W, l2s, l1s, mean, scale, *, loss: str,
-              fit_intercept: bool, max_iter: int, tol: float) -> FitResult:
+              fit_intercept: bool, max_iter: int, tol: float,
+              n_classes: int = 1) -> FitResult:
     """The (fold × grid) FISTA block given per-fold moments [F, D]: λ_max
     per fold, the lanes' loop, and the coefficients unscaled."""
     F, G, d = W.shape[0], l2s.shape[0], X.shape[1]
@@ -212,11 +245,34 @@ def _grid_fit(X, y, W, l2s, l1s, mean, scale, *, loss: str,
     loop = FistaLoop(X, loss_target(loss, y), W, G, l2s.repeat(F),
                      l1s.repeat(F), lanes(mean), lanes(scale),
                      lanes(sigma_sq), loss=loss, fit_intercept=fit_intercept,
-                     tol=tol)
+                     tol=tol, n_classes=n_classes)
     s = fista_fit(loop, max_iter)
+    if loop.C > 1:      # [L, C, D] → the JAX package's [D, C] layout
+        coef, inter = unscale_params(s.coef.transpose(1, 2), s.inter,
+                                     lanes(mean), lanes(scale), loop.C)
+        return FitResult(coef.reshape(F, G, d, loop.C),
+                         inter.reshape(F, G, loop.C), s.k.reshape(F, G))
     coef, inter = unscale_params(s.coef, s.inter, lanes(mean), lanes(scale))
     return FitResult(coef.reshape(F, G, d), inter.reshape(F, G, 1),
                      s.k.reshape(F, G))
+
+
+def naive_bayes_fit(X: torch.Tensor, y: torch.Tensor,
+                    sample_weight: torch.Tensor, smoothing: float, *,
+                    n_classes: int):
+    """Multinomial naive Bayes (≙ ``naive_bayes_fit``, solvers.py:319-333):
+    class-conditional log likelihoods from the weighted per-class sums of
+    the non-negative parts of the features.  Returns (log_prior [C],
+    log_prob [C, D])."""
+    yoh = torch.nn.functional.one_hot(y.long(), n_classes).to(torch.float32)
+    w = sample_weight.to(torch.float32)
+    cls_count = w @ yoh
+    feat_count = (yoh * w[:, None]).T @ torch.clamp(X, min=0.0)
+    log_prior = (torch.log(cls_count + 1e-12)
+                 - torch.log(cls_count.sum() + 1e-12))
+    sm = feat_count + smoothing
+    log_prob = torch.log(sm) - torch.log(sm.sum(dim=1, keepdim=True))
+    return log_prior, log_prob
 
 
 def ridge_fit(X: torch.Tensor, y: torch.Tensor, sample_weight: torch.Tensor,

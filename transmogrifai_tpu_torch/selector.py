@@ -9,7 +9,9 @@ evaluator on the training rows (and the holdout), and return a
 ``SelectedModel`` carrying the ``ModelSelectorSummary``.  With no
 ``models=`` the binary selector runs the reference's default grid
 (``DefaultSelectorParams``): LR x8, RF x18, GBT x18, LinearSVC x4; the
-regression selector LinReg x8, RF regressor x18 and GBT regressor x18.
+regression selector LinReg x8, RF regressor x18 and GBT regressor x18; the
+multiclass selector LR x8 (softmax) and RF x18, with a ``DataCutter``.
+The splitter prepares the data before the sweep and before the refit.
 """
 
 from __future__ import annotations
@@ -22,17 +24,20 @@ import torch
 
 from .columns import ColumnBatch
 from .evaluators import (Evaluators, OpBinaryClassificationEvaluator,
-                         OpEvaluatorBase, OpRegressionEvaluator)
+                         OpEvaluatorBase, OpMultiClassificationEvaluator,
+                         OpRegressionEvaluator)
 from .models.base import PredictionModel, extract_xy
 from .resilience import FailureLog
 from .stages.base import Estimator
-from .tuning import (DataSplitter, ModelCandidate, OpCrossValidation,
-                     OpValidator, Splitter, device_wall_clock)
+from .tuning import (DataCutter, DataSplitter, ModelCandidate,
+                     OpCrossValidation, OpValidator, Splitter,
+                     device_wall_clock)
 from .types import OPVector, Prediction, RealNN
 
 __all__ = ["ModelCandidate", "grid", "ModelSelector", "SelectedModel",
            "BinaryClassificationModelSelector", "RegressionModelSelector",
-           "ModelSelectorSummary", "DefaultSelectorParams"]
+           "MultiClassificationModelSelector", "ModelSelectorSummary",
+           "DefaultSelectorParams"]
 
 
 class DefaultSelectorParams:
@@ -156,12 +161,19 @@ class ModelSelector(Estimator):
     def fit(self, batch: ColumnBatch) -> SelectedModel:
         label_f, feats_f = self.input_features
         holdout = None
-        if self.splitter is not None and self.splitter.reserve_test_fraction > 0:
-            batch, holdout = self.splitter.split(batch)
+        if self.splitter is not None:
+            if self.splitter.reserve_test_fraction > 0:
+                batch, holdout = self.splitter.split(batch)
+            batch = self.splitter.pre_validation_prepare(batch, label_f.name)
         result = self.validator.validate(self.models, batch, label_f.name,
-                                         feats_f.name)
+                                         feats_f.name, splitter=self.splitter)
+        train_batch = batch
+        if self.splitter is not None:
+            # ≙ selector.py:401-404: the refit sees the prepared rows
+            train_batch = self.splitter.validation_prepare(batch,
+                                                           label_f.name)
         best_est = result.best.estimator
-        X, y = extract_xy(batch, label_f, feats_f)
+        X, y = extract_xy(train_batch, label_f, feats_f)
         # the full-data refit runs the family's batched grid program with one
         # all-ones fold and the winner's params, the program the JAX package
         # reuses for its refit
@@ -190,12 +202,15 @@ class ModelSelector(Estimator):
                 "numFolds": getattr(v, "num_folds", None),
                 "racing": {"enabled": v.racing, "eta": v.racing_eta,
                            "minSurvivors": v.racing_min_survivors}},
-            # the splitter's settings (≙ selector.py:438-444); the port's
-            # DataSplitter does no data preparation, so it has no results
+            # the splitter's settings and what it prepared (≙
+            # selector.py:438-447): a DataCutter's labels kept and dropped
             data_prep_parameters=(
                 {} if self.splitter is None else {
                     k: v for k, v in vars(self.splitter).items()
                     if isinstance(v, (int, float, str, bool))}),
+            data_prep_results=(
+                {} if self.splitter is None or self.splitter.summary is None
+                else self.splitter.summary.info),
             evaluation_metric=result.metric_name,
             problem_type=self.problem_type,
             best_model_uid=best_est.uid,
@@ -364,3 +379,33 @@ class RegressionModelSelector(ModelSelector):
         from .models.linear import OpLinearRegression
         from .models.trees import OpRandomForestRegressor
         return _compact_models(OpLinearRegression, OpRandomForestRegressor)
+
+
+# --------------------------------------------------------------------------
+# the reference's default multiclass grid (≙ selector.py:596-620)
+# --------------------------------------------------------------------------
+
+class MultiClassificationModelSelector(ModelSelector):
+    """≙ MultiClassificationModelSelector (selector.py:596-620): 3-fold CV
+    ranked by F1 by default and a ``DataCutter(seed=seed)``; with no
+    ``models`` the reference's default candidates LR (softmax for more than
+    two classes) and RF."""
+
+    problem_type = "MultiClassification"
+
+    def __init__(self, num_folds: int = 3, seed: int = 42,
+                 validation_metric: Optional[OpEvaluatorBase] = None,
+                 splitter: Optional[Splitter] = None,
+                 models: Optional[Sequence[ModelCandidate]] = None,
+                 stratify: bool = False, **kw):
+        ev = validation_metric or Evaluators.MultiClassification.f1()
+        validator = OpCrossValidation(num_folds, ev, seed, stratify)
+        if models is None:
+            models = [_lr_candidates(), _rf_classifier()]
+        super().__init__(validator,
+                         splitter if splitter is not None
+                         else DataCutter(seed=seed),
+                         models, [OpMultiClassificationEvaluator()], **kw)
+
+    compact_models = staticmethod(
+        BinaryClassificationModelSelector.compact_models)

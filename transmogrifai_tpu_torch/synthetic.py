@@ -14,6 +14,9 @@ vocabulary and one dense Real.
 Regression rows (``bench.run_selector_smoke``'s regression half) hold 16
 standard-normal features and a label that is their weighted sum plus noise
 of sd 0.3.
+
+Multiclass rows (its multiclass half) hold one of 4 class labels and 16
+features drawn around that class's centre (centres of sd 2.5, unit noise).
 """
 
 from __future__ import annotations
@@ -123,17 +126,34 @@ def make_sparse_text_columns(n: int, vocab_size: int = 30_000, seed: int = 3
     return cols, dict(SPARSE_TEXT_SCHEMA)
 
 
+MULTI_CLASSES = 4          # bench.run_selector_smoke's C
+
+
+def _multiclass_draws(rng, n: int, d: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The bench's multiclass draws from ``rng``, in its order: labels,
+    class centres (× 2.5), rows (bench.py:1171-1174)."""
+    ym = rng.integers(0, MULTI_CLASSES, n)
+    centers = rng.normal(size=(MULTI_CLASSES, d)) * 2.5
+    Xm = (centers[ym] + rng.normal(size=(n, d))).astype(np.float32)
+    return Xm, ym
+
+
+def make_multiclass_data(n: int, d: int = 16, seed: int = 11
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """(X [n, d] f32, y [n] f32 class ids 0..3) of
+    ``bench.run_selector_smoke``'s multiclass workload, bit for bit."""
+    X, y = _multiclass_draws(np.random.default_rng(seed), n, d)
+    return X, y.astype(np.float32)
+
+
 def make_regression_data(n: int, d: int = 16, seed: int = 11
                          ) -> Tuple[np.ndarray, np.ndarray]:
     """(X [n, d] f32, y [n] f32) of ``bench.run_selector_smoke``'s
     regression workload: ``y = X @ w + 0.3 * noise``.  The bench draws its
-    multiclass data from the same generator first (labels, class centres,
-    rows), so those draws are made here too, in the bench's order, and
-    dropped."""
+    multiclass data from the same generator first, so those draws are made
+    here too, in the bench's order, and dropped."""
     rng = np.random.default_rng(seed)
-    ym = rng.integers(0, 4, n)
-    centers = rng.normal(size=(4, d)) * 2.5
-    _ = (centers[ym] + rng.normal(size=(n, d))).astype(np.float32)
+    _multiclass_draws(rng, n, d)
     w = rng.normal(size=d).astype(np.float32)
     X = rng.normal(size=(n, d)).astype(np.float32)
     y = X @ w + 0.3 * rng.normal(size=n).astype(np.float32)

@@ -13,8 +13,13 @@ matrix (trees on a ``SparseMatrix``: ``NotImplementedError`` or
 ``TypeError``) is skipped as the JAX package skips it (tuning.py:1395-1407,
 :1462-1466): its block gets NaN metrics and a "skipped" record in the
 result's ``FailureLog``, and ``AllCandidatesFailed`` is raised only when no
-candidate has a finite metric.  The JAX package's mesh, memory-governor,
-supervisor, checkpoint, AOT and telemetry seams have no counterpart here.
+candidate has a finite metric.  A family with no batched panel (naive
+Bayes, the MLP) is scored candidate by candidate on its ``device_scores``.
+A splitter that reweights the training folds (``DataCutter`` dropping
+labels) does so through ``validation_prepare_weights`` on the training
+weights only; the validation masks stay.  The JAX package's mesh,
+memory-governor, supervisor, checkpoint, AOT and telemetry seams have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -62,14 +67,35 @@ def _grid_margins(X, C: torch.Tensor, b: torch.Tensor):
     return X @ C.T + b[None, :]
 
 
+def _multinomial_pred_grid(X, C3: torch.Tensor, B: torch.Tensor):
+    """[N, K] int32 class predictions of K multinomial candidates (coef
+    stack C3 [K, D, C], intercepts B [K, C]): one matmul to the [N, K, C]
+    margins and the first largest of each (≙ ``_multinomial_pred_grid``,
+    tuning.py:306-330; softmax is monotone, so the margins' argmax is each
+    model's prediction)."""
+    K, D, C = C3.shape
+    m = (X @ C3.permute(1, 0, 2).reshape(D, K * C)).reshape(-1, K, C) + B[None]
+    return torch.argmax(m, dim=-1).to(torch.int32)
+
+
+@dataclass
+class SplitterSummary:
+    """≙ SplitterSummary: the splitter's name and what it prepared."""
+    splitter: str = ""
+    info: Dict[str, Any] = field(default_factory=dict)
+
+
 class Splitter:
     """≙ tuning/Splitter.scala (tuning.py:64-89): an optional test holdout,
-    reserved before any CV.  The reference's per-class preparation hooks
-    come with the balancers that use them."""
+    reserved before any CV, and the per-class preparation hooks: before the
+    sweep (``pre_validation_prepare``), on the training folds' weights
+    (``validation_prepare_weights``) and before the refit
+    (``validation_prepare``)."""
 
     def __init__(self, seed: int = 42, reserve_test_fraction: float = 0.0):
         self.seed = int(seed)
         self.reserve_test_fraction = float(reserve_test_fraction)
+        self.summary: Optional[SplitterSummary] = None
 
     def split(self, batch: ColumnBatch) -> Tuple[ColumnBatch, ColumnBatch]:
         """(train, holdout) rows by the JAX package's permutation draw."""
@@ -78,9 +104,77 @@ class Splitter:
         n_test = int(round(n * self.reserve_test_fraction))
         return batch.take_rows(perm[n_test:]), batch.take_rows(perm[:n_test])
 
+    def pre_validation_prepare(self, batch: ColumnBatch,
+                               label: str) -> ColumnBatch:
+        self.summary = SplitterSummary(type(self).__name__)
+        return batch
+
+    def validation_prepare(self, batch: ColumnBatch,
+                           label: str) -> ColumnBatch:
+        return batch
+
+    def validation_prepare_weights(self, y: np.ndarray,
+                                   w: np.ndarray) -> np.ndarray:
+        """The training weights of one fold (0 == excluded) as the
+        splitter prepares them; ``w`` itself when it changes nothing."""
+        return w
+
 
 class DataSplitter(Splitter):
     """≙ DataSplitter: plain random split, no rebalancing."""
+
+
+class DataCutter(Splitter):
+    """≙ DataCutter.scala (tuning.py:237-283): for a multiclass label, keep
+    at most ``max_label_categories`` labels, each with a fraction of the
+    rows of at least ``min_label_fraction`` (the most frequent first, ties
+    by label); rows of the other labels leave the training folds and the
+    refit, and the summary lists both."""
+
+    def __init__(self, max_label_categories: int = 100,
+                 min_label_fraction: float = 0.0, seed: int = 42,
+                 reserve_test_fraction: float = 0.0):
+        super().__init__(seed, reserve_test_fraction)
+        self.max_label_categories = int(max_label_categories)
+        self.min_label_fraction = float(min_label_fraction)
+        self.labels_kept: List[float] = []
+        self.labels_dropped: List[float] = []
+
+    def pre_validation_prepare(self, batch, label):
+        y = _host_labels(batch, label)
+        vals, counts = np.unique(y, return_counts=True)
+        frac = counts / max(len(y), 1)
+        order = np.argsort(-counts, kind="mergesort")
+        keep = [v for i, v in zip(order, vals[order])
+                if frac[i] >= self.min_label_fraction
+                ][:self.max_label_categories]
+        keep_set = set(keep)
+        self.labels_kept = sorted(keep_set)
+        self.labels_dropped = sorted(set(vals.tolist()) - keep_set)
+        self.summary = SplitterSummary("DataCutter", {
+            "labelsKept": self.labels_kept,
+            "labelsDropped": self.labels_dropped})
+        return batch
+
+    def validation_prepare(self, batch, label):
+        if not self.labels_dropped:
+            return batch
+        mask = np.isin(_host_labels(batch, label),
+                       np.asarray(self.labels_kept))
+        return batch.take_rows(np.flatnonzero(mask))
+
+    def validation_prepare_weights(self, y, w):
+        if not self.labels_dropped:
+            return w
+        mask = np.isin(y, np.asarray(self.labels_kept))
+        return np.where(mask, w, 0.0).astype(w.dtype)
+
+
+def _host_labels(batch: ColumnBatch, label: str) -> np.ndarray:
+    v = batch[label].values
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, dtype=np.float64)
 
 
 @dataclass
@@ -174,13 +268,30 @@ class OpValidator:
         tuning.py:505-580).  AUC metrics are rank-invariant, so raw margins
         stand in for the sigmoid scores of logistic lanes; an SVC scores on
         its margin anyway; a linear regression's margins ARE its
-        predictions (tuning.py:574-581)."""
+        predictions (tuning.py:574-581).  An evaluator that ranks
+        predictions gets class ids: a multinomial family's from
+        ``_multinomial_pred_grid``, a binary one's ``margin > 0``."""
         F, G = len(fitted_grid), len(fitted_grid[0])
-        C = torch.stack([fitted_grid[f][g]["coef"]
-                         for f in range(F) for g in range(G)])
-        b = torch.stack([fitted_grid[f][g]["intercept"].reshape(-1)[0]
-                         for f in range(F) for g in range(G)])
-        S = _grid_margins(X, C, b)
+        fits = [fitted_grid[f][g] for f in range(F) for g in range(G)]
+        kinds = {fit["kind"] for fit in fits}
+        if kinds == {"multinomial"}:
+            if self.evaluator.grid_panel_input != "predictions":
+                raise NotImplementedError(
+                    "a multinomial family needs an evaluator that ranks "
+                    "class predictions")
+            if isinstance(X, SparseMatrix):
+                raise TypeError("multinomial panels take a dense matrix")
+            S = _multinomial_pred_grid(
+                X, torch.stack([fit["coef"] for fit in fits]),
+                torch.stack([fit["intercept"].reshape(-1) for fit in fits]))
+        else:
+            S = _grid_margins(
+                X, torch.stack([fit["coef"] for fit in fits]),
+                torch.stack([fit["intercept"].reshape(-1)[0]
+                             for fit in fits]))
+            if (self.evaluator.grid_panel_input == "predictions"
+                    and kinds <= {"binary", "svc"}):
+                S = (S > 0).to(torch.int32)
         return self.evaluator.evaluate_masked_fold_grid(
             y, S.reshape(S.shape[0], F, G), masks).cpu().numpy()
 
@@ -195,9 +306,12 @@ class OpValidator:
         scores it (f32 saturation makes tie groups that the raw sums would
         not).  Regressors give their predictions as they are
         (tuning.py:644-646, :671-689): a forest's leaf sum over its trees,
-        a GBT's base + eta·sum."""
+        a GBT's base + eta·sum.  An evaluator that ranks predictions gets
+        class ids (tuning.py:664-670, :683-685): a classifier forest's first
+        largest summed class mass, a GBT's ``margin > 0``."""
         F, G = len(fitted_grid), len(fitted_grid[0])
         out = np.full((F, G), np.nan)
+        predictions = self.evaluator.grid_panel_input == "predictions"
         groups = defaultdict(list)
         for f in range(F):
             for g in range(G):
@@ -212,8 +326,12 @@ class OpValidator:
                 cat["leaf"], md + 1, len(members))             # [N, K, V]
             regression = members[0][1].get("task") == "regression"
             if kind == "forest":
-                S = (sums[..., 0] / float(shape[0]) if regression
-                     else sums[..., 1])
+                if regression:
+                    S = sums[..., 0] / float(shape[0])
+                elif predictions:
+                    S = torch.argmax(sums, dim=-1).to(torch.int32)
+                else:
+                    S = sums[..., 1]
             else:
                 eta = torch.tensor([m["eta"] for _, m in members],
                                    dtype=torch.float32, device=X.device)
@@ -221,26 +339,46 @@ class OpValidator:
                                     dtype=torch.float32, device=X.device)
                 S = base[None, :] + eta[None, :] * sums[..., 0]
                 if not regression:
-                    S = torch.sigmoid(S)
+                    S = ((S > 0).to(torch.int32) if predictions
+                         else torch.sigmoid(S))
             vals = self.evaluator.evaluate_masked_grid(y, S, masks[f])
             for j, (g, _) in enumerate(members):
                 out[f, g] = float(vals[j])
         return out
 
-    def _panel(self, fitted_grid, X, y, masks) -> np.ndarray:
+    def _candidate_panel(self, cand, grid, fitted_grid, X, y,
+                         masks) -> np.ndarray:
+        """(fold × grid) metrics one candidate at a time, for a family with
+        no batched panel: each fitted model's ``device_scores`` through the
+        evaluator's ``evaluate_masked`` (≙ ``device_metric``,
+        tuning.py:910-922)."""
+        est = cand.estimator
+        out = np.full((len(fitted_grid), len(grid)), np.nan)
+        for f, row in enumerate(fitted_grid):
+            for g, fit in enumerate(row):
+                model = est.model_cls(fitted=fit,
+                                      **{**est._params, **grid[g]})
+                out[f, g] = self.evaluator.evaluate_masked(
+                    y, model.device_scores(X), masks[f])
+        return out
+
+    def _panel(self, cand, grid, fitted_grid, X, y, masks) -> np.ndarray:
         kinds = {fit["kind"] for row in fitted_grid for fit in row}
-        if kinds <= {"binary", "svc"} or kinds == {"regression"}:
+        if (kinds <= {"binary", "svc"} or kinds == {"regression"}
+                or kinds == {"multinomial"}):
             return self._linear_panel(fitted_grid, X, y, masks)
         if kinds <= {"forest", "gbt"}:
             return self._tree_panel(fitted_grid, X, y, masks)
-        raise NotImplementedError(f"no CV metric panel for model kinds {kinds}")
+        return self._candidate_panel(cand, grid, fitted_grid, X, y, masks)
 
     # -- main entry -----------------------------------------------------------
     def validate(self, candidates: Sequence[ModelCandidate], batch: ColumnBatch,
-                 label: str, features: str) -> ValidationResult:
+                 label: str, features: str,
+                 splitter: Optional[Splitter] = None) -> ValidationResult:
         """Run the CV grid over ``batch`` on ``batch.device`` (≙ the
         single-device dense path of ``_validate_impl``, with racing at
-        tuning.py:819-875 and :1433-1620)."""
+        tuning.py:819-875 and :1433-1620).  ``splitter`` prepares each
+        training fold's weights (tuning.py:1162-1180)."""
         dev = batch.device
         y_all = np.asarray(batch[label].values, dtype=np.float64)
         splits = self.splits(y_all)
@@ -251,6 +389,15 @@ class OpValidator:
         for f, (_, va_idx) in enumerate(splits):
             assign[va_idx] = f
         W, VA = _fold_masks_from_assignment(torch.as_tensor(assign, device=dev), F)
+        if splitter is not None and (
+                type(splitter).validation_prepare_weights
+                is not Splitter.validation_prepare_weights):
+            rows = [(assign != f).astype(np.float32) for f in range(F)]
+            prepared = [splitter.validation_prepare_weights(y_all, w)
+                        for w in rows]
+            if any(p is not w for p, w in zip(prepared, rows)):
+                W = torch.as_tensor(np.stack(prepared), dtype=torch.float32,
+                                    device=dev)
 
         raced = [self.racing and F >= 2
                  and self._survivor_count(len(c.grid)) < len(c.grid)
@@ -278,7 +425,8 @@ class OpValidator:
                            grid_indices=list(grid_index))
                 fitted = None
             panel = (np.full((n_folds, len(grid)), np.nan) if fitted is None
-                     else self._panel(fitted, X, y, VA[f0:f0 + n_folds]))
+                     else self._panel(cand, grid, fitted, X, y,
+                                      VA[f0:f0 + n_folds]))
             for f in range(n_folds):
                 for j, params in enumerate(grid):
                     record(cand, ci, grid_index[j], params, panel[f, j])
