@@ -111,7 +111,25 @@ Phases (any failure exits non-zero and prints no result line):
    memory (< 80 GB) and every kernel's launches read around it; the
    compact grid, and naive Bayes with the MLP, at 1M; and iris (default and
    compact grids) and the default LR candidates at 4,000 bench rows on the
-   card held to the JAX package's numbers (``MC_REF``, ``MC_BENCH_REF``).
+   card held to the JAX package's numbers (``MC_REF``, ``MC_BENCH_REF``);
+10. GLMs — ``fista_glm`` against its f64 twin on each GLM workload's 1M x
+   16 matrix (the gradient form at 3 folds x 4 lanes, the value-only form
+   at one backtracking ladder's 96 trial lanes; bit-repeatable) and the CV
+   block fitted twice (coefficients, n_iter and step halvings equal); then
+   the insurance claim frequency (poisson) and severity (gamma) workloads
+   of ``scripts/glm_grid_reference.py`` at 1,000,000 rows:
+   ``RegressionModelSelector`` over ``OpGeneralizedLinearRegression`` x4
+   and LinReg x8 trained, evaluated and scored on a fresh 1M batch (seed
+   22), with the launches and peak memory read around each, held to the
+   JAX package's winner and best GLM CV RMSE (``GLM_REF``) and to the true
+   coefficients (0.02); ``RecordInsightsLOCO`` on each winner (the exp link
+   of ``loco_linear``, kernel against twin);
+11. softmax explanations — ``RecordInsightsLOCO`` (top-20 of 16 groups) on
+   phase 9's multiclass winner (softmax LR) over its 1M x 16 vector, maps
+   included, with the launches read around the transform, and
+   ``loco_softmax`` against its twin there, on naive Bayes and the MLP
+   fitted at 1M, on a 40-class model at 1M x 16 and at
+   ``scripts/bench_loco.py``'s 100,000 x 512 with 128 groups.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` table (launches: the default
@@ -121,13 +139,16 @@ the wide ``fista_step`` row, the sparse run for ``sp_matmat`` and
 ``loco_tree``, the regression default grid's train for
 ``tree_split_variance`` and the two squared-loss ``fista_step`` rows, the
 multiclass default grid's train for ``fista_softmax`` and
-``multiclass_confusion``), the one before that the card's name and power
-limit.
+``multiclass_confusion``, the poisson workload's train and score for the two
+``fista_glm`` rows, its LOCO transform for ``loco_linear``'s exp-link row,
+the multiclass LOCO transform for the ``loco_softmax`` rows), the one before
+that the card's name and power limit.
 Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -1643,18 +1664,29 @@ def _loco_case(run, twin, G: int, k: int, strategy: str, reps: int,
 
 def _linear_library(X, model, col_group, G: int, k: int):
     """The library yardstick of ``loco_linear``: the group contributions as
-    one cuBLAS product ``X @ (w ⊙ onehot[D, G])``, then the sigmoid, the
-    diffs and ``torch.topk``."""
+    one cuBLAS product ``X @ (w ⊙ onehot[D, G])``, then the model's link
+    (the sigmoid, the identity, a GLM's inverse link of the clipped
+    margin), the diffs and ``torch.topk``."""
     import torch
+
+    from transmogrifai_tpu_torch.insights_kernels import linear_link
     coef = torch.as_tensor(model.fitted["coef"], dtype=torch.float32,
                            device=X.device).reshape(-1)
     b = float(torch.as_tensor(model.fitted["intercept"]).reshape(-1)[0])
     W = torch.zeros((X.shape[1], G), device=X.device)
     W[torch.arange(X.shape[1], device=X.device), col_group.long()] = coef
 
+    def clip(m):
+        return torch.clamp(m, -30.0, 30.0)
+
+    link = {"logistic": torch.sigmoid, "identity": lambda m: m,
+            "clipped_exp": lambda m: torch.exp(clip(m)),
+            "clipped_logistic": lambda m: torch.sigmoid(clip(m)),
+            "clipped_identity": clip}[linear_link(model.fitted)]
+
     def run():
         m = X @ coef + b
-        diffs = torch.sigmoid(m)[:, None] - torch.sigmoid(m[:, None] - X @ W)
+        diffs = link(m)[:, None] - link(m[:, None] - X @ W)
         return torch.topk(diffs.abs(), k, dim=1)
     return run
 
@@ -2548,37 +2580,20 @@ def check_fista_squared(device="cuda", n: int = N_ROWS, reps: int = 10):
 def run_regression_insights(model, batch, device="cuda") -> dict:
     """``RecordInsightsLOCO`` (top-16: every raw feature) through its
     transform on the regression winner over its own 1M x 16 vector, its
-    kernel against the twin on that vector (``check_loco_linear`` /
-    ``check_loco_tree``: 1e-5 of the max |diff|), the diffs of a
-    regression's prediction (a sigmoid would keep them inside (-1, 1)), and
-    ``WorkflowModel.summary()``.  Returns the facts and the launches of the
-    transform alone."""
+    kernel against the twin on that vector (``run_loco_stage`` with
+    ``check_loco_linear`` / ``check_loco_tree``: 1e-5 of the max |diff|),
+    the diffs of a regression's prediction (a sigmoid would keep them
+    inside (-1, 1)), and ``WorkflowModel.summary()``.  Returns the facts
+    and the launches of the transform alone."""
     import torch
-
-    from transmogrifai_tpu_torch import insights_kernels as ik
-    from transmogrifai_tpu_torch.dag import apply_dag
-    from transmogrifai_tpu_torch.models import kernels
-    from transmogrifai_tpu_torch.record_insights import loco_groups
     sel = model.selected_model
-    vec_f = sel.input_features[1]
-    scored = apply_dag(batch.on(device), model.fitted_dag[:-1]).select(
-        [vec_f.name])
-    vec = scored[vec_f.name]
-    names = list(loco_groups(vec.meta, vec.values.shape[1]))
-    G = len(names)
-    kernels.reset_launch_counts()
-    maps, wall = _loco_stage(sel, vec_f, scored, k=G)
-    launches = kernels.launch_counts()
-    _check_maps(maps, len(batch), G, names)
-    best = sel.best_model
-    X = vec.values.contiguous()
-    cg = ik.col_group_of(list(loco_groups(vec.meta, X.shape[1]).values()),
-                         X.shape[1], device)
-    check = check_loco_linear if "coef" in best.fitted else check_loco_tree
-    case = check(X, best, cg, G, G)
-    if case["max_abs_diff"] <= 1.0:
+    check = (check_loco_linear if "coef" in sel.best_model.fitted
+             else check_loco_tree)
+    facts, launches = run_loco_stage(model, batch, check, device)
+    if facts["loco_kernel"]["max_abs_diff"] <= 1.0:
         raise AssertionError(f"regression LOCO: max |diff| "
-                             f"{case['max_abs_diff']}: not the prediction's")
+                             f"{facts['loco_kernel']['max_abs_diff']}: not "
+                             "the prediction's")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     summ = model.summary()
@@ -2590,11 +2605,7 @@ def run_regression_insights(model, batch, device="cuda") -> dict:
             or info["problemType"] != "Regression"):
         raise AssertionError("regression summary: wrong winner or problem "
                              "type")
-    return {"winner": type(best).__name__,
-            "winner_kind": best.fitted.get("kind"), "groups": G,
-            "loco_wall_s": wall, "loco_rows_per_s": len(batch) / wall,
-            "loco_kernel": case, "row0": maps[0], "summary_s": t1 - t0}, \
-        launches
+    return {**facts, "summary_s": t1 - t0}, launches
 
 
 # --------------------------------------------------------------------------
@@ -3024,6 +3035,368 @@ def run_nb_mlp(device, X, y) -> dict:
                                   "selector_seconds")}
 
 
+# --------------------------------------------------------------------------
+# phase 10: GLMs (poisson and gamma, backtracking FISTA) and the softmax
+# link of LOCO
+# --------------------------------------------------------------------------
+
+GLM_FAMILIES = ("poisson", "gamma")
+GLM_SCORE_SEED = 22                # the fresh batch scored after training
+GLM_COEF_TOL = 0.02                # the GLM refit against the true w and 0.3
+GLM_CV_RTOL = 1e-4                 # the GLM family's best CV RMSE vs JAX
+# The JAX package's GLM workloads at 1,000,000 rows (synthetic.make_glm_data
+# seed 21, CPU; `PYTHONPATH=. JAX_PLATFORMS=cpu python
+# scripts/glm_grid_reference.py --package jax --family poisson --rows
+# 1000000`, and `--family gamma`): the winner, its params, and each
+# family's best CV RMSE over the points that ran every fold.  The card must
+# give the same winner and the GLM family's best within GLM_CV_RTOL.
+GLM_REF = {
+    "poisson": {"winner": "OpGeneralizedLinearRegression",
+                "winner_params": {"reg_param": 0.001, "max_iter": 50},
+                "family_best_cv_rmse": {
+                    "OpGeneralizedLinearRegression": 1.300746003786723,
+                    "OpLinearRegression": 1.4255808194478352}},
+    "gamma": {"winner": "OpGeneralizedLinearRegression",
+              "winner_params": {"reg_param": 0.001, "max_iter": 50},
+              "family_best_cv_rmse": {
+                  "OpGeneralizedLinearRegression": 1.5022064447402954,
+                  "OpLinearRegression": 1.6095457077026367}}}
+SOFTMAX_WIDE_CLASSES = 40          # PR 8's 40-class checks
+
+
+def _glm_case(Xd, W, yd, mean, scale, loss: str, G: int, rng, reps: int,
+              grad: bool, chunk: int = 131_072) -> dict:
+    """``fista_glm`` for F x G lanes (F = W's folds) with random
+    coefficients (margins of sd ~0.4 around 0.3, the workload's own size),
+    against its twin run in f64: the loss value, X^T g and sum g each
+    within 1e-5 of its absolute mass (the sum of |terms|), and two launches
+    bit for bit.  ``grad`` False: the value-only form, as a backtracking
+    ladder lays its (lane, trial step) lanes out.  The library yardstick is
+    cuBLAS for the margins and (``grad``) for X^T g, with the loss terms
+    between.  Returns the case's numbers."""
+    import torch
+
+    from transmogrifai_tpu_torch.models import linear_kernels as lk
+
+    device = Xd.device
+    n, D = Xd.shape
+    L = W.shape[0] * G
+    lanes = torch.arange(L, device=device) // G
+    coef = torch.as_tensor(rng.normal(scale=0.1, size=(L, D)).astype(
+        np.float32), device=device)
+    V = (coef / scale[lanes]).contiguous()
+    b = torch.as_tensor((0.3 + rng.normal(scale=0.1, size=L)).astype(
+        np.float32), device=device)
+    args = (Xd, V, (mean[lanes] * V).sum(dim=1), b, W, yd,
+            W.sum(dim=1)[lanes], G, loss, grad)
+    got = lk.fista_glm(*args)
+    again = lk.fista_glm(*args)
+    got = got if grad else (got,)
+    again = again if grad else (again,)
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"fista_glm ({loss}, {L} lanes): two launches "
+                             "differ")
+    V64, muv64, b64, ws64 = (a.double() for a in (V, args[2], b, args[6]))
+    val = torch.zeros(L, dtype=torch.float64, device=device)
+    vabs = torch.zeros_like(val)
+    want = torch.zeros((L, D), dtype=torch.float64, device=device)
+    mass = torch.zeros_like(want)
+    gsum, gabs = torch.zeros_like(val), torch.zeros_like(val)
+    for r0 in range(0, n, chunk):
+        sl = slice(r0, min(n, r0 + chunk))
+        x64 = Xd[sl].double()
+        lin = V64 @ x64.T - muv64[:, None] + b64[:, None]
+        lw, g = lk.glm_row_terms(lin, yd[sl].double(), W[lanes][:, sl].double(),
+                                 ws64[:, None], loss)
+        val += lw.sum(dim=1)
+        vabs += lw.abs().sum(dim=1)
+        if grad:
+            want += g @ x64
+            mass += g.abs() @ x64.abs()
+            gsum += g.sum(dim=1)
+            gabs += g.abs().sum(dim=1)
+    checks = [(got[-1], val / ws64, vabs / ws64)]
+    if grad:
+        checks += [(got[0], want, mass), (got[1], gsum, gabs)]
+    err = 0.0
+    for g32, w64, m in checks:
+        e = (g32.double() - w64).abs()
+        if bool((e > 1e-5 * m + 1e-12).any()):
+            raise AssertionError(f"fista_glm ({loss}, {L} lanes, grad "
+                                 f"{grad}) disagrees with its f64 twin")
+        err = max(err, float(e.max()))
+
+    def cublas():           # margins, loss terms, X^T g: timed only
+        lin = V @ Xd.T - args[2][:, None] + b[:, None]
+        lw, g = lk.glm_row_terms(lin, yd, W[lanes], args[6][:, None], loss)
+        return (lw.sum(dim=1), g @ Xd) if grad else lw.sum(dim=1)
+
+    folds = len(set(lanes.tolist()))
+    bt, by = bound(4 * Xd.numel() + 4 * n * folds + 4 * n
+                   + 4 * (L * D + 4 * L) + (4 * (L * D + L) if grad else 0),
+                   (4 if grad else 2) * n * D * L + 10 * n * L)
+    plan = lk.glm_launch_plan(D, L, grad)
+    return {"lanes": L, "loss": loss, "grad": grad, "rows": n,
+            "plan": plan, "max_abs_err": err,
+            "ms": time_ms(lambda: lk.fista_glm(*args), reps),
+            "plain_ms": time_ms(lambda: lk.fista_glm_twin(*args[:-1], grad),
+                                max(2, reps // 4)),
+            "bound_ms": bt, "bound_by": by,
+            "library_ms": time_ms(cublas, max(2, reps // 4))}
+
+
+def check_glm_kernel(device="cuda", n: int = N_ROWS, reps: int = 10):
+    """``fista_glm`` against its f64 twin on each GLM workload's 1M x 16
+    matrix at the CV block's shapes: the gradient form at 3 folds x 4 lanes
+    and the value-only form at the 3 x 4 lanes x 8 trial steps of one
+    backtracking ladder (``solvers.LADDER``); then the CV block itself (the
+    default reg_params, 50 iterations) fitted twice, which must repeat its
+    coefficients, ``n_iter`` and step halvings bit for bit.  Returns the
+    two rows of the kernels line (poisson: gradient, value pass) and every
+    case's numbers."""
+    import torch
+
+    from transmogrifai_tpu_torch.models.solvers import (LADDER,
+                                                        linear_grid_fit,
+                                                        standardize_moments)
+    from transmogrifai_tpu_torch.selector import DefaultSelectorParams
+    from transmogrifai_tpu_torch.synthetic import make_glm_data
+    rng = np.random.default_rng(30)
+    out = {}
+    for family in GLM_FAMILIES:
+        X, y = make_glm_data(n, family)
+        Xd = torch.as_tensor(X, device=device)
+        yd = torch.as_tensor(y, device=device)
+        W = torch.as_tensor(_fold_weights(y), device=device)
+        mean, scale = standardize_moments(Xd, W, center=True)
+        out[f"{family}_grad"] = _glm_case(Xd, W, yd, mean, scale, family, 4,
+                                          rng, reps, True)
+        out[f"{family}_value"] = _glm_case(Xd, W, yd, mean, scale, family,
+                                           4 * LADDER, rng, reps, False)
+        reg = torch.tensor(DefaultSelectorParams.REGULARIZATION,
+                           device=device)
+        fits = [linear_grid_fit(Xd, yd, W, reg, torch.zeros_like(reg),
+                                loss=family, max_iter=50) for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*fits)):
+            raise AssertionError(f"GLM ({family}) CV block: two fits differ")
+        out[f"{family}_cv_block"] = {
+            "n_iter": fits[0].n_iter.tolist(),
+            "halvings": fits[0].halvings.tolist(), "repeats": True}
+        del Xd, yd, W, fits
+        torch.cuda.empty_cache()
+    return [_kernel_row("fista_glm", out[key])
+            for key in ("poisson_grad", "poisson_value")], out
+
+
+def run_glm(device, n: int, family: str, fresh: bool = True) -> tuple:
+    """The GLM workload of ``family`` (``scripts/glm_grid_reference.py``:
+    ``make_glm_data`` rows → transmogrify → ``RegressionModelSelector`` over
+    GLM x4 and LinReg x8) trained, evaluated (RMSE, R²) and, with
+    ``fresh``, scored on a fresh batch (seed GLM_SCORE_SEED); the GLM
+    refit's distance from the true coefficients.  Returns (facts, model,
+    batch)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import glm_grid_reference as ggr
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    X, y = ggr.make_glm_data(n, family)
+    model, batch, pred, wall = ggr.train(PORT, X, y, family, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    m = model.evaluate(Evaluators.Regression.rmse(), batch=batch)
+    sel = model.selected_model
+    best = sel.best_model
+    facts = {"family": family, "rows": n, "train_wall_s": wall,
+             "best_model": sel.summary.best_model_name,
+             "winner_params": ggr.winner_params(model),
+             "family_best_cv_rmse": ggr.family_best(model),
+             "train_rmse": float(m["RootMeanSquaredError"]),
+             "train_r2": float(m["R2"]),
+             "refit_n_iter": best.fitted.get("n_iter"),
+             "refit_halvings": best.fitted.get("halvings"),
+             "phase_seconds": model.phase_seconds,
+             "selector_seconds": sel.selector_seconds,
+             "candidates": ggr.candidates(model)}
+    if best.fitted.get("kind") == "glm":
+        facts.update(ggr.coef_errors(
+            {k: best.fitted[k].cpu() for k in ("coef", "intercept")},
+            X.shape[1]))
+    if fresh:
+        fb = ggr.batch_of(PORT, *ggr.make_glm_data(n, family,
+                                                   seed=GLM_SCORE_SEED))
+        t0 = time.perf_counter()
+        p = model.score(fb)[pred.name].values["prediction"]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        facts["score_rows_per_s"] = n / (time.perf_counter() - t0)
+        if (tuple(p.shape) != (n,) or not bool(torch.isfinite(p).all())
+                or not bool((p > 0).all())):
+            raise AssertionError(f"GLM ({family}) scores: shape "
+                                 f"{tuple(p.shape)}, non-finite or not "
+                                 "positive")
+    return facts, model, batch
+
+
+def check_glm_reference(facts: dict) -> None:
+    """A GLM workload's run against the JAX package's (GLM_REF) and the
+    truth: the same winner, the GLM family's best CV RMSE within
+    GLM_CV_RTOL, the winner's refit within GLM_COEF_TOL of the true
+    coefficients and intercept."""
+    ref = GLM_REF[facts["family"]]
+    if facts["best_model"] != ref["winner"]:
+        raise AssertionError(f"GLM ({facts['family']}): winner "
+                             f"{facts['best_model']}, the JAX package's is "
+                             f"{ref['winner']}")
+    name = "OpGeneralizedLinearRegression"
+    got, want = (facts["family_best_cv_rmse"][name],
+                 ref["family_best_cv_rmse"][name])
+    if abs(got - want) > GLM_CV_RTOL * want:
+        raise AssertionError(f"GLM ({facts['family']}): best CV RMSE {got}, "
+                             f"the JAX package's {want}")
+    if (facts["coef_max_abs_err"] > GLM_COEF_TOL
+            or facts["intercept_abs_err"] > GLM_COEF_TOL):
+        raise AssertionError(f"GLM ({facts['family']}): refit "
+                             f"{facts['coef_max_abs_err']} / "
+                             f"{facts['intercept_abs_err']} from the true "
+                             "coefficients / intercept")
+
+
+def run_loco_stage(model, batch, check, device="cuda") -> tuple:
+    """``RecordInsightsLOCO`` (top-20) through its transform on a trained
+    model's winner over the selector's own vector of ``batch``, maps
+    included, with the launches read around the transform alone, then its
+    kernel against the twin on that vector (``check(X, model, col_group,
+    G, k)``).  Returns (facts, launches)."""
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    from transmogrifai_tpu_torch.dag import apply_dag
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.record_insights import loco_groups
+    sel = model.selected_model
+    vec_f = sel.input_features[1]
+    scored = apply_dag(batch.on(device), model.fitted_dag[:-1]).select(
+        [vec_f.name])
+    vec = scored[vec_f.name]
+    groups = loco_groups(vec.meta, vec.values.shape[1])
+    names = list(groups)
+    cg = ik.col_group_of(list(groups.values()), vec.values.shape[1], device)
+    G = len(names)
+    k = min(LOCO_K, G)
+    kernels.reset_launch_counts()
+    maps, wall = _loco_stage(sel, vec_f, scored)
+    launches = kernels.launch_counts()
+    _check_maps(maps, len(batch), k, names)
+    case = check(vec.values.contiguous(), sel.best_model, cg, G, k)
+    return {"winner": type(sel.best_model).__name__,
+            "winner_kind": sel.best_model.fitted.get("kind"), "groups": G,
+            "top_k": k, "loco_wall_s": wall,
+            "loco_rows_per_s": len(batch) / wall, "loco_kernel": case,
+            "row0": maps[0]}, launches
+
+
+def _softmax_library(X, model, col_group, G: int, k: int):
+    """The library yardstick of ``loco_softmax``: the base and every
+    group's first-layer contributions as one cuBLAS product ``phi(X) @
+    (W1 ⊙ onehot)`` [N, G·H], the tail as batched products, the softmax,
+    the diffs and ``torch.topk``."""
+    import torch
+
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    relu_in, W1, b1, tail = ik.softmax_layers(model, X.device)
+    D, H = W1.shape
+    Wg = torch.zeros((D, G, H), device=X.device)
+    Wg[torch.arange(D, device=X.device), col_group.long()] = W1
+    Wg = Wg.reshape(D, G * H)
+
+    def run():
+        Z = torch.clamp(X, min=0.0) if relu_in else X
+        a = Z @ W1
+        A = torch.cat([a[:, None], a[:, None] - (Z @ Wg).reshape(
+            -1, G, H)], dim=1) + b1
+        for Wt, bt in tail:
+            A = torch.relu(A) @ Wt + bt
+        p = torch.softmax(A, dim=-1)[..., -1]
+        return torch.topk((p[:, :1] - p[:, 1:]).abs(), k, dim=1)
+    return run
+
+
+def check_loco_softmax(X, model, col_group, G: int, k: int = LOCO_K,
+                       strategy: str = "abs", reps: int = 10,
+                       library: bool = False) -> dict:
+    """``loco_softmax`` on X against its twin (``_loco_case``)."""
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    N, D = X.shape
+    _, W1, _, tail = ik.softmax_layers(model, X.device)
+    H = W1.shape[1]
+    dims = [H] + [W.shape[1] for W, _ in tail]
+    tail_ops = sum(2 * a * b for a, b in zip(dims, dims[1:]))
+    case = _loco_case(
+        lambda: ik.loco_softmax(X, model, col_group, G, k, strategy),
+        lambda kk: ik.loco_topk_twin(
+            X, lambda Z: ik.loco_score(model, Z), col_group, G, kk,
+            strategy), G, k, strategy, reps,
+        4 * N * D + 8 * N * k,
+        4 * N * D * H + N * (G + 1) * (tail_ops + 4 * dims[-1]),
+        _softmax_library(X, model, col_group, G, k) if library else None)
+    return {**case, "classes": dims[-1], "first_layer": H,
+            "tail": dims[1:], "rows": N, "features": D,
+            "plan": ik.loco_softmax_plan(N, D, G, k, H, dims[-1],
+                                         dims[1:])._asdict()}
+
+
+def check_softmax_loco_shapes(X, y, device="cuda") -> dict:
+    """``loco_softmax`` against its twin beyond the multiclass winner: naive
+    Bayes and the MLP fitted on the multiclass workload's 1M x 16 rows (one
+    group per column, top-16), a 40-class softmax LR at 1M x 16 (random
+    coefficients of sd 0.5: logits of sd ~2) and a 4-class one fitted at
+    ``scripts/bench_loco.py``'s 100,000 x 512 with 128 groups (top-20; the
+    labels the argmax of random class scores, 20 iterations, as
+    ``check_insights_kernels`` fits its LR there), each with its library
+    yardstick.  Returns every case's numbers."""
+    import torch
+
+    from transmogrifai_tpu_torch.models.linear import (
+        LinearPredictionModel, OpLogisticRegression,
+        OpMultilayerPerceptronClassifier, OpNaiveBayes)
+    Xd = torch.as_tensor(X, device=device)
+    D = Xd.shape[1]
+    cg = torch.arange(D, device=device, dtype=torch.int32)
+    out = {}
+    for name, est in (("naive_bayes", OpNaiveBayes()),
+                      ("mlp", OpMultilayerPerceptronClassifier())):
+        m = est.model_cls(fitted=est.fit_arrays(Xd, y, device=device))
+        out[name] = check_loco_softmax(Xd, m, cg, D, D, library=True)
+    rng = np.random.default_rng(31)
+
+    def random_lr(d, C):
+        return LinearPredictionModel(fitted={
+            "kind": "multinomial", "n_classes": C,
+            "coef": torch.as_tensor(rng.normal(scale=0.5, size=(d, C))
+                                    .astype(np.float32), device=device),
+            "intercept": torch.as_tensor(rng.normal(size=C).astype(
+                np.float32), device=device)})
+
+    out[f"classes_{SOFTMAX_WIDE_CLASSES}"] = check_loco_softmax(
+        Xd, random_lr(D, SOFTMAX_WIDE_CLASSES), cg, D, D, library=True)
+    del Xd
+    n, d, g = BENCH_LOCO
+    Xb = rng.normal(size=(n, d)).astype(np.float32)
+    yb = np.argmax(Xb @ rng.normal(size=(d, MC_CLASSES)), axis=1).astype(
+        np.float32)
+    lr = LinearPredictionModel(fitted=OpLogisticRegression(
+        max_iter=20).fit_arrays(Xb, yb, device=device))
+    Xb = torch.as_tensor(Xb, device=device)
+    cg_b = torch.arange(d, device=device, dtype=torch.int32) // (d // g)
+    out["bench_loco_g128"] = check_loco_softmax(Xb, lr, cg_b, g,
+                                                library=True)
+    out["bench_loco_negative"] = check_loco_softmax(
+        Xb, lr, cg_b, g, strategy="negative", reps=2)
+    del Xb
+    torch.cuda.empty_cache()
+    return out
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3087,7 +3460,8 @@ def main() -> int:
                                        "loco_linear", "loco_tree",
                                        "tree_split_variance",
                                        "fista_softmax",
-                                       "multiclass_confusion")]
+                                       "multiclass_confusion", "fista_glm",
+                                       "loco_softmax")]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if facts["train_auroc"] <= 0.7:
@@ -3115,7 +3489,8 @@ def main() -> int:
                                        "sp_rmatmat", "loco_linear",
                                        "loco_tree", "tree_split_variance",
                                        "fista_softmax",
-                                       "multiclass_confusion")]
+                                       "multiclass_confusion", "fista_glm",
+                                       "loco_softmax")]
     if missing:
         raise AssertionError(f"kernels never launched on the default grid: "
                              f"{missing}")
@@ -3334,7 +3709,8 @@ def main() -> int:
     mc_fresh = make_multiclass_data(N_ROWS, MC_FEATS, MC_SCORE_SEED)
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    mc_facts, _, _ = run_multiclass("cuda", mc_X, mc_y, "default", mc_fresh)
+    mc_facts, mc_model, mc_batch = run_multiclass("cuda", mc_X, mc_y,
+                                                  "default", mc_fresh)
     mc_launches = kernels.launch_counts()
     mc_facts["peak_device_memory_gb"] = \
         torch.cuda.max_memory_allocated() / 1e9
@@ -3365,7 +3741,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"naive Bayes and MLP {N_ROWS}x{MC_FEATS}: "
           + json.dumps(run_nb_mlp("cuda", mc_X, mc_y)), flush=True)
-    del mc_X, mc_y, mc_fresh
+    del mc_fresh
     torch.cuda.empty_cache()
     print("multiclass reference runs: "
           + json.dumps(check_multiclass_reference()), flush=True)
@@ -3378,6 +3754,76 @@ def main() -> int:
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"library_ms={r['library_ms']}", flush=True)
     rows += sm_rows + [cf_row]
+    torch.cuda.empty_cache()
+
+    # phase 10: the GLMs — fista_glm against its f64 twin, then each
+    # workload at 1M rows with the launches and peak memory read around its
+    # train and score, held to the JAX package and the true coefficients,
+    # and RecordInsightsLOCO on its winner (loco_linear's exp link)
+    glm_rows, glm_kfacts = check_glm_kernel()
+    print("fista_glm shapes: " + json.dumps(glm_kfacts), flush=True)
+    torch.cuda.empty_cache()
+    glm_launches = {}
+    for family in GLM_FAMILIES:
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        g_facts, g_model, g_batch = run_glm("cuda", N_ROWS, family)
+        glm_launches[family] = kernels.launch_counts()
+        g_facts["peak_device_memory_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        print(f"GLM {family} {N_ROWS}x16: " + json.dumps(g_facts),
+              flush=True)
+        print(f"GLM {family} kernel launches: "
+              + json.dumps(glm_launches[family]), flush=True)
+        if glm_launches[family]["fista_glm"] <= 0:
+            raise AssertionError(f"fista_glm never launched on the GLM "
+                                 f"({family}) path")
+        check_glm_reference(g_facts)
+        torch.cuda.empty_cache()
+        g_ins, g_ins_launches = run_loco_stage(
+            g_model, g_batch, functools.partial(check_loco_linear,
+                                                library=True))
+        print(f"GLM {family} insights: " + json.dumps(g_ins), flush=True)
+        if g_ins_launches["loco_linear"] <= 0:
+            raise AssertionError(f"loco_linear never launched on the GLM "
+                                 f"({family}) LOCO")
+        if family == "poisson":
+            exp_row = _kernel_row("loco_linear", g_ins["loco_kernel"])
+            exp_row["launches"] = g_ins_launches["loco_linear"]
+        del g_model, g_batch
+        torch.cuda.empty_cache()
+    for r in glm_rows:
+        r["launches"] = glm_launches["poisson"]["fista_glm"]
+
+    # phase 11: the softmax link of LOCO — RecordInsightsLOCO on phase 9's
+    # multiclass winner at 1M rows, maps included, with the launches read
+    # around the transform; loco_softmax against its twin on naive Bayes,
+    # the MLP, a 40-class model and at bench_loco's width
+    sm_ins, sm_launches = run_loco_stage(
+        mc_model, mc_batch, functools.partial(check_loco_softmax,
+                                              library=True))
+    print("multiclass insights: " + json.dumps(sm_ins), flush=True)
+    if sm_launches["loco_softmax"] <= 0:
+        raise AssertionError("loco_softmax never launched on the multiclass "
+                             "LOCO")
+    del mc_model, mc_batch
+    torch.cuda.empty_cache()
+    sm_shapes = check_softmax_loco_shapes(mc_X, mc_y)
+    print("loco_softmax shapes: " + json.dumps(sm_shapes), flush=True)
+    del mc_X, mc_y
+    torch.cuda.empty_cache()
+    loco_rows = [_kernel_row("loco_softmax", sm_ins["loco_kernel"])] + [
+        _kernel_row("loco_softmax", sm_shapes[k])
+        for k in ("naive_bayes", "mlp", f"classes_{SOFTMAX_WIDE_CLASSES}",
+                  "bench_loco_g128")]
+    for r in loco_rows:
+        r["launches"] = sm_launches["loco_softmax"]
+    for r in glm_rows + [exp_row] + loco_rows:
+        print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.3g} "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library_ms={r['library_ms']}", flush=True)
+    rows += glm_rows + [exp_row] + loco_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card, flush=True)

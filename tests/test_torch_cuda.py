@@ -30,7 +30,14 @@ the CPU twins like the transmog one; ``fista_softmax`` like
 ``fista_step`` (within 1e-5 of each output's absolute mass of the f64 twin,
 the same bits twice); ``multiclass_confusion`` equal to its twin on 0/1
 masks and within 1e-6 of the f64 sums on other weights, the same bits
-twice; the multiclass selector on the card like the CPU twins.
+twice; the multiclass selector on the card like the CPU twins;
+``fista_glm`` (poisson, gamma; gradient and value forms) within 1e-5 of
+each output's absolute mass of the f64 twin and the same bits twice, and a
+GLM grid fit on the card repeating its coefficients, ``n_iter`` and step
+halvings exactly and within 1e-3 of the CPU twins' coefficients;
+``loco_linear``'s GLM links and ``loco_softmax`` (multinomial LR up to 40
+classes, naive Bayes, MLPs with one and two hidden layers, scattered and
+contiguous groups, k past 32) like the other LOCO kernels.
 """
 
 import numpy as np
@@ -313,12 +320,13 @@ def test_small_main_path_on_the_card_matches_the_twins(cuda):
     gpu = _small_main_path("cuda", 5000)
     # depth-4 and depth-3 trees never need the one-pass deep histogram;
     # the dense binary path hashes no text, holds no sparse matrix, fits no
-    # regression tree or multinomial model and explains nothing
+    # regression tree, multinomial model or GLM and explains nothing
     assert all(v > 0 for k, v in kernels.launch_counts().items()
                if k not in ("tree_hist_deep", "hash_counts", "sp_matmat",
                             "sp_rmatmat", "loco_linear", "loco_tree",
                             "tree_split_variance", "fista_softmax",
-                            "multiclass_confusion"))
+                            "multiclass_confusion", "fista_glm",
+                            "loco_softmax"))
     cpu = _small_main_path("cpu", 5000)
     assert gpu[0] == cpu[0]
     np.testing.assert_allclose(gpu[1], cpu[1], rtol=0, atol=1e-3)
@@ -988,3 +996,208 @@ def test_multiclass_selector_on_the_card_matches_the_twins(cuda):
     bc = runs["cpu"].selected_model.best_model.fitted
     scale = float(bc["coef"].abs().max())
     assert float((bg["coef"].cpu() - bc["coef"]).abs().max()) <= 1e-4 * scale
+
+
+
+# --------------------------------------------------------------------------
+# GLMs and the softmax link of LOCO
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("loss", ["poisson", "gamma"])
+@pytest.mark.parametrize("L,G,D,grad", [(12, 4, 16, True),    # the CV block
+                                        (96, 32, 16, False),  # one ladder
+                                        (1, 1, 16, True),     # the refit
+                                        (3, 1, 1596, True),   # wide
+                                        (40, 8, 300, False)])  # lane chunks
+def test_fista_glm_matches_twin_and_repeats_bit_for_bit(cuda, loss, L, G, D,
+                                                        grad):
+    """Within 1e-5 of each output's absolute mass of the twin run in f64,
+    and the same bits on two launches."""
+    from transmogrifai_tpu_torch.models import linear_kernels as lk
+    rng = np.random.default_rng(22)
+    N, F = 50_001, -(-L // G)
+    X = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32),
+                        device=cuda)
+    W = torch.as_tensor((rng.random((F, N)) > 1 / 3).astype(np.float32),
+                        device=cuda)
+    y = torch.as_tensor((rng.poisson(1.3, N) if loss == "poisson"
+                         else rng.gamma(2.0, 0.7, N)).astype(np.float32),
+                        device=cuda)
+    sd = 0.3 * min(1.0, (16 / D) ** 0.5)
+    V = torch.as_tensor(rng.normal(scale=sd, size=(L, D)).astype(np.float32),
+                        device=cuda)
+    muv = torch.as_tensor(rng.normal(scale=0.1, size=L).astype(np.float32),
+                          device=cuda)
+    b = torch.as_tensor((0.3 + rng.normal(scale=0.2, size=L)).astype(
+        np.float32), device=cuda)
+    ws = W.sum(dim=1)[torch.arange(L, device=cuda) // G]
+    args = (X, V, muv, b, W, y, ws, G, loss, grad)
+    got, again = lk.fista_glm(*args), lk.fista_glm(*args)
+    got = got if grad else (got,)
+    again = again if grad else (again,)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    lanes = torch.arange(L, device=cuda) // G
+    X64 = X.double()
+    lin = V.double() @ X64.T - muv.double()[:, None] + b.double()[:, None]
+    lw, g = lk.glm_row_terms(lin, y.double(), W.double()[lanes],
+                             ws.double()[:, None], loss)
+    checks = [(got[-1], lw.sum(dim=1) / ws.double(),
+               lw.abs().sum(dim=1) / ws.double())]
+    if grad:
+        checks += [(got[0], g @ X64, g.abs() @ X64.abs()),
+                   (got[1], g.sum(dim=1), g.abs().sum(dim=1))]
+    for g32, want, mass in checks:
+        assert bool(((g32.double() - want).abs() <= 1e-5 * mass + 1e-12)
+                    .all())
+
+
+@pytest.mark.parametrize("family", ["poisson", "gamma"])
+def test_glm_grid_fit_on_the_card_repeats_and_matches_the_cpu(cuda, family):
+    """3 folds x 4 reg_params of backtracking FISTA on the card: two runs
+    give the same coefficients, ``n_iter`` and halvings bit for bit (fixed
+    summation order), within 1e-3 of the CPU twins' coefficients."""
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models import solvers as ps
+    from transmogrifai_tpu_torch.synthetic import make_glm_data
+    X, y = make_glm_data(20_000, family)
+    rng = np.random.default_rng(3)
+    W = np.ones((3, len(y)), np.float32)
+    for f, idx in enumerate(np.array_split(rng.permutation(len(y)), 3)):
+        W[f, idx] = 0.0
+    reg = np.array([0.001, 0.01, 0.1, 0.2], np.float32)
+
+    def fit(dev):
+        return ps.linear_grid_fit(*(torch.as_tensor(a, device=dev) for a in (
+            X, y, W, reg, np.zeros(4, np.float32))), loss=family,
+            max_iter=50)
+
+    kernels.reset_launch_counts()
+    a, b = fit(cuda), fit(cuda)
+    assert kernels.launch_counts()["fista_glm"] > 0
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    cpu = fit("cpu")
+    np.testing.assert_allclose(a.coef.cpu().numpy(), cpu.coef.numpy(),
+                               atol=1e-3)
+    np.testing.assert_allclose(a.intercept.cpu().numpy(),
+                               cpu.intercept.numpy(), atol=1e-3)
+
+
+@pytest.mark.parametrize("family", ["poisson", "gamma", "binomial",
+                                    "gaussian"])
+def test_loco_linear_glm_links_match_twin(cuda, family):
+    """A GLM's inverse link of the clipped margin in ``loco_linear``, with
+    margins reaching past ±30 on some rows."""
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    from transmogrifai_tpu_torch.models.linear import GLMPredictionModel
+    rng = np.random.default_rng(9)
+    N, D, G = 20_000, 64, 16
+    X = rng.normal(size=(N, D)).astype(np.float32)
+    X[:50] *= 40.0                                   # past the clip
+    Xd = torch.as_tensor(X, device=cuda)
+    cg = torch.as_tensor(np.arange(D) % G, dtype=torch.int32, device=cuda)
+    model = GLMPredictionModel(fitted={
+        "coef": torch.as_tensor(rng.normal(scale=0.1, size=D).astype(
+            np.float32), device=cuda),
+        "intercept": torch.tensor([0.3], device=cuda), "kind": "glm",
+        "family": family})
+    _assert_loco_matches_twin(
+        lambda: ik.loco_linear(Xd, model, cg, G, 10, "abs"),
+        lambda kk: ik.loco_topk_twin(
+            Xd, lambda Z: ik.loco_score(model, Z), cg, G, kk, "abs"),
+        G, 10, "abs")
+
+
+def _softmax_model(kind, D, C, rng, device):
+    from transmogrifai_tpu_torch.models.linear import (
+        LinearPredictionModel, MLPClassificationModel, NaiveBayesModel)
+
+    def t(*shape, scale=1.0):
+        return torch.as_tensor(rng.normal(scale=scale, size=shape).astype(
+            np.float32), device=device)
+
+    if kind == "multinomial":
+        return LinearPredictionModel(fitted={
+            "coef": t(D, C, scale=2.0 / D ** 0.5), "intercept": t(C),
+            "kind": "multinomial", "n_classes": C})
+    if kind == "naive_bayes":
+        lp = torch.log_softmax(t(C, D), dim=1)
+        return NaiveBayesModel(fitted={"log_prob": lp,
+                                       "log_prior": torch.log_softmax(
+                                           t(C), dim=0),
+                                       "kind": "naive_bayes",
+                                       "n_classes": C})
+    sizes = [D] + ([10] if kind == "mlp" else [6, 5]) + [C]
+    fitted = {"kind": "mlp", "n_layers": len(sizes) - 1, "n_classes": C}
+    for i in range(len(sizes) - 1):
+        fitted[f"W{i}"] = t(sizes[i], sizes[i + 1],
+                            scale=(2.0 / sizes[i]) ** 0.5)
+        fitted[f"b{i}"] = t(sizes[i + 1], scale=0.1)
+    return MLPClassificationModel(fitted=fitted)
+
+
+def _softmax_diffs_f64(X, model, col_group, G):
+    """Every group's diff [N, G] in f64: the model's layers
+    (``softmax_layers``) on the masked rows, the last class's softmax."""
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    relu_in, W1, b1, tail = ik.softmax_layers(model, X.device)
+    X64 = X.double()
+
+    def p_last(Z):
+        a = (torch.clamp(Z, min=0.0) if relu_in else Z) @ W1.double() \
+            + b1.double()
+        for W, b in tail:
+            a = torch.relu(a) @ W.double() + b.double()
+        return torch.softmax(a, dim=-1)[:, -1]
+
+    base = p_last(X64)
+    return torch.stack([base - p_last(X64 * (col_group != g).double())
+                        for g in range(G)], dim=1)
+
+
+@pytest.mark.parametrize("kind,C,G,k,strategy,contiguous", [
+    ("multinomial", 4, 16, 16, "abs", True),
+    ("multinomial", 40, 16, 16, "positive", True),
+    ("multinomial", 4, 128, 20, "negative", False),
+    ("multinomial", 3, 64, 40, "abs", False),          # k past 32
+    ("naive_bayes", 4, 16, 16, "abs", True),
+    ("naive_bayes", 5, 30, 7, "abs", False),
+    ("mlp", 4, 16, 16, "abs", True),
+    ("mlp_deep", 4, 24, 12, "negative", False)])
+def test_loco_softmax_matches_twin(cuda, kind, C, G, k, strategy,
+                                   contiguous):
+    """Groups of uneven sizes, scattered or contiguous, zeroed columns
+    (exact zero diffs, tied: the lower group first), k up to past 32.
+    Against the f64 diffs: each listed diff and the rank at each place
+    within 1e-5 of the largest |diff| plus twice the plain f32 version's
+    own largest error — naive Bayes' logits are sums of x·log p over ~48
+    columns (~-80 here), whose f32 rounding in any order moves a
+    probability by a few 1e-6.  The same bits on two launches."""
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    rng = np.random.default_rng(11)
+    N, D = 20_000, 128 if G > 32 else 48
+    X = rng.normal(size=(N, D)).astype(np.float32)
+    cg = np.sort(rng.integers(0, G, size=D)).astype(np.int32)
+    cg[:G] = np.arange(G)
+    cg = np.sort(cg) if contiguous else rng.permutation(cg)
+    X[:, np.isin(cg, np.arange(0, G, 5))] = 0.0
+    Xd = torch.as_tensor(X, device=cuda)
+    cgd = torch.as_tensor(cg, device=cuda)
+    model = _softmax_model(kind, D, C, rng, cuda)
+    idx, val = ik.loco_softmax(Xd, model, cgd, G, k, strategy)
+    idx2, val2 = ik.loco_softmax(Xd, model, cgd, G, k, strategy)
+    assert torch.equal(idx, idx2) and torch.equal(val, val2)
+    assert not bool((torch.sort(idx.long(), dim=1).values.diff(dim=1) == 0)
+                    .any())
+    want = _softmax_diffs_f64(Xd, model, cgd, G)
+    ti, tv = ik.loco_topk_twin(Xd, lambda Z: ik.loco_score(model, Z), cgd, G,
+                               G, strategy)
+    twin_err = float((tv.double() - torch.gather(want, 1, ti.long()))
+                     .abs().max())
+    tol = 1e-5 * float(want.abs().max()) + 2.0 * twin_err
+    assert float((val.double() - torch.gather(want, 1, idx.long())).abs()
+                 .max()) <= tol
+    rank = {"abs": torch.abs, "positive": lambda d: d,
+            "negative": lambda d: -d}[strategy]
+    best = torch.sort(rank(want), dim=1, descending=True).values[:, :k]
+    assert float((rank(val.double()) - best).abs().max()) <= tol

@@ -1,0 +1,301 @@
+"""LOCO through the softmax link: ``RecordInsightsLOCO`` on multinomial
+logistic regression, naive Bayes and MLP models (fitted by the JAX package
+and carried across by ``convert``) against the JAX stage, on the CPU, and
+``loco_softmax``'s launch plan and kernel inputs.
+
+On a CPU tensor ``insights_kernels.loco_softmax`` runs the plain twin
+``loco_topk_twin`` on the model's own ``device_scores``; the card kernel
+(``csrc/loco_softmax.cu``) instead forms each group's first-layer
+contribution from one read of the row and subtracts it.  Its arithmetic is
+emulated here in numpy (f32, the kernel's order: lane partials of the base,
+then per group its columns in ``perm`` order, the tail, the softmax after
+the max) on the very arrays the wrapper hands the kernel, so the layout of
+those arrays is held on the CPU.
+
+Tolerances: LOCO diffs within 1e-6 absolute (probabilities: f32 forwards
+summed in another order; a diff of two probabilities near 1 cancels, so
+absolute, not relative) for logits of size up to 8, and in proportion
+beyond: naive Bayes' logits are sums of x·log p over the row (~30 here),
+whose f32 rounding in another order moves a probability by ~1e-6, so each
+model is held to 1e-6 x max(1, max |logit| / 8); group indices equal
+wherever the rank gap exceeds that; the emulated kernel within the same of
+the twin's diffs; the layers the kernel reads reproduce the model's
+probabilities within 1e-6.
+"""
+
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from transmogrifai_tpu import record_insights as jri  # noqa: E402
+from transmogrifai_tpu.columns import Column as JColumn  # noqa: E402
+from transmogrifai_tpu.columns import ColumnBatch as JBatch  # noqa: E402
+from transmogrifai_tpu.features import Feature as JFeature  # noqa: E402
+from transmogrifai_tpu.models import linear as jl  # noqa: E402
+from transmogrifai_tpu.types import OPVector as JOPVector  # noqa: E402
+from transmogrifai_tpu.vector_meta import VectorColumnMeta as JVCM  # noqa: E402
+from transmogrifai_tpu.vector_meta import VectorMeta as JVM  # noqa: E402
+from transmogrifai_tpu_torch import convert  # noqa: E402
+from transmogrifai_tpu_torch import insights_kernels as ik  # noqa: E402
+from transmogrifai_tpu_torch import record_insights as pri  # noqa: E402
+from transmogrifai_tpu_torch.columns import Column, ColumnBatch  # noqa: E402
+from transmogrifai_tpu_torch.features import Feature  # noqa: E402
+from transmogrifai_tpu_torch.types import OPVector  # noqa: E402
+from transmogrifai_tpu_torch.vector_meta import (  # noqa: E402
+    VectorColumnMeta, VectorMeta)
+
+CPU = torch.device("cpu")
+TOL = 1e-6
+# raw parents of the 9 columns: groups of 1 to 3 columns, one of them
+# scattered (c), so the kernel's columns are not in group order
+PARENTS = ["a", "b", "b", "c", "d", "c", "e", "e", "c"]
+D, C, N = len(PARENTS), 4, 300
+KINDS = ("multinomial", "naive_bayes", "mlp", "mlp_deep")
+
+
+def _blobs(seed=4):
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(scale=1.2, size=(C, D))
+    y = rng.integers(0, C, N)
+    X = (centres[y] + rng.normal(size=(N, D))).astype(np.float32)
+    X[:, 4] = 0.0                                   # a group of zeros
+    return X, y.astype(np.float32)
+
+
+def _metas():
+    return (JVM("v", [JVCM(p, "Real", index=i) for i, p in
+                      enumerate(PARENTS)]),
+            VectorMeta("v", [VectorColumnMeta(p, "Real", index=i)
+                             for i, p in enumerate(PARENTS)]))
+
+
+@pytest.fixture(scope="module")
+def models():
+    X, y = _blobs()
+    fits = {"multinomial": (jl.LinearPredictionModel,
+                            jl.OpLogisticRegression(reg_param=0.01)),
+            "naive_bayes": (jl.NaiveBayesModel, jl.OpNaiveBayes()),
+            "mlp": (jl.MLPClassificationModel,
+                    jl.OpMultilayerPerceptronClassifier(max_iter=30)),
+            "mlp_deep": (jl.MLPClassificationModel,
+                         jl.OpMultilayerPerceptronClassifier(
+                             hidden_layers=(6, 5), max_iter=30))}
+    out = {}
+    for kind, (cls, est) in fits.items():
+        Xf = np.abs(X) if kind == "naive_bayes" else X
+        jm = cls(fitted=est.fit_arrays(Xf, y))
+        pm = convert.prediction_model(
+            {"model": cls.__name__,
+             "fitted": {k: (np.asarray(v) if hasattr(v, "shape") else v)
+                        for k, v in jm.fitted.items()}}, CPU)
+        out[kind] = (Xf, jm, pm)
+    return out
+
+
+def _jax_loco(model, X, meta, **kw):
+    loco = jri.RecordInsightsLOCO(model=model, **kw)
+    loco.set_input(JFeature("v", JOPVector, False, None, parents=()))
+    return loco.transform(JBatch({"v": JColumn(JOPVector, X, meta=meta)},
+                                 len(X))).values
+
+
+def _port_loco(model, X, meta, **kw):
+    loco = pri.RecordInsightsLOCO(model=model, **kw)
+    loco.set_input(Feature("v", OPVector, False, None, parents=()))
+    return loco.transform(ColumnBatch(
+        {"v": Column(OPVector, torch.as_tensor(X), meta=meta)}, len(X),
+        device="cpu")).values
+
+
+def _rank(v, strategy):
+    return {"abs": abs(v), "positive": v, "negative": -v}[strategy]
+
+
+def _tol(pm, X):
+    """1e-6, scaled up with the model's largest |logit| past 8."""
+    raw = pm.device_scores(torch.as_tensor(X), full=True)["rawPrediction"]
+    return TOL * max(1.0, float(raw.abs().max()) / 8.0)
+
+
+def _assert_maps_close(want, got, strategy, tol):
+    assert len(want) == len(got)
+    for rw, rg in zip(want, got):
+        pw = [(k, json.loads(v)) for k, v in rw.items()]
+        pg = [(k, json.loads(v)) for k, v in rg.items()]
+        assert len(pw) == len(pg)
+        for (nw, jw), (ng, jg) in zip(pw, pg):
+            assert jw[0][0] == nw and jg[0][0] == ng
+            if nw != ng:
+                assert abs(_rank(jw[0][1], strategy)
+                           - _rank(jg[0][1], strategy)) <= tol
+        dw = {n: p[0][1] for n, p in pw}
+        dg = {n: p[0][1] for n, p in pg}
+        for n in set(dw) & set(dg):
+            assert abs(dw[n] - dg[n]) <= tol, (n, dw[n], dg[n])
+
+
+@pytest.mark.parametrize("strategy", ["abs", "positive", "negative"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_loco_maps_match_jax(models, kind, strategy):
+    """The stage's maps by raw parent (top-3 of 5 groups) and meta-less
+    (one group per column, k = G) against the JAX stage."""
+    X, jm, pm = models[kind]
+    jmeta, pmeta = _metas()
+    tol = _tol(pm, X)
+    _assert_maps_close(_jax_loco(jm, X, jmeta, top_k=3, strategy=strategy),
+                       _port_loco(pm, X, pmeta, top_k=3, strategy=strategy),
+                       strategy, tol)
+    if strategy == "abs":
+        _assert_maps_close(_jax_loco(jm, X, None, top_k=D),
+                           _port_loco(pm, X, None, top_k=D), strategy, tol)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_layers_reproduce_the_probabilities(models, kind):
+    """phi(X) · W1 + b1, then the tail (ReLU before each layer) and the
+    softmax, from the arrays the kernel reads, give the model's own
+    probabilities."""
+    X, _, pm = models[kind]
+    Xt = torch.as_tensor(X)
+    cg = torch.arange(D, dtype=torch.int32)
+    inp = ik.softmax_kernel_inputs(pm, cg, D, CPU)
+    a = (torch.clamp(Xt, min=0.0) if inp["relu_in"] else Xt) @ inp["W1"] \
+        + inp["b1"]
+    tw, dims = inp["tw"], inp["dims"].tolist()
+    for i in range(inp["n_tail"]):
+        din, dout = dims[i], dims[i + 1]
+        W = tw[:din * dout].reshape(din, dout)
+        a = torch.relu(a) @ W + tw[din * dout:din * dout + dout]
+        tw = tw[din * dout + dout:]
+    want = pm.device_scores(Xt)["probability"]
+    np.testing.assert_allclose(torch.softmax(a, dim=-1).numpy(),
+                               want.numpy(), atol=TOL)
+    assert inp["C"] == dims[-1] == C and inp["widths"] == dims
+    assert inp["perm"] is None
+
+
+def _emulate_kernel(X, inp, G, k):
+    """The kernel's arithmetic in numpy f32 for each row: the base from 32
+    lane partials (column j to lane j % 32) summed in lane order, each
+    group's columns in ``perm`` order subtracted from the dot, the bias, the
+    tail and the softmax of the last class after the max; top-k by |diff|,
+    ties to the lower group."""
+    f32 = np.float32
+    W1, b1 = inp["W1"].numpy(), inp["b1"].numpy()
+    tw, dims = inp["tw"].numpy(), inp["dims"].tolist()
+    perm = (np.arange(X.shape[1]) if inp["perm"] is None
+            else inp["perm"].numpy())
+    goff = inp["goff"].numpy()
+    H = dims[0]
+
+    def prob(a):
+        a = a.copy()
+        off = 0
+        for i in range(inp["n_tail"]):
+            din, dout = dims[i], dims[i + 1]
+            a = np.maximum(a, f32(0))
+            W = tw[off:off + din * dout].reshape(din, dout)
+            a = (a @ W).astype(f32) + tw[off + din * dout:off + din * dout
+                                         + dout]
+            off += din * dout + dout
+        e = np.exp((a - a.max()).astype(f32))
+        return f32(e[-1] / e.sum())
+
+    idx, val = [], []
+    for x in X:
+        phi = np.maximum(x, 0) if inp["relu_in"] else x
+        parts = np.zeros((32, H), f32)
+        for j in range(len(x)):
+            parts[j % 32] += phi[j] * W1[j]
+        dot = parts.sum(axis=0, dtype=f32)
+        base = prob(dot + b1)
+        d = np.empty(G, f32)
+        for g in range(G):
+            pg = np.zeros(H, f32)
+            for c in range(goff[g], goff[g + 1]):
+                pg += phi[perm[c]] * W1[perm[c]]
+            d[g] = base - prob((dot - pg) + b1)
+        order = np.argsort(-np.abs(d), kind="stable")[:k]
+        idx.append(order)
+        val.append(d[order])
+    return np.asarray(idx), np.asarray(val)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_emulated_kernel_matches_the_twin(models, kind):
+    """The kernel's arithmetic on its own inputs (scattered groups: a
+    ``perm``) against the wrapper's CPU twin, and ``model_loco`` takes the
+    softmax link for every one of these models."""
+    X, _, pm = models[kind]
+    _, pmeta = _metas()
+    groups = pri.loco_groups(pmeta, D)
+    G = len(groups)
+    cg = ik.col_group_of(list(groups.values()), D, CPU)
+    Xt = torch.as_tensor(X[:60])
+    ti, tv = ik.model_loco(pm, Xt, cg, G, G, "abs")
+    li, lv = ik.loco_softmax(Xt, pm, cg, G, G, "abs")
+    assert torch.equal(ti, li) and torch.equal(tv, lv)
+    inp = ik.softmax_kernel_inputs(pm, cg, G, CPU)
+    assert inp["perm"] is not None
+    ei, ev = _emulate_kernel(X[:60], inp, G, G)
+    full = np.zeros((60, G), np.float64)
+    np.put_along_axis(full, ti.long().numpy(), tv.numpy(), axis=1)
+    tol = _tol(pm, X[:60])
+    np.testing.assert_allclose(ev, np.take_along_axis(full, ei, axis=1),
+                               atol=tol)
+    np.testing.assert_allclose(np.abs(ev), np.abs(tv.numpy()), atol=tol)
+
+
+@pytest.mark.parametrize("C_,H,tail,G,K", [
+    (4, 4, (), 16, 16), (40, 40, (), 16, 16), (4, 10, (4,), 16, 16),
+    (4, 6, (5, 4), 128, 20), (300, 300, (), 3, 2), (2, 2, (), 1, 1),
+    (4, 4, (), 512, 40), (900, 900, (), 20, 20), (3, 100, (200, 3), 64, 33)])
+def test_softmax_plan_sizes_any_shape(C_, H, tail, G, K):
+    """Slots of the widest layer for every lane of every warp, and the
+    tail's weights, inside one block's shared memory; fewer warps a block
+    for wide models."""
+    plan = ik.loco_softmax_plan(1_000_000, 16, G, K, H, C_, tail)
+    assert plan.slot == max((H,) + tail)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= ik.THREADS
+    assert plan.smem_bytes <= ik.SMEM_MAX
+    warps = plan.threads // 32
+    slot = (2 * plan.slot if tail else plan.slot) | 1
+    assert plan.smem_bytes == 4 * (plan.tail_floats
+                                   + warps * (32 * slot + H))
+    dims = (H,) + tail
+    assert plan.tail_floats == sum(dims[i] * dims[i + 1] + dims[i + 1]
+                                   for i in range(len(tail)))
+    assert 1 <= plan.blocks <= ik.BLOCKS_IN_FLIGHT
+
+
+@pytest.mark.parametrize("args,match", [
+    ((10, 16, 4, 5, 4, 4, ()), "K <= G"), ((10, 16, 4, 0, 4, 4, ()), "K"),
+    ((10, 16, 4, 2, 4, 1, ()), "C >= 2"), ((10, 16, 4, 2, 4, 3, ()), "C=3"),
+    ((10, 16, 4, 2, 10, 4, (5,)), "outputs"),
+    ((10, 16, 4, 2, 2000, 2000, ()), "shared memory")])
+def test_softmax_plan_raises_on_shapes_it_cannot_hold(args, match):
+    with pytest.raises(ValueError, match=match):
+        ik.loco_softmax_plan(*args)
+
+
+def test_models_without_a_softmax_link_are_refused():
+    """``softmax_layers`` refuses a binary linear model; ``model_loco``
+    refuses a model with no LOCO kernel at all."""
+    from transmogrifai_tpu_torch.models.base import PredictionModel
+    from transmogrifai_tpu_torch.models.linear import LinearPredictionModel
+    binary = LinearPredictionModel(fitted={"coef": torch.ones(3),
+                                           "intercept": torch.zeros(1),
+                                           "kind": "binary"})
+    with pytest.raises(ValueError, match="no softmax link"):
+        ik.softmax_layers(binary, CPU)
+
+    class Other(PredictionModel):
+        def device_scores(self, X, full=False):
+            return {"prediction": X[:, 0]}
+
+    with pytest.raises(NotImplementedError, match="no LOCO kernel"):
+        ik.model_loco(Other(fitted={}), torch.ones((2, 3)),
+                      torch.arange(3, dtype=torch.int32), 3, 1, "abs")

@@ -574,14 +574,29 @@ def test_naive_bayes_contributions_match_jax(jax_multiclass_models):
 @pytest.mark.parametrize("kind", ["multinomial", "naive_bayes", "mlp"])
 def test_loco_refuses_models_with_no_kernel_link(jax_multiclass_models,
                                                  kind):
-    """Multinomial, naive Bayes and MLP models have no LOCO kernel link:
-    ``model_loco`` refuses them on every device, naming the queue entry,
-    instead of explaining another score than the card would."""
+    """Multinomial, naive Bayes and MLP models now have a LOCO kernel link:
+    ``model_loco`` explains them through ``loco_softmax`` (on the CPU its
+    twin: the last class's probability), and a model with no link at all
+    is still refused on every device rather than explained through
+    another score than the card would give."""
     from transmogrifai_tpu_torch import insights_kernels as ik
+    from transmogrifai_tpu_torch.models.base import PredictionModel
     X, _, pm = jax_multiclass_models[kind]
+    Xt = torch.as_tensor(X)
     cg = torch.arange(X.shape[1], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="softmax link"):
-        ik.model_loco(pm, torch.as_tensor(X), cg, X.shape[1], 2, "abs")
+    idx, val = ik.model_loco(pm, Xt, cg, X.shape[1], 2, "abs")
+    want = ik.loco_topk_twin(
+        Xt, lambda Z: pm.device_scores(Z)["probability"][:, -1], cg,
+        X.shape[1], 2, "abs")
+    assert torch.equal(idx, want[0]) and torch.equal(val, want[1])
+
+    class NoLink(PredictionModel):
+        def device_scores(self, X, full=False):
+            return pm.device_scores(X, full)
+
+    with pytest.raises(NotImplementedError, match="no LOCO kernel"):
+        ik.model_loco(NoLink(fitted={"kind": kind}), Xt, cg, X.shape[1], 2,
+                      "abs")
 
 
 # --------------------------------------------------------------------------

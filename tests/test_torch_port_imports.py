@@ -169,3 +169,41 @@ def test_the_multiclass_path_leaves_jax_out():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_glm_and_softmax_loco_paths_leave_jax_out():
+    """Training, scoring and explaining the GLM workflow on the CPU
+    (backtracking FISTA on ``fista_glm``'s twin, the exp link of
+    ``loco_linear``) and explaining multinomial, naive Bayes and MLP models
+    through ``loco_softmax``'s twin, with ``scripts/glm_grid_reference.py``
+    and ``chip_smoke``'s phase helpers imported, loads no JAX."""
+    code = ("import json, sys\n"
+            "sys.path.insert(0, 'scripts')\n"
+            "import numpy as np, torch\n"
+            "import glm_grid_reference as ggr\n"
+            "import chip_smoke\n"
+            "from transmogrifai_tpu_torch import insights_kernels as ik\n"
+            "from transmogrifai_tpu_torch.models.linear import (OpNaiveBayes, "
+            "OpMultilayerPerceptronClassifier, OpLogisticRegression)\n"
+            "from transmogrifai_tpu_torch.synthetic import "
+            "make_multiclass_data\n"
+            "X, y = ggr.make_glm_data(300, 'poisson')\n"
+            "m, b, pred, _ = ggr.train('transmogrifai_tpu_torch', X, y, "
+            "'poisson', device='cpu')\n"
+            "m.score(b)\n"
+            "cg = torch.arange(16, dtype=torch.int32)\n"
+            "ik.model_loco(m.selected_model, torch.as_tensor(X), cg, 16, 4, "
+            "'abs')\n"
+            "Xm, ym = make_multiclass_data(200)\n"
+            "for est in (OpLogisticRegression(max_iter=5), OpNaiveBayes(), "
+            "OpMultilayerPerceptronClassifier(max_iter=5)):\n"
+            "    mm = est.model_cls(fitted=est.fit_arrays(Xm, ym, "
+            "device='cpu'))\n"
+            "    ik.model_loco(mm, torch.as_tensor(Xm), cg, 16, 4, 'abs')\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
+            "or m == 'transmogrifai_tpu' or m.startswith('transmogrifai_tpu.'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -203,9 +203,9 @@ def test_jax_svc_converted_scores_like_jax(data):
     np.testing.assert_allclose(got["rawPrediction"].numpy(),
                                np.asarray(want["rawPrediction"]), rtol=1e-5,
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="glm"):
+    with pytest.raises(NotImplementedError, match="isotonic"):
         convert._model_fitted("LinearPredictionModel",
-                              {**exported, "kind": "glm"},
+                              {**exported, "kind": "isotonic"},
                               torch.device("cpu"))
 
 

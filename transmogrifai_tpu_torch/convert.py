@@ -11,7 +11,9 @@ order).  The dicts this slice reads, by the fitted stage's class name:
 * ``SelectedModel``: ``model`` = ``"LinearPredictionModel"`` (``coef`` [D],
   ``intercept`` [1], ``kind`` "binary" for logistic regression, "svc" for
   a linear SVC or "regression" for a linear regression; or ``coef`` [D, C],
-  ``intercept`` [C], ``kind`` "multinomial"), ``"NaiveBayesModel"``
+  ``intercept`` [C], ``kind`` "multinomial"), ``"GLMPredictionModel"``
+  (``coef`` [D], ``intercept`` [1], ``kind`` "glm", ``family`` gaussian,
+  binomial, poisson or gamma), ``"NaiveBayesModel"``
   (``log_prior`` [C], ``log_prob`` [C, D]),
   ``"MLPClassificationModel"`` (``n_layers``, ``W{i}`` [d_i, d_i+1],
   ``b{i}``) or
@@ -47,7 +49,8 @@ import torch
 
 from .dag import compute_dag
 from .device import DeviceLike, resolve_device
-from .models.linear import (LinearPredictionModel, MLPClassificationModel,
+from .models.linear import (GLM_FAMILY_LOSS, GLMPredictionModel,
+                            LinearPredictionModel, MLPClassificationModel,
                             NaiveBayesModel)
 from .models.trees import TreeEnsembleModel
 from .ops.combiner import VectorsCombiner
@@ -59,6 +62,7 @@ from .selector import ModelSelector, SelectedModel
 from .workflow import WorkflowModel
 
 _MODELS = {"LinearPredictionModel": LinearPredictionModel,
+           "GLMPredictionModel": GLMPredictionModel,
            "TreeEnsembleModel": TreeEnsembleModel,
            "NaiveBayesModel": NaiveBayesModel,
            "MLPClassificationModel": MLPClassificationModel}
@@ -71,14 +75,21 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 
 def _model_fitted(name: str, fitted: Dict[str, Any], device) -> Dict[str, Any]:
     out = dict(fitted)
-    if name == "LinearPredictionModel":
+    if name in ("LinearPredictionModel", "GLMPredictionModel"):
         out["coef"] = _tensor(fitted["coef"], device, torch.float32)
         out["intercept"] = _tensor(fitted["intercept"], device,
                                    torch.float32).reshape(-1)
-        out.setdefault("kind", "binary")
-        if out["kind"] not in ("binary", "svc", "regression", "multinomial"):
+        out.setdefault("kind", "glm" if name == "GLMPredictionModel"
+                       else "binary")
+        if out["kind"] not in ("binary", "svc", "regression", "multinomial",
+                               "glm"):
             raise NotImplementedError(
                 f"convert: no port model for linear kind {out['kind']!r}")
+        if (out["kind"] == "glm"
+                and out.setdefault("family", "gaussian") not in
+                GLM_FAMILY_LOSS):
+            raise NotImplementedError(
+                f"convert: no port model for GLM family {out['family']!r}")
     elif name == "TreeEnsembleModel":
         out["feature"] = _tensor(fitted["feature"], device, torch.int32)
         out["threshold"] = _tensor(fitted["threshold"], device, torch.float32)

@@ -12,8 +12,10 @@
 // c_g = sum_{j in g} x_j w_j from the margin m = x . w + b: each row needs
 // one read of its own columns, and
 //   score_g = link(m - c_g),  diff_g = link(m) - score_g,
-// with link the sigmoid (logistic) or the identity (an SVC's margin, a
-// linear regression's prediction).  Only the
+// with link the sigmoid (logistic), the identity (an SVC's margin, a
+// linear regression's prediction) or a GLM's inverse link of the margin
+// clipped to [-30, 30] (linear.py:186-189): exp (poisson, gamma), the
+// sigmoid (binomial) or the identity (gaussian).  Only the
 // f32 summation order differs from the reference's masked forwards, and a
 // group whose columns are all zero has c_g = 0 and a diff of exactly 0.
 //
@@ -51,8 +53,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// link codes (insights_kernels.LINKS): 0 sigmoid, 1 identity, and of the
+// margin clipped to [-30, 30]: 2 exp, 3 sigmoid, 4 identity
 __device__ __forceinline__ float linear_link(float m, int link) {
-  return link == 0 ? loco_sigmoid(m) : m;
+  if (link == 0) return loco_sigmoid(m);
+  if (link == 1) return m;
+  const float c = fminf(fmaxf(m, -30.f), 30.f);
+  return link == 2 ? expf(c) : (link == 3 ? loco_sigmoid(c) : c);
 }
 
 // lane partials of one group, flushed into the group's slot when the run
@@ -244,7 +251,7 @@ extern "C" int loco_linear_launch(const void* X, const void* w, float b,
                                   int vec4, int blocks, int threads,
                                   void* stream) {
   if (K < 1 || K > G || gw < 1 || threads % 32 || strategy < 0 ||
-      strategy > 2 || link < 0 || link > 1 ||
+      strategy > 2 || link < 0 || link > 4 ||
       (vec4 && (G > gw || perm != nullptr || D % 4 != 0 ||
                 (uintptr_t)X % 16 != 0 || (uintptr_t)w % 16 != 0)))
     return (int)cudaErrorInvalidValue;

@@ -6,12 +6,13 @@ and the plain-PyTorch twin (the dispatch rule and launch counters are in
 |-------------|------------------------------------------------------------------|
 | loco_linear | ``_device_topk``'s ``loco`` program (:140-160) on LR, SVC and LinReg |
 | loco_tree   | ``_device_topk``'s ``loco`` program (:140-160) on GBT, RF and DT, classifiers and regressors |
+| loco_softmax | ``_device_topk``'s ``loco`` program (:140-160) on multinomial LR, naive Bayes and the MLP: the softmax's last class (:82-112) |
 
 The JAX program runs a ``lax.map`` of G masked forwards ``score(X * m_g)``
 so that [G, N, D] is never formed, then ``lax.top_k`` over the [N, G]
-diffs.  In both kernels a warp takes a row, computes its G diffs (lane i
-group g0 + i) and keeps the top K as they go (``csrc/loco_topk.cuh``),
-reading X once; neither forms ``X * m_g``.
+diffs.  In the three kernels a warp takes a row, computes its G diffs
+(lane i group g0 + i) and keeps the top K as they go
+(``csrc/loco_topk.cuh``), reading X once; none forms ``X * m_g``.
 ``loco_topk_twin`` computes ``base - score(X * m_g)`` one group at a time,
 the score from the model's own ``device_scores`` (``loco_score``), and
 sorts the rank stably: it is what the CPU runs and what the kernels are
@@ -38,13 +39,40 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _ARGTYPES = {
     "loco_linear": [_P, _P, _F] + [_P] * 5 + [_L] + [_I] * 9 + [_P],
     "loco_tree": [_P] * 9 + [_L] + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P],
+    "loco_softmax": [_P] * 9 + [_L] + [_I] * 13 + [_P],
 }
 STRATEGIES = ("abs", "positive", "negative")
-# kernel codes: loco_linear's sigmoid or identity (an SVC's margin, a linear
-# regression's prediction); loco_tree's GBT and forest scores, classifier
-# (probability of the last class) or regressor (prediction)
-LINKS = {"logistic": 0, "identity": 1, "gbt": 0, "forest": 1,
-         "gbt_regression": 2, "forest_regression": 3}
+# kernel codes: loco_linear's links of the margin m — the sigmoid, the
+# identity (an SVC's margin, a linear regression's prediction) and a GLM's
+# inverse links of clip(m, -30, 30): exp (poisson, gamma), the sigmoid
+# (binomial) and the identity (gaussian); loco_tree's GBT and forest
+# scores, classifier (probability of the last class) or regressor
+# (prediction)
+LINKS = {"logistic": 0, "identity": 1, "clipped_exp": 2,
+         "clipped_logistic": 3, "clipped_identity": 4, "gbt": 0,
+         "forest": 1, "gbt_regression": 2, "forest_regression": 3}
+# a linear model's (kind, GLM family) -> the link of the score LOCO
+# explains (≙ ``_linear_device_scores``'s tails, linear.py:164-190)
+LINEAR_LINKS = {("binary", None): "logistic", ("svc", None): "identity",
+                ("regression", None): "identity",
+                ("glm", "poisson"): "clipped_exp",
+                ("glm", "gamma"): "clipped_exp",
+                ("glm", "binomial"): "clipped_logistic",
+                ("glm", "gaussian"): "clipped_identity"}
+
+
+def linear_link(fitted: dict) -> str:
+    """The link ``loco_linear`` explains a fitted linear model through, by
+    its kind (and a GLM's family); raises ValueError on any other."""
+    kind = fitted.get("kind", "binary")
+    key = (kind, fitted.get("family", "gaussian") if kind == "glm" else None)
+    if key not in LINEAR_LINKS:
+        raise ValueError(f"loco_linear: no link for a linear model of kind "
+                         f"{kind!r}" + (f", family {key[1]!r}"
+                                        if kind == "glm" else ""))
+    return LINEAR_LINKS[key]
+
+
 THREADS = 256                    # 8 warps, a row each at a time
 SMEM_MAX = 227 * 1024            # what one block can hold
 BLOCKS_IN_FLIGHT = 132 * 8       # SMs x resident 256-thread blocks
@@ -87,6 +115,75 @@ def loco_plan(kind: str, N: int, D: int, G: int, K: int, n_nodes: int = 0,
     smem = n_nodes * (4 * (4 if forest else 3) + 1) + 4 * D
     return LocoPlan(blocks, THREADS, 0, smem if smem <= SMEM_MAX else 0,
                     False)
+
+
+class SoftmaxPlan(NamedTuple):
+    blocks: int
+    threads: int
+    slot: int           # S: floats of a lane's buffer (the widest layer)
+    tail_floats: int    # the tail's weights staged in shared memory
+    smem_bytes: int
+
+
+def loco_softmax_plan(N: int, D: int, G: int, K: int, H: int, C: int,
+                      tail=()) -> SoftmaxPlan:
+    """The launch of ``loco_softmax`` for a first layer H wide and ``tail``
+    the widths of the layers after it (the last is C; none for logistic
+    regression and naive Bayes, where H = C): one warp per row, a
+    grid-stride loop over rows, each lane a slot of S floats in shared
+    memory (two with a tail), S the widest layer, and the tail's weights
+    staged beside them.  Up to 8 warps a block, fewer when the slots do not
+    fit ``SMEM_MAX``; raises ValueError when not even one warp's do, or on
+    a shape no model has.  Any G >= 1 and 1 <= K <= G, as in
+    :func:`loco_plan`."""
+    tail = tuple(int(t) for t in tail)
+    if not 1 <= K <= G or D < 1 or N < 0 or H < 1 or C < 2:
+        raise ValueError(f"loco_softmax_plan: need 1 <= K <= G, D >= 1, "
+                         f"H >= 1, C >= 2; got N={N} D={D} G={G} K={K} "
+                         f"H={H} C={C}")
+    if (tail[-1] if tail else H) != C:
+        raise ValueError(f"loco_softmax_plan: the last layer has "
+                         f"{tail[-1] if tail else H} outputs, not C={C}")
+    dims = (H,) + tail
+    S = max(dims)
+    tw = sum(dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(tail)))
+    per_warp = 32 * ((2 * S if tail else S) | 1) + H
+    for warps in (THREADS // 32, 4, 2, 1):
+        smem = 4 * (tw + warps * per_warp)
+        if smem <= SMEM_MAX:
+            blocks = max(1, min(-(-N // warps), BLOCKS_IN_FLIGHT))
+            return SoftmaxPlan(blocks, 32 * warps, S, tw, smem)
+    raise ValueError(f"loco_softmax_plan: one warp's slots ({S} floats a "
+                     f"lane) and the tail's {tw} weights exceed "
+                     f"{SMEM_MAX} bytes of shared memory")
+
+
+def softmax_layers(model, device):
+    """``loco_softmax``'s view of a fitted multinomial LR, naive Bayes or
+    MLP model: (relu_in, W1 f32 [D, H], b1 [H], tail [(W [in, out], b
+    [out])]) with the first layer a = phi(x) · W1 + b1 (phi = max(x, 0)
+    when ``relu_in``) and the tail the layers after it (ReLU before
+    each)."""
+    from .models.linear import (LinearPredictionModel, MLPClassificationModel,
+                                NaiveBayesModel)
+    f = model.fitted
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32,
+                               device=device).contiguous()
+
+    if isinstance(model, NaiveBayesModel):
+        return True, t(t(f["log_prob"]).T), t(f["log_prior"]), []
+    if isinstance(model, MLPClassificationModel):
+        n = int(f["n_layers"])
+        return (False, t(f["W0"]), t(f["b0"]),
+                [(t(f[f"W{i}"]), t(f[f"b{i}"])) for i in range(1, n)])
+    if (isinstance(model, LinearPredictionModel)
+            and f.get("kind") == "multinomial"):
+        return False, t(f["coef"]), t(torch.as_tensor(f["intercept"]).reshape(
+            -1)), []
+    raise ValueError(f"loco_softmax: {type(model).__name__} "
+                     f"(kind {f.get('kind')!r}) has no softmax link")
 
 
 def index_dtype(G: int) -> torch.dtype:
@@ -157,12 +254,13 @@ def loco_score(model, X: torch.Tensor) -> torch.Tensor:
 def loco_linear(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
                 k: int, strategy: str = "abs"):
     """Top-k LOCO (group, diff) pairs per row of a linear model
-    (``LinearPredictionModel``: logistic, an SVC's margin, or a linear
-    regression's prediction).
+    (``LinearPredictionModel``: logistic, an SVC's margin, a linear
+    regression's prediction, or a GLM's inverse link; :func:`linear_link`).
 
     X f32 [N, D]; ``col_group`` int32 [D].  Returns (idx [N, k] in
     ``index_dtype(G)``, diffs [N, k] f32)."""
     _check_common("loco_linear", X, col_group, G, k, strategy)
+    link = linear_link(model.fitted)
     dev = X.device
     if dev.type == "cpu":
         return loco_topk_twin(X, lambda Z: loco_score(model, Z), col_group,
@@ -173,8 +271,6 @@ def loco_linear(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
     coef = torch.as_tensor(f["coef"], dtype=torch.float32,
                            device=dev).reshape(-1).contiguous()
     intercept = float(torch.as_tensor(f["intercept"]).reshape(-1)[0])
-    link = ("identity" if f.get("kind") in ("svc", "regression")
-            else "logistic")
     N, D = X.shape
     _check("loco_linear coef", coef, torch.float32, 1, dev)
     if coef.shape[0] != D:
@@ -239,6 +335,69 @@ def loco_tree(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
     return idx.to(index_dtype(G)), val
 
 
+def loco_softmax(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
+                 k: int, strategy: str = "abs"):
+    """Top-k LOCO (group, diff) pairs per row of a model scored by the
+    softmax probability of its last class over a first layer linear in the
+    features (:func:`softmax_layers`: multinomial logistic regression,
+    naive Bayes, the MLP).
+
+    X f32 [N, D]; ``col_group`` int32 [D].  Returns (idx [N, k] in
+    ``index_dtype(G)``, diffs [N, k] f32)."""
+    _check_common("loco_softmax", X, col_group, G, k, strategy)
+    dev = X.device
+    inp = softmax_kernel_inputs(model, col_group, G, dev)
+    N, D = X.shape
+    if inp["W1"].shape[0] != D:
+        raise ValueError("loco_softmax: the first layer must have one row "
+                         "per column")
+    if dev.type == "cpu":
+        return loco_topk_twin(X, lambda Z: loco_score(model, Z), col_group,
+                              G, k, strategy)
+    if dev.type != "cuda":
+        raise ValueError(f"loco_softmax: unsupported device {dev}")
+    H, C, dims = inp["H"], inp["C"], inp["dims"]
+    plan = loco_softmax_plan(N, D, G, k, H, C, inp["widths"][1:])
+    perm = inp["perm"]
+    val, idx = _outputs(N, k, dev)
+    launch("loco_softmax", _ARGTYPES["loco_softmax"], X.data_ptr(),
+           inp["W1"].data_ptr(), inp["b1"].data_ptr(), inp["tw"].data_ptr(),
+           dims.data_ptr(), 0 if perm is None else perm.data_ptr(),
+           inp["goff"].data_ptr(), val.data_ptr(), idx.data_ptr(), N, D, G,
+           k, STRATEGIES.index(strategy), H, C, inp["n_tail"],
+           int(inp["relu_in"]), plan.slot, plan.tail_floats, plan.blocks,
+           plan.threads, plan.smem_bytes, _stream(X))
+    return idx.to(index_dtype(G)), val
+
+
+def softmax_kernel_inputs(model, col_group: torch.Tensor, G: int,
+                          device) -> dict:
+    """What ``loco_softmax``'s kernel reads, on ``device``: the first layer
+    (``relu_in``, ``W1`` [D, H], ``b1`` [H]), the tail packed layer by
+    layer as W [in, out] row-major then b [out] (``tw``; one unused float
+    when there is no tail), the widths ``dims`` int32 [H, ..., C], and the
+    columns sorted by group: ``perm`` int32 [D] (None when the groups are
+    already contiguous) with group g at perm[goff[g] .. goff[g+1])."""
+    relu_in, W1, b1, tail = softmax_layers(model, device)
+    widths = [W.shape[1] for W, _ in tail]
+    H = W1.shape[1]
+    sgid, perm = torch.sort(col_group, stable=True)
+    goff = torch.zeros(G + 1, dtype=torch.int32, device=device)
+    goff[1:] = torch.cumsum(torch.bincount(col_group.long(), minlength=G),
+                            0).to(torch.int32)
+    return {"relu_in": relu_in, "W1": W1, "b1": b1,
+            "tw": (torch.cat([torch.cat([W.reshape(-1), b])
+                              for W, b in tail]) if tail
+                   else torch.zeros(1, dtype=torch.float32, device=device)),
+            "dims": torch.tensor([H] + widths, dtype=torch.int32,
+                                 device=device),
+            "widths": [H] + widths, "n_tail": len(tail), "H": H,
+            "C": widths[-1] if widths else H,
+            "perm": (None if bool(torch.equal(sgid, col_group))
+                     else perm.to(torch.int32)),
+            "goff": goff}
+
+
 def tree_inputs(fitted: dict, device) -> dict:
     """``loco_tree``'s view of a fitted GBT or forest
     (``TreeEnsembleModel.fitted``) on ``device``: ``feature`` int32,
@@ -262,29 +421,31 @@ def tree_inputs(fitted: dict, device) -> dict:
 
 def model_loco(model, X: torch.Tensor, col_group: torch.Tensor, G: int,
                k: int, strategy: str):
-    """LOCO top-k of a fitted model of the port on X: a linear model (binary
-    or regression) takes ``loco_linear``, a GBT or a forest ``loco_tree``,
-    each explaining the score ``loco_score`` picks.  Another model — a
-    multinomial linear model, naive Bayes, the MLP — raises
-    ``NotImplementedError`` on every device: the JAX package explains them
-    through its softmax link, which has no kernel here yet (ROADMAP queue
-    2, "K8, the softmax link")."""
-    from .models.linear import LinearPredictionModel
+    """LOCO top-k of a fitted model of the port on X, explaining the score
+    ``loco_score`` picks: a multinomial linear model, naive Bayes and the
+    MLP take ``loco_softmax``, another linear model (binary, SVC,
+    regression, GLM) ``loco_linear``, a GBT or a forest ``loco_tree``.  Any
+    other model raises ``NotImplementedError``."""
+    from .models.linear import (LinearPredictionModel, MLPClassificationModel,
+                                NaiveBayesModel)
     from .models.trees import TreeEnsembleModel
     from .selector import SelectedModel
     if isinstance(model, SelectedModel):
         model = model.best_model
-    if (isinstance(model, LinearPredictionModel)
-            and model.fitted.get("kind") != "multinomial"):
+    if (isinstance(model, (NaiveBayesModel, MLPClassificationModel))
+            or (isinstance(model, LinearPredictionModel)
+                and model.fitted.get("kind") == "multinomial")):
+        return loco_softmax(X, model, col_group, G, k, strategy)
+    if isinstance(model, LinearPredictionModel):
         return loco_linear(X, model, col_group, G, k, strategy)
     if isinstance(model, TreeEnsembleModel):
         return loco_tree(X, model, col_group, G, k, strategy)
-    kind = model.fitted.get("kind", type(model).__name__)
+    kind = getattr(model, "fitted", {}).get("kind", type(model).__name__)
     raise NotImplementedError(
         f"RecordInsightsLOCO: no LOCO kernel for {type(model).__name__} "
-        f"(kind {kind!r}); the port explains binary and regression linear "
-        "models and tree ensembles — the softmax link of multinomial, naive "
-        "Bayes and MLP models is ROADMAP queue 2, \"K8, the softmax link\"")
+        f"(kind {kind!r}); the port explains linear models (binary, SVC, "
+        "regression, GLM, multinomial), naive Bayes, the MLP and tree "
+        "ensembles")
 
 
 def col_group_of(groups, D: int, device) -> torch.Tensor:

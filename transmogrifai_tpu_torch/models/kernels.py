@@ -31,12 +31,14 @@ REPLACES = {
     "tree_walk": "transmogrifai_tpu/models/trees.py:668",
     "fista_step": "transmogrifai_tpu/models/solvers.py:160",
     "fista_softmax": "transmogrifai_tpu/models/solvers.py:44",
+    "fista_glm": "transmogrifai_tpu/models/solvers.py:66",
     "multiclass_confusion": "transmogrifai_tpu/metrics_device.py:135",
     "hash_counts": "transmogrifai_tpu/ops/text.py:148",
     "sp_matmat": "transmogrifai_tpu/sparse/matrix.py:60",
     "sp_rmatmat": "transmogrifai_tpu/sparse/matrix.py:67",
     "loco_linear": "transmogrifai_tpu/record_insights.py:140",
     "loco_tree": "transmogrifai_tpu/record_insights.py:140",
+    "loco_softmax": "transmogrifai_tpu/record_insights.py:140",
 }
 
 

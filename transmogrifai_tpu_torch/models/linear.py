@@ -7,9 +7,11 @@ The port has elastic-net logistic regression — binary on a dense matrix or
 a ``SparseMatrix``, multinomial (softmax, more than two classes) on a dense
 one — and the squared-hinge linear SVC, elastic-net linear regression on a
 dense matrix (closed-form ridge when no grid point has an l1 penalty),
-multinomial naive Bayes and a small ReLU network trained by full-batch
-Adam.  Sparse regression and sparse multinomial fits and the GLMs come
-with later slices of the port.
+generalized linear regression on a dense matrix (gaussian through ridge,
+binomial through the logistic loss, poisson and gamma through backtracking
+FISTA), multinomial naive Bayes and a small ReLU network trained by
+full-batch Adam.  Sparse regression, sparse GLMs and sparse multinomial
+fits come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ def _n_classes(y) -> int:
 
 
 def _grouped_grid_fit(est, X, y, fold_weights, grids, *, device, loss: str,
-                      l2l1, kind: str, n_classes: int = 2):
+                      l2l1, kind: str, n_classes: int = 2, extra=None):
     """(fold × grid) batched fit: grid points are grouped by their static
     config (max_iter/intercept/standardization/tol) and each group trains as
     one batched lane loop over (fold weights [F, N]) × (l2s, l1s [G])
@@ -46,8 +48,9 @@ def _grouped_grid_fit(est, X, y, fold_weights, grids, *, device, loss: str,
     ``sparse_linear_grid_fit`` (linear.py:56-90), and the squared loss with
     no l1 penalty in the group the closed-form ``ridge_grid_fit``
     (linear.py:92-97).  ``l2l1`` maps a point's params to its (l2, l1)
-    penalties; the "softmax" loss fits ``n_classes`` classes.  Returns
-    fitted dicts [F][G]."""
+    penalties; the "softmax" loss fits ``n_classes`` classes; ``extra``
+    goes into every fitted dict (a GLM's family).  Returns fitted dicts
+    [F][G], with the step halvings of the backtracking losses."""
     K, G = len(fold_weights), len(grids)
     out: list = [[None] * G for _ in range(K)]
     groups = defaultdict(list)
@@ -61,7 +64,7 @@ def _grouped_grid_fit(est, X, y, fold_weights, grids, *, device, loss: str,
     Wd = to_device_f32(fold_weights, device)
     sparse = isinstance(Xd, SparseMatrix)
     fit = sparse_linear_grid_fit if sparse else linear_grid_fit
-    extra = {"n_classes": n_classes} if loss == "softmax" else {}
+    classes = {"n_classes": n_classes} if loss == "softmax" else {}
     for (max_iter, fit_intercept, standardization, tol), gidx in groups.items():
         pens = [l2l1({**est._params, **grids[gi]}) for gi in gidx]
         l2s, l1s = (torch.tensor(v, dtype=torch.float32, device=device)
@@ -74,24 +77,38 @@ def _grouped_grid_fit(est, X, y, fold_weights, grids, *, device, loss: str,
             res = fit(Xd, yd, Wd, l2s, l1s, loss=loss,
                       fit_intercept=fit_intercept,
                       standardization=standardization, max_iter=max_iter,
-                      tol=tol, **extra)
+                      tol=tol, **classes)
         n_it = res.n_iter.cpu().numpy()
+        halv = None if res.halvings is None else res.halvings.cpu().numpy()
         for j, gi in enumerate(gidx):
             for k in range(K):
                 out[k][gi] = {"coef": res.coef[k, j],
                               "intercept": res.intercept[k, j],
                               "n_iter": int(n_it[k, j]),
-                              "kind": kind, "n_classes": n_classes}
+                              "kind": kind, "n_classes": n_classes,
+                              **(extra or {})}
+                if halv is not None:
+                    out[k][gi]["halvings"] = int(halv[k, j])
     return out
 
 
+# a GLM family's inverse link of the clipped margin (≙ linear.py:186-189)
+GLM_INVERSE_LINK = {"poisson": torch.exp, "gamma": torch.exp,
+                    "binomial": torch.sigmoid, "gaussian": lambda e: e}
+GLM_FAMILY_LOSS = {"gaussian": "squared", "binomial": "logistic",
+                   "poisson": "poisson", "gamma": "gamma"}
+
+
 def _linear_device_scores(X, coef: torch.Tensor, intercept: torch.Tensor,
-                          kind: str = "binary", full: bool = False):
+                          kind: str = "binary", full: bool = False,
+                          family: str = "gaussian"):
     """Score chain on the device (≙ ``_linear_device_scores`` /
-    ``_scores_from_linear``, linear.py:148-184): margin → prediction and
+    ``_scores_from_linear``, linear.py:148-189): margin → prediction and
     scores (the sigmoid for logistic, the raw margin for an SVC, which has
     no probability), with ``full`` also probability and rawPrediction; a
-    regression's prediction is the margin itself, and it has nothing else.
+    regression's prediction is the margin itself, and it has nothing else;
+    a GLM's (kind "glm") is its family's inverse link of the margin clipped
+    to [-30, 30], and it has nothing else.
     A multinomial model (coef [D, C]) scores its C logits by one matmul:
     the first largest is the prediction, their softmax the probability and
     the logits themselves the rawPrediction.  A ``SparseMatrix`` X takes
@@ -109,6 +126,9 @@ def _linear_device_scores(X, coef: torch.Tensor, intercept: torch.Tensor,
     margin = lin + intercept.reshape(-1)[0]
     if kind == "regression":
         return {"prediction": margin}
+    if kind == "glm":
+        return {"prediction": GLM_INVERSE_LINK[family](
+            torch.clamp(margin, -30.0, 30.0))}
     out = {"prediction": (margin > 0).to(torch.float32)}
     if kind == "svc":
         out["scores"] = margin
@@ -124,14 +144,15 @@ def _linear_device_scores(X, coef: torch.Tensor, intercept: torch.Tensor,
 
 class LinearPredictionModel(PredictionModel):
     """Fitted linear model; ``fitted``: coef [D], intercept [1], kind
-    "binary" (logistic), "svc" or "regression"; or coef [D, C], intercept
-    [C], kind "multinomial"."""
+    "binary" (logistic), "svc", "regression" or "glm" (with its
+    ``family``); or coef [D, C], intercept [C], kind "multinomial"."""
 
     def device_scores(self, X, full: bool = False) -> Dict[str, Any]:
         return _linear_device_scores(
             X, to_device_f32(self.fitted["coef"], X.device),
             to_device_f32(self.fitted["intercept"], X.device),
-            kind=self.fitted.get("kind", "binary"), full=full)
+            kind=self.fitted.get("kind", "binary"), full=full,
+            family=self.fitted.get("family", "gaussian"))
 
 
 class _LinearGridEstimator(PredictorEstimator):
@@ -270,6 +291,85 @@ class OpLinearRegression(_LinearGridEstimator):
         coef, intercept = unscale_params(res.coef, res.intercept, mean, scale)
         return {"coef": coef, "intercept": intercept, "n_iter": 0,
                 "kind": "regression", "n_classes": 2}
+
+
+class GLMPredictionModel(LinearPredictionModel):
+    """Fitted generalized linear model (≙ ``GLMPredictionModel``,
+    linear.py:465-485): kind "glm", its ``family``'s inverse link of the
+    clipped margin as the prediction."""
+
+
+class OpGeneralizedLinearRegression(PredictorEstimator):
+    """≙ OpGeneralizedLinearRegression (linear.py:411-462): families
+    gaussian (the squared loss: closed-form ridge in the grid program, as
+    l1 is always 0), binomial (logistic), poisson and gamma (log link:
+    backtracking FISTA on ``fista_glm``), an l2 penalty of ``reg_param``,
+    50 iterations by default.  Dense matrices only in this slice."""
+
+    model_cls = GLMPredictionModel
+
+    def __init__(self, family: str = "gaussian", link=None,
+                 reg_param: float = 0.0, max_iter: int = 50,
+                 tol: float = 1e-6, fit_intercept: bool = True, **kw):
+        super().__init__(family=family, link=link, reg_param=reg_param,
+                         max_iter=max_iter, tol=tol,
+                         fit_intercept=fit_intercept, **kw)
+
+    def _loss(self) -> str:
+        family = self.get("family", "gaussian")
+        loss = GLM_FAMILY_LOSS.get(family)
+        if loss is None:
+            raise ValueError(f"unsupported GLM family {family!r}")
+        return loss
+
+    @staticmethod
+    def _dense_only(X):
+        if isinstance(X, SparseMatrix):
+            # the selector's skip seam passes over the family (TypeError)
+            raise TypeError(
+                "OpGeneralizedLinearRegression on a SparseMatrix arrives "
+                "with the port's sparse regression (ROADMAP queue 1 item "
+                "8); use a dense feature vector")
+
+    def fit_arrays(self, X, y, sample_weight=None,
+                   device=None) -> Dict[str, Any]:
+        """One fit (≙ ``fit_arrays``, linear.py:426-453): X standardised
+        explicitly by its weighted moments, then one FISTA lane on the
+        standardised matrix (no further standardisation) and the
+        coefficients unscaled."""
+        self._dense_only(X)
+        loss = self._loss()
+        dev = tensor_device(X, device)
+        Xd = device_matrix(X, dev)
+        w = (torch.ones(Xd.shape[0], dtype=torch.float32, device=dev)
+             if sample_weight is None else to_device_f32(sample_weight, dev))
+        fit_intercept = bool(self.get("fit_intercept", True))
+        mean, scale = standardize_moments(Xd, w[None], fit_intercept)
+        Xs = (Xd - mean) / scale
+        pen = torch.tensor([float(self.get("reg_param", 0.0))],
+                           dtype=torch.float32, device=dev)
+        res = linear_grid_fit(Xs, to_device_f32(y, dev), w[None], pen,
+                              torch.zeros_like(pen), loss=loss,
+                              fit_intercept=fit_intercept,
+                              standardization=False,
+                              max_iter=int(self.get("max_iter", 50)),
+                              tol=float(self.get("tol", 1e-6)))
+        coef, intercept = unscale_params(res.coef[0, 0], res.intercept[0, 0],
+                                         mean[0], scale[0])
+        out = {"coef": coef, "intercept": intercept,
+               "n_iter": int(res.n_iter[0, 0]), "kind": "glm",
+               "family": self.get("family", "gaussian"), "n_classes": 2}
+        if res.halvings is not None:
+            out["halvings"] = int(res.halvings[0, 0])
+        return out
+
+    def fit_arrays_grid(self, X, y, fold_weights, grids, device=None):
+        self._dense_only(X)
+        return _grouped_grid_fit(
+            self, X, y, fold_weights, grids,
+            device=tensor_device(X, device), loss=self._loss(),
+            l2l1=lambda m: (float(m.get("reg_param", 0.0)), 0.0),
+            kind="glm", extra={"family": self.get("family", "gaussian")})
 
 
 def _class_scores(logits: torch.Tensor, full: bool) -> Dict[str, Any]:

@@ -1,11 +1,12 @@
-"""The linear family's kernels: ``fista_step`` and ``fista_softmax``, their
-wrappers and their plain-PyTorch twins (the dispatch rule and launch
-counters are in ``kernels.py``).
+"""The linear family's kernels: ``fista_step``, ``fista_softmax`` and
+``fista_glm``, their wrappers and their plain-PyTorch twins (the dispatch
+rule and launch counters are in ``kernels.py``).
 
 | kernel        | replaces (transmogrifai_tpu/models/solvers.py)                  |
 |---------------|-----------------------------------------------------------------|
 | fista_step    | ``_fista_loop``'s ``smooth_grad`` with ``xs_mv`` / ``xs_tmv`` (:160-166, :270-286) for the logistic, squared-hinge and squared (:53-56) losses; the product of ``_spectral_norm_sq_weighted`` (:112-131) |
 | fista_softmax | the same ``smooth_grad`` for the multinomial loss ``_softmax_loss_grad`` (:44-50): C margins a lane (wrapper :func:`fista_softmax_step`) |
+| fista_glm     | ``smooth_grad`` and the backtracking tests' ``smooth_val`` (:160-170, :189-215) for the exp-link losses ``_poisson_loss_grad`` / ``_gamma_loss_grad`` (:66-80): the loss value of every lane, with Xᵀg and Σg in the gradient form |
 
 For a ``SparseMatrix`` the same gradient evaluation is ``sparse_fista_step``:
 margins by the ``sp_matmat`` kernel, the loss derivative in plain PyTorch,
@@ -71,9 +72,14 @@ def sparse_fista_step(X, V, muv, b, W, y, wsum, G: int, loss: str
 def grad_seam(X, loss: str = "logistic"):
     """The gradient evaluation for X and ``loss``: ``sparse_fista_step``
     for a ``SparseMatrix``, :func:`fista_softmax_step` for the multinomial
-    loss on a dense X, else ``fista_step``."""
+    loss on a dense X, :func:`fista_glm` (which also returns the loss
+    value) for the poisson and gamma losses, else ``fista_step``."""
     from ..sparse.matrix import SparseMatrix
     if isinstance(X, SparseMatrix):
+        if loss in GLM_LOSSES:
+            raise TypeError(f"the {loss} loss on a SparseMatrix arrives with "
+                            "the port's sparse regression (ROADMAP queue 1 "
+                            "item 8)")
         if loss == "softmax":
             raise TypeError("the multinomial loss on a SparseMatrix arrives "
                             "with the port's sparse multinomial fits "
@@ -82,6 +88,8 @@ def grad_seam(X, loss: str = "logistic"):
     if loss == "softmax":
         return lambda X, V, muv, b, W, y, wsum, G, loss: fista_softmax_step(
             X, V, muv, b, W, y, wsum, G)
+    if loss in GLM_LOSSES:
+        return fista_glm
     return fista_step
 
 
@@ -334,3 +342,129 @@ def fista_softmax_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
         gx[l0:l0 + n_l] = out[:D].T.reshape(n_l, C, D)
         gs[l0:l0 + n_l] = out[D].reshape(n_l, C)
     return gx, gs
+
+
+# --------------------------------------------------------------------------
+# the exp-link GLM losses (poisson, gamma): fista_glm
+# --------------------------------------------------------------------------
+
+GLM_LOSSES = {"poisson": 0, "gamma": 1}
+_GLM_ARGTYPES = [_P] * 9 + [_L] + [_I] * 9 + [_P]
+
+
+def glm_row_terms(lin, y, w, ws, loss: str):
+    """Each row's weighted loss term and gradient at margins ``lin``
+    (≙ ``_poisson_loss_grad`` / ``_gamma_loss_grad``, solvers.py:66-80):
+    poisson w·(μ - y·m) and w·(μ - y)/ws with μ = exp(clip(m, ±30)); gamma
+    w·(y/μ + m) and w·(1 - y/μ)/ws with 1/μ = exp(clip(-m, ±30)).  y·m is
+    not clipped, as in the JAX package.  Elementwise with broadcasting."""
+    if loss == "poisson":
+        mu = torch.exp(torch.clamp(lin, -30.0, 30.0))
+        return w * (mu - y * lin), w * (mu - y) / ws
+    if loss == "gamma":
+        iv = torch.exp(torch.clamp(-lin, -30.0, 30.0))
+        return w * (y * iv + lin), w * (1.0 - y * iv) / ws
+    raise ValueError(f"fista_glm: loss {loss!r}")
+
+
+def fista_glm_twin(X, V, muv, b, W, y, wsum, G: int, loss: str,
+                   grad: bool = True):
+    """Plain-PyTorch twin of :func:`fista_glm`: the margin matmul, the loss
+    terms and (``grad``) the Xᵀg matmul, as XLA runs the JAX package's
+    ``smooth_grad`` / ``smooth_val``."""
+    lane_fold = torch.arange(V.shape[0], device=X.device) // G
+    lin = V @ X.T - muv[:, None] + b[:, None]
+    lw, g = glm_row_terms(lin, y, W[lane_fold], wsum[:, None], loss)
+    val = lw.sum(dim=1) / wsum
+    if not grad:
+        return val
+    return g @ X, g.sum(dim=1), val
+
+
+def _glm_smem(D: int, L: int, tr: int, grad: bool) -> int:
+    Lp = -(-L // 4) * 4
+    floats = tr * (D | 1) + tr * Lp + D * Lp + 3 * Lp
+    if grad:
+        floats += tr * Lp + (D + 1) * Lp
+    return 4 * floats
+
+
+def glm_launch_plan(D: int, L: int, grad: bool) -> dict:
+    """How ``fista_glm`` launches for D features and L lanes: X's row tile
+    (``TR`` rows), the lanes' coefficients, per-(row slot, lane) loss sums
+    and, in the gradient form, the tile's gradients and the block's Xᵀg
+    sums in one block's shared memory.  Takes every lane in one launch with
+    the largest tile that fits, else fewer lanes a launch, else smaller
+    tiles; raises ValueError when not even one lane fits at 4 rows (past
+    about 7,200 features, 4,800 in the gradient form).  The one place that
+    sizes the launch's shared memory."""
+    if L < 1 or D < 1:
+        raise ValueError(f"fista_glm: {L} lanes, {D} features")
+    chunks = [L] + [c for c in (32, 16, 8, 4, 2, 1) if c < L]
+    for trs in ((128, 64, 32), (16, 8, 4)):
+        for lc in chunks:
+            for tr in trs:
+                smem = _glm_smem(D, lc, tr, grad)
+                if smem <= _SMEM_MAX:
+                    return {"lanes": lc, "TR": tr, "smem": smem}
+    raise ValueError(f"fista_glm: no launch form holds one lane at {D} "
+                     "features")
+
+
+def fista_glm(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
+              b: torch.Tensor, W: torch.Tensor, y: torch.Tensor,
+              wsum: torch.Tensor, G: int, loss: str, grad: bool = True):
+    """One evaluation of the smooth part of an exp-link GLM loss for L
+    lanes over one X.
+
+    X f32 [N, D]; V f32 [L, D] the lanes' scaled coefficients (coef /
+    scale); muv f32 [L] = mean · V; b f32 [L] intercepts; W f32 [F, N] fold
+    row weights, lane l reading fold ``l // G``; y f32 [N]; wsum f32 [L];
+    ``loss`` "poisson" or "gamma".  With margins m = (X V_l - muv_l) + b_l,
+    returns the mean loss Σ_n W·ℓ(m) / wsum [L] and, with ``grad``, first
+    (Xᵀ g [L, D], Σ_n g [L]) for g the loss derivative weighted by W /
+    wsum: (Xᵀg, Σg, loss).  The card's sums run in a fixed order: the same
+    inputs give the same bits on every run."""
+    dev = X.device
+    _check("fista_glm X", X, torch.float32, 2, dev)
+    _check("fista_glm V", V, torch.float32, 2, dev)
+    _check("fista_glm W", W, torch.float32, 2, dev)
+    _check("fista_glm y", y, torch.float32, 1, dev)
+    for name, t in (("muv", muv), ("b", b), ("wsum", wsum)):
+        _check(f"fista_glm {name}", t, torch.float32, 1, dev)
+    if loss not in GLM_LOSSES:
+        raise ValueError(f"fista_glm: loss {loss!r}")
+    N, D = X.shape
+    L = V.shape[0]
+    if (V.shape[1] != D or W.shape[1] != N or muv.shape != (L,)
+            or b.shape != (L,) or wsum.shape != (L,) or y.shape != (N,)
+            or (L - 1) // G >= W.shape[0]):
+        raise ValueError("fista_glm: shapes of X/V/W/y and lanes disagree")
+    if dev.type == "cpu":
+        return fista_glm_twin(X, V, muv, b, W, y, wsum, G, loss, grad)
+    if dev.type != "cuda":
+        raise ValueError(f"fista_glm: unsupported device {dev}")
+    plan = glm_launch_plan(D, L, grad)
+    lc, tr = plan["lanes"], plan["TR"]
+    nb = max(1, min(_N_BLOCKS, -(-N // tr)))
+    rows = ((D + 2) if grad else 1) * lc
+    partial = torch.empty((rows, nb), dtype=torch.float32, device=dev)
+    gx = torch.empty((L, D), dtype=torch.float32, device=dev)
+    gs = torch.empty((L,), dtype=torch.float32, device=dev)
+    val = torch.empty((L,), dtype=torch.float32, device=dev)
+    for l0 in range(0, L, lc):
+        n_l = min(lc, L - l0)
+        out = torch.empty(((D + 2) * n_l if grad else n_l,),
+                          dtype=torch.float32, device=dev)
+        launch("fista_glm", _GLM_ARGTYPES, X.data_ptr(), V[l0:].data_ptr(),
+               muv[l0:].data_ptr(), b[l0:].data_ptr(), W.data_ptr(),
+               y.data_ptr(), wsum[l0:].data_ptr(), partial.data_ptr(),
+               out.data_ptr(), N, D, n_l, l0, G, GLM_LOSSES[loss], int(grad),
+               tr, nb, plan["smem"], _stream(X))
+        if grad:
+            xtg = out[:(D + 1) * n_l].reshape(D + 1, n_l)
+            gx[l0:l0 + n_l] = xtg[:D].T
+            gs[l0:l0 + n_l] = xtg[D]
+        val[l0:l0 + n_l] = out[-n_l:]
+    val = val / wsum
+    return (gx, gs, val) if grad else val

@@ -1,7 +1,7 @@
 """Full-batch solvers for the linear family (port of the logistic,
-squared-hinge, squared-loss and (dense) multinomial paths of
-``transmogrifai_tpu/models/solvers.py``, dense and sparse, of its
-closed-form ridge and of its naive Bayes).
+squared-hinge, squared-loss, (dense) multinomial and (dense) poisson and
+gamma paths of ``transmogrifai_tpu/models/solvers.py``, dense and sparse,
+of its closed-form ridge and of its naive Bayes).
 
 The JAX package vmaps a per-lane ``lax.while_loop`` over the (fold × grid)
 lanes, so a lane that meets its tolerance freezes while the others run.  The
@@ -20,6 +20,16 @@ once for all lanes, on the CPU its matmul twin.  The multinomial loss
 gradients from ``fista_softmax_step``; its restart test and stop rule
 reduce over all of a lane's classes, as the JAX package's do.
 
+The exp-link losses ("poisson", "gamma") have no curvature bound, so their
+step is per-lane state, carried from one iteration to the next and never
+grown (Beck–Teboulle backtracking, ≙ solvers.py:189-215): each iteration
+takes the first of s, s/2, s/4, ... (at most 30 halvings) at which the
+smooth part lies under its quadratic model at z.  The port tests a ladder
+of ``LADDER`` such trial steps in one ``fista_glm`` value pass (one lane
+per (lane, trial step)) and takes each lane's first passing rung, which is
+the step the sequential rule accepts; only when some active lane passes no
+rung does the host learn of it and test the next ladder.
+
 A ``SparseMatrix`` X runs the same loop: only the gradient seam differs
 (``grad_seam``: ``sp_matmat`` margins and ``sp_rmatmat`` products over all
 lanes), and standardisation is scale only — the mean stays zero, since
@@ -33,21 +43,26 @@ one weighted Gram per fold and an f32 Cholesky solve per grid point
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from .linear_kernels import grad_seam
+from .linear_kernels import GLM_LOSSES, fista_glm, grad_seam
 
-# Lipschitz constant of d²loss/dmargin² per row (≙ ``_LOSS_CURVATURE``)
+# Lipschitz constant of d²loss/dmargin² per row (≙ ``_LOSS_CURVATURE``);
+# for the exp-link losses only the first step's guess
 _LOSS_CURVATURE = {"logistic": 0.25, "squared_hinge": 2.0, "squared": 1.0,
-                   "softmax": 0.5}
+                   "softmax": 0.5, "poisson": 1.0, "gamma": 1.0}
+LADDER = 8              # trial steps a backtracking value pass tests
+MAX_HALVINGS = 30       # ≙ the JAX loop's ``it < 30``
 
 
 class FitResult(NamedTuple):
     coef: torch.Tensor       # [F, G, D]; softmax [F, G, D, C]
     intercept: torch.Tensor  # [F, G, 1]; softmax [F, G, C]
     n_iter: torch.Tensor     # [F, G] int32
+    # [F, G] int32: step halvings over the run (the exp-link losses)
+    halvings: Optional[torch.Tensor] = None
 
 
 def standardize_moments(X: torch.Tensor, W: torch.Tensor, center: bool):
@@ -102,17 +117,20 @@ class FistaState(NamedTuple):
     t: torch.Tensor        # [L] momentum
     k: torch.Tensor        # [L] int32 iterations taken
     active: torch.Tensor   # [L] bool: not yet within tol
+    step: torch.Tensor     # [L] the step (carried by backtracking lanes)
+    halvings: torch.Tensor  # [L] int32 step halvings so far
 
 
 class FistaLoop:
     """FISTA with adaptive restart for L lanes at once (≙ ``_fista_loop``,
-    solvers.py:143-289, for the "logistic", "squared_hinge", "squared" and
-    "softmax" losses).  Lane l trains on fold row ``W[l // G]`` with
-    penalties l2[l], l1[l] and standardisation mu[l], sc[l]; it minimises
-    mean_loss(Xs w + b) + l2/2 ||w||² + l1 ||w||₁ in the standardized
-    basis.  ``step`` is one iteration of every lane; a lane whose update
-    moved less than ``tol`` (max |Δcoef| + max |Δintercept| over its
-    classes) is frozen from then on."""
+    solvers.py:143-289, for the "logistic", "squared_hinge", "squared",
+    "softmax", "poisson" and "gamma" losses).  Lane l trains on fold row
+    ``W[l // G]`` with penalties l2[l], l1[l] and standardisation mu[l],
+    sc[l]; it minimises mean_loss(Xs w + b) + l2/2 ||w||² + l1 ||w||₁ in
+    the standardized basis.  ``step`` is one iteration of every lane; a
+    lane whose update moved less than ``tol`` (max |Δcoef| + max
+    |Δintercept| over its classes) is frozen from then on.  The poisson and
+    gamma losses backtrack (:meth:`_backtrack`)."""
 
     def __init__(self, X, target, W, G: int, l2, l1, mu, sc, sigma_sq, *,
                  loss: str, fit_intercept: bool, tol: float,
@@ -138,8 +156,9 @@ class FistaLoop:
         self._i = (lambda a: a[:, None]) if multi else (lambda a: a)
         self.mu = mu[:, None, :] if multi else mu
         self.sc = sc[:, None, :] if multi else sc
-        self.step_c, self.step_i = self._c(step), self._i(step)
+        self.step0, self.l2, self.l1 = step, l2, l1
         self.l2c, self.l1c = self._c(l2), self._c(l1)
+        self.backtrack = loss in GLM_LOSSES
 
     def start(self) -> FistaState:
         L, d = self.mu.shape[0], self.mu.shape[-1]
@@ -147,21 +166,79 @@ class FistaLoop:
         cshape = (L, self.C, d) if self.C > 1 else (L, d)
         coef = torch.zeros(cshape, dtype=torch.float32, device=dev)
         inter = torch.zeros(cshape[:-1], dtype=torch.float32, device=dev)
+        zeros = torch.zeros((L,), dtype=torch.int32, device=dev)
         return FistaState(coef, inter, coef.clone(), inter.clone(),
                           torch.ones((L,), dtype=torch.float32, device=dev),
-                          torch.zeros((L,), dtype=torch.int32, device=dev),
-                          torch.ones((L,), dtype=torch.bool, device=dev))
+                          zeros,
+                          torch.ones((L,), dtype=torch.bool, device=dev),
+                          self.step0.clone(), zeros.clone())
+
+    def _attempt(self, zc, zi, g_c, g_i, step, l1):
+        """The proximal step from z at ``step`` (≙ ``attempt``,
+        solvers.py:182-185); ``step`` and ``l1`` broadcast against zc."""
+        u = zc - step * g_c
+        new_c = torch.sign(u) * torch.clamp(torch.abs(u) - step * l1,
+                                            min=0.0)
+        return new_c, (zi - step[..., 0] * g_i if self.fit_intercept else zi)
+
+    def _backtrack(self, s: FistaState, f_z, g_c, g_i) -> torch.Tensor:
+        """Each lane's halvings of its carried step this iteration (≙ the
+        backtracking loop, solvers.py:189-215): the first t in 0..30 at
+        which the smooth part at the proximal step from z with step s·2^-t
+        lies under its quadratic model, f(new) <= f(z) + <Δ, g> +
+        |Δ|²/(2·s·2^-t) + 1e-12, else 30.  A ladder of trial steps is one
+        ``fista_glm`` value pass; the next ladder runs only while some
+        active lane has passed no rung.  Frozen lanes halve nothing."""
+        L, d = s.zc.shape
+        dev = s.zc.device
+        unresolved = s.active.clone()
+        taken = torch.zeros((L,), dtype=torch.int32, device=dev)
+        t0 = 0
+        while True:
+            R = min(LADDER, MAX_HALVINGS + 1 - t0)
+            t = torch.arange(t0, t0 + R, device=dev)
+            steps = s.step[:, None] * torch.exp2(-t.to(torch.float32))[None]
+            nc, ni = self._attempt(s.zc[:, None], s.zi[:, None],
+                                   g_c[:, None], g_i[:, None],
+                                   steps[..., None], self.l1[:, None, None])
+            ni = ni.expand(L, R)
+            dc, di = nc - s.zc[:, None], ni - s.zi[:, None]
+            quad = (f_z[:, None] + (dc * g_c[:, None]).sum(dim=-1)
+                    + di * g_i[:, None]
+                    + ((dc * dc).sum(dim=-1) + di * di) / (2.0 * steps))
+            mu = self.mu[:, None].expand(L, R, d)
+            v = (nc / self.sc[:, None]).reshape(L * R, d)
+            val = fista_glm(self.X, v, (mu.reshape(L * R, d) * v).sum(
+                dim=-1), ni.reshape(L * R).contiguous(), self.W, self.target,
+                self.wsum.repeat_interleave(R), self.G * R, self.loss,
+                grad=False).reshape(L, R)
+            ok = (val + 0.5 * self.l2[:, None] * (nc * nc).sum(dim=-1)
+                  <= quad + 1e-12)
+            hit = ok.any(dim=1)
+            first = torch.argmax(ok.to(torch.int32), dim=1).to(torch.int32)
+            taken = torch.where(unresolved & hit, t0 + first, taken)
+            unresolved &= ~hit
+            t0 += R
+            if t0 > MAX_HALVINGS:
+                return torch.where(unresolved, MAX_HALVINGS, taken)
+            if not bool(unresolved.any()):
+                return taken
 
     def step(self, s: FistaState) -> FistaState:
-        mu, sc, step = self.mu, self.sc, self.step_c
+        mu, sc = self.mu, self.sc
         v = s.zc / sc
-        gx, g_i = self.grad(self.X, v, (mu * v).sum(dim=-1), s.zi, self.W,
-                            self.target, self.wsum, self.G, self.loss)
+        out = self.grad(self.X, v, (mu * v).sum(dim=-1), s.zi, self.W,
+                        self.target, self.wsum, self.G, self.loss)
+        gx, g_i = out[:2]
         g_c = (gx - mu * g_i[..., None]) / sc + self.l2c * s.zc
-        u = s.zc - step * g_c
-        new_c = torch.sign(u) * torch.clamp(torch.abs(u) - step * self.l1c,
-                                            min=0.0)
-        new_i = s.zi - self.step_i * g_i if self.fit_intercept else s.zi
+        halv = torch.zeros_like(s.halvings)
+        step = s.step
+        if self.backtrack:
+            f_z = out[2] + 0.5 * self.l2 * (s.zc * s.zc).sum(dim=-1)
+            halv = self._backtrack(s, f_z, g_c, g_i)
+            step = s.step * torch.exp2(-halv.to(torch.float32))
+        new_c, new_i = self._attempt(s.zc, s.zi, g_c, g_i, self._c(step),
+                                     self.l1c)
         t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * s.t * s.t))
         beta = (s.t - 1.0) / t_new
         # adaptive restart on a non-descent direction
@@ -182,7 +259,9 @@ class FistaLoop:
                           torch.where(ai, zi_next, s.zi),
                           torch.where(act, t_new, s.t),
                           s.k + act.to(torch.int32),
-                          act & (delta > self.tol))
+                          act & (delta > self.tol),
+                          torch.where(act, step, s.step),
+                          s.halvings + torch.where(act, halv, 0))
 
 
 def fista_fit(loop: FistaLoop, max_iter: int) -> FistaState:
@@ -254,7 +333,8 @@ def _grid_fit(X, y, W, l2s, l1s, mean, scale, *, loss: str,
                          inter.reshape(F, G, loop.C), s.k.reshape(F, G))
     coef, inter = unscale_params(s.coef, s.inter, lanes(mean), lanes(scale))
     return FitResult(coef.reshape(F, G, d), inter.reshape(F, G, 1),
-                     s.k.reshape(F, G))
+                     s.k.reshape(F, G),
+                     s.halvings.reshape(F, G) if loop.backtrack else None)
 
 
 def naive_bayes_fit(X: torch.Tensor, y: torch.Tensor,

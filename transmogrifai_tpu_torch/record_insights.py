@@ -5,9 +5,10 @@ RecordInsightsLOCO.scala:100-240 and RecordInsightsCorr.scala:56-225).
 ``RecordInsightsLOCO`` (leave one covariate out) re-scores each row with each
 raw-feature group's columns zeroed and reports the K groups whose removal
 moves the score most.  On the card a linear model runs the
-``loco_linear`` kernel and a tree ensemble ``loco_tree``
+``loco_linear`` kernel, a tree ensemble ``loco_tree`` and a model scored by
+its softmax (multinomial LR, naive Bayes, the MLP) ``loco_softmax``
 (``insights_kernels.py``), each reading X once and keeping every row's top K
-as it goes; on the CPU both run their plain twin.  A model with no
+as it goes; on the CPU they run their plain twin.  A model with no
 ``device_scores`` (host-only) takes the numpy loop ``_host_topk``.  Only the
 [N, K] (group, diff) pairs reach the host, where ``_assemble_maps`` formats
 the reference's RecordInsightsParser payloads.

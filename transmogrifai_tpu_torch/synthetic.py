@@ -17,6 +17,12 @@ of sd 0.3.
 
 Multiclass rows (its multiclass half) hold one of 4 class labels and 16
 features drawn around that class's centre (centres of sd 2.5, unit noise).
+
+GLM rows (insurance claim frequency and severity) hold 16 standard-normal
+features and a label with log link: a count y ~ Poisson(exp(0.3 + X w)) or
+a strictly positive amount y ~ Gamma(shape 2, scale exp(0.3 + X w) / 2),
+with w ~ N(0, 0.2²) drawn once from its own seed, so that every batch
+follows the same model.
 """
 
 from __future__ import annotations
@@ -157,4 +163,32 @@ def make_regression_data(n: int, d: int = 16, seed: int = 11
     w = rng.normal(size=d).astype(np.float32)
     X = rng.normal(size=(n, d)).astype(np.float32)
     y = X @ w + 0.3 * rng.normal(size=n).astype(np.float32)
+    return X, y.astype(np.float32)
+
+
+GLM_INTERCEPT = 0.3        # the true intercept of the GLM rows
+GLM_COEF_SEED = 20         # the true coefficients' draw
+
+
+def glm_true_coef(d: int = 16) -> np.ndarray:
+    """The GLM rows' true coefficients w ~ N(0, 0.2²) [d] f32."""
+    return np.random.default_rng(GLM_COEF_SEED).normal(
+        scale=0.2, size=d).astype(np.float32)
+
+
+def make_glm_data(n: int, family: str, d: int = 16, seed: int = 21
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """(X [n, d] f32, y [n] f32) of the GLM rows: X ~ N(0, 1); for
+    ``family`` "poisson" y ~ Poisson(mu), for "gamma" y ~ Gamma(shape 2,
+    scale mu / 2) (mean mu, never 0), mu = exp(0.3 + X w) with w =
+    :func:`glm_true_coef`."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    mu = np.exp(GLM_INTERCEPT + X.astype(np.float64) @ glm_true_coef(d))
+    if family == "poisson":
+        y = rng.poisson(mu)
+    elif family == "gamma":
+        y = rng.gamma(2.0, mu / 2.0)
+    else:
+        raise ValueError(f"make_glm_data: family {family!r}")
     return X, y.astype(np.float32)
