@@ -48,10 +48,13 @@ Phases (any failure exits non-zero and prints no result line):
    evaluated and scored on a fresh seed-7 batch, with its train wall,
    phase seconds, checked width (1,596), Cramér's V, CV AuPR, train AuROC,
    peak device memory, score rows/s and every kernel's launches read
-   around it; ``fista_step`` at the checked width (6 CV lanes, the refit's
-   1 lane, the power iteration's 3) on that run's own matrix against its
-   f64 twin; and the workflow at 20,000 rows on the card and the CPU twins,
-   held to the JAX package's numbers at that size;
+   around it; ``fista_step`` at the checked width (6 CV lanes, the default
+   selector's 8-lane fold-0 screen, the refit's 1 lane, the power
+   iteration's 3) on that run's own matrix against its f64 twin; a
+   ``torch.profiler`` window over the LR cross-validation on that matrix
+   (device-busy share, top kernels by device time); and the workflow at
+   20,000 rows on the card and the CPU twins, held to the JAX package's
+   numbers at that size;
 6. sparse hashed text — the workload of ``bench.run_text_sparse`` at
    1,000,000 rows (the port's copy of ``bench.make_sparse_text_columns``:
    8 label-dependent tokens of a 30,000-word vocabulary and one dense Real,
@@ -108,8 +111,9 @@ Phases (any failure exits non-zero and prints no result line):
    with no ``models=`` (softmax LR x8, RF x18, ``DataCutter``) trained,
    evaluated (F1 > 0.9) and scored on a fresh 1M batch (seed 12), with its
    train wall, phase and family seconds, per-family best CV F1, peak device
-   memory (< 80 GB) and every kernel's launches read around it; the
-   compact grid, and naive Bayes with the MLP, at 1M; and iris (default and
+   memory (< 80 GB) and every kernel's launches read around it; a
+   ``torch.profiler`` window over its LR cross-validation (the default LR
+   grid); the compact grid, and naive Bayes with the MLP, at 1M; and iris (default and
    compact grids) and the default LR candidates at 4,000 bench rows on the
    card held to the JAX package's numbers (``MC_REF``, ``MC_BENCH_REF``);
 10. GLMs — ``fista_glm`` against its f64 twin on each GLM workload's 1M x
@@ -134,7 +138,7 @@ Phases (any failure exits non-zero and prints no result line):
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` table (launches: the default
 grid's train for the dense rows, the transmog run for ``hash_counts`` and
-the wide ``fista_step`` row, the sparse run for ``sp_matmat`` and
+the two wide ``fista_step`` rows (6 CV lanes, the 8-lane screen), the sparse run for ``sp_matmat`` and
 ``sp_rmatmat``, the three LOCO transforms for ``loco_linear`` and
 ``loco_tree``, the regression default grid's train for
 ``tree_split_variance`` and the two squared-loss ``fista_step`` rows, the
@@ -163,6 +167,7 @@ N_ROWS, N_FEATS, N_BINS, N_FOLDS = 1_000_000, 28, 32, 3
 N_TREES, RF_DEPTH = 20, 6         # the bench's forest candidate
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12            # H100 SXM TF32 tensor cores, dense
 # The JAX package's forest at 20,000 rows (make_data seed 0, RF seed 42,
 # CPU): CV AuPR 0.7068 (BENCH_STANDING.json run 0), winner LR.  The port's
 # forest draws other random numbers, so its CV AuPR must land within
@@ -268,6 +273,13 @@ def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def split_tf32_bound(bytes_moved: float, ops: float) -> float:
+    """The least ms for f32 work done on TF32 tensor cores in split TF32
+    (three products for each): bytes at 3.35 TB/s or 3 x ops at 495
+    TFLOP/s, the larger."""
+    return max(bytes_moved / HBM_BYTES_PER_S, 3 * ops / TF32_OPS_PER_S) * 1e3
 
 
 # --------------------------------------------------------------------------
@@ -775,11 +787,12 @@ def _fista_case(Xd, W, yd, mean, scale, loss: str, G: int, rng,
         err = max(err, float(e.max()))
     g32 = lk.fista_row_grads(*args)
     folds = len(set(lanes.tolist()))
-    bt, by = bound(4 * Xd.numel() + 4 * n * folds
-                   + (0 if loss == "gram" else 4 * n)
-                   + 4 * (2 * L * D + 4 * L), 4 * n * D * L + 8 * n * L)
+    nbytes = (4 * Xd.numel() + 4 * n * folds
+              + (0 if loss == "gram" else 4 * n) + 4 * (2 * L * D + 4 * L))
+    bt, by = bound(nbytes, 4 * n * D * L + 8 * n * L)
     return {"name": "fista_step", "lanes": L, "loss": loss, "features": D,
             "form": lk.launch_plan(D, L)["form"], "max_abs_err": err,
+            "split_tf32_bound_ms": split_tf32_bound(nbytes, 4 * n * D * L),
             "ms": time_ms(lambda: lk.fista_step(*args), reps),
             "plain_ms": time_ms(lambda: lk.fista_step_twin(*args), reps),
             "bound_ms": bt, "bound_by": by,
@@ -791,7 +804,8 @@ def _fista_row(r: dict) -> dict:
     """A ``_fista_case`` result as a row of the ``kernels`` line."""
     from transmogrifai_tpu_torch.models import kernels
     row = {k: v for k, v in r.items()
-           if k not in ("lanes", "loss", "features", "form")}
+           if k not in ("lanes", "loss", "features", "form",
+                        "split_tf32_bound_ms")}
     row.update(route="cuda",
                source="transmogrifai_tpu_torch/csrc/fista_step.cu",
                replaces=kernels.REPLACES["fista_step"])
@@ -1337,6 +1351,7 @@ def check_wide_fista(model, batch, device="cuda", reps: int = 5):
     rng = np.random.default_rng(6)
     out = {}
     for name, Wc, loss, G in (("cv_logistic", W, "logistic", 2),
+                              ("screen_logistic", W[:1], "logistic", 8),
                               ("refit_logistic", torch.ones_like(W[:1]),
                                "logistic", 1),
                               ("gram", W, "gram", 1)):
@@ -1344,7 +1359,70 @@ def check_wide_fista(model, batch, device="cuda", reps: int = 5):
         out[name] = _fista_case(Xd, Wc, yd, mean, scale, loss, G, rng, reps)
         del mean, scale
         torch.cuda.empty_cache()
-    return _fista_row(out["cv_logistic"]), out
+    return [_fista_row(out["cv_logistic"]),
+            _fista_row(out["screen_logistic"])], out
+
+
+def transmog_lr_selector():
+    """The transmog workload's selector (LR over ``REG_PARAMS``), fresh."""
+    from transmogrifai_tpu_torch import selector as S
+    from transmogrifai_tpu_torch.models.linear import OpLogisticRegression
+    return S.BinaryClassificationModelSelector(models=[S.ModelCandidate(
+        OpLogisticRegression(),
+        S.grid(reg_param=list(_transmog_ref().REG_PARAMS), max_iter=[50]),
+        "OpLogisticRegression")])
+
+
+def profile_lr_cv(model, batch, selector, device="cuda", top: int = 8):
+    """A ``torch.profiler`` window over one LR cross-validation on a main
+    path's own vector: ``selector``'s validator over its candidates (racing
+    as the selector runs it) on the output of ``model``'s fitted DAG up to
+    its selector, after a warm-up run.  Returns the window's host wall, the
+    same CV's wall unprofiled, the device-busy seconds (the union of the
+    kernels' intervals) and share of the window, the kernel launches and
+    the top kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from transmogrifai_tpu_torch.dag import apply_dag
+    label_f, vec_f = model.selected_model.input_features
+    scored = apply_dag(batch.on(device), model.fitted_dag[:-1])
+
+    def run():
+        selector.validator.validate(selector.models, scored, label_f.name,
+                                    vec_f.name, splitter=selector.splitter)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    plain = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    spans, by = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        d = by.setdefault(e.name, [0.0, 0])
+        d[0] += e.time_range.elapsed_us()
+        d[1] += 1
+    busy, end = 0.0, -np.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e6
+    ranked = sorted(by.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"unprofiled_wall_s": plain, "window_wall_s": wall,
+            "device_events": len(spans), "device_busy_s": busy,
+            "device_busy_share": busy / wall if spans else None,
+            "top_kernels": [{"name": k[:90], "ms": v[0] / 1e3, "count": v[1]}
+                            for k, v in ranked]}
 
 
 def run_transmog(device, cols, schema, n: int, score_cols=None) -> tuple:
@@ -2731,10 +2809,12 @@ def _softmax_case(Xd, W, yi, mean, scale, G: int, C: int, rng, reps: int,
         return torch.softmax(m, dim=1).reshape(J, n) @ Xd
 
     folds = len(set(lanes.tolist()))
-    bt, by = bound(4 * Xd.numel() + 4 * n * folds + 4 * n
-                   + 4 * (2 * J * D + 3 * J + L), 4 * n * D * J)
+    nbytes = 4 * Xd.numel() + 4 * n * folds + 4 * n + 4 * (2 * J * D + 3 * J
+                                                          + L)
+    bt, by = bound(nbytes, 4 * n * D * J)
     return {"lanes": L, "classes": C, "features": D, "rows": n,
             "form": lk.softmax_launch_plan(D, L, C)["form"],
+            "split_tf32_bound_ms": split_tf32_bound(nbytes, 4 * n * D * J),
             "max_abs_err": err,
             "ms": time_ms(lambda: lk.fista_softmax_step(*args), reps),
             "plain_ms": time_ms(lambda: lk.fista_softmax_step_twin(*args),
@@ -3535,15 +3615,19 @@ def main() -> int:
                              f"{tm_facts['train_auroc']} <= 0.7")
     del score_cols
     torch.cuda.empty_cache()
-    wide_row, wide_facts = check_wide_fista(tm_model, tm_batch)
+    wide_rows, wide_facts = check_wide_fista(tm_model, tm_batch)
     print("fista_step transmog shapes: " + json.dumps(wide_facts), flush=True)
+    torch.cuda.empty_cache()
+    print("profile transmog LR CV: " + json.dumps(profile_lr_cv(
+        tm_model, tm_batch, transmog_lr_selector())), flush=True)
     del cols
     torch.cuda.empty_cache()
     print(f"transmog reference runs ({TRANSMOG_REF_ROWS} rows): "
           + json.dumps(check_transmog_reference()), flush=True)
     text_row["launches"] = tm_launches["hash_counts"]
-    wide_row["launches"] = tm_launches["fista_step"]
-    rows += [text_row, wide_row]
+    for r in wide_rows:
+        r["launches"] = tm_launches["fista_step"]
+    rows += [text_row] + wide_rows
     torch.cuda.empty_cache()
 
     # phase 6: sparse hashed text at 1M rows x 100,000 hashes; the batches
@@ -3718,6 +3802,10 @@ def main() -> int:
           + json.dumps(mc_facts), flush=True)
     print("multiclass kernel launches: " + json.dumps(mc_launches),
           flush=True)
+    from transmogrifai_tpu_torch import selector as S
+    print("profile multiclass LR CV: " + json.dumps(profile_lr_cv(
+        mc_model, mc_batch, S.MultiClassificationModelSelector(
+            models=[S._lr_candidates()]))), flush=True)
     missing = [k for k in ("fista_softmax", "multiclass_confusion",
                            "fista_step", "tree_hist", "tree_hist_deep",
                            "tree_split_gini", "tree_route", "tree_walk")

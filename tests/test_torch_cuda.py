@@ -15,8 +15,9 @@ they agree bit for bit on these integer counts), choices identical where
 the gap passes 1e-5 of it and on exact ties; a forest fitted on the card
 with the draws made on the host equals the CPU twins' forest in structure,
 leaves at rtol 1e-6; ``fista_step`` within 1e-5 of each output's absolute
-mass of the twin run in f64 (tile and block sums in another order than
-cuBLAS), and the same bits on two launches (the squared loss too); variance
+mass of the twin run in f64 (split-TF32 products on tensor cores, tile and
+block sums in another order than cuBLAS), and the same bits on two
+launches (the squared loss too); variance
 split gains within 1e-5 of the parent's Σw·y² (+1e-6: the terms they are a
 difference of) of the twin run on the f64 histogram, choices identical
 where the f64 runner-up gap passes twice that, cross-chunk exact ties to
@@ -349,8 +350,21 @@ def test_small_main_path_on_the_card_matches_the_twins(cuda):
                                         # linear regression: the CV block
                                         # and the wide form
                                         ("squared", 8, 16, 3),
-                                        ("squared", 8, 1597, 3)])
+                                        ("squared", 8, 1597, 3),
+                                        # one lane on a narrow X; 72 lanes,
+                                        # past one launch's 64, narrow and
+                                        # at the transmogrified width; the
+                                        # fold-0 screen there; the widest X
+                                        ("logistic", 1, 28, 1),
+                                        ("logistic", 24, 28, 3),
+                                        ("logistic", 24, 1596, 3),
+                                        ("logistic", 8, 1596, 1),
+                                        ("logistic", 2, 16384, 3)])
 def test_fista_step_matches_twin_and_repeats_bit_for_bit(cuda, loss, G, D, F):
+    """Within 1e-5 of each output's absolute mass of the twin run in f64,
+    the same bits on two launches, one launch per ``lanes`` of the plan.
+    N = 70,001 is no multiple of any plan's row tile."""
+    from transmogrifai_tpu_torch.models import kernels
     from transmogrifai_tpu_torch.models import linear_kernels as lk
     rng = np.random.default_rng(2)
     N = 70_001
@@ -368,7 +382,10 @@ def test_fista_step_matches_twin_and_repeats_bit_for_bit(cuda, loss, G, D, F):
                                        else y)
     ws = W.sum(dim=1)[torch.arange(L, device=cuda) // G]
     args = (X, V, muv, b, W, tgt, ws, G, loss)
+    kernels.reset_launch_counts()
     gx, gs = lk.fista_step(*args)
+    assert kernels.launch_counts()["fista_step"] == len(list(lk.tc_chunks(
+        V, muv, b, ws, G, lk.launch_plan(D, L))))
     gx2, gs2 = lk.fista_step(*args)
     assert torch.equal(gx, gx2) and torch.equal(gs, gs2)
     a64 = tuple(a.double() if isinstance(a, torch.Tensor) else a for a in args)
@@ -891,11 +908,17 @@ def test_tree_split_variance_matches_twin(cuda, P, D):
                                      (8, 16, 1, 40),    # 40 classes
                                      (8, 16, 3, 40),    # lanes in chunks
                                      (2, 1596, 3, 4),   # the wide form
-                                     (8, 1596, 3, 4)])  # wide, 3 launches
+                                     (8, 1596, 3, 4),   # wide, 2 launches
+                                     (1, 16, 1, 4),     # one lane
+                                     (8, 16, 1, 3),     # iris's 3 classes
+                                     (8, 1596, 1, 4),   # the wide screen
+                                     (2, 1597, 3, 4),   # unaligned rows
+                                     (1, 1596, 1, 40)])  # 40 classes, wide
 def test_fista_softmax_matches_twin_and_repeats_bit_for_bit(cuda, G, D, F,
                                                             C):
     """Within 1e-5 of each output's absolute mass of the twin run in f64,
-    and the same bits on two launches."""
+    and the same bits on two launches.  N = 50,001 is no multiple of any
+    plan's row tile."""
     from transmogrifai_tpu_torch.models import kernels
     from transmogrifai_tpu_torch.models import linear_kernels as lk
     rng = np.random.default_rng(21)
@@ -916,9 +939,8 @@ def test_fista_softmax_matches_twin_and_repeats_bit_for_bit(cuda, G, D, F,
     args = (X, V, muv, b, W, y, ws, G)
     kernels.reset_launch_counts()
     gx, gs = lk.fista_softmax_step(*args)
-    plan = lk.softmax_launch_plan(D, L, C)
-    assert kernels.launch_counts()["fista_softmax"] == \
-        -(-L // plan["lanes"])
+    assert kernels.launch_counts()["fista_softmax"] == len(list(
+        lk.tc_chunks(V, muv, b, ws, G, lk.softmax_launch_plan(D, L, C))))
     gx2, gs2 = lk.fista_softmax_step(*args)
     assert torch.equal(gx, gx2) and torch.equal(gs, gs2)
     a64 = (X.double(), V.double(), muv.double(), b.double(), W.double(), y,

@@ -603,25 +603,25 @@ def test_loco_refuses_models_with_no_kernel_link(jax_multiclass_models,
 # the kernels' launch plans and wrappers on the CPU
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("C", [2, 4, 40])
+@pytest.mark.parametrize("C", [2, 3, 4, 40])
 @pytest.mark.parametrize("D", [16, 1596])
 def test_launch_plans_cover_the_shapes(C, D):
+    """``fista_softmax`` runs whole lanes, at most 64 columns a launch, so
+    every C up to 40 fits at every width, in shared memory the kernel's own
+    carve-up sizes; fewer than 2 classes is refused."""
     L = 24
-    if D == 1596 and C > lk.SOFTMAX_WIDE_COLS:
-        with pytest.raises(ValueError, match="no launch form"):
-            lk.softmax_launch_plan(D, L, C)
-    else:
-        plan = lk.softmax_launch_plan(D, L, C)
-        assert all(s <= lk._SMEM_MAX for s in plan["smem"])
-        assert 1 <= plan["lanes"] <= L and plan["TR"] % 32 == 0
-        if plan["form"] == "wide":
-            assert plan["lanes"] * C <= lk.SOFTMAX_WIDE_COLS
-            assert D == 1596
-        else:
-            assert plan["smem"][0] == lk._softmax_tile_smem(
-                D, plan["lanes"], C, plan["TR"])
-    assert lk.softmax_launch_plan(16, 8, 4) == lk._softmax_tile(16, 8, 4, 128)
-    assert lk.softmax_launch_plan(1596, 6, 4)["form"] == "wide"
+    plan = lk.softmax_launch_plan(D, L, C)
+    assert plan["smem"] <= lk._SMEM_MAX
+    assert plan["lanes"] == min(L, lk.TC_COLS // C)
+    assert plan["lanes"] * C <= lk.TC_COLS
+    assert plan["smem"] == lk._tc_layout(
+        plan["TR"], plan["CS"], plan["DS"], plan["S"], plan["cols"],
+        plan["v_res"], plan["acc_res"])["smem"]
+    assert plan["form"] == ("narrow" if D == 16 else "cluster")
+    assert lk.softmax_launch_plan(16, 8, 4)["TR"] == 128
+    assert lk.softmax_launch_plan(1596, 6, 4)["form"] == "cluster"
+    with pytest.raises(ValueError, match="classes"):
+        lk.softmax_launch_plan(D, L, 1)
     for K in (1, 24, 300):
         p = mk.confusion_plan(K, C)
         assert p.smem <= mk._SMEM_MAX and 1 <= p.k_chunk <= K

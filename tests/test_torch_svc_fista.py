@@ -209,21 +209,36 @@ def test_jax_svc_converted_scores_like_jax(data):
                               torch.device("cpu"))
 
 
-@pytest.mark.parametrize("D", [28, 1200, 1597, 4096, 16384])
+@pytest.mark.parametrize("D", [16, 28, 1200, 1596, 1597, 4096, 16384])
 def test_fista_step_launch_plan_fits_every_width(D):
     """Every width the linear family meets, up to the JAX package's 16,384
-    hashed columns, has a launch plan for 1 to 24 lanes whose shared memory
-    fits one block and whose tiles meet the kernel's own checks
-    (``fista_step_launch`` refuses anything else)."""
-    for L in range(1, 25):
+    hashed columns, has a launch plan for 1 to 96 lanes whose shared memory
+    fits one block (the kernel's own carve-up, ``_tc_layout``), whose
+    columns fit the kernel's 8 register column tiles, and whose feature
+    slices cover X with no empty block (``fista_tc_run`` refuses anything
+    else)."""
+    for L in range(1, 97):
         plan = lk.launch_plan(D, L)
-        assert max(plan["smem"]) <= 227 * 1024, (D, L, plan)
-        if plan["form"] == "tile":
-            assert plan["lanes"] == L and plan["TR"] % 32 == 0
-            continue
-        lanes_p = -(-plan["lanes"] // 4) * 4
-        assert 1 <= plan["lanes"] <= lk.WIDE_LANES
-        assert plan["TR"] % 32 == 0 and plan["TR"] * lanes_p // 4 <= 512
-        assert lk._DC_XTG * lanes_p // 4 <= 4 * 256
-    # the dense path keeps the one-tile form at every lane count
-    assert all(lk.launch_plan(28, L)["form"] == "tile" for L in range(1, 97))
+        assert plan["smem"] <= 227 * 1024, (D, L, plan)
+        assert 1 <= plan["lanes"] <= min(L, lk.TC_COLS) and plan["cols"] <= 64
+        assert plan["lanes"] == min(L, lk.TC_COLS) or D > 4096
+        assert plan["cols"] == -(-plan["lanes"] // 8) * 8
+        assert plan["TR"] in (16, 32, 64, 128) and plan["CS"] in (1, 2, 4, 8)
+        assert plan["DS"] % 8 == 0
+        assert (plan["CS"] - 1) * plan["DS"] < D <= plan["CS"] * plan["DS"]
+        assert plan["smem"] == lk._tc_layout(
+            plan["TR"], plan["CS"], plan["DS"], plan["S"], plan["cols"],
+            plan["v_res"], plan["acc_res"])["smem"]
+    if D <= 28:
+        # a narrow X: one block a row tile of 128 rows, each warp whole
+        # margins (the loss in the fragments), everything in shared memory
+        assert all(lk.launch_plan(D, L)["form"] == "narrow"
+                   and lk.launch_plan(D, L)["TR"] == 128
+                   for L in range(1, 25))
+    if D in (1596, 1597):
+        # the transmogrified width: a cluster over feature slices keeps X's
+        # tile, V and the accumulators in shared memory with two stages
+        for L in (1, 6, 8, 24):
+            p = lk.launch_plan(D, L)
+            assert p["form"] == "cluster" and p["S"] == 2
+            assert p["v_res"] and p["acc_res"]

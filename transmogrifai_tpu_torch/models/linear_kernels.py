@@ -8,7 +8,9 @@ rule and launch counters are in ``kernels.py``).
 | fista_softmax | the same ``smooth_grad`` for the multinomial loss ``_softmax_loss_grad`` (:44-50): C margins a lane (wrapper :func:`fista_softmax_step`) |
 | fista_glm     | ``smooth_grad`` and the backtracking tests' ``smooth_val`` (:160-170, :189-215) for the exp-link losses ``_poisson_loss_grad`` / ``_gamma_loss_grad`` (:66-80): the loss value of every lane, with Xᵀg and Σg in the gradient form |
 
-For a ``SparseMatrix`` the same gradient evaluation is ``sparse_fista_step``:
+``fista_step`` and ``fista_softmax`` are one tensor-core design
+(``csrc/fista_tc.cuh``, sized by :func:`tc_plan`); ``fista_glm`` keeps its
+own source.  For a ``SparseMatrix`` the same gradient evaluation is ``sparse_fista_step``:
 margins by the ``sp_matmat`` kernel, the loss derivative in plain PyTorch,
 Xᵀg by ``sp_rmatmat`` (``sparse/sparse_kernels.py``); :func:`grad_seam`
 picks the one for X.
@@ -24,14 +26,29 @@ import torch
 from .kernels import check as _check, launch, stream as _stream
 
 LOSSES = {"logistic": 0, "squared_hinge": 1, "gram": 2, "squared": 3}
+SOFTMAX_LOSS = 4         # csrc/fista_tc.cuh's TC_SOFTMAX
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 10 + [_L] + [_I] * 13 + [_P]     # both kernels' launch
+_TC_ARGTYPES = [_P] * 11 + [_L] + [_I] * 14 + [_P]  # fista_tc_launch
 _SMEM_MAX = 227 * 1024
 _N_BLOCKS = 132 * 4
-WIDE_LANES = 32          # lanes per launch of the wide form
-_DC_MARGIN = 64          # features per chunk, margin pass
-_TR_XTG, _DC_XTG = 64, 128   # rows per tile and features per chunk, X^T g
+TC_COLS = 64             # columns a launch: the kernel's 8 column tiles
+TC_WARPS = 8             # warps a block (csrc/fista_tc.cuh)
+TC_FOLDS = 4             # fold-weight rows a launch stages with X's tile
+# The plan's search, best first: (cluster sizes, (stages, V in shared
+# memory, accumulators in shared memory) in order, shared-memory cap).  One
+# block a row tile where it fits with two stages (the next tile's load
+# overlapping this one); else a cluster with two stages (the next tile
+# loads while this one's partial margins are exchanged over the previous
+# one's X^T g), two blocks an SM if they fit; V and the accumulators leave
+# shared memory, and the ring goes to one stage, only for a slice too wide
+# to hold them.
+_FULL, _HALF = _SMEM_MAX, _SMEM_MAX // 2
+_TC_SEARCH = (((1,), ((2, 1, 1),), _FULL),
+              ((2, 4, 8), ((2, 1, 1),), _HALF),
+              ((2, 4, 8), ((2, 1, 1),), _FULL),
+              ((1, 2, 4, 8), ((2, 0, 1), (2, 0, 0)), _FULL),
+              ((1, 2, 4, 8), ((1, 1, 1), (1, 0, 1), (1, 0, 0)), _FULL))
 
 
 def loss_grads(lin, w, y, ws, loss: str):
@@ -100,37 +117,149 @@ def fista_step_twin(X, V, muv, b, W, y, wsum, G: int, loss: str):
     return g @ X, g.sum(dim=1)
 
 
-def _tile_smem(D: int, L: int, tr: int) -> int:
-    Lp = -(-L // 4) * 4
-    return 4 * (tr * (D | 1) + tr * Lp + D * Lp + (D + 1) * Lp + 3 * Lp)
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b) * b
 
 
-def _tile_rows(D: int, L: int) -> Optional[int]:
-    """Rows per tile (a multiple of 32, at most 128) whose shared memory
-    fits one block of the one-tile form; None when not even 32 rows fit."""
-    for tr in (128, 64, 32):
-        if _tile_smem(D, L, tr) <= _SMEM_MAX:
-            return tr
+def _tc_stride(cols: int) -> int:
+    """Row stride (floats) of the gradient, reduction and accumulator
+    tiles: at least ``cols``, ≡ 8 or 24 mod 32, so fragment loads of 8
+    rows x 4 columns and float2 stores of half a warp hit distinct banks."""
+    s = cols
+    while s % 32 not in (8, 24):
+        s += 8
+    return s
+
+
+def _tc_layout(TR: int, CS: int, DS: int, S: int, Jc: int, v_res: int,
+               acc_res: int) -> dict:
+    """The block's shared-memory carve-up of ``csrc/fista_tc.cuh`` (its
+    ``tc_smem_floats`` adds the same terms): the ring of X's tile with its
+    rows of fold weights and y, g hi/lo (two of them where a cluster
+    pipelines its tiles), the WK warps' margin partials, the
+    cluster exchange (a slot per block, two buffers), V's slice (split:
+    hi and lo; in device memory unless V and the accumulators both fit), the
+    accumulators (k groups x (m-tiles + the ones tile) x 16 rows) and four
+    constants a column."""
+    WM = TR // 16
+    WK = TC_WARPS // WM
+    DSA = _ceil(DS, 16)
+    DSX = _ceil(DSA + 16, 32)          # + the ones m-tile
+    DSV = DS + (4 - DS) % 32
+    Jp = _tc_stride(Jc)
+    MT = DSA // 16 + 1
+    KG = max(1, TC_WARPS // MT)
+    acc = KG * MT * 16 * Jp
+    floats = (S * TR * (DSX + TC_FOLDS + 1)
+              + (4 if CS > 1 and S == 2 else 2) * TR * Jp
+              + (WK * TR * Jp if WK > 1 else 0)
+              + (2 * CS * TR * Jp if CS > 1 else 0)
+              + (2 * Jc * DSV if v_res and acc_res else 0)
+              + (acc if acc_res else 0) + 4 * Jc)
+    return {"smem": 4 * floats, "acc_floats": acc}
+
+
+def _tc_plan_dict(lanes, Jc, TR, CS, DS, S, v_res, acc_res, lay) -> dict:
+    return {"form": "narrow" if CS == 1 else "cluster", "lanes": lanes,
+            "cols": Jc, "TR": TR, "CS": CS, "DS": DS, "S": S,
+            "v_res": v_res, "acc_res": acc_res, "smem": lay["smem"],
+            "acc_floats": lay["acc_floats"]}
+
+
+def _tc_fit(D: int, lanes: int, C: int) -> Optional[dict]:
+    Jc = _ceil(lanes * C, 8)
+    for sizes, placements, cap in _TC_SEARCH:
+        for S, v_res, acc_res in placements:
+            for CS in sizes:
+                DS = _ceil(-(-D // CS), 8)
+                if (CS - 1) * DS >= D:
+                    continue
+                for TR in (128, 64, 32, 16):
+                    lay = _tc_layout(TR, CS, DS, S, Jc, v_res, acc_res)
+                    if lay["smem"] <= cap:
+                        return _tc_plan_dict(lanes, Jc, TR, CS, DS, S,
+                                             v_res, acc_res, lay)
     return None
 
 
+def tc_plan(D: int, L: int, C: int = 1) -> dict:
+    """How ``csrc/fista_tc.cuh`` runs D features and L lanes of C columns:
+    whole lanes a launch up to 64 columns (``lanes``); one block a row
+    tile (``CS`` = 1) where X's tile, V and the accumulators fit its shared
+    memory with two stages (``S``), with the largest tile (``TR`` rows; 128
+    give each warp whole margins, so the loss runs in its fragments); else
+    the narrowest cluster of ``CS`` blocks, each a feature slice of ``DS``,
+    that fits half an SM's shared memory (two blocks an SM) with two
+    stages, else a whole SM's.  Keeps V (``v_res``) or the
+    accumulators (``acc_res``) out of shared memory, and then the ring to
+    one stage, only where nothing else fits (a 16,384-wide X), and then
+    the lanes a launch (32, 16, 8 columns).  The one place that sizes the
+    launch; raises ValueError for a shape it cannot hold."""
+    if D < 1 or L < 1 or C < 1:
+        raise ValueError(f"fista_tc: {L} lanes of {C} columns, {D} features")
+    if C > TC_COLS:
+        raise ValueError(f"fista_tc: {C} classes exceed the kernel's "
+                         f"{TC_COLS} columns a launch")
+    top = min(L, TC_COLS // C)
+    for lanes in sorted({top} | {max(1, k // C) for k in (32, 16, 8)
+                                 if k // C < top}, reverse=True):
+        plan = _tc_fit(D, lanes, C)
+        if plan is not None:
+            return plan
+    raise ValueError(f"fista_tc: no launch holds {C} columns at {D} features")
+
+
 def launch_plan(D: int, L: int) -> dict:
-    """How ``fista_step`` launches for D features and L lanes: the one-tile
-    form (X's row tile and every lane's coefficients in one block's shared
-    memory) where it fits, else the wide two-pass form, 32 lanes at a time.
-    Each form's shared memory in bytes is here, the one place that sizes
-    it; the launch passes it on."""
-    tr = _tile_rows(D, L)
-    if tr is not None:
-        return {"form": "tile", "lanes": L, "TR": tr,
-                "smem": (_tile_smem(D, L, tr),)}
-    lc = min(L, WIDE_LANES)
-    Lp = -(-lc // 4) * 4
-    lg = Lp // 4
-    trm = min(256, 512 // lg) // 32 * 32     # TR * lanes/4 <= 2 per thread
-    return {"form": "wide", "lanes": lc, "TR": trm,
-            "smem": (4 * (trm * (_DC_MARGIN + 1) + _DC_MARGIN * Lp),
-                     4 * (_TR_XTG * (_DC_XTG + 1) + _TR_XTG * Lp))}
+    """How ``fista_step`` launches for D features and L lanes
+    (:func:`tc_plan` with one column a lane)."""
+    return tc_plan(D, L, 1)
+
+
+def tc_chunks(V, muv, b, wsum, G: int, plan: dict):
+    """The launches of one gradient evaluation: (lane0, lanes, V, muv, b,
+    wsum) of each — whole lanes, at most ``plan["lanes"]`` of them and at
+    most ``TC_FOLDS`` folds' weights (lane l reads fold l // G) a launch:
+    the arrays the wrapper hands the kernel."""
+    L, lc = wsum.shape[0], plan["lanes"]
+    l0 = 0
+    while l0 < L:
+        n = min(lc, L - l0, (l0 // G + TC_FOLDS) * G - l0)
+        yield (l0, n, V[l0:l0 + n], muv[l0:l0 + n], b[l0:l0 + n],
+               wsum[l0:l0 + n])
+        l0 += n
+
+
+def _tc_run(name: str, X, V, muv, b, W, y, wsum, G: int, C: int, loss: int,
+            plan: dict) -> torch.Tensor:
+    """Launch ``csrc/<name>.cu`` for each of :func:`tc_chunks`; returns
+    out [(D+1), L*C] (Xᵀg rows, then Σg)."""
+    N, D = X.shape
+    L = wsum.shape[0]
+    dev = X.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ncl_max = max(1, sms * 4 // plan["CS"])
+    out = torch.empty((D + 1, L * C), dtype=torch.float32, device=dev)
+    partial = torch.empty((ncl_max, (D + 1) * plan["lanes"] * C),
+                          dtype=torch.float32, device=dev)
+    accg = (None if plan["acc_res"] else torch.empty(
+        (ncl_max * plan["CS"], plan["acc_floats"]), dtype=torch.float32,
+        device=dev))
+    vg = (None if plan["v_res"] and plan["acc_res"] else torch.empty(
+        (2, plan["cols"], plan["CS"] * plan["DS"]), dtype=torch.float32,
+        device=dev))
+    for l0, n_l, Vc, mc, bc, wc in tc_chunks(V, muv, b, wsum, G, plan):
+        o = out if n_l == L else torch.empty((D + 1, n_l * C),
+                                             dtype=torch.float32, device=dev)
+        launch(name, _TC_ARGTYPES, X.data_ptr(), Vc.data_ptr(), mc.data_ptr(),
+               bc.data_ptr(), W.data_ptr(), y.data_ptr(), wc.data_ptr(),
+               partial.data_ptr(), None if accg is None else accg.data_ptr(),
+               None if vg is None else vg.data_ptr(), o.data_ptr(), N, D, n_l,
+               C, l0, G, loss, plan["TR"], plan["CS"], plan["DS"], plan["S"],
+               plan["v_res"], plan["acc_res"], ncl_max, plan["smem"],
+               _stream(X))
+        if o is not out:
+            out[:, l0 * C:(l0 + n_l) * C] = o
+    return out
 
 
 def fista_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
@@ -146,8 +275,9 @@ def fista_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
     ignored by "gram"); wsum f32 [L].  With
     margins m = (X V_l - muv_l) + b_l and g the loss derivative weighted by
     ``W / wsum`` ("gram": g = (W / wsum) · m, the product of the power
-    iteration), returns (Xᵀ g [L, D], Σ_n g [L]).  The card's sums run in
-    a fixed order: the same inputs give the same bits on every run."""
+    iteration), returns (Xᵀ g [L, D], Σ_n g [L]).  The card's products run
+    on tensor cores in split TF32 and its sums in a fixed order: the same
+    inputs give the same bits on every run."""
     dev = X.device
     _check("fista_step X", X, torch.float32, 2, dev)
     _check("fista_step V", V, torch.float32, 2, dev)
@@ -169,48 +299,14 @@ def fista_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
         return fista_step_twin(X, V, muv, b, W, y, wsum, G, loss)
     if dev.type != "cuda":
         raise ValueError(f"fista_step: unsupported device {dev}")
-    plan = launch_plan(D, L)
-    lc, tr = plan["lanes"], plan["TR"]
-    out = torch.empty((D + 1, L), dtype=torch.float32, device=dev)
-    yp = (X if y is None else y).data_ptr()
-    if plan["form"] == "tile":
-        nb = max(1, min(_N_BLOCKS, -(-N // tr)))
-        partial = torch.empty(((D + 1) * L, nb), dtype=torch.float32,
-                              device=dev)
-        launch("fista_step", _ARGTYPES, X.data_ptr(), V.data_ptr(),
-               muv.data_ptr(), b.data_ptr(), W.data_ptr(), yp,
-               wsum.data_ptr(), None, partial.data_ptr(), out.data_ptr(), N,
-               D, L, 0, G, LOSSES[loss], 0, tr, nb, 0, 0, 0, plan["smem"][0],
-               0, _stream(X))
-        return out[:D].T.contiguous(), out[D]
-    # wide: row-tile blocks of the X^T g pass share the card with its
-    # feature chunks; g [N, lanes] round-trips through device memory
-    chunks = -(-D // _DC_XTG) + 1           # + the ones column's blocks
-    nb = max(1, min(-(-N // _TR_XTG), -(-_N_BLOCKS * 2 // chunks)))
-    Lp = -(-lc // 4) * 4
-    gbuf = torch.empty((N, Lp), dtype=torch.float32, device=dev)
-    partial = torch.empty(((D + 1) * lc, nb), dtype=torch.float32,
-                          device=dev)
-    for l0 in range(0, L, lc):
-        n_l = min(lc, L - l0)
-        o = out if n_l == L else torch.empty((D + 1, n_l),
-                                             dtype=torch.float32, device=dev)
-        launch("fista_step", _ARGTYPES, X.data_ptr(), V[l0:].data_ptr(),
-               muv[l0:].data_ptr(), b[l0:].data_ptr(), W.data_ptr(), yp,
-               wsum[l0:].data_ptr(), gbuf.data_ptr(), partial.data_ptr(),
-               o.data_ptr(), N, D, n_l, l0, G, LOSSES[loss], 1, tr, nb,
-               _DC_MARGIN, _TR_XTG, _DC_XTG, *plan["smem"], _stream(X))
-        if n_l != L:
-            out[:, l0:l0 + n_l] = o
+    out = _tc_run("fista_step", X, V, muv, b, W, X if y is None else y, wsum,
+                  G, 1, LOSSES[loss], launch_plan(D, L))
     return out[:D].T.contiguous(), out[D]
 
 
 # --------------------------------------------------------------------------
 # the multinomial (softmax) loss: fista_softmax
 # --------------------------------------------------------------------------
-
-SOFTMAX_WIDE_COLS = 32   # (lane, class) columns a launch of the wide form
-
 
 def fista_softmax_row_grads(X, V, muv, b, W, y, wsum, G: int):
     """The per-row gradients g [L, C, N] of :func:`fista_softmax_step`, in
@@ -233,51 +329,14 @@ def fista_softmax_step_twin(X, V, muv, b, W, y, wsum, G: int):
     return (g.reshape(L * C, N) @ X).reshape(L, C, -1), g.sum(dim=2)
 
 
-def _softmax_tile_smem(D: int, L: int, C: int, tr: int) -> int:
-    Jp = -(-L * C // 4) * 4
-    return 4 * (tr * (D | 1) + tr * Jp + D * Jp + (D + 1) * Jp + 2 * Jp + L)
-
-
-def _softmax_tile_rows(D: int, L: int, C: int) -> Optional[int]:
-    for tr in (128, 64, 32):
-        if _softmax_tile_smem(D, L, C, tr) <= _SMEM_MAX:
-            return tr
-    return None
-
-
-def _softmax_tile(D: int, lanes: int, C: int, tr: int) -> dict:
-    return {"form": "tile", "lanes": lanes, "TR": tr,
-            "smem": (_softmax_tile_smem(D, lanes, C, tr),)}
-
-
 def softmax_launch_plan(D: int, L: int, C: int) -> dict:
     """How ``fista_softmax`` launches for D features and L lanes of C
-    classes: the one-tile form with every lane where X's row tile and all
-    L·C coefficient columns fit one block's shared memory; else the wide
-    two-pass form, ``SOFTMAX_WIDE_COLS // C`` lanes a launch (C ≤ 32: a
-    lane's classes never straddle two launches); else the one-tile form
-    with as many lanes a launch as fit.  Raises ValueError for a shape that
-    fits no form.  Each form's shared memory in bytes is here, the one
-    place that sizes it."""
-    if C < 2 or L < 1 or D < 1:
-        raise ValueError(f"fista_softmax: {L} lanes, {C} classes, {D} "
-                         "features")
-    tr = _softmax_tile_rows(D, L, C)
-    if tr is not None:
-        return _softmax_tile(D, L, C, tr)
-    if C <= SOFTMAX_WIDE_COLS:
-        lc = min(L, SOFTMAX_WIDE_COLS // C)
-        Jp = -(-lc * C // 4) * 4
-        trm = min(256, 512 // (Jp // 4)) // 32 * 32
-        return {"form": "wide", "lanes": lc, "TR": trm,
-                "smem": (4 * (trm * (_DC_MARGIN + 1) + _DC_MARGIN * Jp),
-                         4 * (_TR_XTG * (_DC_XTG + 1) + _TR_XTG * Jp))}
-    for lc in range(L - 1, 0, -1):
-        tr = _softmax_tile_rows(D, lc, C)
-        if tr is not None:
-            return _softmax_tile(D, lc, C, tr)
-    raise ValueError(f"fista_softmax: no launch form holds {C} classes at "
-                     f"{D} features")
+    classes (:func:`tc_plan` with C columns a lane: whole lanes, at most 64
+    columns a launch, so every C up to 64).  Raises ValueError for a shape
+    it cannot hold."""
+    if C < 2:
+        raise ValueError(f"fista_softmax: {C} classes")
+    return tc_plan(D, L, C)
 
 
 def fista_softmax_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
@@ -292,8 +351,9 @@ def fista_softmax_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
     f32 [F, N] fold row weights, lane l reading fold ``l // G``; y int32
     [N] class ids (< C); wsum f32 [L].  With margins m = (X V_lc - muv_lc)
     + b_lc, p the softmax of a lane's C margins and g = W·(p - onehot(y)) /
-    wsum, returns (Xᵀ g [L, C, D], Σ_n g [L, C]).  The card's sums run in
-    a fixed order: the same inputs give the same bits on every run."""
+    wsum, returns (Xᵀ g [L, C, D], Σ_n g [L, C]).  The card's products run
+    on tensor cores in split TF32 and its sums in a fixed order: the same
+    inputs give the same bits on every run."""
     dev = X.device
     _check("fista_softmax X", X, torch.float32, 2, dev)
     _check("fista_softmax V", V, torch.float32, 3, dev)
@@ -312,36 +372,9 @@ def fista_softmax_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
         return fista_softmax_step_twin(X, V, muv, b, W, y, wsum, G)
     if dev.type != "cuda":
         raise ValueError(f"fista_softmax: unsupported device {dev}")
-    plan = softmax_launch_plan(D, L, C)
-    lc, tr = plan["lanes"], plan["TR"]
-    wide = plan["form"] == "wide"
-    if wide:
-        # row-tile blocks of the X^T g pass share the card with its feature
-        # chunks; g [N, columns] round-trips through device memory
-        chunks = -(-D // _DC_XTG) + 1
-        nb = max(1, min(-(-N // _TR_XTG), -(-_N_BLOCKS * 2 // chunks)))
-        gbuf = torch.empty((N, -(-lc * C // 4) * 4), dtype=torch.float32,
-                           device=dev)
-    else:
-        nb = max(1, min(_N_BLOCKS, -(-N // tr)))
-        gbuf = None
-    partial = torch.empty(((D + 1) * lc * C, nb), dtype=torch.float32,
-                          device=dev)
-    gx = torch.empty((L, C, D), dtype=torch.float32, device=dev)
-    gs = torch.empty((L, C), dtype=torch.float32, device=dev)
-    smem = plan["smem"] + (0,)
-    for l0 in range(0, L, lc):
-        n_l = min(lc, L - l0)
-        out = torch.empty((D + 1, n_l * C), dtype=torch.float32, device=dev)
-        launch("fista_softmax", _ARGTYPES, X.data_ptr(),
-               V[l0:].data_ptr(), muv[l0:].data_ptr(), b[l0:].data_ptr(),
-               W.data_ptr(), y.data_ptr(), wsum[l0:].data_ptr(),
-               None if gbuf is None else gbuf.data_ptr(), partial.data_ptr(),
-               out.data_ptr(), N, D, n_l, C, l0, G, int(wide), tr, nb,
-               _DC_MARGIN, _TR_XTG, _DC_XTG, smem[0], smem[1], _stream(X))
-        gx[l0:l0 + n_l] = out[:D].T.reshape(n_l, C, D)
-        gs[l0:l0 + n_l] = out[D].reshape(n_l, C)
-    return gx, gs
+    out = _tc_run("fista_softmax", X, V, muv, b, W, y, wsum, G, C,
+                  SOFTMAX_LOSS, softmax_launch_plan(D, L, C))
+    return out[:D].T.reshape(L, C, D), out[D].reshape(L, C)
 
 
 # --------------------------------------------------------------------------
