@@ -36,9 +36,13 @@ Phases (any failure exits non-zero and prints no result line):
    the same workload at 1,000,000 x 28: train, evaluate and score on the
    card, with its train wall, per-family CV wall and best CV AuPR, winner,
    train AuROC, peak device memory and every kernel's launches read around
-   that run; then at 5,000 rows on the card (forest draws made on the host)
-   and on the CPU twins, held to the JAX package's default-grid run at that
-   size;
+   that run (and its ``tree_hist`` calls tallied by lanes and nodes); a
+   ``torch.profiler`` window over its forest candidates' cross-validation
+   (device-busy share, top kernels); ``tree_hist`` at the forests' largest
+   lane batch (300 lanes) at levels 0, 2, 4 and 5 with node subsets and level 5
+   with every feature, against the f64 twin; then at 5,000 rows on the card
+   (forest draws made on the host) and on the CPU twins, held to the JAX
+   package's default-grid run at that size;
 5. transmogrification — the workload of ``bench.run_transmog`` at
    1,000,000 rows (the port's copy of ``bench.make_transmog_columns``: 3
    free texts, 2 PickLists, a RealMap, 4 Reals with nulls, built before the
@@ -133,7 +137,22 @@ Phases (any failure exits non-zero and prints no result line):
    included, with the launches read around the transform, and
    ``loco_softmax`` against its twin there, on naive Bayes and the MLP
    fitted at 1M, on a 40-class model at 1M x 16 and at
-   ``scripts/bench_loco.py``'s 100,000 x 512 with 128 groups.
+   ``scripts/bench_loco.py``'s 100,000 x 512 with 128 groups;
+12. the repaired card-only refusals — the two-pass FISTA form
+   (``fista_wide``) through the wrappers at the shapes no tensor-core or
+   one-tile launch holds (``fista_step`` at 2,000 x 27,009 with one lane,
+   ``fista_softmax`` with 65 classes, ``fista_glm`` at 4,900 and 16,384
+   features) against the f64 twins, ``loco_softmax`` on MLPs of
+   ``hidden_layers=(256, 256)`` and (900,), the three split kernels at 64
+   and 127 bins against their twins; then the estimators a user calls at
+   those shapes, on the card and the CPU twins — ``OpLogisticRegression``
+   at 2,000 x 27,009 and with 65 classes, a poisson
+   ``OpGeneralizedLinearRegression`` at 20,000 x 4,900, each tree family
+   at ``max_bins=64`` — with the launches read around the card fits alone;
+   the two-pass form is also held and timed beside the tensor-core form at
+   phase 8's wide 24-lane shape and phase 9's wide softmax shape (not on
+   any path: 0 launches).  The script's own wall time is printed before
+   the card's line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` table (launches: the default
@@ -145,8 +164,9 @@ the two wide ``fista_step`` rows (6 CV lanes, the 8-lane screen), the sparse run
 multiclass default grid's train for ``fista_softmax`` and
 ``multiclass_confusion``, the poisson workload's train and score for the two
 ``fista_glm`` rows, its LOCO transform for ``loco_linear``'s exp-link row,
-the multiclass LOCO transform for the ``loco_softmax`` rows), the one before
-that the card's name and power limit.
+the multiclass LOCO transform for the ``loco_softmax`` rows, phase 12's
+estimator fits for the ``fista_wide`` rows and the 64-bin split rows), the
+one before that the card's name and power limit.
 Imports nothing of JAX.
 """
 
@@ -525,51 +545,17 @@ def check_forest_kernels(device, n: int = N_ROWS, reps: int = 10):
         draw()
         facts["forest_draws_s"][str(where)] = time.perf_counter() - t0
 
-    # tree_hist at level 5: the 60-lane kernel call against the twin run in
-    # f64 one lane at a time (the 60-lane twin needs > 50 GB), without and
-    # with the nodes' feature subsets (what the forest's fit passes); the
-    # counts are integers, so the masked histogram must equal the full one
-    # on the kept cells and be zero elsewhere, with the same totals
+    # tree_hist at level 5, 60 lanes, with the nodes' feature subsets (what
+    # the forest's fit passes) and with every feature: against the f64 twin,
+    # the masked histogram equal to the full one on the kept cells, times
     m5 = inp["masks"][5]
-    hist, tot = tk.tree_hist(B, row_node, stats, off, P, N_BINS)
+    facts["tree_hist"] = hist_case(tk, B, row_node, stats, off, P, m5, reps)
+    facts["tree_hist_all_features"] = hist_case(tk, B, row_node, stats, off,
+                                                P, None, reps)
     hist_m, tot_m = tk.tree_hist(B, row_node, stats, off, P, N_BINS,
                                  node_mask=m5)
-    if not (torch.equal(tot, tot_m) and torch.equal(
-            hist_m, torch.where(m5[..., None, None], hist, 0.0))):
-        raise AssertionError("tree_hist: the node mask changed a kept cell "
-                             "or a total, or kept a masked one")
-    err = 0.0
-    for k in range(K):
-        for h, t, m in ((hist, tot, None), (hist_m, tot_m, m5)):
-            ht, tt = tk.tree_hist_twin(
-                B, row_node[k:k + 1], stats[k:k + 1].double(), off, P, N_BINS,
-                node_mask=None if m is None else m[k:k + 1])
-            e_h = (h[k:k + 1].double() - ht).abs()
-            e_t = (t[k:k + 1].double() - tt).abs()
-            # statistics are >= 0, so the twin's sums are the cells' mass
-            if bool((e_h > 1e-5 + 1e-5 * ht).any()
-                    or (e_t > 1e-5 + 1e-5 * tt).any()):
-                raise AssertionError(
-                    f"tree_hist (forest level 5, lane {k}, "
-                    f"{'masked' if m is not None else 'all features'}) "
-                    "disagrees with its twin")
-            err = max(err, float(e_h.max()), float(e_t.max()))
     at = row_node - off
     in_level = (at >= 0) & (at < P)
-    live = int((in_level & (stats[..., 0] != 0)).sum())
-    bt, _ = bound(B.numel() + 4 * row_node.numel() + 4 * stats.numel()
-                  + 4 * (hist.numel() + tot.numel()), live * D * S)
-    facts["tree_hist"] = {
-        "lanes": K, "P": P, "max_abs_err": err,
-        "rows_in_level": int(in_level.sum()), "rows_nonzero": live,
-        "ms": time_ms(lambda: tk.tree_hist(
-            B, row_node, stats, off, P, N_BINS), reps),
-        "ms_masked": time_ms(lambda: tk.tree_hist(
-            B, row_node, stats, off, P, N_BINS, node_mask=m5), reps),
-        "plain_ms": time_ms(lambda: tk.tree_hist_twin(
-            B, row_node, stats, off, P, N_BINS), 2),
-        "bound_ms": bt}
-    del hist
 
     # tree_split_gini at levels 0 (P = 1) and 5 (P = 32, the masked
     # histogram) with the forest's per-node subsets (rules: _check_split)
@@ -727,15 +713,36 @@ def _check_split(tk, hist, tot, fmask, node_mask, splits, min_inst,
     return err
 
 
+def _two_pass(run, refs, reps: int, what: str) -> dict:
+    """The two-pass form (``fista_wide``) of a FISTA case on the same
+    inputs: each output within 1e-5 of its f64 absolute mass, the same bits
+    twice, and its time."""
+    import torch
+    got, again = run(), run()
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"{what}, two-pass form: two launches differ")
+    err = 0.0
+    for g, (want, mass) in zip(got, refs):
+        e = (g.double() - want).abs()
+        if bool((e > 1e-5 * mass + 1e-12).any()):
+            raise AssertionError(f"{what}, two-pass form: disagrees with "
+                                 "its f64 twin")
+        err = max(err, float(e.max()))
+    return {"max_abs_err": err, "ms": time_ms(run, reps)}
+
+
 def _fista_case(Xd, W, yd, mean, scale, loss: str, G: int, rng,
-                reps: int, chunk: int = 131_072) -> dict:
+                reps: int, chunk: int = 131_072,
+                two_pass: bool = False) -> dict:
     """``fista_step`` for F x G lanes (F = W's folds) with random
     coefficients (margins of the dense case's size), against its twin run
     in f64: each output within 1e-5 of
     its absolute mass (sum over rows of |x|·|g|: the kernel's tile and block
     sums add in another order than cuBLAS), and two launches bit for bit.
     The f64 reference is summed over row chunks of ``chunk`` rows, so a
-    wide matrix needs no f64 copy of itself.  Returns the case's row."""
+    wide matrix needs no f64 copy of itself.  ``two_pass``: the same held
+    and timed in the two-pass form too (``two_pass`` of the result).
+    Returns the case's row."""
     import torch
 
     from transmogrifai_tpu_torch.models import linear_kernels as lk
@@ -785,12 +792,21 @@ def _fista_case(Xd, W, yd, mean, scale, loss: str, G: int, rng,
             raise AssertionError(f"fista_step ({loss}, D={D}, {L} lanes) "
                                  "disagrees with its f64 twin")
         err = max(err, float(e.max()))
+    two = None
+    if two_pass:
+        plan = lk.wide_plan(D, L)
+        two = _two_pass(lambda: lk.wide_outputs(lk._wide_run(
+            Xd, V, args[2], b, W, Xd if args[5] is None else args[5],
+            args[6], G, 1, loss, plan), D, L)[:2],
+            ((want, mass), (gsum, gabs)), reps,
+            f"fista_step ({loss}, D={D}, {L} lanes)")
     g32 = lk.fista_row_grads(*args)
     folds = len(set(lanes.tolist()))
     nbytes = (4 * Xd.numel() + 4 * n * folds
               + (0 if loss == "gram" else 4 * n) + 4 * (2 * L * D + 4 * L))
     bt, by = bound(nbytes, 4 * n * D * L + 8 * n * L)
     return {"name": "fista_step", "lanes": L, "loss": loss, "features": D,
+            "two_pass": two,
             "form": lk.launch_plan(D, L)["form"], "max_abs_err": err,
             "split_tf32_bound_ms": split_tf32_bound(nbytes, 4 * n * D * L),
             "ms": time_ms(lambda: lk.fista_step(*args), reps),
@@ -805,7 +821,7 @@ def _fista_row(r: dict) -> dict:
     from transmogrifai_tpu_torch.models import kernels
     row = {k: v for k, v in r.items()
            if k not in ("lanes", "loss", "features", "form",
-                        "split_tf32_bound_ms")}
+                        "split_tf32_bound_ms", "two_pass")}
     row.update(route="cuda",
                source="transmogrifai_tpu_torch/csrc/fista_step.cu",
                replaces=kernels.REPLACES["fista_step"])
@@ -1039,25 +1055,155 @@ def check_deep_kernels(device, n: int = N_ROWS, reps: int = 5):
     return row, facts
 
 
-def forest_library_ms(device, n: int = N_ROWS) -> float:
-    """``index_put_(accumulate=True)`` computing ``tree_hist``'s histogram at
-    the bench forest's level 5 (60 lanes x 32 nodes, the inputs of
-    ``forest_inputs``) over the live (row, feature) elements, indices
-    precomputed: one call for all 60 lanes."""
+HIST_LANE_CHUNK = 60               # lanes a call of the twin or index_put_
+
+
+def bench_binned(device, n: int, n_bins: int = N_BINS) -> tuple:
+    """The bench matrix of ``make_data(n)`` binned at ``n_bins`` on the
+    card: (y, the bins' split values, B [n, D] uint8)."""
     import torch
-    inp = forest_inputs(device, n)
-    B, stats, row_node = inp["B"], inp["stats"], inp["row_node"]
-    K, D = row_node.shape[0], B.shape[1]
-    off, P = 31, 32
-    pl = row_node.long() - off
-    kk, nn = torch.nonzero((pl >= 0) & (pl < P) & (stats != 0).any(dim=2),
-                           as_tuple=True)
-    pk = pl[kk, nn] + kk * P
-    flat = ((pk[:, None] * D + torch.arange(D, device=device)) * N_BINS
-            + B[nn].long()).reshape(-1)
-    vals = stats[kk, nn][:, None, :].expand(kk.numel(), D, 3).reshape(-1, 3)
-    out = torch.zeros((K * P * D * N_BINS, 3), device=device)
-    return time_ms(lambda: out.index_put_((flat,), vals, accumulate=True), 3)
+
+    from transmogrifai_tpu_torch.models.trees import binned
+    X, y = make_data(n)
+    Xd = torch.as_tensor(X, device=device)
+    _, sp_t, B = binned(Xd, Xd, n_bins)
+    return y, sp_t, B
+
+
+def forest_level_inputs(device, n: int, lanes: int, level: int,
+                        seed: int = 5, data=None) -> dict:
+    """Inputs of one forest level for ``lanes`` lanes (3 folds x lanes/3
+    trees, lane = fold * lanes/3 + tree), as the default grid's forest
+    batches launch it (``trees.lane_batches`` sizes them; phase 4's tally
+    shows batches of 150, 200 and 300 lanes): gini statistics (w, w·[y=0],
+    w·[y=1]) with w = Poisson(1) draw x fold weight, the nodes' 5-of-28
+    feature subsets, and rows spread over the level's P = 2^level nodes (a
+    fifth of a level's width parked at leaves above it).  ``data``: the
+    ``bench_binned(device, n)`` to reuse (else made here)."""
+    import torch
+
+    from transmogrifai_tpu_torch.models.trees import forest_draws
+
+    y, _, B = data if data is not None else bench_binned(device, n)
+    D = B.shape[1]
+    trees = lanes // N_FOLDS
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dr = forest_draws(gen, n_trees=trees, n_rows=n, rates=[1.0],
+                      max_depth=level + 1,
+                      fmask=torch.ones(D, dtype=torch.bool, device=device),
+                      features_per_node=int(np.sqrt(D)))
+    W = torch.as_tensor(_fold_weights(y), device=device)
+    bw = (W[:, None, :] * dr.boot[1.0][None]).reshape(lanes, n)
+    yd = torch.as_tensor(y, device=device)
+    base = torch.stack([torch.ones_like(yd), 1.0 - yd, yd], dim=1)
+    stats = (base[None] * bw[:, :, None]).contiguous()
+    del bw
+    off, P = (1 << level) - 1, 1 << level
+    rng = np.random.default_rng(seed)
+    row_node = torch.as_tensor(
+        rng.integers(max(0, off - max(1, P // 5)), off + P,
+                     size=(lanes, n)).astype(np.int32), device=device)
+    tree_of_lane = torch.arange(lanes, device=device) % trees
+    return {"B": B, "stats": stats, "row_node": row_node, "offset": off,
+            "P": P, "mask": dr.subsets[level][tree_of_lane].contiguous()}
+
+
+def hist_case(tk, B, row_node, stats, off: int, P: int, node_mask=None,
+              reps: int = 5, check: bool = True) -> dict:
+    """``tree_hist`` at one level: against its f64 twin (integer counts
+    equal, 10 lanes a twin call; other statistics lane by lane, each cell
+    within 1e-5 of its mass, plus 1e-5), with a node mask the masked
+    histogram equal to the full one on the kept cells and zero elsewhere
+    (counts: exact), then timed (CUDA events) beside its bound (``B`` read
+    once, each lane's node ids and statistics read once, the histogram and
+    totals written once; f32 adds of the live rows' cells), the twin's time
+    and the time of ``index_put_(accumulate=True)`` on the live (row,
+    feature) elements with the indices precomputed — both in calls of
+    ``HIST_LANE_CHUNK`` lanes, summed, where more lanes would not fit."""
+    import torch
+    K, N = row_node.shape
+    D, S = B.shape[1], stats.shape[2]
+    hist, tot = tk.tree_hist(B, row_node, stats, off, P, N_BINS,
+                             node_mask=node_mask)
+    err = 0.0
+    if check:
+        if node_mask is not None:
+            full, tot_f = tk.tree_hist(B, row_node, stats, off, P, N_BINS)
+            if not (torch.equal(tot, tot_f) and torch.equal(
+                    hist, torch.where(node_mask[..., None, None], full,
+                                      0.0))):
+                raise AssertionError(
+                    f"tree_hist ({K} lanes, P {P}): the node mask changed a "
+                    "kept cell or a total, or kept a masked one")
+            del full
+        # integer counts (a forest's) are exact in f32: equal to the f64
+        # twin, 10 lanes a call; else within 1e-5 of each cell's mass
+        exact = bool((stats == stats.round()).all())
+        step = 10 if exact else 1
+        for a in range(0, K, step):
+            sl = slice(a, min(a + step, K))
+            nm = None if node_mask is None else node_mask[sl]
+            ht, tt = tk.tree_hist_twin(B, row_node[sl], stats[sl].double(),
+                                       off, P, N_BINS, node_mask=nm)
+            e_h = (hist[sl].double() - ht).abs()
+            e_t = (tot[sl].double() - tt).abs()
+            if exact:
+                bad = bool(e_h.any() or e_t.any())
+            else:
+                mh, mt = tk.tree_hist_twin(
+                    B, row_node[sl], stats[sl].double().abs(), off, P,
+                    N_BINS, node_mask=nm)
+                bad = bool((e_h > 1e-5 + 1e-5 * mh).any()
+                           or (e_t > 1e-5 + 1e-5 * mt).any())
+            if bad:
+                raise AssertionError(
+                    f"tree_hist ({K} lanes, P {P}, lanes {a}.., "
+                    f"{'masked' if node_mask is not None else 'all'}) "
+                    "disagrees with its f64 twin")
+            err = max(err, float(e_h.max()), float(e_t.max()))
+            del ht, tt, e_h, e_t
+    at = row_node.long() - off
+    in_level = (at >= 0) & (at < P)
+    live = in_level & (stats != 0).any(dim=2)
+    per_node = torch.zeros((K, P), device=B.device).scatter_add_(
+        1, at.clamp(0, P - 1), live.float())
+    width = node_mask.sum(dim=2) if node_mask is not None else D
+    cells = int((per_node * width).sum())
+    bt, by = bound(B.numel() + 4 * row_node.numel() + 4 * stats.numel()
+                   + 4 * (hist.numel() + tot.numel()), cells * S)
+    del hist, tot
+    chunks = [slice(a, min(a + HIST_LANE_CHUNK, K))
+              for a in range(0, K, HIST_LANE_CHUNK)]
+
+    def library(sl):
+        kk, nn = torch.nonzero(live[sl], as_tuple=True)
+        pk = at[sl][kk, nn] + kk * P
+        flat = ((pk[:, None] * D + torch.arange(D, device=B.device))
+                * N_BINS + B[nn].long())
+        vals = stats[sl][kk, nn][:, None, :].expand(kk.numel(), D, S)
+        if node_mask is not None:
+            keep = node_mask[sl].reshape(-1, D)[pk]
+            flat, vals = flat[keep], vals[keep]
+        else:
+            flat, vals = flat.reshape(-1), vals.reshape(-1, S)
+        out = torch.zeros(((sl.stop - sl.start) * P * D * N_BINS, S),
+                          device=B.device)
+        return time_ms(lambda: out.index_put_((flat,), vals,
+                                              accumulate=True), 2)
+
+    lib = sum(library(sl) for sl in chunks)
+    plain = sum(time_ms(lambda sl=sl: tk.tree_hist_twin(
+        B, row_node[sl], stats[sl], off, P, N_BINS,
+        node_mask=None if node_mask is None else node_mask[sl]), 1)
+        for sl in chunks)
+    return {"lanes": K, "P": P, "masked": node_mask is not None,
+            "rows_live": int(live.sum()), "cells": cells,
+            "max_abs_err": err,
+            "ms": time_ms(lambda: tk.tree_hist(B, row_node, stats, off, P,
+                                               N_BINS, node_mask=node_mask),
+                          reps),
+            "plain_ms": plain, "bound_ms": bt, "bound_by": by,
+            "library_ms": lib}
 
 
 # --------------------------------------------------------------------------
@@ -2649,7 +2795,7 @@ def check_fista_squared(device="cuda", n: int = N_ROWS, reps: int = 10):
     Xw = torch.randn((n, TRANSMOG_WIDTH), generator=gen, device=device)
     mean, scale = standardize_moments(Xw, W, center=True)
     out["wide"] = _fista_case(Xw, W, yd, mean, scale, "squared", 8, rng,
-                              max(2, reps // 4))
+                              max(2, reps // 4), two_pass=True)
     del Xw
     torch.cuda.empty_cache()
     return [_fista_row(out["narrow"]), _fista_row(out["wide"])], out
@@ -2753,11 +2899,12 @@ MC_BENCH_REF = {
 
 
 def _softmax_case(Xd, W, yi, mean, scale, G: int, C: int, rng, reps: int,
-                  chunk: int = 131_072) -> dict:
+                  chunk: int = 131_072, two_pass: bool = False) -> dict:
     """``fista_softmax_step`` for F x G lanes of C classes (F = W's folds)
     with random coefficients, against its twin run in f64: each output
     within 1e-5 of its absolute mass (sum over rows of |x|·|g|), and two
     launches bit for bit.  The f64 reference is summed over row chunks.
+    ``two_pass``: the same held and timed in the two-pass form too.
     Returns the case's facts (a row of the kernels line without its
     names)."""
     import torch
@@ -2803,6 +2950,13 @@ def _softmax_case(Xd, W, yi, mean, scale, G: int, C: int, rng, reps: int,
                                  "disagrees with its f64 twin")
         err = max(err, float(e.max()))
     J = L * C
+    two = None
+    if two_pass:
+        plan = lk.wide_plan(D, L, C)
+        two = _two_pass(lambda: lk.wide_outputs(lk._wide_run(
+            *args[:7], G, C, "softmax", plan), D, L, C)[:2],
+            ((want, mass), (gsum, gabs)), max(2, reps // 2),
+            f"fista_softmax (C={C}, D={D}, {L} lanes)")
 
     def cublas_pair():      # margins, softmax, Xᵀg: timed only
         m = (V.reshape(J, D) @ Xd.T).reshape(L, C, n)
@@ -2813,7 +2967,7 @@ def _softmax_case(Xd, W, yi, mean, scale, G: int, C: int, rng, reps: int,
                                                           + L)
     bt, by = bound(nbytes, 4 * n * D * J)
     return {"lanes": L, "classes": C, "features": D, "rows": n,
-            "form": lk.softmax_launch_plan(D, L, C)["form"],
+            "form": lk.softmax_launch_plan(D, L, C)["form"], "two_pass": two,
             "split_tf32_bound_ms": split_tf32_bound(nbytes, 4 * n * D * J),
             "max_abs_err": err,
             "ms": time_ms(lambda: lk.fista_softmax_step(*args), reps),
@@ -2864,7 +3018,7 @@ def check_softmax_kernel(device="cuda", n: int = N_ROWS, reps: int = 10):
     Ww = torch.as_tensor(_fold_weights(y[:wn]), device=device)
     mean, scale = standardize_moments(Xw, Ww, center=True)
     out["wide"] = _softmax_case(Xw, Ww, yi[:wn], mean, scale, 2, MC_CLASSES,
-                                rng, max(2, reps // 2))
+                                rng, max(2, reps // 2), two_pass=True)
     del Xw
     torch.cuda.empty_cache()
     return [_kernel_row("fista_softmax", out["screen"]),
@@ -3162,8 +3316,11 @@ def _glm_case(Xd, W, yd, mean, scale, loss: str, G: int, rng, reps: int,
     n, D = Xd.shape
     L = W.shape[0] * G
     lanes = torch.arange(L, device=device) // G
-    coef = torch.as_tensor(rng.normal(scale=0.1, size=(L, D)).astype(
-        np.float32), device=device)
+    # sd 0.1 on the workload's 16 columns, shrunk on a wider matrix so
+    # margins keep the same size
+    coef = torch.as_tensor(rng.normal(scale=0.1 * min(1.0, (16 / D) ** 0.5),
+                                      size=(L, D)).astype(np.float32),
+                           device=device)
     V = (coef / scale[lanes]).contiguous()
     b = torch.as_tensor((0.3 + rng.normal(scale=0.1, size=L)).astype(
         np.float32), device=device)
@@ -3477,7 +3634,385 @@ def check_softmax_loco_shapes(X, y, device="cuda") -> dict:
 
 
 
+# --------------------------------------------------------------------------
+# phase 12: the repaired card-only refusals, and tree_hist at the forests'
+# lane batches
+# --------------------------------------------------------------------------
+
+FAULT_BINS = (64, 127)             # max_bins past the 32 a warp lane held
+FAULT_MLPS = ((256, 256), (900,))  # hidden layers past one block's memory
+
+
+def _split_level(device, data: tuple, yr, lanes: int, P: int,
+                 seed: int = 17) -> dict:
+    """A level of ``lanes`` lanes over ``data`` (y, split values, B: the
+    bench matrix binned at some bin count) with the regression target
+    ``yr``: xgb, gini and variance statistics (Poisson x fold weights),
+    rows over the level's P nodes and 5-of-28 node subsets."""
+    import torch
+
+    y, sp_t, B = data
+    n, D = B.shape
+    rng = np.random.default_rng(seed)
+    w = torch.as_tensor((rng.poisson(1.0, size=(lanes, n))
+                         * (rng.random((lanes, n)) > 1 / 3)).astype(
+                             np.float32), device=device)
+    yd = torch.as_tensor(y, device=device)
+    pm = torch.sigmoid(0.3 * torch.randn((lanes, n), device=device,
+                                         generator=torch.Generator(
+                                             device=device).manual_seed(seed)))
+    stats = {"xgb": torch.stack([w, w * (pm - yd), w * pm * (1 - pm)], 2),
+             "gini": torch.stack([w, w * (1 - yd), w * yd], 2),
+             "variance": torch.stack([w, w * yr, w * yr * yr], 2)}
+    m = np.zeros((lanes, P, D), bool)
+    for k in range(lanes):
+        for p in range(P):
+            m[k, p, rng.choice(D, 5, replace=False)] = True
+    rn = torch.as_tensor(rng.integers(P - 1, 2 * P - 1, size=(lanes, n))
+                         .astype(np.int32), device=device)
+    return {"B": B, "splits": sp_t, "row_node": rn,
+            "stats": {k: v.contiguous() for k, v in stats.items()},
+            "mask": torch.as_tensor(m, device=device)}
+
+
+def check_wide_bins(device="cuda", n: int = 200_000, reps: int = 10):
+    """The three split kernels at 64 and 127 bins (two and four bins a warp
+    lane) against their twins (``_check_split``,
+    ``_check_split_variance``) on histograms of a GBT level (3 lanes,
+    P = 4) and a forest level 5 (60 lanes, P = 32, node subsets), timed at
+    64 bins; the bench matrix is made once and binned once a bin count.
+    Returns the 64-bin rows of the kernels line (their launches are set by
+    the caller from ``run_bins_paths``) and the facts."""
+    import torch
+
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    from transmogrifai_tpu_torch.models.trees import binned
+    rows, facts = [], {}
+    X, y = make_data(n)
+    Xd = torch.as_tensor(X, device=device)
+    yr = Xd[:, 0] + Xd[:, 1] * Xd[:, 2]
+    for n_bins in FAULT_BINS:
+        _, sp_t, B = binned(Xd, Xd, n_bins)
+        levels = {(lanes, P): _split_level(device, (y, sp_t, B), yr, lanes,
+                                           P)
+                  for lanes, P in ((3, 4), (60, 32))}
+        for lanes, P, fam in ((3, 4, "xgb"), (60, 32, "gini"),
+                              (60, 32, "variance")):
+            lv = levels[(lanes, P)]
+            D = lv["B"].shape[1]
+            nm = None if fam == "xgb" else lv["mask"]
+            h, t = tk.tree_hist(lv["B"], lv["row_node"], lv["stats"][fam],
+                                P - 1, P, n_bins, node_mask=nm)
+            lane = lambda v: torch.full((lanes,), v, device=device)  # noqa
+            fmask = torch.ones(D, dtype=torch.bool, device=device)
+            if fam == "variance":
+                args = (h, t, fmask, nm, lv["splits"], lane(10.0),
+                        lane(0.001))
+                err = _check_split_variance(tk, *args)
+                run = lambda: tk.tree_split_variance(*args)  # noqa: E731
+                twin = lambda: tk.tree_split_variance_twin(*args)  # noqa
+                name = "tree_split_variance"
+            elif fam == "gini":
+                args = (h, t, fmask, nm, lv["splits"], lane(10.0), lane(0.0))
+                err = _check_split(tk, *args)
+                run = lambda: tk.tree_split_gini(*args)  # noqa: E731
+                twin = lambda: tk.tree_split_gini_twin(*args)  # noqa: E731
+                name = "tree_split_gini"
+            else:
+                args = (h, t, fmask, lv["splits"], lane(10.0), lane(0.0),
+                        lane(1.0))
+                err = _check_split(tk, h, t, fmask, None, lv["splits"],
+                                   args[4], args[5], args[6])
+                run = lambda: tk.tree_split(*args)  # noqa: E731
+                twin = lambda: tk.tree_split_twin(*args)  # noqa: E731
+                name = "tree_split"
+            case = {"lanes": lanes, "P": P, "bins": n_bins,
+                    "max_abs_err": err}
+            if n_bins == 64:
+                kept = (D * lanes * P if nm is None else int(nm.sum()))
+                bt, by = bound(4 * kept * n_bins * 3 + 4 * t.numel()
+                               + (0 if nm is None else nm.numel())
+                               + 4 * lv["splits"].numel() + 21 * lanes * P,
+                               23 * kept * n_bins)
+                case.update(ms=time_ms(run, reps),
+                            plain_ms=time_ms(twin, max(2, reps // 4)),
+                            bound_ms=bt, bound_by=by, library_ms=None)
+                rows.append(_kernel_row(name, case))
+            facts[f"{name}_bins_{n_bins}"] = case
+            del h, t, args
+        del levels, B
+        torch.cuda.empty_cache()
+    return rows, facts
+
+
+def run_bins_paths(device="cuda") -> tuple:
+    """Each tree family fitted at ``max_bins=64`` through the estimators a
+    user calls, on 2,000 x 4 normal rows, on the card and on the CPU twins
+    (a forest's draws made on the host): training AuROC (R² for the
+    regressor) within 1e-3 (a split may part at an f32 tie).  Returns the
+    facts and the kernel launches of the card fits alone."""
+    import torch
+
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models import trees as pt
+    facts = {}
+    rng = np.random.default_rng(64)
+    X = rng.normal(size=(2000, 4)).astype(np.float32)
+    z = X[:, 0] + 0.5 * X[:, 1] ** 2 - 0.7 * X[:, 2] * X[:, 3]
+    yc = (z + 0.3 * rng.normal(size=2000) > 0.4).astype(np.float32)
+
+    def auroc(p, y):
+        r = np.empty(len(p))
+        r[np.argsort(p, kind="stable")] = np.arange(1, len(p) + 1)
+        pos = y > 0.5
+        return ((r[pos].sum() - pos.sum() * (pos.sum() + 1) / 2)
+                / (pos.sum() * (~pos).sum()))
+
+    def r2(p, y):
+        return 1 - ((p - y) ** 2).sum() / ((y - y.mean()) ** 2).sum()
+
+    cases = ((pt.OpRandomForestClassifier(max_bins=64), yc, "scores", auroc),
+             (pt.OpGBTClassifier(max_bins=64), yc, "scores", auroc),
+             (pt.OpRandomForestRegressor(max_bins=64), z.astype(np.float32),
+              "prediction", r2))
+    fits = {}
+    kernels.reset_launch_counts()
+    for est, y, _, _ in cases:
+        est.set("draw_device", "cpu")
+        fits[id(est)] = est.fit_arrays(X, y, device=device)
+    launched = kernels.launch_counts()
+    for est, y, key, metric in cases:
+        got = {}
+        for dev in (device, "cpu"):
+            fitted = (fits[id(est)] if dev == device
+                      else est.fit_arrays(X, y, device=dev))
+            out = pt.TreeEnsembleModel(fitted=fitted).device_scores(
+                torch.as_tensor(X, device=dev))[key]
+            out = out.cpu().double().numpy()
+            if not np.isfinite(out).all():
+                raise AssertionError(f"{type(est).__name__}(max_bins=64) "
+                                     f"on {dev}: non-finite scores")
+            got[dev] = float(metric(out, y))
+        facts[f"{type(est).__name__}_bins_64"] = got
+        if abs(got[device] - got["cpu"]) > 1e-3:
+            raise AssertionError(f"{type(est).__name__}(max_bins=64): card "
+                                 f"{got[device]} against CPU {got['cpu']}")
+    missing = [k for k in ("tree_split", "tree_split_gini",
+                           "tree_split_variance", "tree_hist")
+               if launched[k] <= 0]
+    if missing and device != "cpu":
+        raise AssertionError(f"max_bins=64 fits launched no {missing}")
+    return facts, launched
+
+
+def check_fault_shapes(device="cuda", reps: int = 5, glm_rows: int = N_ROWS):
+    """The FISTA shapes no tensor-core or one-tile launch held, through
+    the wrappers into the two-pass form (``_fista_case``,
+    ``_softmax_case``, ``_glm_case``: within 1e-5 of each output's f64
+    mass, bit-repeatable): ``fista_step`` at 2,000 x 27,009 with one lane,
+    ``fista_softmax`` with 65 classes (20,000 x 16, 8 lanes), ``fista_glm``
+    at ``glm_rows`` x 4,900 (1M: ~70,000 rows a block of its Xᵀg pass)
+    and 5,000 x 16,384; then ``loco_softmax`` on MLPs of
+    ``hidden_layers=(256, 256)`` and (900,), 4 classes, at 100,000 x 16
+    (one group a column, top-16).  Returns the ``fista_wide`` rows of the
+    kernels line and every case's numbers."""
+    import torch
+
+    from transmogrifai_tpu_torch.models.linear import MLPClassificationModel
+    from transmogrifai_tpu_torch.models.solvers import standardize_moments
+    rng = np.random.default_rng(27)
+    facts, rows = {}, []
+
+    def matrix(n, d, seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        X = torch.randn((n, d), generator=gen, device=device)
+        y = (rng.random(n) > 0.5).astype(np.float32)
+        W = torch.as_tensor(_fold_weights(y), device=device)
+        return X, torch.as_tensor(y, device=device), W
+
+    X, yd, W = matrix(2000, 27_009, 1)
+    mean, scale = standardize_moments(X, W, center=True)
+    c = _fista_case(X, W[:1], yd, mean[:1], scale[:1], "logistic", 1, rng,
+                    reps)
+    facts["fista_step_27009"] = c
+    rows.append(_kernel_row("fista_wide", c))
+    del X, mean, scale
+    X, _, W = matrix(20_000, 16, 2)
+    yi = torch.as_tensor(rng.integers(0, 65, 20_000).astype(np.int32),
+                         device=device)
+    mean, scale = standardize_moments(X, W, center=True)
+    c = _softmax_case(X, W[:1], yi, mean[:1], scale[:1], 8, 65, rng, reps)
+    facts["fista_softmax_65"] = c
+    rows.append(_kernel_row("fista_wide", c))
+    for n, d, loss in ((glm_rows, 4_900, "poisson"),
+                       (5_000, 16_384, "gamma")):
+        X, _, W = matrix(n, d, d)
+        yg = torch.as_tensor((rng.poisson(1.3, n) if loss == "poisson"
+                              else rng.gamma(2.0, 0.7, n)).astype(np.float32),
+                             device=device)
+        mean, scale = standardize_moments(X, W, center=True)
+        c = _glm_case(X, W, yg, mean, scale, loss, 4, rng, reps, True)
+        if c["plan"]["form"] != "wide":
+            raise AssertionError(f"fista_glm at {d} features: plan "
+                                 f"{c['plan']}")
+        facts[f"fista_glm_{d}"] = c
+        rows.append(_kernel_row("fista_wide", c))
+        del X, mean, scale
+    for name in ("fista_step_27009", "fista_softmax_65"):
+        if facts[name]["form"] != "wide":
+            raise AssertionError(f"{name}: form {facts[name]['form']}")
+    torch.cuda.empty_cache()
+    n, D, C = 100_000, 16, 4
+    X = torch.randn((n, D), generator=torch.Generator(
+        device=device).manual_seed(9), device=device)
+    cg = torch.arange(D, dtype=torch.int32, device=device)
+    for hidden in FAULT_MLPS:
+        sizes = [D, *hidden, C]
+        fitted = {"kind": "mlp", "n_layers": len(sizes) - 1, "n_classes": C}
+        for i in range(len(sizes) - 1):
+            fitted[f"W{i}"] = torch.as_tensor(rng.normal(
+                scale=(2.0 / sizes[i]) ** 0.5, size=(sizes[i], sizes[i + 1]))
+                .astype(np.float32), device=device)
+            fitted[f"b{i}"] = torch.as_tensor(rng.normal(
+                scale=0.1, size=sizes[i + 1]).astype(np.float32),
+                device=device)
+        model = MLPClassificationModel(fitted=fitted)
+        facts["loco_softmax_" + "x".join(map(str, hidden))] = \
+            check_loco_softmax(X, model, cg, D, D, reps=3)
+    return rows, facts
+
+
+def run_fault_paths(device="cuda", scale: int = 1) -> tuple:
+    """The repaired FISTA shapes through the estimators a user calls
+    (``fit_arrays``), on the card and on the CPU twins: a binary
+    ``OpLogisticRegression`` at 2,000 x 27,009 (one lane, past the
+    tensor-core form's width), a 65-class ``OpLogisticRegression`` at
+    20,000 x 16 (past its 64 columns) and a poisson
+    ``OpGeneralizedLinearRegression`` at 20,000 x 4,900 (past the one-tile
+    gradient form); ``scale`` divides the rows and widths (for a CPU try).
+    Each card fit's scores agree with the CPU fit's within 1e-3 (the
+    probabilities; the poisson means relative to their largest).  Returns
+    the facts and the kernel launches of the card fits alone."""
+    import torch
+
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models import linear as pl
+    rng = np.random.default_rng(31)
+
+    def data(n, d):
+        X = rng.normal(size=(n // scale, max(16, d // scale))).astype(
+            np.float32)
+        w = np.zeros(X.shape[1], np.float32)
+        w[:8] = rng.normal(size=8)
+        return X, X @ w
+    X1, z1 = data(2000, 27_009)
+    y1 = (z1 + rng.normal(size=len(z1)) > 0).astype(np.float32)
+    X2, _ = data(20_000, 16)
+    y2 = np.argmax(X2[:, :1] * np.linspace(-2, 2, 65)[None]
+                   + rng.gumbel(size=(len(X2), 65)), 1).astype(np.float32)
+    X3, z3 = data(20_000, 4_900)
+    y3 = rng.poisson(np.exp(0.3 * z3 / max(1e-6, z3.std()))).astype(
+        np.float32)
+    cases = {
+        "logistic_27009": (pl.OpLogisticRegression(reg_param=0.1), X1, y1,
+                           "scores"),
+        "softmax_65": (pl.OpLogisticRegression(reg_param=0.01), X2, y2,
+                       "probability"),
+        "glm_poisson_4900": (pl.OpGeneralizedLinearRegression(
+            family="poisson", reg_param=0.01), X3, y3, "prediction")}
+    fits, facts = {}, {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for name, (est, X, y, _) in cases.items():
+        fits[name] = est.fit_arrays(X, y, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    facts["card_fits_s"] = time.perf_counter() - t0
+    launched = kernels.launch_counts()
+    for name, (est, X, y, key) in cases.items():
+        out = {}
+        for dev, fitted in ((device, fits[name]),
+                            ("cpu", est.fit_arrays(X, y, device="cpu"))):
+            model = est.model_cls(fitted=fitted)
+            s = model.device_scores(torch.as_tensor(X, device=dev))[key]
+            out[dev] = s.cpu().double().numpy()
+            if not np.isfinite(out[dev]).all():
+                raise AssertionError(f"{name} on {dev}: non-finite scores")
+        diff = float(np.abs(out[device] - out["cpu"]).max())
+        if key == "prediction":
+            diff /= float(np.abs(out["cpu"]).max())
+        facts[name] = {"shape": list(X.shape), "max_score_diff": diff,
+                       "n_iter": int(fits[name].get("n_iter", -1))}
+        if diff > 1e-3:
+            raise AssertionError(f"{name}: card and CPU scores differ by "
+                                 f"{diff}")
+    if launched["fista_wide"] <= 0 and device != "cpu":
+        raise AssertionError("the repaired FISTA fits launched no fista_wide")
+    return facts, launched
+
+
+def check_forest_hist_levels(device="cuda", n: int = N_ROWS, lanes: int = 300,
+                             reps: int = 3) -> tuple:
+    """``tree_hist`` at the largest lane batch the default grid's forests
+    launch (300 lanes; ``trees.lane_batches`` also gives 150 and 200) at
+    levels 0, 2, 4 and 5 (P = 1, 4, 16, 32) with the nodes' 5-of-28
+    subsets, and at level 5 with every feature (``hist_case``); the bench
+    matrix is binned once for all of them.  Returns the rows of the
+    kernels line and their numbers."""
+    import torch
+
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    rows, facts = [], {}
+    data = bench_binned(device, n)
+    for level in (0, 2, 4, 5):
+        inp = forest_level_inputs(device, n, lanes, level, data=data)
+        args = (tk, inp["B"], inp["row_node"], inp["stats"], inp["offset"],
+                inp["P"])
+        facts[f"level_{level}"] = hist_case(*args, node_mask=inp["mask"],
+                                            reps=reps)
+        rows.append(_kernel_row("tree_hist", facts[f"level_{level}"]))
+        if level == 5:
+            facts["level_5_all_features"] = hist_case(*args, reps=reps)
+            rows.append(_kernel_row("tree_hist",
+                                    facts["level_5_all_features"]))
+        del inp, args
+        torch.cuda.empty_cache()
+    return rows, facts
+
+
+def count_hist_shapes(run) -> tuple:
+    """``run()`` with every ``tree_hist`` call of the tree fits tallied by
+    shape: lanes K (a GBT grid's 3 or 6, a forest batch's hundreds), nodes
+    P, histogram or totals only, node subsets or not, and the route
+    (``hist_plan``'s deep or shared; the route does not depend on the
+    subsets) — beside the launch counters.  Returns (run's result, the
+    tally)."""
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    from transmogrifai_tpu_torch.models import trees as pt
+    tally = {}
+    real = pt.tree_hist
+
+    def counted(B, row_node, stats, offset, P, n_bins, with_hist=True,
+                node_mask=None):
+        plan = tk.hist_plan(B.shape[0], B.shape[1], row_node.shape[0], P,
+                            n_bins, stats.shape[2], with_hist)
+        key = (f"K={row_node.shape[0]} P={P} "
+               f"{'hist' if with_hist else 'totals'}"
+               f"{' subsets' if node_mask is not None else ''} "
+               f"{plan['route']}")
+        tally[key] = tally.get(key, 0) + 1
+        return real(B, row_node, stats, offset, P, n_bins, with_hist,
+                    node_mask)
+
+    pt.tree_hist = counted
+    try:
+        return run(), tally
+    finally:
+        pt.tree_hist = real
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -3509,7 +4044,8 @@ def main() -> int:
     rows = check_kernels("cuda")
     gini_row, forest_facts = check_forest_kernels("cuda")
     rows.insert(2, gini_row)
-    forest_facts["tree_hist"]["library_ms"] = forest_library_ms("cuda")
+    rows[1:1] = [_kernel_row("tree_hist", forest_facts[k])
+                 for k in ("tree_hist", "tree_hist_all_features")]
     torch.cuda.empty_cache()
     fista_row, fista_facts = check_linear_kernel("cuda")
     deep_row, deep_facts = check_deep_kernels("cuda")
@@ -3541,7 +4077,7 @@ def main() -> int:
                                        "tree_split_variance",
                                        "fista_softmax",
                                        "multiclass_confusion", "fista_glm",
-                                       "loco_softmax")]
+                                       "loco_softmax", "fista_wide")]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     if facts["train_auroc"] <= 0.7:
@@ -3556,8 +4092,8 @@ def main() -> int:
     # phase 4: the default grid at 1M, launches and peak memory around it
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    grid_facts, grid_model, grid_batch = run_default_grid("cuda", N_ROWS,
-                                                          with_model=True)
+    (grid_facts, grid_model, grid_batch), hist_shapes = count_hist_shapes(
+        lambda: run_default_grid("cuda", N_ROWS, with_model=True))
     launches = kernels.launch_counts()
     grid_facts["peak_device_memory_gb"] = \
         torch.cuda.max_memory_allocated() / 1e9
@@ -3570,10 +4106,12 @@ def main() -> int:
                                        "loco_tree", "tree_split_variance",
                                        "fista_softmax",
                                        "multiclass_confusion", "fista_glm",
-                                       "loco_softmax")]
+                                       "loco_softmax", "fista_wide")]
     if missing:
         raise AssertionError(f"kernels never launched on the default grid: "
                              f"{missing}")
+    print("default grid tree_hist calls by shape: " + json.dumps(
+        hist_shapes), flush=True)
     if grid_facts["train_auroc"] <= 0.7:
         raise AssertionError(f"default grid train AuROC "
                              f"{grid_facts['train_auroc']} <= 0.7")
@@ -3581,6 +4119,15 @@ def main() -> int:
     print(f"reference runs ({REF_ROWS} rows): "
           + json.dumps(check_reference_runs()), flush=True)
 
+    from transmogrifai_tpu_torch import selector as S
+    print("profile default grid RF CV: " + json.dumps(profile_lr_cv(
+        grid_model, grid_batch, S.BinaryClassificationModelSelector(
+            models=[S._rf_classifier()]), top=10)), flush=True)
+    # tree_hist at the forests' own lane batches, timed beside the rows above
+    hist_rows, hist_facts = check_forest_hist_levels("cuda")
+    print("tree_hist forest levels (300 lanes): " + json.dumps(hist_facts),
+          flush=True)
+    rows += hist_rows
     for r in rows:
         r["launches"] = launches[r["name"]]
     torch.cuda.empty_cache()
@@ -3802,7 +4349,6 @@ def main() -> int:
           + json.dumps(mc_facts), flush=True)
     print("multiclass kernel launches: " + json.dumps(mc_launches),
           flush=True)
-    from transmogrifai_tpu_torch import selector as S
     print("profile multiclass LR CV: " + json.dumps(profile_lr_cv(
         mc_model, mc_batch, S.MultiClassificationModelSelector(
             models=[S._lr_candidates()]))), flush=True)
@@ -3912,8 +4458,45 @@ def main() -> int:
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"library_ms={r['library_ms']}", flush=True)
     rows += glm_rows + [exp_row] + loco_rows
+    torch.cuda.empty_cache()
+
+    # phase 12: the repaired card-only refusals, each kernel against its
+    # twin at the fault shapes, then the estimators a user calls at those
+    # shapes with the launches read around the card fits alone; the
+    # two-pass FISTA form beside the tensor-core form at phases 8 and 9's
+    # wide shapes (timed there, not on any path: 0 launches)
+    fault_rows, fault_facts = check_fault_shapes()
+    bins_rows, bins_facts = check_wide_bins()
+    print("fault shapes: " + json.dumps(fault_facts), flush=True)
+    print("max_bins 64 / 127: " + json.dumps(bins_facts), flush=True)
+    torch.cuda.empty_cache()
+    path_facts, wide_launches = run_fault_paths()
+    print("fault paths (fit_arrays): " + json.dumps(path_facts), flush=True)
+    print("fault path kernel launches: " + json.dumps(wide_launches),
+          flush=True)
+    bins_path_facts, bins_launches = run_bins_paths()
+    print("max_bins 64 fits: " + json.dumps(bins_path_facts), flush=True)
+    print("max_bins 64 kernel launches: " + json.dumps(bins_launches),
+          flush=True)
+    for r in fault_rows:                 # fista_wide's rows
+        r["launches"] = wide_launches["fista_wide"]
+    for r in bins_rows:
+        r["launches"] = bins_launches[r["name"]]
+    beside = [_kernel_row("fista_wide", {**c, **c["two_pass"]})
+              for c in (sq_facts["wide"], sm_facts["wide"])]
+    for r in beside:
+        r["launches"] = 0
+    fault_rows += beside
+    for r in fault_rows + bins_rows + hist_rows:
+        print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.3g} "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library_ms={r['library_ms']}", flush=True)
+    rows += fault_rows + bins_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(f"chip_smoke wall_s: {time.perf_counter() - t_start:.1f}",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
           flush=True)

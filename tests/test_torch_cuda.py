@@ -321,13 +321,14 @@ def test_small_main_path_on_the_card_matches_the_twins(cuda):
     gpu = _small_main_path("cuda", 5000)
     # depth-4 and depth-3 trees never need the one-pass deep histogram;
     # the dense binary path hashes no text, holds no sparse matrix, fits no
-    # regression tree, multinomial model or GLM and explains nothing
+    # regression tree, multinomial model or GLM, explains nothing and is
+    # narrow enough for the tensor-core FISTA launch
     assert all(v > 0 for k, v in kernels.launch_counts().items()
                if k not in ("tree_hist_deep", "hash_counts", "sp_matmat",
                             "sp_rmatmat", "loco_linear", "loco_tree",
                             "tree_split_variance", "fista_softmax",
                             "multiclass_confusion", "fista_glm",
-                            "loco_softmax"))
+                            "loco_softmax", "fista_wide"))
     cpu = _small_main_path("cpu", 5000)
     assert gpu[0] == cpu[0]
     np.testing.assert_allclose(gpu[1], cpu[1], rtol=0, atol=1e-3)
@@ -1223,3 +1224,260 @@ def test_loco_softmax_matches_twin(cuda, kind, C, G, k, strategy,
             "negative": lambda d: -d}[strategy]
     best = torch.sort(rank(want), dim=1, descending=True).values[:, :k]
     assert float((rank(val.double()) - best).abs().max()) <= tol
+
+
+# --------------------------------------------------------------------------
+# the repaired card-only refusals: the two-pass FISTA form, splits past 32
+# bins, wide and deep MLPs in loco_softmax; tree_hist at forest lane counts
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind,loss,N,D,L,G,C,grad", [
+    ("step", "logistic", 2000, 27_009, 1, 1, 1, True),    # one lane, past
+    ("step", "squared", 2000, 27_009, 6, 2, 1, True),     # 27,008 columns
+    ("step", "gram", 2000, 27_009, 3, 1, 1, True),
+    ("softmax", "softmax", 20_000, 16, 8, 8, 65, True),   # 65 classes
+    ("softmax", "softmax", 20_000, 16, 1, 1, 300, True),
+    ("glm", "poisson", 20_000, 4_900, 12, 4, 1, True),    # past the tile
+    ("glm", "gamma", 20_000, 4_900, 12, 4, 1, True),
+    ("glm", "poisson", 5_000, 16_384, 12, 4, 1, True),
+    ("glm", "gamma", 5_000, 16_384, 96, 32, 1, False)])   # a ladder
+def test_fista_wide_form_matches_twin_and_repeats_bit_for_bit(
+        cuda, kind, loss, N, D, L, G, C, grad):
+    """The shapes no tensor-core or one-tile launch holds run the two-pass
+    form (``fista_wide``, one launch a call): within 1e-5 of each output's
+    absolute mass of the twin run in f64, and the same bits twice."""
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models import linear_kernels as lk
+    rng = np.random.default_rng(31)
+    F = -(-L // G)
+    X = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32),
+                        device=cuda)
+    W = torch.as_tensor((rng.random((F, N)) > 1 / 3).astype(np.float32),
+                        device=cuda)
+    sd = 0.3 * min(1.0, (16 / D) ** 0.5)
+    shape = (L, C, D) if kind == "softmax" else (L, D)
+    V = torch.as_tensor(rng.normal(scale=sd, size=shape).astype(np.float32),
+                        device=cuda)
+    muv = torch.as_tensor(rng.normal(scale=0.1, size=shape[:-1]).astype(
+        np.float32), device=cuda)
+    b = torch.as_tensor((0.3 + rng.normal(scale=0.2, size=shape[:-1]))
+                        .astype(np.float32), device=cuda)
+    ws = W.sum(dim=1)[torch.arange(L, device=cuda) // G]
+    if kind == "softmax":
+        y = torch.as_tensor(rng.integers(0, C, N).astype(np.int32),
+                            device=cuda)
+        run = lambda: lk.fista_softmax_step(X, V, muv, b, W, y, ws, G)
+    elif kind == "glm":
+        y = torch.as_tensor((rng.poisson(1.3, N) if loss == "poisson"
+                             else rng.gamma(2.0, 0.7, N)).astype(np.float32),
+                            device=cuda)
+        run = lambda: lk.fista_glm(X, V, muv, b, W, y, ws, G, loss, grad)
+    else:
+        y = torch.as_tensor((rng.random(N) > 0.5).astype(np.float32),
+                            device=cuda)
+        tgt = None if loss == "gram" else y
+        run = lambda: lk.fista_step(X, V, muv, b, W, tgt, ws, G, loss)
+    kernels.reset_launch_counts()
+    got = run()
+    counts = kernels.launch_counts()
+    assert counts["fista_wide"] == 1
+    assert counts["fista_step"] + counts["fista_softmax"] \
+        + counts["fista_glm"] == 0
+    again = run()
+    got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    X64, lanes = X.double(), torch.arange(L, device=cuda) // G
+    if kind == "softmax":
+        a64 = (X64, V.double(), muv.double(), b.double(), W.double(), y,
+               ws.double(), G)
+        g = lk.fista_softmax_row_grads(*a64).reshape(L * C, N)
+        checks = [(got[0], (g @ X64).reshape(L, C, D),
+                   (g.abs() @ X64.abs()).reshape(L, C, D)),
+                  (got[1], g.sum(dim=1).reshape(L, C),
+                   g.abs().sum(dim=1).reshape(L, C))]
+    else:
+        lin = V.double() @ X64.T - muv.double()[:, None] \
+            + b.double()[:, None]
+        if kind == "glm":
+            lw, g = lk.glm_row_terms(lin, y.double(), W.double()[lanes],
+                                     ws.double()[:, None], loss)
+            checks = [(got[-1], lw.sum(dim=1) / ws.double(),
+                       lw.abs().sum(dim=1) / ws.double())]
+        else:
+            g = lk.loss_grads(lin, W.double()[lanes],
+                              None if loss == "gram" else y.double(),
+                              ws.double()[:, None], loss)
+            checks = []
+        if grad:
+            checks += [(got[0], g @ X64, g.abs() @ X64.abs()),
+                       (got[1], g.sum(dim=1), g.abs().sum(dim=1))]
+    for g32, want, mass in checks:
+        assert bool(((g32.double() - want).abs() <= 1e-5 * mass + 1e-12)
+                    .all())
+
+
+@pytest.mark.parametrize("n_bins", [64, 127])
+def test_split_kernels_past_32_bins_match_twins(cuda, n_bins):
+    """64 and 127 bins (two and four bins a warp lane): tree_split within
+    the xgb tolerance, tree_split_gini within 1e-6 of wgini(parent) and
+    tree_split_variance within 1e-5 of the parent's Σw·y² of their twins,
+    the same choices where the runner-up gap is clear, at a level of 4
+    nodes over 8 features with 3-of-8 node subsets."""
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    from transmogrifai_tpu_torch.models.trees import binned
+    rng = np.random.default_rng(40 + n_bins)
+    N, D, K, P = 30_000, 8, 3, 4
+    X = rng.normal(size=(N, D)).astype(np.float32)
+    yr = (X[:, 0] + X[:, 1] * X[:, 2] + 0.3 * rng.normal(size=N)).astype(
+        np.float32)
+    y = (yr > 0.2).astype(np.float32)
+    Xd = torch.as_tensor(X, device=cuda)
+    _, splits, B = binned(Xd, Xd, n_bins)
+    assert int(B.max()) >= n_bins - 8
+    rn = torch.as_tensor(rng.integers(P - 1, 2 * P - 1, size=(K, N)).astype(
+        np.int32), device=cuda)
+    m = np.zeros((K, P, D), bool)
+    for k in range(K):
+        for p in range(P):
+            m[k, p, rng.choice(D, 3, replace=False)] = True
+    mask = torch.as_tensor(m, device=cuda)
+    w = rng.poisson(1.0, size=(K, N)) * (rng.random((K, N)) > 0.33)
+    lane = lambda v: torch.full((K,), v, device=cuda)   # noqa: E731
+    fmask = torch.ones(D, dtype=torch.bool, device=cuda)
+    # xgb: (w, w·g, w·h)
+    pm = 1 / (1 + np.exp(-0.3 * rng.normal(size=(K, N))))
+    xgb = torch.as_tensor(np.stack([w, w * (pm - y), w * pm * (1 - pm)],
+                                   axis=2).astype(np.float32), device=cuda)
+    h, t = tk.tree_hist(B, rn, xgb, P - 1, P, n_bins)
+    args = (h, t, fmask, splits, lane(10.0), lane(0.0), lane(1.0))
+    sk = tk.tree_split(*args)
+    st = tk.tree_split_twin(h.double(), t.double(), fmask, splits,
+                            *(a.double() for a in args[4:]))
+    par = t[..., 1].double() ** 2 / (t[..., 2].double() + 1.0)
+    tol = 1e-5 * (st["gain"].abs() + par) + 1e-6
+    fin = torch.isfinite(st["gain"])
+    assert torch.equal(fin, torch.isfinite(sk["gain"]))
+    assert bool(((sk["gain"].double() - st["gain"]).abs()[fin]
+                 <= tol[fin]).all())
+    clear = tk.split_gap(h.double(), t.double(), fmask, lane(10.0).double(),
+                         lane(1.0).double()) > 1e-4 * st["gain"].abs() + tol
+    assert bool(clear.any())
+    for key in ("feature", "bin", "threshold"):
+        assert torch.equal(sk[key][clear], st[key][clear]), key
+    # gini: integer counts, exact sums
+    gini = torch.as_tensor(np.stack([w, w * (1 - y), w * y], axis=2).astype(
+        np.float32), device=cuda)
+    h, t = tk.tree_hist(B, rn, gini, P - 1, P, n_bins, node_mask=mask)
+    args = (h, t, fmask, mask, splits, lane(10.0), lane(0.0))
+    sk, st = tk.tree_split_gini(*args), tk.tree_split_gini_twin(*args)
+    scale = tk.wgini(t)
+    fin = torch.isfinite(st["gain"])
+    assert torch.equal(fin, torch.isfinite(sk["gain"]))
+    assert bool(((sk["gain"] - st["gain"]).abs()[fin]
+                 <= 1e-6 * scale[fin]).all())
+    clear = tk.split_gap_gini(h, t, fmask, mask, lane(10.0)) > 1e-5 * scale
+    assert bool(clear.any())
+    for key in ("feature", "bin", "is_leaf", "threshold"):
+        assert torch.equal(sk[key][clear], st[key][clear]), key
+    # variance: (w, w·y, w·y²) against the twin on the f64 histogram
+    var = torch.as_tensor(np.stack([w, w * yr, w * yr * yr], axis=2).astype(
+        np.float32), device=cuda)
+    h, t = tk.tree_hist(B, rn, var, P - 1, P, n_bins, node_mask=mask)
+    args = (h, t, fmask, mask, splits, lane(10.0), lane(0.001))
+    sk = tk.tree_split_variance(*args)
+    st = tk.tree_split_variance_twin(h.double(), t.double(), fmask, mask,
+                                     splits, lane(10.0).double(),
+                                     lane(0.001).double())
+    tol = 1e-5 * t[..., 2].double() + 1e-6
+    fin = torch.isfinite(st["gain"])
+    assert torch.equal(fin, torch.isfinite(sk["gain"]))
+    assert bool(((sk["gain"].double() - st["gain"]).abs()[fin]
+                 <= tol[fin]).all())
+    clear = tk.split_gap_variance(h.double(), t.double(), fmask, mask,
+                                  lane(10.0).double()) > 2 * tol
+    assert bool(clear.any())
+    for key in ("feature", "bin", "threshold"):
+        assert torch.equal(sk[key][clear], st[key][clear]), key
+
+
+@pytest.mark.parametrize("hidden", [(256, 256), (900,)])
+def test_loco_softmax_wide_and_deep_mlps_match_twin(cuda, hidden):
+    """An MLP of ``hidden_layers=(256, 256)`` (its tail's weights read from
+    device memory) and one of a single hidden layer of 900, 4 classes, 16
+    groups: each listed diff within 1e-5 of the largest |diff| plus twice
+    the plain f32 version's own largest error of the f64 diffs, the same
+    bits twice."""
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    from transmogrifai_tpu_torch.models.linear import MLPClassificationModel
+    rng = np.random.default_rng(12)
+    N, D, G, C, k = 4_000, 48, 16, 4, 16
+    X = rng.normal(size=(N, D)).astype(np.float32)
+    cg = rng.permutation(np.arange(D) % G).astype(np.int32)
+    Xd = torch.as_tensor(X, device=cuda)
+    cgd = torch.as_tensor(cg, device=cuda)
+    sizes = [D, *hidden, C]
+    fitted = {"kind": "mlp", "n_layers": len(sizes) - 1, "n_classes": C}
+    for i in range(len(sizes) - 1):
+        fitted[f"W{i}"] = torch.as_tensor(rng.normal(
+            scale=(2.0 / sizes[i]) ** 0.5, size=(sizes[i], sizes[i + 1]))
+            .astype(np.float32), device=cuda)
+        fitted[f"b{i}"] = torch.as_tensor(rng.normal(
+            scale=0.1, size=sizes[i + 1]).astype(np.float32), device=cuda)
+    model = MLPClassificationModel(fitted=fitted)
+    plan = ik.loco_softmax_plan(N, D, G, k, hidden[0], C,
+                                tuple(sizes[2:]))
+    assert plan.tail_in_smem is (len(hidden) == 1)
+    idx, val = ik.loco_softmax(Xd, model, cgd, G, k, "abs")
+    idx2, val2 = ik.loco_softmax(Xd, model, cgd, G, k, "abs")
+    assert torch.equal(idx, idx2) and torch.equal(val, val2)
+    want = _softmax_diffs_f64(Xd, model, cgd, G)
+    ti, tv = ik.loco_topk_twin(Xd, lambda Z: ik.loco_score(model, Z), cgd, G,
+                               G, "abs")
+    twin_err = float((tv.double() - torch.gather(want, 1, ti.long()))
+                     .abs().max())
+    tol = 1e-5 * float(want.abs().max()) + 2.0 * twin_err
+    assert float((val.double() - torch.gather(want, 1, idx.long())).abs()
+                 .max()) <= tol
+    best = torch.sort(want.abs(), dim=1, descending=True).values[:, :k]
+    assert float((val.double().abs() - best).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("lanes", [60, 300])
+def test_tree_hist_forest_levels_match_twin(cuda, lanes):
+    """A forest level of 60 and 300 lanes (P = 32, Poisson x fold weights,
+    integer gini counts, 5-of-28 node subsets): the full and the masked
+    histogram equal the f64 twin cell for cell, 60 lanes a twin call; the
+    masked one equals the full one on the kept cells and is zero elsewhere,
+    with the same totals; one launch each."""
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    rng = np.random.default_rng(60 + lanes)
+    N, D, P, nb = 40_000, 28, 32, 32
+    B = torch.as_tensor(rng.integers(0, nb, size=(N, D)).astype(np.int8),
+                        device=cuda)
+    w = rng.poisson(1.0, size=(lanes, N)) * (rng.random((lanes, N)) > 0.33)
+    y = rng.random(N) < 0.4
+    stats = torch.as_tensor(np.stack([w, w * ~y, w * y], axis=2).astype(
+        np.float32), device=cuda)
+    rn = torch.as_tensor(rng.integers(25, 63, size=(lanes, N)).astype(
+        np.int32), device=cuda)
+    m = np.zeros((lanes, P, D), bool)
+    for k in range(lanes):
+        for p in range(P):
+            m[k, p, rng.choice(D, 5, replace=False)] = True
+    mask = torch.as_tensor(m, device=cuda)
+    kernels.reset_launch_counts()
+    full = tk.tree_hist(B, rn, stats, 31, P, nb)
+    masked = tk.tree_hist(B, rn, stats, 31, P, nb, node_mask=mask)
+    assert kernels.launch_counts()["tree_hist"] == 2
+    assert torch.equal(full[1], masked[1])
+    assert torch.equal(masked[0], torch.where(mask[..., None, None], full[0],
+                                              0.0))
+    for a in range(0, lanes, 60):
+        sl = slice(a, a + 60)
+        for got, nm in ((full, None), (masked, mask[sl])):
+            want = tk.tree_hist_twin(B, rn[sl], stats[sl].double(), 31, P,
+                                     nb, node_mask=nm)
+            assert torch.equal(got[0][sl].double(), want[0])
+            assert torch.equal(got[1][sl].double(), want[1])

@@ -366,7 +366,8 @@ def test_sparse_glm_is_refused_for_the_skip_seam():
                                     (1596, False), (4000, True)])
 def test_glm_launch_plan_fits_shared_memory(D, grad):
     """Every plan fits one block's shared memory, with all 96 trial lanes
-    or a chunk of them; a width no form holds raises."""
+    or a chunk of them; a width no one-tile form holds takes the two-pass
+    form."""
     for L in (1, 4, 12, 96):
         plan = lk.glm_launch_plan(D, L, grad)
         assert plan["smem"] <= lk._SMEM_MAX
@@ -375,8 +376,27 @@ def test_glm_launch_plan_fits_shared_memory(D, grad):
                                             grad)
     if D == 16:
         assert lk.glm_launch_plan(D, 96, grad)["lanes"] == 96
-    with pytest.raises(ValueError, match="no launch form"):
-        lk.glm_launch_plan(20_000, 1, grad)
+    wide = lk.glm_launch_plan(20_000, 1, grad)
+    assert wide["form"] == "wide" and wide["Jt"] == 2 and wide["Jp"] == 4
+
+
+@pytest.mark.parametrize("grad", [True, False])
+def test_glm_launch_plan_holds_every_width(grad):
+    """Widths 16 .. 16,384 and 27,009 all plan, for one lane, the CV's 12
+    and a ladder's 96: the one-tile form while one lane fits a block at 4
+    rows (past ~4,800 features in the gradient form, ~7,200 in the value
+    form it does not), else the two-pass form with every lane and a loss
+    column a lane."""
+    for D in (16, 64, 256, 1024, 4096, 4800, 4900, 7200, 8192, 16_384,
+              27_009):
+        for L in (1, 12, 96):
+            plan = lk.glm_launch_plan(D, L, grad)
+            if plan["form"] == "tile":
+                assert plan["smem"] <= lk._SMEM_MAX and D <= 7300
+                continue
+            assert plan["form"] == "wide" and D >= (4800 if grad else 7200)
+            assert plan["lanes"] == L and plan["Jt"] == 2 * L
+            assert plan["Jp"] % 4 == 0 and plan["Jp"] >= 2 * L
 
 
 # --------------------------------------------------------------------------

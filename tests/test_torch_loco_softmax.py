@@ -254,21 +254,39 @@ def test_emulated_kernel_matches_the_twin(models, kind):
     (4, 6, (5, 4), 128, 20), (300, 300, (), 3, 2), (2, 2, (), 1, 1),
     (4, 4, (), 512, 40), (900, 900, (), 20, 20), (3, 100, (200, 3), 64, 33)])
 def test_softmax_plan_sizes_any_shape(C_, H, tail, G, K):
-    """Slots of the widest layer for every lane of every warp, and the
-    tail's weights, inside one block's shared memory; fewer warps a block
-    for wide models."""
+    """Slots of two buffers (the widest of the first layer and every second
+    tail layer; the widest of the others) for every lane of every warp, and
+    the tail's weights, inside one block's shared memory; fewer warps a
+    block for wide models."""
     plan = ik.loco_softmax_plan(1_000_000, 16, G, K, H, C_, tail)
-    assert plan.slot == max((H,) + tail)
+    dims = (H,) + tail
+    assert plan.slot_b == (max(dims[1::2]) if tail else 0)
+    assert plan.slot == max(dims[0::2]) + plan.slot_b
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= ik.THREADS
     assert plan.smem_bytes <= ik.SMEM_MAX
     warps = plan.threads // 32
-    slot = (2 * plan.slot if tail else plan.slot) | 1
+    assert plan.tail_in_smem
     assert plan.smem_bytes == 4 * (plan.tail_floats
-                                   + warps * (32 * slot + H))
-    dims = (H,) + tail
+                                   + warps * (32 * (plan.slot | 1) + H))
     assert plan.tail_floats == sum(dims[i] * dims[i + 1] + dims[i + 1]
                                    for i in range(len(tail)))
     assert 1 <= plan.blocks <= ik.BLOCKS_IN_FLIGHT
+
+
+@pytest.mark.parametrize("H,tail,staged", [
+    (256, (256, 4), False), (900, (4,), True), (512, (4,), True)])
+def test_softmax_plan_holds_wide_and_deep_mlps(H, tail, staged):
+    """MLPs of ``hidden_layers=(256, 256)`` (the tail's 66,820 weights
+    leave the block: read from device memory beside the slots) and of one
+    hidden layer of 900 or 512 (the second buffer holds the 4 logits, not
+    another layer's width) with 4 classes."""
+    plan = ik.loco_softmax_plan(1_000_000, 16, 16, 5, H, 4, tail)
+    assert plan.tail_in_smem is staged
+    assert plan.smem_bytes <= ik.SMEM_MAX
+    assert plan.slot == max(((H,) + tail)[0::2]) + max(tail[0::2])
+    assert plan.smem_bytes == 4 * (plan.tail_floats * staged
+                                   + plan.threads // 32
+                                   * (32 * (plan.slot | 1) + H))
 
 
 @pytest.mark.parametrize("args,match", [

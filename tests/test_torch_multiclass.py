@@ -603,14 +603,22 @@ def test_loco_refuses_models_with_no_kernel_link(jax_multiclass_models,
 # the kernels' launch plans and wrappers on the CPU
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("C", [2, 3, 4, 40])
-@pytest.mark.parametrize("D", [16, 1596])
+@pytest.mark.parametrize("C", [2, 3, 4, 40, 65, 300])
+@pytest.mark.parametrize("D", [16, 1596, 27_009])
 def test_launch_plans_cover_the_shapes(C, D):
     """``fista_softmax`` runs whole lanes, at most 64 columns a launch, so
-    every C up to 40 fits at every width, in shared memory the kernel's own
-    carve-up sizes; fewer than 2 classes is refused."""
+    every C up to 40 fits at the transmogrified width, in shared memory the
+    kernel's own carve-up sizes; more than 64 classes, or a width no
+    tensor-core launch holds, runs the two-pass form with every lane's
+    classes in one launch; fewer than 2 classes is refused."""
     L = 24
     plan = lk.softmax_launch_plan(D, L, C)
+    if C > lk.TC_COLS or D > 20_000:
+        assert plan["form"] == "wide"
+        assert plan["cols"] == L * C and plan["Jp"] >= L * C
+        with pytest.raises(ValueError, match="classes"):
+            lk.softmax_launch_plan(D, L, 1)
+        return
     assert plan["smem"] <= lk._SMEM_MAX
     assert plan["lanes"] == min(L, lk.TC_COLS // C)
     assert plan["lanes"] * C <= lk.TC_COLS

@@ -209,16 +209,23 @@ def test_jax_svc_converted_scores_like_jax(data):
                               torch.device("cpu"))
 
 
-@pytest.mark.parametrize("D", [16, 28, 1200, 1596, 1597, 4096, 16384])
+@pytest.mark.parametrize("D", [16, 28, 1200, 1596, 1597, 4096, 16384,
+                               27_009, 100_003])
 def test_fista_step_launch_plan_fits_every_width(D):
-    """Every width the linear family meets, up to the JAX package's 16,384
-    hashed columns, has a launch plan for 1 to 96 lanes whose shared memory
-    fits one block (the kernel's own carve-up, ``_tc_layout``), whose
-    columns fit the kernel's 8 register column tiles, and whose feature
-    slices cover X with no empty block (``fista_tc_run`` refuses anything
-    else)."""
+    """Every width the linear family meets has a launch plan for 1 to 96
+    lanes: up to the JAX package's 16,384 hashed columns (and on to 27,008)
+    a tensor-core plan whose shared memory fits one block (the kernel's own
+    carve-up, ``_tc_layout``), whose columns fit the kernel's 8 register
+    column tiles, and whose feature slices cover X with no empty block
+    (``fista_tc_run`` refuses anything else); past that the two-pass form
+    with every lane in one launch."""
     for L in range(1, 97):
         plan = lk.launch_plan(D, L)
+        if D > 27_008:
+            assert plan["form"] == "wide", (D, L, plan)
+            assert plan["cols"] == plan["lanes"] == L
+            assert plan["Jp"] % 4 == 0 and plan["Jp"] >= L
+            continue
         assert plan["smem"] <= 227 * 1024, (D, L, plan)
         assert 1 <= plan["lanes"] <= min(L, lk.TC_COLS) and plan["cols"] <= 64
         assert plan["lanes"] == min(L, lk.TC_COLS) or D > 4096

@@ -52,23 +52,9 @@
 #include <math.h>
 #include <stdint.h>
 
-enum { GLM_POISSON = 0, GLM_GAMMA = 1 };
+#include "fista_loss.cuh"
 
-// one row's weighted loss term (lw) and gradient (g) at margin m
-__device__ __forceinline__ void glm_terms(int loss, float m, float yn,
-                                          float w, float ws, float& lw,
-                                          float& g) {
-  if (loss == GLM_POISSON) {
-    const float mu = expf(fminf(fmaxf(m, -30.f), 30.f));
-    lw = w * (mu - yn * m);
-    g = w * (mu - yn) / ws;
-  } else {
-    const float iv = expf(fminf(fmaxf(-m, -30.f), 30.f));
-    lw = w * (yn * iv + m);
-    g = w * (1.f - yn * iv) / ws;
-  }
-}
-
+// loss: 0 poisson, 1 gamma (the wrapper's GLM_LOSSES)
 __global__ void fista_glm_kernel(const float* __restrict__ X,
                                  const float* __restrict__ V,
                                  const float* __restrict__ muv,
@@ -87,7 +73,7 @@ __global__ void fista_glm_kernel(const float* __restrict__ X,
   float* gt = lt + TR * Lp;             // [TR][Lp]  gradients (grad form)
   float* vs = gt + (grad ? TR * Lp : 0);          // [D][Lp] V transposed
   float* acc = vs + D * Lp;             // [D+1][Lp] X^T g sums (grad form)
-  float* lp = acc + (grad ? (D + 1) * Lp : 0);    // [3][Lp] muv, b, wsum
+  float* lp = acc + (grad ? (D + 1) * Lp : 0);    // [3][Lp] muv, b, 1 / wsum
   const int tid = threadIdx.x, bs = blockDim.x;
   for (int i = tid; i < D * Lp; i += bs) {
     const int d = i / Lp, l = i - d * Lp;
@@ -99,7 +85,7 @@ __global__ void fista_glm_kernel(const float* __restrict__ X,
   for (int l = tid; l < Lp; l += bs) {
     lp[l] = l < L ? muv[l] : 0.f;
     lp[Lp + l] = l < L ? b[l] : 0.f;
-    lp[2 * Lp + l] = l < L ? wsum[l] : 1.f;
+    lp[2 * Lp + l] = l < L ? 1.f / wsum[l] : 1.f;   // 1 / wsum
   }
   __syncthreads();
 
@@ -138,7 +124,7 @@ __global__ void fista_glm_kernel(const float* __restrict__ X,
           const float mm = (m[j] - lp[l]) + lp[Lp + l];
           const float w = W[(long long)((lane0 + l) / G) * N + n];
           float lw;
-          glm_terms(loss, mm, yn, w, lp[2 * Lp + l], lw, g[j]);
+          fl_glm(loss == 0, mm, yn, w, lp[2 * Lp + l], lw, g[j]);
           lt[r * Lp + l] += lw;
         }
       }

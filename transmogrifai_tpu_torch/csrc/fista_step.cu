@@ -33,7 +33,7 @@ extern "C" int fista_step_launch(const void* X, const void* V, const void* muv,
                           int C, int lane0, int G, int loss, int TR, int CS,
                           int DS, int S, int v_res, int acc_res, int ncl_max,
                           int smem, void* stream) {
-  if (C != 1 || loss < TC_LOGISTIC || loss > TC_SQUARED)
+  if (C != 1 || loss < FL_LOGISTIC || loss > FL_SQUARED)
     return (int)cudaErrorInvalidValue;
   return fista_tc_launch(X, V, muv, b, W, y, wsum, partial, accg, vg, out, N,
                          D, L, C, lane0, G, loss, TR, CS, DS, S, v_res,

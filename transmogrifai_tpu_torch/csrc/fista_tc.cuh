@@ -93,10 +93,9 @@
 
 #include <type_traits>
 
-namespace tc_cg = cooperative_groups;
+#include "fista_loss.cuh"
 
-enum { TC_LOGISTIC = 0, TC_SQUARED_HINGE = 1, TC_GRAM = 2, TC_SQUARED = 3,
-       TC_SOFTMAX = 4 };
+namespace tc_cg = cooperative_groups;
 
 #define TC_THREADS 256
 #define TC_WARPS 8
@@ -253,26 +252,11 @@ __device__ __forceinline__ void tc_load_tile(const TcParams& p, float* xs,
     const int f = e >> p.lTR, r = e & (p.TR - 1);
     const long long n = r0 + r;
     const bool wrow = f < p.FU;
-    const bool ok = n < p.N && (wrow || p.loss != TC_GRAM);
+    const bool ok = n < p.N && (wrow || p.loss != FL_GRAM);
     const float* src = wrow ? p.W + (long long)(p.fold0 + f) * p.N + n
                             : (const float*)p.y + n;
     tc_cp4(wy + e, ok ? src : p.X, ok ? 4 : 0);
   }
-}
-
-// the loss derivative at margin mm, weighted by w / wsum (rws = 1 / wsum)
-__device__ __forceinline__ float tc_loss(int loss, float mm, float yn,
-                                         float w, float rws) {
-  if (loss == TC_LOGISTIC) {
-    const float pr = __frcp_rn(1.f + expf(-mm));
-    return w * (pr - yn) * rws;
-  }
-  if (loss == TC_SQUARED_HINGE) {
-    const float viol = fmaxf(0.f, 1.f - yn * mm);
-    return w * (-2.f * viol * yn) * rws;
-  }
-  if (loss == TC_SQUARED) return w * (mm - yn) * rws;
-  return (w * rws) * mm;
 }
 
 __device__ __forceinline__ void tc_store_g(float* ghi, float* glo, int i,
@@ -464,8 +448,8 @@ __global__ void __launch_bounds__(TC_THREADS, NT <= 4 ? 2 : 1)
         const float yn = h ? yB : yA;
         float g0, g1;
         if (p.C == 1) {
-          g0 = tc_loss(p.loss, m0, yn, wt[cfo[j0] + row], crw[j0]);
-          g1 = tc_loss(p.loss, m1, yn, wt[cfo[j0 + 1] + row], crw[j0 + 1]);
+          g0 = fl_grad(p.loss, m0, yn, wt[cfo[j0] + row], crw[j0]);
+          g1 = fl_grad(p.loss, m1, yn, wt[cfo[j0 + 1] + row], crw[j0 + 1]);
         } else if (!quad) {
           continue;                              // below, lane by lane
         } else {
@@ -596,7 +580,7 @@ __global__ void __launch_bounds__(TC_THREADS, NT <= 4 ? 2 : 1)
         for (int q = 1; q < nsl; ++q) m += src[(q * TR + r) * Jp + j];
         m = (m - cmuv[j]) + cb[j];
         const float g = r0 + r < p.N
-                            ? tc_loss(p.loss, m, yt[r], wt[cfo[j] + r], crw[j])
+                            ? fl_grad(p.loss, m, yt[r], wt[cfo[j] + r], crw[j])
                             : 0.f;
         tc_store_g(gh, gl, r * Jp + j, g);
       }
@@ -979,8 +963,8 @@ static int fista_tc_run(TcParams p, int ncl_max, int smem, void* out,
                         void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (p.N < 1 || p.D < 1 || p.L < 1 || p.C < 1 || p.G < 1 || ncl_max < 1 ||
-      p.L * p.C > 8 * TC_NTMAX || p.loss < 0 || p.loss > TC_SOFTMAX ||
-      (p.loss == TC_SOFTMAX) != (p.C > 1))
+      p.L * p.C > 8 * TC_NTMAX || p.loss < 0 || p.loss > FL_SOFTMAX ||
+      (p.loss == FL_SOFTMAX) != (p.C > 1))
     return (int)cudaErrorInvalidValue;
   p.J = p.L * p.C;
   p.Jc = (p.J + 7) / 8 * 8;

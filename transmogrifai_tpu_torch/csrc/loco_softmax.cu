@@ -24,8 +24,10 @@
 // forms X * m_g.
 //
 // Design: one warp per row (grid-stride over rows).  Each lane of the warp
-// owns a slot of shared memory (S floats, or two of S with a tail: the
-// model's widest layer; the plan sizes it).  The base: lane i sums
+// owns a slot of shared memory: SA floats for the activations of the first
+// layer and of every second tail layer, and, with a tail, SB more for the
+// layers between (ping-pong buffers; the plan sizes both from the model's
+// widths).  The base: lane i sums
 // phi(x_j) W1[j, :] over the columns j = i, i + 32, ... into its slot, and
 // lane k then adds the 32 slots' entry k in lane order (dot[k]).  The
 // groups: lane i takes group g0 + i of each 32 (columns sorted by group,
@@ -34,7 +36,9 @@
 // b1, runs the tail and the softmax on its own slot, and offers its diff to
 // the warp's top-K (loco_topk.cuh).  Every sum runs in a fixed order: the
 // same bits on every launch.  The tail's weights are staged in shared
-// memory; W1 is read through the cache.  Per-lane state lives in shared
+// memory where they fit beside the warps' slots (tw_smem), else read from
+// device memory through the cache (a wide or deep MLP: 256 x 256 alone is
+// 256 KB); W1 is read through the cache.  Per-lane state lives in shared
 // memory, not registers, so a wide C or H costs no spills.
 //
 // Bound: device-memory bytes — X read once (4 N D) and the [N, K] output
@@ -50,7 +54,8 @@
 // the tail (ReLU, then each layer; ReLU between layers) of a lane's first
 // layer activations a[0..H), then the softmax's last class; `b` is the
 // lane's second buffer (a tail of one layer or more), dims[0..n_tail] the
-// widths from H to C, tw each layer's W [in][out] then b [out]
+// widths from H to C, tw each layer's W [in][out] then b [out] (shared or
+// device memory)
 __device__ __forceinline__ float tail_prob(float* a, float* b,
                                            const float* tw,
                                            const int32_t* dims, int n_tail,
@@ -90,15 +95,17 @@ __global__ void loco_softmax_kernel(const float* __restrict__ X,
                                     int32_t* __restrict__ out_idx,
                                     long long N, int D, int G, int K,
                                     int strategy, int H, int C, int n_tail,
-                                    int relu_in, int S, int TW) {
+                                    int relu_in, int SA, int SB, int TW,
+                                    int tw_smem) {
   extern __shared__ float sm[];
-  float* tw = sm;                                    // [TW] tail weights
-  const int SP = (n_tail ? 2 * S : S) | 1;           // a lane's slot stride
+  const int staged = tw_smem ? TW : 0;               // tail weights in sm
+  const float* tw = tw_smem ? sm : tw_g;
+  const int SP = (SA + SB) | 1;                      // a lane's slot stride
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* region = tw + TW + warp * (32 * SP + H);
+  float* region = sm + staged + warp * (32 * SP + H);
   float* slot = region + lane * SP;                  // this lane's slot
   float* dot = region + 32 * SP;                     // [H] the warp's dot
-  for (int i = threadIdx.x; i < TW; i += blockDim.x) tw[i] = tw_g[i];
+  for (int i = threadIdx.x; i < staged; i += blockDim.x) sm[i] = tw_g[i];
   __syncthreads();
 
   const long long first = ((long long)blockIdx.x * blockDim.x
@@ -121,7 +128,7 @@ __global__ void loco_softmax_kernel(const float* __restrict__ X,
     }
     __syncwarp();
     for (int k = 0; k < H; ++k) slot[k] = dot[k] + __ldg(b1 + k);
-    const float base = tail_prob(slot, slot + S, tw, dims, n_tail, H, C);
+    const float base = tail_prob(slot, slot + SA, tw, dims, n_tail, H, C);
 
     WarpTopK t = loco_topk_init(K, strategy, out_val + n * K,
                                 out_idx + n * K);
@@ -140,7 +147,7 @@ __global__ void loco_softmax_kernel(const float* __restrict__ X,
         }
         for (int k = 0; k < H; ++k)
           slot[k] = (dot[k] - slot[k]) + __ldg(b1 + k);
-        d = base - tail_prob(slot, slot + S, tw, dims, n_tail, H, C);
+        d = base - tail_prob(slot, slot + SA, tw, dims, n_tail, H, C);
       }
       loco_topk_offer(t, valid, g, d);
     }
@@ -155,11 +162,12 @@ extern "C" int loco_softmax_launch(const void* X, const void* W1,
                                    const void* goff, void* out_val,
                                    void* out_idx, long long N, int D, int G,
                                    int K, int strategy, int H, int C,
-                                   int n_tail, int relu_in, int S, int TW,
-                                   int blocks, int threads, int smem,
-                                   void* stream) {
-  if (K < 1 || K > G || D < 1 || H < 1 || C < 2 || S < H || S < C ||
-      n_tail < 0 || (n_tail == 0 && H != C) || threads % 32 || threads < 32 ||
+                                   int n_tail, int relu_in, int SA, int SB,
+                                   int TW, int tw_smem, int blocks,
+                                   int threads, int smem, void* stream) {
+  if (K < 1 || K > G || D < 1 || H < 1 || C < 2 || SA < H ||
+      (n_tail == 0 ? SB != 0 : SB < 1) || n_tail < 0 ||
+      (n_tail == 0 && H != C) || threads % 32 || threads < 32 ||
       strategy < 0 || strategy > 2 || blocks < 1 || TW < 0)
     return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -172,6 +180,6 @@ extern "C" int loco_softmax_launch(const void* X, const void* W1,
       (const float*)X, (const float*)W1, (const float*)b1, (const float*)tw,
       (const int32_t*)dims, (const int32_t*)perm, (const int32_t*)goff,
       (float*)out_val, (int32_t*)out_idx, N, D, G, K, strategy, H, C, n_tail,
-      relu_in, S, TW);
+      relu_in, SA, SB, TW, tw_smem);
   return (int)cudaGetLastError();
 }

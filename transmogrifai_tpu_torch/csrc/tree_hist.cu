@@ -6,121 +6,312 @@
 // einsum "cnb,nk->ckb" (:334-338).  The TPU program builds one-hot matrices
 // so the MXU can do a scatter-add; on Hopper the scatter-add is native.
 //
-// Design: each block owns a shared-memory histogram for the nodes of one
-// level (P nodes x Dc features x NB bins x S stats, f32) and walks a
-// grid-stride range of the row-major int8 bin matrix B, so a warp reads 32
-// consecutive bytes.  Each element adds its row's S statistics into shared
-// memory with f32 atomics; at the end the block adds its non-zero partials
-// into the global histogram with f32 atomics.  Grid: x = row ranges,
-// y = lanes, z = feature chunks (a chunk's histogram has to fit the block's
-// shared memory).  Atomics make the f32 sums order-dependent run to run.
-// A row whose S statistics are all zero adds nothing: it is exact, since
-// x + (+-0.0) == x for every x, and it spares the atomics of out-of-bag and
-// held-out rows (a forest lane's weight is 0 on ~60% of its
-// rows: Poisson(1) zeros times the fold's held-out third).  With a node mask
-// ([K, P, D] bytes, each node's drawn feature subset), cells of features
-// outside a node's subset are left at zero: the split search never reads
-// them.  The node totals count every row whatever the mask.
+// Design.  A block owns one lane k, a group of Pg of the level's nodes, a
+// chunk of the features and a range of rows, and holds that group's
+// histogram in shared memory: for each node, its "slots" — the chunk's
+// features, or with a node mask ([K, P, D] bytes, each node's drawn feature
+// subset) only the features of the node's subset, compacted (a forest node
+// keeps 5 of 28), so a forest level of 32 nodes fits one block whole.
+// Grid: x = (node group, feature chunk, lane), group fastest, so the blocks
+// of one row range run together and share its rows of B, node ids and
+// statistics in L2; y = row ranges, sized by models/tree_kernels.hist_plan
+// so that a level of any lane count fills the card.
+//   Each warp scans its rows 64 at a time: a lane reads the node ids of two
+//   rows (coalesced) and, for a row in the block's group, its statistics; a
+//   row outside the level or the group, or with all-zero statistics, costs
+//   that and nothing more.  The rows that pass are appended to the warp's
+//   queue in shared memory (ballot and popcount); whenever 32 are queued,
+//   each lane takes one and adds its statistics into the cells of the row's
+//   slots: the row's bins are read as 32-bit words (4 features a load, the
+//   first 32 features' words at once) or, through a node mask, gathered
+//   byte by byte (reading a 28-byte row whole as words measured slower: 9.0
+//   against 6.4 ms at 300 lanes); zero statistics add nothing
+//   (exact: x + 0 == x).  Each lane walks its row's slots from its own
+//   starting slot, so the warp's atomics spread over several features'
+//   cells.  So every lane works on a live row, the node id and statistics
+//   of a row are read once per (lane, node group, chunk) and there is no
+//   division in the row loop.  At the end the block adds its non-zero cells
+//   into the global histogram with f32 atomics (cells of features outside a
+//   node's subset stay at the zero the wrapper wrote), and the chunk-0
+//   blocks add the node totals, which count every live row whatever the
+//   mask: a node's total is the sum over the bins of its first slot (every
+//   live row lands in one of them), so the rows add no atomics for it; only
+//   a node with no slot in the block (and the totals-only bottom level)
+//   adds its rows' statistics one by one.  The f32 atomics make the sums' order change from run
+//   to run; a forest's statistics are integer counts, whose f32 sums are
+//   exact in any order.
 //
-// A level whose nodes do not fit one block's shared memory (more than ~130
-// nodes at S = 3) goes to tree_hist_deep.cu instead, in one pass.
+// A level whose nodes do not fit one block's shared memory (the wrapper's
+// rule: 2·P·NB·S·4 bytes above 99 KB) goes to tree_hist_deep.cu instead.
 //
-// Bound: device-memory bytes.  Per lane and level it must read B once
-// (N*D bytes), the row's node id (4N) and statistics (4SN) — at 1M x 28,
-// S=3: 28 + 4 + 12 MB — and write the small histogram.
+// Bound: device-memory bytes.  Per level it must read B once (N*D bytes),
+// each lane's node ids (4N) and statistics (4SN) — at 1M x 28, S = 3: 28 MB
+// plus 16 MB a lane — and write the histogram.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__global__ void tree_hist_kernel(const int8_t* __restrict__ B,
-                                 const int32_t* __restrict__ row_node,
-                                 const float* __restrict__ stats,
-                                 const uint8_t* __restrict__ node_mask,
-                                 float* __restrict__ hist,
-                                 float* __restrict__ totals,
-                                 long long N, int D, int NB, int S,
-                                 int offset, int P, int Dc, int with_hist) {
-  extern __shared__ float sm[];
-  const int k = blockIdx.y;
-  const int d0 = blockIdx.z * Dc;
-  const int dc = with_hist ? min(Dc, D - d0) : 0;
-  const int hsize = P * Dc * NB * S;        // this chunk's histogram
-  const int do_tot = (blockIdx.z == 0);
-  float* sh = sm;
-  float* st = sm + (with_hist ? hsize : 0);
-  const int ssize = (with_hist ? hsize : 0) + P * S;
-  for (int i = threadIdx.x; i < ssize; i += blockDim.x) sm[i] = 0.f;
-  __syncthreads();
+#define HIST_QUEUE 64                 // per warp: rows waiting for a warp
 
-  const int32_t* rn = row_node + (long long)k * N;
-  const float* sk = stats + (long long)k * N * S;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  if (with_hist) {
-    const long long total = N * dc;
-    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         e < total; e += stride) {
-      const long long n = e / dc;
-      const int dl = (int)(e - n * dc);
-      const int p = rn[n] - offset;
-      if (p < 0 || p >= P) continue;
-      const float* s = sk + n * S;
-      bool any = false;
-      for (int j = 0; j < S; ++j) any |= s[j] != 0.f;
-      if (!any) continue;
-      if (do_tot && dl == 0)
-        for (int j = 0; j < S; ++j) atomicAdd(st + p * S + j, s[j]);
-      if (node_mask &&
-          !node_mask[((long long)k * P + p) * D + d0 + dl]) continue;
-      const int b = B[n * D + d0 + dl];
-      float* h = sh + ((p * Dc + dl) * NB + b) * S;
-      for (int j = 0; j < S; ++j) atomicAdd(h + j, s[j]);
+// the cells of one queued row: its statistics j0..j0+SR into the slots of
+// node p (smem histogram [Pg][Wc][NB][S])
+template <int SR>
+__device__ __forceinline__ void add_row(
+    float* __restrict__ hcell, const int8_t* __restrict__ brow,
+    const int16_t* __restrict__ flist, int cnt, int p, int Wc, int NB, int S,
+    int j0, const float (&sv)[SR], int d0, int dc, bool masked, bool words,
+    int rot) {
+  const int cell0 = p * Wc;
+  if (masked) {
+    // each lane starts at its own slot, so the warp's lanes add into
+    // different features' cells at once
+    int t = rot % max(cnt, 1);
+    for (int i = 0; i < cnt; ++i, t = t + 1 == cnt ? 0 : t + 1) {
+      const int b = __ldg(brow + d0 + flist[cell0 + t]);
+      float* h = hcell + ((cell0 + t) * NB + b) * S + j0;
+#pragma unroll
+      for (int j = 0; j < SR; ++j)
+        if (sv[j] != 0.f) atomicAdd(h + j, sv[j]);
     }
-  } else {
-    for (long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         n < N; n += stride) {
-      const int p = rn[n] - offset;
-      if (p < 0 || p >= P) continue;
-      for (int j = 0; j < S; ++j)
-        if (sk[n * S + j] != 0.f)
-          atomicAdd(st + p * S + j, sk[n * S + j]);
+    return;
+  }
+  int t = 0;
+  if (words) {
+    const uint32_t* w = (const uint32_t*)(brow + d0);
+    const int nw4 = dc >> 2;
+    // up to 8 words (32 features) loaded at once, the rest as they come
+    uint32_t pre[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) pre[i] = i < nw4 ? __ldg(w + i) : 0u;
+    int q = rot % max(nw4, 1);
+    for (int i = 0; i < nw4; ++i, q = q + 1 == nw4 ? 0 : q + 1) {
+      uint32_t v = pre[0];
+#pragma unroll
+      for (int k = 1; k < 8; ++k) v = q == k ? pre[k] : v;
+      if (q >= 8) v = __ldg(w + q);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int b = (int)((v >> (8 * u)) & 0xffu);
+        float* h = hcell + ((cell0 + 4 * q + u) * NB + b) * S + j0;
+#pragma unroll
+        for (int j = 0; j < SR; ++j)
+          if (sv[j] != 0.f) atomicAdd(h + j, sv[j]);
+      }
+    }
+    t = 4 * nw4;
+  }
+  for (; t < dc; ++t) {
+    const int b = __ldg(brow + d0 + t);
+    float* h = hcell + ((cell0 + t) * NB + b) * S + j0;
+#pragma unroll
+    for (int j = 0; j < SR; ++j)
+      if (sv[j] != 0.f) atomicAdd(h + j, sv[j]);
+  }
+}
+
+template <int SR>
+__global__ void __launch_bounds__(512) tree_hist_kernel(
+    const int8_t* __restrict__ B, const int32_t* __restrict__ row_node,
+    const float* __restrict__ stats, const uint8_t* __restrict__ node_mask,
+    float* __restrict__ hist, float* __restrict__ totals, long long N, int D,
+    int NB, int S, int offset, int P, int Pg, int NG, int Dc, int NC, int Wc,
+    long long RB, int with_hist) {
+  extern __shared__ float sm[];
+  const int g = blockIdx.x % NG;
+  const int c = (blockIdx.x / NG) % NC;
+  const int k = blockIdx.x / (NG * NC);
+  const int p0 = g * Pg;                         // the group's first node
+  const int d0 = c * Dc;
+  const int dc = with_hist ? min(Dc, D - d0) : 0;
+  const bool masked = node_mask != nullptr && with_hist;
+  const bool do_tot = c == 0;
+  const int hsize = with_hist ? Pg * Wc * NB * S : 0;
+  float* hcell = sm;                             // [Pg][Wc][NB][S]
+  float* tot = hcell + hsize;                    // [Pg][S]
+  int* queue = (int*)(tot + Pg * S);             // per warp: n[64], p[64]
+  int* cnt_s = queue + (blockDim.x >> 5) * 2 * HIST_QUEUE;   // [Pg]
+  int16_t* flist = (int16_t*)(cnt_s + Pg);       // [Pg][Wc] features - d0
+  for (int i = threadIdx.x; i < hsize + Pg * S; i += blockDim.x) sm[i] = 0.f;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  // each node's slots in this chunk: the features of its subset, in order
+  if (masked) {
+    for (int p = warp; p < Pg; p += nw) {
+      int cnt = 0;
+      const int node = p0 + p;
+      if (node < P) {
+        const uint8_t* m = node_mask + ((long long)k * P + node) * D;
+        for (int a = 0; a < dc; a += 32) {
+          const bool on = a + lane < dc && m[d0 + a + lane];
+          const unsigned bal = __ballot_sync(0xffffffffu, on);
+          const int pos = cnt + __popc(bal & ((1u << lane) - 1u));
+          if (on && pos < Wc) flist[p * Wc + pos] = (int16_t)(a + lane);
+          cnt += __popc(bal);
+        }
+      }
+      if (lane == 0) cnt_s[p] = min(cnt, Wc);
     }
   }
   __syncthreads();
 
+  int* qn = queue + warp * 2 * HIST_QUEUE;
+  int* qp = qn + HIST_QUEUE;
+  int qc = 0;
+  const long long r0 = (long long)blockIdx.y * RB;
+  const long long r1 = min(N, r0 + RB);
+  const int32_t* rn = row_node + (long long)k * N;
+  const float* sk = stats + (long long)k * N * S;
+  const bool words = !masked && D % 4 == 0 && d0 % 4 == 0 &&
+                     (uintptr_t)B % 4 == 0;
+  const unsigned below = (1u << lane) - 1u;
+
+  // lane: its queued row's statistics into the tot and hist cells
+  auto drain = [&](int n, int p, bool on) {
+    if (!on) return;
+    const float* s = sk + (long long)n * S;
+    const int cnt = !with_hist ? 0 : masked ? cnt_s[p] : dc;
+    if (do_tot && cnt == 0)
+      for (int j = 0; j < S; ++j) {
+        const float v = __ldg(s + j);
+        if (v != 0.f) atomicAdd(tot + p * S + j, v);
+      }
+    if (!with_hist) return;
+    const int8_t* brow = B + (long long)n * D;
+    for (int j0 = 0; j0 < S; j0 += SR) {
+      float sv[SR];
+#pragma unroll
+      for (int j = 0; j < SR; ++j)
+        sv[j] = j0 + j < S ? __ldg(s + j0 + j) : 0.f;
+      add_row<SR>(hcell, brow, flist, cnt, p, Wc, NB, S, j0, sv, d0, dc,
+                  masked, words, lane);
+    }
+  };
+
+  for (long long base = r0 + 64LL * warp; base < r1; base += 64LL * nw) {
+    int node[2];
+    bool in[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const long long n = base + 32 * u + lane;
+      node[u] = n < r1 ? __ldg(rn + n) - offset - p0 : -1;
+      in[u] = node[u] >= 0 && node[u] < Pg && p0 + node[u] < P;
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const long long n = base + 32 * u + lane;
+      bool live = false;
+      if (in[u]) {
+        const float* s = sk + n * S;
+        for (int j = 0; j < S; ++j) live |= __ldg(s + j) != 0.f;
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, live);
+      if (live) {
+        const int pos = qc + __popc(bal & below);
+        qn[pos] = (int)n;
+        qp[pos] = node[u];
+      }
+      qc += __popc(bal);
+      if (qc >= 32) {
+        __syncwarp();
+        const int n_q = qn[lane], p_q = qp[lane];
+        __syncwarp();
+        if (lane < qc - 32) {
+          qn[lane] = qn[lane + 32];
+          qp[lane] = qp[lane + 32];
+        }
+        __syncwarp();
+        qc -= 32;
+        drain(n_q, p_q, true);
+      }
+    }
+  }
+  __syncwarp();
+  if (qc > 0) drain(qn[lane < qc ? lane : 0], qp[lane < qc ? lane : 0],
+                    lane < qc);
+  __syncthreads();
+
+  // global layouts: hist [K, P, D, NB, S], totals [K, P, S]
   if (with_hist) {
-    // global layout [K, P, D, NB, S]; this block holds features d0..d0+dc
-    float* gh = hist + (long long)k * P * D * NB * S;
-    for (int i = threadIdx.x; i < P * dc * NB * S; i += blockDim.x) {
-      const int j = i % (NB * S);
-      const int pd = i / (NB * S);
-      const int p = pd / dc, dl = pd % dc;
-      const float v = sh[(p * Dc + dl) * NB * S + j];
-      if (v != 0.f) atomicAdd(gh + ((long long)p * D + d0 + dl) * NB * S + j, v);
+    const int per_node = Wc * NB * S;
+    for (int i = threadIdx.x; i < hsize; i += blockDim.x) {
+      const float v = hcell[i];
+      if (v == 0.f) continue;
+      const int p = i / per_node;
+      const int rest = i - p * per_node;
+      const int t = rest / (NB * S);
+      const int bj = rest - t * NB * S;
+      const int d = d0 + (masked ? flist[p * Wc + t] : t);
+      atomicAdd(hist + (((long long)k * P + p0 + p) * D + d) * NB * S + bj,
+                v);
     }
   }
   if (do_tot) {
-    float* gt = totals + (long long)k * P * S;
-    for (int i = threadIdx.x; i < P * S; i += blockDim.x)
-      if (st[i] != 0.f) atomicAdd(gt + i, st[i]);
+    // a node with a slot here: its total is the sum over one slot's bins
+    // (each of its live rows added into exactly one of them)
+    float* gt = totals + ((long long)k * P + p0) * S;
+    for (int i = threadIdx.x; i < Pg * S; i += blockDim.x) {
+      const int p = i / S, j = i - p * S;
+      float v = tot[i];
+      if (with_hist && (masked ? cnt_s[p] : dc) > 0)
+        for (int b = 0; b < NB; ++b) v += hcell[(p * Wc * NB + b) * S + j];
+      if (v != 0.f) atomicAdd(gt + i, v);
+    }
   }
+}
+
+// the shared-memory bytes of one block (models/tree_kernels.hist_plan adds
+// the same terms)
+static size_t hist_smem(int Pg, int Wc, int NB, int S, int threads,
+                        int with_hist) {
+  const size_t floats = (with_hist ? (size_t)Pg * Wc * NB * S : 0) +
+                        (size_t)Pg * S;
+  const size_t ints = (size_t)(threads / 32) * 2 * HIST_QUEUE + Pg;
+  return 4 * (floats + ints) + 2 * (size_t)Pg * Wc;
+}
+
+template <int SR>
+static int launch_sr(const void* B, const void* row_node, const void* stats,
+                     const void* node_mask, void* hist, void* totals,
+                     long long N, int D, int NB, int S, int K, int offset,
+                     int P, int Pg, int NG, int Dc, int NC, int Wc,
+                     long long RB, int R, int threads, size_t smem,
+                     int with_hist, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      tree_hist_kernel<SR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)K * NG * NC, R);
+  tree_hist_kernel<SR><<<grid, threads, smem, s>>>(
+      (const int8_t*)B, (const int32_t*)row_node, (const float*)stats,
+      (const uint8_t*)node_mask, (float*)hist, (float*)totals, N, D, NB, S,
+      offset, P, Pg, NG, Dc, NC, Wc, RB, with_hist);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int tree_hist_launch(const void* B, const void* row_node,
                                 const void* stats, const void* node_mask,
                                 void* hist, void* totals, long long N, int D,
                                 int NB, int S, int K, int offset, int P,
-                                int Dc, int with_hist, int grid_x,
-                                void* stream) {
-  const int n_chunks = with_hist ? (D + Dc - 1) / Dc : 1;
-  const size_t smem =
-      sizeof(float) * ((with_hist ? (size_t)P * Dc * NB * S : 0) + P * S);
-  cudaError_t err = cudaFuncSetAttribute(
-      tree_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(grid_x, K, n_chunks);
-  tree_hist_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)B, (const int32_t*)row_node, (const float*)stats,
-      (const uint8_t*)node_mask, (float*)hist, (float*)totals, N, D, NB, S,
-      offset, P, Dc, with_hist);
-  return (int)cudaGetLastError();
+                                int Pg, int NG, int Dc, int NC, int Wc,
+                                long long RB, int R, int threads, int smem,
+                                int with_hist, void* stream) {
+  if (K < 1 || P < 1 || Pg < 1 || NG < 1 || NC < 1 || R < 1 || R > 65535 ||
+      RB < 1 || threads % 32 || threads < 32 || threads > 512 ||
+      N >= (1LL << 31) || (with_hist && (Dc < 1 || Dc > 32767 || Wc < 1 || NB > 127)) ||
+      (size_t)smem != hist_smem(Pg, Wc, NB, S, threads, with_hist) ||
+      (long long)K * NG * NC > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const size_t sz = (size_t)smem;
+  if (S <= 3)
+    return launch_sr<3>(B, row_node, stats, node_mask, hist, totals, N, D, NB,
+                        S, K, offset, P, Pg, NG, Dc, NC, Wc, RB, R, threads,
+                        sz, with_hist, s);
+  if (S <= 5)
+    return launch_sr<5>(B, row_node, stats, node_mask, hist, totals, N, D, NB,
+                        S, K, offset, P, Pg, NG, Dc, NC, Wc, RB, R, threads,
+                        sz, with_hist, s);
+  return launch_sr<8>(B, row_node, stats, node_mask, hist, totals, N, D, NB,
+                      S, K, offset, P, Pg, NG, Dc, NC, Wc, RB, R, threads, sz,
+                      with_hist, s);
 }

@@ -7,8 +7,10 @@
 // _leaf_xgb leaf value that follow it (:358-364, :220-221).
 //
 // Design: one block per (node, lane); warp w takes features w, w+nwarps, ...
-// and lane b holds bin b (NB <= 32), so the prefix over bins is a warp
-// shuffle scan and the argmax over bins a warp reduction that keeps the
+// and lane l holds bins l*Q .. l*Q+Q-1 (Q = ceil(NB/32), NB <= 127 as
+// bin_data allows; split_scan.cuh), so the prefix over bins is each lane's
+// running sum plus a warp shuffle scan of the lanes' totals, and the argmax
+// over bins a walk of the lane's bins and a warp reduction that keeps the
 // LOWEST bin on equal gain.  The features pass in chunks of `dc` (sized by
 // the wrapper's split_plan, held in dynamic shared memory): after each chunk
 // thread 0 walks the chunk's per-feature winners in feature order with a
@@ -23,6 +25,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "split_scan.cuh"
+
+template <int Q>
 __global__ void tree_split_kernel(const float* __restrict__ hist,
                                   const float* __restrict__ totals,
                                   const uint8_t* __restrict__ fmask,
@@ -56,35 +61,31 @@ __global__ void tree_split_kernel(const float* __restrict__ hist,
     for (int dl = warp; dl < dn; dl += nwarps) {
       const int d = d0 + dl;
       const float* h = hist + ((long long)node * D + d) * NB * 3;
-      float c = 0.f, g = 0.f, hh = 0.f;
-      if (lane < NB) {
-        c = h[lane * 3 + 0];
-        g = h[lane * 3 + 1];
-        hh = h[lane * 3 + 2];
+      float v[Q][3];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int b = lane * Q + q;
+#pragma unroll
+        for (int m = 0; m < 3; ++m) v[q][m] = b < NB ? h[b * 3 + m] : 0.f;
       }
-      // inclusive prefix over bins
-      for (int off = 1; off < 32; off <<= 1) {
-        const float c2 = __shfl_up_sync(0xffffffffu, c, off);
-        const float g2 = __shfl_up_sync(0xffffffffu, g, off);
-        const float h2 = __shfl_up_sync(0xffffffffu, hh, off);
-        if (lane >= off) { c += c2; g += g2; hh += h2; }
+      bin_prefix<Q, 3>(v, lane);               // inclusive, over bins
+      float gq[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float c = v[q][0], g = v[q][1], hh = v[q][2];
+        const float rc = pc - c, rg = pg - g, rh = ph - hh;
+        const float gain = 0.5f * ((g * g / (hh + lam) + rg * rg / (rh + lam))
+                                   - parent_score);
+        const bool ok = lane * Q + q < NB - 1 && c >= mi && rc >= mi &&
+                        fmask[d];
+        gq[q] = ok ? gain : -INFINITY;
       }
-      const float rc = pc - c, rg = pg - g, rh = ph - hh;
-      float gain = 0.5f * ((g * g / (hh + lam) + rg * rg / (rh + lam))
-                           - parent_score);
-      const bool ok = lane < NB - 1 && c >= mi && rc >= mi && fmask[d];
-      if (!ok) gain = -INFINITY;
-      int bin = lane;
-      // argmax over bins; equal gains keep the lower bin
-      for (int off = 16; off > 0; off >>= 1) {
-        const float og = __shfl_down_sync(0xffffffffu, gain, off);
-        const int ob = __shfl_down_sync(0xffffffffu, bin, off);
-        if (og > gain || (og == gain && ob < bin)) { gain = og; bin = ob; }
-      }
+      float gain;
+      int bin;
+      bin_argmax<Q>(gq, lane, gain, bin);
       if (lane == 0) {
-        // all -inf: bin 0, as jnp.argmax returns
         fg[dl] = gain;
-        fb[dl] = gain == -INFINITY ? 0 : bin;
+        fb[dl] = bin;
       }
     }
     __syncthreads();
@@ -116,15 +117,22 @@ extern "C" int tree_split_launch(const void* hist, const void* totals,
                                  void* out_leaf, void* out_thr,
                                  void* out_value, int K, int P, int D, int NB,
                                  int dc, int threads, void* stream) {
-  if (NB > 32 || NB < 2 || dc < 1 || P > 65535 || K > 65535)
+  if (NB > 127 || NB < 2 || dc < 1 || P > 65535 || K > 65535)
     return (int)cudaErrorInvalidValue;
   dim3 grid(P, K);
-  tree_split_kernel<<<grid, threads, 2 * dc * sizeof(float),
-                      (cudaStream_t)stream>>>(
-      (const float*)hist, (const float*)totals, (const uint8_t*)fmask,
-      (const float*)splits, (const float*)min_inst, (const float*)min_gain,
-      (const float*)lam, (float*)out_gain, (int32_t*)out_feat,
-      (int32_t*)out_bin, (uint8_t*)out_leaf, (float*)out_thr,
-      (float*)out_value, P, D, NB, dc);
+  const size_t smem = 2 * dc * sizeof(float);
+  const cudaStream_t s = (cudaStream_t)stream;
+#define SPLIT_ARGS                                                          \
+  (const float*)hist, (const float*)totals, (const uint8_t*)fmask,          \
+      (const float*)splits, (const float*)min_inst, (const float*)min_gain, \
+      (const float*)lam, (float*)out_gain, (int32_t*)out_feat,              \
+      (int32_t*)out_bin, (uint8_t*)out_leaf, (float*)out_thr,               \
+      (float*)out_value, P, D, NB, dc
+  switch (split_q(NB)) {
+    case 1: tree_split_kernel<1><<<grid, threads, smem, s>>>(SPLIT_ARGS); break;
+    case 2: tree_split_kernel<2><<<grid, threads, smem, s>>>(SPLIT_ARGS); break;
+    default: tree_split_kernel<4><<<grid, threads, smem, s>>>(SPLIT_ARGS);
+  }
+#undef SPLIT_ARGS
   return (int)cudaGetLastError();
 }

@@ -16,8 +16,9 @@
 // FMA and the kernel rounds exactly as the plain PyTorch twin does.
 //
 // Design: as tree_split.cu — one block per (node, lane); warp w takes
-// features w, w+nwarps, ...; lane b holds bin b (NB <= 32), so the prefix
-// over bins is a warp shuffle scan and the argmax over bins a warp
+// features w, w+nwarps, ...; lane l holds bins l*Q .. l*Q+Q-1 (Q =
+// ceil(NB/32), NB <= 127; split_scan.cuh), so the prefix over bins is each
+// lane's running sum plus a warp shuffle scan, and the argmax over bins a
 // reduction that keeps the LOWEST bin on equal gain.  A feature outside the
 // tree mask or the node's subset skips its histogram read (warp-uniform
 // branch).  The features pass in chunks of `dc` (dynamic shared memory);
@@ -43,6 +44,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "split_scan.cuh"
+
 // the squares of the CT values s_c / cnt, added to sq in class order
 template <int CT>
 __device__ __forceinline__ float add_squares(float sq, const float* s,
@@ -55,7 +58,7 @@ __device__ __forceinline__ float add_squares(float sq, const float* s,
   return sq;
 }
 
-template <int CT, bool ONE>
+template <int CT, bool ONE, int Q>
 __global__ void tree_split_gini_kernel(const float* __restrict__ hist,
                                        const float* __restrict__ totals,
                                        const uint8_t* __restrict__ fmask,
@@ -102,70 +105,81 @@ __global__ void tree_split_gini_kernel(const float* __restrict__ hist,
         continue;
       }
       const float* h = hist + (node * D + d) * NB * S;
-      float lc, rc, lsq = 0.f, rsq = 0.f;
+      float lc[Q], rc[Q], lsq[Q], rsq[Q];
       if (ONE) {
         // the count and every class: one prefix over bins
-        float l[1 + CT], r[1 + CT];
+        float l[Q][1 + CT];
 #pragma unroll
-        for (int j = 0; j <= CT; ++j)
-          l[j] = lane < NB && j <= C ? h[lane * S + j] : 0.f;
-        for (int off = 1; off < 32; off <<= 1) {
+        for (int q = 0; q < Q; ++q) {
+          const int b = lane * Q + q;
 #pragma unroll
-          for (int j = 0; j <= CT; ++j) {
-            const float t = __shfl_up_sync(0xffffffffu, l[j], off);
-            if (lane >= off) l[j] = __fadd_rn(l[j], t);
-          }
+          for (int j = 0; j <= CT; ++j)
+            l[q][j] = b < NB && j <= C ? h[b * S + j] : 0.f;
         }
+        bin_prefix<Q, 1 + CT>(l, lane);
 #pragma unroll
-        for (int j = 0; j <= CT; ++j) r[j] = __fsub_rn(par[j], l[j]);
-        lc = l[0];
-        rc = r[0];
-        lsq = add_squares<CT>(0.f, l + 1, fmaxf(lc, 1e-12f));
-        rsq = add_squares<CT>(0.f, r + 1, fmaxf(rc, 1e-12f));
+        for (int q = 0; q < Q; ++q) {
+          float r[1 + CT];
+#pragma unroll
+          for (int j = 0; j <= CT; ++j) r[j] = __fsub_rn(par[j], l[q][j]);
+          lc[q] = l[q][0];
+          rc[q] = r[0];
+          lsq[q] = add_squares<CT>(0.f, l[q] + 1, fmaxf(lc[q], 1e-12f));
+          rsq[q] = add_squares<CT>(0.f, r + 1, fmaxf(rc[q], 1e-12f));
+        }
       } else {
         // the counts: prefix over bins; then the classes CT at a time
-        lc = lane < NB ? h[lane * S] : 0.f;
-        for (int off = 1; off < 32; off <<= 1) {
-          const float t = __shfl_up_sync(0xffffffffu, lc, off);
-          if (lane >= off) lc = __fadd_rn(lc, t);
+        float cnt[Q][1];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const int b = lane * Q + q;
+          cnt[q][0] = b < NB ? h[b * S] : 0.f;
         }
-        rc = __fsub_rn(par_g[0], lc);
-        const float lcnt = fmaxf(lc, 1e-12f), rcnt = fmaxf(rc, 1e-12f);
+        bin_prefix<Q, 1>(cnt, lane);
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          lc[q] = cnt[q][0];
+          rc[q] = __fsub_rn(par_g[0], lc[q]);
+          lsq[q] = rsq[q] = 0.f;
+        }
         for (int c0 = 0; c0 < C; c0 += CT) {
-          float l[CT], r[CT];
+          float l[Q][CT];
 #pragma unroll
-          for (int j = 0; j < CT; ++j)
-            l[j] = lane < NB && c0 + j < C ? h[lane * S + 1 + c0 + j] : 0.f;
-          for (int off = 1; off < 32; off <<= 1) {
+          for (int q = 0; q < Q; ++q) {
+            const int b = lane * Q + q;
 #pragma unroll
-            for (int j = 0; j < CT; ++j) {
-              const float t = __shfl_up_sync(0xffffffffu, l[j], off);
-              if (lane >= off) l[j] = __fadd_rn(l[j], t);
-            }
+            for (int j = 0; j < CT; ++j)
+              l[q][j] = b < NB && c0 + j < C ? h[b * S + 1 + c0 + j] : 0.f;
           }
+          bin_prefix<Q, CT>(l, lane);
 #pragma unroll
-          for (int j = 0; j < CT; ++j)
-            r[j] = c0 + j < C ? __fsub_rn(par_g[1 + c0 + j], l[j]) : 0.f;
-          lsq = add_squares<CT>(lsq, l, lcnt);
-          rsq = add_squares<CT>(rsq, r, rcnt);
+          for (int q = 0; q < Q; ++q) {
+            float r[CT];
+#pragma unroll
+            for (int j = 0; j < CT; ++j)
+              r[j] = c0 + j < C ? __fsub_rn(par_g[1 + c0 + j], l[q][j]) : 0.f;
+            lsq[q] = add_squares<CT>(lsq[q], l[q], fmaxf(lc[q], 1e-12f));
+            rsq[q] = add_squares<CT>(rsq[q], r, fmaxf(rc[q], 1e-12f));
+          }
         }
       }
-      const float wl = __fmul_rn(fmaxf(lc, 1e-12f), __fsub_rn(1.f, lsq));
-      const float wr = __fmul_rn(fmaxf(rc, 1e-12f), __fsub_rn(1.f, rsq));
-      float gain = __fsub_rn(__fsub_rn(wpar, wl), wr);
-      const bool ok = lane < NB - 1 && lc >= mi && rc >= mi;
-      if (!ok) gain = -INFINITY;
-      int bin = lane;
-      // argmax over bins; equal gains keep the lower bin
-      for (int off = 16; off > 0; off >>= 1) {
-        const float og = __shfl_down_sync(0xffffffffu, gain, off);
-        const int ob = __shfl_down_sync(0xffffffffu, bin, off);
-        if (og > gain || (og == gain && ob < bin)) { gain = og; bin = ob; }
+      float gq[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float wl = __fmul_rn(fmaxf(lc[q], 1e-12f),
+                                   __fsub_rn(1.f, lsq[q]));
+        const float wr = __fmul_rn(fmaxf(rc[q], 1e-12f),
+                                   __fsub_rn(1.f, rsq[q]));
+        const float gain = __fsub_rn(__fsub_rn(wpar, wl), wr);
+        const bool ok = lane * Q + q < NB - 1 && lc[q] >= mi && rc[q] >= mi;
+        gq[q] = ok ? gain : -INFINITY;
       }
+      float gain;
+      int bin;
+      bin_argmax<Q>(gq, lane, gain, bin);
       if (lane == 0) {
-        // all -inf: bin 0, as jnp.argmax returns
         fg[dl] = gain;
-        fb[dl] = gain == -INFINITY ? 0 : bin;
+        fb[dl] = bin;
       }
     }
     __syncthreads();
@@ -187,6 +201,25 @@ __global__ void tree_split_gini_kernel(const float* __restrict__ hist,
   }
 }
 
+template <int CT, bool ONE, int Q>
+static cudaError_t launch_q(const void* hist, const void* totals,
+                          const void* fmask, const void* node_mask,
+                          const void* splits, const void* min_inst,
+                          const void* min_gain, void* out_gain,
+                          void* out_feat, void* out_bin, void* out_leaf,
+                          void* out_thr, int K, int P, int D, int NB, int C,
+                          int dc, int threads, cudaStream_t stream) {
+  dim3 grid(P, K);
+  tree_split_gini_kernel<CT, ONE, Q><<<grid, threads,
+                                       2 * dc * sizeof(float), stream>>>(
+      (const float*)hist, (const float*)totals, (const uint8_t*)fmask,
+      (const uint8_t*)node_mask, (const float*)splits,
+      (const float*)min_inst, (const float*)min_gain, (float*)out_gain,
+      (int32_t*)out_feat, (int32_t*)out_bin, (uint8_t*)out_leaf,
+      (float*)out_thr, P, D, NB, C, dc);
+  return cudaGetLastError();
+}
+
 template <int CT, bool ONE>
 static cudaError_t launch(const void* hist, const void* totals,
                           const void* fmask, const void* node_mask,
@@ -195,15 +228,23 @@ static cudaError_t launch(const void* hist, const void* totals,
                           void* out_feat, void* out_bin, void* out_leaf,
                           void* out_thr, int K, int P, int D, int NB, int C,
                           int dc, int threads, cudaStream_t stream) {
-  dim3 grid(P, K);
-  tree_split_gini_kernel<CT, ONE><<<grid, threads, 2 * dc * sizeof(float),
-                               stream>>>(
-      (const float*)hist, (const float*)totals, (const uint8_t*)fmask,
-      (const uint8_t*)node_mask, (const float*)splits,
-      (const float*)min_inst, (const float*)min_gain, (float*)out_gain,
-      (int32_t*)out_feat, (int32_t*)out_bin, (uint8_t*)out_leaf,
-      (float*)out_thr, P, D, NB, C, dc);
-  return cudaGetLastError();
+  switch (split_q(NB)) {
+    case 1:
+      return launch_q<CT, ONE, 1>(hist, totals, fmask, node_mask, splits,
+                                  min_inst, min_gain, out_gain, out_feat,
+                                  out_bin, out_leaf, out_thr, K, P, D, NB, C,
+                                  dc, threads, stream);
+    case 2:
+      return launch_q<CT, ONE, 2>(hist, totals, fmask, node_mask, splits,
+                                  min_inst, min_gain, out_gain, out_feat,
+                                  out_bin, out_leaf, out_thr, K, P, D, NB, C,
+                                  dc, threads, stream);
+    default:
+      return launch_q<CT, ONE, 4>(hist, totals, fmask, node_mask, splits,
+                                  min_inst, min_gain, out_gain, out_feat,
+                                  out_bin, out_leaf, out_thr, K, P, D, NB, C,
+                                  dc, threads, stream);
+  }
 }
 
 extern "C" int tree_split_gini_launch(const void* hist, const void* totals,
@@ -216,7 +257,7 @@ extern "C" int tree_split_gini_launch(const void* hist, const void* totals,
                                       void* out_leaf, void* out_thr, int K,
                                       int P, int D, int NB, int C, int ct,
                                       int dc, int threads, void* stream) {
-  if (NB > 32 || NB < 2 || C < 1 || dc < 1 || P > 65535 || K > 65535 ||
+  if (NB > 127 || NB < 2 || C < 1 || dc < 1 || P > 65535 || K > 65535 ||
       (ct == 2 && C != 2) || (ct == 4 && C > 4))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;

@@ -18,9 +18,10 @@
 // FMA and the kernel rounds as the plain PyTorch twin does.
 //
 // Design: as tree_split_gini.cu — one block per (node, lane); warp w takes
-// features w, w+nwarps, ...; lane b holds bin b (NB <= 32), so the prefix
-// over bins is a warp shuffle scan of the three sums and the argmax over
-// bins a warp reduction that keeps the LOWEST bin on equal gain.  A feature
+// features w, w+nwarps, ...; lane l holds bins l*Q .. l*Q+Q-1 (Q =
+// ceil(NB/32), NB <= 127; split_scan.cuh), so the prefix over bins is each
+// lane's running sum plus a warp shuffle scan of the three sums, and the
+// argmax over bins a reduction that keeps the LOWEST bin on equal gain.  A feature
 // outside the tree mask or the node's subset skips its histogram read
 // (warp-uniform branch).  The features pass in chunks of `dc` (dynamic
 // shared memory); after each chunk thread 0 walks its per-feature winners in
@@ -36,11 +37,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "split_scan.cuh"
+
 // sse of (count, sum, sum of squares) in _gain_variance's f32 order
 __device__ __forceinline__ float sse(float c, float s1, float s2) {
   return __fsub_rn(s2, __fdiv_rn(__fmul_rn(s1, s1), fmaxf(c, 1e-12f)));
 }
 
+template <int Q>
 __global__ void tree_split_variance_kernel(
     const float* __restrict__ hist, const float* __restrict__ totals,
     const uint8_t* __restrict__ fmask, const uint8_t* __restrict__ node_mask,
@@ -71,37 +75,32 @@ __global__ void tree_split_variance_kernel(
         if (lane == 0) { fg[dl] = -INFINITY; fb[dl] = 0; }
         continue;
       }
-      const float* h = hist + ((node * D + d) * NB + lane) * 3;
-      float l0 = 0.f, l1 = 0.f, l2 = 0.f;
-      if (lane < NB) { l0 = h[0]; l1 = h[1]; l2 = h[2]; }
-      // the three running sums: one prefix over bins
-      for (int off = 1; off < 32; off <<= 1) {
-        const float t0 = __shfl_up_sync(0xffffffffu, l0, off);
-        const float t1 = __shfl_up_sync(0xffffffffu, l1, off);
-        const float t2 = __shfl_up_sync(0xffffffffu, l2, off);
-        if (lane >= off) {
-          l0 = __fadd_rn(l0, t0);
-          l1 = __fadd_rn(l1, t1);
-          l2 = __fadd_rn(l2, t2);
-        }
+      const float* h = hist + (node * D + d) * NB * 3;
+      float v[Q][3];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int b = lane * Q + q;
+#pragma unroll
+        for (int m = 0; m < 3; ++m) v[q][m] = b < NB ? h[b * 3 + m] : 0.f;
       }
-      const float r0 = __fsub_rn(p0, l0), r1 = __fsub_rn(p1, l1),
-                  r2 = __fsub_rn(p2, l2);
-      float gain = __fsub_rn(__fsub_rn(spar, sse(l0, l1, l2)),
-                             sse(r0, r1, r2));
-      const bool ok = lane < NB - 1 && l0 >= mi && r0 >= mi;
-      if (!ok) gain = -INFINITY;
-      int bin = lane;
-      // argmax over bins; equal gains keep the lower bin
-      for (int off = 16; off > 0; off >>= 1) {
-        const float og = __shfl_down_sync(0xffffffffu, gain, off);
-        const int ob = __shfl_down_sync(0xffffffffu, bin, off);
-        if (og > gain || (og == gain && ob < bin)) { gain = og; bin = ob; }
+      bin_prefix<Q, 3>(v, lane);               // the three running sums
+      float gq[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float l0 = v[q][0], l1 = v[q][1], l2 = v[q][2];
+        const float r0 = __fsub_rn(p0, l0), r1 = __fsub_rn(p1, l1),
+                    r2 = __fsub_rn(p2, l2);
+        const float gain = __fsub_rn(__fsub_rn(spar, sse(l0, l1, l2)),
+                                     sse(r0, r1, r2));
+        const bool ok = lane * Q + q < NB - 1 && l0 >= mi && r0 >= mi;
+        gq[q] = ok ? gain : -INFINITY;
       }
+      float gain;
+      int bin;
+      bin_argmax<Q>(gq, lane, gain, bin);
       if (lane == 0) {
-        // all -inf: bin 0, as jnp.argmax returns
         fg[dl] = gain;
-        fb[dl] = gain == -INFINITY ? 0 : bin;
+        fb[dl] = bin;
       }
     }
     __syncthreads();
@@ -129,16 +128,28 @@ extern "C" int tree_split_variance_launch(
     const void* min_gain, void* out_gain, void* out_feat, void* out_bin,
     void* out_leaf, void* out_thr, int K, int P, int D, int NB, int dc,
     int threads, void* stream) {
-  if (NB > 32 || NB < 2 || dc < 1 || P > 65535 || K > 65535 || P < 1 ||
+  if (NB > 127 || NB < 2 || dc < 1 || P > 65535 || K > 65535 || P < 1 ||
       K < 1 || threads % 32 || threads < 32)
     return (int)cudaErrorInvalidValue;
   dim3 grid(P, K);
-  tree_split_variance_kernel<<<grid, threads, 2 * dc * sizeof(float),
-                               (cudaStream_t)stream>>>(
-      (const float*)hist, (const float*)totals, (const uint8_t*)fmask,
-      (const uint8_t*)node_mask, (const float*)splits,
-      (const float*)min_inst, (const float*)min_gain, (float*)out_gain,
-      (int32_t*)out_feat, (int32_t*)out_bin, (uint8_t*)out_leaf,
-      (float*)out_thr, P, D, NB, dc);
+  const size_t smem = 2 * dc * sizeof(float);
+  const cudaStream_t s = (cudaStream_t)stream;
+#define SPLIT_ARGS                                                          \
+  (const float*)hist, (const float*)totals, (const uint8_t*)fmask,          \
+      (const uint8_t*)node_mask, (const float*)splits,                      \
+      (const float*)min_inst, (const float*)min_gain, (float*)out_gain,     \
+      (int32_t*)out_feat, (int32_t*)out_bin, (uint8_t*)out_leaf,            \
+      (float*)out_thr, P, D, NB, dc
+  switch (split_q(NB)) {
+    case 1:
+      tree_split_variance_kernel<1><<<grid, threads, smem, s>>>(SPLIT_ARGS);
+      break;
+    case 2:
+      tree_split_variance_kernel<2><<<grid, threads, smem, s>>>(SPLIT_ARGS);
+      break;
+    default:
+      tree_split_variance_kernel<4><<<grid, threads, smem, s>>>(SPLIT_ARGS);
+  }
+#undef SPLIT_ARGS
   return (int)cudaGetLastError();
 }

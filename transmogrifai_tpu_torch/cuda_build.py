@@ -27,7 +27,8 @@ KERNEL_SOURCES = ("tree_hist", "tree_hist_deep", "tree_split",
                   "tree_split_gini", "tree_split_variance", "tree_route",
                   "tree_walk", "fista_step", "fista_softmax", "hash_counts",
                   "sp_matmat", "sp_rmatmat", "loco_linear", "loco_tree",
-                  "multiclass_confusion", "fista_glm", "loco_softmax")
+                  "multiclass_confusion", "fista_glm", "loco_softmax",
+                  "fista_wide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -39,7 +39,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _ARGTYPES = {
     "loco_linear": [_P, _P, _F] + [_P] * 5 + [_L] + [_I] * 9 + [_P],
     "loco_tree": [_P] * 9 + [_L] + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P],
-    "loco_softmax": [_P] * 9 + [_L] + [_I] * 13 + [_P],
+    "loco_softmax": [_P] * 9 + [_L] + [_I] * 15 + [_P],
 }
 STRATEGIES = ("abs", "positive", "negative")
 # kernel codes: loco_linear's links of the margin m — the sigmoid, the
@@ -120,8 +120,10 @@ def loco_plan(kind: str, N: int, D: int, G: int, K: int, n_nodes: int = 0,
 class SoftmaxPlan(NamedTuple):
     blocks: int
     threads: int
-    slot: int           # S: floats of a lane's buffer (the widest layer)
-    tail_floats: int    # the tail's weights staged in shared memory
+    slot: int           # floats of a lane's slot: its two buffers
+    slot_b: int         # the second buffer's floats (0 without a tail)
+    tail_floats: int    # the tail's weights (in shared memory or not)
+    tail_in_smem: bool  # staged beside the slots, else read from memory
     smem_bytes: int
 
 
@@ -130,12 +132,15 @@ def loco_softmax_plan(N: int, D: int, G: int, K: int, H: int, C: int,
     """The launch of ``loco_softmax`` for a first layer H wide and ``tail``
     the widths of the layers after it (the last is C; none for logistic
     regression and naive Bayes, where H = C): one warp per row, a
-    grid-stride loop over rows, each lane a slot of S floats in shared
-    memory (two with a tail), S the widest layer, and the tail's weights
-    staged beside them.  Up to 8 warps a block, fewer when the slots do not
-    fit ``SMEM_MAX``; raises ValueError when not even one warp's do, or on
-    a shape no model has.  Any G >= 1 and 1 <= K <= G, as in
-    :func:`loco_plan`."""
+    grid-stride loop over rows, each lane a slot in shared memory of two
+    buffers the layers alternate between (the widest of the first layer
+    and every second tail layer, and the widest of the others; one buffer
+    without a tail), and the tail's weights staged beside the slots.  Up to
+    8 warps a block, fewer when the slots do not fit ``SMEM_MAX``; the
+    tail's weights are read from device memory where not even one warp's
+    slots fit beside them (a wide or deep MLP).  Raises ValueError when one
+    warp's slots alone do not fit, or on a shape no model has.  Any G >= 1
+    and 1 <= K <= G, as in :func:`loco_plan`."""
     tail = tuple(int(t) for t in tail)
     if not 1 <= K <= G or D < 1 or N < 0 or H < 1 or C < 2:
         raise ValueError(f"loco_softmax_plan: need 1 <= K <= G, D >= 1, "
@@ -145,17 +150,20 @@ def loco_softmax_plan(N: int, D: int, G: int, K: int, H: int, C: int,
         raise ValueError(f"loco_softmax_plan: the last layer has "
                          f"{tail[-1] if tail else H} outputs, not C={C}")
     dims = (H,) + tail
-    S = max(dims)
+    SA = max(dims[0::2])
+    SB = max(dims[1::2]) if tail else 0
     tw = sum(dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(tail)))
-    per_warp = 32 * ((2 * S if tail else S) | 1) + H
-    for warps in (THREADS // 32, 4, 2, 1):
-        smem = 4 * (tw + warps * per_warp)
-        if smem <= SMEM_MAX:
-            blocks = max(1, min(-(-N // warps), BLOCKS_IN_FLIGHT))
-            return SoftmaxPlan(blocks, 32 * warps, S, tw, smem)
-    raise ValueError(f"loco_softmax_plan: one warp's slots ({S} floats a "
-                     f"lane) and the tail's {tw} weights exceed "
-                     f"{SMEM_MAX} bytes of shared memory")
+    per_warp = 32 * ((SA + SB) | 1) + H
+    for staged in (True, False):
+        for warps in (THREADS // 32, 4, 2, 1):
+            smem = 4 * ((tw if staged else 0) + warps * per_warp)
+            if smem <= SMEM_MAX:
+                blocks = max(1, min(-(-N // warps), BLOCKS_IN_FLIGHT))
+                return SoftmaxPlan(blocks, 32 * warps, SA + SB, SB, tw,
+                                   staged, smem)
+    raise ValueError(f"loco_softmax_plan: one warp's slots ({SA + SB} "
+                     f"floats a lane) exceed {SMEM_MAX} bytes of shared "
+                     "memory")
 
 
 def softmax_layers(model, device):
@@ -365,7 +373,8 @@ def loco_softmax(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
            dims.data_ptr(), 0 if perm is None else perm.data_ptr(),
            inp["goff"].data_ptr(), val.data_ptr(), idx.data_ptr(), N, D, G,
            k, STRATEGIES.index(strategy), H, C, inp["n_tail"],
-           int(inp["relu_in"]), plan.slot, plan.tail_floats, plan.blocks,
+           int(inp["relu_in"]), plan.slot - plan.slot_b, plan.slot_b,
+           plan.tail_floats, int(plan.tail_in_smem), plan.blocks,
            plan.threads, plan.smem_bytes, _stream(X))
     return idx.to(index_dtype(G)), val
 

@@ -32,6 +32,7 @@ REPLACES = {
     "fista_step": "transmogrifai_tpu/models/solvers.py:160",
     "fista_softmax": "transmogrifai_tpu/models/solvers.py:44",
     "fista_glm": "transmogrifai_tpu/models/solvers.py:66",
+    "fista_wide": "transmogrifai_tpu/models/solvers.py:160",
     "multiclass_confusion": "transmogrifai_tpu/metrics_device.py:135",
     "hash_counts": "transmogrifai_tpu/ops/text.py:148",
     "sp_matmat": "transmogrifai_tpu/sparse/matrix.py:60",

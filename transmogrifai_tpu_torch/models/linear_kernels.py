@@ -10,7 +10,11 @@ rule and launch counters are in ``kernels.py``).
 
 ``fista_step`` and ``fista_softmax`` are one tensor-core design
 (``csrc/fista_tc.cuh``, sized by :func:`tc_plan`); ``fista_glm`` keeps its
-own source.  For a ``SparseMatrix`` the same gradient evaluation is ``sparse_fista_step``:
+own source.  A shape no such launch holds (a dense X wider than ~27,000
+columns, more than 64 classes, a GLM wider than ~4,800 features) runs the
+feature-chunked two-pass form of all three, ``csrc/fista_wide.cu``
+(:func:`wide_plan`): margins to device memory, the loss, then Xᵀg.  For a
+``SparseMatrix`` the same gradient evaluation is ``sparse_fista_step``:
 margins by the ``sp_matmat`` kernel, the loss derivative in plain PyTorch,
 Xᵀg by ``sp_rmatmat`` (``sparse/sparse_kernels.py``); :func:`grad_seam`
 picks the one for X.
@@ -193,26 +197,98 @@ def tc_plan(D: int, L: int, C: int = 1) -> dict:
     stages, else a whole SM's.  Keeps V (``v_res``) or the
     accumulators (``acc_res``) out of shared memory, and then the ring to
     one stage, only where nothing else fits (a 16,384-wide X), and then
-    the lanes a launch (32, 16, 8 columns).  The one place that sizes the
-    launch; raises ValueError for a shape it cannot hold."""
+    the lanes a launch (32, 16, 8 columns).  Where no launch holds the
+    shape (more than 64 classes, or a slice too wide even so: past ~27,000
+    features) the two-pass form of :func:`wide_plan`.  The one place that
+    sizes the launch: every D, L and C has a plan."""
     if D < 1 or L < 1 or C < 1:
         raise ValueError(f"fista_tc: {L} lanes of {C} columns, {D} features")
     if C > TC_COLS:
-        raise ValueError(f"fista_tc: {C} classes exceed the kernel's "
-                         f"{TC_COLS} columns a launch")
+        return wide_plan(D, L, C)
     top = min(L, TC_COLS // C)
     for lanes in sorted({top} | {max(1, k // C) for k in (32, 16, 8)
                                  if k // C < top}, reverse=True):
         plan = _tc_fit(D, lanes, C)
         if plan is not None:
             return plan
-    raise ValueError(f"fista_tc: no launch holds {C} columns at {D} features")
+    return wide_plan(D, L, C)
 
 
 def launch_plan(D: int, L: int) -> dict:
     """How ``fista_step`` launches for D features and L lanes
     (:func:`tc_plan` with one column a lane)."""
     return tc_plan(D, L, 1)
+
+
+WIDE_LOSSES = {"logistic": 0, "squared_hinge": 1, "gram": 2, "squared": 3,
+               "softmax": 4, "poisson": 5, "gamma": 6}   # csrc/fista_wide.cu
+WIDE_ROWS = 64           # fista_wide.cu's TRX: rows a tile of the Xᵀg pass
+WIDE_FEATS = 128         # its DCX: features a chunk of the Xᵀg pass
+WIDE_MARGIN_ROWS = 64    # its TRM: rows a block of the margin pass
+_WIDE_ARGTYPES = [_P] * 11 + [_L] + [_I] * 11 + [_P]
+
+
+def wide_plan(D: int, L: int, C: int = 1, glm: bool = False) -> dict:
+    """The two-pass form of ``csrc/fista_wide.cu`` for D features and L
+    lanes of C columns (J = L·C; ``glm``: a loss column a lane more): every
+    lane in one launch, its margins ``Jp`` floats a row in device memory
+    (J, plus L for the GLMs' loss terms, to a multiple of 4), the Xᵀg pass
+    over ``chunks`` feature chunks and the ones column.  Holds any shape."""
+    J = L * C
+    Jt = J + (L if glm else 0)
+    return {"form": "wide", "lanes": L, "cols": J, "Jp": _ceil(Jt, 4),
+            "Jt": Jt, "chunks": -(-D // WIDE_FEATS) + 1}
+
+
+def _wide_run(X, V, muv, b, W, y, wsum, G: int, C: int, loss: str,
+              plan: dict, grad: bool = True) -> torch.Tensor:
+    """Launch ``csrc/fista_wide.cu`` once for every lane: returns out
+    [(D·J if grad) + Jt] — Xᵀg [D, J], then Σg [J] and, for the GLMs, Σ
+    of the loss terms [L]."""
+    N, D = X.shape
+    L = wsum.shape[0]
+    dev = X.device
+    J, Jt = L * C, plan["Jt"]
+    # row-tile blocks of the Xᵀg pass share the card with its chunks
+    chunks = plan["chunks"] if grad else 1
+    nb = max(1, min(-(-N // WIDE_ROWS), -(-_N_BLOCKS * 2 // chunks), 65535))
+    # the margin pass splits the features where its row tiles and column
+    # chunks alone would not fill the card (few rows, many features)
+    tiles = -(-N // WIDE_MARGIN_ROWS) * -(-J // 32)
+    Dk = _ceil(-(-D // max(1, min(-(-_N_BLOCKS * 2 // tiles),
+                                  -(-D // WIDE_FEATS)))), WIDE_FEATS)
+    KS = -(-D // Dk)
+    n_out = (D * J if grad else 0) + Jt
+    mbuf = torch.empty((N, plan["Jp"]), dtype=torch.float32, device=dev)
+    mpart = (torch.empty((KS, N, plan["Jp"]), dtype=torch.float32,
+                         device=dev) if KS > 1 else None)
+    partial = torch.empty((n_out, nb), dtype=torch.float32, device=dev)
+    out = torch.empty((n_out,), dtype=torch.float32, device=dev)
+    loss_blocks = max(1, min(-(-(N * L) // 256), _N_BLOCKS * 4))
+    VT = V.reshape(J, D).T.contiguous()      # the margin pass reads [D, J]
+    launch("fista_wide", _WIDE_ARGTYPES, X.data_ptr(), VT.data_ptr(),
+           muv.data_ptr(), b.data_ptr(), W.data_ptr(), y.data_ptr(),
+           wsum.data_ptr(), mbuf.data_ptr(),
+           None if mpart is None else mpart.data_ptr(), partial.data_ptr(),
+           out.data_ptr(), N, D, L, C, G, WIDE_LOSSES[loss], int(grad),
+           plan["Jp"], KS, Dk, nb, loss_blocks, _stream(X))
+    return out
+
+
+def wide_outputs(out: torch.Tensor, D: int, L: int, C: int = 1,
+                 grad: bool = True, glm: bool = False):
+    """The results in ``fista_wide``'s output vector (Xᵀg as [D, J]
+    row-major, then Σg [J], then for the GLMs Σ of the loss terms [L]):
+    (Xᵀg [L, D] or, with C > 1, [L, C, D] — None without ``grad`` —, Σg
+    [L] or [L, C], the loss sums [L] or None)."""
+    J = L * C
+    off = D * J if grad else 0
+    gx = None
+    if grad:
+        gx = out[:off].reshape(D, J).T
+        gx = gx.contiguous() if C == 1 else gx.reshape(L, C, D)
+    gs = out[off:off + J] if C == 1 else out[off:off + J].reshape(L, C)
+    return gx, gs, (out[off + J:off + J + L] if glm else None)
 
 
 def tc_chunks(V, muv, b, wsum, G: int, plan: dict):
@@ -299,8 +375,13 @@ def fista_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
         return fista_step_twin(X, V, muv, b, W, y, wsum, G, loss)
     if dev.type != "cuda":
         raise ValueError(f"fista_step: unsupported device {dev}")
-    out = _tc_run("fista_step", X, V, muv, b, W, X if y is None else y, wsum,
-                  G, 1, LOSSES[loss], launch_plan(D, L))
+    plan = launch_plan(D, L)
+    yk = X if y is None else y
+    if plan["form"] == "wide":
+        out = _wide_run(X, V, muv, b, W, yk, wsum, G, 1, loss, plan)
+        return wide_outputs(out, D, L)[:2]
+    out = _tc_run("fista_step", X, V, muv, b, W, yk, wsum, G, 1,
+                  LOSSES[loss], plan)
     return out[:D].T.contiguous(), out[D]
 
 
@@ -332,8 +413,8 @@ def fista_softmax_step_twin(X, V, muv, b, W, y, wsum, G: int):
 def softmax_launch_plan(D: int, L: int, C: int) -> dict:
     """How ``fista_softmax`` launches for D features and L lanes of C
     classes (:func:`tc_plan` with C columns a lane: whole lanes, at most 64
-    columns a launch, so every C up to 64).  Raises ValueError for a shape
-    it cannot hold."""
+    columns a launch, so every C up to 64; past that, or past the widest
+    slice, the two-pass form).  Any D, L and C >= 2."""
     if C < 2:
         raise ValueError(f"fista_softmax: {C} classes")
     return tc_plan(D, L, C)
@@ -372,8 +453,12 @@ def fista_softmax_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
         return fista_softmax_step_twin(X, V, muv, b, W, y, wsum, G)
     if dev.type != "cuda":
         raise ValueError(f"fista_softmax: unsupported device {dev}")
+    plan = softmax_launch_plan(D, L, C)
+    if plan["form"] == "wide":
+        out = _wide_run(X, V, muv, b, W, y, wsum, G, C, "softmax", plan)
+        return wide_outputs(out, D, L, C)[:2]
     out = _tc_run("fista_softmax", X, V, muv, b, W, y, wsum, G, C,
-                  SOFTMAX_LOSS, softmax_launch_plan(D, L, C))
+                  SOFTMAX_LOSS, plan)
     return out[:D].T.reshape(L, C, D), out[D].reshape(L, C)
 
 
@@ -428,9 +513,10 @@ def glm_launch_plan(D: int, L: int, grad: bool) -> dict:
     and, in the gradient form, the tile's gradients and the block's Xᵀg
     sums in one block's shared memory.  Takes every lane in one launch with
     the largest tile that fits, else fewer lanes a launch, else smaller
-    tiles; raises ValueError when not even one lane fits at 4 rows (past
-    about 7,200 features, 4,800 in the gradient form).  The one place that
-    sizes the launch's shared memory."""
+    tiles; where not even one lane fits at 4 rows (past about 7,200
+    features, 4,800 in the gradient form) the two-pass form of
+    :func:`wide_plan` with a loss column a lane.  The one place that sizes
+    the launch: every D and L has a plan."""
     if L < 1 or D < 1:
         raise ValueError(f"fista_glm: {L} lanes, {D} features")
     chunks = [L] + [c for c in (32, 16, 8, 4, 2, 1) if c < L]
@@ -439,9 +525,9 @@ def glm_launch_plan(D: int, L: int, grad: bool) -> dict:
             for tr in trs:
                 smem = _glm_smem(D, lc, tr, grad)
                 if smem <= _SMEM_MAX:
-                    return {"lanes": lc, "TR": tr, "smem": smem}
-    raise ValueError(f"fista_glm: no launch form holds one lane at {D} "
-                     "features")
+                    return {"form": "tile", "lanes": lc, "TR": tr,
+                            "smem": smem}
+    return wide_plan(D, L, 1, glm=True)
 
 
 def fista_glm(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
@@ -478,6 +564,10 @@ def fista_glm(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"fista_glm: unsupported device {dev}")
     plan = glm_launch_plan(D, L, grad)
+    if plan["form"] == "wide":
+        out = _wide_run(X, V, muv, b, W, y, wsum, G, 1, loss, plan, grad)
+        gx, gs, lsum = wide_outputs(out, D, L, 1, grad, glm=True)
+        return (gx, gs, lsum / wsum) if grad else lsum / wsum
     lc, tr = plan["lanes"], plan["TR"]
     nb = max(1, min(_N_BLOCKS, -(-N // tr)))
     rows = ((D + 2) if grad else 1) * lc

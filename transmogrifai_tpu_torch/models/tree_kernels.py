@@ -15,7 +15,7 @@ dispatch rule and launch counters are in ``kernels.py``).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,7 +23,7 @@ from .kernels import check as _check, launch, stream as _stream
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "tree_hist": [_P] * 6 + [_L] + [_I] * 9 + [_P],
+    "tree_hist": [_P] * 6 + [_L] + [_I] * 11 + [_L] + [_I] * 4 + [_P],
     "tree_hist_deep": [_P] * 6 + [_L] + [_I] * 10 + [_P],
     "tree_split": [_P] * 13 + [_I] * 6 + [_P],
     "tree_split_gini": [_P] * 12 + [_I] * 8 + [_P],
@@ -31,9 +31,14 @@ _ARGTYPES = {
     "tree_route": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _P],
     "tree_walk": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _I, _I, _P],
 }
-_HIST_SMEM_TARGET = 99 * 1024     # leaves room for two blocks per SM
+_HIST_SMEM_TARGET = 99 * 1024     # the deep route's rule: 2 histograms a SM
 _HIST_SMEM_MAX = 227 * 1024       # what one block can hold
-_BLOCKS_IN_FLIGHT = 132 * 4       # SMs x resident blocks to aim for
+HIST_THREADS = 512                # tree_hist's threads a block
+HIST_SMEM_BUDGET = 113 * 1024     # a block's share of the SM: two a SM
+HIST_QUEUE = 64                   # csrc/tree_hist.cu: rows queued a warp
+HIST_MIN_ROWS = 2048              # rows a block at least (its flush's share)
+HIST_BLOCKS = 132 * 2 * 4         # four waves of two blocks on 132 SMs
+SMS = 132                         # the H100's SMs
 SPLIT_D_CHUNK = 1024              # features per shared-memory pass of a split
 SPLIT_THREADS = 256
 GINI_CLASS_CHUNKS = (2, 4, 8)     # tree_split_gini's class-chunk templates
@@ -82,6 +87,73 @@ def hist_deep_plan(S: int) -> List[Tuple[int, int]]:
 # tree_hist
 # --------------------------------------------------------------------------
 
+def _hist_smem(Pg: int, Wc: int, n_bins: int, S: int, threads: int,
+               with_hist: bool) -> int:
+    """Shared-memory bytes of one ``tree_hist`` block (``csrc/tree_hist.cu``'s
+    ``hist_smem`` adds the same terms): the group's cells [Pg, Wc, NB, S]
+    and totals [Pg, S] (f32), each warp's queue of (row, node) and the
+    nodes' slot counts (int32), the slots' features (int16)."""
+    floats = (Pg * Wc * n_bins * S if with_hist else 0) + Pg * S
+    ints = threads // 32 * 2 * HIST_QUEUE + Pg
+    return 4 * (floats + ints) + 2 * Pg * Wc
+
+
+def hist_plan(N: int, D: int, K: int, P: int, n_bins: int, S: int,
+              with_hist: bool = True, width: Optional[int] = None) -> dict:
+    """How ``tree_hist`` launches one level of K lanes (N rows, D features,
+    P nodes, S statistics; ``width`` the most features any node's subset
+    holds, None without a node mask).  The deep route (``tree_hist_deep``)
+    where two copies of the level's P·NB·S histogram cells would not fit
+    ``_HIST_SMEM_TARGET`` (totals only: where P·S do not fit a block), as
+    before; else ``tree_hist`` blocks of ``HIST_THREADS`` threads, each
+    holding Pg nodes x Wc slots x NB bins x S in ``HIST_SMEM_BUDGET`` (two
+    blocks an SM): a node's slots are the features of its subset (at most
+    ``width``) or all D, in feature chunks of Dc only where one node's
+    slots would not fit; the fewest node groups NG that fit; then enough row
+    ranges R of RB rows that K·NG·NC·R blocks fill ``HIST_BLOCKS`` (never
+    fewer than ``SMS``), each of at least ``HIST_MIN_ROWS`` rows and 8·Pg·NB
+    where the card stays full without them (so a block's flush of its
+    cells stays small beside its rows).  The one place that sizes the
+    launch."""
+    if min(N, D, K, P, n_bins, S) < 1:
+        raise ValueError(f"hist_plan: N={N} D={D} K={K} P={P} "
+                         f"NB={n_bins} S={S}")
+    if (P * S * 4 > _HIST_SMEM_MAX if not with_hist
+            else 2 * P * n_bins * S * 4 > _HIST_SMEM_TARGET):
+        return {"route": "deep",
+                "grid_x": max(1, min(-(-N // 256), SMS * 16 // K + 1)),
+                "blocks": K * max(1, min(-(-N // 256), SMS * 16 // K + 1))}
+    threads = HIST_THREADS
+    if with_hist:
+        W = D if width is None else max(1, min(width, D))
+        Dc = min(D, 32767)
+        while _hist_smem(1, min(W, Dc), n_bins, S, threads, True) \
+                > HIST_SMEM_BUDGET and Dc > 1:
+            Dc = -(-Dc // 2)
+        Wc = min(W, Dc)
+    else:
+        Dc, Wc = D, 0
+    NC = -(-D // Dc)
+    Pg = P
+    while _hist_smem(Pg, Wc, n_bins, S, threads, with_hist) \
+            > HIST_SMEM_BUDGET and Pg > 1:
+        Pg = -(-Pg // 2)
+    NG = -(-P // Pg)
+    Pg = -(-P // NG)
+    lanes = K * NG * NC
+    rows_min = max(HIST_MIN_ROWS, 8 * Pg * n_bins if with_hist else 0)
+    R = -(-HIST_BLOCKS // lanes)
+    R = min(R, max(1, N // rows_min))
+    R = max(R, -(-SMS // lanes))
+    R = max(1, min(R, -(-N // 64), 65535))
+    RB = -(-N // R)
+    R = -(-N // RB)
+    return {"route": "shared", "threads": threads, "Pg": Pg, "NG": NG,
+            "Dc": Dc, "NC": NC, "Wc": Wc, "RB": RB, "R": R,
+            "blocks": lanes * R,
+            "smem": _hist_smem(Pg, Wc, n_bins, S, threads, with_hist)}
+
+
 def tree_hist_twin(B, row_node, stats, offset: int, P: int, n_bins: int,
                    with_hist: bool = True, node_mask=None):
     """Plain-PyTorch twin of ``tree_hist`` (see :func:`tree_hist`).  Rows
@@ -124,9 +196,11 @@ def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
     ``node_mask`` bool [K, P, D] (each node's feature subset) leaves the
     cells of features outside a node's subset at zero; None keeps every
     feature.  Rows whose statistics are all zero add nothing (exact: adding
-    zero changes no sum).  A level whose nodes fit one block's shared memory
-    runs ``tree_hist``; a deeper one ``tree_hist_deep``, one pass adding
-    into device memory."""
+    zero changes no sum).  :func:`hist_plan` sizes the launch: a level
+    whose nodes fit shared memory runs ``tree_hist`` (with node subsets,
+    slots for the most features any node's subset holds, counted here:
+    one wait for the card); a deeper one ``tree_hist_deep``, one pass
+    adding into device memory."""
     dev = B.device
     _check("tree_hist B", B, torch.int8, 2, dev)
     _check("tree_hist row_node", row_node, torch.int32, 2, dev)
@@ -144,39 +218,31 @@ def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
                               with_hist, node_mask)
     if dev.type != "cuda":
         raise ValueError(f"tree_hist: unsupported device {dev}")
+    if N >= 1 << 31:
+        raise ValueError("tree_hist: at most 2^31 - 1 rows")
+    plan = hist_plan(N, D, K, P, n_bins, S, with_hist)
+    if plan["route"] == "shared" and node_mask is not None and with_hist:
+        plan = hist_plan(N, D, K, P, n_bins, S, with_hist,
+                         int(node_mask.sum(dim=2).amax()))
     totals = torch.zeros((K, P, S), dtype=torch.float32, device=dev)
     mask_ptr = 0 if node_mask is None else node_mask.data_ptr()
-    per_cell = n_bins * S * 4
-    deep = (P * S * 4 > _HIST_SMEM_MAX if not with_hist
-            else 2 * P * per_cell > _HIST_SMEM_TARGET)
-    if deep:
+    if plan["route"] == "deep":
         hist = (torch.zeros((K, P, D, n_bins, S), dtype=torch.float32,
                             device=dev) if with_hist else totals)
-        grid_x = max(1, min(-(-N // 256), 132 * 16 // K + 1))
         for s_lo, sn in hist_deep_plan(S):
             _launch("tree_hist_deep", B.data_ptr(), row_node.data_ptr(),
                     stats.data_ptr(), mask_ptr, hist.data_ptr(),
                     totals.data_ptr(), N, D, n_bins, S, s_lo, sn, K, offset,
-                    P, int(with_hist), grid_x, _stream(B))
+                    P, int(with_hist), plan["grid_x"], _stream(B))
         return (hist if with_hist else None), totals
-    if not with_hist:
-        _launch("tree_hist", B.data_ptr(), row_node.data_ptr(),
-                stats.data_ptr(), 0, totals.data_ptr(), totals.data_ptr(), N,
-                D, n_bins, S, K, offset, P, D, 0,
-                max(1, min(-(-N // 256), _BLOCKS_IN_FLIGHT // K + 1)),
-                _stream(B))
-        return None, totals
-    # a block's histogram covers the level's P nodes x Dc features; wide
-    # matrices run as several feature chunks
-    Dc = min(D, (_HIST_SMEM_TARGET - P * S * 4) // (P * per_cell))
-    n_chunks = -(-D // Dc)
-    grid_x = max(1, min(-(-(N * Dc) // 256),
-                        _BLOCKS_IN_FLIGHT // (K * n_chunks) + 1))
-    hist = torch.zeros((K, P, D, n_bins, S), dtype=torch.float32, device=dev)
+    hist = (torch.zeros((K, P, D, n_bins, S), dtype=torch.float32, device=dev)
+            if with_hist else totals)
     _launch("tree_hist", B.data_ptr(), row_node.data_ptr(), stats.data_ptr(),
-            mask_ptr, hist.data_ptr(), totals.data_ptr(), N, D, n_bins, S, K,
-            offset, P, Dc, 1, grid_x, _stream(B))
-    return hist, totals
+            mask_ptr if with_hist else 0, hist.data_ptr(), totals.data_ptr(),
+            N, D, n_bins, S, K, offset, P, plan["Pg"], plan["NG"], plan["Dc"],
+            plan["NC"], plan["Wc"], plan["RB"], plan["R"], plan["threads"],
+            plan["smem"], int(with_hist), _stream(B))
+    return (hist if with_hist else None), totals
 
 
 # --------------------------------------------------------------------------
@@ -324,8 +390,8 @@ def tree_split(hist: torch.Tensor, totals: torch.Tensor, fmask: torch.Tensor,
                                min_gain, lam)
     if dev.type != "cuda":
         raise ValueError(f"tree_split: unsupported device {dev}")
-    if NB > 32:
-        raise ValueError("tree_split: the kernel takes at most 32 bins")
+    if NB > 127:
+        raise ValueError("tree_split: at most 127 bins (int8 bin ids)")
     plan = split_plan(D)
     out = {"gain": torch.empty((K, P), dtype=torch.float32, device=dev),
            "feature": torch.empty((K, P), dtype=torch.int32, device=dev),
@@ -401,7 +467,7 @@ def tree_split_gini(hist: torch.Tensor, totals: torch.Tensor,
     sides, both masks and ``bin < NB-1``; the FIRST max over (feature, bin)
     wins.  Returns per-node gain, feature, bin, is_leaf (gain <= min_gain or
     non-finite) and threshold ``splits[feature, bin]``, each [K, P].  The
-    kernel takes any C >= 2 classes and NB <= 32 bins."""
+    kernel takes any C >= 2 classes and NB <= 127 bins."""
     dev = hist.device
     _check("tree_split_gini hist", hist, torch.float32, 5, dev)
     _check("tree_split_gini totals", totals, torch.float32, 3, dev)
@@ -423,8 +489,8 @@ def tree_split_gini(hist: torch.Tensor, totals: torch.Tensor,
                                     min_inst, min_gain)
     if dev.type != "cuda":
         raise ValueError(f"tree_split_gini: unsupported device {dev}")
-    if NB > 32:
-        raise ValueError("tree_split_gini: the kernel takes at most 32 bins")
+    if NB > 127:
+        raise ValueError("tree_split_gini: at most 127 bins (int8 bin ids)")
     plan = split_plan(D, S - 1)
     out = {"gain": torch.empty((K, P), dtype=torch.float32, device=dev),
            "feature": torch.empty((K, P), dtype=torch.int32, device=dev),
@@ -498,7 +564,7 @@ def tree_split_variance(hist: torch.Tensor, totals: torch.Tensor,
     both masks and ``bin < NB-1``; the FIRST max over (feature, bin) wins.
     Returns per-node gain, feature, bin, is_leaf (gain <= min_gain or
     non-finite) and threshold ``splits[feature, bin]``, each [K, P].  The
-    kernel takes NB <= 32 bins and any D."""
+    kernel takes NB <= 127 bins and any D."""
     dev = hist.device
     _check("tree_split_variance hist", hist, torch.float32, 5, dev)
     _check("tree_split_variance totals", totals, torch.float32, 3, dev)
@@ -521,9 +587,9 @@ def tree_split_variance(hist: torch.Tensor, totals: torch.Tensor,
                                         splits, min_inst, min_gain)
     if dev.type != "cuda":
         raise ValueError(f"tree_split_variance: unsupported device {dev}")
-    if NB > 32:
-        raise ValueError("tree_split_variance: the kernel takes at most 32 "
-                         "bins")
+    if NB > 127:
+        raise ValueError("tree_split_variance: at most 127 bins (int8 bin "
+                         "ids)")
     plan = split_plan(D)
     out = {"gain": torch.empty((K, P), dtype=torch.float32, device=dev),
            "feature": torch.empty((K, P), dtype=torch.int32, device=dev),
