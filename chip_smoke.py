@@ -19,9 +19,11 @@ Phases (any failure exits non-zero and prints no result line):
    statistics, per-node feature subsets, levels 0 and 5 of a depth-6 tree,
    walks of 20 depth-6 trees), ``fista_step`` at the default grid's linear
    shapes (3 folds x 8 logistic lanes, 3 folds x 4 squared-hinge lanes, the
-   power iteration's 3 lanes), the one-pass ``tree_hist_deep`` at level 11
-   of depth-12 trees (a 50-tree forest member with node subsets; GBT
-   statistics) and ``tree_walk`` through depth-12 members;
+   power iteration's 3 lanes), ``tree_hist_deep`` (rows partitioned by
+   node group) at level 11 of depth-12 trees (a 50-tree forest member with
+   node subsets; GBT statistics) and ``tree_walk`` through depth-12
+   members; every ``tree_walk`` shape is held to its twin within 1e-6 and
+   to its own bits on a second launch;
 3. bench set — the dense binary workload of ``bench.run_dense``: 28 RealNN
    features → transmogrify → sanity_check →
    BinaryClassificationModelSelector (3-fold CV with racing over logistic
@@ -38,9 +40,13 @@ Phases (any failure exits non-zero and prints no result line):
    train AuROC, peak device memory and every kernel's launches read around
    that run (and its ``tree_hist`` calls tallied by lanes and nodes); a
    ``torch.profiler`` window over its forest candidates' cross-validation
-   (device-busy share, top kernels); ``tree_hist`` at the forests' largest
-   lane batch (300 lanes) at levels 0, 2, 4 and 5 with node subsets and level 5
-   with every feature, against the f64 twin; then at 5,000 rows on the card
+   and one over its GBT candidates' (device-busy share, top kernels);
+   ``tree_hist`` at the forests' largest lane batch (300 lanes) at levels
+   0, 2, 4 and 5 with node subsets and level 5 with every feature, and
+   ``tree_hist_deep`` at the deep levels the grid launches (a 150-lane
+   forest batch at levels 8-11 and 300 lanes at level 11 with subsets,
+   the GBT's 6 and 12 lanes at level 11), against the f64 twin; then at
+   5,000 rows on the card
    (forest draws made on the host) and on the CPU twins, held to the JAX
    package's default-grid run at that size;
 5. transmogrification — the workload of ``bench.run_transmog`` at
@@ -289,6 +295,28 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, reps: int) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel, by name, from a
+    ``torch.profiler`` window over ``reps`` calls after one warm-up call
+    (CUDA events around the calls measure the host's enqueue as well where
+    it is the slower)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by[e.name[:60]] = by.get(e.name[:60], 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / reps
+    return by
+
+
 def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -355,6 +383,43 @@ def _random_trees(device, n_trees: int, depth: int, d: int, seed: int = 2,
         leaf = rng.normal(scale=0.1, size=(n_trees, T, 1)).astype(np.float32)
     return tuple(torch.as_tensor(a, device=device)
                  for a in (feature, threshold, is_leaf, leaf))
+
+
+def walk_case(tk, X, trees, steps: int, members: int = 1, op: str = "sum",
+              reps: int = 10, plain_reps: int = 3) -> dict:
+    """``tree_walk`` at one shape: within 1e-6 of its twin (which sums the
+    trees in the same order) and the same bits on two launches; with
+    ``reps`` also timed beside its bound (X's used columns read once, the
+    output written once, the trees read once; a compare a row, tree and
+    step) and the twin's time."""
+    import torch
+    a = tk.tree_walk(X, *trees, steps, members, op)
+    b = tk.tree_walk(X, *trees, steps, members, op)
+    Tr, V = trees[0].shape[0], trees[3].shape[2]
+    if not torch.equal(a, b):
+        raise AssertionError(f"tree_walk ({Tr} trees x {members} members) "
+                             "differs between two launches")
+    err = float((a - tk.tree_walk_twin(X, *trees, steps, members, op))
+                .abs().max())
+    if err > 1e-6:
+        raise AssertionError(f"tree_walk disagrees with its twin at {Tr} "
+                             f"trees x {members} members ({op}): {err}")
+    case = {"trees": Tr, "members": members, "V": V, "op": op,
+            "steps": steps, "max_abs_err": err, "same_bits_twice": True}
+    if reps:
+        n = X.shape[0]
+        used = int(torch.unique(trees[0][trees[0] >= 0]).numel())
+        bt, by = bound(4 * n * used + 4 * n * members * V
+                       + sum(t.numel() * t.element_size() for t in trees),
+                       n * Tr * (steps + 1))
+        case.update(
+            ms=time_ms(lambda: tk.tree_walk(X, *trees, steps, members, op),
+                       reps),
+            plain_ms=time_ms(lambda: tk.tree_walk_twin(
+                X, *trees, steps, members, op), plain_reps)
+            if plain_reps else None,
+            bound_ms=bt, bound_by=by, library_ms=None)
+    return case
 
 
 def check_kernels(device, n: int = N_ROWS, reps: int = 20):
@@ -443,26 +508,15 @@ def check_kernels(device, n: int = N_ROWS, reps: int = 20):
     # tree_walk at the main path's three shapes, each walked depth+1 steps:
     # a boosting round's margin update (3 lanes x 1 tree), the CV panel (3
     # members x 20 trees) and the final model (20 trees, the timed one);
-    # both sum the trees in the same order
+    # both sum the trees in the same order, the same bits twice
     X = inp["X"]
-    werr = 0.0
     for n_trees, members in ((3, 3), (60, 3), (20, 1)):
         trees = _random_trees(device, n_trees, 3, D)
-        wk = tk.tree_walk(X, *trees, 4, members)
-        wt = tk.tree_walk_twin(X, *trees, 4, members)
-        e = float((wk - wt).abs().max())
-        if e > 1e-6:
-            raise AssertionError(f"tree_walk disagrees with its twin at "
-                                 f"{n_trees} trees x {members} members: {e}")
-        werr = max(werr, e)
-    used = int(torch.unique(trees[0][trees[0] >= 0]).numel())
-    bt, by = bound(4 * n * used + 4 * n + sum(4 * t.numel() for t in trees),
-                   n * 20 * 5)
-    rows.append({
-        "name": "tree_walk", "max_abs_err": werr,
-        "ms": time_ms(lambda: tk.tree_walk(X, *trees, 4), reps),
-        "plain_ms": time_ms(lambda: tk.tree_walk_twin(X, *trees, 4, 1), 3),
-        "bound_ms": bt, "bound_by": by, "library_ms": None})
+        case = walk_case(tk, X, trees, 4, members,
+                         reps=reps if members == 1 else 0)
+    rows.append({"name": "tree_walk", **{k: case[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}})
     for r in rows:
         r["route"] = "cuda"
         r["source"] = f"transmogrifai_tpu_torch/csrc/{r['name']}.cu"
@@ -594,32 +648,14 @@ def check_forest_kernels(device, n: int = N_ROWS, reps: int = 10):
                           int(in_level.sum()))[0]}
 
     # tree_walk at the forest's shapes, V = 2 class shares, 7 steps: the
-    # model's mean over 20 trees and the CV panel's 3 members x 20 trees sum
+    # model's mean over 20 trees (timed) and the CV panel's 3 members x 20
+    # trees sum
     X = inp["X"]
-    werr = 0.0
-    for n_trees, members, op in ((N_TREES, 1, "mean"),
-                                 (N_FOLDS * N_TREES, N_FOLDS, "sum")):
+    for n_trees, members, op in ((N_FOLDS * N_TREES, N_FOLDS, "sum"),
+                                 (N_TREES, 1, "mean")):
         trees = _random_trees(device, n_trees, RF_DEPTH, D, classes=2)
-        wk = tk.tree_walk(X, *trees, RF_DEPTH + 1, members, op)
-        wt = tk.tree_walk_twin(X, *trees, RF_DEPTH + 1, members, op)
-        e = float((wk - wt).abs().max())
-        if e > 1e-6:
-            raise AssertionError(f"tree_walk disagrees with its twin at "
-                                 f"{n_trees} trees x {members} members ({op})")
-        werr = max(werr, e)
-        if members == 1:
-            used = int(torch.unique(trees[0][trees[0] >= 0]).numel())
-            facts["tree_walk"] = {
-                "trees": n_trees, "V": 2, "op": op, "ms": time_ms(
-                    lambda: tk.tree_walk(X, *trees, RF_DEPTH + 1, 1, op),
-                    reps),
-                "plain_ms": time_ms(lambda: tk.tree_walk_twin(
-                    X, *trees, RF_DEPTH + 1, 1, op), 3),
-                "bound_ms": bound(4 * n * used + 8 * n
-                                  + sum(t.numel() * t.element_size()
-                                        for t in trees),
-                                  n * n_trees * (RF_DEPTH + 2))[0]}
-    facts["tree_walk"]["max_abs_err"] = werr
+        facts["tree_walk"] = walk_case(tk, X, trees, RF_DEPTH + 1, members,
+                                       op, reps=reps if members == 1 else 0)
     row.update(route="cuda",
                source="transmogrifai_tpu_torch/csrc/tree_split_gini.cu",
                replaces=kernels.REPLACES["tree_split_gini"])
@@ -1030,28 +1066,10 @@ def check_deep_kernels(device, n: int = N_ROWS, reps: int = 5):
 
     # tree_walk at depth 12: a forest member (mean of 50 trees, V = 2) and
     # a GBT model (sum of 20 trees), 13 steps
-    werr = 0.0
     for n_trees, classes, op in ((50, 2, "mean"), (20, 0, "sum")):
         trees = _random_trees(device, n_trees, DEEP, D, classes=classes)
-        wk = tk.tree_walk(Xd, *trees, DEEP + 1, 1, op)
-        wt = tk.tree_walk_twin(Xd, *trees, DEEP + 1, 1, op)
-        e = float((wk - wt).abs().max())
-        if e > 1e-6:
-            raise AssertionError(f"tree_walk disagrees with its twin at "
-                                 f"{n_trees} depth-{DEEP} trees ({op})")
-        werr = max(werr, e)
-        used = int(torch.unique(trees[0][trees[0] >= 0]).numel())
-        V = max(classes, 1)
-        facts[f"tree_walk_{n_trees}_trees_depth_{DEEP}"] = {
-            "V": V, "op": op, "max_abs_err": e,
-            "ms": time_ms(lambda: tk.tree_walk(Xd, *trees, DEEP + 1, 1, op),
-                          reps),
-            "plain_ms": time_ms(lambda: tk.tree_walk_twin(
-                Xd, *trees, DEEP + 1, 1, op), 2),
-            "bound_ms": bound(4 * n * used + 4 * n * V
-                              + sum(t.numel() * t.element_size()
-                                    for t in trees),
-                              n * n_trees * (DEEP + 2))[0]}
+        facts[f"tree_walk_{n_trees}_trees_depth_{DEEP}"] = walk_case(
+            tk, Xd, trees, DEEP + 1, 1, op, reps=reps, plain_reps=2)
     return row, facts
 
 
@@ -2237,8 +2255,8 @@ MULTI_CLASSES = 6
 
 def check_multiclass_forest(device="cuda", n: int = FAULT_ROWS) -> dict:
     """Queue 3's fault 3 pinned on the card: a 6-class forest (4 trees,
-    depth 8: levels 6 and 7 take ``tree_hist_deep``, in two launches of 5
-    and 2 statistics) fitted and scored on the card, and ``tree_hist_deep``
+    depth 8: levels 6 and 7 take ``tree_hist_deep``, all 7 statistics in
+    one launch) fitted and scored on the card, and ``tree_hist_deep``
     (level 6, 4 lanes of Poisson-weighted class counts), ``tree_split_gini``
     (equal to its twin on those integer counts) and ``tree_walk`` (V = 6,
     within 1e-6) against their twins."""
@@ -2290,7 +2308,8 @@ def check_multiclass_forest(device="cuda", n: int = FAULT_ROWS) -> dict:
             raise AssertionError(f"tree_split_gini at C = {MULTI_CLASSES}: "
                                  f"{key} differs from the twin")
     return {"rows": n, "classes": MULTI_CLASSES, "fit_and_score_s": fit_s,
-            "hist_deep_plan": tk.hist_deep_plan(MULTI_CLASSES + 1),
+            "hist_deep_plan": tk.hist_plan(n, N_FEATS, K, P, N_BINS,
+                                           MULTI_CLASSES + 1),
             "gini_plan": tk.split_plan(N_FEATS, MULTI_CLASSES)._asdict(),
             "tree_hist_deep_max_abs_err": err_h,
             "tree_split_gini": "equal to twin", "tree_walk_max_abs_err": err_w}
@@ -3980,6 +3999,99 @@ def check_forest_hist_levels(device="cuda", n: int = N_ROWS, lanes: int = 300,
     return rows, facts
 
 
+def gbt_level_inputs(device, n: int, lanes: int, level: int, seed: int = 9,
+                     data=None) -> dict:
+    """Inputs of one GBT level for ``lanes`` lanes (3 folds x lanes/3 grid
+    points, as the default grid's depth-12 GBT group batches them): xgb
+    statistics (w, w·g, w·h) of fold weights and random margins, every
+    feature, and rows as a deep level of a fitted tree holds them: three
+    quarters of each lane's rows in ``GBT_HEAVY_NODES`` of its nodes drawn
+    at random, the rest spread over the level's P = 2^level nodes with a
+    fifth of its width parked at leaves above.  So the groups of the heavy
+    nodes hold more rows than one block takes, and ``tree_hist_deep``
+    splits them over several blocks (``hist_deep_split``: R > 1, the
+    window's cells zeroed and added into with atomics), as in the default
+    grid's GBT fit."""
+    import torch
+    y, _, B = data if data is not None else bench_binned(device, n)
+    rng = np.random.default_rng(seed)
+    margin = rng.normal(scale=0.5, size=(lanes, n)).astype(np.float32)
+    p = 1.0 / (1.0 + np.exp(-margin))
+    w = np.repeat(_fold_weights(y), -(-lanes // N_FOLDS), axis=0)[:lanes]
+    stats = (np.stack([np.ones_like(p), p - y[None],
+                       np.maximum(p * (1 - p), 1e-6)], axis=2)
+             * w[:, :, None]).astype(np.float32)
+    off, P = (1 << level) - 1, 1 << level
+    row_node = rng.integers(max(0, off - max(1, P // 5)), off + P,
+                            size=(lanes, n))
+    heavy = off + np.stack([rng.choice(P, GBT_HEAVY_NODES, replace=False)
+                            for _ in range(lanes)])
+    pick = rng.integers(0, GBT_HEAVY_NODES, size=(lanes, n))
+    row_node = np.where(rng.random((lanes, n)) < 0.75,
+                        np.take_along_axis(heavy, pick, axis=1), row_node)
+    return {"B": B, "stats": torch.as_tensor(stats, device=device),
+            "row_node": torch.as_tensor(row_node.astype(np.int32),
+                                        device=device),
+            "offset": off, "P": P, "mask": None}
+
+
+GBT_HEAVY_NODES = 8                # nodes that hold most of a deep GBT level
+DEEP_FOREST_LANES = 150            # the depth-12 forests' lane batch (4 levels)
+DEEP_WIDE_LANES = 300              # the widest forest batch, at level 11
+DEEP_GBT_LANES = (6, 12)           # the depth-12 GBT and GBT regressor groups
+
+
+def check_deep_hist_levels(device="cuda", n: int = N_ROWS,
+                           reps: int = 3) -> tuple:
+    """``tree_hist_deep`` at the deep levels the default grid launches it
+    (``count_hist_shapes``): a forest batch of ``DEEP_FOREST_LANES`` lanes
+    at levels 8-11 (P = 256 .. 2048) with the nodes' 5-of-28 subsets, 300
+    lanes at level 11, and the GBT's 6 and 12 lanes at level 11 with every
+    feature and most rows in a few nodes (split over several blocks: R >
+    1) — each held to its f64 twin (counts equal, GBT cells within
+    1e-5 of their mass) and timed beside its bound, the twin and
+    ``index_put_`` (``hist_case``).  Returns the rows of the kernels line
+    and their numbers."""
+    import torch
+
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    rows, facts = [], {}
+    data = bench_binned(device, n)
+    cases = ([("forest", DEEP_FOREST_LANES, lvl) for lvl in (8, 9, 10, 11)]
+             + [("forest", DEEP_WIDE_LANES, DEEP - 1)]
+             + [("gbt", k, DEEP - 1) for k in DEEP_GBT_LANES])
+    for kind, lanes, level in cases:
+        make = forest_level_inputs if kind == "forest" else gbt_level_inputs
+        inp = make(device, n, lanes, level, data=data)
+        plan = tk.hist_plan(n, inp["B"].shape[1], lanes, inp["P"], N_BINS, 3,
+                            True, 5 if kind == "forest" else None)
+        if plan["route"] != "deep":
+            raise AssertionError(f"{kind} level {level} did not plan the "
+                                 "deep route")
+        # R, the blocks that share a node group's rows, as the wrapper
+        # chooses it from the partition: the GBT cases take R > 1
+        at = inp["row_node"].long() - inp["offset"]
+        live = (at >= 0) & (at < inp["P"]) & (inp["stats"] != 0).any(dim=2)
+        group = (at // plan["Pg"]
+                 + torch.arange(lanes, device=device)[:, None] * plan["NG"])
+        R = tk.hist_deep_split(plan, int(torch.bincount(group[live]).max()),
+                               int(live.sum()))
+        del at, live, group
+        if kind == "gbt" and R < 2:
+            raise AssertionError(f"gbt {lanes} lanes, level {level}: R = 1, "
+                                 "the split route went untested")
+        key = f"{kind}_{lanes}_lanes_level_{level}"
+        facts[key] = hist_case(tk, inp["B"], inp["row_node"], inp["stats"],
+                               inp["offset"], inp["P"], inp["mask"], reps)
+        facts[key]["plan"] = {k: plan[k] for k in (
+            "Pg", "NG", "NC", "Wc", "blocks")}
+        facts[key]["plan"]["R"] = R
+        rows.append(_kernel_row("tree_hist_deep", facts[key]))
+        del inp
+        torch.cuda.empty_cache()
+    return rows, facts
+
+
 def count_hist_shapes(run) -> tuple:
     """``run()`` with every ``tree_hist`` call of the tree fits tallied by
     shape: lanes K (a GBT grid's 3 or 6, a forest batch's hundreds), nodes
@@ -4046,10 +4158,13 @@ def main() -> int:
     rows.insert(2, gini_row)
     rows[1:1] = [_kernel_row("tree_hist", forest_facts[k])
                  for k in ("tree_hist", "tree_hist_all_features")]
+    rows.append(_kernel_row("tree_walk", forest_facts["tree_walk"]))
     torch.cuda.empty_cache()
     fista_row, fista_facts = check_linear_kernel("cuda")
     deep_row, deep_facts = check_deep_kernels("cuda")
     rows.insert(1, deep_row)
+    rows.append(_kernel_row("tree_walk",
+                            deep_facts[f"tree_walk_50_trees_depth_{DEEP}"]))
     rows.append(fista_row)
     for r in rows:
         print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.3g} "
@@ -4067,8 +4182,8 @@ def main() -> int:
     launches = kernels.launch_counts()
     print(f"main path {N_ROWS}x{N_FEATS}: " + json.dumps(facts), flush=True)
     print("kernel launches: " + json.dumps(launches), flush=True)
-    # the bench set's trees are at most depth 6: no level needs the
-    # one-pass deep histogram; the dense path hashes no text, explains
+    # the bench set's trees are at most depth 6: no level needs the deep
+    # histogram; the dense path hashes no text, explains
     # nothing and fits no regression tree
     missing = [k for k, v in launches.items()
                if v <= 0 and k not in ("tree_hist_deep", "hash_counts",
@@ -4123,10 +4238,18 @@ def main() -> int:
     print("profile default grid RF CV: " + json.dumps(profile_lr_cv(
         grid_model, grid_batch, S.BinaryClassificationModelSelector(
             models=[S._rf_classifier()]), top=10)), flush=True)
-    # tree_hist at the forests' own lane batches, timed beside the rows above
+    print("profile default grid GBT CV: " + json.dumps(profile_lr_cv(
+        grid_model, grid_batch, S.BinaryClassificationModelSelector(
+            models=[S._gbt_classifier()]), top=10)), flush=True)
+    # tree_hist and tree_hist_deep at the forests' and GBTs' own lane
+    # batches, timed beside the rows above
     hist_rows, hist_facts = check_forest_hist_levels("cuda")
     print("tree_hist forest levels (300 lanes): " + json.dumps(hist_facts),
           flush=True)
+    torch.cuda.empty_cache()
+    deep_rows, deep_levels = check_deep_hist_levels("cuda")
+    print("tree_hist_deep levels: " + json.dumps(deep_levels), flush=True)
+    hist_rows += deep_rows
     rows += hist_rows
     for r in rows:
         r["launches"] = launches[r["name"]]

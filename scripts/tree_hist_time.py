@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
-"""Time ``tree_hist`` on one NVIDIA card at the levels the main path
-launches it, and profile the default grid's forest cross-validation.
+"""Time ``tree_hist`` and ``tree_hist_deep`` on one NVIDIA card at the
+levels the main path launches them, and profile the default grid's forest
+and GBT cross-validation.
 
     python3 scripts/tree_hist_time.py [--root DIR] [--rows N] [--reps R]
-        [--lanes 60,300] [--profile] [--walls]
+        [--lanes 60,300] [--levels 0,2,4,5] [--deep 8,9,10,11]
+        [--deep-lanes 150,300] [--gbt-lanes 6,12] [--profile] [--walls]
 
 Shapes (``chip_smoke.forest_level_inputs``, ``chip_smoke.kernel_inputs``):
 a forest level of each ``--lanes`` count at P = 1, 4, 16 and 32 nodes with
 the nodes' 5-of-28 feature subsets (what the forest's fit passes), level 5
-once more with every feature, and the GBT level (3 lanes, P = 4).  Each
-shape is held to the f64 twin lane by lane, then timed beside its bound,
-the twin's time and ``index_put_``'s (``chip_smoke.hist_case``).
-``--profile`` trains the default grid at ``--rows`` once and runs a
-``torch.profiler`` window over its forest candidates' cross-validation on
-the model's own vector (``chip_smoke.profile_lr_cv``: device-busy share,
-top kernels).  ``--walls`` times one more train of the default grid, the
+once more with every feature, and the GBT level (3 lanes, P = 4); with
+``--deep``, the deep levels (``tree_hist_deep``): a forest level of each
+``--deep-lanes`` count at each ``--deep`` level with 5-of-28 subsets, and
+the GBT's ``--gbt-lanes`` at the deepest of them with every feature
+(``chip_smoke.gbt_level_inputs``).  An empty ``--lanes`` skips the
+shallow forest levels.  Each shape is held to the f64 twin lane by lane,
+then timed beside its bound, the twin's time and ``index_put_``'s
+(``chip_smoke.hist_case``; a deep level that disagrees is timed all the
+same and its line says so: the parent of a change may miss the rule); ``--kernel-times`` adds each kernel's device
+ms a call (``chip_smoke.kernel_ms``).  ``--profile`` trains the default grid at
+``--rows`` once and runs ``torch.profiler`` windows over its forest and
+its GBT candidates' cross-validation on the model's own vector
+(``chip_smoke.profile_lr_cv``: device-busy share, top kernels).  ``--walls`` times one more train of the default grid, the
 multiclass default grid and the regression default grid, each with its
 per-family CV seconds.
 
@@ -42,6 +50,10 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--lanes", default="60,300")
     ap.add_argument("--levels", default="0,2,4,5")
+    ap.add_argument("--deep", default="")
+    ap.add_argument("--deep-lanes", default="150,300")
+    ap.add_argument("--gbt-lanes", default="6,12")
+    ap.add_argument("--kernel-times", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--walls", action="store_true")
     args = ap.parse_args()
@@ -72,8 +84,9 @@ def main() -> int:
                                      g["offset"], g["P"], reps=20))
     del g
     torch.cuda.empty_cache()
-    for lanes in (int(v) for v in args.lanes.split(",")):
-        for level in (int(v) for v in args.levels.split(",")):
+    ints = lambda v: [int(x) for x in v.split(",") if x]   # noqa: E731
+    for lanes in ints(args.lanes):
+        for level in ints(args.levels):
             inp = cs.forest_level_inputs("cuda", args.rows, lanes, level)
             args_ = (tk, inp["B"], inp["row_node"], inp["stats"],
                      inp["offset"], inp["P"])
@@ -85,6 +98,36 @@ def main() -> int:
                        cs.hist_case(*args_, reps=args.reps))
             del inp, args_
             torch.cuda.empty_cache()
+    def deep_case(inp):
+        args_ = (tk, inp["B"], inp["row_node"], inp["stats"], inp["offset"],
+                 inp["P"], inp["mask"])
+        try:
+            r = cs.hist_case(*args_, args.reps)
+        except AssertionError as e:   # timed all the same, and marked
+            r = cs.hist_case(*args_, args.reps, check=False)
+            r["disagrees_with_twin"] = str(e)
+        if args.kernel_times:
+            r["kernel_ms"] = cs.kernel_ms(lambda: tk.tree_hist(
+                *args_[1:6], cs.N_BINS, node_mask=inp["mask"]), args.reps)
+        return r
+
+    deep = ints(args.deep)
+    data = cs.bench_binned("cuda", args.rows) if deep else None
+    for lanes in ints(args.deep_lanes) if deep else ():
+        for level in deep:
+            inp = cs.forest_level_inputs("cuda", args.rows, lanes, level,
+                                         data=data)
+            record(f"forest level {level}, {lanes} lanes, subsets",
+                   deep_case(inp))
+            del inp
+            torch.cuda.empty_cache()
+    for lanes in ints(args.gbt_lanes) if deep else ():
+        inp = cs.gbt_level_inputs("cuda", args.rows, lanes, max(deep),
+                                  data=data)
+        record(f"gbt level {max(deep)}, {lanes} lanes", deep_case(inp))
+        del inp
+        torch.cuda.empty_cache()
+    del data
     if args.profile or args.walls:
         from transmogrifai_tpu_torch import selector as S
         facts, model, batch = cs.run_default_grid("cuda", args.rows,
@@ -96,6 +139,11 @@ def main() -> int:
                 model, batch, S.BinaryClassificationModelSelector(
                     models=[S._rf_classifier()]), top=10)
             print("profile_rf_cv: " + json.dumps(out["profile_rf_cv"]),
+                  flush=True)
+            out["profile_gbt_cv"] = cs.profile_lr_cv(
+                model, batch, S.BinaryClassificationModelSelector(
+                    models=[S._gbt_classifier()]), top=10)
+            print("profile_gbt_cv: " + json.dumps(out["profile_gbt_cv"]),
                   flush=True)
         del model, batch
         torch.cuda.empty_cache()

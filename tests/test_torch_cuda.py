@@ -1481,3 +1481,135 @@ def test_tree_hist_forest_levels_match_twin(cuda, lanes):
                                      nb, node_mask=nm)
             assert torch.equal(got[0][sl].double(), want[0])
             assert torch.equal(got[1][sl].double(), want[1])
+
+
+# --------------------------------------------------------------------------
+# tree_hist_deep's partition and group histograms; tree_walk's plans
+# --------------------------------------------------------------------------
+
+def _deep_case(cuda, N, D, K, P, S, nb, masked, seed, counts=True):
+    """A deep level: bins, Poisson x held-out weights (integer counts, or
+    normal statistics), rows over the level with some parked above, and
+    5-feature node subsets."""
+    rng = np.random.default_rng(seed)
+    B = torch.as_tensor(rng.integers(0, nb, size=(N, D)).astype(np.int8),
+                        device=cuda)
+    w = rng.poisson(1.0, size=(K, N)) * (rng.random((K, N)) > 0.33)
+    if counts:
+        y = rng.integers(0, S - 1, size=N)
+        st = np.concatenate([w[..., None], w[..., None] * np.eye(S - 1)[y]],
+                            axis=2)
+    else:
+        st = rng.normal(size=(K, N, S)) * w[..., None]
+    rn = rng.integers(max(0, P - 1 - P // 8), 2 * P - 1, size=(K, N))
+    mask = None
+    if masked:
+        m = np.zeros((K, P, D), bool)
+        for k in range(K):
+            for p in range(P):
+                m[k, p, rng.choice(D, min(5, D), replace=False)] = True
+        mask = torch.as_tensor(m, device=cuda)
+    return (B, torch.as_tensor(rn.astype(np.int32), device=cuda),
+            torch.as_tensor(st.astype(np.float32), device=cuda), mask)
+
+
+@pytest.mark.parametrize("N,D,K,P,S,nb,masked,groups,counts", [
+    (60_000, 28, 40, 1024, 3, 32, True, None, True),    # R = 1: no zero-fill
+    (60_000, 28, 1, 512, 3, 32, False, None, False),    # R > 1: skewed rows
+    (30_000, 8, 2, 256, 41, 32, False, None, True),     # 40 classes
+    (30_000, 8, 2, 2048, 41, 32, True, None, True),     # deep totals too
+    (20_000, 4, 1, 256, 300, 127, False, None, True),   # statistic chunks
+    (30_000, 28, 3, 512, 3, 32, True, 4, True),         # node windows
+    (40_000, 1597, 2, 256, 3, 32, False, None, False),  # feature chunks
+])
+def test_tree_hist_deep_plans_match_twin(cuda, monkeypatch, N, D, K, P, S,
+                                         nb, masked, groups, counts):
+    """``tree_hist_deep`` along each branch of ``hist_deep_plan`` and of the
+    launch's split (R > 1 where three nodes hold most rows): integer
+    counts equal to the f64 twin, other statistics within 1e-5 of each
+    cell's mass; cells outside a node's subset 0; totals only as well."""
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    if groups:
+        monkeypatch.setattr(tk, "HIST_DEEP_MAX_GROUPS", groups)
+    B, rn, st, mask = _deep_case(cuda, N, D, K, P, S, nb, masked, P + S,
+                                 counts)
+    if K == 1:              # most rows in three nodes, as in a real level
+        monkeypatch.setattr(tk, "HIST_DEEP_MIN_ROWS", 1024)
+        rn[:, : N * 3 // 4] = P - 1 + torch.arange(N * 3 // 4,
+                                                   device=cuda)[None] % 3
+    width = int(mask.sum(dim=2).amax()) if masked else None
+    plan = tk.hist_plan(N, D, K, P, nb, S, True, width)
+    assert plan["route"] == "deep"
+    if groups:
+        assert plan["windows"] > 1
+    for with_hist in (True, False):
+        kernels.reset_launch_counts()
+        h, t = tk.tree_hist(B, rn, st, P - 1, P, nb, with_hist,
+                            mask if with_hist else None)
+        launches = kernels.launch_counts()["tree_hist_deep"]
+        if with_hist:
+            assert launches == plan["windows"]
+        ht, tt = tk.tree_hist_twin(B, rn, st.double(), P - 1, P, nb,
+                                   with_hist, mask if with_hist else None)
+        if counts:
+            assert torch.equal(t.double(), tt)
+        else:
+            mt = tk.tree_hist_twin(B, rn, st.double().abs(), P - 1, P, nb,
+                                   False)[1]
+            assert bool(((t.double() - tt).abs() <= 1e-5 + 1e-5 * mt).all())
+        if not with_hist:
+            continue
+        if counts:
+            assert torch.equal(h.double(), ht)
+        else:
+            mh = tk.tree_hist_twin(B, rn, st.double().abs(), P - 1, P, nb,
+                                   node_mask=mask)[0]
+            assert bool(((h.double() - ht).abs() <= 1e-5 + 1e-5 * mh).all())
+        if masked:
+            assert bool((h[~mask] == 0).all())
+
+
+def _walk_trees(cuda, Tr, depth, D, V, seed):
+    rng = np.random.default_rng(seed)
+    T = 2 ** (depth + 1) - 1
+    feat = rng.integers(0, D, (Tr, T)).astype(np.int32)
+    thr = rng.normal(scale=0.7, size=(Tr, T)).astype(np.float32)
+    leafm = np.zeros((Tr, T), bool)
+    leafm[:, 2 ** depth - 1:] = True
+    leafm[:, 2] = True
+    thr[:, 4] = np.inf
+    thr[:, 5] = 1e30
+    feat[leafm] = -1
+    vals = rng.normal(size=(Tr, T, V)).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=cuda)
+                 for a in (feat, thr, leafm, vals))
+
+
+@pytest.mark.parametrize("N,D,Tr,members,depth,V,op", [
+    (50_000, 28, 20, 1, 3, 1, "sum"),       # GBT 20 x d3
+    (50_000, 28, 20, 1, 6, 2, "mean"),      # RF 20 x d6
+    (20_000, 28, 50, 1, 12, 2, "mean"),     # RF member 50 x d12: top levels
+    (20_000, 28, 6, 6, 12, 1, "sum"),       # GBT margins: 6 lanes x 1 tree
+    (30_000, 16, 60, 3, 6, 6, "sum"),       # V = 6: two leaf chunks
+    (5_000, 1597, 20, 2, 5, 2, "mean"),     # wide X: gathered
+    (2_000, 28, 8_000, 1, 2, 1, "sum"),     # too many trees to stage
+    (777, 28, 20, 1, 6, 2, "mean"),         # a ragged last block
+])
+def test_tree_walk_plans_match_twin_and_repeat(cuda, N, D, Tr, members,
+                                               depth, V, op):
+    """``tree_walk`` along each branch of ``walk_plan`` (X staged or
+    gathered, trees staged whole, by their top levels or not at all, one
+    or two leaf chunks): within 1e-6 of the twin (which sums in the same
+    tree order) and the same bits on two launches."""
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    rng = np.random.default_rng(N + Tr)
+    X = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32),
+                        device=cuda)
+    trees = _walk_trees(cuda, Tr, depth, D, V, depth + Tr)
+    a = tk.tree_walk(X, *trees, depth + 1, members, op)
+    b = tk.tree_walk(X, *trees, depth + 1, members, op)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(
+        a, tk.tree_walk_twin(X, *trees, depth + 1, members, op),
+        rtol=1e-6, atol=1e-7)

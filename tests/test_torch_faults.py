@@ -157,11 +157,13 @@ def test_split_plans_cover_any_width_and_class_count():
     assert (g40.class_chunk, g40.class_chunks) == (8, 5)
     assert [tk.split_plan(28, c).class_chunk for c in (2, 3, 4, 5)] == \
         [2, 4, 4, 8]
-    assert tk.hist_deep_plan(3) == [(0, 3)]
-    assert tk.hist_deep_plan(7) == [(0, 5), (5, 2)]
-    assert tk.hist_deep_plan(41) == [(0, 5), (5, 5), (10, 5), (15, 5),
-                                     (20, 5), (25, 5), (30, 5), (35, 5),
-                                     (40, 1)]
+    # the deep histogram holds all S statistics of a forest of up to 40
+    # classes in one block, and splits them only past one slot's room
+    for S in (3, 7, 41):
+        plan = tk.hist_deep_plan(1_000_000, 28, 150, 2048, 32, S, True, 5)
+        assert (plan["Sc"], plan["NSC"]) == (S, 1)
+    plan = tk.hist_deep_plan(1000, 4, 1, 256, 127, 300)
+    assert (plan["Sc"], plan["NSC"]) == (150, 2)
     with pytest.raises(ValueError):
         tk.split_plan(0)
 

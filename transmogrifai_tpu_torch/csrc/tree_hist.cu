@@ -47,66 +47,9 @@
 // Bound: device-memory bytes.  Per level it must read B once (N*D bytes),
 // each lane's node ids (4N) and statistics (4SN) — at 1M x 28, S = 3: 28 MB
 // plus 16 MB a lane — and write the histogram.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tree_hist.cuh"
 
 #define HIST_QUEUE 64                 // per warp: rows waiting for a warp
-
-// the cells of one queued row: its statistics j0..j0+SR into the slots of
-// node p (smem histogram [Pg][Wc][NB][S])
-template <int SR>
-__device__ __forceinline__ void add_row(
-    float* __restrict__ hcell, const int8_t* __restrict__ brow,
-    const int16_t* __restrict__ flist, int cnt, int p, int Wc, int NB, int S,
-    int j0, const float (&sv)[SR], int d0, int dc, bool masked, bool words,
-    int rot) {
-  const int cell0 = p * Wc;
-  if (masked) {
-    // each lane starts at its own slot, so the warp's lanes add into
-    // different features' cells at once
-    int t = rot % max(cnt, 1);
-    for (int i = 0; i < cnt; ++i, t = t + 1 == cnt ? 0 : t + 1) {
-      const int b = __ldg(brow + d0 + flist[cell0 + t]);
-      float* h = hcell + ((cell0 + t) * NB + b) * S + j0;
-#pragma unroll
-      for (int j = 0; j < SR; ++j)
-        if (sv[j] != 0.f) atomicAdd(h + j, sv[j]);
-    }
-    return;
-  }
-  int t = 0;
-  if (words) {
-    const uint32_t* w = (const uint32_t*)(brow + d0);
-    const int nw4 = dc >> 2;
-    // up to 8 words (32 features) loaded at once, the rest as they come
-    uint32_t pre[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) pre[i] = i < nw4 ? __ldg(w + i) : 0u;
-    int q = rot % max(nw4, 1);
-    for (int i = 0; i < nw4; ++i, q = q + 1 == nw4 ? 0 : q + 1) {
-      uint32_t v = pre[0];
-#pragma unroll
-      for (int k = 1; k < 8; ++k) v = q == k ? pre[k] : v;
-      if (q >= 8) v = __ldg(w + q);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int b = (int)((v >> (8 * u)) & 0xffu);
-        float* h = hcell + ((cell0 + 4 * q + u) * NB + b) * S + j0;
-#pragma unroll
-        for (int j = 0; j < SR; ++j)
-          if (sv[j] != 0.f) atomicAdd(h + j, sv[j]);
-      }
-    }
-    t = 4 * nw4;
-  }
-  for (; t < dc; ++t) {
-    const int b = __ldg(brow + d0 + t);
-    float* h = hcell + ((cell0 + t) * NB + b) * S + j0;
-#pragma unroll
-    for (int j = 0; j < SR; ++j)
-      if (sv[j] != 0.f) atomicAdd(h + j, sv[j]);
-  }
-}
 
 template <int SR>
 __global__ void __launch_bounds__(512) tree_hist_kernel(
@@ -135,23 +78,9 @@ __global__ void __launch_bounds__(512) tree_hist_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   // each node's slots in this chunk: the features of its subset, in order
-  if (masked) {
-    for (int p = warp; p < Pg; p += nw) {
-      int cnt = 0;
-      const int node = p0 + p;
-      if (node < P) {
-        const uint8_t* m = node_mask + ((long long)k * P + node) * D;
-        for (int a = 0; a < dc; a += 32) {
-          const bool on = a + lane < dc && m[d0 + a + lane];
-          const unsigned bal = __ballot_sync(0xffffffffu, on);
-          const int pos = cnt + __popc(bal & ((1u << lane) - 1u));
-          if (on && pos < Wc) flist[p * Wc + pos] = (int16_t)(a + lane);
-          cnt += __popc(bal);
-        }
-      }
-      if (lane == 0) cnt_s[p] = min(cnt, Wc);
-    }
-  }
+  if (masked)
+    hist_build_slots(node_mask + ((long long)k * P + p0) * D, Pg,
+                     min(Pg, P - p0), D, d0, dc, Wc, flist, cnt_s);
   __syncthreads();
 
   int* qn = queue + warp * 2 * HIST_QUEUE;
@@ -168,23 +97,10 @@ __global__ void __launch_bounds__(512) tree_hist_kernel(
   // lane: its queued row's statistics into the tot and hist cells
   auto drain = [&](int n, int p, bool on) {
     if (!on) return;
-    const float* s = sk + (long long)n * S;
     const int cnt = !with_hist ? 0 : masked ? cnt_s[p] : dc;
-    if (do_tot && cnt == 0)
-      for (int j = 0; j < S; ++j) {
-        const float v = __ldg(s + j);
-        if (v != 0.f) atomicAdd(tot + p * S + j, v);
-      }
-    if (!with_hist) return;
-    const int8_t* brow = B + (long long)n * D;
-    for (int j0 = 0; j0 < S; j0 += SR) {
-      float sv[SR];
-#pragma unroll
-      for (int j = 0; j < SR; ++j)
-        sv[j] = j0 + j < S ? __ldg(s + j0 + j) : 0.f;
-      add_row<SR>(hcell, brow, flist, cnt, p, Wc, NB, S, j0, sv, d0, dc,
-                  masked, words, lane);
-    }
+    hist_row<SR>(hcell, tot, B + (long long)n * D, sk + (long long)n * S, S,
+                 flist, cnt, p, Wc, NB * S, d0, dc, masked, words, with_hist,
+                 do_tot, lane);
   };
 
   for (long long base = r0 + 64LL * warp; base < r1; base += 64LL * nw) {
@@ -245,18 +161,9 @@ __global__ void __launch_bounds__(512) tree_hist_kernel(
                 v);
     }
   }
-  if (do_tot) {
-    // a node with a slot here: its total is the sum over one slot's bins
-    // (each of its live rows added into exactly one of them)
-    float* gt = totals + ((long long)k * P + p0) * S;
-    for (int i = threadIdx.x; i < Pg * S; i += blockDim.x) {
-      const int p = i / S, j = i - p * S;
-      float v = tot[i];
-      if (with_hist && (masked ? cnt_s[p] : dc) > 0)
-        for (int b = 0; b < NB; ++b) v += hcell[(p * Wc * NB + b) * S + j];
-      if (v != 0.f) atomicAdd(gt + i, v);
-    }
-  }
+  if (do_tot)
+    hist_flush_totals(totals + ((long long)k * P + p0) * S, S, tot, hcell,
+                      cnt_s, Pg, Wc, NB * S, NB, S, masked, dc, with_hist);
 }
 
 // the shared-memory bytes of one block (models/tree_kernels.hist_plan adds

@@ -19,17 +19,18 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import cuda_build
 from .kernels import check as _check, launch, stream as _stream
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "tree_hist": [_P] * 6 + [_L] + [_I] * 11 + [_L] + [_I] * 4 + [_P],
-    "tree_hist_deep": [_P] * 6 + [_L] + [_I] * 10 + [_P],
+    "tree_hist_deep": [_P] * 9 + [_L] + [_I] * 21 + [_P],
     "tree_split": [_P] * 13 + [_I] * 6 + [_P],
     "tree_split_gini": [_P] * 12 + [_I] * 8 + [_P],
     "tree_split_variance": [_P] * 12 + [_I] * 6 + [_P],
     "tree_route": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _P],
-    "tree_walk": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _I, _I, _P],
+    "tree_walk": [_P] * 7 + [_L] + [_I] * 13 + [_P],
 }
 _HIST_SMEM_TARGET = 99 * 1024     # the deep route's rule: 2 histograms a SM
 _HIST_SMEM_MAX = 227 * 1024       # what one block can hold
@@ -42,11 +43,30 @@ SMS = 132                         # the H100's SMs
 SPLIT_D_CHUNK = 1024              # features per shared-memory pass of a split
 SPLIT_THREADS = 256
 GINI_CLASS_CHUNKS = (2, 4, 8)     # tree_split_gini's class-chunk templates
-HIST_DEEP_MAX_S = 5               # statistics tree_hist_deep holds per row
+HIST_DEEP_SEG = 8192              # rows a tree_hist_deep partition block sorts
+HIST_DEEP_THREADS = 384           # tree_hist_deep's threads a block (two a SM)
+HIST_DEEP_MIN_ROWS = 16384        # rows a split tree_hist_deep block takes at least
+HIST_DEEP_MAX_GROUPS = 2048       # node groups a partition holds (int16 ids)
+WALK_THREADS = 256                # tree_walk's threads (rows) a block
+WALK_SMEM = 113 * 1024            # a walk block's share of the SM: two a SM
+WALK_X_SMEM = 64 * 1024           # the most bytes of X rows a walk block stages
+WALK_TOP = 15                     # the most nodes a tree a walk block stages
+
+
+_PARTITION_ARGTYPES = [_P] * 8 + [_L] + [_I] * 9 + [_P]
 
 
 def _launch(name: str, *args) -> None:
     launch(name, _ARGTYPES[name], *args)
+
+
+def _deep_partition(*args) -> None:
+    """``csrc/tree_hist_deep.cu``'s first stage (the partition), which the
+    ``tree_hist_deep`` launch after it counts."""
+    fn = cuda_build.load("tree_hist_deep", _ARGTYPES["tree_hist_deep"]) \
+        .tree_hist_deep_partition
+    fn.argtypes, fn.restype = _PARTITION_ARGTYPES, ctypes.c_int
+    cuda_build.check("tree_hist_deep", fn(*args))
 
 
 class SplitPlan(NamedTuple):
@@ -74,14 +94,6 @@ def split_plan(D: int, C: int = 0) -> SplitPlan:
                      -(-C // ct) if C else 0)
 
 
-def hist_deep_plan(S: int) -> List[Tuple[int, int]]:
-    """``tree_hist_deep``'s launches at S statistics: (first column, count)
-    chunks of at most ``HIST_DEEP_MAX_S`` columns, one launch each."""
-    if S < 1:
-        raise ValueError(f"hist_deep_plan: S={S}")
-    return [(lo, min(HIST_DEEP_MAX_S, S - lo))
-            for lo in range(0, S, HIST_DEEP_MAX_S)]
-
 
 # --------------------------------------------------------------------------
 # tree_hist
@@ -102,10 +114,10 @@ def hist_plan(N: int, D: int, K: int, P: int, n_bins: int, S: int,
               with_hist: bool = True, width: Optional[int] = None) -> dict:
     """How ``tree_hist`` launches one level of K lanes (N rows, D features,
     P nodes, S statistics; ``width`` the most features any node's subset
-    holds, None without a node mask).  The deep route (``tree_hist_deep``)
-    where two copies of the level's P·NB·S histogram cells would not fit
-    ``_HIST_SMEM_TARGET`` (totals only: where P·S do not fit a block), as
-    before; else ``tree_hist`` blocks of ``HIST_THREADS`` threads, each
+    holds, None without a node mask).  The deep route (``tree_hist_deep``,
+    sized by :func:`hist_deep_plan`) where two copies of the level's
+    P·NB·S histogram cells would not fit ``_HIST_SMEM_TARGET`` (totals
+    only: where P·S do not fit a block); else ``tree_hist`` blocks of ``HIST_THREADS`` threads, each
     holding Pg nodes x Wc slots x NB bins x S in ``HIST_SMEM_BUDGET`` (two
     blocks an SM): a node's slots are the features of its subset (at most
     ``width``) or all D, in feature chunks of Dc only where one node's
@@ -120,9 +132,7 @@ def hist_plan(N: int, D: int, K: int, P: int, n_bins: int, S: int,
                          f"NB={n_bins} S={S}")
     if (P * S * 4 > _HIST_SMEM_MAX if not with_hist
             else 2 * P * n_bins * S * 4 > _HIST_SMEM_TARGET):
-        return {"route": "deep",
-                "grid_x": max(1, min(-(-N // 256), SMS * 16 // K + 1)),
-                "blocks": K * max(1, min(-(-N // 256), SMS * 16 // K + 1))}
+        return hist_deep_plan(N, D, K, P, n_bins, S, with_hist, width)
     threads = HIST_THREADS
     if with_hist:
         W = D if width is None else max(1, min(width, D))
@@ -152,6 +162,117 @@ def hist_plan(N: int, D: int, K: int, P: int, n_bins: int, S: int,
             "Dc": Dc, "NC": NC, "Wc": Wc, "RB": RB, "R": R,
             "blocks": lanes * R,
             "smem": _hist_smem(Pg, Wc, n_bins, S, threads, with_hist)}
+
+
+def _deep_smem(Pg: int, Wc: int, SS: int, Sc: int, with_hist: bool) -> int:
+    """Shared-memory bytes of one ``tree_hist_deep`` histogram block
+    (``csrc/tree_hist_deep.cu``'s ``deep_smem`` adds the same terms): the
+    group's cells [Pg, Wc, SS] (a slot's NB x Sc cells at stride SS) and
+    totals [Pg, Sc] (f32 or int32), the nodes' slot counts (int32) and the
+    slots' features (int16)."""
+    cells = (Pg * Wc * SS if with_hist else 0) + Pg * Sc
+    return 4 * (cells + Pg) + (2 * Pg * Wc if with_hist else 0)
+
+
+def _slot_stride(n_bins: int, Sc: int) -> int:
+    """A slot's stride in ``tree_hist_deep``'s cells: NB·Sc, made odd so
+    that the same bin of different slots falls in different banks."""
+    return n_bins * Sc | 1
+
+
+def _part_smem(NG: int, SEG: int) -> int:
+    """Shared-memory bytes of one ``tree_hist_deep`` partition block: the
+    groups' counters, a scan's warp sums and a segment's rows' group and
+    node (int32), and the rows in place order (int16)."""
+    return 4 * (NG + 32 + SEG) + 2 * SEG
+
+
+def hist_deep_plan(N: int, D: int, K: int, P: int, n_bins: int, S: int,
+                   with_hist: bool = True,
+                   width: Optional[int] = None) -> dict:
+    """How ``tree_hist_deep`` launches one deep level of K lanes (N rows, D
+    features, P nodes, S statistics; ``width`` the most features any node's
+    subset holds, None without a node mask).  The one place that sizes it:
+
+    - a block holds Sc of the S statistics (all of them unless one slot of
+      NB·S cells would not fit ``HIST_SMEM_BUDGET``: then NSC near-equal
+      chunks), Wc slots a node at an odd stride SS >= NB·Sc (the subset's
+      width, or a feature chunk of Dc features where one node's slots would
+      not fit; NC chunks) and the most nodes Pg that fit the budget (two
+      blocks an SM);
+    - a window of Pw = Pg·``HIST_DEEP_MAX_GROUPS`` nodes at most a launch
+      (``windows`` launches; one up to 2,048 nodes), NG node groups of Pg;
+    - the partition sorts segments of ``HIST_DEEP_SEG`` rows (``nseg`` of
+      them; ``psmem`` bytes a block) into records — row indices int32
+      [K, N], nodes within the group int16 [K, N], a copy of the
+      statistics f32 [K, N, S] — and int2 [K, NG, nseg] runs
+      (``partition_bytes``);
+    - the wrapper reads back the largest group (one wait for the card) and
+      lets R blocks share each group's segments where that group
+      holds more than max(``min_rows``, live rows / ``target_blocks``)
+      rows — the rows of a real deep level sit in a few nodes — and then
+      zeroes the window's cells for those blocks' atomics; with R = 1 each
+      block writes its nodes' cells whole and nothing is zeroed
+      (:func:`hist_deep_split`).
+
+    Any K <= 65,535, S >= 1, NB <= 127, D >= 1, P >= 1 and N < 2^31 has a
+    plan (larger shapes raise ``ValueError``)."""
+    if min(N, D, K, P, n_bins, S) < 1:
+        raise ValueError(f"hist_deep_plan: N={N} D={D} K={K} P={P} "
+                         f"NB={n_bins} S={S}")
+    if K > 65535 or N >= 1 << 31 or (with_hist and n_bins > 127):
+        raise ValueError(f"hist_deep_plan: K={K} (at most 65,535), N={N} "
+                         f"(below 2^31), NB={n_bins} (at most 127)")
+    budget = HIST_SMEM_BUDGET
+    W = D if width is None else max(1, min(width, D))
+    Sc = S
+    while (_deep_smem(1, 1 if with_hist else 0, _slot_stride(n_bins, Sc), Sc,
+                      with_hist) > budget and Sc > 1):
+        Sc = -(-Sc // 2)
+    NSC = -(-S // Sc)
+    Sc = -(-S // NSC)
+    SS = _slot_stride(n_bins, Sc)
+    if with_hist:
+        Dc = min(D, 32767)
+        while _deep_smem(1, min(W, Dc), SS, Sc, True) > budget and Dc > 1:
+            Dc = -(-Dc // 2)
+        Wc, NC = min(W, Dc), -(-D // Dc)
+    else:
+        Dc, Wc, NC = D, 0, 1
+    Pg = max(1, min(P, 32768,
+                    budget // _deep_smem(1, Wc, SS, Sc, with_hist)))
+    Pw = min(P, Pg * HIST_DEEP_MAX_GROUPS)
+    NG = -(-Pw // Pg)
+    Pg = -(-Pw // NG)
+    SEG = HIST_DEEP_SEG
+    nseg = -(-N // SEG)
+    return {"route": "deep", "threads": HIST_DEEP_THREADS, "Pg": Pg,
+            "NG": NG, "Dc": Dc, "NC": NC, "Wc": Wc, "SS": SS, "Sc": Sc,
+            "NSC": NSC, "Pw": Pw, "windows": -(-P // Pw), "SEG": SEG,
+            "nseg": nseg, "min_rows": HIST_DEEP_MIN_ROWS,
+            "target_blocks": HIST_BLOCKS, "blocks": K * NG * NC * NSC,
+            "smem": _deep_smem(Pg, Wc, SS, Sc, with_hist),
+            "psmem": _part_smem(NG, SEG),
+            "partition_bytes": (6 + 4 * S) * K * N + 8 * K * NG * nseg}
+
+
+def hist_deep_split(plan: dict, max_rows: int, live_rows: int) -> int:
+    """R, the ``tree_hist_deep`` blocks that share each node group's
+    segments, from the partition's largest group (``max_rows``) and all
+    its live rows: the largest group's rows over max(``min_rows``, live
+    rows / ``target_blocks``), at most ``nseg`` and 65,535."""
+    part = max(plan["min_rows"], live_rows // plan["target_blocks"])
+    R = -(-max_rows // part) if max_rows > part else 1
+    return min(R, plan["nseg"], 65535)
+
+
+def deep_partition_bytes(N: int, D: int, P: int, n_bins: int,
+                         S: int) -> int:
+    """Device bytes a lane's ``tree_hist_deep`` partition takes at a level
+    of P nodes (every feature: the most node groups), 0 where the level
+    does not take the deep route."""
+    plan = hist_plan(N, D, 1, P, n_bins, S)
+    return plan["partition_bytes"] if plan["route"] == "deep" else 0
 
 
 def tree_hist_twin(B, row_node, stats, offset: int, P: int, n_bins: int,
@@ -196,11 +317,13 @@ def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
     ``node_mask`` bool [K, P, D] (each node's feature subset) leaves the
     cells of features outside a node's subset at zero; None keeps every
     feature.  Rows whose statistics are all zero add nothing (exact: adding
-    zero changes no sum).  :func:`hist_plan` sizes the launch: a level
-    whose nodes fit shared memory runs ``tree_hist`` (with node subsets,
-    slots for the most features any node's subset holds, counted here:
-    one wait for the card); a deeper one ``tree_hist_deep``, one pass
-    adding into device memory."""
+    zero changes no sum).  :func:`hist_plan` sizes the launch, with node
+    subsets slots for the most features any node's subset holds (counted
+    here: one wait for the card): a level whose nodes fit shared memory
+    runs ``tree_hist``; a deeper one ``tree_hist_deep`` (rows partitioned
+    by node group, each group's cells in shared memory; the histogram is
+    zero-filled only where :func:`hist_deep_split` gives a group's rows to
+    several blocks: one wait for the card)."""
     dev = B.device
     _check("tree_hist B", B, torch.int8, 2, dev)
     _check("tree_hist row_node", row_node, torch.int32, 2, dev)
@@ -220,25 +343,45 @@ def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
         raise ValueError(f"tree_hist: unsupported device {dev}")
     if N >= 1 << 31:
         raise ValueError("tree_hist: at most 2^31 - 1 rows")
-    plan = hist_plan(N, D, K, P, n_bins, S, with_hist)
-    if plan["route"] == "shared" and node_mask is not None and with_hist:
-        plan = hist_plan(N, D, K, P, n_bins, S, with_hist,
-                         int(node_mask.sum(dim=2).amax()))
+    width = (int(node_mask.sum(dim=2).amax())
+             if node_mask is not None and with_hist else None)
+    plan = hist_plan(N, D, K, P, n_bins, S, with_hist, width)
     totals = torch.zeros((K, P, S), dtype=torch.float32, device=dev)
-    mask_ptr = 0 if node_mask is None else node_mask.data_ptr()
+    mask_ptr = 0 if node_mask is None or not with_hist \
+        else node_mask.data_ptr()
     if plan["route"] == "deep":
-        hist = (torch.zeros((K, P, D, n_bins, S), dtype=torch.float32,
-                            device=dev) if with_hist else totals)
-        for s_lo, sn in hist_deep_plan(S):
-            _launch("tree_hist_deep", B.data_ptr(), row_node.data_ptr(),
-                    stats.data_ptr(), mask_ptr, hist.data_ptr(),
-                    totals.data_ptr(), N, D, n_bins, S, s_lo, sn, K, offset,
-                    P, int(with_hist), plan["grid_x"], _stream(B))
+        hist = totals
+        if with_hist:
+            hist = torch.empty((K, P, D, n_bins, S), dtype=torch.float32,
+                               device=dev)
+        idx = torch.empty((K, N), dtype=torch.int32, device=dev)
+        pl = torch.empty((K, N), dtype=torch.int16, device=dev)
+        ss = torch.empty((K, N, S), dtype=torch.float32, device=dev)
+        runs = torch.empty((K, plan["NG"], plan["nseg"], 2),
+                           dtype=torch.int32, device=dev)
+        info = torch.zeros((K, 2), dtype=torch.int32, device=dev)
+        stat = torch.empty(2, dtype=torch.int64, device=dev)
+        for wlo in range(0, P, plan["Pw"]):
+            Pn = min(plan["Pw"], P - wlo)
+            _deep_partition(row_node.data_ptr(), stats.data_ptr(),
+                            idx.data_ptr(), pl.data_ptr(), ss.data_ptr(),
+                            runs.data_ptr(), info.data_ptr(), stat.data_ptr(),
+                            N, S, K, offset + wlo, Pn, plan["Pg"], plan["NG"],
+                            plan["SEG"], plan["nseg"], plan["psmem"],
+                            _stream(B))
+            R = hist_deep_split(plan, *stat.tolist())
+            _launch("tree_hist_deep", B.data_ptr(), mask_ptr, idx.data_ptr(),
+                    pl.data_ptr(), ss.data_ptr(), runs.data_ptr(),
+                    info.data_ptr(), hist.data_ptr(), totals.data_ptr(), N,
+                    D, n_bins, S, K, P, wlo, Pn, *(plan[k] for k in (
+                        "Pg", "NG", "Dc", "NC", "Wc", "SS", "Sc", "NSC",
+                        "SEG", "nseg")), R, plan["threads"], plan["smem"],
+                    int(with_hist), _stream(B))
         return (hist if with_hist else None), totals
     hist = (torch.zeros((K, P, D, n_bins, S), dtype=torch.float32, device=dev)
             if with_hist else totals)
     _launch("tree_hist", B.data_ptr(), row_node.data_ptr(), stats.data_ptr(),
-            mask_ptr if with_hist else 0, hist.data_ptr(), totals.data_ptr(),
+            mask_ptr, hist.data_ptr(), totals.data_ptr(),
             N, D, n_bins, S, K, offset, P, plan["Pg"], plan["NG"], plan["Dc"],
             plan["NC"], plan["Wc"], plan["RB"], plan["R"], plan["threads"],
             plan["smem"], int(with_hist), _stream(B))
@@ -678,6 +821,53 @@ def tree_walk_twin(X, feature, threshold, is_leaf, leaf, steps: int,
     return acc / lv.shape[2] if op == "mean" else acc
 
 
+def walk_plan(N: int, D: int, Tm: int, T: int, V: int, M: int) -> dict:
+    """How ``tree_walk`` launches N rows (D features) through M members of
+    Tm trees of T heap nodes and V leaf values — the one place that sizes
+    it.  A block of ``WALK_THREADS`` threads walks one row a thread; where
+    ``threads`` x D floats (row stride ``Dp``, odd) fit ``WALK_X_SMEM``
+    it stages the block's rows of X in shared memory (``x_smem``), else it
+    gathers from device memory (wide X).  It stages the top ``top`` nodes
+    of every tree of its member (whole levels: 2^sl - 1 of them, or all T),
+    at most ``WALK_TOP`` (measured: staging more loses more in blocks an
+    SM than it saves) and what fits the rest of ``WALK_SMEM``; the walk's
+    first ``sl`` steps read them, deeper ones the read-only path."""
+    if min(N, D, Tm, T, V, M) < 1 or M > 65535:
+        raise ValueError(f"walk_plan: N={N} D={D} Tm={Tm} T={T} V={V} M={M}")
+    threads = WALK_THREADS
+    Dp = D | 1
+    x_smem = threads * Dp * 4 <= WALK_X_SMEM
+    room = WALK_SMEM - (threads * Dp * 4 if x_smem else 0)
+    top = 0
+    while top < T:
+        nxt = min(T, 2 * top + 1)
+        if nxt > WALK_TOP or 8 * Tm * nxt > room:
+            break
+        top = nxt
+    smem = 8 * Tm * top + (4 * threads * Dp if x_smem else 0)
+    return {"threads": threads, "top": top,
+            "sl": (top + 1).bit_length() - 1, "x_smem": x_smem, "Dp": Dp,
+            "smem": smem, "blocks": -(-N // threads) * M}
+
+
+def pack_nodes(feature: torch.Tensor, threshold: torch.Tensor,
+               is_leaf: torch.Tensor) -> torch.Tensor:
+    """The walk's 8-byte nodes, as ``csrc/tree_walk.cu`` packs them once a
+    call: int32 [..., 2] of (feature — -1 at a leaf, a negative feature of
+    a split read as 0, as the twin's gather clamps it —, the threshold's
+    f32 bits)."""
+    f = torch.where(is_leaf, -1, torch.clamp(feature, min=0))
+    return torch.stack([f.to(torch.int32),
+                        threshold.contiguous().view(torch.int32)], dim=-1)
+
+
+def unpack_nodes(packed: torch.Tensor):
+    """(feature, threshold, is_leaf) of :func:`pack_nodes`' nodes (a leaf's
+    feature reads -1)."""
+    f = packed[..., 0]
+    return f, packed[..., 1].contiguous().view(torch.float32), f < 0
+
+
 def tree_walk(X: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
               is_leaf: torch.Tensor, leaf: torch.Tensor, steps: int,
               members: int = 1, op: str = "sum") -> torch.Tensor:
@@ -687,8 +877,10 @@ def tree_walk(X: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
     X f32 [N, D]; feature int32, threshold f32, is_leaf bool [Tr, T]; leaf
     f32 [Tr, T, V].  The trees are ``members`` equal groups concatenated
     along Tr.  Returns f32 [N, members, V]: the sum (``op="sum"``) or mean
-    (``op="mean"``) of the reached leaves per member.  Any V: the kernel
-    walks once per 4 leaf values."""
+    (``op="mean"``) of the reached leaves per member, summed in tree order.
+    Any V: the kernel walks once per 4 leaf values.  :func:`walk_plan`
+    sizes the launch; the kernel packs the nodes (:func:`pack_nodes`) once
+    a call."""
     dev = X.device
     _check("tree_walk X", X, torch.float32, 2, dev)
     _check("tree_walk feature", feature, torch.int32, 2, dev)
@@ -707,9 +899,13 @@ def tree_walk(X: torch.Tensor, feature: torch.Tensor, threshold: torch.Tensor,
                               members, op)
     if dev.type != "cuda":
         raise ValueError(f"tree_walk: unsupported device {dev}")
+    plan = walk_plan(N, D, Tr // members, T, V, members)
     out = torch.empty((N, members, V), dtype=torch.float32, device=dev)
+    packed = torch.empty((Tr * T, 2), dtype=torch.int32, device=dev)
     _launch("tree_walk", X.data_ptr(), feature.data_ptr(),
             threshold.data_ptr(), is_leaf.data_ptr(), leaf.data_ptr(),
-            out.data_ptr(), N, D, Tr // members, T, V, members, steps,
-            int(op == "mean"), _stream(X))
+            packed.data_ptr(), out.data_ptr(), N, D, Tr // members, T, V,
+            members, steps, int(op == "mean"), plan["threads"],
+            plan["top"], plan["sl"], int(plan["x_smem"]), plan["Dp"],
+            plan["smem"], _stream(X))
     return out

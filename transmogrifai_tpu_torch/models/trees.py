@@ -34,8 +34,9 @@ from ..columns import device_matrix, to_device_f32
 from ..device import tensor_device
 from .base import PredictionModel, PredictorEstimator
 from .linear import _n_classes
-from .tree_kernels import (tree_hist, tree_route, tree_split, tree_split_gini,
-                           tree_split_variance, tree_walk)
+from .tree_kernels import (deep_partition_bytes, tree_hist, tree_route,
+                           tree_split, tree_split_gini, tree_split_variance,
+                           tree_walk)
 
 MAX_BINS_DEFAULT = 32
 # Device bytes a batch of lanes may hold while its trees grow (statistics,
@@ -134,13 +135,17 @@ def lane_bytes(n_rows: int, n_feats: int, n_stats: int, n_bins: int,
     ids, each twice (the caller's temporaries while it builds the
     statistics; a route writes new ids beside the old), and its row weight,
     ``4·N·(2·S + 4)``; and the widest level's histogram (2^(depth-1) nodes ×
-    D × bins × S f32).  The CPU twins add ~2 histograms (the empty-node
-    test, the split's tables at non-empty nodes) and the scatter's indices
-    and values (``N·D·(8 + 4·S)``)."""
-    hist = 4 * (1 << max(max_depth - 1, 0)) * n_feats * n_bins * n_stats
+    D × bins × S f32).  On the card a level that takes ``tree_hist_deep``
+    adds its partition (each row's record, ``(6 + 4·S)·N``, and the group
+    runs: ``tree_kernels.deep_partition_bytes``).  The CPU twins add ~2
+    histograms (the empty-node test, the split's tables at non-empty nodes)
+    and the scatter's indices and values (``N·D·(8 + 4·S)``)."""
+    widest = 1 << max(max_depth - 1, 0)
+    hist = 4 * widest * n_feats * n_bins * n_stats
     rows = 4 * n_rows * (2 * n_stats + 4)
     if device.type == "cuda":
-        return rows + hist
+        return rows + hist + deep_partition_bytes(n_rows, n_feats, widest,
+                                                  n_bins, n_stats)
     return rows + 3 * hist + n_rows * n_feats * (8 + 4 * n_stats)
 
 
