@@ -19,7 +19,8 @@ Phases (any failure exits non-zero and prints no result line):
    statistics, per-node feature subsets, levels 0 and 5 of a depth-6 tree,
    walks of 20 depth-6 trees), ``fista_step`` at the default grid's linear
    shapes (3 folds x 8 logistic lanes, 3 folds x 4 squared-hinge lanes, the
-   power iteration's 3 lanes), ``tree_hist_deep`` (rows partitioned by
+   power iteration's 3 lanes; the xgb ``tree_split`` held to its twin's
+   bits, ``tree_route`` exact), ``tree_hist_deep`` (rows partitioned by
    node group) at level 11 of depth-12 trees (a 50-tree forest member with
    node subsets; GBT statistics) and ``tree_walk`` through depth-12
    members; every ``tree_walk`` shape is held to its twin within 1e-6 and
@@ -45,7 +46,15 @@ Phases (any failure exits non-zero and prints no result line):
    0, 2, 4 and 5 with node subsets and level 5 with every feature, and
    ``tree_hist_deep`` at the deep levels the grid launches (a 150-lane
    forest batch at levels 8-11 and 300 lanes at level 11 with subsets,
-   the GBT's 6 and 12 lanes at level 11), against the f64 twin; then at
+   the GBT's 6 and 12 lanes at level 11), against the f64 twin;
+   ``tree_route`` and ``tree_split`` at the grid's shapes
+   (``check_route_split_levels``: the route at forest batches of 150 and
+   300 lanes at levels 5 and 11 and at the GBT's 6 and 12 lanes at levels
+   2 and 11; the split at a depth-3 GBT level and at level 11 with three
+   quarters of the rows in 8 nodes), the route exact against its twin on
+   copies of the ids (it routes in place), the split bit for bit with its
+   epilogue's tree arrays against the twin's bookkeeping, each timed by
+   CUDA events and by the profiler (``kernel_ms``); then at
    5,000 rows on the card
    (forest draws made on the host) and on the CPU twins, held to the JAX
    package's default-grid run at that size;
@@ -299,16 +308,23 @@ def kernel_ms(fn, reps: int) -> dict:
     """Device ms a call of ``fn`` spends in each kernel, by name, from a
     ``torch.profiler`` window over ``reps`` calls after one warm-up call
     (CUDA events around the calls measure the host's enqueue as well where
-    it is the slower)."""
+    it is the slower).  The window is the profiler's second step: the first
+    (``reps`` calls more, traced and dropped) is its warm-up — a window
+    opened right after an earlier one was seen to miss its first calls'
+    kernels."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     by = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -474,36 +490,20 @@ def check_kernels(device, n: int = N_ROWS, reps: int = 20):
         "library_ms": time_ms(lambda: lib_out.index_put_(
             (flat_idx,), vals, accumulate=True), 3)})
 
-    # tree_split on the kernel's histogram (rules: _check_split)
+    # tree_split on the kernel's histogram: the twin's bits (split_case)
     fmask = torch.ones(D, dtype=torch.bool, device=device)
     lane = lambda v: torch.full((K,), v, dtype=torch.float32, device=device)
     args = (hist, tot, fmask, inp["splits"], lane(10.0), lane(0.0), lane(1.0))
-    gerr = _check_split(tk, hist, tot, fmask, None, inp["splits"], args[4],
-                        args[5], args[6])
+    rows.append({"name": "tree_split",
+                 **split_case(tk, *args, reps=reps, plain_reps=reps)})
     st = tk.tree_split_twin(*args)
-    bt, by = bound(4 * (hist.numel() + tot.numel()) + D + 4 * inp["splits"].numel()
-                   + 21 * K * P, 10 * hist.numel() // S)
-    rows.append({
-        "name": "tree_split", "max_abs_err": gerr,
-        "ms": time_ms(lambda: tk.tree_split(*args), reps),
-        "plain_ms": time_ms(lambda: tk.tree_split_twin(*args), reps),
-        "bound_ms": bt, "bound_by": by, "library_ms": None})
 
-    # tree_route: integer work, exact
+    # tree_route: integer work, exact (route_case: in place, on copies)
     feat, bin_, leaf = st["feature"], st["bin"], st["is_leaf"].clone()
     leaf[:, 1] = True                     # a node that stops splitting
-    rk = tk.tree_route(B, row_node, feat, bin_, leaf, off)
-    rt = tk.tree_route_twin(B, row_node, feat, bin_, leaf, off)
-    if not torch.equal(rk, rt):
-        raise AssertionError("tree_route disagrees with its twin")
-    bt, by = bound(8 * row_node.numel() + at, at)
-    rows.append({
-        "name": "tree_route", "max_abs_err": float((rk - rt).abs().max()),
-        "ms": time_ms(lambda: tk.tree_route(B, row_node, feat, bin_, leaf,
-                                            off), reps),
-        "plain_ms": time_ms(lambda: tk.tree_route_twin(B, row_node, feat,
-                                                       bin_, leaf, off), reps),
-        "bound_ms": bt, "bound_by": by, "library_ms": None})
+    rows.append({"name": "tree_route",
+                 **route_case(tk, B, row_node, feat, bin_, leaf, off, reps,
+                              plain_reps=reps)})
 
     # tree_walk at the main path's three shapes, each walked depth+1 steps:
     # a boosting round's margin update (3 lanes x 1 tree), the CV panel (3
@@ -608,8 +608,6 @@ def check_forest_kernels(device, n: int = N_ROWS, reps: int = 10):
                                                 P, None, reps)
     hist_m, tot_m = tk.tree_hist(B, row_node, stats, off, P, N_BINS,
                                  node_mask=m5)
-    at = row_node - off
-    in_level = (at >= 0) & (at < P)
 
     # tree_split_gini at levels 0 (P = 1) and 5 (P = 32, the masked
     # histogram) with the forest's per-node subsets (rules: _check_split)
@@ -632,20 +630,10 @@ def check_forest_kernels(device, n: int = N_ROWS, reps: int = 10):
            "plain_ms": time_ms(lambda: tk.tree_split_gini_twin(*args), reps),
            "bound_ms": bt, "bound_by": by, "library_ms": None}
 
-    # tree_route at level 5 of 60 lanes: exact
+    # tree_route at level 5 of 60 lanes: exact (route_case)
     sp = tk.tree_split_gini_twin(*args)
-    rk = tk.tree_route(B, row_node, sp["feature"], sp["bin"], sp["is_leaf"], off)
-    rt = tk.tree_route_twin(B, row_node, sp["feature"], sp["bin"],
-                            sp["is_leaf"], off)
-    if not torch.equal(rk, rt):
-        raise AssertionError("tree_route (forest level 5) disagrees with its twin")
-    facts["tree_route"] = {"lanes": K, "P": P, "ms": time_ms(
-        lambda: tk.tree_route(B, row_node, sp["feature"], sp["bin"],
-                              sp["is_leaf"], off), reps),
-        "plain_ms": time_ms(lambda: tk.tree_route_twin(
-            B, row_node, sp["feature"], sp["bin"], sp["is_leaf"], off), reps),
-        "bound_ms": bound(8 * row_node.numel() + int(in_level.sum()),
-                          int(in_level.sum()))[0]}
+    facts["tree_route"] = route_case(tk, B, row_node, sp["feature"],
+                                     sp["bin"], sp["is_leaf"], off, reps)
 
     # tree_walk at the forest's shapes, V = 2 class shares, 7 steps: the
     # model's mean over 20 trees (timed) and the CV panel's 3 members x 20
@@ -693,14 +681,15 @@ def _check_split(tk, hist, tot, fmask, node_mask, splits, min_inst,
     """``tree_split`` (``lam`` given: xgb statistics) or ``tree_split_gini``
     (``lam`` None, ``node_mask`` the nodes' subsets or None) on all lanes
     at once against its twin on the same histogram, ``chunk`` lanes at a
-    time (a deep level's gain tables take ~10x its histogram).  Gains must
-    lie within a rounding tolerance of the twin's — xgb: 1e-5 of |gain| +
-    the parent's G²/(H+λ), plus 1e-6; gini: 1e-6 of wgini(parent) — the
-    terms they are a difference of.  The chosen feature, bin and threshold
-    must agree wherever best and runner-up differ by more than 1e-4 of
-    |gain| (xgb) or 1e-5 of wgini(parent) (gini), and the leaf flag
-    wherever the twin's gain is non-finite or further than the tolerance
-    from the lane's min_gain.  Returns the largest gain error."""
+    time (a deep level's gain tables take ~10x its histogram).  The xgb
+    kernel must give the twin's bits in every output (it adds the bin
+    prefix in the twin's order and rounds as it does) and its own bits on a
+    second launch.  Gini gains must lie within 1e-6 of wgini(parent), the
+    terms they are a difference of; the chosen feature, bin and threshold
+    must agree wherever best and runner-up differ by more than 1e-5 of
+    wgini(parent), and the leaf flag wherever the twin's gain is
+    non-finite or further than the tolerance from the lane's min_gain.
+    Returns the largest gain error."""
     import torch
     K = hist.shape[0]
     name = "tree_split" if lam is not None else "tree_split_gini"
@@ -709,24 +698,28 @@ def _check_split(tk, hist, tot, fmask, node_mask, splits, min_inst,
                                  min_inst, min_gain)
     else:
         out = tk.tree_split(hist, tot, fmask, splits, min_inst, min_gain, lam)
+        again = tk.tree_split(hist, tot, fmask, splits, min_inst, min_gain,
+                              lam)
+        for a in range(0, K, chunk):
+            sl = slice(a, min(a + chunk, K))
+            st = tk.tree_split_twin(hist[sl], tot[sl], fmask, splits,
+                                    min_inst[sl], min_gain[sl], lam[sl])
+            for key, v in st.items():
+                if not (torch.equal(out[key][sl], v)
+                        and torch.equal(again[key][sl], v)):
+                    raise AssertionError(
+                        f"{name} (P {hist.shape[1]}, lanes {a}..): {key} "
+                        "differs from the twin's bits")
+        return 0.0
     err = 0.0
     for a in range(0, K, chunk):
         sl = slice(a, min(a + chunk, K))
         h, t, mi, mg = hist[sl], tot[sl], min_inst[sl], min_gain[sl]
-        if lam is None:
-            m = None if node_mask is None else node_mask[sl]
-            st = tk.tree_split_gini_twin(h, t, fmask, m, splits, mi, mg)
-            tol = 1e-6 * tk.wgini(t)
-            gap_tol = 1e-5 * tk.wgini(t)
-            gap = tk.split_gap_gini(h, t, fmask, m, mi)
-        else:
-            st = tk.tree_split_twin(h, t, fmask, splits, mi, mg, lam[sl])
-            fin = torch.isfinite(st["gain"])
-            scale = torch.where(fin, st["gain"].abs(), 0.0) + \
-                t[..., 1] ** 2 / (t[..., 2] + lam[sl, None])
-            tol = 1e-5 * scale + 1e-6
-            gap_tol = 1e-4 * st["gain"].abs()
-            gap = tk.split_gap(h, t, fmask, mi, lam[sl])
+        m = None if node_mask is None else node_mask[sl]
+        st = tk.tree_split_gini_twin(h, t, fmask, m, splits, mi, mg)
+        tol = 1e-6 * tk.wgini(t)
+        gap_tol = 1e-5 * tk.wgini(t)
+        gap = tk.split_gap_gini(h, t, fmask, m, mi)
         sk = {k: v[sl] for k, v in out.items()}
         fin = torch.isfinite(st["gain"])
         if not torch.equal(fin, torch.isfinite(sk["gain"])):
@@ -747,6 +740,126 @@ def _check_split(tk, hist, tot, fmask, node_mask, splits, min_inst,
                                  "flags disagree with the twin")
         err = max(err, float(e.max()))
     return err
+
+
+def _device_ms(kms: dict, key: str):
+    """The device ms a call spent in kernels whose name holds ``key``
+    (``kernel_ms``'s table); None where the window holds none of them."""
+    found = [v for k, v in kms.items() if key in k]
+    return sum(found) if found else None
+
+
+def route_case(tk, B, row_node, feat, bin_, leaf, off: int, reps: int = 5,
+               plain_reps: int = 2, lane_chunk: int = 50) -> dict:
+    """``tree_route`` at one shape.  The kernel routes in place, so it runs
+    on copies of ``row_node``: equal to the twin (integer work, exact;
+    ``lane_chunk`` lanes a twin call) and to itself on a second launch.
+    Timed from a restored copy with a 64 MB buffer written between (the
+    ids come cold from device memory, as after the level's histogram and
+    split): ``ms`` by CUDA events (restore and route, less the restore
+    alone) and ``kernel_ms`` by the profiler (the route kernel alone).  The
+    bound reads every id once, writes each moved id once and reads B's
+    bytes that the moved rows need once (each (row, feature) pair counted
+    once); one compare a moved row."""
+    import torch
+    K, N = row_node.shape
+    D = B.shape[1]
+    got = tk.tree_route(B, row_node.clone(), feat, bin_, leaf, off)
+    again = tk.tree_route(B, row_node.clone(), feat, bin_, leaf, off)
+    if not torch.equal(got, again):
+        raise AssertionError(f"tree_route ({K} lanes, offset {off}): two "
+                             "launches differ")
+    need = torch.zeros(N * D, dtype=torch.bool, device=B.device)
+    moved = 0
+    for a in range(0, K, lane_chunk):
+        sl = slice(a, min(a + lane_chunk, K))
+        want = tk.tree_route_twin(B, row_node[sl], feat[sl], bin_[sl],
+                                  leaf[sl], off)
+        if not torch.equal(got[sl], want):
+            raise AssertionError(f"tree_route ({K} lanes, offset {off}, "
+                                 f"lanes {a}..) disagrees with its twin")
+        kk, nn = torch.nonzero(want != row_node[sl], as_tuple=True)
+        moved += kk.numel()
+        p = row_node[sl][kk, nn].long() - off
+        need[nn * D + feat[sl][kk, p].long()] = True
+        del want, kk, nn, p
+    del got, again
+    bt, by = bound(4 * K * N + 4 * moved + int(need.sum()), moved)
+    del need
+    work = row_node.clone()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=B.device)
+
+    def restore():
+        work.copy_(row_node)
+        flush.zero_()
+
+    def run():
+        restore()
+        tk.tree_route(B, work, feat, bin_, leaf, off)
+
+    case = {"lanes": K, "P": feat.shape[1], "moved": moved,
+            "max_abs_err": 0.0, "same_bits_twice": True,
+            "ms": max(0.0, time_ms(run, reps) - time_ms(restore, reps)),
+            "kernel_ms": _device_ms(kernel_ms(run, reps), "tree_route"),
+            "plain_ms": time_ms(lambda: tk.tree_route_twin(
+                B, row_node, feat, bin_, leaf, off), plain_reps),
+            "bound_ms": bt, "bound_by": by, "library_ms": None}
+    if hasattr(tk, "route_plan"):
+        case["plan"] = tk.route_plan(N, D, K)
+    return case
+
+
+def split_case(tk, hist, tot, fmask, splits, mi, mg, lam, reps: int = 10,
+               plain_reps: int = 2) -> dict:
+    """``tree_split`` (xgb) at one level: the twin's bits and its own on a
+    second launch (``_check_split``); the epilogue's tree arrays — from
+    random gain sums, at offset P - 1 of [K, 4P - 1] heaps — equal to
+    ``write_level_twin``'s run on the CPU (its ``scatter_add_`` adds in
+    node order); ``ms`` by CUDA events and ``kernel_ms`` by the profiler
+    for the dict form, ``epilogue_kernel_ms`` for fit_trees' form, the
+    twin's time.  The bound reads the histograms of the nodes that can
+    split (count total >= 2·min_instances; the kernel reads no other)
+    once, the totals, mask and split points once, and writes 21 bytes a
+    node; ten operations a (node, feature, bin) read."""
+    import torch
+    K, P, D, NB, _ = hist.shape
+    err = _check_split(tk, hist, tot, fmask, None, splits, mi, mg, lam)
+    off, T = P - 1, 4 * P - 1
+    gen = torch.Generator(device=hist.device).manual_seed(P)
+    tree = (torch.full((K, T), -1, dtype=torch.int32, device=hist.device),
+            torch.full((K, T), float("inf"), device=hist.device),
+            torch.zeros((K, T), dtype=torch.bool, device=hist.device),
+            torch.zeros((K, T, 1), device=hist.device),
+            torch.rand((K, D), generator=gen, device=hist.device))
+    ref = tuple(t.cpu() for t in tree)
+    out = tk.tree_split(hist, tot, fmask, splits, mi, mg, lam, tree=tree,
+                        offset=off)
+    tk.write_level_twin({k: v.cpu() for k, v in out.items()}, ref, off)
+    for name, a, b in zip(("feature", "threshold", "is_leaf", "leaf",
+                           "gain"), tree, ref):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"tree_split epilogue (P {P}): {name} "
+                                 "differs from the twin's bookkeeping")
+    can = int((tot[..., 0] >= 2 * mi[:, None]).sum())
+    bt, by = bound(4 * can * D * NB * 3 + 12 * K * P + D
+                   + 4 * splits.numel() + 12 * K + 21 * K * P,
+                   10 * can * D * NB)
+    args = (hist, tot, fmask, splits, mi, mg, lam)
+    run = lambda: tk.tree_split(*args)                   # noqa: E731
+    case = {"lanes": K, "P": P, "nodes_that_can_split": can,
+            "max_abs_err": err, "same_bits_as_twin": True,
+            "epilogue_equal": True,
+            "ms": time_ms(run, reps),
+            "kernel_ms": _device_ms(kernel_ms(run, reps), "tree_split"),
+            "epilogue_kernel_ms": _device_ms(kernel_ms(
+                lambda: tk.tree_split(*args, tree=tree, offset=off), reps),
+                "tree_split"),
+            "plain_ms": time_ms(lambda: tk.tree_split_twin(*args),
+                                plain_reps),
+            "bound_ms": bt, "bound_by": by, "library_ms": None}
+    if hasattr(tk, "xgb_split_plan"):
+        case["plan"] = tk.xgb_split_plan(K, P, D, NB)
+    return case
 
 
 def _two_pass(run, refs, reps: int, what: str) -> dict:
@@ -989,22 +1102,9 @@ def check_deep_kernels(device, n: int = N_ROWS, reps: int = 5):
     del hist, tot
     leaf = sp["is_leaf"].clone()
     leaf[:, ::7] = True                   # more nodes that stop splitting
-    rk = tk.tree_route(B, row_node, sp["feature"], sp["bin"], leaf, off)
-    for a in range(0, K, 50):
-        sl = slice(a, min(a + 50, K))
-        rt = tk.tree_route_twin(B, row_node[sl], sp["feature"][sl],
-                                sp["bin"][sl], leaf[sl], off)
-        if not torch.equal(rk[sl], rt):
-            raise AssertionError(f"tree_route (level {DEEP - 1}, lanes "
-                                 f"{a}..) disagrees with its twin")
-    at = int(((row_node >= off) & (row_node < off + P)).sum())
-    facts["forest_route"] = {
-        "lanes": K, "ms": time_ms(lambda: tk.tree_route(
-            B, row_node, sp["feature"], sp["bin"], leaf, off), reps),
-        "plain_ms": time_ms(lambda: tk.tree_route_twin(
-            B, row_node, sp["feature"], sp["bin"], leaf, off), 2),
-        "bound_ms": bound(8 * row_node.numel() + at, at)[0]}
-    del rk, rt, sp, leaf
+    facts["forest_route"] = route_case(tk, B, row_node, sp["feature"],
+                                       sp["bin"], leaf, off, reps)
+    del sp, leaf
 
     # GBT level 11: its 6 lanes of fold-weighted (w, w·g, w·h), no subsets
     margin = rng.normal(scale=0.5, size=(6, n)).astype(np.float32)
@@ -1020,16 +1120,9 @@ def check_deep_kernels(device, n: int = N_ROWS, reps: int = 5):
         B, grn, gstats, off, P, N_BINS), reps)
     gmi, gmg, glam = (torch.tensor(v, dtype=torch.float32, device=device)
                       for v in zip(*((a, b, 1.0) for a, b in points)))
-    facts["split_max_abs_err"] = _check_split(tk, h, t, fmask, None, sp_t,
-                                              gmi, gmg, glam)
-    facts["gbt_split"] = {
-        "lanes": 6, "ms": time_ms(lambda: tk.tree_split(
-            h, t, fmask, sp_t, gmi, gmg, glam), reps),
-        "plain_ms": time_ms(lambda: tk.tree_split_twin(
-            h, t, fmask, sp_t, gmi, gmg, glam), 2),
-        "bound_ms": bound(4 * (h.numel() + t.numel()) + D
-                          + 4 * sp_t.numel() + 21 * 6 * P,
-                          10 * h.numel() // 3)[0]}
+    facts["gbt_split"] = split_case(tk, h, t, fmask, sp_t, gmi, gmg, glam,
+                                    reps)
+    facts["split_max_abs_err"] = facts["gbt_split"]["max_abs_err"]
     del h, t
 
     # the timed row: 8 forest lanes, kernel / twin / index_put_
@@ -2243,6 +2336,7 @@ def check_wide_trees(device="cuda", n: int = WIDE_ROWS) -> dict:
                              "did not go to feature 100")
     return {"rows": n, "width": WIDE_D, "fit_s": fit_s,
             "split_plan": tk.split_plan(WIDE_D)._asdict(),
+            "xgb_split_plan": tk.xgb_split_plan(3, 2, WIDE_D, N_BINS),
             "gbt_root_feature": int(gbt["feature"][0, 0]),
             "rf_features_used": sorted({int(f) for f in rf["feature"].flatten()
                                         if f >= 0}),
@@ -4006,8 +4100,9 @@ def gbt_level_inputs(device, n: int, lanes: int, level: int, seed: int = 9,
     statistics (w, w·g, w·h) of fold weights and random margins, every
     feature, and rows as a deep level of a fitted tree holds them: three
     quarters of each lane's rows in ``GBT_HEAVY_NODES`` of its nodes drawn
-    at random, the rest spread over the level's P = 2^level nodes with a
-    fifth of its width parked at leaves above.  So the groups of the heavy
+    at random (at levels of 4·``GBT_HEAVY_NODES`` nodes or more), the rest
+    spread over the level's P = 2^level nodes with a fifth of its width
+    (at least one node) parked at leaves above.  So the groups of the heavy
     nodes hold more rows than one block takes, and ``tree_hist_deep``
     splits them over several blocks (``hist_deep_split``: R > 1, the
     window's cells zeroed and added into with atomics), as in the default
@@ -4024,11 +4119,12 @@ def gbt_level_inputs(device, n: int, lanes: int, level: int, seed: int = 9,
     off, P = (1 << level) - 1, 1 << level
     row_node = rng.integers(max(0, off - max(1, P // 5)), off + P,
                             size=(lanes, n))
-    heavy = off + np.stack([rng.choice(P, GBT_HEAVY_NODES, replace=False)
-                            for _ in range(lanes)])
-    pick = rng.integers(0, GBT_HEAVY_NODES, size=(lanes, n))
-    row_node = np.where(rng.random((lanes, n)) < 0.75,
-                        np.take_along_axis(heavy, pick, axis=1), row_node)
+    if P >= 4 * GBT_HEAVY_NODES:
+        heavy = off + np.stack([rng.choice(P, GBT_HEAVY_NODES, replace=False)
+                                for _ in range(lanes)])
+        pick = rng.integers(0, GBT_HEAVY_NODES, size=(lanes, n))
+        row_node = np.where(rng.random((lanes, n)) < 0.75,
+                            np.take_along_axis(heavy, pick, axis=1), row_node)
     return {"B": B, "stats": torch.as_tensor(stats, device=device),
             "row_node": torch.as_tensor(row_node.astype(np.int32),
                                         device=device),
@@ -4088,6 +4184,79 @@ def check_deep_hist_levels(device="cuda", n: int = N_ROWS,
         facts[key]["plan"]["R"] = R
         rows.append(_kernel_row("tree_hist_deep", facts[key]))
         del inp
+        torch.cuda.empty_cache()
+    return rows, facts
+
+
+ROUTE_FOREST_LANES = (150, 300)    # the forests' lane batches at depth 12
+ROUTE_FOREST_LEVELS = (5, 11)
+ROUTE_GBT_LEVELS = (2, DEEP - 1)   # a depth-3 GBT's last split level, 11
+
+
+def check_route_split_levels(device="cuda", n: int = N_ROWS,
+                             reps: int = 5) -> tuple:
+    """``tree_route`` and ``tree_split`` at the shapes the default grid
+    launches them, each against its twin and timed by CUDA events and the
+    profiler (``route_case``, ``split_case``).  The route at forest batches
+    of 150 and 300 lanes at levels 5 and 11 (rows spread over the level, a
+    fifth of its width parked at leaves above) and at the GBT's 6 and 12
+    lanes at level 2 and level 11 (three quarters of each lane's rows in
+    ``GBT_HEAVY_NODES`` nodes, ``gbt_level_inputs``), each node's split
+    drawn at random (a seventh of them leaves).  The split on the GBT's
+    histograms of level 2 (6 lanes, P = 4) and level 11 (6 and 12 lanes,
+    the skewed rows), with the grid's min_instances 10 and 100 and
+    min_info_gain 0.001 .. 0.1.  Returns the rows of the kernels line and
+    their numbers."""
+    import itertools
+
+    import torch
+
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    rows, facts = [], {}
+    data = bench_binned(device, n)
+    y, sp_t, B = data
+    D = B.shape[1]
+    gen = torch.Generator(device=device).manual_seed(15)
+
+    def decisions(lanes, P):
+        return (torch.randint(0, D, (lanes, P), generator=gen, device=device,
+                              dtype=torch.int32),
+                torch.randint(0, N_BINS - 1, (lanes, P), generator=gen,
+                              device=device, dtype=torch.int32),
+                torch.rand((lanes, P), generator=gen, device=device) < 1 / 7)
+
+    cases = ([("forest", k, lvl) for k in ROUTE_FOREST_LANES
+              for lvl in ROUTE_FOREST_LEVELS]
+             + [("gbt", k, lvl) for k in DEEP_GBT_LANES
+                for lvl in ROUTE_GBT_LEVELS])
+    for kind, lanes, level in cases:
+        off, P = (1 << level) - 1, 1 << level
+        if kind == "forest":
+            row_node = torch.randint(max(0, off - max(1, P // 5)), off + P,
+                                     (lanes, n), generator=gen,
+                                     device=device, dtype=torch.int32)
+        else:
+            row_node = gbt_level_inputs(device, n, lanes, level,
+                                        data=data)["row_node"]
+        key = f"route_{kind}_{lanes}_lanes_level_{level}"
+        facts[key] = route_case(tk, B, row_node, *decisions(lanes, P), off,
+                                reps)
+        rows.append(_kernel_row("tree_route", facts[key]))
+        del row_node
+        torch.cuda.empty_cache()
+    points = list(itertools.product((10.0, 100.0), (0.001, 0.01, 0.1)))
+    fmask = torch.ones(D, dtype=torch.bool, device=device)
+    for lanes, level in ((6, 2), (6, DEEP - 1), (12, DEEP - 1)):
+        inp = gbt_level_inputs(device, n, lanes, level, data=data)
+        h, t = tk.tree_hist(B, inp["row_node"], inp["stats"], inp["offset"],
+                            inp["P"], N_BINS)
+        mi, mg, lam = (torch.tensor(v, dtype=torch.float32, device=device)
+                       for v in zip(*((points[k % 6][0], points[k % 6][1],
+                                       1.0) for k in range(lanes))))
+        key = f"split_gbt_{lanes}_lanes_level_{level}"
+        facts[key] = split_case(tk, h, t, fmask, sp_t, mi, mg, lam, reps)
+        rows.append(_kernel_row("tree_split", facts[key]))
+        del inp, h, t
         torch.cuda.empty_cache()
     return rows, facts
 
@@ -4237,10 +4406,10 @@ def main() -> int:
     from transmogrifai_tpu_torch import selector as S
     print("profile default grid RF CV: " + json.dumps(profile_lr_cv(
         grid_model, grid_batch, S.BinaryClassificationModelSelector(
-            models=[S._rf_classifier()]), top=10)), flush=True)
+            models=[S._rf_classifier()]), top=16)), flush=True)
     print("profile default grid GBT CV: " + json.dumps(profile_lr_cv(
         grid_model, grid_batch, S.BinaryClassificationModelSelector(
-            models=[S._gbt_classifier()]), top=10)), flush=True)
+            models=[S._gbt_classifier()]), top=16)), flush=True)
     # tree_hist and tree_hist_deep at the forests' and GBTs' own lane
     # batches, timed beside the rows above
     hist_rows, hist_facts = check_forest_hist_levels("cuda")
@@ -4250,6 +4419,11 @@ def main() -> int:
     deep_rows, deep_levels = check_deep_hist_levels("cuda")
     print("tree_hist_deep levels: " + json.dumps(deep_levels), flush=True)
     hist_rows += deep_rows
+    torch.cuda.empty_cache()
+    route_rows, route_levels = check_route_split_levels("cuda")
+    print("tree_route and tree_split levels: " + json.dumps(route_levels),
+          flush=True)
+    hist_rows += route_rows
     rows += hist_rows
     for r in rows:
         r["launches"] = launches[r["name"]]

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Time the split kernels, and the bench set's train wall, on one NVIDIA
 card: ``tree_split`` at a depth-3 GBT level (3 lanes, P = 4) and at the
-default grid's GBT level 11 (6 lanes, P = 2048), ``tree_split_gini`` at a
-forest level 5 (60 lanes, P = 32) and at the default grid's RF level 11
-(150 lanes, P = 2048), both with 5-of-28 node subsets, and once more at
-level 5 with 6 classes; then ``chip_smoke.run_main_path`` (the bench set:
-LR x4, RF, GBT with 3-fold CV) at 1,000,000 x 28.
+default grid's GBT level 11 (6 lanes, P = 2048) on synthetic full
+histograms, and at level 11 as the grid's GBT sends it (6 and 12 lanes,
+three quarters of each lane's rows in 8 nodes: ``chip_smoke.
+gbt_level_inputs`` and ``tree_hist``, min_instances 10 and 100 by grid
+point), ``tree_split_gini`` at a forest level 5 (60 lanes, P = 32) and at
+the default grid's RF level 11 (150 lanes, P = 2048), both with 5-of-28
+node subsets, and once more at level 5 with 6 classes; then
+``chip_smoke.run_main_path`` (the bench set: LR x4, RF, GBT with 3-fold
+CV) at 1,000,000 x 28.
 
     python3 scripts/split_kernel_time.py [--root DIR] [--reps R]
-        [--rows N] [--train-reps T]
+        [--rows N] [--train-reps T] [--kernel-times]
 
-``--root`` is a checkout whose ``transmogrifai_tpu_torch`` and
-``chip_smoke.py`` are timed (default: the one this script is in), so that
-two versions can be compared on one card: run each in its own process, in
-the order A B B A.  A version whose wrapper refuses a shape reports its
+``--root`` is a checkout whose ``transmogrifai_tpu_torch`` is timed
+(default: the one this script is in; the inputs and the trains come from
+this script's ``chip_smoke.py``), so that two versions can be compared on
+one card: run each in its own process, in the order A B B A.  A version whose wrapper refuses a shape reports its
 ``ValueError`` for it.  The histograms are synthetic (a seeded generator
 on the card, the same in every process): integer counts and class counts
 for gini, (count, w·g, w·h) for xgb, every bin of every node filled, the
@@ -21,14 +25,19 @@ parent totals the sums over one feature's bins.  Times are CUDA events
 over ``--reps`` calls after a warm-up: ``ms`` of the wrapper called from
 Python (at small shapes the host's launch path, not the kernel, sets it)
 and ``graph_ms`` of one replay of the call captured in a CUDA graph (the
-kernel alone).  ``--train-reps 0`` skips the trains; else the first
-train is a warm-up.  Prints one JSON line: the card's name and power
-limit, the root, each shape's ms and graph ms, and the train walls.
+kernel alone); ``--kernel-times`` adds ``kernel_ms``, the device ms a call
+spends in the split kernel by the profiler (``chip_smoke.kernel_ms``).
+Where the version's ``tree_split`` writes fit_trees' tree arrays
+(``tree=``), the xgb shapes are also timed in that form (``epilogue``).
+``--train-reps 0`` skips the trains; else the first train is a warm-up.
+Prints one JSON line: the card's name and power limit, the root, each
+shape's times, and the train walls.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import sys
@@ -97,28 +106,69 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--train-reps", type=int, default=2)
+    ap.add_argument("--kernel-times", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("split_kernel_time: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.abspath(args.root))
+    sys.path.insert(0, HERE)
     import chip_smoke
+    sys.path.insert(0, os.path.abspath(args.root))
+    import transmogrifai_tpu_torch
     from transmogrifai_tpu_torch.models import tree_kernels as tk
+    print(f"package: {os.path.dirname(transmogrifai_tpu_torch.__file__)}",
+          flush=True)
+    epilogue = "tree" in inspect.signature(tk.tree_split).parameters
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     fmask = torch.ones(D, dtype=torch.bool, device="cuda")
-    out, graph = {}, {}
+    out, graph, kernel = {}, {}, {}
+
+    def xgb(name, hist, tot, sp, mi, mg, lam):
+        K, P = tot.shape[:2]
+        run = lambda: tk.tree_split(                      # noqa: E731
+            hist, tot, fmask, sp, mi, mg, lam)
+        out[name] = time_ms(run, args.reps)
+        graph[name] = graph_ms(run, args.reps)
+        if args.kernel_times:
+            kernel[name] = chip_smoke._device_ms(
+                chip_smoke.kernel_ms(run, args.reps), "tree_split")
+        if epilogue:
+            T = 4 * P - 1
+            tree = (torch.full((K, T), -1, dtype=torch.int32, device="cuda"),
+                    torch.full((K, T), float("inf"), device="cuda"),
+                    torch.zeros((K, T), dtype=torch.bool, device="cuda"),
+                    torch.zeros((K, T, 1), device="cuda"),
+                    torch.zeros((K, D), device="cuda"))
+            run = lambda: tk.tree_split(                  # noqa: E731
+                hist, tot, fmask, sp, mi, mg, lam, tree=tree, offset=P - 1)
+            graph[name + "_epilogue"] = graph_ms(run, args.reps)
+            if args.kernel_times:
+                kernel[name + "_epilogue"] = chip_smoke._device_ms(
+                    chip_smoke.kernel_ms(run, args.reps), "tree_split")
+
     for name, K, P in (("tree_split_gbt_level_3_lanes_P4", 3, 4),
                        ("tree_split_gbt_level11_6_lanes", 6, 2048)):
         hist, tot, sp, _ = split_inputs(K, P, 0, 0, gen)
         one, ten, zero = (torch.full((K,), v, device="cuda")
                           for v in (1.0, 10.0, 0.0))
-        run = lambda: tk.tree_split(                      # noqa: E731
-            hist, tot, fmask, sp, ten, zero, one)
-        out[name] = time_ms(run, args.reps)
-        graph[name] = graph_ms(run, args.reps)
+        xgb(name, hist, tot, sp, ten, zero, one)
         del hist, tot
+    data = chip_smoke.bench_binned("cuda", args.rows)
+    for K in (6, 12):
+        inp = chip_smoke.gbt_level_inputs("cuda", args.rows, K, 11, data=data)
+        hist, tot = tk.tree_hist(inp["B"], inp["row_node"], inp["stats"],
+                                 inp["offset"], inp["P"], NB)
+        mi = torch.tensor([(10.0, 100.0)[k % 6 // 3] for k in range(K)],
+                          device="cuda")
+        mg = torch.tensor([(0.001, 0.01, 0.1)[k % 3] for k in range(K)],
+                          device="cuda")
+        xgb(f"tree_split_gbt_level11_{K}_lanes_skewed", hist, tot, data[1],
+            mi, mg, torch.ones(K, device="cuda"))
+        del inp, hist, tot
+    del data
+    torch.cuda.empty_cache()
     for name, K, P, C in (("tree_split_gini_level5_60_lanes", 60, 32, 2),
                           ("tree_split_gini_rf_level11_150_lanes", 150, 2048,
                            2),
@@ -142,6 +192,7 @@ def main() -> int:
                  for _ in range(args.train_reps)]
     print(json.dumps({"card": chip_smoke.nvidia_smi_line(),
                       "root": args.root, "ms": out, "graph_ms": graph,
+                      "kernel_ms": kernel,
                       "rows": args.rows, "bench_set_train_wall_s": walls}),
           flush=True)
     return 0

@@ -5,11 +5,15 @@ Marked ``cuda``: every test skips (from its fixture) where
 NVIDIA card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``--noconftest`` because ``tests/conftest.py`` sets up JAX, which the port's
 machines need not have).
-Tolerances: routing exact; the walk exact per (row, tree) and 1e-6 on sums;
-histograms within 1e-5 of each cell's absolute mass of the twin run in f64
+Tolerances: routing exact (in place, on copies of the ids); the walk exact
+per (row, tree) and 1e-6 on sums; histograms within 1e-5 of each cell's
+absolute mass of the twin run in f64
 (f32 atomics reorder the sums; a serial f32 sum drifts further at 10^5 rows);
-split gains within 1e-5 of |gain| + the parent score G²/(H+λ) they are a
-difference of, choices identical where the runner-up gap is clear; gini
+the xgb split bit-equal to its twin (the same bin-prefix order and f32
+expression), and against the twin run in f64 its gains within 1e-5 of
+|gain| + the parent score G²/(H+λ) they are a difference of, choices
+identical where the runner-up gap is clear; its epilogue's tree arrays
+equal to the twin's bookkeeping run on the CPU; gini
 gains within 1e-6 of wgini(parent) (the kernel rounds as the twin does, so
 they agree bit for bit on these integer counts), choices identical where
 the gap passes 1e-5 of it and on exact ties; a forest fitted on the card
@@ -104,8 +108,11 @@ def test_tree_split_route_and_walk_match_twins(level):
     clear = gap > 1e-4 * st["gain"].abs()
     assert torch.equal(sk["feature"][clear], st["feature"][clear])
     assert torch.equal(sk["bin"][clear], st["bin"][clear])
-    assert torch.equal(tk.tree_route(B, row_node, st["feature"], st["bin"],
-                                     st["is_leaf"], 3),
+    for key in st:                   # the twin's bits
+        assert torch.equal(sk[key], st[key]), key
+    # the route moves ids in place: it gets a copy of the fixture's ids
+    assert torch.equal(tk.tree_route(B, row_node.clone(), st["feature"],
+                                     st["bin"], st["is_leaf"], 3),
                        tk.tree_route_twin(B, row_node, st["feature"],
                                           st["bin"], st["is_leaf"], 3))
     rng = np.random.default_rng(1)
@@ -1613,3 +1620,146 @@ def test_tree_walk_plans_match_twin_and_repeat(cuda, N, D, Tr, members,
     torch.testing.assert_close(
         a, tk.tree_walk_twin(X, *trees, depth + 1, members, op),
         rtol=1e-6, atol=1e-7)
+
+
+# --------------------------------------------------------------------------
+# tree_route in place and the xgb split bit for bit
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D", [28, 1597])
+@pytest.mark.parametrize("K", [1, 6, 150, 300])
+def test_tree_route_in_place_matches_twin(cuda, K, D):
+    """``tree_route`` along both branches of ``route_plan`` (B's row tiles
+    staged at 28 features, gathered at 1,597) at 1, 6, 150 and 300 lanes
+    and a ragged last tile: in place (the same tensor back), equal to the
+    twin run on a copy of the ids — rows under leaves, above and below the
+    level left as they are — and the same bits on a second launch."""
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    rng = np.random.default_rng(K + D)
+    N = 40_001 if D == 28 else 6_001
+    P, off = 32, 31
+    B = torch.as_tensor(rng.integers(0, 32, size=(N, D)).astype(np.int8),
+                        device=cuda)
+    rn = torch.as_tensor(rng.integers(off - 16, off + P + 16, size=(K, N))
+                         .astype(np.int32), device=cuda)
+    feat = torch.as_tensor(rng.integers(0, D, size=(K, P)).astype(np.int32),
+                           device=cuda)
+    bin_ = torch.as_tensor(rng.integers(0, 31, size=(K, P)).astype(np.int32),
+                           device=cuda)
+    leaf = torch.as_tensor(rng.random((K, P)) < 0.2, device=cuda)
+    assert tk.route_plan(N, D, K)["stage"] is (D == 28)
+    want = tk.tree_route_twin(B, rn, feat, bin_, leaf, off)
+    a, b = rn.clone(), rn.clone()
+    assert tk.tree_route(B, a, feat, bin_, leaf, off) is a
+    tk.tree_route(B, b, feat, bin_, leaf, off)
+    assert torch.equal(a, want) and torch.equal(b, want)
+    assert bool((want != rn).any()) and bool((want == rn).any())
+
+
+def _xgb_split_inputs(cuda, rng, K, P, D, NB, N=20_000, dup=(), heavy=0):
+    """A level's histograms from rows (``tree_hist`` on the card): bins of
+    a normal matrix (column j a copy of column i for each (i, j) in
+    ``dup``, the label hanging on the last copy), fractional non-negative
+    weights (0, 0.5, 1, 1.25) and margins p of 0.25, 0.5, 0.75 (so every
+    cell sums exactly in any order: the copies tie exactly), rows over the
+    level's P nodes with a quarter
+    of its width parked above (``heavy`` > 0: three quarters of them in
+    ``heavy`` nodes, so most nodes hold a few rows or none)."""
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    from transmogrifai_tpu_torch.models.trees import binned
+    X = rng.normal(size=(N, D)).astype(np.float32)
+    for i, j in dup:
+        X[:, j] = X[:, i]
+    lab = X[:, dup[-1][1]] if dup else X[:, 0]
+    y = (lab + 0.5 * rng.normal(size=N) > 0).astype(np.float32)
+    Xd = torch.as_tensor(X, device=cuda)
+    _, splits, B = binned(Xd, Xd, NB)
+    off = P - 1
+    rn = rng.integers(max(0, off - P // 4 - 1), off + P, size=(K, N))
+    if heavy:
+        hv = off + rng.choice(P, heavy, replace=False)
+        rn = np.where(rng.random((K, N)) < 0.75,
+                      hv[rng.integers(0, heavy, size=(K, N))], rn)
+    w = rng.choice(np.asarray([0.0, 0.5, 1.0, 1.25], np.float32), size=(K, N))
+    p = rng.choice(np.asarray([0.25, 0.5, 0.75], np.float32), size=(K, N))
+    st = np.stack([w, w * (p - y), w * p * (1 - p)], axis=2).astype(
+        np.float32)
+    h, t = tk.tree_hist(B, torch.as_tensor(rn.astype(np.int32), device=cuda),
+                        torch.as_tensor(st, device=cuda), off, P, NB)
+    return h, t, splits
+
+
+@pytest.mark.parametrize("K,P,D,NB,dup,heavy", [
+    (3, 4, 28, 32, ((3, 20),), 0),          # a depth-3 level, a lane tie
+    (6, 2048, 28, 32, (), 8),               # level 11, rows in 8 nodes
+    (2, 1, 1597, 32, ((100, 1500),), 0),    # 8 warps a node, a chunk tie
+    (2, 2, 40, 32, ((5, 37),), 0),          # two warps a node
+    (3, 4, 8, 127, (), 0),                  # 127 bins
+    (12, 16, 28, 64, ((0, 27),), 0),        # 64 bins
+])
+def test_tree_split_bit_equal_to_twin(cuda, K, P, D, NB, dup, heavy):
+    """``tree_split`` gives the twin's bits in every output, the same on a
+    second launch: exact ties across lanes and across a node's warps go to
+    the lowest feature, nodes under 2·min_instances (a lane at 100,000:
+    all of its nodes; most nodes of the skewed level) and empty nodes are
+    leaves with
+    gain -inf, feature 0, bin 0, at 32, 64 and 127 bins and 1,597
+    features."""
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    rng = np.random.default_rng(K * P + D + NB)
+    h, t, splits = _xgb_split_inputs(cuda, rng, K, P, D, NB, dup=dup,
+                                     heavy=heavy)
+    mi = torch.tensor([[1.0, 1e5, 10.0, 100.0][k % 4] for k in range(K)],
+                      device=cuda)
+    mg = torch.tensor([[0.0, 0.001, 0.1][k % 3] for k in range(K)],
+                      device=cuda)
+    lam = torch.ones(K, device=cuda)
+    fmask = torch.ones(D, dtype=torch.bool, device=cuda)
+    fmask[D // 2] = D < 100
+    args = (h, t, fmask, splits, mi, mg, lam)
+    a, b, want = tk.tree_split(*args), tk.tree_split(*args), \
+        tk.tree_split_twin(*args)
+    for key in want:
+        assert torch.equal(a[key], want[key]), key
+        assert torch.equal(b[key], want[key]), key
+    under = t[..., 0] < 2 * mi[:, None]
+    assert bool(under.any())
+    assert bool(torch.isinf(a["gain"][under]).all())
+    assert bool((a["feature"][under] == 0).all())
+    assert bool(torch.isfinite(a["gain"]).any())
+    for i, j in dup:
+        assert not bool((a["feature"] == j).any())
+        assert bool((a["feature"] == i).any())
+
+
+@pytest.mark.parametrize("K,P,D,NB", [(6, 4, 28, 32), (6, 2048, 28, 32),
+                                      (2, 64, 5000, 4)])
+def test_tree_split_epilogue_matches_the_bookkeeping(cuda, K, P, D, NB):
+    """With fit_trees' tree arrays (random gain sums; at 5,000 features the
+    gain kernel's threads take 20 groups of 256 features; 2,048 nodes are
+    two of its windows) the kernel writes the level's slices and adds the
+    split nodes' gains as ``write_level_twin`` does on the CPU from the
+    same split: the same bits, twice in a row."""
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    rng = np.random.default_rng(P + D)
+    h, t, splits = _xgb_split_inputs(cuda, rng, K, P, D, NB,
+                                     N=20_000 if D < 100 else 2_000,
+                                     heavy=8 if P > 64 else 0)
+    lane = lambda v: torch.full((K,), v, device=cuda)   # noqa: E731
+    fmask = torch.ones(D, dtype=torch.bool, device=cuda)
+    args = (h, t, fmask, splits, lane(1.0), lane(0.0), lane(1.0))
+    off, T = P - 1, 4 * P - 1
+    tree = (torch.full((K, T), -1, dtype=torch.int32, device=cuda),
+            torch.full((K, T), float("inf"), device=cuda),
+            torch.zeros((K, T), dtype=torch.bool, device=cuda),
+            torch.zeros((K, T, 1), device=cuda),
+            torch.as_tensor(rng.random((K, D)).astype(np.float32),
+                            device=cuda))
+    ref = tuple(x.cpu() for x in tree)
+    for _ in range(2):
+        out = tk.tree_split(*args, tree=tree, offset=off)
+        tk.write_level_twin({k: v.cpu() for k, v in out.items()}, ref, off)
+        for name, x, r in zip(("feature", "threshold", "is_leaf", "leaf",
+                               "gain"), tree, ref):
+            assert torch.equal(x.cpu(), r), name
+    assert int((~out["is_leaf"]).sum()) > 1

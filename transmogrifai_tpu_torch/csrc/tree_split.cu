@@ -1,138 +1,326 @@
-// tree_split — best split per (lane, node) from a level's histograms.
+// tree_split — best xgb split per (lane, node) from a level's histograms,
+// and (for fit_trees) the level's tree arrays written in the epilogue.
 //
 // Replaces (JAX): the rest of transmogrifai_tpu/models/trees.py:
 // _fit_tree_compact's scan_chunk body (:339-356) — cumsum over bins,
 // _gain_xgb (:202-209), the `ok` mask, max/argmax over bins and then over
 // feature chunks with strict `>` — and the leaf flag, threshold and
-// _leaf_xgb leaf value that follow it (:358-364, :220-221).
+// _leaf_xgb leaf value that follow it (:358-364, :220-221), with the level's
+// writes into the tree arrays and the per-feature gain sum (:365-372, :381).
 //
-// Design: one block per (node, lane); warp w takes features w, w+nwarps, ...
-// and lane l holds bins l*Q .. l*Q+Q-1 (Q = ceil(NB/32), NB <= 127 as
-// bin_data allows; split_scan.cuh), so the prefix over bins is each lane's
-// running sum plus a warp shuffle scan of the lanes' totals, and the argmax
-// over bins a walk of the lane's bins and a warp reduction that keeps the
-// LOWEST bin on equal gain.  The features pass in chunks of `dc` (sized by
-// the wrapper's split_plan, held in dynamic shared memory): after each chunk
-// thread 0 walks the chunk's per-feature winners in feature order with a
-// strict `>` against the running best, so equal gains resolve to the lowest
-// feature and an earlier chunk wins a tie with a later one — the first-max
-// rule of the JAX argmax over feature chunks (trees.py:352).  Any D runs.
+// Design: a warp owns a (lane, node), or one of W chunks of its features
+// where the level has too few nodes to fill the card (``xgb_split_plan``
+// picks W, at most 8: a block of 256 threads holds 8 / W nodes).  A node
+// whose count total is below 2·min_instances cannot leave min_instances
+// rows on both sides of any split (counts are non-negative: a left count
+// c >= mi > pc/2 makes pc - c exact, and below mi), so its warps read none
+// of its histogram: it is a leaf with gain -inf, feature 0 and bin 0, as
+// the full scan gives it.  Otherwise the warp takes its features 32 at a
+// time, a feature a lane, and their bins SB at a time (8 for up to 32
+// features, 32 for up to 8: what a slice of 800 floats holds): it copies
+// them (3 statistics a bin) from device memory into one
+// of its two slices of shared memory with cp.async (no registers held; a
+// feature's row at an odd stride, so that the lanes' reads fall in 32
+// banks), and starts the next stage's copy before each lane walks its
+// feature's bins of the current one.  The prefix over bins is added in the JAX
+// package's own order (XLA:CPU's cumsum: serial f32 sums within blocks of
+// 16 bins, each block then adding the serial sum of the blocks before it),
+// the gain is _gain_xgb's f32 expression, and the lane keeps its running
+// best with a strict `>` (lowest feature, then lowest bin, on a tie).  A
+// warp reduction then keeps the best gain, the lowest feature on a tie;
+// W > 1 chunks combine in the node's first warp the same way (the lowest
+// chunk on a tie): the first max over (feature, bin), as the JAX argmax
+// over feature chunks takes it (trees.py:352).  There is no walk of one
+// thread over the features.  With the tree arrays given, the node's first
+// warp writes the level's slices of feature (-1 on a leaf), threshold,
+// is_leaf and the leaf value, and a second kernel of K blocks adds each
+// split node's gain into gain[k, feature] in node order: a block stages
+// its lane's nodes in shared memory a window at a time and thread t walks
+// them in order, adding those of feature t — the bits of a serial
+// scatter-add in node order.
 //
-// Bound: device-memory bytes — one read of the [K, P, D, NB, S] histogram
-// (43 KB per lane at depth-3 levels) and a few bytes per node out; the
-// launch itself dominates at these sizes.
+// Bound: device-memory bytes — one read of bins 0 .. NB-2 of the
+// histograms of the nodes that can split ([D, NB, 3] f32 a node, 10.75 KB
+// at 28 features x 32 bins) and a few bytes per node in and out.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "split_scan.cuh"
+#define SPLIT_FULL 0xffffffffu
+#define SPLIT_WIN 1024         // nodes a window of the gain walk stages
+#define SPLIT_SLICE 800        // floats a slice of a warp's staged bins
+#define SPLIT_WARP_FLOATS (2 * SPLIT_SLICE)   // two slices a warp
 
-template <int Q>
-__global__ void tree_split_kernel(const float* __restrict__ hist,
-                                  const float* __restrict__ totals,
-                                  const uint8_t* __restrict__ fmask,
-                                  const float* __restrict__ splits,
-                                  const float* __restrict__ min_inst,
-                                  const float* __restrict__ min_gain,
-                                  const float* __restrict__ lam_k,
-                                  float* __restrict__ out_gain,
-                                  int32_t* __restrict__ out_feat,
-                                  int32_t* __restrict__ out_bin,
-                                  uint8_t* __restrict__ out_leaf,
-                                  float* __restrict__ out_thr,
-                                  float* __restrict__ out_value,
-                                  int P, int D, int NB, int dc) {
-  extern __shared__ float fg[];          // [dc] gains, then [dc] bins
-  int* fb = (int*)(fg + dc);
-  const int p = blockIdx.x, k = blockIdx.y;
-  const int node = k * P + p;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_prev() {   // all but the last
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// Stage s of a warp's walk: feature group g = s / nstage (32 features from
+// d0 + 32g), bins SB (s % nstage) .. into slice s % 2 at the odd stride
+// 3·SB + 1; one commit group a stage (an empty one past the last, so that
+// "all but the last" waits work)
+template <int SB>
+__device__ __forceinline__ void stage_copy(float* sw, const float* h, int s,
+                                           int nstage, int total, int d0,
+                                           int d1, int NB, int lane) {
+  if (s < total) {
+    const int g0 = d0 + 32 * (s / nstage), b0 = SB * (s % nstage);
+    const int nf = min(32, d1 - g0), n3 = 3 * min(SB, NB - 1 - b0);
+    float* dst = sw + (s & 1) * SPLIT_SLICE;
+    const float* src = h + ((long long)g0 * NB + b0) * 3;
+    for (int e = lane; e < nf * 3 * SB; e += 32) {
+      const int f = e / (3 * SB), j = e - f * (3 * SB);
+      if (j < n3)
+        cp_async4(dst + f * (3 * SB + 1) + j, src + (long long)f * NB * 3 + j);
+    }
+  }
+  cp_async_commit();
+}
+
+template <int SB>
+__global__ void __launch_bounds__(256) tree_split_kernel(
+    const float* __restrict__ hist, const float* __restrict__ totals,
+    const uint8_t* __restrict__ fmask, const float* __restrict__ splits,
+    const float* __restrict__ min_inst, const float* __restrict__ min_gain,
+    const float* __restrict__ lam_k, float* __restrict__ out_gain,
+    int32_t* __restrict__ out_feat, int32_t* __restrict__ out_bin,
+    uint8_t* __restrict__ out_leaf, float* __restrict__ out_thr,
+    float* __restrict__ out_value, int32_t* __restrict__ t_feat,
+    float* __restrict__ t_thr, uint8_t* __restrict__ t_leaf,
+    float* __restrict__ t_value, int P, int D, int NB, int W, int fc, int T,
+    int offset) {
+  extern __shared__ float s_dyn[];     // each warp's two slices
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int k = blockIdx.y;
+  const int slot = warp / W, c = warp - slot * W;
+  const int p = blockIdx.x * ((blockDim.x >> 5) / W) + slot;
+  const bool valid = p < P;
+  const long long node = (long long)k * P + p;
   const float lam = lam_k[k], mi = min_inst[k];
-  const float pc = totals[node * 3 + 0];
-  const float pg = totals[node * 3 + 1];
-  const float ph = totals[node * 3 + 2];
-  const float parent_score = pg * pg / (ph + lam);
-
-  float best = -INFINITY;
-  int bf = 0, bb = 0;
-  for (int d0 = 0; d0 < D; d0 += dc) {
-    const int dn = min(dc, D - d0);
-    for (int dl = warp; dl < dn; dl += nwarps) {
-      const int d = d0 + dl;
-      const float* h = hist + ((long long)node * D + d) * NB * 3;
-      float v[Q][3];
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const int b = lane * Q + q;
-#pragma unroll
-        for (int m = 0; m < 3; ++m) v[q][m] = b < NB ? h[b * 3 + m] : 0.f;
-      }
-      bin_prefix<Q, 3>(v, lane);               // inclusive, over bins
-      float gq[Q];
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const float c = v[q][0], g = v[q][1], hh = v[q][2];
-        const float rc = pc - c, rg = pg - g, rh = ph - hh;
-        const float gain = 0.5f * ((g * g / (hh + lam) + rg * rg / (rh + lam))
-                                   - parent_score);
-        const bool ok = lane * Q + q < NB - 1 && c >= mi && rc >= mi &&
-                        fmask[d];
-        gq[q] = ok ? gain : -INFINITY;
-      }
-      float gain;
-      int bin;
-      bin_argmax<Q>(gq, lane, gain, bin);
-      if (lane == 0) {
-        fg[dl] = gain;
-        fb[dl] = bin;
+  const int d0 = c * fc, d1 = min(D, d0 + fc);
+  float best = -INFINITY, pg = 0.f, ph = 0.f;
+  int bf = d0 + lane < d1 ? d0 + lane : INT_MAX, bb = 0;
+  if (valid && d0 < d1) {
+    const float pc = totals[node * 3 + 0];
+    pg = totals[node * 3 + 1];
+    ph = totals[node * 3 + 2];
+    if (pc >= 2.0f * mi) {
+      const float ps = pg * pg / (ph + lam);
+      float* sw = s_dyn + warp * SPLIT_WARP_FLOATS;
+      const float* h = hist + node * D * NB * 3;
+      const int nstage = (NB - 1 + SB - 1) / SB;
+      const int total = nstage * ((d1 - d0 + 31) / 32);
+      float ic = 0.f, ig = 0.f, ih = 0.f;   // this block of 16 bins
+      float oc = 0.f, og = 0.f, oh = 0.f;   // the blocks before it
+      bool allowed = false;
+      stage_copy<SB>(sw, h, 0, nstage, total, d0, d1, NB, lane);
+      for (int s = 0; s < total; ++s) {
+        stage_copy<SB>(sw, h, s + 1, nstage, total, d0, d1, NB, lane);
+        const int g0 = d0 + 32 * (s / nstage), b0 = SB * (s % nstage);
+        const int nb = min(SB, NB - 1 - b0);
+        if (b0 == 0) {
+          ic = ig = ih = oc = og = oh = 0.f;
+          allowed = g0 + lane < d1 && fmask[g0 + lane] != 0;
+        }
+        cp_async_wait_prev();
+        __syncwarp();
+        if (allowed) {
+          const float* x = sw + (s & 1) * SPLIT_SLICE + lane * (3 * SB + 1);
+#pragma unroll 4
+          for (int j = 0; j < nb; ++j) {
+            const int b = b0 + j;
+            if ((b & 15) == 0 && b) {      // a new block of 16 bins
+              oc = __fadd_rn(oc, ic); og = __fadd_rn(og, ig);
+              oh = __fadd_rn(oh, ih);
+              ic = ig = ih = 0.f;
+            }
+            ic = __fadd_rn(ic, x[3 * j]);
+            ig = __fadd_rn(ig, x[3 * j + 1]);
+            ih = __fadd_rn(ih, x[3 * j + 2]);
+            const float cl = __fadd_rn(ic, oc), gl = __fadd_rn(ig, og),
+                        hl = __fadd_rn(ih, oh);
+            const float rc = pc - cl, rg = pg - gl, rh = ph - hl;
+            const float gn = 0.5f * ((gl * gl / (hl + lam)
+                                      + rg * rg / (rh + lam)) - ps);
+            if (cl >= mi && rc >= mi && gn > best) {
+              best = gn; bf = g0 + lane; bb = b;
+            }
+          }
+        }
+        __syncwarp();                     // the slice is copied into next
       }
     }
-    __syncthreads();
-    if (threadIdx.x == 0)
-      for (int dl = 0; dl < dn; ++dl)
-        if (fg[dl] > best) { best = fg[dl]; bf = d0 + dl; bb = fb[dl]; }
-    // the next chunk reuses fg / fb; after the last, the other warps exit
-    // without waiting for thread 0's walk
-    if (d0 + dc < D) __syncthreads();
   }
-  if (threadIdx.x == 0) {
+  // the warp's best: the highest gain, the lowest feature on a tie
+  for (int off = 16; off > 0; off >>= 1) {
+    const float og = __shfl_down_sync(SPLIT_FULL, best, off);
+    const int of = __shfl_down_sync(SPLIT_FULL, bf, off);
+    const int ob = __shfl_down_sync(SPLIT_FULL, bb, off);
+    if (og > best || (og == best && of < bf)) { best = og; bf = of; bb = ob; }
+  }
+  if (W > 1) {            // the node's chunks, lowest chunk on a tie
+    __shared__ float s_g[8];
+    __shared__ int s_f[8], s_b[8];
+    if (lane == 0) { s_g[warp] = best; s_f[warp] = bf; s_b[warp] = bb; }
+    __syncthreads();
+    if (c == 0) {
+      const int j = slot * W + lane;
+      float g = lane < W ? s_g[j] : -INFINITY;
+      int f = lane < W ? s_f[j] : 0, b = lane < W ? s_b[j] : 0, ci = lane;
+      for (int off = 16; off > 0; off >>= 1) {
+        const float og = __shfl_down_sync(SPLIT_FULL, g, off);
+        const int of = __shfl_down_sync(SPLIT_FULL, f, off);
+        const int ob = __shfl_down_sync(SPLIT_FULL, b, off);
+        const int oc = __shfl_down_sync(SPLIT_FULL, ci, off);
+        if (og > g || (og == g && oc < ci)) { g = og; f = of; b = ob; ci = oc; }
+      }
+      best = g; bf = f; bb = b;
+    }
+  }
+  if (valid && c == 0 && lane == 0) {
     const bool leaf = !(isfinite(best) && best > min_gain[k]);
-    const int cb = min(max(bb, 0), NB - 2);
+    const float thr =
+        splits[(long long)bf * (NB - 1) + min(max(bb, 0), NB - 2)];
+    const float value = -(pg / (ph + lam));
     out_gain[node] = best;
     out_feat[node] = bf;
     out_bin[node] = bb;
     out_leaf[node] = leaf ? 1 : 0;
-    out_thr[node] = splits[bf * (NB - 1) + cb];
-    out_value[node] = -(pg / (ph + lam));
-    (void)pc;
+    out_thr[node] = thr;
+    out_value[node] = value;
+    if (t_feat) {
+      const long long t = (long long)k * T + offset + p;
+      t_feat[t] = leaf ? -1 : bf;
+      t_thr[t] = thr;
+      t_leaf[t] = leaf ? 1 : 0;
+      t_value[t] = value;
+    }
   }
 }
 
-extern "C" int tree_split_launch(const void* hist, const void* totals,
-                                 const void* fmask, const void* splits,
-                                 const void* min_inst, const void* min_gain,
-                                 const void* lam, void* out_gain,
-                                 void* out_feat, void* out_bin,
-                                 void* out_leaf, void* out_thr,
-                                 void* out_value, int K, int P, int D, int NB,
-                                 int dc, int threads, void* stream) {
-  if (NB > 127 || NB < 2 || dc < 1 || P > 65535 || K > 65535)
+// The level's gain sums of lane blockIdx.x (256 threads): a window of
+// 1,024 of the lane's nodes at a time, thread i reads nodes 4i .. 4i+3 and
+// the split ones are gathered in node order into shared memory (a block
+// scan of the counts); then thread t walks them in order and adds those of
+// feature t (t + 256, ...), 4 at a time.
+__global__ void __launch_bounds__(256) tree_split_gain_kernel(
+    const float* __restrict__ out_gain, const int32_t* __restrict__ out_feat,
+    const uint8_t* __restrict__ out_leaf, float* __restrict__ t_gain, int P,
+    int D) {
+  __shared__ int4 s_nf4[SPLIT_WIN / 4];   // split nodes' features
+  __shared__ float4 s_ng4[SPLIT_WIN / 4]; // and gains, in node order
+  __shared__ int s_warp[8];
+  int* s_nf = (int*)s_nf4;
+  float* s_ng = (float*)s_ng4;
+  const int k = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int t0 = 0; t0 < D; t0 += 256) {
+    const int t = t0 + threadIdx.x;
+    float a = t < D ? t_gain[(long long)k * D + t] : 0.f;
+    for (int w0 = 0; w0 < P; w0 += SPLIT_WIN) {
+      int fq[4], cnt = 0;
+      float gq[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = w0 + 4 * threadIdx.x + q;
+        const long long j = (long long)k * P + min(i, P - 1);
+        const int f = out_feat[j];
+        const bool split = i < P && !out_leaf[j];
+        fq[q] = split ? f : -1;
+        gq[q] = out_gain[j];
+        cnt += split;
+      }
+      int incl = cnt;                     // the block's exclusive scan
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(SPLIT_FULL, incl, off);
+        if (lane >= off) incl += v;
+      }
+      __syncthreads();                    // the last window's walk is done
+      if (lane == 31) s_warp[warp] = incl;
+      __syncthreads();
+      int pos = incl - cnt, n = 0;
+      for (int w = 0; w < 8; ++w) {
+        pos += w < warp ? s_warp[w] : 0;
+        n += s_warp[w];
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (fq[q] >= 0) { s_nf[pos] = fq[q]; s_ng[pos] = gq[q]; ++pos; }
+      if (threadIdx.x < ((n + 3) & ~3) - n)
+        s_nf[n + threadIdx.x] = -1;       // pad to a multiple of 4
+      __syncthreads();
+      if (t < D) {
+#pragma unroll 8
+        for (int i = 0; i < (n + 3) / 4; ++i) {
+          const int4 f = s_nf4[i];
+          const float4 g = s_ng4[i];
+          if (f.x == t) a = __fadd_rn(a, g.x);
+          if (f.y == t) a = __fadd_rn(a, g.y);
+          if (f.z == t) a = __fadd_rn(a, g.z);
+          if (f.w == t) a = __fadd_rn(a, g.w);
+        }
+      }
+    }
+    if (t < D) t_gain[(long long)k * D + t] = a;
+  }
+}
+
+// One xgb split level of K lanes x P nodes; returns a cudaError_t.  W warps
+// a node (1, 2, 4 or 8), fc features a warp, sb bins a stage (8, or 32
+// where a warp has at most 8 features), ``threads`` a block (a
+// multiple of 32·W, at most 256).  t_feat .. t_value (null: the dict form
+// only) are fit_trees' [K, T] arrays, written at columns offset ..
+// offset+P-1; t_gain [K, D] (null: no gain sums) takes the split nodes'
+// gains (a second kernel).  ``smem``: dynamic shared memory bytes, each
+// warp's two slices of staged bins.
+extern "C" int tree_split_launch(
+    const void* hist, const void* totals, const void* fmask,
+    const void* splits, const void* min_inst, const void* min_gain,
+    const void* lam, void* out_gain, void* out_feat, void* out_bin,
+    void* out_leaf, void* out_thr, void* out_value, void* t_feat, void* t_thr,
+    void* t_leaf, void* t_value, void* t_gain, int K, int P, int D, int NB,
+    int W, int fc, int sb, int threads, int T, int offset, int smem,
+    void* stream) {
+  if (NB > 127 || NB < 2 || K < 1 || K > 65535 || P < 1 || D < 1 || fc < 1 ||
+      W < 1 || W > 8 || (W & (W - 1)) || threads > 256 ||
+      threads % (32 * W) || (long long)W * fc < D || (sb != 8 && sb != 32) ||
+      min(32, fc) * (3 * sb + 1) > SPLIT_SLICE ||
+      smem < 4 * (threads / 32) * SPLIT_WARP_FLOATS ||
+      (t_feat && (!t_thr || !t_leaf || !t_value || offset + P > T)))
     return (int)cudaErrorInvalidValue;
-  dim3 grid(P, K);
-  const size_t smem = 2 * dc * sizeof(float);
+  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  const cudaError_t e = sb == 8
+                            ? cudaFuncSetAttribute(tree_split_kernel<8>, attr,
+                                                   smem)
+                            : cudaFuncSetAttribute(tree_split_kernel<32>,
+                                                   attr, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int per_block = threads / 32 / W;
+  dim3 grid((P + per_block - 1) / per_block, K);
   const cudaStream_t s = (cudaStream_t)stream;
 #define SPLIT_ARGS                                                          \
   (const float*)hist, (const float*)totals, (const uint8_t*)fmask,          \
       (const float*)splits, (const float*)min_inst, (const float*)min_gain, \
       (const float*)lam, (float*)out_gain, (int32_t*)out_feat,              \
       (int32_t*)out_bin, (uint8_t*)out_leaf, (float*)out_thr,               \
-      (float*)out_value, P, D, NB, dc
-  switch (split_q(NB)) {
-    case 1: tree_split_kernel<1><<<grid, threads, smem, s>>>(SPLIT_ARGS); break;
-    case 2: tree_split_kernel<2><<<grid, threads, smem, s>>>(SPLIT_ARGS); break;
-    default: tree_split_kernel<4><<<grid, threads, smem, s>>>(SPLIT_ARGS);
-  }
+      (float*)out_value, (int32_t*)t_feat, (float*)t_thr, (uint8_t*)t_leaf, \
+      (float*)t_value, P, D, NB, W, fc, T, offset
+  if (sb == 8)
+    tree_split_kernel<8><<<grid, threads, (size_t)smem, s>>>(SPLIT_ARGS);
+  else
+    tree_split_kernel<32><<<grid, threads, (size_t)smem, s>>>(SPLIT_ARGS);
 #undef SPLIT_ARGS
+  if (t_gain)
+    tree_split_gain_kernel<<<K, 256, 0, s>>>(
+        (const float*)out_gain, (const int32_t*)out_feat,
+        (const uint8_t*)out_leaf, (float*)t_gain, P, D);
   return (int)cudaGetLastError();
 }

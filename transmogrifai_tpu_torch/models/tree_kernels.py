@@ -5,7 +5,7 @@ dispatch rule and launch counters are in ``kernels.py``).
 |-----------------|----------------------------------------------------------------|
 | tree_hist       | ``_fit_tree_compact`` node_stats + histogram einsums (:313-338) |
 | tree_hist_deep  | ``_fit_tree_unrolled``'s segment-sum histograms (:520-531)     |
-| tree_split      | ``scan_chunk`` xgb gain/argmax + leaf flag/threshold/value (:339-364) |
+| tree_split      | ``scan_chunk`` xgb gain/argmax/leaf/threshold/value, level writes (:339-381) |
 | tree_split_gini | ``scan_chunk`` gini gain over per-node subsets (:320-326, :331-366) |
 | tree_split_variance | ``scan_chunk`` variance gain over per-node subsets (:186-191, :331-366) |
 | tree_route      | the routing block (:373-391)                                    |
@@ -26,10 +26,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "tree_hist": [_P] * 6 + [_L] + [_I] * 11 + [_L] + [_I] * 4 + [_P],
     "tree_hist_deep": [_P] * 9 + [_L] + [_I] * 21 + [_P],
-    "tree_split": [_P] * 13 + [_I] * 6 + [_P],
+    "tree_split": [_P] * 18 + [_I] * 11 + [_P],
     "tree_split_gini": [_P] * 12 + [_I] * 8 + [_P],
     "tree_split_variance": [_P] * 12 + [_I] * 6 + [_P],
-    "tree_route": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _P],
+    "tree_route": [_P] * 6 + [_L] + [_I] * 9 + [_P],
     "tree_walk": [_P] * 7 + [_L] + [_I] * 13 + [_P],
 }
 _HIST_SMEM_TARGET = 99 * 1024     # the deep route's rule: 2 histograms a SM
@@ -42,6 +42,12 @@ HIST_BLOCKS = 132 * 2 * 4         # four waves of two blocks on 132 SMs
 SMS = 132                         # the H100's SMs
 SPLIT_D_CHUNK = 1024              # features per shared-memory pass of a split
 SPLIT_THREADS = 256
+SPLIT_TARGET_WARPS = SMS * 16     # warps an xgb split launch aims to fill
+SPLIT_SLICE = 800                 # csrc/tree_split.cu: floats a warp's staging slice
+ROUTE_THREADS = 256               # tree_route's threads a block
+ROUTE_SMEM = 16 * 1024            # the most bytes of B rows a route block stages
+ROUTE_LANES = 32                  # the most lanes a route block routes
+ROUTE_MIN_BLOCKS = SMS * 2        # route blocks a launch aims for at least
 GINI_CLASS_CHUNKS = (2, 4, 8)     # tree_split_gini's class-chunk templates
 HIST_DEEP_SEG = 8192              # rows a tree_hist_deep partition block sorts
 HIST_DEEP_THREADS = 384           # tree_hist_deep's threads a block (two a SM)
@@ -92,6 +98,34 @@ def split_plan(D: int, C: int = 0) -> SplitPlan:
               GINI_CLASS_CHUNKS[-1]) if C else 0
     return SplitPlan(dc, -(-D // dc), SPLIT_THREADS, ct,
                      -(-C // ct) if C else 0)
+
+
+def xgb_split_plan(K: int, P: int, D: int, n_bins: int) -> dict:
+    """How ``tree_split`` (``csrc/tree_split.cu``) launches one xgb level of
+    K lanes x P nodes over D features and ``n_bins`` bins — the one place
+    that sizes it.  A warp owns a (lane, node), its lanes a feature each
+    (32 at a time); where K·P warps fall short of ``SPLIT_TARGET_WARPS``
+    (shallow levels) a node's features spread over W warps (doubling up to
+    8 while each keeps a feature), each a chunk of ``fc`` features, whose
+    winners combine in feature order.  A block is 256 threads, 8 / W
+    nodes.  A warp stages ``sb`` bins of its (at most 32) features at a
+    time at the odd stride 3·sb + 1: 8, or 32 where it holds at most 8
+    features (a slice of ``SPLIT_SLICE`` floats either way); ``smem``:
+    dynamic shared memory, each warp's two slices.  Any K <= 65,535, P >=
+    1, D >= 1 and 2 <= NB <= 127 has a plan (other shapes raise
+    ``ValueError``)."""
+    if min(K, P, D) < 1 or K > 65535 or not 2 <= n_bins <= 127:
+        raise ValueError(f"xgb_split_plan: K={K} (1 .. 65,535) P={P} D={D} "
+                         f"NB={n_bins} (2 .. 127)")
+    W = 1
+    while W < 8 and 2 * W <= D and K * P * W < SPLIT_TARGET_WARPS:
+        W *= 2
+    per_block = SPLIT_THREADS // 32 // W
+    fc = -(-D // W)
+    sb = 32 if fc <= 8 else 8
+    return {"W": W, "fc": fc, "sb": sb, "threads": SPLIT_THREADS,
+            "nodes_per_block": per_block, "blocks": -(-P // per_block) * K,
+            "smem": 4 * 2 * SPLIT_SLICE * (SPLIT_THREADS // 32)}
 
 
 
@@ -392,14 +426,35 @@ def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
 # tree_split
 # --------------------------------------------------------------------------
 
-def _gain_table(hist, totals, fmask, min_inst, gain_fn,
-                node_mask=None) -> torch.Tensor:
+def block_prefix(hist: torch.Tensor) -> torch.Tensor:
+    """The inclusive prefix over bins (dim 3 of [K, P, D, NB, S]) in the
+    order XLA:CPU adds the JAX package's ``jnp.cumsum`` over bins
+    (trees.py:339, :537): serial f32 sums within blocks of 16 bins, each
+    block's sums then adding the serial sum of the blocks before it (0 for
+    the first).  ``csrc/tree_split.cu`` adds in this order."""
+    K, P, D, NB, S = hist.shape
+    nb = -(-NB // 16)
+    v = torch.nn.functional.pad(hist, (0, 0, 0, 16 * nb - NB)).reshape(
+        K, P, D, nb, 16, S)
+    inner = [v[:, :, :, :, 0]]
+    for b in range(1, 16):
+        inner.append(inner[-1] + v[:, :, :, :, b])
+    pre = [torch.zeros_like(inner[0][:, :, :, 0])]
+    for i in range(1, nb):
+        pre.append(pre[-1] + inner[-1][:, :, :, i - 1])
+    out = torch.stack(inner, dim=4) + torch.stack(pre, dim=3)[:, :, :, :, None]
+    return out.reshape(K, P, D, 16 * nb, S)[:, :, :, :NB]
+
+
+def _gain_table(hist, totals, fmask, min_inst, gain_fn, node_mask=None,
+                prefix=None) -> torch.Tensor:
     """Gain [K, P, D*NB] of every (feature, bin) split of a level: the bin
     prefix is the left side, parent - prefix the right; -inf where either
     side's count is below min_inst, the feature is outside ``fmask`` or the
-    node's subset ``node_mask`` [K, P, D] (None: all), or bin = NB-1."""
+    node's subset ``node_mask`` [K, P, D] (None: all), or bin = NB-1.
+    ``prefix`` (None: ``torch.cumsum`` over bins) computes the left side."""
     K, P, D, NB, S = hist.shape
-    left = torch.cumsum(hist, dim=3)
+    left = torch.cumsum(hist, dim=3) if prefix is None else prefix(hist)
     parent = totals[:, :, None, None, :]
     right = parent - left
     gains = gain_fn(left, right, parent)
@@ -448,26 +503,34 @@ def _empty_nodes(K, P, S, fmask, node_mask, min_inst, gain_fn, dtype,
 
 
 def _split_twin(hist, totals, fmask, node_mask, splits, min_inst, min_gain,
-                gain_fn_of) -> Dict[str, torch.Tensor]:
+                gain_fn_of, prefix=None) -> Dict[str, torch.Tensor]:
     """The split each (lane, node) takes from its ``_gain_table``: the first
     max over (feature, bin) — lowest feature, then lowest bin — with its
-    leaf flag and threshold.  The table is built only at nodes with a
-    non-zero histogram or total; the many empty nodes of a deep level take
-    the same value in closed form (``_empty_nodes``).  ``gain_fn_of(lanes)``
-    is the gain function for those lanes' parameters."""
+    leaf flag and threshold.  A node whose count total is not at least
+    2·min_inst is a leaf, gain -inf, feature 0, bin 0, without a table: no
+    split can leave min_inst on both sides (counts are non-negative; a left
+    count c >= mi > pc/2 makes pc - c exact, and below mi), so the full
+    table would be -inf throughout.  The table is built only at the other
+    nodes with a non-zero histogram or total; the many empty nodes of a
+    deep level take the same value in closed form (``_empty_nodes``).
+    ``gain_fn_of(lanes)`` is the gain function for those lanes'
+    parameters; ``prefix`` the bin prefix (``_gain_table``)."""
     K, P, D, NB, S = hist.shape
+    can = totals[..., 0] >= 2 * min_inst[:, None]
     live = ((hist.reshape(K, P, -1) != 0).any(dim=2)
             | (totals != 0).any(dim=2))
     best, feat, bin_ = _empty_nodes(
         K, P, S, fmask, node_mask, min_inst,
         gain_fn_of(torch.arange(K, device=hist.device)), hist.dtype,
         hist.device)
-    kk, pp = torch.nonzero(live, as_tuple=True)
+    best = torch.where(can, best, float("-inf"))
+    feat = torch.where(can, feat, 0)
+    kk, pp = torch.nonzero(live & can, as_tuple=True)
     if kk.numel():
         table = _gain_table(
             hist[kk, pp][:, None], totals[kk, pp][:, None], fmask,
             min_inst[kk], gain_fn_of(kk),
-            None if node_mask is None else node_mask[kk, pp][:, None])
+            None if node_mask is None else node_mask[kk, pp][:, None], prefix)
         idx = torch.argmax(table, dim=2)[:, 0]
         best[kk, pp] = torch.gather(table[:, 0], 1, idx[:, None])[:, 0]
         feat[kk, pp] = (idx // NB).to(torch.int32)
@@ -487,8 +550,10 @@ def _xgb_gain(lam):
 
 def split_gains(hist, totals, fmask, min_inst, lam) -> torch.Tensor:
     """The twin's gain table [K, P, D*NB]: xgb gain of every (feature, bin)
-    split, -inf where the split is not allowed."""
-    return _gain_table(hist, totals, fmask, min_inst, _xgb_gain(lam))
+    split over the kernel's bin prefix (``block_prefix``), -inf where the
+    split is not allowed."""
+    return _gain_table(hist, totals, fmask, min_inst, _xgb_gain(lam),
+                       prefix=block_prefix)
 
 
 def split_gap(hist, totals, fmask, min_inst, lam) -> torch.Tensor:
@@ -498,25 +563,55 @@ def split_gap(hist, totals, fmask, min_inst, lam) -> torch.Tensor:
 
 
 def tree_split_twin(hist, totals, fmask, splits, min_inst, min_gain, lam):
-    """Plain-PyTorch twin of ``tree_split`` (see :func:`tree_split`)."""
+    """Plain-PyTorch twin of ``tree_split`` (see :func:`tree_split`): the
+    bin prefix in the JAX package's order (``block_prefix``, as the kernel
+    adds it) and ``_gain_xgb``'s f32 expression, so that the kernel gives
+    the same bits."""
     out = _split_twin(hist, totals, fmask, None, splits, min_inst, min_gain,
-                      lambda lanes: _xgb_gain(lam[lanes]))
+                      lambda lanes: _xgb_gain(lam[lanes]), block_prefix)
     out["value"] = -(totals[..., 1] / (totals[..., 2] + lam[:, None]))
     return out
 
 
+def write_level_twin(out: Dict[str, torch.Tensor], tree, offset: int) -> None:
+    """Plain-PyTorch twin of ``tree_split``'s epilogue: the level's slices
+    [:, offset:offset+P] of the tree arrays ``tree`` = (feature int32,
+    threshold f32, is_leaf bool [K, T], leaf f32 [K, T, 1], gain f32 [K, D])
+    from the split ``out`` — feature -1 at a leaf, the leaf value — and each
+    split node's gain added into gain[k, feature] in node order (a CPU
+    ``scatter_add_`` adds in index order; a leaf adds 0.0)."""
+    feature, threshold, is_leaf, leaf, gain = tree
+    P = out["feature"].shape[1]
+    lf = out["is_leaf"]
+    leaf[:, offset:offset + P, 0] = out["value"]
+    is_leaf[:, offset:offset + P] = lf
+    feature[:, offset:offset + P] = torch.where(lf, -1, out["feature"])
+    threshold[:, offset:offset + P] = out["threshold"]
+    gain.scatter_add_(1, out["feature"].long(),
+                      torch.where(lf, 0.0, out["gain"]))
+
+
 def tree_split(hist: torch.Tensor, totals: torch.Tensor, fmask: torch.Tensor,
                splits: torch.Tensor, min_inst: torch.Tensor,
-               min_gain: torch.Tensor, lam: torch.Tensor) -> Dict[str, torch.Tensor]:
+               min_gain: torch.Tensor, lam: torch.Tensor, tree=None,
+               offset: int = 0) -> Dict[str, torch.Tensor]:
     """Best xgb split per (lane, node).
 
-    hist f32 [K, P, D, NB, 3] and totals f32 [K, P, 3] of (w, w·g, w·h);
-    fmask bool [D]; splits f32 [D, NB-1]; min_inst / min_gain / lam f32 [K].
-    The gain is ``_gain_xgb`` over the bin prefix, masked by min_inst on both
-    sides, the feature mask and ``bin < NB-1``; the FIRST max over (feature,
-    bin) wins.  Returns per-node gain, feature, bin, is_leaf (gain <= min_gain
-    or non-finite), threshold ``splits[feature, bin]`` and the ``_leaf_xgb``
-    value, each [K, P]."""
+    hist f32 [K, P, D, NB, 3] and totals f32 [K, P, 3] of (w, w·g, w·h),
+    counts w non-negative; fmask bool [D]; splits f32 [D, NB-1]; min_inst /
+    min_gain / lam f32 [K].  The gain is ``_gain_xgb`` over the bin prefix,
+    masked by min_inst on both sides, the feature mask and ``bin < NB-1``;
+    the FIRST max over (feature, bin) wins.  A node whose count total is
+    below 2·min_inst is a leaf (gain -inf, feature 0, bin 0) without a read
+    of its histogram.  Returns per-node gain, feature, bin, is_leaf (gain <=
+    min_gain or non-finite), threshold ``splits[feature, bin]`` and the
+    ``_leaf_xgb`` value, each [K, P], the same bits as
+    :func:`tree_split_twin`.  ``tree`` = fit_trees' (feature, threshold,
+    is_leaf, leaf [K, T, 1], gain [K, D]): the level's slices at ``offset``
+    are written and the split nodes' gains added in node order as
+    :func:`write_level_twin` does (on the card the kernel writes the slices
+    and a second kernel of the same call adds the gains).
+    :func:`xgb_split_plan` sizes the launch."""
     dev = hist.device
     _check("tree_split hist", hist, torch.float32, 5, dev)
     _check("tree_split totals", totals, torch.float32, 3, dev)
@@ -528,26 +623,46 @@ def tree_split(hist: torch.Tensor, totals: torch.Tensor, fmask: torch.Tensor,
     K, P, D, NB, S = hist.shape
     if S != 3 or totals.shape != (K, P, 3) or splits.shape != (D, NB - 1):
         raise ValueError("tree_split: shapes of hist/totals/splits disagree")
+    if tree is not None:
+        if len(tree) != 5:
+            raise ValueError("tree_split: tree = (feature, threshold, "
+                             "is_leaf, leaf, gain)")
+        for name, t, dt, nd in zip(
+                ("feature", "threshold", "is_leaf", "leaf", "gain"), tree,
+                (torch.int32, torch.float32, torch.bool, torch.float32,
+                 torch.float32), (2, 2, 2, 3, 2)):
+            _check(f"tree_split tree {name}", t, dt, nd, dev)
+        T = tree[0].shape[1]
+        if (any(t.shape[:2] != (K, T) for t in tree[:4])
+                or tree[3].shape[2] != 1 or tree[4].shape != (K, D)
+                or not 0 <= offset <= T - P):
+            raise ValueError(f"tree_split: tree arrays [K, T] / [K, T, 1] / "
+                             f"[K, D] with offset + P <= T (K={K} D={D} "
+                             f"P={P} offset={offset})")
     if dev.type == "cpu":
-        return tree_split_twin(hist, totals, fmask, splits, min_inst,
-                               min_gain, lam)
+        out = tree_split_twin(hist, totals, fmask, splits, min_inst,
+                              min_gain, lam)
+        if tree is not None:
+            write_level_twin(out, tree, offset)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"tree_split: unsupported device {dev}")
-    if NB > 127:
-        raise ValueError("tree_split: at most 127 bins (int8 bin ids)")
-    plan = split_plan(D)
+    plan = xgb_split_plan(K, P, D, NB)
     out = {"gain": torch.empty((K, P), dtype=torch.float32, device=dev),
            "feature": torch.empty((K, P), dtype=torch.int32, device=dev),
            "bin": torch.empty((K, P), dtype=torch.int32, device=dev),
            "is_leaf": torch.empty((K, P), dtype=torch.bool, device=dev),
            "threshold": torch.empty((K, P), dtype=torch.float32, device=dev),
            "value": torch.empty((K, P), dtype=torch.float32, device=dev)}
+    level = [t.data_ptr() for t in tree] if tree is not None else [0] * 5
     _launch("tree_split", hist.data_ptr(), totals.data_ptr(),
             fmask.data_ptr(), splits.data_ptr(), min_inst.data_ptr(),
             min_gain.data_ptr(), lam.data_ptr(),
             *(out[k].data_ptr() for k in ("gain", "feature", "bin",
                                           "is_leaf", "threshold", "value")),
-            K, P, D, NB, plan.d_chunk, plan.threads, _stream(hist))
+            *level, K, P, D, NB, plan["W"], plan["fc"], plan["sb"],
+            plan["threads"], tree[0].shape[1] if tree is not None else 0,
+            offset, plan["smem"], _stream(hist))
     return out
 
 
@@ -767,12 +882,50 @@ def tree_route_twin(B, row_node, feat, bin_, leaf, offset: int):
     return torch.where(at & ~lf, child, row_node)
 
 
+def route_plan(N: int, D: int, K: int) -> dict:
+    """How ``tree_route`` (``csrc/tree_route.cu``) launches N rows x K lanes
+    over D features — the one place that sizes it.  Blocks of
+    ``ROUTE_THREADS`` threads take ``rows`` = threads x ``rpt`` rows (a row
+    tile, x) and ``kc`` lanes (a lane chunk, y).  Where a tile of B's rows
+    fits ``ROUTE_SMEM`` (rpt 4, 2 or 1: D up to 64) the block stages it in
+    shared memory (``stage``, ``smem`` bytes) and routes its lanes from
+    there, so B is read once a lane chunk (``ny`` times in all); a wider B
+    is gathered a byte a routed row from device memory.  The budget is
+    small so that L1 keeps the resident blocks' lanes' split codes.  Lane
+    chunks hold ``ROUTE_LANES`` lanes at most, fewer where the row tiles
+    alone leave the launch under ``ROUTE_MIN_BLOCKS`` blocks.  Any N < 2^31, D >= 1 and
+    K <= 65,535 x ``ROUTE_LANES`` has a plan (others raise
+    ``ValueError``)."""
+    if min(N, D, K) < 1 or N >= 1 << 31 or K > 65535 * ROUTE_LANES:
+        raise ValueError(f"route_plan: N={N} (below 2^31) D={D} K={K}")
+    threads = ROUTE_THREADS
+    rpt = next((r for r in (4, 2, 1) if threads * r * D <= ROUTE_SMEM), 0)
+    stage = rpt > 0
+    rpt = rpt or 4
+    rows = threads * rpt
+    nx = -(-N // rows)
+    ny = -(-K // ROUTE_LANES)
+    kc = -(-K // ny)
+    want = min(K, -(-ROUTE_MIN_BLOCKS // nx))
+    if want > ny:
+        kc = max(1, K // want)
+    ny = -(-K // kc)
+    return {"threads": threads, "rpt": rpt, "rows": rows, "stage": stage,
+            "smem": rows * D if stage else 0, "kc": kc, "nx": nx, "ny": ny,
+            "blocks": nx * ny}
+
+
 def tree_route(B: torch.Tensor, row_node: torch.Tensor, feat: torch.Tensor,
                bin_: torch.Tensor, leaf: torch.Tensor, offset: int):
-    """Route every (lane, row) of a level to its child: a row at node
-    ``offset + p`` whose node did not become a leaf moves to
-    ``2*node + 1 + (B[n, feat] > bin)``.  B int8 [N, D]; row_node int32
-    [K, N]; feat/bin int32, leaf bool [K, P].  Returns the new row_node."""
+    """Route every (lane, row) of a level to its child, IN PLACE: a row at
+    node ``offset + p`` whose node did not become a leaf moves to
+    ``2*node + 1 + (B[n, feat] > bin)``; every other id is left as it is
+    (on the card only the moved ids are written).  B int8 [N, D]; row_node
+    int32 [K, N]; feat/bin int32, leaf bool [K, P].  Returns ``row_node``
+    itself, routed: a caller that needs the old ids passes a copy.  On a
+    CPU tensor the twin's ids are copied back into it.  The kernel packs
+    each node's split into one int32 code first (a [K, P] scratch);
+    :func:`route_plan` sizes the launch."""
     dev = B.device
     _check("tree_route B", B, torch.int8, 2, dev)
     _check("tree_route row_node", row_node, torch.int32, 2, dev)
@@ -784,15 +937,17 @@ def tree_route(B: torch.Tensor, row_node: torch.Tensor, feat: torch.Tensor,
     if row_node.shape != (K, N) or bin_.shape != (K, P) or leaf.shape != (K, P):
         raise ValueError("tree_route: shapes disagree")
     if dev.type == "cpu":
-        return tree_route_twin(B, row_node, feat, bin_, leaf, offset)
+        return row_node.copy_(tree_route_twin(B, row_node, feat, bin_, leaf,
+                                              offset))
     if dev.type != "cuda":
         raise ValueError(f"tree_route: unsupported device {dev}")
-    out = torch.empty_like(row_node)
-    grid_x = max(1, min(-(-(K * N) // 256), 132 * 16))
+    plan = route_plan(N, D, K)
+    code = torch.empty(K * P, dtype=torch.int32, device=dev)
     _launch("tree_route", B.data_ptr(), row_node.data_ptr(), feat.data_ptr(),
-            bin_.data_ptr(), leaf.data_ptr(), out.data_ptr(), N, D, K, offset,
-            P, grid_x, _stream(B))
-    return out
+            bin_.data_ptr(), leaf.data_ptr(), code.data_ptr(), N, D, K,
+            offset, P, plan["threads"], plan["rpt"], int(plan["stage"]),
+            plan["kc"], plan["smem"], _stream(B))
+    return row_node
 
 
 # --------------------------------------------------------------------------

@@ -8,10 +8,11 @@ Features are quantile-binned once into an int8 matrix ``B [N, D]``; trees
 grow level-wise as perfect heaps (feature, threshold, is_leaf, leaf values).
 Each level is three kernels — ``tree_hist`` (per-node, per-feature, per-bin
 statistics; ``tree_hist_deep`` once a level's nodes outgrow shared memory),
-``tree_split`` (xgb gain), ``tree_split_gini`` or ``tree_split_variance``
-(gini or variance gain over each node's feature subset), each a prefix over
-bins and a first-max argmax, and
-``tree_route`` (rows to children) — run for a batch of (fold × grid-point ×
+``tree_split`` (xgb gain; it also writes the level's tree arrays),
+``tree_split_gini`` or ``tree_split_variance`` (gini or variance gain over
+each node's feature subset), each a prefix over bins and a first-max
+argmax, and ``tree_route`` (rows to children, in place) — run for a batch
+of (fold × grid-point ×
 tree) lanes at once; each boosting round's margin update and every scoring
 pass is ``tree_walk``.  The rounds and levels are a plain Python loop, the
 same for every depth: it is the counterpart of both the compact and the
@@ -133,7 +134,9 @@ def lane_bytes(n_rows: int, n_feats: int, n_stats: int, n_bins: int,
                max_depth: int, device: torch.device) -> int:
     """Bytes one lane holds while its tree grows: its statistics and node
     ids, each twice (the caller's temporaries while it builds the
-    statistics; a route writes new ids beside the old), and its row weight,
+    statistics; the ids' second copy is a margin since ``tree_route``
+    routes in place — dropping it would regroup the forests' lane
+    batches), and its row weight,
     ``4·N·(2·S + 4)``; and the widest level's histogram (2^(depth-1) nodes ×
     D × bins × S f32).  On the card a level that takes ``tree_hist_deep``
     adds its partition (each row's record, ``(6 + 4·S)·N``, and the group
@@ -221,26 +224,26 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
         if bottom:
             break
         if impurity == "xgb":
+            # the kernel writes the level's tree arrays in its epilogue
             sp = tree_split(hist, totals, fmask, splits, min_instances,
-                            min_gain, lam)
+                            min_gain, lam,
+                            tree=(feature, threshold, is_leaf, leaf, gain),
+                            offset=off)
         else:
             split = (tree_split_gini if impurity == "gini"
                      else tree_split_variance)
             sp = split(hist, totals, fmask, nm, splits, min_instances,
                        min_gain)
         del hist
-        row_node = tree_route(B, row_node, sp["feature"], sp["bin"],
-                              sp["is_leaf"], off)
-        if impurity == "xgb":
-            leaf[:, off:off + P, 0] = sp["value"]
-        else:
+        tree_route(B, row_node, sp["feature"], sp["bin"], sp["is_leaf"], off)
+        if impurity != "xgb":
             leaf[:, off:off + P] = node_leaf(totals)
-        lf = sp["is_leaf"]
-        is_leaf[:, off:off + P] = lf
-        feature[:, off:off + P] = torch.where(lf, -1, sp["feature"])
-        threshold[:, off:off + P] = sp["threshold"]
-        gain.scatter_add_(1, sp["feature"].long(),
-                          torch.where(lf, 0.0, sp["gain"]))
+            lf = sp["is_leaf"]
+            is_leaf[:, off:off + P] = lf
+            feature[:, off:off + P] = torch.where(lf, -1, sp["feature"])
+            threshold[:, off:off + P] = sp["threshold"]
+            gain.scatter_add_(1, sp["feature"].long(),
+                              torch.where(lf, 0.0, sp["gain"]))
     # the bottom level is all leaves
     if impurity == "xgb":
         leaf[:, off:, 0] = -(totals[..., 1] / (totals[..., 2] + lam[:, None]))
