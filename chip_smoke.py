@@ -145,8 +145,11 @@ Phases (any failure exits non-zero and prints no result line):
    and LinReg x8 trained, evaluated and scored on a fresh 1M batch (seed
    22), with the launches and peak memory read around each, held to the
    JAX package's winner and best GLM CV RMSE (``GLM_REF``) and to the true
-   coefficients (0.02); ``RecordInsightsLOCO`` on each winner (the exp link
-   of ``loco_linear``, kernel against twin);
+   coefficients (0.02); a ``torch.profiler`` window over the poisson GLM's
+   CV (``profile_glm_cv``: device-busy share, ``fista_glm``'s device ms by
+   kernel, its calls and launches by form, the ladder passes);
+   ``RecordInsightsLOCO`` on each winner (the exp link of ``loco_linear``,
+   kernel against twin);
 11. softmax explanations — ``RecordInsightsLOCO`` (top-20 of 16 groups) on
    phase 9's multiclass winner (softmax LR) over its 1M x 16 vector, maps
    included, with the launches read around the transform, and
@@ -154,10 +157,11 @@ Phases (any failure exits non-zero and prints no result line):
    fitted at 1M, on a 40-class model at 1M x 16 and at
    ``scripts/bench_loco.py``'s 100,000 x 512 with 128 groups;
 12. the repaired card-only refusals — the two-pass FISTA form
-   (``fista_wide``) through the wrappers at the shapes no tensor-core or
-   one-tile launch holds (``fista_step`` at 2,000 x 27,009 with one lane,
-   ``fista_softmax`` with 65 classes, ``fista_glm`` at 4,900 and 16,384
-   features) against the f64 twins, ``loco_softmax`` on MLPs of
+   (``fista_wide``) through the wrappers at the shapes no tensor-core
+   launch holds (``fista_step`` and ``fista_glm`` at 2,000 x 27,009,
+   ``fista_softmax`` with 65 classes) and ``fista_glm`` on the tensor-core
+   form's clusters at 4,900 and 16,384 features, which its old one-tile
+   form refused, against the f64 twins, ``loco_softmax`` on MLPs of
    ``hidden_layers=(256, 256)`` and (900,), the three split kernels at 64
    and 127 bins against their twins; then the estimators a user calls at
    those shapes, on the card and the CPU twins — ``OpLogisticRegression``
@@ -180,7 +184,8 @@ multiclass default grid's train for ``fista_softmax`` and
 ``multiclass_confusion``, the poisson workload's train and score for the two
 ``fista_glm`` rows, its LOCO transform for ``loco_linear``'s exp-link row,
 the multiclass LOCO transform for the ``loco_softmax`` rows, phase 12's
-estimator fits for the ``fista_wide`` rows and the 64-bin split rows), the
+estimator fits for the ``fista_wide`` rows, the two fault-width
+``fista_glm`` rows and the 64-bin split rows), the
 one before that the card's name and power limit.
 Imports nothing of JAX.
 """
@@ -568,8 +573,8 @@ def forest_inputs(device, n: int, seed: int = 4):
 
 def check_forest_kernels(device, n: int = N_ROWS, reps: int = 10):
     """The forest's kernels at the main path's forest shapes.  Returns the
-    ``tree_split_gini`` row of the kernels line and a dict of the other
-    kernels' forest-shape checks and times (printed on their own line)."""
+    ``tree_split_gini`` row of the kernels line (level 5) and a dict of the
+    forest-shape checks and times (printed on their own line)."""
     import torch
 
     from transmogrifai_tpu_torch.models import kernels
@@ -610,25 +615,23 @@ def check_forest_kernels(device, n: int = N_ROWS, reps: int = 10):
                                  node_mask=m5)
 
     # tree_split_gini at levels 0 (P = 1) and 5 (P = 32, the masked
-    # histogram) with the forest's per-node subsets (rules: _check_split)
+    # histogram) with the forest's per-node subsets: the twin's bits, the
+    # epilogue's arrays, times (gini_split_case)
     fmask = torch.ones(D, dtype=torch.bool, device=device)
     lane = lambda v: torch.full((K,), v, dtype=torch.float32, device=device)
     h0, t0 = tk.tree_hist(B, torch.zeros_like(row_node), stats, 0, 1, N_BINS,
                           node_mask=inp["masks"][0])
-    gerr = max(_check_split(tk, h, t, fmask, m, inp["splits"], lane(10.0),
-                            lane(0.0))
-               for h, t, m in ((h0, t0, inp["masks"][0]),
-                               (hist_m, tot_m, m5)))
+    facts["tree_split_gini_level_0"] = gini_split_case(
+        tk, h0, t0, fmask, inp["masks"][0], inp["splits"], lane(10.0),
+        lane(0.0), reps)
+    del h0, t0
     hist, tot = hist_m, tot_m
-    read = int(m5.sum()) * N_BINS * S * 4        # histograms of kept features
-    bt, by = bound(read + 4 * tot.numel() + m5.numel() + D
-                   + 4 * inp["splits"].numel() + 8 * K + 17 * K * P,
-                   23 * int(m5.sum()) * N_BINS)
     args = (hist, tot, fmask, m5, inp["splits"], lane(10.0), lane(0.0))
-    row = {"name": "tree_split_gini", "max_abs_err": gerr,
-           "ms": time_ms(lambda: tk.tree_split_gini(*args), reps),
-           "plain_ms": time_ms(lambda: tk.tree_split_gini_twin(*args), reps),
-           "bound_ms": bt, "bound_by": by, "library_ms": None}
+    facts["tree_split_gini_level_5"] = gini_split_case(tk, *args, reps)
+    row = {"name": "tree_split_gini",
+           **{k: facts["tree_split_gini_level_5"][k] for k in (
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")}}
 
     # tree_route at level 5 of 60 lanes: exact (route_case)
     sp = tk.tree_split_gini_twin(*args)
@@ -681,72 +684,166 @@ def _check_split(tk, hist, tot, fmask, node_mask, splits, min_inst,
     """``tree_split`` (``lam`` given: xgb statistics) or ``tree_split_gini``
     (``lam`` None, ``node_mask`` the nodes' subsets or None) on all lanes
     at once against its twin on the same histogram, ``chunk`` lanes at a
-    time (a deep level's gain tables take ~10x its histogram).  The xgb
-    kernel must give the twin's bits in every output (it adds the bin
-    prefix in the twin's order and rounds as it does) and its own bits on a
-    second launch.  Gini gains must lie within 1e-6 of wgini(parent), the
-    terms they are a difference of; the chosen feature, bin and threshold
-    must agree wherever best and runner-up differ by more than 1e-5 of
-    wgini(parent), and the leaf flag wherever the twin's gain is
-    non-finite or further than the tolerance from the lane's min_gain.
-    Returns the largest gain error."""
+    time (a deep level's gain tables take ~10x its histogram).  Each kernel
+    adds the bin prefix in the twin's order and rounds as it does, so it
+    must give the twin's bits in every output, and its own bits on a second
+    launch.  Returns 0.0 (the largest gain error)."""
     import torch
     K = hist.shape[0]
-    name = "tree_split" if lam is not None else "tree_split_gini"
     if lam is None:
-        out = tk.tree_split_gini(hist, tot, fmask, node_mask, splits,
-                                 min_inst, min_gain)
+        name = "tree_split_gini"
+        args = (hist, tot, fmask, node_mask, splits, min_inst, min_gain)
+        out, again = tk.tree_split_gini(*args), tk.tree_split_gini(*args)
     else:
-        out = tk.tree_split(hist, tot, fmask, splits, min_inst, min_gain, lam)
-        again = tk.tree_split(hist, tot, fmask, splits, min_inst, min_gain,
-                              lam)
-        for a in range(0, K, chunk):
-            sl = slice(a, min(a + chunk, K))
-            st = tk.tree_split_twin(hist[sl], tot[sl], fmask, splits,
-                                    min_inst[sl], min_gain[sl], lam[sl])
-            for key, v in st.items():
-                if not (torch.equal(out[key][sl], v)
-                        and torch.equal(again[key][sl], v)):
-                    raise AssertionError(
-                        f"{name} (P {hist.shape[1]}, lanes {a}..): {key} "
-                        "differs from the twin's bits")
-        return 0.0
-    err = 0.0
+        name = "tree_split"
+        args = (hist, tot, fmask, splits, min_inst, min_gain, lam)
+        out, again = tk.tree_split(*args), tk.tree_split(*args)
     for a in range(0, K, chunk):
         sl = slice(a, min(a + chunk, K))
-        h, t, mi, mg = hist[sl], tot[sl], min_inst[sl], min_gain[sl]
-        m = None if node_mask is None else node_mask[sl]
-        st = tk.tree_split_gini_twin(h, t, fmask, m, splits, mi, mg)
-        tol = 1e-6 * tk.wgini(t)
-        gap_tol = 1e-5 * tk.wgini(t)
-        gap = tk.split_gap_gini(h, t, fmask, m, mi)
-        sk = {k: v[sl] for k, v in out.items()}
-        fin = torch.isfinite(st["gain"])
-        if not torch.equal(fin, torch.isfinite(sk["gain"])):
-            raise AssertionError(f"{name} (P {h.shape[1]}, lanes {a}..): "
-                                 "finite gains differ from the twin")
-        e = torch.where(fin, (sk["gain"] - st["gain"]).abs(), 0.0)
-        if bool((e > tol).any()):
-            raise AssertionError(f"{name} (P {h.shape[1]}, lanes {a}..) gains "
-                                 "disagree with the twin")
-        same = ((sk["feature"] == st["feature"]) & (sk["bin"] == st["bin"])
-                & (sk["threshold"] == st["threshold"]))
-        if bool(((gap > gap_tol) & ~same).any()):
-            raise AssertionError(f"{name} (P {h.shape[1]}, lanes {a}..) picked "
-                                 "another split than the twin")
-        leaf_clear = ~fin | ((st["gain"] - mg[:, None]).abs() > tol)
-        if bool((leaf_clear & (sk["is_leaf"] != st["is_leaf"])).any()):
-            raise AssertionError(f"{name} (P {h.shape[1]}, lanes {a}..) leaf "
-                                 "flags disagree with the twin")
-        err = max(err, float(e.max()))
-    return err
+        if lam is None:
+            st = tk.tree_split_gini_twin(
+                hist[sl], tot[sl], fmask,
+                None if node_mask is None else node_mask[sl], splits,
+                min_inst[sl], min_gain[sl])
+        else:
+            st = tk.tree_split_twin(hist[sl], tot[sl], fmask, splits,
+                                    min_inst[sl], min_gain[sl], lam[sl])
+        for key, v in st.items():
+            if not (torch.equal(out[key][sl], v)
+                    and torch.equal(again[key][sl], v)):
+                raise AssertionError(
+                    f"{name} (P {hist.shape[1]}, lanes {a}..): {key} "
+                    "differs from the twin's bits")
+    return 0.0
 
 
-def _device_ms(kms: dict, key: str):
-    """The device ms a call spent in kernels whose name holds ``key``
-    (``kernel_ms``'s table); None where the window holds none of them."""
-    found = [v for k, v in kms.items() if key in k]
+def _epilogue_tree(K: int, T: int, D: int, V: int, device, seed: int):
+    """fit_trees' level arrays for an epilogue check: empty heaps of T
+    nodes with V leaf values and random gain sums (seeded)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.full((K, T), -1, dtype=torch.int32, device=device),
+            torch.full((K, T), float("inf"), device=device),
+            torch.zeros((K, T), dtype=torch.bool, device=device),
+            torch.zeros((K, T, V), device=device),
+            torch.rand((K, D), generator=gen, device=device))
+
+
+def gini_split_case(tk, hist, tot, fmask, mask, splits, mi, mg,
+                    reps: int = 10, plain_lanes=None) -> dict:
+    """``tree_split_gini`` at one level: the twin's bits and its own on a
+    second launch (``_check_split``); the epilogue's tree arrays (feature,
+    threshold, is_leaf, the class shares and the gain sums, at offset P - 1
+    of [K, 4P - 1] heaps) equal to ``write_level_twin``'s run on the CPU;
+    ``ms`` by CUDA events and ``kernel_ms`` by the profiler for the dict
+    form, ``epilogue_kernel_ms`` for fit_trees' form (the split and its
+    gain walk), the twin's time (on the first ``plain_lanes`` lanes beside
+    the kernel's on the same, where the twin's tables of every lane would
+    not fit).  The bound reads bins 0 .. NB-2 of the subset features'
+    histograms of the nodes that can split (count total >= 2·min_instances:
+    the kernel reads no other) once, every node's count total, those
+    nodes' other totals and mask rows, the split points, and writes 17
+    bytes a node; 6C + 2S + 10 operations a (node, feature, bin) read."""
+    import torch
+    K, P, D, NB, S = hist.shape
+    C = S - 1
+    err = _check_split(tk, hist, tot, fmask, mask, splits, mi, mg)
+    off, T = P - 1, 4 * P - 1
+    tree = _epilogue_tree(K, T, D, C, hist.device, P)
+    ref = tuple(t.cpu() for t in tree)
+    out = tk.tree_split_gini(hist, tot, fmask, mask, splits, mi, mg,
+                             tree=tree, offset=off)
+    tk.write_level_twin({**{k: v.cpu() for k, v in out.items()},
+                         "value": tk.gini_leaf(tot).cpu()}, ref, off)
+    for name, a, b in zip(("feature", "threshold", "is_leaf", "leaf",
+                           "gain"), tree, ref):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"tree_split_gini epilogue (P {P}): {name} "
+                                 "differs from the twin's bookkeeping")
+    can = tot[..., 0] >= 2 * mi[:, None]
+    keep = fmask[None, None, :] if mask is None else (mask & fmask)
+    kept = int((keep.expand(K, P, D).sum(dim=2) * can).sum())
+    n_can = int(can.sum())
+    bt, by = bound(4 * kept * (NB - 1) * S + 4 * K * P
+                   + n_can * (4 * C + (D if mask is not None else 0)) + D
+                   + 4 * splits.numel() + 8 * K + 17 * K * P,
+                   (6 * C + 2 * S + 10) * kept * (NB - 1))
+    args = (hist, tot, fmask, mask, splits, mi, mg)
+    width = None if mask is None else int(mask.sum(dim=2).amax())
+    # timed as fit_trees calls it: the subsets' width given
+    run = lambda: tk.tree_split_gini(*args, width=width)  # noqa: E731
+    dict_ms = kernel_device_ms(run, reps, "tree_split_gini")
+    epi_ms = kernel_device_ms(lambda: tk.tree_split_gini(
+        *args, tree=tree, offset=off, width=width), reps, "tree_split_gini")
+    case = {"lanes": K, "P": P, "classes": C, "nodes_that_can_split": n_can,
+            "max_abs_err": err, "same_bits_as_twin": True,
+            "epilogue_equal": True, "ms": time_ms(run, reps),
+            "kernel_ms": dict_ms["ms"], "kernel_ms_windows": dict_ms,
+            "epilogue_kernel_ms": epi_ms["ms"],
+            "bound_ms": bt, "bound_by": by, "library_ms": None,
+            "plan": tk.gini_split_plan(K, P, D, NB, C, width)}
+    if plain_lanes is None:
+        case["plain_ms"] = time_ms(lambda: tk.tree_split_gini_twin(*args), 2)
+    else:
+        sl = slice(0, plain_lanes)
+        part = (hist[sl], tot[sl], fmask, None if mask is None else mask[sl],
+                splits, mi[sl], mg[sl])
+        case[f"ms_{plain_lanes}_lanes"] = time_ms(
+            lambda: tk.tree_split_gini(*part, width=width), reps)
+        case[f"plain_ms_{plain_lanes}_lanes"] = time_ms(
+            lambda: tk.tree_split_gini_twin(*part), 2)
+    return case
+
+
+# each kernel's own kernels, by the identifier of their names in a profile
+KERNEL_IDS = {
+    "tree_route": ("tree_route_pack_kernel", "tree_route_kernel"),
+    "tree_split": ("tree_split_kernel", "tree_split_gain_kernel"),
+    "tree_split_gini": ("tree_split_gini_kernel", "tree_split_gain_kernel"),
+    # the tensor-core form's, and the earlier one-tile form's
+    "fista_glm": ("fista_glm_kernel", "fista_glm_reduce",
+                  "glm_reduce_kernel"),
+    "fista_wide_kernels": ("wide_margin_kernel", "wide_loss_kernel",
+                           "wide_xtg_kernel", "wide_reduce_kernel")}
+
+
+def _kernel_id(name: str) -> str:
+    """The identifier of a kernel's name in a profile: ``k`` of a demangled
+    ``void ns::k<8>(float const*, ...)`` or of a mangled ``_Z1k...``."""
+    import re
+    m = re.match(r"_Z(\d+)", name)
+    if m:
+        n = int(m.group(1))
+        return name[m.end():m.end() + n]
+    head = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return head.split("<")[0].split()[-1].split("::")[-1] if head.strip() \
+        else name
+
+
+def _device_ms(kms: dict, *names: str):
+    """The device ms a call spent in the kernels ``names`` (``kernel_ms``'s
+    table; a name is a kernel's identifier or a key of ``KERNEL_IDS``,
+    which stands for that kernel's own kernels); None where the window
+    holds none of them.  Matched by identifier, not by a prefix: the xgb
+    split's ``tree_split_kernel`` is not the gini split's."""
+    ids = {i for n in names for i in KERNEL_IDS.get(n, (n,))}
+    found = [v for k, v in kms.items() if _kernel_id(k) in ids]
     return sum(found) if found else None
+
+
+def kernel_device_ms(fn, reps: int, *names: str, tries: int = 3) -> dict:
+    """``_device_ms`` of ``kernel_ms(fn, reps)`` from the first of up to
+    ``tries`` profiler windows that shows the kernels ``names``: ``ms``,
+    ``windows`` (how many it took) and, where none did, ``seen`` (the
+    kernels the last window held) — a window that misses a call's kernels
+    is then visible in the result."""
+    for w in range(1, tries + 1):
+        kms = kernel_ms(fn, reps)
+        ms = _device_ms(kms, *names)
+        if ms is not None:
+            return {"ms": ms, "windows": w}
+    return {"ms": None, "windows": tries,
+            "seen": sorted({_kernel_id(k) for k in kms})}
 
 
 def route_case(tk, B, row_node, feat, bin_, leaf, off: int, reps: int = 5,
@@ -816,8 +913,9 @@ def split_case(tk, hist, tot, fmask, splits, mi, mg, lam, reps: int = 10,
     random gain sums, at offset P - 1 of [K, 4P - 1] heaps — equal to
     ``write_level_twin``'s run on the CPU (its ``scatter_add_`` adds in
     node order); ``ms`` by CUDA events and ``kernel_ms`` by the profiler
-    for the dict form, ``epilogue_kernel_ms`` for fit_trees' form, the
-    twin's time.  The bound reads the histograms of the nodes that can
+    (``kernel_device_ms``: the first of up to three windows that shows the
+    split's kernels) for the dict form, ``epilogue_kernel_ms`` for
+    fit_trees' form, the twin's time.  The bound reads the histograms of the nodes that can
     split (count total >= 2·min_instances; the kernel reads no other)
     once, the totals, mask and split points once, and writes 21 bytes a
     node; ten operations a (node, feature, bin) read."""
@@ -825,12 +923,7 @@ def split_case(tk, hist, tot, fmask, splits, mi, mg, lam, reps: int = 10,
     K, P, D, NB, _ = hist.shape
     err = _check_split(tk, hist, tot, fmask, None, splits, mi, mg, lam)
     off, T = P - 1, 4 * P - 1
-    gen = torch.Generator(device=hist.device).manual_seed(P)
-    tree = (torch.full((K, T), -1, dtype=torch.int32, device=hist.device),
-            torch.full((K, T), float("inf"), device=hist.device),
-            torch.zeros((K, T), dtype=torch.bool, device=hist.device),
-            torch.zeros((K, T, 1), device=hist.device),
-            torch.rand((K, D), generator=gen, device=hist.device))
+    tree = _epilogue_tree(K, T, D, 1, hist.device, P)
     ref = tuple(t.cpu() for t in tree)
     out = tk.tree_split(hist, tot, fmask, splits, mi, mg, lam, tree=tree,
                         offset=off)
@@ -846,14 +939,15 @@ def split_case(tk, hist, tot, fmask, splits, mi, mg, lam, reps: int = 10,
                    10 * can * D * NB)
     args = (hist, tot, fmask, splits, mi, mg, lam)
     run = lambda: tk.tree_split(*args)                   # noqa: E731
+    dict_ms = kernel_device_ms(run, reps, "tree_split")
     case = {"lanes": K, "P": P, "nodes_that_can_split": can,
             "max_abs_err": err, "same_bits_as_twin": True,
             "epilogue_equal": True,
             "ms": time_ms(run, reps),
-            "kernel_ms": _device_ms(kernel_ms(run, reps), "tree_split"),
-            "epilogue_kernel_ms": _device_ms(kernel_ms(
-                lambda: tk.tree_split(*args, tree=tree, offset=off), reps),
-                "tree_split"),
+            "kernel_ms": dict_ms["ms"], "kernel_ms_windows": dict_ms,
+            "epilogue_kernel_ms": kernel_device_ms(
+                lambda: tk.tree_split(*args, tree=tree, offset=off), reps,
+                "tree_split")["ms"],
             "plain_ms": time_ms(lambda: tk.tree_split_twin(*args),
                                 plain_reps),
             "bound_ms": bt, "bound_by": by, "library_ms": None}
@@ -1081,23 +1175,10 @@ def check_deep_kernels(device, n: int = N_ROWS, reps: int = 5):
     err = lane_check("forest", hist, tot, stats, row_node, mask)
     facts["forest_hist_ms"] = time_ms(lambda: tk.tree_hist(
         B, row_node, stats, off, P, N_BINS, node_mask=mask), reps)
-    facts["split_gini_max_abs_err"] = _check_split(
-        tk, hist, tot, fmask, mask, sp_t, mi, mg)
-    kept = int(mask.sum())
-    facts["forest_split_gini"] = {
-        "lanes": K, "ms": time_ms(lambda: tk.tree_split_gini(
-            hist, tot, fmask, mask, sp_t, mi, mg), reps),
-        # the twin's gain tables at 150 x 2048 nodes take tens of GB: it
-        # is timed on the first 16 lanes, beside the kernel on the same
-        "ms_16_lanes": time_ms(lambda: tk.tree_split_gini(
-            hist[:16], tot[:16], fmask, mask[:16], sp_t, mi[:16], mg[:16]),
-            reps),
-        "plain_ms_16_lanes": time_ms(lambda: tk.tree_split_gini_twin(
-            hist[:16], tot[:16], fmask, mask[:16], sp_t, mi[:16], mg[:16]),
-            2),
-        "bound_ms": bound(kept * N_BINS * 3 * 4 + 4 * tot.numel()
-                          + mask.numel() + D + 4 * sp_t.numel() + 8 * K
-                          + 17 * K * P, 23 * kept * N_BINS)[0]}
+    # the twin's gain tables at 150 x 2048 nodes take tens of GB: it is
+    # timed on the first 16 lanes, beside the kernel on the same
+    facts["forest_split_gini"] = gini_split_case(
+        tk, hist, tot, fmask, mask, sp_t, mi, mg, reps, plain_lanes=16)
     sp = tk.tree_split_gini(hist, tot, fmask, mask, sp_t, mi, mg)
     del hist, tot
     leaf = sp["is_leaf"].clone()
@@ -1630,14 +1711,19 @@ def transmog_lr_selector():
         "OpLogisticRegression")])
 
 
-def profile_lr_cv(model, batch, selector, device="cuda", top: int = 8):
+def profile_lr_cv(model, batch, selector, device="cuda", top: int = 8,
+                  around=None, kernels=()):
     """A ``torch.profiler`` window over one LR cross-validation on a main
     path's own vector: ``selector``'s validator over its candidates (racing
     as the selector runs it) on the output of ``model``'s fitted DAG up to
     its selector, after a warm-up run.  Returns the window's host wall, the
     same CV's wall unprofiled, the device-busy seconds (the union of the
     kernels' intervals) and share of the window, the kernel launches and
-    the top kernels by device time."""
+    the top kernels by device time; with ``kernels`` (``_device_ms``
+    names) also every kernel of theirs by full name (``by_kernel``: ms and
+    count); ``around`` (a context manager) is entered around the profiled
+    run alone."""
+    import contextlib
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1655,8 +1741,9 @@ def profile_lr_cv(model, batch, selector, device="cuda", top: int = 8):
     t0 = time.perf_counter()
     run()
     plain = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with around if around is not None else contextlib.nullcontext(), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
@@ -1675,11 +1762,64 @@ def profile_lr_cv(model, batch, selector, device="cuda", top: int = 8):
             end = b
     busy /= 1e6
     ranked = sorted(by.items(), key=lambda kv: -kv[1][0])[:top]
+    ids = {i for n in kernels for i in KERNEL_IDS.get(n, (n,))}
     return {"unprofiled_wall_s": plain, "window_wall_s": wall,
             "device_events": len(spans), "device_busy_s": busy,
             "device_busy_share": busy / wall if spans else None,
             "top_kernels": [{"name": k[:90], "ms": v[0] / 1e3, "count": v[1]}
-                            for k, v in ranked]}
+                            for k, v in ranked],
+            "by_kernel": {k[:90]: {"ms": v[0] / 1e3, "count": v[1]}
+                          for k, v in by.items() if _kernel_id(k) in ids}}
+
+
+def profile_glm_cv(model, batch, family: str, device="cuda") -> dict:
+    """``profile_lr_cv`` over a GLM workload's GLM cross-validation (the
+    family over the default reg_params, 3 folds, racing) on its own
+    vector: the device-busy share, ``fista_glm``'s device ms by kernel
+    (``by_kernel``: ``fista_glm_kernel<NT, ...>`` with NT column tiles of 8
+    — here the 12-lane gradient form is NT = 2, a ladder's 96 trial lanes
+    the value form's NT = 8 and NT = 4 launches), and the wrapper's calls
+    in the window by form with their launches, and the ladder passes (one
+    value call each: ``FistaLoop._backtrack`` waits for the card once a
+    pass)."""
+    import contextlib
+
+    from transmogrifai_tpu_torch import selector as S
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models import linear_kernels as lk
+    from transmogrifai_tpu_torch.models import solvers
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import glm_grid_reference as ggr
+    calls = {"gradient": 0, "value": 0}
+    launches = {"gradient": 0, "value": 0}
+    real = lk.fista_glm
+
+    def counted(*a, **kw):
+        form = "gradient" if kw.get("grad", a[9] if len(a) > 9 else True) \
+            else "value"
+        before = kernels.LAUNCHES["fista_glm"]
+        out = real(*a, **kw)
+        calls[form] += 1
+        launches[form] += kernels.LAUNCHES["fista_glm"] - before
+        return out
+
+    @contextlib.contextmanager
+    def patched():
+        lk.fista_glm = solvers.fista_glm = counted
+        try:
+            yield
+        finally:
+            lk.fista_glm = solvers.fista_glm = real
+
+    sel = S.RegressionModelSelector(models=ggr.glm_models(PORT, family)[:1])
+    out = profile_lr_cv(model, batch, sel, device, top=8, around=patched(),
+                        kernels=("fista_glm", "fista_tc_kernel"))
+    out.update(fista_glm_calls=calls, fista_glm_launches=launches,
+               ladder_passes=calls["value"],
+               fista_glm_device_ms=sum(
+                   v["ms"] for k, v in out["by_kernel"].items()
+                   if _kernel_id(k) in KERNEL_IDS["fista_glm"]))
+    return out
 
 
 def run_transmog(device, cols, schema, n: int, score_cols=None) -> tuple:
@@ -2335,7 +2475,7 @@ def check_wide_trees(device="cuda", n: int = WIDE_ROWS) -> dict:
                              f"{root_g.tolist()} (gini): the cross-chunk tie "
                              "did not go to feature 100")
     return {"rows": n, "width": WIDE_D, "fit_s": fit_s,
-            "split_plan": tk.split_plan(WIDE_D)._asdict(),
+            "gini_split_plan": tk.gini_split_plan(3, 2, WIDE_D, N_BINS, 2),
             "xgb_split_plan": tk.xgb_split_plan(3, 2, WIDE_D, N_BINS),
             "gbt_root_feature": int(gbt["feature"][0, 0]),
             "rf_features_used": sorted({int(f) for f in rf["feature"].flatten()
@@ -2404,7 +2544,8 @@ def check_multiclass_forest(device="cuda", n: int = FAULT_ROWS) -> dict:
     return {"rows": n, "classes": MULTI_CLASSES, "fit_and_score_s": fit_s,
             "hist_deep_plan": tk.hist_plan(n, N_FEATS, K, P, N_BINS,
                                            MULTI_CLASSES + 1),
-            "gini_plan": tk.split_plan(N_FEATS, MULTI_CLASSES)._asdict(),
+            "gini_plan": tk.gini_split_plan(K, P, N_FEATS, N_BINS,
+                                            MULTI_CLASSES),
             "tree_hist_deep_max_abs_err": err_h,
             "tree_split_gini": "equal to twin", "tree_walk_max_abs_err": err_w}
 
@@ -3420,7 +3561,8 @@ def _glm_case(Xd, W, yd, mean, scale, loss: str, G: int, rng, reps: int,
     bit for bit.  ``grad`` False: the value-only form, as a backtracking
     ladder lays its (lane, trial step) lanes out.  The library yardstick is
     cuBLAS for the margins and (``grad``) for X^T g, with the loss terms
-    between.  Returns the case's numbers."""
+    between.  ``ms`` by CUDA events, ``kernel_ms`` the device ms of the
+    call's kernels by the profiler.  Returns the case's numbers."""
     import torch
 
     from transmogrifai_tpu_torch.models import linear_kernels as lk
@@ -3485,10 +3627,20 @@ def _glm_case(Xd, W, yd, mean, scale, loss: str, G: int, rng, reps: int,
     bt, by = bound(4 * Xd.numel() + 4 * n * folds + 4 * n
                    + 4 * (L * D + 4 * L) + (4 * (L * D + L) if grad else 0),
                    (4 if grad else 2) * n * D * L + 10 * n * L)
+    # the margins (and X^T g) on TF32 tensor cores in split TF32: the
+    # kernel's own bound (the f32 one above is the rows' yardstick)
     plan = lk.glm_launch_plan(D, L, grad)
+    run = lambda: lk.fista_glm(*args)                     # noqa: E731
+    nbytes = (4 * Xd.numel() + 4 * n * folds + 4 * n
+              + 4 * (L * D + 4 * L) + (4 * (L * D + L) if grad else 0))
     return {"lanes": L, "loss": loss, "grad": grad, "rows": n,
             "plan": plan, "max_abs_err": err,
-            "ms": time_ms(lambda: lk.fista_glm(*args), reps),
+            "split_tf32_bound_ms": split_tf32_bound(
+                nbytes, (4 if grad else 2) * n * D * L),
+            "ms": time_ms(run, reps),
+            "kernel_ms": kernel_device_ms(
+                run, reps, "fista_glm" if plan["form"] != "wide"
+                else "fista_wide_kernels")["ms"],
             "plain_ms": time_ms(lambda: lk.fista_glm_twin(*args[:-1], grad),
                                 max(2, reps // 4)),
             "bound_ms": bt, "bound_by": by,
@@ -3920,15 +4072,17 @@ def run_bins_paths(device="cuda") -> tuple:
 
 def check_fault_shapes(device="cuda", reps: int = 5, glm_rows: int = N_ROWS):
     """The FISTA shapes no tensor-core or one-tile launch held, through
-    the wrappers into the two-pass form (``_fista_case``,
-    ``_softmax_case``, ``_glm_case``: within 1e-5 of each output's f64
-    mass, bit-repeatable): ``fista_step`` at 2,000 x 27,009 with one lane,
-    ``fista_softmax`` with 65 classes (20,000 x 16, 8 lanes), ``fista_glm``
-    at ``glm_rows`` x 4,900 (1M: ~70,000 rows a block of its Xᵀg pass)
-    and 5,000 x 16,384; then ``loco_softmax`` on MLPs of
+    the wrappers (``_fista_case``, ``_softmax_case``, ``_glm_case``: within
+    1e-5 of each output's f64 mass, bit-repeatable): into the two-pass form
+    ``fista_step`` at 2,000 x 27,009 with one lane, ``fista_softmax`` with
+    65 classes (20,000 x 16, 8 lanes) and ``fista_glm`` at 2,000 x 27,009
+    (past the tensor-core form's width); ``fista_glm`` at ``glm_rows`` x
+    4,900 and 5,000 x 16,384, which the old one-tile GLM form refused, now
+    on the tensor-core form (a cluster of feature slices); then
+    ``loco_softmax`` on MLPs of
     ``hidden_layers=(256, 256)`` and (900,), 4 classes, at 100,000 x 16
-    (one group a column, top-16).  Returns the ``fista_wide`` rows of the
-    kernels line and every case's numbers."""
+    (one group a column, top-16).  Returns the ``fista_wide`` and
+    ``fista_glm`` rows of the kernels line and every case's numbers."""
     import torch
 
     from transmogrifai_tpu_torch.models.linear import MLPClassificationModel
@@ -3957,19 +4111,22 @@ def check_fault_shapes(device="cuda", reps: int = 5, glm_rows: int = N_ROWS):
     c = _softmax_case(X, W[:1], yi, mean[:1], scale[:1], 8, 65, rng, reps)
     facts["fista_softmax_65"] = c
     rows.append(_kernel_row("fista_wide", c))
-    for n, d, loss in ((glm_rows, 4_900, "poisson"),
-                       (5_000, 16_384, "gamma")):
+    for n, d, loss, folds in ((glm_rows, 4_900, "poisson", 3),
+                              (5_000, 16_384, "gamma", 3),
+                              (2_000, 27_009, "poisson", 1)):
         X, _, W = matrix(n, d, d)
         yg = torch.as_tensor((rng.poisson(1.3, n) if loss == "poisson"
                               else rng.gamma(2.0, 0.7, n)).astype(np.float32),
                              device=device)
         mean, scale = standardize_moments(X, W, center=True)
-        c = _glm_case(X, W, yg, mean, scale, loss, 4, rng, reps, True)
-        if c["plan"]["form"] != "wide":
+        c = _glm_case(X, W[:folds], yg, mean[:folds], scale[:folds], loss, 4,
+                      rng, reps, True)
+        wide = d > 16_384
+        if (c["plan"]["form"] == "wide") != wide:
             raise AssertionError(f"fista_glm at {d} features: plan "
                                  f"{c['plan']}")
         facts[f"fista_glm_{d}"] = c
-        rows.append(_kernel_row("fista_wide", c))
+        rows.append(_kernel_row("fista_wide" if wide else "fista_glm", c))
         del X, mean, scale
     for name in ("fista_step_27009", "fista_softmax_65"):
         if facts[name]["form"] != "wide":
@@ -4001,8 +4158,9 @@ def run_fault_paths(device="cuda", scale: int = 1) -> tuple:
     ``OpLogisticRegression`` at 2,000 x 27,009 (one lane, past the
     tensor-core form's width), a 65-class ``OpLogisticRegression`` at
     20,000 x 16 (past its 64 columns) and a poisson
-    ``OpGeneralizedLinearRegression`` at 20,000 x 4,900 (past the one-tile
-    gradient form); ``scale`` divides the rows and widths (for a CPU try).
+    ``OpGeneralizedLinearRegression`` at 20,000 x 4,900 (past what the old
+    one-tile GLM form held: the tensor-core form's clusters now); ``scale``
+    divides the rows and widths (for a CPU try).
     Each card fit's scores agree with the CPU fit's within 1e-3 (the
     probabilities; the poisson means relative to their largest).  Returns
     the facts and the kernel launches of the card fits alone."""
@@ -4711,6 +4869,9 @@ def main() -> int:
                                  f"({family}) path")
         check_glm_reference(g_facts)
         torch.cuda.empty_cache()
+        if family == "poisson":
+            print("profile GLM poisson CV: " + json.dumps(profile_glm_cv(
+                g_model, g_batch, family)), flush=True)
         g_ins, g_ins_launches = run_loco_stage(
             g_model, g_batch, functools.partial(check_loco_linear,
                                                 library=True))
@@ -4775,8 +4936,8 @@ def main() -> int:
     print("max_bins 64 fits: " + json.dumps(bins_path_facts), flush=True)
     print("max_bins 64 kernel launches: " + json.dumps(bins_launches),
           flush=True)
-    for r in fault_rows:                 # fista_wide's rows
-        r["launches"] = wide_launches["fista_wide"]
+    for r in fault_rows:                 # fista_wide's and fista_glm's rows
+        r["launches"] = wide_launches[r["name"]]
     for r in bins_rows:
         r["launches"] = bins_launches[r["name"]]
     beside = [_kernel_row("fista_wide", {**c, **c["two_pass"]})

@@ -5,14 +5,15 @@ default grid's GBT level 11 (6 lanes, P = 2048) on synthetic full
 histograms, and at level 11 as the grid's GBT sends it (6 and 12 lanes,
 three quarters of each lane's rows in 8 nodes: ``chip_smoke.
 gbt_level_inputs`` and ``tree_hist``, min_instances 10 and 100 by grid
-point), ``tree_split_gini`` at a forest level 5 (60 lanes, P = 32) and at
-the default grid's RF level 11 (150 lanes, P = 2048), both with 5-of-28
-node subsets, and once more at level 5 with 6 classes; then
-``chip_smoke.run_main_path`` (the bench set: LR x4, RF, GBT with 3-fold
-CV) at 1,000,000 x 28.
+point); ``tree_split_gini`` at a forest level 5 (60 lanes, P = 32) and at
+the default grid's RF level 11 (150 and 300 lanes, P = 2048), all with
+5-of-28 node subsets and binary counts, and at level 5 with 4 classes (4
+features a node, as the multiclass workload's 16 give) and with 40
+classes; then ``chip_smoke.run_main_path`` (the bench set: LR x4, RF, GBT
+with 3-fold CV) at 1,000,000 x 28.
 
     python3 scripts/split_kernel_time.py [--root DIR] [--reps R]
-        [--rows N] [--train-reps T] [--kernel-times]
+        [--rows N] [--train-reps T] [--kernel-times] [--kernel xgb|gini]
 
 ``--root`` is a checkout whose ``transmogrifai_tpu_torch`` is timed
 (default: the one this script is in; the inputs and the trains come from
@@ -26,9 +27,16 @@ over ``--reps`` calls after a warm-up: ``ms`` of the wrapper called from
 Python (at small shapes the host's launch path, not the kernel, sets it)
 and ``graph_ms`` of one replay of the call captured in a CUDA graph (the
 kernel alone); ``--kernel-times`` adds ``kernel_ms``, the device ms a call
-spends in the split kernel by the profiler (``chip_smoke.kernel_ms``).
-Where the version's ``tree_split`` writes fit_trees' tree arrays
-(``tree=``), the xgb shapes are also timed in that form (``epilogue``).
+spends in the split's kernels by the profiler
+(``chip_smoke.kernel_device_ms``).  Where the version's ``tree_split``
+writes fit_trees' tree arrays (``tree=``), the xgb shapes are also timed
+in that form (``epilogue``).  Each gini shape is also timed as fit_trees'
+whole level after its histogram (``_level``, one CUDA-graph replay, and
+its kernels' device ms): with a ``tree_split_gini`` that writes the tree
+arrays, that call; with one that does not, its dict form and the torch
+ops fit_trees then ran on the level (leaf values, is_leaf, feature,
+threshold, the gain ``scatter_add_``).  ``--kernel`` times one family of
+shapes only (default: both).
 ``--train-reps 0`` skips the trains; else the first train is a warm-up.
 Prints one JSON line: the card's name and power limit, the root, each
 shape's times, and the train walls.
@@ -100,6 +108,17 @@ def split_inputs(K: int, P: int, C: int, subset: int, gen):
     return hist, totals, splits, mask
 
 
+def _tree(K: int, P: int, V: int):
+    """fit_trees' arrays for a level of P nodes at offset P - 1."""
+    import torch
+    T = 4 * P - 1
+    return (torch.full((K, T), -1, dtype=torch.int32, device="cuda"),
+            torch.full((K, T), float("inf"), device="cuda"),
+            torch.zeros((K, T), dtype=torch.bool, device="cuda"),
+            torch.zeros((K, T, V), device="cuda"),
+            torch.zeros((K, D), device="cuda"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
@@ -107,6 +126,7 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--train-reps", type=int, default=2)
     ap.add_argument("--kernel-times", action="store_true")
+    ap.add_argument("--kernel", choices=("xgb", "gini"), default=None)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -120,71 +140,101 @@ def main() -> int:
     print(f"package: {os.path.dirname(transmogrifai_tpu_torch.__file__)}",
           flush=True)
     epilogue = "tree" in inspect.signature(tk.tree_split).parameters
+    gini_params = inspect.signature(tk.tree_split_gini).parameters
+    gini_tree = "tree" in gini_params
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     fmask = torch.ones(D, dtype=torch.bool, device="cuda")
     out, graph, kernel = {}, {}, {}
 
-    def xgb(name, hist, tot, sp, mi, mg, lam):
-        K, P = tot.shape[:2]
-        run = lambda: tk.tree_split(                      # noqa: E731
-            hist, tot, fmask, sp, mi, mg, lam)
+    def timed(name, run, key):
         out[name] = time_ms(run, args.reps)
         graph[name] = graph_ms(run, args.reps)
         if args.kernel_times:
-            kernel[name] = chip_smoke._device_ms(
-                chip_smoke.kernel_ms(run, args.reps), "tree_split")
+            kernel[name] = chip_smoke.kernel_device_ms(run, args.reps, key)
+
+    def xgb(name, hist, tot, sp, mi, mg, lam):
+        K, P = tot.shape[:2]
+        timed(name, lambda: tk.tree_split(hist, tot, fmask, sp, mi, mg, lam),
+              "tree_split")
         if epilogue:
-            T = 4 * P - 1
-            tree = (torch.full((K, T), -1, dtype=torch.int32, device="cuda"),
-                    torch.full((K, T), float("inf"), device="cuda"),
-                    torch.zeros((K, T), dtype=torch.bool, device="cuda"),
-                    torch.zeros((K, T, 1), device="cuda"),
-                    torch.zeros((K, D), device="cuda"))
+            tree = _tree(K, P, 1)
             run = lambda: tk.tree_split(                  # noqa: E731
                 hist, tot, fmask, sp, mi, mg, lam, tree=tree, offset=P - 1)
             graph[name + "_epilogue"] = graph_ms(run, args.reps)
             if args.kernel_times:
-                kernel[name + "_epilogue"] = chip_smoke._device_ms(
-                    chip_smoke.kernel_ms(run, args.reps), "tree_split")
+                kernel[name + "_epilogue"] = chip_smoke.kernel_device_ms(
+                    run, args.reps, "tree_split")
 
-    for name, K, P in (("tree_split_gbt_level_3_lanes_P4", 3, 4),
-                       ("tree_split_gbt_level11_6_lanes", 6, 2048)):
-        hist, tot, sp, _ = split_inputs(K, P, 0, 0, gen)
-        one, ten, zero = (torch.full((K,), v, device="cuda")
-                          for v in (1.0, 10.0, 0.0))
-        xgb(name, hist, tot, sp, ten, zero, one)
-        del hist, tot
-    data = chip_smoke.bench_binned("cuda", args.rows)
-    for K in (6, 12):
-        inp = chip_smoke.gbt_level_inputs("cuda", args.rows, K, 11, data=data)
-        hist, tot = tk.tree_hist(inp["B"], inp["row_node"], inp["stats"],
-                                 inp["offset"], inp["P"], NB)
-        mi = torch.tensor([(10.0, 100.0)[k % 6 // 3] for k in range(K)],
-                          device="cuda")
-        mg = torch.tensor([(0.001, 0.01, 0.1)[k % 3] for k in range(K)],
-                          device="cuda")
-        xgb(f"tree_split_gbt_level11_{K}_lanes_skewed", hist, tot, data[1],
-            mi, mg, torch.ones(K, device="cuda"))
-        del inp, hist, tot
-    del data
-    torch.cuda.empty_cache()
-    for name, K, P, C in (("tree_split_gini_level5_60_lanes", 60, 32, 2),
-                          ("tree_split_gini_rf_level11_150_lanes", 150, 2048,
-                           2),
-                          ("tree_split_gini_level5_60_lanes_6_classes", 60,
-                           32, 6)):
-        hist, tot, sp, mask = split_inputs(K, P, C, 5, gen)
-        ten, zero = (torch.full((K,), v, device="cuda") for v in (10.0, 0.0))
-        run = lambda: tk.tree_split_gini(                 # noqa: E731
-            hist, tot, fmask, mask, sp, ten, zero)
-        try:
-            out[name] = time_ms(run, args.reps)
-            graph[name] = graph_ms(run, args.reps)
-        except ValueError as e:      # a version whose wrapper refuses C
-            out[name] = graph[name] = f"ValueError: {e}"
-        del hist, tot, mask
-    torch.cuda.empty_cache()
+    if args.kernel in (None, "xgb"):
+        for name, K, P in (("tree_split_gbt_level_3_lanes_P4", 3, 4),
+                           ("tree_split_gbt_level11_6_lanes", 6, 2048)):
+            hist, tot, sp, _ = split_inputs(K, P, 0, 0, gen)
+            one, ten, zero = (torch.full((K,), v, device="cuda")
+                              for v in (1.0, 10.0, 0.0))
+            xgb(name, hist, tot, sp, ten, zero, one)
+            del hist, tot
+        data = chip_smoke.bench_binned("cuda", args.rows)
+        for K in (6, 12):
+            inp = chip_smoke.gbt_level_inputs("cuda", args.rows, K, 11,
+                                              data=data)
+            hist, tot = tk.tree_hist(inp["B"], inp["row_node"], inp["stats"],
+                                     inp["offset"], inp["P"], NB)
+            mi = torch.tensor([(10.0, 100.0)[k % 6 // 3] for k in range(K)],
+                              device="cuda")
+            mg = torch.tensor([(0.001, 0.01, 0.1)[k % 3] for k in range(K)],
+                              device="cuda")
+            xgb(f"tree_split_gbt_level11_{K}_lanes_skewed", hist, tot,
+                data[1], mi, mg, torch.ones(K, device="cuda"))
+            del inp, hist, tot
+        del data
+        torch.cuda.empty_cache()
+    if args.kernel in (None, "gini"):
+        for name, K, P, C, sub in (
+                ("tree_split_gini_level5_60_lanes", 60, 32, 2, 5),
+                ("tree_split_gini_rf_level11_150_lanes", 150, 2048, 2, 5),
+                ("tree_split_gini_rf_level11_300_lanes", 300, 2048, 2, 5),
+                ("tree_split_gini_level5_60_lanes_4_classes", 60, 32, 4, 4),
+                ("tree_split_gini_level5_60_lanes_40_classes", 60, 32, 40,
+                 5)):
+            hist, tot, sp, mask = split_inputs(K, P, C, sub, gen)
+            ten, zero = (torch.full((K,), v, device="cuda")
+                         for v in (10.0, 0.0))
+            a = (hist, tot, fmask, mask, sp, ten, zero)
+            # the subsets' width as fit_trees passes it (no wait in a graph)
+            kw = {"width": sub} if "width" in gini_params else {}
+            try:
+                timed(name, lambda: tk.tree_split_gini(*a, **kw),
+                      "tree_split_gini")
+            except ValueError as e:      # a version whose wrapper refuses C
+                out[name] = graph[name] = f"ValueError: {e}"
+                continue
+            tree = _tree(K, P, C)
+            if gini_tree:
+                level = lambda: tk.tree_split_gini(       # noqa: E731
+                    *a, tree=tree, offset=P - 1, **kw)
+            else:
+                def level():
+                    feature, threshold, is_leaf, leaf, gain = tree
+                    spl = tk.tree_split_gini(*a)
+                    off = P - 1
+                    leaf[:, off:off + P] = tot[..., 1:] / torch.clamp(
+                        tot[..., :1], min=1e-12)
+                    lf = spl["is_leaf"]
+                    is_leaf[:, off:off + P] = lf
+                    feature[:, off:off + P] = torch.where(lf, -1,
+                                                          spl["feature"])
+                    threshold[:, off:off + P] = spl["threshold"]
+                    gain.scatter_add_(1, spl["feature"].long(),
+                                      torch.where(lf, 0.0, spl["gain"]))
+            graph[name + "_level"] = graph_ms(level, args.reps)
+            if args.kernel_times:
+                kms = chip_smoke.kernel_ms(level, args.reps)
+                kernel[name + "_level"] = {
+                    "split_ms": chip_smoke._device_ms(kms, "tree_split_gini"),
+                    "all_ms": sum(kms.values()), "kernels": len(kms)}
+            del hist, tot, mask, tree
+            torch.cuda.empty_cache()
     walls = []
     if args.train_reps:
         chip_smoke.run_main_path("cuda", args.rows)         # warm-up

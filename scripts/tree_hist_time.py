@@ -22,7 +22,8 @@ same and its line says so: the parent of a change may miss the rule); ``--kernel
 ms a call (``chip_smoke.kernel_ms``).  ``--profile`` trains the default grid at
 ``--rows`` once and runs ``torch.profiler`` windows over its forest and
 its GBT candidates' cross-validation on the model's own vector
-(``chip_smoke.profile_lr_cv``: device-busy share, top kernels).  ``--walls`` times one more train of the default grid, the
+(``chip_smoke.profile_lr_cv``: device-busy share, top kernels; the
+forest window also every kernel of the gini split, ``by_kernel``).  ``--walls`` times one more train of the default grid, the
 multiclass default grid and the regression default grid, each with its
 per-family CV seconds.
 
@@ -137,7 +138,8 @@ def main() -> int:
         if args.profile:
             out["profile_rf_cv"] = cs.profile_lr_cv(
                 model, batch, S.BinaryClassificationModelSelector(
-                    models=[S._rf_classifier()]), top=10)
+                    models=[S._rf_classifier()]), top=10,
+                kernels=("tree_split_gini",))
             print("profile_rf_cv: " + json.dumps(out["profile_rf_cv"]),
                   flush=True)
             out["profile_gbt_cv"] = cs.profile_lr_cv(

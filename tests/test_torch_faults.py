@@ -148,15 +148,17 @@ def test_skip_seam_skips_only_the_reference_exceptions():
 
 def test_split_plans_cover_any_width_and_class_count():
     p = tk.split_plan(1597)
-    assert (p.d_chunk, p.n_chunks, p.class_chunk) == (1024, 2, 0)
+    assert (p.d_chunk, p.n_chunks) == (1024, 2)
     assert tk.split_plan(28).n_chunks == 1 and tk.split_plan(28).d_chunk == 28
-    g6 = tk.split_plan(1597, 6)
-    assert (g6.d_chunk, g6.n_chunks, g6.class_chunk, g6.class_chunks) == \
-        (1024, 2, 8, 1)
-    g40 = tk.split_plan(28, 40)
-    assert (g40.class_chunk, g40.class_chunks) == (8, 5)
-    assert [tk.split_plan(28, c).class_chunk for c in (2, 3, 4, 5)] == \
-        [2, 4, 4, 8]
+    # the gini split (gini_split_plan): any width over W warps of fc
+    # features, the classes in chunks of the smallest template that holds C
+    g6 = tk.gini_split_plan(3, 4, 1597, 32, 6)
+    assert (g6["ct"], g6["class_chunks"]) == (8, 1)
+    assert g6["W"] * g6["fc"] >= 1597
+    g40 = tk.gini_split_plan(3, 4, 28, 32, 40)
+    assert (g40["ct"], g40["class_chunks"]) == (8, 5)
+    assert [tk.gini_split_plan(3, 4, 28, 32, c)["ct"]
+            for c in (2, 3, 4, 5)] == [2, 4, 4, 8]
     # the deep histogram holds all S statistics of a forest of up to 40
     # classes in one block, and splits them only past one slot's room
     for S in (3, 7, 41):

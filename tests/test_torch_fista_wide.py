@@ -154,12 +154,14 @@ def test_emulated_two_pass_form_matches_the_twins(name):
 
 
 def test_fault_widths_plan_the_two_pass_form():
-    """The shapes the tensor-core and one-tile launches refused now plan:
-    one lane at 27,009 features, 65 classes, a GLM at 4,900 features; the
-    widest tensor-core shapes keep their form."""
+    """The shapes the tensor-core launches refuse plan the two-pass form:
+    one lane at 27,009 features, 65 classes, a GLM past the tensor-core
+    form's width; the widest tensor-core shapes keep their form, and a GLM
+    at 4,900 features (which the old one-tile GLM form refused) runs on the
+    tensor-core form."""
     assert lk.launch_plan(27_009, 1)["form"] == "wide"
     assert lk.launch_plan(27_008, 1)["form"] != "wide"
     assert lk.softmax_launch_plan(16, 8, 65)["form"] == "wide"
     assert lk.softmax_launch_plan(16, 1, 64)["form"] != "wide"
-    assert lk.glm_launch_plan(4_900, 12, True)["form"] == "wide"
-    assert lk.glm_launch_plan(4_700, 12, True)["form"] == "tile"
+    assert lk.glm_launch_plan(27_009, 1, True)["form"] == "wide"
+    assert lk.glm_launch_plan(4_900, 12, True)["form"] == "cluster"

@@ -365,38 +365,62 @@ def test_sparse_glm_is_refused_for_the_skip_seam():
 @pytest.mark.parametrize("D,grad", [(16, True), (16, False), (1596, True),
                                     (1596, False), (4000, True)])
 def test_glm_launch_plan_fits_shared_memory(D, grad):
-    """Every plan fits one block's shared memory, with all 96 trial lanes
-    or a chunk of them; a width no one-tile form holds takes the two-pass
-    form."""
+    """Every plan is the tensor-core plan of ``tc_plan`` for a full launch
+    of 64 lanes with room for the gradient form's loss sums (the value
+    form keeps them in its unused g buffer), the same for both forms and
+    every lane count but the lanes a launch: it fits one block's shared
+    memory and takes at most 64 lanes a launch — the CV's 12 in one, a
+    ladder's 96 trial lanes in two (64 and 32, each reading X once); a
+    width no tensor-core launch holds takes the two-pass form with a loss
+    column a lane."""
+    full = lk.tc_plan(D, lk.TC_COLS, 1, lsum=True)
     for L in (1, 4, 12, 96):
         plan = lk.glm_launch_plan(D, L, grad)
+        assert plan == {**full, "lanes": min(L, full["lanes"])}
+        assert plan == {**lk.glm_launch_plan(D, L, not grad)}
+        assert plan["form"] in ("narrow", "cluster")
         assert plan["smem"] <= lk._SMEM_MAX
-        assert plan["TR"] % 4 == 0 and 1 <= plan["lanes"] <= L
-        assert plan["smem"] == lk._glm_smem(D, plan["lanes"], plan["TR"],
-                                            grad)
+        assert 1 <= plan["lanes"] <= min(L, lk.TC_COLS)
+        lay = lk._tc_layout(plan["TR"], plan["CS"], plan["DS"], plan["S"],
+                            plan["cols"], plan["v_res"], plan["acc_res"],
+                            True)
+        assert plan["smem"] == lay["smem"]
+        bare = lk._tc_layout(plan["TR"], plan["CS"], plan["DS"], plan["S"],
+                             plan["cols"], plan["v_res"], plan["acc_res"])
+        Jp = lk._tc_stride(plan["cols"])
+        assert lay["smem"] - bare["smem"] == 4 * plan["TR"] * Jp
     if D == 16:
-        assert lk.glm_launch_plan(D, 96, grad)["lanes"] == 96
-    wide = lk.glm_launch_plan(20_000, 1, grad)
+        assert lk.glm_launch_plan(D, 12, grad)["lanes"] == 12
+        assert lk.glm_launch_plan(D, 96, grad)["lanes"] == 64
+        assert lk.glm_launch_plan(D, 96, grad)["form"] == "narrow"
+    wide = lk.glm_launch_plan(30_000, 1, grad)
     assert wide["form"] == "wide" and wide["Jt"] == 2 and wide["Jp"] == 4
 
 
 @pytest.mark.parametrize("grad", [True, False])
 def test_glm_launch_plan_holds_every_width(grad):
     """Widths 16 .. 16,384 and 27,009 all plan, for one lane, the CV's 12
-    and a ladder's 96: the one-tile form while one lane fits a block at 4
-    rows (past ~4,800 features in the gradient form, ~7,200 in the value
-    form it does not), else the two-pass form with every lane and a loss
+    and a ladder's 96: the tensor-core form wherever ``tc_plan`` holds the
+    shape (the fault widths 4,900 and 16,384 included: a cluster of feature
+    slices), else — exactly where ``tc_plan`` itself takes it for one lane,
+    past ~27,000 features — the two-pass form with every lane and a loss
     column a lane."""
     for D in (16, 64, 256, 1024, 4096, 4800, 4900, 7200, 8192, 16_384,
               27_009):
         for L in (1, 12, 96):
             plan = lk.glm_launch_plan(D, L, grad)
-            if plan["form"] == "tile":
-                assert plan["smem"] <= lk._SMEM_MAX and D <= 7300
+            tc = lk.tc_plan(D, lk.TC_COLS, 1, lsum=True)
+            if tc["form"] != "wide":
+                assert plan == {**tc, "lanes": min(L, tc["lanes"])}
+                assert plan["smem"] <= lk._SMEM_MAX
                 continue
-            assert plan["form"] == "wide" and D >= (4800 if grad else 7200)
+            assert lk.tc_plan(D, L, 1)["form"] == "wide"
+            assert plan["form"] == "wide" and D > 16_384
             assert plan["lanes"] == L and plan["Jt"] == 2 * L
             assert plan["Jp"] % 4 == 0 and plan["Jp"] >= 2 * L
+    for D in (4_900, 16_384):
+        assert lk.glm_launch_plan(D, 12, grad)["form"] == "cluster"
+    assert lk.glm_launch_plan(27_009, 1, grad)["form"] == "wide"
 
 
 # --------------------------------------------------------------------------
@@ -489,3 +513,17 @@ def test_glm_is_never_explained_through_the_sigmoid(family, link):
         with pytest.raises(ValueError, match="no link"):
             ik.loco_linear(Xt, pl.LinearPredictionModel(fitted=bad), cg,
                            X.shape[1], 2)
+
+
+@pytest.mark.parametrize("D", [16, 300, 4_900])
+def test_glm_forms_share_one_cluster_count(D):
+    """A GLM's gradient form (12 lanes), a ladder's value form (64 and 32
+    columns) and the refit's one lane take one plan — rows a tile, cluster,
+    slice and shared memory — and differ only in the lanes a launch; the
+    kernel gives them the clusters its 64-column form holds co-resident,
+    so at one point both forms add their loss sums over the same tiles in
+    the same order."""
+    g, v = lk.glm_launch_plan(D, 12, True), lk.glm_launch_plan(D, 96, False)
+    one = lk.glm_launch_plan(D, 1, True)
+    assert {**g, "lanes": 0} == {**v, "lanes": 0} == {**one, "lanes": 0}
+    assert (g["lanes"], v["lanes"], one["lanes"]) == (12, 64, 1)

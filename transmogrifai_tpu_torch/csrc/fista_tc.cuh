@@ -1,6 +1,7 @@
 // fista_tc.cuh — one gradient evaluation of the FISTA grid solver on tensor
-// cores, shared by fista_step.cu (the elementwise losses) and
-// fista_softmax.cu (the per-lane softmax over C classes).
+// cores, shared by fista_step.cu (the elementwise losses), fista_softmax.cu
+// (the per-lane softmax over C classes) and fista_glm.cu (the exp-link GLM
+// losses, with each column's loss sum; its value form without X^T g).
 //
 // Replaces (JAX): transmogrifai_tpu/models/solvers.py:_fista_loop's
 // smooth_grad (:160-166) with the dense closures xs_mv / xs_tmv (:270-286),
@@ -16,6 +17,11 @@
 //            squared hinge, gram, squared) times W[f,n] / wsum[l]
 //            C >= 2: W[f,n] * (softmax_c(m[n, lane l]) - [y[n] == c]) / wsum[l]
 //   out[d, j] = sum_n X[n,d] * g[n,j]   (d < D),   out[D, j] = sum_n g[n,j]
+// and for the GLM losses (poisson, gamma; C == 1) each column's loss sum
+//   out[(D+1)*J + j] = sum_n lw[n,j]   (lw: fl_glm's weighted loss term)
+// after the X^T g rows, or alone in the value form (vonly: the backtracking
+// ladder's trial steps need the loss and not the gradient), which skips
+// step 4 below.
 //
 // Design.  A cluster of CS blocks (CS = 1 for a narrow X) walks row tiles of
 // TR rows in a fixed order; block r of the cluster owns the feature slice
@@ -45,7 +51,10 @@
 // and the cluster barrier arrived at (barrier.cluster.arrive.release), the
 // block adds X^T g of tile t - 1, then waits and forms tile t's gradient —
 // the barrier's latency and the blocks' skew hide behind the MMAs.
-// X is read from device memory once and g never goes there.  Each block
+// X is read from device memory once and g never goes there.  A GLM loss
+// term adds to its own (row slot, column) sum in shared memory, which only
+// the thread that forms it ever touches (the same thread every tile); at
+// the end a thread a column adds its TR slots in slot order.  Each block
 // writes its sums to partial[cluster][(D+1)*J]; fista_tc_reduce adds the
 // clusters in a fixed order.  No float atomics anywhere: two launches give
 // the same bits, so the solver's tolerance stop (n_iter) repeats.
@@ -119,6 +128,9 @@ struct TcParams {
   int TR, lTR, WM, WK, CS, DS, DSX, DSA, DSV, Jp, MT, KG, S, v_res, acc_res,
       vec;
   int ncl;
+  int glm;                  // an exp-link loss: per-column loss sums
+  int vonly;                // the value form: loss sums only, no X^T g
+  int R;                    // partial floats a cluster: (D+1)*J, + J (glm)
 };
 
 // shared-memory floats of one block; the Python plan computes the same sum
@@ -129,7 +141,8 @@ static inline long long tc_smem_floats(const TcParams& p) {
          + (p.CS > 1 ? 2LL * p.CS * p.TR * p.Jp : 0)
          + (p.v_res && p.acc_res ? 2LL * p.Jc * p.DSV : 0)
          + (p.acc_res ? (long long)p.KG * p.MT * 16 * p.Jp : 0)
-         + 4LL * p.Jc;
+         + 4LL * p.Jc
+         + (p.glm && !p.vonly ? (long long)p.TR * p.Jp : 0);
 }
 
 // the rounding of cvt.rna.tf32.f32 (to 10 mantissa bits, ties away from
@@ -311,6 +324,8 @@ __global__ void __launch_bounds__(TC_THREADS, NT <= 4 ? 2 : 1)
   float* cb = cmuv + Jc;                           // per column: b,
   float* crw = cb + Jc;                            // 1 / wsum of its lane,
   int* cfo = (int*)(crw + Jc);                     // its fold's W row * TR
+  // the GLM loss sums [TR][Jp] (the value form keeps no g: its g buffer)
+  float* lacc = p.vonly ? gbuf : (float*)(cfo + Jc);
   const int acc_n = p.KG * p.MT * 16 * Jp;
   float* acc = !BIG || p.acc_res ? accs
                                   : p.accg + (long long)blockIdx.x * acc_n;
@@ -323,6 +338,8 @@ __global__ void __launch_bounds__(TC_THREADS, NT <= 4 ? 2 : 1)
   for (int i = tid; i < (pipe ? 4 : 2) * TR * Jp; i += TC_THREADS)
     gbuf[i] = 0.f;
   for (int i = tid; i < acc_n; i += TC_THREADS) acc[i] = 0.f;
+  if (p.glm && !p.vonly)
+    for (int i = tid; i < TR * Jp; i += TC_THREADS) lacc[i] = 0.f;
   for (int j = tid; j < Jc; j += TC_THREADS) {
     const bool real = j < J;
     const int l = j / p.C;
@@ -447,7 +464,17 @@ __global__ void __launch_bounds__(TC_THREADS, NT <= 4 ? 2 : 1)
         const float m1 = (mr[nt][2 * h + 1] - cmuv[j0 + 1]) + cb[j0 + 1];
         const float yn = h ? yB : yA;
         float g0, g1;
-        if (p.C == 1) {
+        if (p.C == 1 && p.glm) {
+          float lw0, lw1;
+          fl_glm(p.loss == FL_POISSON, m0, yn, wt[cfo[j0] + row], crw[j0],
+                 lw0, g0);
+          fl_glm(p.loss == FL_POISSON, m1, yn, wt[cfo[j0 + 1] + row],
+                 crw[j0 + 1], lw1, g1);
+          const bool live = r0 + row < p.N;
+          if (live && j0 < J) lacc[row * Jp + j0] += lw0;
+          if (live && j0 + 1 < J) lacc[row * Jp + j0 + 1] += lw1;
+          if (p.vonly) continue;
+        } else if (p.C == 1) {
           g0 = fl_grad(p.loss, m0, yn, wt[cfo[j0] + row], crw[j0]);
           g1 = fl_grad(p.loss, m1, yn, wt[cfo[j0 + 1] + row], crw[j0 + 1]);
         } else if (!quad) {
@@ -579,6 +606,15 @@ __global__ void __launch_bounds__(TC_THREADS, NT <= 4 ? 2 : 1)
         float m = src[r * Jp + j];
         for (int q = 1; q < nsl; ++q) m += src[(q * TR + r) * Jp + j];
         m = (m - cmuv[j]) + cb[j];
+        if (p.glm) {
+          float lw = 0.f, g = 0.f;
+          if (r0 + r < p.N)
+            fl_glm(p.loss == FL_POISSON, m, yt[r], wt[cfo[j] + r], crw[j], lw,
+                   g);
+          lacc[r * Jp + j] += lw;
+          if (!p.vonly) tc_store_g(gh, gl, r * Jp + j, g);
+          continue;
+        }
         const float g = r0 + r < p.N
                             ? fl_grad(p.loss, m, yt[r], wt[cfo[j] + r], crw[j])
                             : 0.f;
@@ -802,7 +838,7 @@ __global__ void __launch_bounds__(TC_THREADS, NT <= 4 ? 2 : 1)
         slot_loss(it & 1, wt, yt, r0, gh0, gl0);
       }
       __syncthreads();
-      xtg(xt, gh0, gl0);
+      if (!p.vonly) xtg(xt, gh0, gl0);
       if (p.S == 1) {
         __syncthreads();
         load(it + 1, 0);
@@ -827,7 +863,7 @@ __global__ void __launch_bounds__(TC_THREADS, NT <= 4 ? 2 : 1)
       margins(xt, mr);
       stage(mr, it & 1);
       tc_cluster_arrive();
-      if (it > 0) xtg(xs + prev * TR * DSX, ghp, ghp + TR * Jp);
+      if (it > 0 && !p.vonly) xtg(xs + prev * TR * DSX, ghp, ghp + TR * Jp);
       __syncthreads();
       load(it + 1, prev);
       tc_cluster_wait();
@@ -836,7 +872,7 @@ __global__ void __launch_bounds__(TC_THREADS, NT <= 4 ? 2 : 1)
     __syncthreads();
     const int last = n_it - 1;
     float* ghl = gbuf + (last & 1) * 2 * TR * Jp;
-    xtg(xs + (last & 1) * TR * DSX, ghl, ghl + TR * Jp);
+    if (!p.vonly) xtg(xs + (last & 1) * TR * DSX, ghl, ghl + TR * Jp);
   }
   tc_wait<0>();
   // no block leaves while another of its cluster may still store to it
@@ -845,14 +881,24 @@ __global__ void __launch_bounds__(TC_THREADS, NT <= 4 ? 2 : 1)
 
   // the block's sums, k-groups added in order: features f0.. and (rank 0)
   // the ones row, to this cluster's partial row
-  float* out = p.partial + (long long)cid * (p.D + 1) * J;
-  const int nrow = fs + (rank == 0 ? 1 : 0);
+  float* out = p.partial + (long long)cid * p.R;
+  const int nrow = p.vonly ? 0 : fs + (rank == 0 ? 1 : 0);
   for (int e = tid; e < nrow * J; e += TC_THREADS) {
     const int d = e / J, j = e - d * J;
     const int ar = d < fs ? d : MTx * 16;
     float s = acc[ar * Jp + j];
     for (int k = 1; k < p.KG; ++k) s += acc[(k * p.MT * 16 + ar) * Jp + j];
     out[(long long)(d < fs ? f0 + d : p.D) * J + j] = s;
+  }
+  // the GLM loss sums, slots in order (every block of a cluster holds the
+  // same: rank 0 writes them)
+  if (p.glm && rank == 0) {
+    float* lo = out + (p.vonly ? 0 : (long long)(p.D + 1) * J);
+    for (int j = tid; j < J; j += TC_THREADS) {
+      float s = 0.f;
+      for (int r = 0; r < TR; ++r) s += lacc[r * Jp + j];
+      lo[j] = s;
+    }
   }
 }
 
@@ -963,10 +1009,13 @@ static int fista_tc_run(TcParams p, int ncl_max, int smem, void* out,
                         void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (p.N < 1 || p.D < 1 || p.L < 1 || p.C < 1 || p.G < 1 || ncl_max < 1 ||
-      p.L * p.C > 8 * TC_NTMAX || p.loss < 0 || p.loss > FL_SOFTMAX ||
+      p.L * p.C > 8 * TC_NTMAX || p.loss < 0 || p.loss > FL_GAMMA ||
       (p.loss == FL_SOFTMAX) != (p.C > 1))
     return (int)cudaErrorInvalidValue;
+  p.glm = p.loss == FL_POISSON || p.loss == FL_GAMMA;
+  if (p.vonly && !p.glm) return (int)cudaErrorInvalidValue;
   p.J = p.L * p.C;
+  p.R = (p.vonly ? 0 : (p.D + 1) * p.J) + (p.glm ? p.J : 0);
   p.Jc = (p.J + 7) / 8 * 8;
   p.NT = p.Jc / 8;
   p.fold0 = p.lane0 / p.G;
@@ -997,7 +1046,18 @@ static int fista_tc_run(TcParams p, int ncl_max, int smem, void* out,
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const long long T = (p.N + p.TR - 1) / p.TR;
-  int ncl = tc_max_clusters(k, p.NT, smem, p.CS, s);
+  // a GLM's launches take the clusters its 64-column kernel holds
+  // co-resident, whatever their own columns: with one plan (one tile size,
+  // cluster and shared memory) its gradient form and a ladder's value form
+  // then add their loss sums over the same tiles in the same order at one
+  // point, as the ladder's test of f(new) against f(z) needs
+  const TcKernel kq = p.glm ? tc_kernel(TC_NTMAX, big) : k;
+  if (kq != k) {
+    err = cudaFuncSetAttribute(
+        kq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int ncl = tc_max_clusters(kq, p.glm ? TC_NTMAX : p.NT, smem, p.CS, s);
   if (ncl < 1) return (int)cudaErrorInvalidConfiguration;
   if (ncl > ncl_max) ncl = ncl_max;
   if (ncl > T) ncl = (int)T;
@@ -1028,15 +1088,14 @@ static int fista_tc_run(TcParams p, int ncl_max, int smem, void* out,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long R = (long long)(p.D + 1) * p.J;
-  fista_tc_reduce<<<(unsigned)((R + 31) / 32), 256, 0, s>>>(
-      p.partial, (float*)out, R, ncl);
+  fista_tc_reduce<<<(unsigned)((p.R + 31) / 32), 256, 0, s>>>(
+      p.partial, (float*)out, p.R, ncl);
   return (int)cudaGetLastError();
 }
 
-// the C launch interface both sources export (C = 1 with an elementwise
-// loss, or the softmax over C >= 2 classes): pointers, then N, then the
-// plan's ints
+// the C launch interface the three sources export (C = 1 with an
+// elementwise or GLM loss, or the softmax over C >= 2 classes): pointers,
+// then N, then the plan's ints; vonly: a GLM's value form
 static int fista_tc_launch(const void* X, const void* V, const void* muv,
                            const void* b, const void* W, const void* y,
                            const void* wsum, void* partial, void* accg,
@@ -1044,7 +1103,7 @@ static int fista_tc_launch(const void* X, const void* V, const void* muv,
                            int C,
                            int lane0, int G, int loss, int TR, int CS, int DS,
                            int S, int v_res, int acc_res, int ncl_max,
-                           int smem, void* stream) {
+                           int smem, void* stream, int vonly = 0) {
   TcParams p = {};
   p.X = (const float*)X;
   p.V = (const float*)V;
@@ -1069,5 +1128,6 @@ static int fista_tc_launch(const void* X, const void* V, const void* muv,
   p.S = S;
   p.v_res = v_res;
   p.acc_res = acc_res;
+  p.vonly = vonly;
   return fista_tc_run(p, ncl_max, smem, out, stream);
 }

@@ -1,6 +1,6 @@
-// split_scan.cuh — the bin prefix and first-max of the gini and variance
-// split kernels (tree_split_gini.cu, tree_split_variance.cu) for up to 128
-// bins: a warp holds one feature's bins, lane l the Q consecutive bins
+// split_scan.cuh — the bin prefix and first-max of the variance split
+// kernel (tree_split_variance.cu; the gini split moved to split_level.cuh's
+// layout) for up to 128 bins: a warp holds one feature's bins, lane l the Q consecutive bins
 // l*Q .. l*Q+Q-1 (Q = 1 for NB <= 32, 2 for <= 64, 4 for <= 128).
 #pragma once
 #include <cuda_runtime.h>

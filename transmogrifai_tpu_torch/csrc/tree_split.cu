@@ -37,32 +37,16 @@
 // split node's gain into gain[k, feature] in node order: a block stages
 // its lane's nodes in shared memory a window at a time and thread t walks
 // them in order, adding those of feature t — the bits of a serial
-// scatter-add in node order.
+// scatter-add in node order.  The reductions, the level's writes and the
+// gain kernel are split_level.cuh's, shared with tree_split_gini.cu.
 //
 // Bound: device-memory bytes — one read of bins 0 .. NB-2 of the
 // histograms of the nodes that can split ([D, NB, 3] f32 a node, 10.75 KB
 // at 28 features x 32 bins) and a few bytes per node in and out.
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
-#include <stdint.h>
+#include "split_level.cuh"
 
-#define SPLIT_FULL 0xffffffffu
-#define SPLIT_WIN 1024         // nodes a window of the gain walk stages
 #define SPLIT_SLICE 800        // floats a slice of a warp's staged bins
 #define SPLIT_WARP_FLOATS (2 * SPLIT_SLICE)   // two slices a warp
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_prev() {   // all but the last
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 // Stage s of a warp's walk: feature group g = s / nstage (32 features from
 // d0 + 32g), bins SB (s % nstage) .. into slice s % 2 at the odd stride
@@ -160,32 +144,10 @@ __global__ void __launch_bounds__(256) tree_split_kernel(
       }
     }
   }
-  // the warp's best: the highest gain, the lowest feature on a tie
-  for (int off = 16; off > 0; off >>= 1) {
-    const float og = __shfl_down_sync(SPLIT_FULL, best, off);
-    const int of = __shfl_down_sync(SPLIT_FULL, bf, off);
-    const int ob = __shfl_down_sync(SPLIT_FULL, bb, off);
-    if (og > best || (og == best && of < bf)) { best = og; bf = of; bb = ob; }
-  }
-  if (W > 1) {            // the node's chunks, lowest chunk on a tie
-    __shared__ float s_g[8];
-    __shared__ int s_f[8], s_b[8];
-    if (lane == 0) { s_g[warp] = best; s_f[warp] = bf; s_b[warp] = bb; }
-    __syncthreads();
-    if (c == 0) {
-      const int j = slot * W + lane;
-      float g = lane < W ? s_g[j] : -INFINITY;
-      int f = lane < W ? s_f[j] : 0, b = lane < W ? s_b[j] : 0, ci = lane;
-      for (int off = 16; off > 0; off >>= 1) {
-        const float og = __shfl_down_sync(SPLIT_FULL, g, off);
-        const int of = __shfl_down_sync(SPLIT_FULL, f, off);
-        const int ob = __shfl_down_sync(SPLIT_FULL, b, off);
-        const int oc = __shfl_down_sync(SPLIT_FULL, ci, off);
-        if (og > g || (og == g && oc < ci)) { g = og; f = of; b = ob; ci = oc; }
-      }
-      best = g; bf = f; bb = b;
-    }
-  }
+  // the warp's best, then the node's chunks (split_level.cuh): the
+  // highest gain, the lowest feature on a tie
+  split_warp_best(best, bf, bb);
+  if (W > 1) split_chunk_best(best, bf, bb, W, warp, slot, c, lane);
   if (valid && c == 0 && lane == 0) {
     const bool leaf = !(isfinite(best) && best > min_gain[k]);
     const float thr =
@@ -199,77 +161,9 @@ __global__ void __launch_bounds__(256) tree_split_kernel(
     out_value[node] = value;
     if (t_feat) {
       const long long t = (long long)k * T + offset + p;
-      t_feat[t] = leaf ? -1 : bf;
-      t_thr[t] = thr;
-      t_leaf[t] = leaf ? 1 : 0;
+      split_write_node(t_feat, t_thr, t_leaf, t, leaf, bf, thr);
       t_value[t] = value;
     }
-  }
-}
-
-// The level's gain sums of lane blockIdx.x (256 threads): a window of
-// 1,024 of the lane's nodes at a time, thread i reads nodes 4i .. 4i+3 and
-// the split ones are gathered in node order into shared memory (a block
-// scan of the counts); then thread t walks them in order and adds those of
-// feature t (t + 256, ...), 4 at a time.
-__global__ void __launch_bounds__(256) tree_split_gain_kernel(
-    const float* __restrict__ out_gain, const int32_t* __restrict__ out_feat,
-    const uint8_t* __restrict__ out_leaf, float* __restrict__ t_gain, int P,
-    int D) {
-  __shared__ int4 s_nf4[SPLIT_WIN / 4];   // split nodes' features
-  __shared__ float4 s_ng4[SPLIT_WIN / 4]; // and gains, in node order
-  __shared__ int s_warp[8];
-  int* s_nf = (int*)s_nf4;
-  float* s_ng = (float*)s_ng4;
-  const int k = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int t0 = 0; t0 < D; t0 += 256) {
-    const int t = t0 + threadIdx.x;
-    float a = t < D ? t_gain[(long long)k * D + t] : 0.f;
-    for (int w0 = 0; w0 < P; w0 += SPLIT_WIN) {
-      int fq[4], cnt = 0;
-      float gq[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = w0 + 4 * threadIdx.x + q;
-        const long long j = (long long)k * P + min(i, P - 1);
-        const int f = out_feat[j];
-        const bool split = i < P && !out_leaf[j];
-        fq[q] = split ? f : -1;
-        gq[q] = out_gain[j];
-        cnt += split;
-      }
-      int incl = cnt;                     // the block's exclusive scan
-      for (int off = 1; off < 32; off <<= 1) {
-        const int v = __shfl_up_sync(SPLIT_FULL, incl, off);
-        if (lane >= off) incl += v;
-      }
-      __syncthreads();                    // the last window's walk is done
-      if (lane == 31) s_warp[warp] = incl;
-      __syncthreads();
-      int pos = incl - cnt, n = 0;
-      for (int w = 0; w < 8; ++w) {
-        pos += w < warp ? s_warp[w] : 0;
-        n += s_warp[w];
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (fq[q] >= 0) { s_nf[pos] = fq[q]; s_ng[pos] = gq[q]; ++pos; }
-      if (threadIdx.x < ((n + 3) & ~3) - n)
-        s_nf[n + threadIdx.x] = -1;       // pad to a multiple of 4
-      __syncthreads();
-      if (t < D) {
-#pragma unroll 8
-        for (int i = 0; i < (n + 3) / 4; ++i) {
-          const int4 f = s_nf4[i];
-          const float4 g = s_ng4[i];
-          if (f.x == t) a = __fadd_rn(a, g.x);
-          if (f.y == t) a = __fadd_rn(a, g.y);
-          if (f.z == t) a = __fadd_rn(a, g.z);
-          if (f.w == t) a = __fadd_rn(a, g.w);
-        }
-      }
-    }
-    if (t < D) t_gain[(long long)k * D + t] = a;
   }
 }
 

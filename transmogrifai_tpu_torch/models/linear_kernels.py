@@ -8,11 +8,11 @@ rule and launch counters are in ``kernels.py``).
 | fista_softmax | the same ``smooth_grad`` for the multinomial loss ``_softmax_loss_grad`` (:44-50): C margins a lane (wrapper :func:`fista_softmax_step`) |
 | fista_glm     | ``smooth_grad`` and the backtracking tests' ``smooth_val`` (:160-170, :189-215) for the exp-link losses ``_poisson_loss_grad`` / ``_gamma_loss_grad`` (:66-80): the loss value of every lane, with Xᵀg and Σg in the gradient form |
 
-``fista_step`` and ``fista_softmax`` are one tensor-core design
-(``csrc/fista_tc.cuh``, sized by :func:`tc_plan`); ``fista_glm`` keeps its
-own source.  A shape no such launch holds (a dense X wider than ~27,000
-columns, more than 64 classes, a GLM wider than ~4,800 features) runs the
-feature-chunked two-pass form of all three, ``csrc/fista_wide.cu``
+``fista_step``, ``fista_softmax`` and ``fista_glm`` are one tensor-core
+design (``csrc/fista_tc.cuh``, sized by :func:`tc_plan`; the GLMs add each
+column's loss sum, and their value form skips Xᵀg).  A shape no such
+launch holds (a dense X wider than ~27,000 columns, more than 64 classes)
+runs the feature-chunked two-pass form of all three, ``csrc/fista_wide.cu``
 (:func:`wide_plan`): margins to device memory, the loss, then Xᵀg.  For a
 ``SparseMatrix`` the same gradient evaluation is ``sparse_fista_step``:
 margins by the ``sp_matmat`` kernel, the loss derivative in plain PyTorch,
@@ -34,6 +34,7 @@ SOFTMAX_LOSS = 4         # csrc/fista_tc.cuh's TC_SOFTMAX
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _TC_ARGTYPES = [_P] * 11 + [_L] + [_I] * 14 + [_P]  # fista_tc_launch
+_GLM_ARGTYPES = [_P] * 11 + [_L] + [_I] * 15 + [_P]  # and the form
 _SMEM_MAX = 227 * 1024
 _N_BLOCKS = 132 * 4
 TC_COLS = 64             # columns a launch: the kernel's 8 column tiles
@@ -136,15 +137,17 @@ def _tc_stride(cols: int) -> int:
 
 
 def _tc_layout(TR: int, CS: int, DS: int, S: int, Jc: int, v_res: int,
-               acc_res: int) -> dict:
+               acc_res: int, lsum: bool = False) -> dict:
     """The block's shared-memory carve-up of ``csrc/fista_tc.cuh`` (its
     ``tc_smem_floats`` adds the same terms): the ring of X's tile with its
     rows of fold weights and y, g hi/lo (two of them where a cluster
     pipelines its tiles), the WK warps' margin partials, the
     cluster exchange (a slot per block, two buffers), V's slice (split:
     hi and lo; in device memory unless V and the accumulators both fit), the
-    accumulators (k groups x (m-tiles + the ones tile) x 16 rows) and four
-    constants a column."""
+    accumulators (k groups x (m-tiles + the ones tile) x 16 rows), four
+    constants a column and (``lsum``: a GLM's gradient form) the loss
+    terms' per-(row slot, column) sums (the value form keeps them in the g
+    buffer it does not use)."""
     WM = TR // 16
     WK = TC_WARPS // WM
     DSA = _ceil(DS, 16)
@@ -159,7 +162,8 @@ def _tc_layout(TR: int, CS: int, DS: int, S: int, Jc: int, v_res: int,
               + (WK * TR * Jp if WK > 1 else 0)
               + (2 * CS * TR * Jp if CS > 1 else 0)
               + (2 * Jc * DSV if v_res and acc_res else 0)
-              + (acc if acc_res else 0) + 4 * Jc)
+              + (acc if acc_res else 0) + 4 * Jc
+              + (TR * Jp if lsum else 0))
     return {"smem": 4 * floats, "acc_floats": acc}
 
 
@@ -170,7 +174,7 @@ def _tc_plan_dict(lanes, Jc, TR, CS, DS, S, v_res, acc_res, lay) -> dict:
             "acc_floats": lay["acc_floats"]}
 
 
-def _tc_fit(D: int, lanes: int, C: int) -> Optional[dict]:
+def _tc_fit(D: int, lanes: int, C: int, lsum: bool) -> Optional[dict]:
     Jc = _ceil(lanes * C, 8)
     for sizes, placements, cap in _TC_SEARCH:
         for S, v_res, acc_res in placements:
@@ -179,14 +183,15 @@ def _tc_fit(D: int, lanes: int, C: int) -> Optional[dict]:
                 if (CS - 1) * DS >= D:
                     continue
                 for TR in (128, 64, 32, 16):
-                    lay = _tc_layout(TR, CS, DS, S, Jc, v_res, acc_res)
+                    lay = _tc_layout(TR, CS, DS, S, Jc, v_res, acc_res,
+                                     lsum)
                     if lay["smem"] <= cap:
                         return _tc_plan_dict(lanes, Jc, TR, CS, DS, S,
                                              v_res, acc_res, lay)
     return None
 
 
-def tc_plan(D: int, L: int, C: int = 1) -> dict:
+def tc_plan(D: int, L: int, C: int = 1, lsum: bool = False) -> dict:
     """How ``csrc/fista_tc.cuh`` runs D features and L lanes of C columns:
     whole lanes a launch up to 64 columns (``lanes``); one block a row
     tile (``CS`` = 1) where X's tile, V and the accumulators fit its shared
@@ -199,8 +204,9 @@ def tc_plan(D: int, L: int, C: int = 1) -> dict:
     one stage, only where nothing else fits (a 16,384-wide X), and then
     the lanes a launch (32, 16, 8 columns).  Where no launch holds the
     shape (more than 64 classes, or a slice too wide even so: past ~27,000
-    features) the two-pass form of :func:`wide_plan`.  The one place that
-    sizes the launch: every D, L and C has a plan."""
+    features) the two-pass form of :func:`wide_plan`.  ``lsum``: room for a
+    GLM gradient form's loss sums.  The one place that sizes the launch:
+    every D, L and C has a plan."""
     if D < 1 or L < 1 or C < 1:
         raise ValueError(f"fista_tc: {L} lanes of {C} columns, {D} features")
     if C > TC_COLS:
@@ -208,7 +214,7 @@ def tc_plan(D: int, L: int, C: int = 1) -> dict:
     top = min(L, TC_COLS // C)
     for lanes in sorted({top} | {max(1, k // C) for k in (32, 16, 8)
                                  if k // C < top}, reverse=True):
-        plan = _tc_fit(D, lanes, C)
+        plan = _tc_fit(D, lanes, C, lsum)
         if plan is not None:
             return plan
     return wide_plan(D, L, C)
@@ -306,16 +312,18 @@ def tc_chunks(V, muv, b, wsum, G: int, plan: dict):
 
 
 def _tc_run(name: str, X, V, muv, b, W, y, wsum, G: int, C: int, loss: int,
-            plan: dict) -> torch.Tensor:
+            plan: dict, grad: bool = True, glm: bool = False) -> torch.Tensor:
     """Launch ``csrc/<name>.cu`` for each of :func:`tc_chunks`; returns
-    out [(D+1), L*C] (Xᵀg rows, then Σg)."""
+    out [rows, L*C]: with ``grad`` the (D+1) rows of Xᵀg and Σg, then for a
+    GLM (``glm``) the row of the loss sums."""
     N, D = X.shape
     L = wsum.shape[0]
     dev = X.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ncl_max = max(1, sms * 4 // plan["CS"])
-    out = torch.empty((D + 1, L * C), dtype=torch.float32, device=dev)
-    partial = torch.empty((ncl_max, (D + 1) * plan["lanes"] * C),
+    rows = (D + 1 if grad else 0) + (1 if glm else 0)
+    out = torch.empty((rows, L * C), dtype=torch.float32, device=dev)
+    partial = torch.empty((ncl_max, rows * plan["lanes"] * C),
                           dtype=torch.float32, device=dev)
     accg = (None if plan["acc_res"] else torch.empty(
         (ncl_max * plan["CS"], plan["acc_floats"]), dtype=torch.float32,
@@ -323,15 +331,17 @@ def _tc_run(name: str, X, V, muv, b, W, y, wsum, G: int, C: int, loss: int,
     vg = (None if plan["v_res"] and plan["acc_res"] else torch.empty(
         (2, plan["cols"], plan["CS"] * plan["DS"]), dtype=torch.float32,
         device=dev))
+    form = (int(grad),) if glm else ()
     for l0, n_l, Vc, mc, bc, wc in tc_chunks(V, muv, b, wsum, G, plan):
-        o = out if n_l == L else torch.empty((D + 1, n_l * C),
+        o = out if n_l == L else torch.empty((rows, n_l * C),
                                              dtype=torch.float32, device=dev)
-        launch(name, _TC_ARGTYPES, X.data_ptr(), Vc.data_ptr(), mc.data_ptr(),
-               bc.data_ptr(), W.data_ptr(), y.data_ptr(), wc.data_ptr(),
-               partial.data_ptr(), None if accg is None else accg.data_ptr(),
+        launch(name, _GLM_ARGTYPES if glm else _TC_ARGTYPES, X.data_ptr(),
+               Vc.data_ptr(), mc.data_ptr(), bc.data_ptr(), W.data_ptr(),
+               y.data_ptr(), wc.data_ptr(), partial.data_ptr(),
+               None if accg is None else accg.data_ptr(),
                None if vg is None else vg.data_ptr(), o.data_ptr(), N, D, n_l,
                C, l0, G, loss, plan["TR"], plan["CS"], plan["DS"], plan["S"],
-               plan["v_res"], plan["acc_res"], ncl_max, plan["smem"],
+               plan["v_res"], plan["acc_res"], ncl_max, plan["smem"], *form,
                _stream(X))
         if o is not out:
             out[:, l0 * C:(l0 + n_l) * C] = o
@@ -466,8 +476,7 @@ def fista_softmax_step(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
 # the exp-link GLM losses (poisson, gamma): fista_glm
 # --------------------------------------------------------------------------
 
-GLM_LOSSES = {"poisson": 0, "gamma": 1}
-_GLM_ARGTYPES = [_P] * 9 + [_L] + [_I] * 9 + [_P]
+GLM_LOSSES = {"poisson": 5, "gamma": 6}   # csrc/fista_loss.cuh's codes
 
 
 def glm_row_terms(lin, y, w, ws, loss: str):
@@ -499,35 +508,25 @@ def fista_glm_twin(X, V, muv, b, W, y, wsum, G: int, loss: str,
     return g @ X, g.sum(dim=1), val
 
 
-def _glm_smem(D: int, L: int, tr: int, grad: bool) -> int:
-    Lp = -(-L // 4) * 4
-    floats = tr * (D | 1) + tr * Lp + D * Lp + 3 * Lp
-    if grad:
-        floats += tr * Lp + (D + 1) * Lp
-    return 4 * floats
-
-
 def glm_launch_plan(D: int, L: int, grad: bool) -> dict:
-    """How ``fista_glm`` launches for D features and L lanes: X's row tile
-    (``TR`` rows), the lanes' coefficients, per-(row slot, lane) loss sums
-    and, in the gradient form, the tile's gradients and the block's Xᵀg
-    sums in one block's shared memory.  Takes every lane in one launch with
-    the largest tile that fits, else fewer lanes a launch, else smaller
-    tiles; where not even one lane fits at 4 rows (past about 7,200
-    features, 4,800 in the gradient form) the two-pass form of
-    :func:`wide_plan` with a loss column a lane.  The one place that sizes
-    the launch: every D and L has a plan."""
+    """How ``fista_glm`` launches for D features and L lanes: the
+    tensor-core form's :func:`tc_plan` for a full launch of 64 lanes with
+    room for the loss sums — the same rows a tile, cluster and shared
+    memory for both forms and every lane count, so that at one point the
+    gradient form and a ladder's value form add their loss sums in the
+    same order (the kernel gives both the clusters that its 64-column
+    form holds co-resident) — with
+    at most its lanes a launch (a ladder's 96 trial lanes are two launches
+    of 64 and 32, each reading X once); ``grad`` does not change it.
+    Where that takes the two-pass form (past ~27,000 features)
+    :func:`wide_plan` with a loss column a lane.  Every D and L has a
+    plan."""
     if L < 1 or D < 1:
         raise ValueError(f"fista_glm: {L} lanes, {D} features")
-    chunks = [L] + [c for c in (32, 16, 8, 4, 2, 1) if c < L]
-    for trs in ((128, 64, 32), (16, 8, 4)):
-        for lc in chunks:
-            for tr in trs:
-                smem = _glm_smem(D, lc, tr, grad)
-                if smem <= _SMEM_MAX:
-                    return {"form": "tile", "lanes": lc, "TR": tr,
-                            "smem": smem}
-    return wide_plan(D, L, 1, glm=True)
+    plan = tc_plan(D, TC_COLS, 1, lsum=True)
+    if plan["form"] == "wide":
+        return wide_plan(D, L, 1, glm=True)
+    return {**plan, "lanes": min(L, plan["lanes"])}
 
 
 def fista_glm(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
@@ -568,26 +567,7 @@ def fista_glm(X: torch.Tensor, V: torch.Tensor, muv: torch.Tensor,
         out = _wide_run(X, V, muv, b, W, y, wsum, G, 1, loss, plan, grad)
         gx, gs, lsum = wide_outputs(out, D, L, 1, grad, glm=True)
         return (gx, gs, lsum / wsum) if grad else lsum / wsum
-    lc, tr = plan["lanes"], plan["TR"]
-    nb = max(1, min(_N_BLOCKS, -(-N // tr)))
-    rows = ((D + 2) if grad else 1) * lc
-    partial = torch.empty((rows, nb), dtype=torch.float32, device=dev)
-    gx = torch.empty((L, D), dtype=torch.float32, device=dev)
-    gs = torch.empty((L,), dtype=torch.float32, device=dev)
-    val = torch.empty((L,), dtype=torch.float32, device=dev)
-    for l0 in range(0, L, lc):
-        n_l = min(lc, L - l0)
-        out = torch.empty(((D + 2) * n_l if grad else n_l,),
-                          dtype=torch.float32, device=dev)
-        launch("fista_glm", _GLM_ARGTYPES, X.data_ptr(), V[l0:].data_ptr(),
-               muv[l0:].data_ptr(), b[l0:].data_ptr(), W.data_ptr(),
-               y.data_ptr(), wsum[l0:].data_ptr(), partial.data_ptr(),
-               out.data_ptr(), N, D, n_l, l0, G, GLM_LOSSES[loss], int(grad),
-               tr, nb, plan["smem"], _stream(X))
-        if grad:
-            xtg = out[:(D + 1) * n_l].reshape(D + 1, n_l)
-            gx[l0:l0 + n_l] = xtg[:D].T
-            gs[l0:l0 + n_l] = xtg[D]
-        val[l0:l0 + n_l] = out[-n_l:]
-    val = val / wsum
-    return (gx, gs, val) if grad else val
+    out = _tc_run("fista_glm", X, V, muv, b, W, y, wsum, G, 1,
+                  GLM_LOSSES[loss], plan, grad=grad, glm=True)
+    val = out[-1] / wsum
+    return (out[:D].T.contiguous(), out[D], val) if grad else val

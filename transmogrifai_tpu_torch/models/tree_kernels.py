@@ -6,7 +6,7 @@ dispatch rule and launch counters are in ``kernels.py``).
 | tree_hist       | ``_fit_tree_compact`` node_stats + histogram einsums (:313-338) |
 | tree_hist_deep  | ``_fit_tree_unrolled``'s segment-sum histograms (:520-531)     |
 | tree_split      | ``scan_chunk`` xgb gain/argmax/leaf/threshold/value, level writes (:339-381) |
-| tree_split_gini | ``scan_chunk`` gini gain over per-node subsets (:320-326, :331-366) |
+| tree_split_gini | ``scan_chunk`` gini gain over per-node subsets, level writes (:320-326, :331-381) |
 | tree_split_variance | ``scan_chunk`` variance gain over per-node subsets (:186-191, :331-366) |
 | tree_route      | the routing block (:373-391)                                    |
 | tree_walk       | ``_predict_trees_block`` (:668-702)                              |
@@ -27,7 +27,7 @@ _ARGTYPES = {
     "tree_hist": [_P] * 6 + [_L] + [_I] * 11 + [_L] + [_I] * 4 + [_P],
     "tree_hist_deep": [_P] * 9 + [_L] + [_I] * 21 + [_P],
     "tree_split": [_P] * 18 + [_I] * 11 + [_P],
-    "tree_split_gini": [_P] * 12 + [_I] * 8 + [_P],
+    "tree_split_gini": [_P] * 17 + [_I] * 15 + [_P],
     "tree_split_variance": [_P] * 12 + [_I] * 6 + [_P],
     "tree_route": [_P] * 6 + [_L] + [_I] * 9 + [_P],
     "tree_walk": [_P] * 7 + [_L] + [_I] * 13 + [_P],
@@ -49,6 +49,9 @@ ROUTE_SMEM = 16 * 1024            # the most bytes of B rows a route block stage
 ROUTE_LANES = 32                  # the most lanes a route block routes
 ROUTE_MIN_BLOCKS = SMS * 2        # route blocks a launch aims for at least
 GINI_CLASS_CHUNKS = (2, 4, 8)     # tree_split_gini's class-chunk templates
+GINI_LANE_BINS = (16, 8, 6, 4)    # tree_split_gini's bins a lane (templates)
+GINI_WARP_WORDS = 3616            # a gini warp's slices and lists (8 warps,
+                                  # 113 KB: two blocks a SM)
 HIST_DEEP_SEG = 8192              # rows a tree_hist_deep partition block sorts
 HIST_DEEP_THREADS = 384           # tree_hist_deep's threads a block (two a SM)
 HIST_DEEP_MIN_ROWS = 16384        # rows a split tree_hist_deep block takes at least
@@ -80,24 +83,26 @@ class SplitPlan(NamedTuple):
                         # bin each, in dynamic shared memory)
     n_chunks: int       # passes over the features, argmax carried across
     threads: int        # threads per (node, lane) block
-    class_chunk: int    # tree_split_gini: classes per register pass (CT)
-    class_chunks: int   # tree_split_gini: register passes over the classes
 
 
-def split_plan(D: int, C: int = 0) -> SplitPlan:
-    """The launch plan of ``tree_split`` and ``tree_split_variance`` (``C``
-    = 0) and ``tree_split_gini`` (``C`` classes) at D features: the
-    features pass in chunks of at most ``SPLIT_D_CHUNK`` and, for gini, the
-    classes in chunks of the smallest template of ``GINI_CLASS_CHUNKS`` that
-    holds C, or of the largest when none does.  Any D >= 1 and C >= 1 have
-    a plan."""
-    if D < 1 or C < 0:
-        raise ValueError(f"split_plan: D={D}, C={C}")
+def split_plan(D: int) -> SplitPlan:
+    """The launch plan of ``tree_split_variance`` at D features: the
+    features pass in chunks of at most ``SPLIT_D_CHUNK``.  Any D >= 1 has a
+    plan."""
+    if D < 1:
+        raise ValueError(f"split_plan: D={D}")
     dc = min(D, SPLIT_D_CHUNK)
-    ct = next((t for t in GINI_CLASS_CHUNKS if t >= C),
-              GINI_CLASS_CHUNKS[-1]) if C else 0
-    return SplitPlan(dc, -(-D // dc), SPLIT_THREADS, ct,
-                     -(-C // ct) if C else 0)
+    return SplitPlan(dc, -(-D // dc), SPLIT_THREADS)
+
+
+def _split_warps(K: int, P: int, D: int) -> int:
+    """W, the warps a node of a warp-per-node split: doubling up to 8 while
+    each keeps a feature and the level's K·P·W warps fall short of
+    ``SPLIT_TARGET_WARPS`` (shallow levels)."""
+    W = 1
+    while W < 8 and 2 * W <= D and K * P * W < SPLIT_TARGET_WARPS:
+        W *= 2
+    return W
 
 
 def xgb_split_plan(K: int, P: int, D: int, n_bins: int) -> dict:
@@ -117,15 +122,72 @@ def xgb_split_plan(K: int, P: int, D: int, n_bins: int) -> dict:
     if min(K, P, D) < 1 or K > 65535 or not 2 <= n_bins <= 127:
         raise ValueError(f"xgb_split_plan: K={K} (1 .. 65,535) P={P} D={D} "
                          f"NB={n_bins} (2 .. 127)")
-    W = 1
-    while W < 8 and 2 * W <= D and K * P * W < SPLIT_TARGET_WARPS:
-        W *= 2
+    W = _split_warps(K, P, D)
     per_block = SPLIT_THREADS // 32 // W
     fc = -(-D // W)
     sb = 32 if fc <= 8 else 8
     return {"W": W, "fc": fc, "sb": sb, "threads": SPLIT_THREADS,
             "nodes_per_block": per_block, "blocks": -(-P // per_block) * K,
             "smem": 4 * 2 * SPLIT_SLICE * (SPLIT_THREADS // 32)}
+
+
+
+def _gini_cost(NB: int, SP: int, HB: int, nf: int, FPS: int,
+               n_cc: int) -> int:
+    """The plan's cost of one node's scan: its stages (feature groups x
+    class chunks), each a walk of the bins before a lane's own (additions,
+    about 2 instructions a statistic) and of its HB bins (two IEEE
+    divisions a class a side: about 14 a statistic)."""
+    stages = -(-nf // FPS) * n_cc
+    return stages * (2 * SP * max(0, NB - 1 - HB) + 14 * SP * HB)
+
+
+def gini_split_plan(K: int, P: int, D: int, n_bins: int, C: int,
+                    width: Optional[int] = None) -> dict:
+    """How ``tree_split_gini`` (``csrc/tree_split_gini.cu``) launches one
+    gini level of K lanes x P nodes over D features, ``n_bins`` bins and C
+    classes (``width``: the most features any node's subset holds, None
+    without subsets) — the one place that sizes it.  A warp owns a (lane,
+    node), W warps one where the level is shallow (as
+    :func:`xgb_split_plan`), each a chunk of ``fc`` features; it compacts
+    the features its node may split on into groups of ``FPS`` and stages a
+    group's bins 0 .. NB-2 (the count and ``ct`` classes a bin: the
+    smallest of ``GINI_CLASS_CHUNKS`` that holds C, else 8 a stage) at a row
+    stride ``FST`` = 1 mod 32.  Lane l scans ``hb`` bins of feature l // ipf
+    (``ipf`` = ⌈(NB-1)/hb⌉ lanes a feature, FPS·ipf <= 32; 6 bins a lane put
+    a 5-feature subset of 32 bins on 30 lanes, and were measured fastest
+    there): ``hb`` of ``GINI_LANE_BINS`` is the one whose node scan costs least
+    (:func:`_gini_cost` at min(width, fc) features; the larger on a tie).
+    A block is 256 threads, 8 / W nodes; ``smem``: each warp's two slices
+    of FPS rows and two lists of FPS features, at most ``GINI_WARP_WORDS``
+    words a warp.  Any K <= 65,535, P >= 1, D >= 1, 2 <= NB <= 127 and C
+    >= 2 has a plan (other shapes raise ``ValueError``)."""
+    if (min(K, P, D) < 1 or K > 65535 or not 2 <= n_bins <= 127 or C < 2):
+        raise ValueError(f"gini_split_plan: K={K} (1 .. 65,535) P={P} D={D} "
+                         f"NB={n_bins} (2 .. 127) C={C} (>= 2)")
+    W = _split_warps(K, P, D)
+    fc = -(-D // W)
+    nf = max(1, min(fc, D if width is None else width))
+    ct = next((t for t in GINI_CLASS_CHUNKS if t >= C), GINI_CLASS_CHUNKS[-1])
+    n_cc = -(-C // ct)
+    SP = 1 + min(ct, C)
+    FST = (n_bins - 1) * SP
+    FST += (1 - FST) % 32
+    cap = max(1, (GINI_WARP_WORDS // 2) // (FST + 1))
+    best = None
+    for hb in GINI_LANE_BINS:
+        ipf = -(-(n_bins - 1) // hb)
+        FPS = max(1, min(32 // ipf, nf, cap))
+        cost = _gini_cost(n_bins, SP, hb, nf, FPS, n_cc)
+        if best is None or cost < best[0]:
+            best = (cost, hb, ipf, FPS)
+    _, hb, ipf, FPS = best
+    warps = SPLIT_THREADS // 32
+    return {"W": W, "fc": fc, "ct": ct, "class_chunks": n_cc, "hb": hb,
+            "ipf": ipf, "FPS": FPS, "FST": FST, "threads": SPLIT_THREADS,
+            "nodes_per_block": warps // W,
+            "blocks": -(-P // (warps // W)) * K,
+            "smem": 4 * warps * (2 * FPS * FST + 2 * FPS)}
 
 
 
@@ -574,16 +636,18 @@ def tree_split_twin(hist, totals, fmask, splits, min_inst, min_gain, lam):
 
 
 def write_level_twin(out: Dict[str, torch.Tensor], tree, offset: int) -> None:
-    """Plain-PyTorch twin of ``tree_split``'s epilogue: the level's slices
-    [:, offset:offset+P] of the tree arrays ``tree`` = (feature int32,
-    threshold f32, is_leaf bool [K, T], leaf f32 [K, T, 1], gain f32 [K, D])
-    from the split ``out`` — feature -1 at a leaf, the leaf value — and each
-    split node's gain added into gain[k, feature] in node order (a CPU
-    ``scatter_add_`` adds in index order; a leaf adds 0.0)."""
+    """Plain-PyTorch twin of ``tree_split``'s and ``tree_split_gini``'s
+    epilogue: the level's slices [:, offset:offset+P] of the tree arrays
+    ``tree`` = (feature int32, threshold f32, is_leaf bool [K, T], leaf f32
+    [K, T, V], gain f32 [K, D]) from the split ``out`` — feature -1 at a
+    leaf, the leaf values ``out["value"]`` ([K, P] for V = 1, else [K, P,
+    V]) — and each split node's gain added into gain[k, feature] in node
+    order (a CPU ``scatter_add_`` adds in index order; a leaf adds 0.0)."""
     feature, threshold, is_leaf, leaf, gain = tree
     P = out["feature"].shape[1]
     lf = out["is_leaf"]
-    leaf[:, offset:offset + P, 0] = out["value"]
+    value = out["value"]
+    leaf[:, offset:offset + P] = value if value.ndim == 3 else value[..., None]
     is_leaf[:, offset:offset + P] = lf
     feature[:, offset:offset + P] = torch.where(lf, -1, out["feature"])
     threshold[:, offset:offset + P] = out["threshold"]
@@ -624,21 +688,7 @@ def tree_split(hist: torch.Tensor, totals: torch.Tensor, fmask: torch.Tensor,
     if S != 3 or totals.shape != (K, P, 3) or splits.shape != (D, NB - 1):
         raise ValueError("tree_split: shapes of hist/totals/splits disagree")
     if tree is not None:
-        if len(tree) != 5:
-            raise ValueError("tree_split: tree = (feature, threshold, "
-                             "is_leaf, leaf, gain)")
-        for name, t, dt, nd in zip(
-                ("feature", "threshold", "is_leaf", "leaf", "gain"), tree,
-                (torch.int32, torch.float32, torch.bool, torch.float32,
-                 torch.float32), (2, 2, 2, 3, 2)):
-            _check(f"tree_split tree {name}", t, dt, nd, dev)
-        T = tree[0].shape[1]
-        if (any(t.shape[:2] != (K, T) for t in tree[:4])
-                or tree[3].shape[2] != 1 or tree[4].shape != (K, D)
-                or not 0 <= offset <= T - P):
-            raise ValueError(f"tree_split: tree arrays [K, T] / [K, T, 1] / "
-                             f"[K, D] with offset + P <= T (K={K} D={D} "
-                             f"P={P} offset={offset})")
+        _check_tree("tree_split", tree, K, D, P, 1, offset, dev)
     if dev.type == "cpu":
         out = tree_split_twin(hist, totals, fmask, splits, min_inst,
                               min_gain, lam)
@@ -691,10 +741,11 @@ def gini_gain(left: torch.Tensor, right: torch.Tensor,
 
 def split_gains_gini(hist, totals, fmask, node_mask, min_inst) -> torch.Tensor:
     """The gini twin's gain table [K, P, D*NB]: gain of every (feature, bin)
-    split, -inf where min_inst, the tree's feature mask, the node's subset
-    (``node_mask`` [K, P, D] or None for all) or ``bin < NB-1`` rule it
-    out."""
-    return _gain_table(hist, totals, fmask, min_inst, gini_gain, node_mask)
+    split over the kernel's bin prefix (``block_prefix``), -inf where
+    min_inst, the tree's feature mask, the node's subset (``node_mask`` [K,
+    P, D] or None for all) or ``bin < NB-1`` rule it out."""
+    return _gain_table(hist, totals, fmask, min_inst, gini_gain, node_mask,
+                       block_prefix)
 
 
 def split_gap_gini(hist, totals, fmask, node_mask, min_inst) -> torch.Tensor:
@@ -703,29 +754,71 @@ def split_gap_gini(hist, totals, fmask, node_mask, min_inst) -> torch.Tensor:
                                       min_inst))
 
 
+def gini_leaf(totals: torch.Tensor) -> torch.Tensor:
+    """Class shares of node totals [..., 1+C] → [..., C] (≙ ``_leaf_gini``,
+    trees.py:216-217), the division the kernel's epilogue makes."""
+    return totals[..., 1:] / torch.clamp(totals[..., :1], min=1e-12)
+
+
 def tree_split_gini_twin(hist, totals, fmask, node_mask, splits, min_inst,
                          min_gain):
     """Plain-PyTorch twin of ``tree_split_gini`` (see
-    :func:`tree_split_gini`)."""
+    :func:`tree_split_gini`): the bin prefix in the JAX package's order
+    (``block_prefix``, as the kernel adds it) and ``_gain_gini``'s f32
+    expression, so that the kernel gives the same bits."""
     return _split_twin(hist, totals, fmask, node_mask, splits, min_inst,
-                       min_gain, lambda lanes: gini_gain)
+                       min_gain, lambda lanes: gini_gain, block_prefix)
+
+
+def _check_tree(name: str, tree, K: int, D: int, P: int, V: int, offset: int,
+                dev) -> None:
+    """fit_trees' level arrays ``tree`` = (feature int32, threshold f32,
+    is_leaf bool [K, T], leaf f32 [K, T, V], gain f32 [K, D]) with the
+    level's P nodes at ``offset`` inside them."""
+    if len(tree) != 5:
+        raise ValueError(f"{name}: tree = (feature, threshold, is_leaf, leaf, "
+                         "gain)")
+    for part, t, dt, nd in zip(
+            ("feature", "threshold", "is_leaf", "leaf", "gain"), tree,
+            (torch.int32, torch.float32, torch.bool, torch.float32,
+             torch.float32), (2, 2, 2, 3, 2)):
+        _check(f"{name} tree {part}", t, dt, nd, dev)
+    T = tree[0].shape[1]
+    if (any(t.shape[:2] != (K, T) for t in tree[:4])
+            or tree[3].shape[2] != V or tree[4].shape != (K, D)
+            or not 0 <= offset <= T - P):
+        raise ValueError(f"{name}: tree arrays [K, T] / [K, T, {V}] / [K, D] "
+                         f"with offset + P <= T (K={K} D={D} P={P} "
+                         f"offset={offset})")
 
 
 def tree_split_gini(hist: torch.Tensor, totals: torch.Tensor,
                     fmask: torch.Tensor, node_mask, splits: torch.Tensor,
-                    min_inst: torch.Tensor,
-                    min_gain: torch.Tensor) -> Dict[str, torch.Tensor]:
+                    min_inst: torch.Tensor, min_gain: torch.Tensor,
+                    tree=None, offset: int = 0,
+                    width: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Best gini split per (lane, node), over each node's feature subset.
 
     hist f32 [K, P, D, NB, 1+C] and totals f32 [K, P, 1+C] of (w, w·[y=0],
-    .., w·[y=C-1]); fmask bool [D] (the tree's features); node_mask bool
-    [K, P, D] (each node's drawn subset) or None for all features; splits
-    f32 [D, NB-1]; min_inst / min_gain f32 [K].  The gain is ``_gain_gini``
-    over the bin prefix, masked by min_inst on the weighted counts of both
-    sides, both masks and ``bin < NB-1``; the FIRST max over (feature, bin)
-    wins.  Returns per-node gain, feature, bin, is_leaf (gain <= min_gain or
-    non-finite) and threshold ``splits[feature, bin]``, each [K, P].  The
-    kernel takes any C >= 2 classes and NB <= 127 bins."""
+    .., w·[y=C-1]), counts w non-negative; fmask bool [D] (the tree's
+    features); node_mask bool [K, P, D] (each node's drawn subset) or None
+    for all features; splits f32 [D, NB-1]; min_inst / min_gain f32 [K].
+    The gain is ``_gain_gini`` over the bin prefix (added in the JAX
+    package's order, :func:`block_prefix`), masked by min_inst on the
+    weighted counts of both sides, both masks and ``bin < NB-1``; the FIRST
+    max over (feature, bin) wins.  A node whose count total is below
+    2·min_inst is a leaf (gain -inf, feature 0, bin 0) without a read of
+    its histogram.  Returns per-node gain, feature, bin, is_leaf (gain <=
+    min_gain or non-finite) and threshold ``splits[feature, bin]``, each
+    [K, P], the same bits as :func:`tree_split_gini_twin`, for any C >= 2
+    and NB <= 127.  ``tree`` = fit_trees' (feature, threshold, is_leaf,
+    leaf [K, T, C], gain [K, D]): the level's slices at ``offset`` — the
+    leaf values the class shares of the node's totals (:func:`gini_leaf`)
+    — are written and the split nodes' gains added in node order, as
+    :func:`write_level_twin` does (on the card the kernel's epilogue and a
+    second kernel of the same call).  :func:`gini_split_plan` sizes the
+    launch; ``width`` is the most features any node's subset holds (None:
+    counted here, one wait for the card)."""
     dev = hist.device
     _check("tree_split_gini hist", hist, torch.float32, 5, dev)
     _check("tree_split_gini totals", totals, torch.float32, 3, dev)
@@ -742,26 +835,37 @@ def tree_split_gini(hist: torch.Tensor, totals: torch.Tensor,
         _check("tree_split_gini node_mask", node_mask, torch.bool, 3, dev)
         if node_mask.shape != (K, P, D):
             raise ValueError("tree_split_gini: node_mask must be [K, P, D]")
+    if tree is not None:
+        _check_tree("tree_split_gini", tree, K, D, P, S - 1, offset, dev)
     if dev.type == "cpu":
-        return tree_split_gini_twin(hist, totals, fmask, node_mask, splits,
-                                    min_inst, min_gain)
+        out = tree_split_gini_twin(hist, totals, fmask, node_mask, splits,
+                                   min_inst, min_gain)
+        if tree is not None:
+            write_level_twin({**out, "value": gini_leaf(totals)}, tree,
+                             offset)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"tree_split_gini: unsupported device {dev}")
     if NB > 127:
         raise ValueError("tree_split_gini: at most 127 bins (int8 bin ids)")
-    plan = split_plan(D, S - 1)
+    if node_mask is not None and width is None:
+        width = int(node_mask.sum(dim=2).amax())
+    plan = gini_split_plan(K, P, D, NB, S - 1, width)
     out = {"gain": torch.empty((K, P), dtype=torch.float32, device=dev),
            "feature": torch.empty((K, P), dtype=torch.int32, device=dev),
            "bin": torch.empty((K, P), dtype=torch.int32, device=dev),
            "is_leaf": torch.empty((K, P), dtype=torch.bool, device=dev),
            "threshold": torch.empty((K, P), dtype=torch.float32, device=dev)}
+    level = [t.data_ptr() for t in tree] if tree is not None else [0] * 5
     _launch("tree_split_gini", hist.data_ptr(), totals.data_ptr(),
             fmask.data_ptr(), 0 if node_mask is None else node_mask.data_ptr(),
             splits.data_ptr(), min_inst.data_ptr(), min_gain.data_ptr(),
             *(out[k].data_ptr() for k in ("gain", "feature", "bin",
                                           "is_leaf", "threshold")),
-            K, P, D, NB, S - 1, plan.class_chunk, plan.d_chunk, plan.threads,
-            _stream(hist))
+            *level, K, P, D, NB, S - 1, plan["ct"], plan["hb"], plan["W"],
+            plan["fc"], plan["FPS"], plan["FST"], plan["threads"],
+            tree[0].shape[1] if tree is not None else 0, offset,
+            plan["smem"], _stream(hist))
     return out
 
 

@@ -8,10 +8,10 @@ Features are quantile-binned once into an int8 matrix ``B [N, D]``; trees
 grow level-wise as perfect heaps (feature, threshold, is_leaf, leaf values).
 Each level is three kernels — ``tree_hist`` (per-node, per-feature, per-bin
 statistics; ``tree_hist_deep`` once a level's nodes outgrow shared memory),
-``tree_split`` (xgb gain; it also writes the level's tree arrays),
-``tree_split_gini`` or ``tree_split_variance`` (gini or variance gain over
-each node's feature subset), each a prefix over bins and a first-max
-argmax, and ``tree_route`` (rows to children, in place) — run for a batch
+``tree_split`` (xgb gain), ``tree_split_gini`` or ``tree_split_variance``
+(gini or variance gain over each node's feature subset), each a prefix
+over bins and a first-max argmax (the xgb and gini kernels also write the
+level's tree arrays), and ``tree_route`` (rows to children, in place) — run for a batch
 of (fold × grid-point ×
 tree) lanes at once; each boosting round's margin update and every scoring
 pass is ``tree_walk``.  The rounds and levels are a plain Python loop, the
@@ -35,9 +35,9 @@ from ..columns import device_matrix, to_device_f32
 from ..device import tensor_device
 from .base import PredictionModel, PredictorEstimator
 from .linear import _n_classes
-from .tree_kernels import (deep_partition_bytes, tree_hist, tree_route,
-                           tree_split, tree_split_gini, tree_split_variance,
-                           tree_walk)
+from .tree_kernels import (deep_partition_bytes, gini_leaf, tree_hist,
+                           tree_route, tree_split, tree_split_gini,
+                           tree_split_variance, tree_walk)
 
 MAX_BINS_DEFAULT = 32
 # Device bytes a batch of lanes may hold while its trees grow (statistics,
@@ -116,12 +116,6 @@ class TreeArrays(NamedTuple):
     leaf: torch.Tensor       # [K, T, V] f32 leaf values (xgb and variance
                              # V = 1, gini V = C)
     gain: torch.Tensor       # [K, D] per-feature gain sum over splits
-
-
-def _leaf_gini(totals: torch.Tensor) -> torch.Tensor:
-    """Class shares of node totals [..., 1+C] → [..., C] (≙ ``_leaf_gini``,
-    trees.py:216-217)."""
-    return totals[..., 1:] / torch.clamp(totals[..., :1], min=1e-12)
 
 
 def _leaf_variance(totals: torch.Tensor) -> torch.Tensor:
@@ -207,7 +201,7 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
     dev = B.device
     T = 2 ** (max_depth + 1) - 1
     V = S - 1 if impurity == "gini" else 1
-    node_leaf = _leaf_gini if impurity == "gini" else _leaf_variance
+    node_leaf = gini_leaf if impurity == "gini" else _leaf_variance
     feature = torch.full((K, T), -1, dtype=torch.int32, device=dev)
     threshold = torch.full((K, T), float("inf"), dtype=torch.float32,
                            device=dev)
@@ -215,6 +209,11 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
     leaf = torch.zeros((K, T, V), dtype=torch.float32, device=dev)
     gain = torch.zeros((K, D), dtype=torch.float32, device=dev)
     row_node = torch.zeros((K, N), dtype=torch.int32, device=dev)
+    # the widest node subset of each level, read once (the gini plan's)
+    widths = ([None] * max_depth if node_masks is None or impurity != "gini"
+              or dev.type != "cuda"
+              else torch.stack([m.sum(dim=2).amax()
+                                for m in node_masks[:max_depth]]).tolist())
     for lvl in range(max_depth + 1):
         off, P = (1 << lvl) - 1, 1 << lvl
         bottom = lvl == max_depth
@@ -223,20 +222,22 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
                                  with_hist=not bottom, node_mask=nm)
         if bottom:
             break
+        # the xgb and gini kernels write the level's tree arrays in their
+        # epilogues
+        level = (feature, threshold, is_leaf, leaf, gain)
         if impurity == "xgb":
-            # the kernel writes the level's tree arrays in its epilogue
             sp = tree_split(hist, totals, fmask, splits, min_instances,
-                            min_gain, lam,
-                            tree=(feature, threshold, is_leaf, leaf, gain),
-                            offset=off)
+                            min_gain, lam, tree=level, offset=off)
+        elif impurity == "gini":
+            sp = tree_split_gini(hist, totals, fmask, nm, splits,
+                                 min_instances, min_gain, tree=level,
+                                 offset=off, width=widths[lvl])
         else:
-            split = (tree_split_gini if impurity == "gini"
-                     else tree_split_variance)
-            sp = split(hist, totals, fmask, nm, splits, min_instances,
-                       min_gain)
+            sp = tree_split_variance(hist, totals, fmask, nm, splits,
+                                     min_instances, min_gain)
         del hist
         tree_route(B, row_node, sp["feature"], sp["bin"], sp["is_leaf"], off)
-        if impurity != "xgb":
+        if impurity == "variance":
             leaf[:, off:off + P] = node_leaf(totals)
             lf = sp["is_leaf"]
             is_leaf[:, off:off + P] = lf
