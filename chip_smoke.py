@@ -79,14 +79,18 @@ Phases (any failure exits non-zero and prints no result line):
    8 label-dependent tokens of a 30,000-word vocabulary and one dense Real,
    built before the clock starts): ``sp_matmat`` and ``sp_rmatmat`` on the
    run's own 1M x 100,003 matrix at k = 1, 3, 6 and on a skewed synthetic
-   matrix at k = 1, 6, 32 against their f64 twins and bit-repeatable;
+   matrix at k = 1, 6, 32 against their f64 twins, bit-repeatable and
+   equal bit for bit to the numpy emulation of their order, with each
+   order's plan (team, light and heavy segments, tiles, pieces);
    then transmogrify (100,000 hashes: a SparseMatrix) → LR selector
    (``reg_param`` 0.01, 0.1) trained, evaluated and scored on a fresh seed-7
    batch, with its train wall, phase seconds, nnz and density, width
    (100,003), CV AuPR, train AuROC (> 0.99), peak device memory (< 4 GB),
-   score rows/s and both sparse kernels' launches; and the workflow at
-   3,000 rows on the card and the CPU twins, held to the JAX package's
-   numbers at that size;
+   score rows/s and both sparse kernels' launches; a ``torch.profiler``
+   window over its LR cross-validation (device-busy share, each sparse
+   kernel's device ms, kernel launches and wrapper calls); and the
+   workflow at 3,000 rows on the card and the CPU twins, held to the JAX
+   package's numbers at that size;
 7. explanations — ``RecordInsightsLOCO`` (top-20) through its transform on
    the transmog LR winner over its own 1M x 1,596 checked vector (grouped
    by raw parent), on the default grid's winner (a GBT) over its 1M x 28
@@ -804,7 +808,10 @@ KERNEL_IDS = {
     "fista_glm": ("fista_glm_kernel", "fista_glm_reduce",
                   "glm_reduce_kernel"),
     "fista_wide_kernels": ("wide_margin_kernel", "wide_loss_kernel",
-                           "wide_xtg_kernel", "wide_reduce_kernel")}
+                           "wide_xtg_kernel", "wide_reduce_kernel"),
+    # both sparse kernels' (their namespace, sp_matmat:: or sp_rmatmat::,
+    # tells them apart in a profile)
+    "sp_segsum": ("segsum_kernel", "finish_kernel")}
 
 
 def _kernel_id(name: str) -> str:
@@ -1923,7 +1930,9 @@ def skewed_coo(n: int = 200_003, d: int = 110_003, seed: int = 8):
 def _sparse_case(X, k: int, rng, reps: int = 0) -> dict:
     """``sp_matmat`` and ``sp_rmatmat`` on ``X`` at ``k`` dense columns
     against their twins run in f64: each output within 1e-5 of its absolute
-    mass, and two launches bit for bit.  With ``reps``, the times (kernel,
+    mass, two launches bit for bit, and on the card the bits of the numpy
+    emulation of the kernels' order (``segsum_emulate``).  With ``reps``,
+    the times (kernel by CUDA events and its device ms by the profiler,
     the f32 twin, ``torch.sparse.mm`` on a CSR tensor) and the bound."""
     import torch
 
@@ -1941,6 +1950,13 @@ def _sparse_case(X, k: int, rng, reps: int = 0) -> dict:
         got, again = fn(X, dense), fn(X, dense)
         if not torch.equal(got, again):
             raise AssertionError(f"{name} (k={k}): two launches differ")
+        order, plan = ((X.row_order(), X.row_plan()) if name == "sp_matmat"
+                       else (X.col_order(), X.col_plan()))
+        if dev.type == "cuda" and not np.array_equal(
+                got.cpu().numpy().view(np.uint32),
+                sk.segsum_emulate(order, plan, dense).view(np.uint32)):
+            raise AssertionError(f"{name} (k={k}, nnz={X.nnz}) differs from "
+                                 "the emulation of its order")
         args = (X.values.double(), X.indices, X.row_ids)
         want = twin(*args, dense.double(), n_out)
         mass = twin(args[0].abs(), *args[1:], dense.double().abs(), n_out)
@@ -1950,7 +1966,6 @@ def _sparse_case(X, k: int, rng, reps: int = 0) -> dict:
                                  "with its f64 twin")
         row = {"k": k, "max_abs_err": float(e.max()) if e.numel() else 0.0}
         if reps:
-            order = X.row_order() if name == "sp_matmat" else X.col_order()
             csr = torch.sparse_csr_tensor(order.ptr, order.gather.long(),
                                           order.values,
                                           size=(n_out, dense.shape[0]))
@@ -1961,6 +1976,8 @@ def _sparse_case(X, k: int, rng, reps: int = 0) -> dict:
                            + 4 * n_out * k, 2 * X.nnz * k)
             row.update(
                 ms=time_ms(lambda: fn(X, dense), reps),
+                device_ms=kernel_device_ms(lambda: fn(X, dense), reps,
+                                           "sp_segsum")["ms"],
                 plain_ms=time_ms(lambda: twin(X.values, X.indices, X.row_ids,
                                               dense, n_out), reps),
                 bound_ms=bt, bound_by=by,
@@ -2012,7 +2029,8 @@ def check_sparse_kernels(X, reps: int = 20):
     (the refit's and scoring's one lane, the power iteration's 3 folds, the
     CV block's 6 lanes), timed at k = 6, and on ``skewed_coo`` at k = 1, 6,
     32 (``_sparse_case``).  Returns the two rows of the ``kernels`` line and
-    every case's numbers."""
+    every case's numbers, with each order's plan (``SegmentPlan.summary``:
+    team, light and heavy segments, tiles, pieces)."""
     from transmogrifai_tpu_torch.models import kernels
     from transmogrifai_tpu_torch.sparse.matrix import SparseMatrix
 
@@ -2022,6 +2040,9 @@ def check_sparse_kernels(X, reps: int = 20):
     skew = SparseMatrix.from_coo(*skewed_coo(), device=X.device)
     facts.update({f"skewed k={k}": _sparse_case(skew, k, rng)
                   for k in (1, 6, 32)})
+    plans = {f"{m} {o}": getattr(Y, f"{o}_plan")().summary()
+             for m, Y in (("run", X), ("skewed", skew))
+             for o in ("row", "col")}
     rows = []
     for name in ("sp_matmat", "sp_rmatmat"):
         r = dict(facts["run k=6"][name])
@@ -2031,7 +2052,8 @@ def check_sparse_kernels(X, reps: int = 20):
                  source=f"transmogrifai_tpu_torch/csrc/{name}.cu",
                  replaces=kernels.REPLACES[name])
         rows.append(r)
-    return rows, {"nnz": X.nnz, "skewed_nnz": skew.nnz, **facts}
+    return rows, {"nnz": X.nnz, "skewed_nnz": skew.nnz, "plans": plans,
+                  **facts}
 
 
 def run_sparse(device, n: int, cols=None, score_cols=None) -> tuple:
@@ -2066,6 +2088,41 @@ def run_sparse(device, n: int, cols=None, score_cols=None) -> tuple:
         facts.update(score_wall_s=wall, score_rows_per_s=n / wall)
         del p
     return facts, model, batch
+
+
+def profile_sparse_cv(model, batch, device="cuda") -> dict:
+    """``profile_lr_cv`` over the sparse workload's LR cross-validation (2
+    reg_params x 3 folds, racing) on its own 1M x 100,003 matrix: the
+    device-busy share, and each sparse kernel's device ms and kernel
+    launches in the window (``by_kernel`` grouped by namespace) beside its
+    wrapper's calls."""
+    import contextlib
+
+    from transmogrifai_tpu_torch import selector as S
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models.linear import OpLogisticRegression
+    names = ("sp_matmat", "sp_rmatmat")
+    calls = {}
+
+    @contextlib.contextmanager
+    def counted():
+        before = {n: kernels.LAUNCHES[n] for n in names}
+        yield
+        calls.update({n: kernels.LAUNCHES[n] - before[n] for n in names})
+
+    sel = S.BinaryClassificationModelSelector(models=[S.ModelCandidate(
+        OpLogisticRegression(),
+        S.grid(reg_param=list(_sparse_ref().REG_PARAMS), max_iter=[50]),
+        "OpLogisticRegression")])
+    out = profile_lr_cv(model, batch, sel, device, around=counted(),
+                        kernels=("sp_segsum",))
+    out["sparse_kernels"] = {
+        n: {"device_ms": sum(v["ms"] for k, v in out["by_kernel"].items()
+                             if f"{n}::" in k),
+            "kernel_launches": sum(v["count"] for k, v in
+                                   out["by_kernel"].items() if f"{n}::" in k),
+            "wrapper_calls": calls.get(n)} for n in names}
+    return out
 
 
 def check_sparse_reference() -> dict:
@@ -4647,7 +4704,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    sp_facts, _, _ = run_sparse("cuda", N_ROWS, cols, score_cols)
+    sp_facts, sp_model, sp_batch = run_sparse("cuda", N_ROWS, cols,
+                                              score_cols)
     sp_launches = kernels.launch_counts()
     sp_facts["peak_device_memory_gb"] = \
         torch.cuda.max_memory_allocated() / 1e9
@@ -4669,6 +4727,10 @@ def main() -> int:
                              f"{sp_facts['peak_device_memory_gb']} GB >= "
                              f"{SPARSE_PEAK_GB} GB")
     del score_cols
+    torch.cuda.empty_cache()
+    print("profile sparse LR CV: " + json.dumps(profile_sparse_cv(
+        sp_model, sp_batch)), flush=True)
+    del sp_model, sp_batch
     torch.cuda.empty_cache()
     print(f"sparse reference runs ({SPARSE_REF_ROWS} rows): "
           + json.dumps(check_sparse_reference()), flush=True)

@@ -29,8 +29,10 @@ the first feature; LOCO on regression models (the prediction: identity
 links) like the classifiers'; the one-pass deep histogram
 like ``tree_hist``; ``hash_counts`` equal to its twin (integer counts);
 ``sp_matmat`` / ``sp_rmatmat`` within 1e-5 of each output's absolute mass
-of the twin run in f64 (chunk partials added in another order), and the
-same bits on two launches; the sparse-text workflow on the card against
+of the twin run in f64 (team lanes and piece partials added in another
+order), the same bits on two launches, and the bits of the numpy emulation
+of their order (``segsum_emulate``) under every team size, with the dense
+operand or the entry stream unaligned; the sparse-text workflow on the card against
 the CPU twins like the transmog one; ``fista_softmax`` like
 ``fista_step`` (within 1e-5 of each output's absolute mass of the f64 twin,
 the same bits twice); ``multiclass_confusion`` equal to its twin on 0/1
@@ -555,6 +557,61 @@ def test_sparse_kernels_match_twins_and_repeat_bit_for_bit(cuda, k):
     # empty rows and columns come out zero
     assert bool((sk.sp_matmat(X, M)[::13] == 0).all())
     assert bool((sk.sp_rmatmat(X, G)[-1000:] == 0).all())
+
+
+def _assert_emulated(X, name, dense):
+    from transmogrifai_tpu_torch.sparse import sparse_kernels as sk
+    fn = sk.sp_matmat if name == "sp_matmat" else sk.sp_rmatmat
+    got = fn(X, dense).cpu().numpy()
+    order, plan = ((X.row_order(), X.row_plan()) if name == "sp_matmat"
+                   else (X.col_order(), X.col_plan()))
+    want = sk.segsum_emulate(order, plan, dense)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("team", [None, 1, 2, 8, 32])
+@pytest.mark.parametrize("k", [1, 3, 6, 32, 40])
+def test_sparse_kernels_equal_their_emulation_bit_for_bit(cuda, k, team):
+    """Both kernels on the skewed matrix (row 11's 100,000 entries and
+    column 7's ~55,000 in pieces) under the default plans and under every
+    team size with small tiles: the numpy emulation's bits."""
+    from transmogrifai_tpu_torch.sparse import sparse_kernels as sk
+    X = _skewed_sparse(cuda)
+    if team is not None:
+        X._row_plan = sk.segment_plan(X.row_order().ptr, team=team,
+                                      tile_cost=512)
+        X._col_plan = sk.segment_plan(X.col_order().ptr, team=team,
+                                      tile_cost=512)
+    assert X.row_plan().n_heavy >= 1 and X.col_plan().n_heavy >= 1
+    rng = np.random.default_rng(k)
+    for name, rows in (("sp_matmat", X.n_cols), ("sp_rmatmat", X.n_rows)):
+        dense = torch.as_tensor(rng.normal(size=(rows, k)).astype(
+            np.float32), device=cuda)
+        _assert_emulated(X, name, dense)
+
+
+@pytest.mark.parametrize("k", [6, 8])
+def test_sparse_kernels_on_unaligned_operands(cuda, k):
+    """A dense operand 4 bytes off its 8- and 16-byte alignment (scalar
+    row loads) and an entry stream off its 16-byte alignment (4-byte
+    staging copies) give the emulation's bits too."""
+    X = _skewed_sparse(cuda)
+    rng = np.random.default_rng(k)
+    for name, rows in (("sp_matmat", X.n_cols), ("sp_rmatmat", X.n_rows)):
+        buf = torch.as_tensor(rng.normal(size=rows * k + 1).astype(
+            np.float32), device=cuda)
+        dense = buf[1:].view(rows, k)
+        assert dense.data_ptr() % 8 != 0
+        _assert_emulated(X, name, dense)
+    for attr in ("_row_order", "_col_order"):
+        o = getattr(X, attr)
+        v = torch.empty(o.values.numel() + 1, device=cuda)
+        g = torch.empty(o.values.numel() + 1, dtype=torch.int32, device=cuda)
+        v[1:], g[1:] = o.values, o.gather
+        setattr(X, attr, o._replace(values=v[1:], gather=g[1:]))
+    for name, rows in (("sp_matmat", X.n_cols), ("sp_rmatmat", X.n_rows)):
+        _assert_emulated(X, name, torch.as_tensor(rng.normal(size=(
+            rows, k)).astype(np.float32), device=cuda))
 
 
 def test_sparse_wrappers_on_the_card_take_the_kernels(cuda):

@@ -8,18 +8,23 @@
 // the sparse fitters' margins (solvers.py:472-559), the CV margins
 // (tuning.py:566-571) and scoring (linear.py:205-210).
 //
-// Design and bound: sp_segsum.cuh (two passes over fixed 256-entry chunks,
-// no float atomics, bit-repeatable).  At 10^6 rows, 9.0M entries and k = 6
-// the function must read 72 MB of values and column ids, 4 MB of row
-// pointers (int32 would do) and the 2.4 MB M and write the 24 MB output:
-// ~0.031 ms at 3.35 TB/s.  The kernel also reads each entry's row id (36 MB more).
+// Design and bound: sp_segsum.cuh.  Rows are light segments of ~9 entries:
+// a row a team of one entry slot, its k columns dealt over neighbouring lanes
+// (4 at k = 6), so a gathered row of M is one access; one launch (a longer
+// row is cut into pieces); no float atomics, bit-repeatable.  At 10^6 rows,
+// 9.0M entries and k = 6 the function must read 72 MB of values and column
+// ids, 4 MB of row pointers (the plan's int32 copy) and the 2.4 MB M and
+// write the 24 MB output: ~0.031 ms at 3.35 TB/s.
+#define SPSEG_NS sp_matmat
 #include "sp_segsum.cuh"
 
 extern "C" int sp_matmat_launch(const void* val, const void* col,
-                                const void* row, const void* row_ptr,
-                                const void* m, void* out, void* head,
-                                void* tail, long long nnz, int k, int chunk,
-                                void* stream) {
-  return spseg::launch(val, col, row, row_ptr, m, out, head, tail, nnz, k,
-                       chunk, stream);
+                             const void* row_ptr, const void* tiles, int n_tiles,
+                             const void* pieces, int n_pieces,
+                             const void* finish, int n_finish, const void* m,
+                             void* out, void* partial, int k, int cgl,
+                             int team, int stage, int pstage, void* stream) {
+  return sp_matmat::launch(val, col, row_ptr, tiles, n_tiles, pieces, n_pieces,
+                        finish, n_finish, m, out, partial, k, cgl, team,
+                        stage, pstage, stream);
 }

@@ -8,21 +8,24 @@
 // ids — called from the sparse fitters' gradients, column moments and power
 // iteration (solvers.py:472-559).
 //
-// Design and bound: sp_segsum.cuh.  Columns are where the skew is: ~80
-// entries a hash column, but a dense numeric column holds all 10^6 rows;
-// the fixed 256-entry chunks give that column ~3,900 warps and the carry
-// pass sums their partials in a fixed order.  At 10^6 rows, 9.0M entries
-// and k = 6 the function must read 72 MB of values and row ids, 0.4 MB of
-// column pointers (int32 would do) and the 24 MB G and write the 2.4 MB
-// output: ~0.030 ms at 3.35 TB/s.  The kernel also reads each entry's
-// column id (36 MB more).
+// Design and bound: sp_segsum.cuh.  Columns are where the skew is: ~270
+// entries a used hash column (a warp's 32 entry slots a column, each lane
+// all k columns of its entries' rows), but a dense numeric column holds all
+// 10^6 rows; the plan cuts that column into ~2,000 pieces of 512 entries, a
+// warp each, and a second launch adds their partials in piece order.  At
+// 10^6 rows, 9.0M entries and k = 6 the function must read 72 MB of values
+// and row ids, 0.4 MB of column pointers (the plan's int32 copy) and the
+// 24 MB G and write the 2.4 MB output: ~0.030 ms at 3.35 TB/s.
+#define SPSEG_NS sp_rmatmat
 #include "sp_segsum.cuh"
 
 extern "C" int sp_rmatmat_launch(const void* val, const void* row,
-                                 const void* col, const void* col_ptr,
-                                 const void* g, void* out, void* head,
-                                 void* tail, long long nnz, int k, int chunk,
-                                 void* stream) {
-  return spseg::launch(val, row, col, col_ptr, g, out, head, tail, nnz, k,
-                       chunk, stream);
+                             const void* col_ptr, const void* tiles, int n_tiles,
+                             const void* pieces, int n_pieces,
+                             const void* finish, int n_finish, const void* g,
+                             void* out, void* partial, int k, int cgl,
+                             int team, int stage, int pstage, void* stream) {
+  return sp_rmatmat::launch(val, row, col_ptr, tiles, n_tiles, pieces, n_pieces,
+                        finish, n_finish, g, out, partial, k, cgl, team,
+                        stage, pstage, stream);
 }

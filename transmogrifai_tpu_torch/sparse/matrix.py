@@ -12,7 +12,9 @@ The products run over two orders built once per matrix with plain torch
 ops, on first use: the row-sorted order with ``row_ptr`` [n_rows + 1] feeds
 ``sp_matmat`` (``X @ M``), the column-sorted order (rows ascending within a
 column) with ``col_ptr`` [n_cols + 1] feeds ``sp_rmatmat`` (``X.T @ G``);
-both kernels are in ``sparse_kernels.py``.
+both kernels are in ``sparse_kernels.py``, and each order's launch plan
+(``segment_plan``, built from its pointers on first use on the card) is
+kept beside it.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .sparse_kernels import sp_matmat, sp_rmatmat
+from .sparse_kernels import SegmentPlan, segment_plan, sp_matmat, sp_rmatmat
 
 _NNZ_FLOOR = 1024
 
@@ -72,7 +74,8 @@ class SparseMatrix:
     """Device-resident flat-COO matrix (see the module docstring)."""
 
     __slots__ = ("values", "indices", "row_ids", "n_rows", "n_cols",
-                 "_row_order", "_col_order", "__weakref__")
+                 "_row_order", "_col_order", "_row_plan", "_col_plan",
+                 "__weakref__")
 
     def __init__(self, values: torch.Tensor, indices: torch.Tensor,
                  row_ids: torch.Tensor, n_rows: int, n_cols: int):
@@ -89,6 +92,8 @@ class SparseMatrix:
             raise ValueError("values/indices/row_ids must share one device")
         self._row_order: Optional[SegmentOrder] = None
         self._col_order: Optional[SegmentOrder] = None
+        self._row_plan: Optional[SegmentPlan] = None
+        self._col_plan: Optional[SegmentPlan] = None
 
     # ---- shape protocol ------------------------------------------------
     @property
@@ -171,12 +176,16 @@ class SparseMatrix:
 
     def elementwise(self, fn) -> "SparseMatrix":
         """The same structure with ``fn`` applied to every stored value
-        (``fn`` elementwise, so the sorted orders are mapped, not rebuilt)."""
+        (``fn`` elementwise, so the sorted orders are mapped, not rebuilt,
+        and their plans, which depend on the pointers alone, are shared)."""
         ro, co = self.row_order(), self.col_order()
         out = SparseMatrix(fn(self.values), self.indices, self.row_ids,
                            self.n_rows, self.n_cols)
         out._row_order = ro._replace(values=fn(ro.values))
         out._col_order = co._replace(values=fn(co.values))
+        if self.device.type == "cuda":
+            self.row_plan(), self.col_plan()
+        out._row_plan, out._col_plan = self._row_plan, self._col_plan
         return out
 
     # ---- the sorted orders ---------------------------------------------
@@ -202,6 +211,18 @@ class SparseMatrix:
                                            ro.segment[perm], cols,
                                            _segment_ptr(cols, self.n_cols))
         return self._col_order
+
+    def row_plan(self) -> SegmentPlan:
+        """The kernels' plan of the row order (``segment_plan``), built once."""
+        if self._row_plan is None:
+            self._row_plan = segment_plan(self.row_order().ptr)
+        return self._row_plan
+
+    def col_plan(self) -> SegmentPlan:
+        """The kernels' plan of the column order, built once."""
+        if self._col_plan is None:
+            self._col_plan = segment_plan(self.col_order().ptr)
+        return self._col_plan
 
     # ---- device linear algebra ------------------------------------------
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
