@@ -105,10 +105,11 @@ Phases (any failure exits non-zero and prints no result line):
    6-class forest fitted and scored with ``tree_hist_deep``,
    ``tree_split_gini`` and ``tree_walk`` against their twins, and
    ``BinaryClassificationModelSelector()`` on the sparse 1M batch skipping
-   the tree families; then ``RecordInsightsCorr`` fitted and applied and
-   ``WorkflowModel.summary()`` on the default-grid model at 1M x 28;
-8. regression — ``tree_split_variance`` against its twin on f64
-   histograms at the RF regressor's level 5 (300 lanes, "onethird" node
+   the tree families; then ``RecordInsightsCorr`` fitted on the
+   default-grid model at 1M x 28 and applied to its first ``CORR_ROWS``,
+   and ``WorkflowModel.summary()``;
+8. regression — ``tree_split_variance`` against its f32 twin's bits and
+   its twin on f64 histograms at the RF regressor's level 5 (300 lanes, "onethird" node
    subsets), level 11 of its depth-12 group and at 1,597 features (a
    cross-chunk exact tie; a decision-tree regressor fitted there), and
    ``fista_step`` with the squared loss (3 folds x 8 lanes at 1M x 16, the
@@ -174,8 +175,15 @@ Phases (any failure exits non-zero and prints no result line):
    at ``max_bins=64`` — with the launches read around the card fits alone;
    the two-pass form is also held and timed beside the tensor-core form at
    phase 8's wide 24-lane shape and phase 9's wide softmax shape (not on
-   any path: 0 launches).  The script's own wall time is printed before
-   the card's line.
+   any path: 0 launches);
+13. queue 3's repairs and the LOCO walk — ``hash_counts`` at 60,000 and
+   100,003 hashes (column windows: the twin's counts exactly),
+   ``loco_softmax`` on an MLP of ``hidden_layers=(2048,)`` at 1,000 x 16
+   (its slots in device memory), ``loco_tree`` at G = 1, 28 and 100 (two
+   group windows) under each link and strategy and at k = 40, against
+   their twins, and the binary selector's default LR grid ranked by F1 at
+   1M x 28 (its winner printed, the launches read around its train).  The
+   script's own wall time is printed before the card's line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` table (launches: the default
@@ -804,6 +812,9 @@ KERNEL_IDS = {
     "tree_route": ("tree_route_pack_kernel", "tree_route_kernel"),
     "tree_split": ("tree_split_kernel", "tree_split_gain_kernel"),
     "tree_split_gini": ("tree_split_gini_kernel", "tree_split_gain_kernel"),
+    "tree_split_variance": ("tree_split_variance_kernel",
+                            "tree_split_gain_kernel"),
+    "loco_tree": ("loco_tree_kernel",),
     # the tensor-core form's, and the earlier one-tile form's
     "fista_glm": ("fista_glm_kernel", "fista_glm_reduce",
                   "glm_reduce_kernel"),
@@ -2027,18 +2038,17 @@ def sparse_matrix_of(cols, device="cuda"):
 def check_sparse_kernels(X, reps: int = 20):
     """Both sparse kernels on the 1M run's own matrix ``X`` at k = 1, 3, 6
     (the refit's and scoring's one lane, the power iteration's 3 folds, the
-    CV block's 6 lanes), timed at k = 6, and on ``skewed_coo`` at k = 1, 6,
-    32 (``_sparse_case``).  Returns the two rows of the ``kernels`` line and
+    CV block's 6 lanes) and on ``skewed_coo`` at k = 1, 6, 32, each timed
+    beside its bound, its twin and ``torch.sparse.mm`` (``_sparse_case``).  Returns the two rows of the ``kernels`` line and
     every case's numbers, with each order's plan (``SegmentPlan.summary``:
     team, light and heavy segments, tiles, pieces)."""
     from transmogrifai_tpu_torch.models import kernels
     from transmogrifai_tpu_torch.sparse.matrix import SparseMatrix
 
     rng = np.random.default_rng(9)
-    facts = {f"run k={k}": _sparse_case(X, k, rng, reps if k == 6 else 0)
-             for k in (1, 3, 6)}
+    facts = {f"run k={k}": _sparse_case(X, k, rng, reps) for k in (1, 3, 6)}
     skew = SparseMatrix.from_coo(*skewed_coo(), device=X.device)
-    facts.update({f"skewed k={k}": _sparse_case(skew, k, rng)
+    facts.update({f"skewed k={k}": _sparse_case(skew, k, rng, reps)
                   for k in (1, 6, 32)})
     plans = {f"{m} {o}": getattr(Y, f"{o}_plan")().summary()
              for m, Y in (("run", X), ("skewed", skew))
@@ -2657,10 +2667,15 @@ def check_sparse_default_selector(cols, device="cuda") -> dict:
             "skipped_records": len(skipped)}
 
 
+CORR_ROWS = 100_000                # rows RecordInsightsCorr's host maps take
+
+
 def run_corr_and_summary(model, batch, device="cuda") -> dict:
     """``RecordInsightsCorr`` (top-20, min-max, Pearson) fitted on the
     default-grid model's predictions and checked vector at 1M x 28 and
-    transformed over the same rows, then ``WorkflowModel.summary()`` and
+    transformed over the first ``CORR_ROWS`` of the same rows (its maps
+    are host strings, ~130 us a row: the whole 1M took 134 s of the time
+    limit), then ``WorkflowModel.summary()`` and
     ``summary_pretty()`` of that model."""
     import torch
 
@@ -2675,9 +2690,9 @@ def run_corr_and_summary(model, batch, device="cuda") -> dict:
     corr = est.fit(scored)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    maps = corr.transform(scored).values
+    n = min(len(batch), CORR_ROWS)
+    maps = corr.transform(scored.take_rows(np.arange(n))).values
     t2 = time.perf_counter()
-    n = len(batch)
     row = maps[n // 2]
     if len(maps) != n or not row or not all(
             np.isfinite(v) for pairs in row.values()
@@ -2898,15 +2913,25 @@ def _check_split_variance(tk, hist, tot, fmask, node_mask, splits, min_inst,
     chosen feature, bin and threshold equal wherever the f64 best and
     runner-up differ by more than twice that; the leaf flag wherever the
     f64 gain is non-finite or further than it from the lane's min_gain.
-    Returns the largest gain error."""
+    The kernel also gives the f32 twin's bits in every output.  Returns
+    the largest gain error."""
     import torch
     out = tk.tree_split_variance(hist, tot, fmask, node_mask, splits,
                                  min_inst, min_gain)
     K, err = hist.shape[0], 0.0
     for a in range(0, K, chunk):
         sl = slice(a, min(a + chunk, K))
-        h, t = hist[sl].double(), tot[sl].double()
         m = None if node_mask is None else node_mask[sl]
+        f32 = tk.tree_split_variance_twin(hist[sl], tot[sl], fmask, m,
+                                          splits, min_inst[sl],
+                                          min_gain[sl])
+        for key, v in f32.items():
+            if not torch.equal(out[key][sl], v):
+                raise AssertionError(f"tree_split_variance (P "
+                                     f"{hist.shape[1]}, lanes {a}..): {key} "
+                                     "differs from the f32 twin's bits")
+        del f32
+        h, t = hist[sl].double(), tot[sl].double()
         mi, mg = min_inst[sl].double(), min_gain[sl].double()
         st = tk.tree_split_variance_twin(h, t, fmask, m, splits, mi, mg)
         tol = 1e-5 * t[..., 2].abs() + 1e-6
@@ -3018,13 +3043,19 @@ def check_variance_split(device="cuda", n: int = N_ROWS, reps: int = 10):
         sub = args if lvl < 8 else tuple(
             a[:16] if isinstance(a, torch.Tensor) and a.shape[0] == K else a
             for a in args)
+        # the subsets' width as fit_trees passes it (no wait for the card
+        # inside the timed call)
+        width = int(mask.sum(dim=2).amax())
+        run = lambda: tk.tree_split_variance(*args, width=width)  # noqa
         case = {"lanes": K, "P": P, "max_abs_err": err,
-                "ms": time_ms(lambda: tk.tree_split_variance(*args), reps),
+                "ms": time_ms(run, reps),
+                "device_ms": kernel_device_ms(run, reps,
+                                              "tree_split_variance")["ms"],
                 "plain_lanes": sub[0].shape[0],
                 "plain_ms": time_ms(
                     lambda: tk.tree_split_variance_twin(*sub), 2),
                 "ms_plain_lanes": time_ms(
-                    lambda: tk.tree_split_variance(*sub), reps),
+                    lambda: tk.tree_split_variance(*sub, width=width), reps),
                 "bound_ms": bt, "bound_by": by}
         facts[f"level_{lvl}"] = case
         if row is None:
@@ -3077,7 +3108,8 @@ def check_variance_split(device="cuda", n: int = N_ROWS, reps: int = 10):
                                      f"roots {root.tolist()}, not 100")
     facts["width_1597"] = {"rows": wn, "max_abs_err": max(errs),
                            "dt_root_feature": int(dt["feature"][0, 0]),
-                           "split_plan": tk.split_plan(WIDE_D)._asdict()}
+                           "plan": tk.gini_split_plan(K, 1, WIDE_D, N_BINS,
+                                                      2)}
     row["max_abs_err"] = max(row["max_abs_err"], max(errs))
     return row, facts
 
@@ -4027,17 +4059,22 @@ def check_wide_bins(device="cuda", n: int = 200_000, reps: int = 10):
                                 P - 1, P, n_bins, node_mask=nm)
             lane = lambda v: torch.full((lanes,), v, device=device)  # noqa
             fmask = torch.ones(D, dtype=torch.bool, device=device)
+            # the subsets' width as fit_trees passes it (no wait for the
+            # card inside the timed call)
+            width = None if nm is None else int(nm.sum(dim=2).amax())
             if fam == "variance":
                 args = (h, t, fmask, nm, lv["splits"], lane(10.0),
                         lane(0.001))
                 err = _check_split_variance(tk, *args)
-                run = lambda: tk.tree_split_variance(*args)  # noqa: E731
+                run = lambda: tk.tree_split_variance(  # noqa: E731
+                    *args, width=width)
                 twin = lambda: tk.tree_split_variance_twin(*args)  # noqa
                 name = "tree_split_variance"
             elif fam == "gini":
                 args = (h, t, fmask, nm, lv["splits"], lane(10.0), lane(0.0))
                 err = _check_split(tk, *args)
-                run = lambda: tk.tree_split_gini(*args)  # noqa: E731
+                run = lambda: tk.tree_split_gini(  # noqa: E731
+                    *args, width=width)
                 twin = lambda: tk.tree_split_gini_twin(*args)  # noqa: E731
                 name = "tree_split_gini"
             else:
@@ -4057,6 +4094,7 @@ def check_wide_bins(device="cuda", n: int = 200_000, reps: int = 10):
                                + 4 * lv["splits"].numel() + 21 * lanes * P,
                                23 * kept * n_bins)
                 case.update(ms=time_ms(run, reps),
+                            device_ms=kernel_device_ms(run, reps, name)["ms"],
                             plain_ms=time_ms(twin, max(2, reps // 4)),
                             bound_ms=bt, bound_by=by, library_ms=None)
                 rows.append(_kernel_row(name, case))
@@ -4505,6 +4543,181 @@ def count_hist_shapes(run) -> tuple:
         return run(), tally
     finally:
         pt.tree_hist = real
+
+
+# --------------------------------------------------------------------------
+# phase 13: queue 3's repairs and the redesigned LOCO walk
+# --------------------------------------------------------------------------
+
+WIDE_HASHES = (60_000, 100_003)    # past one row's shared-memory tile
+WIDE_HASH_ROWS = 3_000
+WIDE_MLP = (2048,)                 # a layer past one warp's shared slots
+LOCO_TREE_D = 100                  # columns of the loco_tree shape checks
+
+
+def check_wide_hashes(device="cuda", reps: int = 10) -> dict:
+    """``hash_counts`` at 60,000 and 100,003 hashes (unpacked ids, a few
+    thousand rows of up to 40 tokens, sentinels inside rows) written at a
+    column offset with the null column: the twin's counts exactly, and
+    timed beside the bytes' bound."""
+    import torch
+
+    from transmogrifai_tpu_torch.ops import text_kernels as tk
+    rng = np.random.default_rng(16)
+    out = {}
+    for H in WIDE_HASHES:
+        n = WIDE_HASH_ROWS
+        lens = rng.integers(0, 40, size=n)
+        flat = rng.integers(0, H, size=int(lens.sum())).astype(np.int32)
+        flat[::89] = H
+        ids = torch.as_tensor(flat, device=device)
+        off = torch.as_tensor(np.concatenate([[0], np.cumsum(lens)]),
+                              dtype=torch.int64, device=device)
+        null = torch.as_tensor(lens == 0, device=device)
+        got = torch.full((n, H + 3), -1.0, device=device)
+        want = torch.full((n, H + 3), -1.0, device=device)
+        tk.hash_counts(ids, off, null, H, out=got, col0=2, packed=False)
+        tk.hash_counts_twin(ids, off, null, H, want, 2, False)
+        if not torch.equal(got, want):
+            raise AssertionError(f"hash_counts at {H} hashes: not the twin's "
+                                 "counts")
+        bt, by = bound(4 * n * (H + 1) + 4 * flat.size + 8 * (n + 1) + n, 0)
+        out[f"hashes_{H}"] = {
+            "rows": n, "plan": tk.hash_plan(H), "max_abs_err": 0.0,
+            "ms": time_ms(lambda: tk.hash_counts(
+                ids, off, null, H, out=got, col0=2, packed=False), reps),
+            "bound_ms": bt, "bound_by": by}
+        del got, want
+    return out
+
+
+def check_wide_mlp_loco(device="cuda") -> dict:
+    """``loco_softmax`` on an MLP of ``hidden_layers=(2048,)`` with 4
+    classes (random weights from a seed) at 1,000 x 16 rows, one group a
+    column, top-5: the warps' slots in the device-memory scratch, held to
+    the twin (``_loco_case``)."""
+    import torch
+
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    from transmogrifai_tpu_torch.models.linear import MLPClassificationModel
+    rng = np.random.default_rng(16)
+    N, D, C, k = 1_000, 16, 4, 5
+    X = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32),
+                        device=device)
+    sizes = [D, *WIDE_MLP, C]
+    fitted = {"kind": "mlp", "n_layers": len(sizes) - 1, "n_classes": C}
+    for i in range(len(sizes) - 1):
+        fitted[f"W{i}"] = torch.as_tensor(rng.normal(
+            scale=(2.0 / sizes[i]) ** 0.5, size=(sizes[i], sizes[i + 1]))
+            .astype(np.float32), device=device)
+        fitted[f"b{i}"] = torch.as_tensor(rng.normal(
+            scale=0.1, size=sizes[i + 1]).astype(np.float32), device=device)
+    model = MLPClassificationModel(fitted=fitted)
+    cg = torch.arange(D, dtype=torch.int32, device=device)
+    plan = ik.loco_softmax_plan(N, D, D, k, WIDE_MLP[0], C, tuple(sizes[2:]))
+    if not plan.scratch_floats:
+        raise AssertionError("loco_softmax (2048,): slots not in the "
+                             "device-memory scratch")
+    H = WIDE_MLP[0]
+    case = _loco_case(
+        lambda: ik.loco_softmax(X, model, cg, D, k),
+        lambda kk: ik.loco_topk_twin(X, lambda Z: ik.loco_score(model, Z),
+                                     cg, D, kk, "abs"), D, k, "abs", 5,
+        4 * N * D + 8 * N * k, 2 * N * (D * H + (D + 1) * (H * C + H)))
+    return {**case, "hidden_layers": list(WIDE_MLP), "rows": N,
+            "plan": plan._asdict()}
+
+
+def check_loco_tree_shapes(device="cuda", n: int = 200_000) -> dict:
+    """``loco_tree`` against its twin (``check_loco_tree``) beyond the
+    default grid's shapes: for each link (GBT and forest, classifier and
+    regressor, 8 trees of depth 6 fitted on ``n`` x ``LOCO_TREE_D`` rows),
+    one group of every column (G = 1), 28 groups scattered over the
+    columns (top-20, "positive"), one group a column (G = 100: two windows
+    of groups) at top-40 (past 32: the list in the output) and at top-5
+    ("negative")."""
+    import torch
+
+    from transmogrifai_tpu_torch.models import trees as pt
+    rng = np.random.default_rng(16)
+    D = LOCO_TREE_D
+    Xh = rng.normal(size=(n, D)).astype(np.float32)
+    yh = (Xh[:, 0] + Xh[:, 1] * Xh[:, 2] + Xh[:, D - 1]
+          + rng.normal(size=n)).astype(np.float32)
+    X = torch.as_tensor(Xh, device=device)
+    maps = {1: np.zeros(D, np.int32),
+            28: rng.permutation(np.arange(D) % 28).astype(np.int32),
+            D: np.arange(D, dtype=np.int32)}
+    out = {}
+    for link, est in (
+            ("gbt", pt.OpGBTClassifier(max_iter=8, max_depth=6)),
+            ("forest", pt.OpRandomForestClassifier(num_trees=8, max_depth=6)),
+            ("gbt_regression", pt.OpGBTRegressor(max_iter=8, max_depth=6)),
+            ("forest_regression", pt.OpRandomForestRegressor(num_trees=8,
+                                                             max_depth=6))):
+        y = yh if link.endswith("regression") else (yh > 0).astype(
+            np.float32)
+        model = pt.TreeEnsembleModel(fitted=est.fit_arrays(X, y))
+        for G, k, strategy in ((1, 1, "abs"), (28, 20, "positive"),
+                               (D, 40, "abs"), (D, 5, "negative")):
+            cg = torch.as_tensor(maps[G], device=device)
+            r = check_loco_tree(X, model, cg, G, k, strategy, reps=2)
+            out[f"{link}_G{G}_k{k}_{strategy}"] = {
+                key: r[key] for key in ("max_abs_err", "max_abs_diff", "ms",
+                                        "bound_ms")}
+        del model
+    return out
+
+
+def check_binary_confusion_selector(device="cuda", n: int = N_ROWS) -> dict:
+    """The binary selector ranked by F1: the default LR grid
+    (``BinaryClassificationModelSelector``'s own LR candidates) on the
+    bench set's 1M x 28 rows, 3-fold CV with racing; the CV panel counts
+    each candidate's ``margin > 0`` prediction.  Returns the winner, its
+    parameters, every candidate's CV F1, the train wall and AuROC."""
+    import torch
+
+    from transmogrifai_tpu_torch import selector as S
+    from transmogrifai_tpu_torch.columns import Column, ColumnBatch
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+    from transmogrifai_tpu_torch.types import RealNN
+    from transmogrifai_tpu_torch.workflow import Workflow
+    X, y = make_data(n)
+    D = X.shape[1]
+    label = FeatureBuilder.RealNN("label").as_response()
+    feats = [FeatureBuilder.RealNN(f"f{i}").as_predictor() for i in range(D)]
+    checked = label.sanity_check(transmogrify(feats), remove_bad_features=True)
+    sel = S.BinaryClassificationModelSelector(
+        models=[S._lr_candidates()],
+        validation_metric=Evaluators.BinaryClassification.f1())
+    sel.set_input(label, checked)
+    pred = sel.get_output()
+    cols = {"label": Column(RealNN, y)}
+    for i in range(D):
+        cols[f"f{i}"] = Column(RealNN, X[:, i])
+    batch = ColumnBatch(cols, n)
+    wf = Workflow(device=device).set_input_batch(batch).set_result_features(
+        pred)
+    t0 = time.perf_counter()
+    model = wf.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summ = model.selected_model.summary
+    cv = [(r.params, float(r.metric_values["F1"]), r.raced_out)
+          for r in summ.validation_results]
+    if not all(np.isfinite(v) and 0.0 < v <= 1.0 for _, v, _ in cv):
+        raise AssertionError(f"F1-ranked selector: CV F1s {cv}")
+    auroc = float(model.evaluate(Evaluators.BinaryClassification.auROC(),
+                                 batch=batch)["AuROC"])
+    if auroc <= 0.7:
+        raise AssertionError(f"F1-ranked selector: train AuROC {auroc}")
+    kept = [(p_, v) for p_, v, raced in cv if not raced]
+    top = max(v for _, v in kept)
+    return {"rows": n, "winner": summ.best_model_name,
+            "winner_params": next(p_ for p_, v in kept if v == top),
+            "cv_f1": cv, "train_wall_s": wall, "train_auroc": auroc}
 
 
 def main() -> int:
@@ -5013,6 +5226,29 @@ def main() -> int:
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"library_ms={r['library_ms']}", flush=True)
     rows += fault_rows + bins_rows
+    torch.cuda.empty_cache()
+
+    # phase 13: queue 3's repairs (hash_counts past one row's tile,
+    # loco_softmax's slots in device memory, the binary selector ranked by
+    # F1 with the launches read around its train) and loco_tree's windows,
+    # links, strategies and long lists
+    print("hash_counts wide: " + json.dumps(check_wide_hashes()), flush=True)
+    torch.cuda.empty_cache()
+    print("loco_softmax (2048,): " + json.dumps(check_wide_mlp_loco()),
+          flush=True)
+    print("loco_tree shapes: " + json.dumps(check_loco_tree_shapes()),
+          flush=True)
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    f1_facts = check_binary_confusion_selector()
+    f1_launches = kernels.launch_counts()
+    print("binary selector ranked by F1: " + json.dumps(f1_facts),
+          flush=True)
+    print("binary F1 selector kernel launches: " + json.dumps(f1_launches),
+          flush=True)
+    if f1_launches["fista_step"] <= 0:
+        raise AssertionError("fista_step never launched on the F1-ranked "
+                             "selector")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke wall_s: {time.perf_counter() - t_start:.1f}",

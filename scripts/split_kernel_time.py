@@ -9,11 +9,15 @@ point); ``tree_split_gini`` at a forest level 5 (60 lanes, P = 32) and at
 the default grid's RF level 11 (150 and 300 lanes, P = 2048), all with
 5-of-28 node subsets and binary counts, and at level 5 with 4 classes (4
 features a node, as the multiclass workload's 16 give) and with 40
-classes; then ``chip_smoke.run_main_path`` (the bench set: LR x4, RF, GBT
-with 3-fold CV) at 1,000,000 x 28.
+classes; ``tree_split_variance`` at the regression RF's level 5 (300
+lanes, P = 32), level 11 of its depth-12 group (150 lanes, P = 2048), both
+with 5-of-16 node subsets, and at level 5 with ``max_bins=64`` (60 lanes);
+then ``chip_smoke.run_main_path`` (the bench set: LR x4, RF, GBT with
+3-fold CV) at 1,000,000 x 28.
 
     python3 scripts/split_kernel_time.py [--root DIR] [--reps R]
-        [--rows N] [--train-reps T] [--kernel-times] [--kernel xgb|gini]
+        [--rows N] [--train-reps T] [--kernel-times]
+        [--kernel xgb|gini|variance]
 
 ``--root`` is a checkout whose ``transmogrifai_tpu_torch`` is timed
 (default: the one this script is in; the inputs and the trains come from
@@ -21,7 +25,8 @@ this script's ``chip_smoke.py``), so that two versions can be compared on
 one card: run each in its own process, in the order A B B A.  A version whose wrapper refuses a shape reports its
 ``ValueError`` for it.  The histograms are synthetic (a seeded generator
 on the card, the same in every process): integer counts and class counts
-for gini, (count, w·g, w·h) for xgb, every bin of every node filled, the
+for gini, (count, w·g, w·h) for xgb, (count, w·y, w·y²) for variance,
+every bin of every node filled, the
 parent totals the sums over one feature's bins.  Times are CUDA events
 over ``--reps`` calls after a warm-up: ``ms`` of the wrapper called from
 Python (at small shapes the host's launch path, not the kernel, sets it)
@@ -35,7 +40,7 @@ whole level after its histogram (``_level``, one CUDA-graph replay, and
 its kernels' device ms): with a ``tree_split_gini`` that writes the tree
 arrays, that call; with one that does not, its dict form and the torch
 ops fit_trees then ran on the level (leaf values, is_leaf, feature,
-threshold, the gain ``scatter_add_``).  ``--kernel`` times one family of
+threshold, the gain ``scatter_add_``).  The variance shapes likewise.  ``--kernel`` times one family of
 shapes only (default: both).
 ``--train-reps 0`` skips the trains; else the first train is a warm-up.
 Prints one JSON line: the card's name and power limit, the root, each
@@ -80,13 +85,22 @@ def graph_ms(fn, reps: int) -> float:
     return time_ms(g.replay, reps)
 
 
-def split_inputs(K: int, P: int, C: int, subset: int, gen):
-    """A level's histogram [K, P, D, NB, S] with its totals, the split
+def split_inputs(K: int, P: int, C: int, subset: int, gen, d: int = D,
+                 nb: int = NB, variance: bool = False):
+    """A level's histogram [K, P, d, nb, S] with its totals, the split
     points, and (``subset`` > 0) each node's drawn features: gini
-    statistics (count, class counts) with C classes, xgb ones with C = 0."""
+    statistics (count, class counts) with C classes, xgb ones with C = 0,
+    variance ones (count, w·y, w·y²) with ``variance``."""
     import torch
     dev = "cuda"
-    if C:
+    D, NB = d, nb
+    if variance:
+        cnt = torch.randint(0, 40, (K, P, D, NB, 1), generator=gen,
+                            device=dev).float()
+        m = torch.randn((K, P, D, NB, 1), generator=gen, device=dev)
+        v = torch.rand((K, P, D, NB, 1), generator=gen, device=dev)
+        hist = torch.cat([cnt, cnt * m, cnt * (m * m + v)], dim=4)
+    elif C:
         cls = torch.randint(0, 40, (K, P, D, NB, C), generator=gen,
                             device=dev).float()
         hist = torch.cat([cls.sum(dim=4, keepdim=True), cls], dim=4)
@@ -108,7 +122,7 @@ def split_inputs(K: int, P: int, C: int, subset: int, gen):
     return hist, totals, splits, mask
 
 
-def _tree(K: int, P: int, V: int):
+def _tree(K: int, P: int, V: int, D: int = D):
     """fit_trees' arrays for a level of P nodes at offset P - 1."""
     import torch
     T = 4 * P - 1
@@ -126,7 +140,8 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--train-reps", type=int, default=2)
     ap.add_argument("--kernel-times", action="store_true")
-    ap.add_argument("--kernel", choices=("xgb", "gini"), default=None)
+    ap.add_argument("--kernel", choices=("xgb", "gini", "variance"),
+                    default=None)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -142,6 +157,7 @@ def main() -> int:
     epilogue = "tree" in inspect.signature(tk.tree_split).parameters
     gini_params = inspect.signature(tk.tree_split_gini).parameters
     gini_tree = "tree" in gini_params
+    var_params = inspect.signature(tk.tree_split_variance).parameters
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     fmask = torch.ones(D, dtype=torch.bool, device="cuda")
@@ -232,6 +248,48 @@ def main() -> int:
                 kms = chip_smoke.kernel_ms(level, args.reps)
                 kernel[name + "_level"] = {
                     "split_ms": chip_smoke._device_ms(kms, "tree_split_gini"),
+                    "all_ms": sum(kms.values()), "kernels": len(kms)}
+            del hist, tot, mask, tree
+            torch.cuda.empty_cache()
+    if args.kernel in (None, "variance"):
+        for name, K, P, nb in (
+                ("tree_split_variance_level5_300_lanes", 300, 32, NB),
+                ("tree_split_variance_level11_150_lanes", 150, 2048, NB),
+                ("tree_split_variance_level5_60_lanes_64_bins", 60, 32, 64)):
+            d, sub = 16, 5
+            hist, tot, sp, mask = split_inputs(K, P, 0, sub, gen, d, nb,
+                                               variance=True)
+            ten, zero = (torch.full((K,), v, device="cuda")
+                         for v in (10.0, 0.001))
+            fm = torch.ones(d, dtype=torch.bool, device="cuda")
+            a = (hist, tot, fm, mask, sp, ten, zero)
+            kw = {"width": sub} if "width" in var_params else {}
+            timed(name, lambda: tk.tree_split_variance(*a, **kw),
+                  "tree_split_variance")
+            tree = _tree(K, P, 1, d)
+            if "tree" in var_params:
+                level = lambda: tk.tree_split_variance(   # noqa: E731
+                    *a, tree=tree, offset=P - 1, **kw)
+            else:
+                def level():
+                    feature, threshold, is_leaf, leaf, gain = tree
+                    spl = tk.tree_split_variance(*a)
+                    off = P - 1
+                    leaf[:, off:off + P] = tot[..., 1:2] / torch.clamp(
+                        tot[..., 0:1], min=1e-12)
+                    lf = spl["is_leaf"]
+                    is_leaf[:, off:off + P] = lf
+                    feature[:, off:off + P] = torch.where(lf, -1,
+                                                          spl["feature"])
+                    threshold[:, off:off + P] = spl["threshold"]
+                    gain.scatter_add_(1, spl["feature"].long(),
+                                      torch.where(lf, 0.0, spl["gain"]))
+            graph[name + "_level"] = graph_ms(level, args.reps)
+            if args.kernel_times:
+                kms = chip_smoke.kernel_ms(level, args.reps)
+                kernel[name + "_level"] = {
+                    "split_ms": chip_smoke._device_ms(
+                        kms, "tree_split_variance"),
                     "all_ms": sum(kms.values()), "kernels": len(kms)}
             del hist, tot, mask, tree
             torch.cuda.empty_cache()

@@ -44,7 +44,12 @@ GLM grid fit on the card repeating its coefficients, ``n_iter`` and step
 halvings exactly and within 1e-3 of the CPU twins' coefficients;
 ``loco_linear``'s GLM links and ``loco_softmax`` (multinomial LR up to 40
 classes, naive Bayes, MLPs with one and two hidden layers, scattered and
-contiguous groups, k past 32) like the other LOCO kernels.
+contiguous groups, k past 32, a layer of 2,048 units with its slots in
+device memory) like the other LOCO kernels, and ``loco_tree`` also past one
+window of 64 groups and at k past 32; the variance split (the gini body)
+bit-equal to its f32 twin and its epilogue's tree arrays (the mean label)
+equal to the twin's bookkeeping; ``hash_counts`` past 58,112 hashes (column
+windows) equal to its twin.
 """
 
 import numpy as np
@@ -481,6 +486,35 @@ def test_hash_counts_matches_twin_with_offset_and_sentinels(cuda, H, packed):
     assert torch.equal(alone.cpu(), want[:, 5:5 + H])
 
 
+@pytest.mark.parametrize("H", [60_000, 100_003])
+def test_hash_counts_past_one_tile_match_twin(cuda, H):
+    """Past one row's shared-memory tile (58,112 hashes) the column windows
+    give the twin's counts exactly, at a column offset, with and without
+    the null column."""
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.ops import text_kernels as tk
+    rng = np.random.default_rng(16)
+    n = 3_001
+    null, lens, flat = _hash_stream(rng, n, H, max_tok=40)
+    flat[::89] = H
+    ids = np.concatenate([flat, np.full(7, H, np.int32)])
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    ids_d = torch.as_tensor(ids, device=cuda)
+    off_d = torch.as_tensor(off, device=cuda)
+    null_d = torch.as_tensor(null, device=cuda)
+    out = torch.full((n, H + 4), -1.0, device=cuda)
+    kernels.reset_launch_counts()
+    tk.hash_counts(ids_d, off_d, null_d, H, out=out, col0=2, packed=False)
+    assert kernels.launch_counts()["hash_counts"] == 1
+    want = torch.full((n, H + 4), -1.0)
+    tk.hash_counts_twin(torch.as_tensor(ids), torch.as_tensor(off),
+                        torch.as_tensor(null), H, want, 2, False)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want)
+    alone = tk.hash_counts(ids_d, off_d, None, H, packed=False)
+    assert torch.equal(alone.cpu(), want[:, 2:2 + H])
+
+
 def test_transmog_path_on_the_card_matches_the_twins(cuda):
     """The transmog workflow at 3,000 rows on the card and on the CPU
     twins: the same width, dropped set, Cramér's V and winner, CV AuPR and
@@ -764,6 +798,51 @@ def test_loco_tree_matches_twin(cuda, link):
                 lambda kk: ik.loco_topk_twin(
                     Xd, lambda Z: ik.loco_score(model, Z), cgd, G, kk,
                     strategy), G, k, strategy)
+
+
+@pytest.mark.parametrize("link", ["gbt", "forest", "gbt_regression",
+                                  "forest_regression"])
+@pytest.mark.parametrize("D,G,k,strategy", [
+    (28, 1, 1, "abs"),              # one group of every column
+    (28, 28, 20, "positive"),       # the default grid's groups, top-20
+    (100, 100, 40, "abs"),          # two windows of groups, k > 32
+    (100, 100, 5, "negative"),      # two windows, X read in place
+    (40, 40, 33, "abs")])           # k > 32 in one window
+def test_loco_tree_windows_and_long_lists_match_twin(cuda, link, D, G, k,
+                                                     strategy):
+    """``loco_tree`` at G = 1, a window of 28, past one window of 64
+    groups (the top-K list carried across the windows in the output), k
+    past 32, each link and strategy, depth-6 trees: the twin's diffs within
+    1e-5 of the largest, the same bits twice."""
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models import trees as pt
+    from transmogrifai_tpu_torch.models.trees import TreeEnsembleModel
+    rng = np.random.default_rng(D + G + k)
+    N = 3000
+    X = rng.normal(size=(N, D)).astype(np.float32)
+    y = X[:, 0] + X[:, 1] * X[:, 2] + X[:, D - 1] + rng.normal(size=N).astype(
+        np.float32)
+    if not link.endswith("_regression"):
+        y = (y > 0).astype(np.float32)
+    Xd = torch.as_tensor(X, device=cuda)
+    est = {"gbt": lambda: pt.OpGBTClassifier(max_iter=8, max_depth=6),
+           "forest": lambda: pt.OpRandomForestClassifier(num_trees=8,
+                                                         max_depth=6),
+           "gbt_regression": lambda: pt.OpGBTRegressor(max_iter=8,
+                                                       max_depth=6),
+           "forest_regression": lambda: pt.OpRandomForestRegressor(
+               num_trees=8, max_depth=6)}[link]()
+    model = TreeEnsembleModel(fitted=est.fit_arrays(Xd, y))
+    cgd = torch.as_tensor(rng.permutation(np.arange(D) % G).astype(np.int32),
+                          device=cuda)
+    kernels.reset_launch_counts()
+    _assert_loco_matches_twin(
+        lambda: ik.loco_tree(Xd, model, cgd, G, k, strategy),
+        lambda kk: ik.loco_topk_twin(
+            Xd, lambda Z: ik.loco_score(model, Z), cgd, G, kk, strategy),
+        G, k, strategy)
+    assert kernels.launch_counts()["loco_tree"] == 2
 
 
 def test_loco_stage_on_the_card_takes_the_kernels(cuda):
@@ -1503,6 +1582,51 @@ def test_loco_softmax_wide_and_deep_mlps_match_twin(cuda, hidden):
     assert float((val.double().abs() - best).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("hidden", [(2048,), (64, 2048)])
+def test_loco_softmax_slots_in_device_memory_match_twin(cuda, hidden):
+    """Layers too wide for one warp's slots in shared memory (the slots in
+    the device-memory scratch): 1,000 x 16 rows, 4 classes, one group a
+    column, top-5; each listed diff within 1e-5 of the largest |diff| of
+    the twin's diff of that group (the kernels' rule: the kernel removes a
+    group's first-layer share from the row's dot product, the twin sums the
+    masked row, and 2,048 hidden units carry that rounding into the
+    logits), the ranks at each place within the same, the same bits
+    twice."""
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models.linear import MLPClassificationModel
+    rng = np.random.default_rng(16)
+    N, D, C, k = 1_000, 16, 4, 5
+    G = D
+    Xd = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32),
+                         device=cuda)
+    cgd = torch.arange(D, dtype=torch.int32, device=cuda)
+    sizes = [D, *hidden, C]
+    fitted = {"kind": "mlp", "n_layers": len(sizes) - 1, "n_classes": C}
+    for i in range(len(sizes) - 1):
+        fitted[f"W{i}"] = torch.as_tensor(rng.normal(
+            scale=(2.0 / sizes[i]) ** 0.5, size=(sizes[i], sizes[i + 1]))
+            .astype(np.float32), device=cuda)
+        fitted[f"b{i}"] = torch.as_tensor(rng.normal(
+            scale=0.1, size=sizes[i + 1]).astype(np.float32), device=cuda)
+    model = MLPClassificationModel(fitted=fitted)
+    assert ik.loco_softmax_plan(N, D, G, k, hidden[0], C,
+                                tuple(sizes[2:])).scratch_floats > 0
+    kernels.reset_launch_counts()
+    idx, val = ik.loco_softmax(Xd, model, cgd, G, k, "abs")
+    idx2, val2 = ik.loco_softmax(Xd, model, cgd, G, k, "abs")
+    assert kernels.launch_counts()["loco_softmax"] == 2
+    assert torch.equal(idx, idx2) and torch.equal(val, val2)
+    ti, tv = ik.loco_topk_twin(Xd, lambda Z: ik.loco_score(model, Z), cgd, G,
+                               G, "abs")
+    full = torch.empty((N, G), dtype=torch.float32, device=cuda)
+    full.scatter_(1, ti.long(), tv)
+    tol = 1e-5 * float(tv.abs().max())
+    assert float((val - torch.gather(full, 1, idx.long())).abs().max()) \
+        <= tol
+    assert float((val.abs() - tv[:, :k].abs()).abs().max()) <= tol
+
+
 @pytest.mark.parametrize("lanes", [60, 300])
 def test_tree_hist_forest_levels_match_twin(cuda, lanes):
     """A forest level of 60 and 300 lanes (P = 32, Poisson x fold weights,
@@ -1918,6 +2042,111 @@ def test_tree_split_gini_epilogue_matches_the_bookkeeping(cuda, K, P, D, NB,
         out = tk.tree_split_gini(*args, tree=tree, offset=off)
         tk.write_level_twin({**{k: v.cpu() for k, v in out.items()},
                              "value": tk.gini_leaf(t).cpu()}, ref, off)
+        for name, x, r in zip(("feature", "threshold", "is_leaf", "leaf",
+                               "gain"), tree, ref):
+            assert torch.equal(x.cpu(), r), name
+    assert int((~out["is_leaf"]).sum()) > 1
+
+
+def _variance_split_inputs(cuda, rng, K, P, D, NB, sub, n=40):
+    """A variance level built on the card: n rows a node of fractional
+    weights w and real labels y, stats (w, w·y, w·y²), bins per feature,
+    the totals their sums; a fifth of the nodes empty; node subsets of
+    ``sub`` features (None: all)."""
+    g = torch.Generator(device=cuda).manual_seed(int(rng.integers(1 << 30)))
+    ws = torch.tensor([0.0, 0.5, 1.0, 1.25, 2.0], device=cuda)
+    w = ws[torch.randint(0, 5, (K, P, n), generator=g, device=cuda)]
+    w = w * (torch.rand((K, P, 1), generator=g, device=cuda) >= 0.2)
+    y = 3.0 + 2.0 * torch.randn((K, P, n), generator=g, device=cuda)
+    st = torch.stack([w, w * y, w * y * y], dim=-1)          # [K, P, n, 3]
+    bins = torch.randint(0, NB, (K, P, n, D), generator=g, device=cuda)
+    node = torch.arange(K * P, device=cuda).reshape(K, P, 1, 1)
+    cell = (node * D + torch.arange(D, device=cuda)) * NB + bins
+    hist = torch.zeros((K * P * D * NB, 3), device=cuda)
+    hist.index_add_(0, cell.reshape(-1), st[:, :, :, None, :].expand(
+        K, P, n, D, 3).reshape(-1, 3))
+    tot = st.sum(dim=2)
+    splits = torch.sort(torch.randn((D, NB - 1), generator=g, device=cuda),
+                        dim=1).values.contiguous()
+    mask = None
+    if sub is not None:
+        keys = torch.rand((K, P, D), generator=g, device=cuda)
+        mask = torch.zeros((K, P, D), dtype=torch.bool, device=cuda)
+        mask.scatter_(2, torch.topk(keys, sub, dim=2).indices, True)
+    return hist.reshape(K, P, D, NB, 3), tot.contiguous(), splits, mask
+
+
+@pytest.mark.parametrize("K,P,D,NB,sub", [
+    (300, 32, 16, 32, 5),           # an RF regressor's level 5, 300 lanes
+    (150, 2048, 16, 32, 5),         # the depth-12 group's level 11
+    (150, 1, 16, 32, 5),            # the root: 8 warps a node
+    (6, 64, 16, 32, None),          # GBT-like: every feature
+    (60, 32, 16, 64, 5),            # max_bins=64
+    (4, 16, 9, 127, None),          # 127 bins
+    (2, 2, 1597, 32, 40),           # 1,597 features
+    (3, 8, 12, 2, None),            # 2 bins: one split point
+])
+def test_tree_split_variance_bit_equal_to_twin(cuda, K, P, D, NB, sub):
+    """``tree_split_variance`` (the gini body with the variance impurity)
+    gives the f32 twin's bits in every output — the bin prefix in blocks of
+    16, ``_gain_variance``'s order — on fractional weights and real labels,
+    and the same on a second launch; nodes under 2·min_instances and empty
+    nodes are leaves with gain -inf, feature 0, bin 0."""
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    rng = np.random.default_rng(K + P + D + NB)
+    h, t, splits, mask = _variance_split_inputs(cuda, rng, K, P, D, NB, sub)
+    mi = torch.tensor([[1.0, 1e5, 10.0, 0.0][k % 4] for k in range(K)],
+                      device=cuda)
+    mg = torch.tensor([[0.0, 0.001, 0.1][k % 3] for k in range(K)],
+                      device=cuda)
+    fmask = torch.ones(D, dtype=torch.bool, device=cuda)
+    fmask[D // 2] = D < 3
+    args = (h, t, fmask, mask, splits, mi, mg)
+    kernels.reset_launch_counts()
+    a, b = tk.tree_split_variance(*args), tk.tree_split_variance(*args)
+    assert kernels.launch_counts()["tree_split_variance"] == 2
+    for k0 in range(0, K, 16):
+        sl = slice(k0, k0 + 16)
+        want = tk.tree_split_variance_twin(
+            h[sl], t[sl], fmask, None if mask is None else mask[sl], splits,
+            mi[sl], mg[sl])
+        for key in want:
+            assert torch.equal(a[key][sl], want[key]), key
+            assert torch.equal(b[key][sl], want[key]), key
+    under = t[..., 0] < 2 * mi[:, None]
+    assert bool(under.any())
+    assert bool(torch.isinf(a["gain"][under]).all())
+    assert bool(torch.isfinite(a["gain"]).any())
+
+
+@pytest.mark.parametrize("K,P,D,NB,sub", [(300, 32, 16, 32, 5),
+                                          (150, 2048, 16, 32, 5),
+                                          (6, 64, 16, 32, None)])
+def test_tree_split_variance_epilogue_matches_the_bookkeeping(cuda, K, P, D,
+                                                              NB, sub):
+    """With fit_trees' tree arrays the variance kernel writes the level's
+    feature, threshold, is_leaf and mean label and adds the split nodes'
+    gains as ``write_level_twin`` does on the CPU from the same split and
+    totals: the same bits, twice in a row."""
+    from transmogrifai_tpu_torch.models import tree_kernels as tk
+    rng = np.random.default_rng(P + D + 7)
+    h, t, splits, mask = _variance_split_inputs(cuda, rng, K, P, D, NB, sub)
+    lane = lambda v: torch.full((K,), v, device=cuda)   # noqa: E731
+    fmask = torch.ones(D, dtype=torch.bool, device=cuda)
+    args = (h, t, fmask, mask, splits, lane(1.0), lane(0.0))
+    off, T = P - 1, 4 * P - 1
+    tree = (torch.full((K, T), -1, dtype=torch.int32, device=cuda),
+            torch.full((K, T), float("inf"), device=cuda),
+            torch.zeros((K, T), dtype=torch.bool, device=cuda),
+            torch.zeros((K, T, 1), device=cuda),
+            torch.as_tensor(rng.random((K, D)).astype(np.float32),
+                            device=cuda))
+    ref = tuple(x.cpu() for x in tree)
+    for _ in range(2):
+        out = tk.tree_split_variance(*args, tree=tree, offset=off)
+        tk.write_level_twin({**{k: v.cpu() for k, v in out.items()},
+                             "value": tk.variance_leaf(t).cpu()}, ref, off)
         for name, x, r in zip(("feature", "threshold", "is_leaf", "leaf",
                                "gain"), tree, ref):
             assert torch.equal(x.cpu(), r), name

@@ -147,11 +147,13 @@ def test_skip_seam_skips_only_the_reference_exceptions():
 # --------------------------------------------------------------------------
 
 def test_split_plans_cover_any_width_and_class_count():
-    p = tk.split_plan(1597)
-    assert (p.d_chunk, p.n_chunks) == (1024, 2)
-    assert tk.split_plan(28).n_chunks == 1 and tk.split_plan(28).d_chunk == 28
-    # the gini split (gini_split_plan): any width over W warps of fc
-    # features, the classes in chunks of the smallest template that holds C
+    # the gini and variance splits (gini_split_plan; the variance form at
+    # C = 2): any width over W warps of fc features, the classes in chunks
+    # of the smallest template that holds C
+    for D in (28, 1597):
+        v = tk.gini_split_plan(3, 4, D, 32, 2)
+        assert (v["ct"], v["class_chunks"]) == (2, 1)
+        assert v["W"] * v["fc"] >= D
     g6 = tk.gini_split_plan(3, 4, 1597, 32, 6)
     assert (g6["ct"], g6["class_chunks"]) == (8, 1)
     assert g6["W"] * g6["fc"] >= 1597
@@ -167,35 +169,60 @@ def test_split_plans_cover_any_width_and_class_count():
     plan = tk.hist_deep_plan(1000, 4, 1, 256, 127, 300)
     assert (plan["Sc"], plan["NSC"]) == (150, 2)
     with pytest.raises(ValueError):
-        tk.split_plan(0)
+        tk.gini_split_plan(3, 4, 0, 32, 2)
 
 
 def test_feature_chunks_keep_the_first_max_at_1597_features():
-    """At D = 1,597 the features split into chunks of 1,024 and 573.  The
-    best gain sits at an exact tie across the two chunks (features 100 and
-    1,500) and inside the second (1,500 and 1,501): the chunked argmax with
-    a strict ``>`` between chunks picks feature 100, as the twin's argmax
-    over the whole table and the JAX argmax over feature chunks do."""
+    """At D = 1,597 a shallow level's node spreads its features over the W
+    warps of ``gini_split_plan`` (chunks of fc features).  The best gain
+    sits at an exact tie across two chunks (features 100 and 1,500) and
+    inside one (1,500 and 1,501): each chunk's first max, combined highest
+    gain, then lowest feature, then lowest bin (``split_level.cuh``), picks
+    feature 100, as the twin's argmax over the whole table and the JAX
+    argmax over feature chunks do.  The variance split takes it too, on a
+    histogram whose features 100 and 1,500 are the same."""
     D, NB = 1597, 4
-    plan = tk.split_plan(D)
+    plan = tk.gini_split_plan(1, 2, D, NB, 2)
+    assert plan["W"] > 1 and 100 // plan["fc"] != 1500 // plan["fc"]
     rng = np.random.default_rng(0)
     gains = torch.as_tensor(rng.random((1, 2, D, NB)).astype(np.float32))
     gains[..., NB - 1] = float("-inf")
     gains[0, 0, 100, 2] = gains[0, 0, 1500, 1] = gains[0, 0, 1501, 0] = 5.0
     gains[0, 1, 1500, 1] = gains[0, 1, 1501, 0] = 6.0
     table = gains.reshape(1, 2, D * NB)
-    best = torch.full((1, 2), float("-inf"))
-    feat = torch.zeros((1, 2), dtype=torch.long)
-    for c in range(plan.n_chunks):
-        lo, hi = c * plan.d_chunk, min(D, (c + 1) * plan.d_chunk)
-        sub = gains[:, :, lo:hi].reshape(1, 2, -1)
-        cidx = torch.argmax(sub, dim=2)           # first max in the chunk
-        cb = torch.gather(sub, 2, cidx[..., None])[..., 0]
-        take = cb > best
-        best = torch.where(take, cb, best)
-        feat = torch.where(take, lo + cidx // NB, feat)
-    assert feat.tolist() == [[100, 1500]]
-    assert (torch.argmax(table, dim=2) // NB).tolist() == feat.tolist()
+
+    def chunked(g):
+        best = [(float("-inf"), 0, 0)] * g.shape[1]
+        for c in range(plan["W"]):
+            lo, hi = c * plan["fc"], min(D, (c + 1) * plan["fc"])
+            sub = g[:, :, lo:hi].reshape(1, g.shape[1], -1)
+            cidx = torch.argmax(sub, dim=2)[0]    # the chunk's first max
+            for p in range(g.shape[1]):
+                cand = (float(sub[0, p, cidx[p]]), lo + int(cidx[p]) // NB,
+                        int(cidx[p]) % NB)
+                if (cand[0], -cand[1], -cand[2]) > (best[p][0], -best[p][1],
+                                                    -best[p][2]):
+                    best[p] = cand
+        return [b[1] for b in best]
+
+    assert chunked(gains) == [100, 1500]
+    assert (torch.argmax(table, dim=2) // NB)[0].tolist() == [100, 1500]
+    # the variance split on a histogram where only features 100 and 1,500
+    # inform (the same bins: a tie across chunks) and every feature's bins
+    # add up to the node's totals
+    hist = torch.tensor([10.0, 25.0, 125.0]).repeat(1, 2, D, NB, 1)
+    sharp = torch.tensor([[10.0, 0.0, 0.0], [10.0, 0.0, 0.0],
+                          [10.0, 50.0, 250.0], [10.0, 50.0, 250.0]])
+    hist[:, :, 100] = hist[:, :, 1500] = sharp
+    tot = hist[:, :, 0].sum(dim=2).contiguous()
+    out = tk.tree_split_variance(
+        hist, tot, torch.ones(D, dtype=torch.bool), None,
+        torch.zeros((D, NB - 1)), torch.zeros(1), torch.zeros(1))
+    vg = tk.split_gains_variance(hist, tot, torch.ones(D, dtype=torch.bool),
+                                 None, torch.zeros(1)).reshape(1, 2, D, NB)
+    assert out["feature"][0].tolist() == [100, 100] == chunked(vg)
+    assert out["bin"][0].tolist() == [1, 1]
+    assert not bool(out["is_leaf"].any())
 
 
 @pytest.fixture(scope="module")
@@ -258,13 +285,20 @@ def test_loco_plans_at_the_transmog_width():
     assert not ik.loco_plan("linear", 100_000, 512, 128, 20).wide_groups
     assert not ik.loco_plan("linear", N, 1597, 12, 12).wide_groups
     assert ik.loco_plan("linear", 5, D, 12, 12).blocks == 1
-    gbt = ik.loco_plan("tree", N, 28, 28, 20, n_nodes=20 * 15)
-    assert gbt.blocks == ik.BLOCKS_IN_FLIGHT
-    assert gbt.smem_bytes == 20 * 15 * 13 + 4 * 28
-    rf = ik.loco_plan("tree", N, 28, 28, 28, n_nodes=20 * 127, forest=True)
-    assert rf.smem_bytes == 20 * 127 * 17 + 4 * 28
-    deep = ik.loco_plan("tree", N, 1596, 1596, 1596, n_nodes=20 * 8191)
-    assert deep.smem_bytes == 0                     # read from device memory
+    # the tree kernel: a row a thread, 128 a block; the groups' sums in a
+    # slab of one window (two sums a group for a forest classifier) beside
+    # the block's staged rows of X
+    R = ik.TREE_ROWS
+    xs = 29 if 4 * R * 29 <= ik.TREE_X_SMEM else 0
+    gbt = ik.loco_plan("tree", N, 28, 28, 20)
+    assert (gbt.blocks, gbt.threads) == (-(-N // R), R)
+    assert (gbt.group_window, gbt.x_stride) == (28, xs)
+    assert gbt.smem_bytes == 4 * (28 * (R + 1) + R * xs)
+    rf = ik.loco_plan("tree", N, 28, 28, 28, forest=True)
+    assert rf.smem_bytes == 4 * (2 * 28 * (R + 1) + R * xs)
+    deep = ik.loco_plan("tree", N, 1596, 1596, 1596)
+    assert (deep.group_window, deep.x_stride) == (64, 0)   # X in place
+    assert deep.smem_bytes == 4 * 64 * (R + 1)
     for bad in ((0, 1), (5, 6)):
         with pytest.raises(ValueError, match="K <= G"):
             ik.loco_plan("linear", N, D, *bad)

@@ -292,11 +292,65 @@ def test_softmax_plan_holds_wide_and_deep_mlps(H, tail, staged):
 @pytest.mark.parametrize("args,match", [
     ((10, 16, 4, 5, 4, 4, ()), "K <= G"), ((10, 16, 4, 0, 4, 4, ()), "K"),
     ((10, 16, 4, 2, 4, 1, ()), "C >= 2"), ((10, 16, 4, 2, 4, 3, ()), "C=3"),
-    ((10, 16, 4, 2, 10, 4, (5,)), "outputs"),
-    ((10, 16, 4, 2, 2000, 2000, ()), "shared memory")])
+    ((10, 16, 4, 2, 10, 4, (5,)), "outputs")])
 def test_softmax_plan_raises_on_shapes_it_cannot_hold(args, match):
     with pytest.raises(ValueError, match=match):
         ik.loco_softmax_plan(*args)
+
+
+@pytest.mark.parametrize("args", [
+    (10, 16, 4, 2, 2000, 2000, ()),                 # 2,000 classes
+    (1_000_000, 16, 16, 5, 1800, 1800, ()),         # 1,800 classes
+    (1_000_000, 16, 16, 5, 2048, 4, (4,)),          # hidden_layers=(2048,)
+    (1_000_000, 16, 16, 5, 64, 4, (2048, 4)),       # hidden_layers=(64, 2048)
+    (1_000, 16, 16, 5, 1800, 4, (4,))])
+def test_softmax_plan_holds_slots_past_shared_memory(args):
+    """Where one warp's slots do not fit shared memory, the plan puts the
+    slots of 8 warps a block in device memory (lane-interleaved, one region
+    a warp in flight, within ``SLOT_SCRATCH_BYTES``) and stages the tail's
+    weights where they fit."""
+    N, D, G, K, H, C_, tail = args
+    plan = ik.loco_softmax_plan(*args)
+    dims = (H,) + tail
+    per_warp = 32 * (plan.slot | 1) + H
+    assert 4 * per_warp > ik.SMEM_MAX
+    assert plan.threads == ik.THREADS
+    assert plan.slot == max(dims[0::2]) + (max(dims[1::2]) if tail else 0)
+    assert plan.scratch_floats == plan.blocks * plan.threads // 32 * per_warp
+    assert 4 * plan.scratch_floats <= ik.SLOT_SCRATCH_BYTES
+    assert 1 <= plan.blocks <= min(ik.BLOCKS_IN_FLIGHT, -(-N // 8))
+    assert plan.tail_in_smem is (4 * plan.tail_floats <= ik.SMEM_MAX)
+    assert plan.smem_bytes == 4 * plan.tail_floats * plan.tail_in_smem
+
+
+@pytest.mark.parametrize("H,tail", [(256, (256, 4)), (900, (4,)),
+                                    (512, (4,)), (1700, (4,)), (16, (4,))])
+def test_softmax_plan_keeps_shared_slots_where_they_fit(H, tail):
+    """Every shape whose slots fit shared memory keeps them there."""
+    plan = ik.loco_softmax_plan(1_000_000, 16, 16, 5, H, 4, tail)
+    assert plan.scratch_floats == 0 and plan.smem_bytes <= ik.SMEM_MAX
+
+
+def test_wide_mlp_twin_matches_jax_loco():
+    """A 1,000 x 16 MLP with ``hidden_layers=(2048,)`` and 4 classes (random
+    weights from a seed, one group a column, top-5): the port's LOCO (the
+    twin on the CPU) within 1e-6 of the JAX stage's diffs."""
+    rng = np.random.default_rng(16)
+    n, d, h, c = 1000, 16, 2048, 4
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    fitted = {"n_layers": 2, "n_classes": c,
+              "W0": rng.normal(scale=(2.0 / d) ** 0.5, size=(d, h))
+              .astype(np.float32),
+              "b0": rng.normal(scale=0.1, size=h).astype(np.float32),
+              "W1": rng.normal(scale=(2.0 / h) ** 0.5, size=(h, c))
+              .astype(np.float32),
+              "b1": rng.normal(scale=0.1, size=c).astype(np.float32)}
+    jm = jl.MLPClassificationModel(fitted=fitted)
+    pm = convert.prediction_model({"model": "MLPClassificationModel",
+                                   "fitted": fitted}, CPU)
+    assert ik.loco_softmax_plan(n, d, d, 5, h, c, (c,)).scratch_floats > 0
+    _assert_maps_close(_jax_loco(jm, X, None, top_k=5),
+                       _port_loco(pm, X, None, top_k=5), "abs", TOL)
 
 
 def test_models_without_a_softmax_link_are_refused():

@@ -155,6 +155,66 @@ def test_hash_counts_twin_offset_write_without_null_column():
         tk.hash_counts(ids, off, None, 1024)          # packed wire < 1024
 
 
+def test_hash_plan_takes_every_width_up_to_100003():
+    """Every width plans: whole count rows in shared memory up to 58,112
+    hashes (the launch as it was), tiles of column windows past that; the
+    windows cover the columns once."""
+    for H in range(1, 100_004):
+        plan = tk.hash_plan(H)
+        if 4 * H <= tk._SMEM_MAX:
+            assert plan == {"R": min(32, tk._SMEM_MAX // (4 * H)), "WH": H,
+                            "windows": 1}
+        else:
+            assert 4 * plan["R"] * plan["WH"] <= tk._SMEM_MAX
+            assert (plan["windows"] - 1) * plan["WH"] < H \
+                <= plan["windows"] * plan["WH"]
+    assert tk.hash_plan(58_112)["windows"] == 1
+    assert tk.hash_plan(58_113)["windows"] == 8
+    with pytest.raises(ValueError):
+        tk.hash_plan(0)
+
+
+def _emulate_windows(ids, off, null, H, plan):
+    """``csrc/hash_counts.cu``'s window form in numpy: block (row tile,
+    window w) counts the ids of its rows that fall in its window and writes
+    those columns; the last window writes the null column."""
+    n = len(off) - 1
+    out = np.full((n, H + 1), np.nan, np.float32)
+    R, WH = plan["R"], plan["WH"]
+    for r0 in range(0, n, R):
+        for w0 in range(0, H, WH):
+            wn = min(WH, H - w0)
+            cnt = np.zeros((min(R, n - r0), wn), np.float32)
+            for r in range(cnt.shape[0]):
+                t = ids[off[r0 + r]:off[r0 + r + 1]] - w0
+                t = t[(t >= 0) & (t < wn)]
+                np.add.at(cnt[r], t, 1.0)
+            out[r0:r0 + cnt.shape[0], w0:w0 + wn] = cnt
+            if w0 + wn == H:
+                out[r0:r0 + cnt.shape[0], H] = null[r0:r0 + cnt.shape[0]]
+    return out
+
+
+@pytest.mark.parametrize("H", [60_000, 100_003])
+def test_hash_counts_past_58112_hashes_equal_the_jax_scatter(H):
+    """At 60,000 and 100,003 hashes (past one row's shared-memory tile) the
+    twin's counts equal the JAX package's ``_scatter_counts_device``, and
+    the kernel's window form, emulated, equals the twin."""
+    strings = np.asarray(ODD_TEXT + list(port_columns(60)[0]["text3"].values),
+                         dtype=object)
+    prof = pprof.scan_strings(strings)
+    ids, off = prof.device_ids(H, torch.device("cpu"))
+    null = torch.from_numpy(prof.null)
+    got = _np(tk.hash_counts(ids, off, null, H, packed=False))
+    lens, flat = jprof.scan_strings(strings).buckets(H)
+    want = np.asarray(jtext.device_counts_from_flat(lens, flat, H))
+    np.testing.assert_array_equal(got[:, :H], want)
+    np.testing.assert_array_equal(got[:, H], prof.null.astype(np.float32))
+    np.testing.assert_array_equal(
+        _emulate_windows(_np(ids).astype(np.int64), _np(off), prof.null, H,
+                         tk.hash_plan(H)), got)
+
+
 def test_map_expansion_native_equals_python_and_the_jax_package():
     from transmogrifai_tpu.ops import map_profile as jmp
     from transmogrifai_tpu_torch.ops import map_profile as pmp

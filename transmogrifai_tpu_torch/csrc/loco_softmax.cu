@@ -39,7 +39,13 @@
 // memory where they fit beside the warps' slots (tw_smem), else read from
 // device memory through the cache (a wide or deep MLP: 256 x 256 alone is
 // 256 KB); W1 is read through the cache.  Per-lane state lives in shared
-// memory, not registers, so a wide C or H costs no spills.
+// memory, not registers, so a wide C or H costs no spills.  Where one
+// warp's slots do not fit shared memory (a layer of ~1,800 units or more,
+// or as many classes), they live in a device-memory scratch that the
+// wrapper allocates, one region a warp in flight, each element k of the 32
+// lanes' slots side by side (element k of lane l at 32 k + l), so the warp's
+// accesses to one element coalesce; the arithmetic and its order are those
+// of the shared-memory form.
 //
 // Bound: device-memory bytes — X read once (4 N D) and the [N, K] output
 // written once (8 N K) — or the operations, ~2 N (D H + G (H + tail) +
@@ -55,7 +61,9 @@
 // layer activations a[0..H), then the softmax's last class; `b` is the
 // lane's second buffer (a tail of one layer or more), dims[0..n_tail] the
 // widths from H to C, tw each layer's W [in][out] then b [out] (shared or
-// device memory)
+// device memory); ES the stride of a slot's elements (1 in shared memory,
+// 32 in the lane-interleaved scratch)
+template <int ES>
 __device__ __forceinline__ float tail_prob(float* a, float* b,
                                            const float* tw,
                                            const int32_t* dims, int n_tail,
@@ -65,11 +73,12 @@ __device__ __forceinline__ float tail_prob(float* a, float* b,
   int din = H;
   for (int i = 0; i < n_tail; ++i) {
     const int dout = __ldg(dims + i + 1);
-    for (int k = 0; k < din; ++k) in[k] = fmaxf(in[k], 0.f);
+    for (int k = 0; k < din; ++k) in[k * ES] = fmaxf(in[k * ES], 0.f);
     for (int c = 0; c < dout; ++c) {
       float s = 0.f;
-      for (int k = 0; k < din; ++k) s = fmaf(in[k], tw[k * dout + c], s);
-      out[c] = s + tw[din * dout + c];
+      for (int k = 0; k < din; ++k)
+        s = fmaf(in[k * ES], tw[k * dout + c], s);
+      out[c * ES] = s + tw[din * dout + c];
     }
     tw += din * dout + dout;
     float* t = in;
@@ -78,12 +87,15 @@ __device__ __forceinline__ float tail_prob(float* a, float* b,
     din = dout;
   }
   float mx = in[0];
-  for (int c = 1; c < C; ++c) mx = fmaxf(mx, in[c]);
+  for (int c = 1; c < C; ++c) mx = fmaxf(mx, in[c * ES]);
   float sum = 0.f;
-  for (int c = 0; c < C; ++c) sum += expf(in[c] - mx);
-  return expf(in[C - 1] - mx) / sum;
+  for (int c = 0; c < C; ++c) sum += expf(in[c * ES] - mx);
+  return expf(in[(C - 1) * ES] - mx) / sum;
 }
 
+// GS: the warps' slots in the device-memory scratch (one region of
+// 32 SP + H floats a warp in flight), else in shared memory
+template <bool GS>
 __global__ void loco_softmax_kernel(const float* __restrict__ X,
                                     const float* __restrict__ W1,
                                     const float* __restrict__ b1,
@@ -93,17 +105,22 @@ __global__ void loco_softmax_kernel(const float* __restrict__ X,
                                     const int32_t* __restrict__ goff,
                                     float* __restrict__ out_val,
                                     int32_t* __restrict__ out_idx,
+                                    float* __restrict__ scratch,
                                     long long N, int D, int G, int K,
                                     int strategy, int H, int C, int n_tail,
                                     int relu_in, int SA, int SB, int TW,
                                     int tw_smem) {
   extern __shared__ float sm[];
+  constexpr int ES = GS ? 32 : 1;                    // a slot's element stride
   const int staged = tw_smem ? TW : 0;               // tail weights in sm
   const float* tw = tw_smem ? sm : tw_g;
   const int SP = (SA + SB) | 1;                      // a lane's slot stride
+  const int LS = GS ? 1 : SP;                        // a lane's slot offset
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* region = sm + staged + warp * (32 * SP + H);
-  float* slot = region + lane * SP;                  // this lane's slot
+  float* region = GS ? scratch + ((long long)blockIdx.x * (blockDim.x >> 5)
+                                  + warp) * (32 * SP + H)
+                     : sm + staged + warp * (32 * SP + H);
+  float* slot = region + lane * LS;                  // this lane's slot
   float* dot = region + 32 * SP;                     // [H] the warp's dot
   for (int i = threadIdx.x; i < staged; i += blockDim.x) sm[i] = tw_g[i];
   __syncthreads();
@@ -114,21 +131,23 @@ __global__ void loco_softmax_kernel(const float* __restrict__ X,
   for (long long n = first; n < N; n += n_warps) {
     const float* x = X + n * D;
     // the base: lane partials of phi(x) . W1 over columns lane, lane + 32
-    for (int k = 0; k < H; ++k) slot[k] = 0.f;
+    for (int k = 0; k < H; ++k) slot[k * ES] = 0.f;
     for (int j = lane; j < D; j += 32) {
       const float v = relu_in ? fmaxf(x[j], 0.f) : x[j];
       const float* w = W1 + (long long)j * H;
-      for (int k = 0; k < H; ++k) slot[k] = fmaf(v, __ldg(w + k), slot[k]);
+      for (int k = 0; k < H; ++k)
+        slot[k * ES] = fmaf(v, __ldg(w + k), slot[k * ES]);
     }
     __syncwarp();
     for (int k = lane; k < H; k += 32) {
       float s = 0.f;
-      for (int l = 0; l < 32; ++l) s += region[l * SP + k];
+      for (int l = 0; l < 32; ++l) s += region[l * LS + k * ES];
       dot[k] = s;
     }
     __syncwarp();
-    for (int k = 0; k < H; ++k) slot[k] = dot[k] + __ldg(b1 + k);
-    const float base = tail_prob(slot, slot + SA, tw, dims, n_tail, H, C);
+    for (int k = 0; k < H; ++k) slot[k * ES] = dot[k] + __ldg(b1 + k);
+    const float base = tail_prob<ES>(slot, slot + SA * ES, tw, dims, n_tail,
+                                     H, C);
 
     WarpTopK t = loco_topk_init(K, strategy, out_val + n * K,
                                 out_idx + n * K);
@@ -137,17 +156,19 @@ __global__ void loco_softmax_kernel(const float* __restrict__ X,
       const bool valid = g < G;
       float d = 0.f;
       if (valid) {
-        for (int k = 0; k < H; ++k) slot[k] = 0.f;
+        for (int k = 0; k < H; ++k) slot[k * ES] = 0.f;
         const int c1 = goff[g + 1];
         for (int c = goff[g]; c < c1; ++c) {
           const int col = perm ? perm[c] : c;
           const float v = relu_in ? fmaxf(x[col], 0.f) : x[col];
           const float* w = W1 + (long long)col * H;
-          for (int k = 0; k < H; ++k) slot[k] = fmaf(v, __ldg(w + k), slot[k]);
+          for (int k = 0; k < H; ++k)
+            slot[k * ES] = fmaf(v, __ldg(w + k), slot[k * ES]);
         }
         for (int k = 0; k < H; ++k)
-          slot[k] = (dot[k] - slot[k]) + __ldg(b1 + k);
-        d = base - tail_prob(slot, slot + SA, tw, dims, n_tail, H, C);
+          slot[k * ES] = (dot[k] - slot[k * ES]) + __ldg(b1 + k);
+        d = base - tail_prob<ES>(slot, slot + SA * ES, tw, dims, n_tail, H,
+                                 C);
       }
       loco_topk_offer(t, valid, g, d);
     }
@@ -156,30 +177,33 @@ __global__ void loco_softmax_kernel(const float* __restrict__ X,
   }
 }
 
+// scratch: null (the slots in shared memory) or the wrapper's f32 [blocks
+// x threads/32 x (32 ((SA + SB) | 1) + H)] device-memory slots
 extern "C" int loco_softmax_launch(const void* X, const void* W1,
                                    const void* b1, const void* tw,
                                    const void* dims, const void* perm,
                                    const void* goff, void* out_val,
-                                   void* out_idx, long long N, int D, int G,
-                                   int K, int strategy, int H, int C,
-                                   int n_tail, int relu_in, int SA, int SB,
-                                   int TW, int tw_smem, int blocks,
+                                   void* out_idx, void* scratch, long long N,
+                                   int D, int G, int K, int strategy, int H,
+                                   int C, int n_tail, int relu_in, int SA,
+                                   int SB, int TW, int tw_smem, int blocks,
                                    int threads, int smem, void* stream) {
   if (K < 1 || K > G || D < 1 || H < 1 || C < 2 || SA < H ||
       (n_tail == 0 ? SB != 0 : SB < 1) || n_tail < 0 ||
       (n_tail == 0 && H != C) || threads % 32 || threads < 32 ||
       strategy < 0 || strategy > 2 || blocks < 1 || TW < 0)
     return (int)cudaErrorInvalidValue;
+  decltype(&loco_softmax_kernel<true>) kern =
+      scratch ? &loco_softmax_kernel<true> : &loco_softmax_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        loco_softmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  loco_softmax_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  kern<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const float*)X, (const float*)W1, (const float*)b1, (const float*)tw,
       (const int32_t*)dims, (const int32_t*)perm, (const int32_t*)goff,
-      (float*)out_val, (int32_t*)out_idx, N, D, G, K, strategy, H, C, n_tail,
-      relu_in, SA, SB, TW, tw_smem);
+      (float*)out_val, (int32_t*)out_idx, (float*)scratch, N, D, G, K,
+      strategy, H, C, n_tail, relu_in, SA, SB, TW, tw_smem);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // loco_topk.cuh — a row's top-K of leave-one-covariate-out diffs, kept by
-// the warp that computes them; shared by loco_linear.cu and loco_tree.cu.
+// the warp that computes them; shared by loco_linear.cu, loco_tree.cu and
+// loco_softmax.cu.
 //
 // Replaces (JAX): the lax.top_k over the [N, G] diff matrix in
 // transmogrifai_tpu/record_insights.py:_device_topk (:150-158).  On the TPU
@@ -74,6 +75,23 @@ __device__ __forceinline__ WarpTopK loco_topk_init(int k, int strategy,
   t.strategy = strategy;
   t.val = val;
   t.idx = idx;
+  return t;
+}
+
+// the list of a row whose first groups were offered before (cnt = min(k,
+// groups offered)) and written out by loco_topk_write: read back from the
+// row's output, so that a later batch of groups carries on with it
+__device__ __forceinline__ WarpTopK loco_topk_resume(int k, int strategy,
+                                                     float* val,
+                                                     int32_t* idx, int cnt) {
+  WarpTopK t = loco_topk_init(k, strategy, val, idx);
+  t.cnt = cnt;
+  const int lane = threadIdx.x & 31;
+  if (k <= 32 && lane < cnt) {
+    t.d = val[lane];
+    t.g = idx[lane];
+    t.key = loco_rank(t.d, strategy);
+  }
   return t;
 }
 

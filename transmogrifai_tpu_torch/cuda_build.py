@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C launch interface and compiles with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared library
 under ``csrc/_build/`` (named by the content hash of the source and of the
-``csrc`` headers it includes, so an edited source or header rebuilds the
-libraries built from it and no others), loaded with ``ctypes``.  Nothing is
+``csrc`` headers it includes, nested ones too, so an edited source or header
+rebuilds the libraries built from it and no others), loaded with
+``ctypes``.  Nothing is
 compiled or loaded at import time: the first launch of a kernel builds it, and
 :func:`build_all` builds every source at once, one ``nvcc`` per source, all
 running in parallel.
@@ -48,9 +49,16 @@ def _lib_path(name: str) -> str:
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
         src = fh.read()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
-    for header in re.findall(rb'#include "([^"]+)"', src):
-        with open(os.path.join(CSRC, header.decode()), "rb") as fh:
-            digest.update(fh.read())
+    seen, todo = set(), re.findall(rb'#include "([^"]+)"', src)
+    while todo:                        # the csrc headers, nested ones too
+        header = todo.pop(0).decode()
+        if header in seen:
+            continue
+        seen.add(header)
+        with open(os.path.join(CSRC, header), "rb") as fh:
+            text = fh.read()
+        digest.update(text)
+        todo.extend(re.findall(rb'#include "([^"]+)"', text))
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -11,16 +11,20 @@ package's host form (``evaluate_all``, numpy).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .metrics_device import (MULTI_METRICS, masked_aupr,
-                             masked_aupr_fold_grid, masked_aupr_grid,
-                             masked_auroc, masked_auroc_fold_grid,
-                             masked_auroc_grid, masked_binary_confusion,
+from .metrics_device import (BINARY_CONF_METRICS, MULTI_METRICS,
+                             masked_aupr, masked_aupr_fold_grid,
+                             masked_aupr_grid, masked_auroc,
+                             masked_auroc_fold_grid, masked_auroc_grid,
+                             masked_binary_confusion,
+                             masked_binary_metric_fold_grid,
+                             masked_binary_metric_grid,
                              masked_multiclass_confusion,
                              masked_multiclass_metric_fold_grid,
                              masked_multiclass_metric_grid,
@@ -90,25 +94,48 @@ class OpBinaryClassificationEvaluator(OpEvaluatorBase):
         self.thresholds = (DEFAULT_THRESHOLDS if thresholds is None
                            else np.asarray(thresholds))
 
+    @property
+    def grid_panel_input(self) -> str:
+        """AuROC and AuPR rank score columns; Precision, Recall, F1 and
+        Error count each candidate's hard ``prediction`` (≙ the JAX
+        evaluator's ``evaluate_masked``, evaluators.py:240-261)."""
+        return ("predictions" if self.default_metric in BINARY_CONF_METRICS
+                else "scores")
+
     def _ranker(self, fold_grid: bool = False):
         m = self.default_metric
+        if m in BINARY_CONF_METRICS:
+            return functools.partial(
+                masked_binary_metric_fold_grid if fold_grid
+                else masked_binary_metric_grid, metric=m)
         if m not in ("AuROC", "AuPR"):
             raise NotImplementedError(
-                f"binary CV metric {m!r}: the port ranks candidates by AuROC "
-                "or AuPR in this slice")
+                f"binary CV metric {m!r}: the port ranks candidates by "
+                "AuROC, AuPR, Precision, Recall, F1 or Error")
         if fold_grid:
             return masked_auroc_fold_grid if m == "AuROC" else masked_aupr_fold_grid
         return masked_auroc_grid if m == "AuROC" else masked_aupr_grid
 
     def evaluate_masked_grid(self, y, S, W) -> torch.Tensor:
-        """Default metric of K score columns S [N, K] over the mask W
-        ([N] shared or [K, N]) → [K]."""
+        """Default metric of K columns S [N, K] over the mask W ([N] shared
+        or [K, N]) → [K]: score columns, or hard 0/1 predictions for the
+        confusion metrics (``grid_panel_input``)."""
         return self._ranker()(y, S, W)
 
     def evaluate_masked_fold_grid(self, y, S, W) -> torch.Tensor:
         """Default metric of the (fold × grid) panel S [N, F, G] with fold
         validation masks W [F, N] → [F, G]."""
         return self._ranker(fold_grid=True)(y, S, W)
+
+    def evaluate_masked(self, y, device_out: Dict[str, Any], w) -> float:
+        """The default metric of one model's ``device_scores`` output: a
+        confusion metric counts its ``prediction`` (a logistic or SVC
+        model's margin > 0, a forest's argmax), AuROC and AuPR rank its
+        score column."""
+        if self.default_metric in BINARY_CONF_METRICS:
+            return float(self.evaluate_masked_grid(
+                y, device_out["prediction"][:, None], w)[0])
+        return super().evaluate_masked(y, device_out, w)
 
     def evaluate_all_device(self, y, device_out: Dict[str, Any],
                             w) -> EvaluationMetrics:
@@ -360,6 +387,23 @@ class Evaluators:
         @staticmethod
         def auROC() -> OpBinaryClassificationEvaluator:
             return OpBinaryClassificationEvaluator(default_metric="AuROC")
+
+        @staticmethod
+        def precision() -> OpBinaryClassificationEvaluator:
+            return OpBinaryClassificationEvaluator(default_metric="Precision")
+
+        @staticmethod
+        def recall() -> OpBinaryClassificationEvaluator:
+            return OpBinaryClassificationEvaluator(default_metric="Recall")
+
+        @staticmethod
+        def f1() -> OpBinaryClassificationEvaluator:
+            return OpBinaryClassificationEvaluator(default_metric="F1")
+
+        @staticmethod
+        def error() -> OpBinaryClassificationEvaluator:
+            return OpBinaryClassificationEvaluator(
+                default_metric="Error", is_larger_better=False)
 
     class MultiClassification:
         @staticmethod

@@ -38,8 +38,8 @@ from .models.kernels import check as _check, launch, stream as _stream
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
     "loco_linear": [_P, _P, _F] + [_P] * 5 + [_L] + [_I] * 9 + [_P],
-    "loco_tree": [_P] * 9 + [_L] + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P],
-    "loco_softmax": [_P] * 9 + [_L] + [_I] * 15 + [_P],
+    "loco_tree": [_P] * 5 + [_L] + [_I] * 8 + [_F, _F] + [_I] * 5 + [_P],
+    "loco_softmax": [_P] * 10 + [_L] + [_I] * 15 + [_P],
 }
 STRATEGIES = ("abs", "positive", "negative")
 # kernel codes: loco_linear's links of the margin m — the sigmoid, the
@@ -77,44 +77,55 @@ THREADS = 256                    # 8 warps, a row each at a time
 SMEM_MAX = 227 * 1024            # what one block can hold
 BLOCKS_IN_FLIGHT = 132 * 8       # SMs x resident 256-thread blocks
 GROUP_WINDOW = 1024              # loco_linear: group slots a warp holds
+TREE_ROWS = 128                  # loco_tree: rows (threads) a block, 128 or 256
+TREE_GROUP_WINDOW = 64           # loco_tree: groups a window sums at most
+TREE_X_SMEM = 32 * 1024          # loco_tree: the most bytes of X a block stages
+SLOT_SCRATCH_BYTES = 1 << 30     # loco_softmax: the most device-memory slots
 
 
 class LocoPlan(NamedTuple):
     blocks: int
     threads: int
-    group_window: int   # loco_linear: groups a pass sums (G: one pass)
-    smem_bytes: int     # linear: the warps' group slots; tree: the staged
-                        # trees and column map (0: read from device memory)
+    group_window: int   # groups a pass sums (G: one pass)
+    smem_bytes: int     # linear: the warps' group slots; tree: the group
+                        # sums' slab and the staged rows of X
     wide_groups: bool   # loco_linear: one window of groups of 32+ columns
                         # on average, D % 4 == 0: float4 reads when the
                         # groups are contiguous and the rows aligned
+    x_stride: int = 0   # loco_tree: the staged rows' stride (0: X in place)
 
 
-def loco_plan(kind: str, N: int, D: int, G: int, K: int, n_nodes: int = 0,
+def loco_plan(kind: str, N: int, D: int, G: int, K: int,
               forest: bool = False) -> LocoPlan:
     """The launch of ``loco_linear`` (``kind`` "linear") or ``loco_tree``
-    (``kind`` "tree"): one warp per row, a grid-stride loop over rows.  The
-    linear kernel sums the groups in windows of ``GROUP_WINDOW`` slots a
-    warp (one pass over the row when G fits, else a margin pass first); the
-    tree kernel stages the ``n_nodes`` tree nodes (with ``forest``, a forest
-    classifier's, two leaf values a node) and the column map in shared
-    memory when they fit ``SMEM_MAX``.  Any G >= 1 and 1 <= K <= G:
-    past K = 32 the top-K list lives in the output (``loco_topk.cuh``).  Wide groups
-    (``wide_groups``: one window, 32 or more columns a group on average, D
-    a multiple of 4) are read as float4, four columns a lane."""
+    (``kind`` "tree").  The linear kernel: one warp per row, a grid-stride
+    loop over rows, the groups summed in windows of ``GROUP_WINDOW`` slots a
+    warp (one pass over the row when G fits, else a margin pass first);
+    wide groups (``wide_groups``: one window, 32 or more columns a group on
+    average, D a multiple of 4) are read as float4, four columns a lane.
+    The tree kernel: one row a thread, ``TREE_ROWS`` a block, the groups'
+    leaf sums (two for a ``forest`` classifier) in a shared-memory slab of
+    ``group_window`` = min(G, ``TREE_GROUP_WINDOW``) groups x (rows + 1)
+    floats, the windows one after another; the block's rows of X staged at
+    an odd stride ``x_stride`` where they fit ``TREE_X_SMEM`` (else read in
+    place).  Any G >= 1 and 1 <= K <= G: past K = 32 the top-K list lives
+    in the output (``loco_topk.cuh``)."""
     if not 1 <= K <= G or D < 1 or N < 0:
         raise ValueError(f"loco_plan: need 1 <= K <= G and D >= 1, got "
                          f"N={N} D={D} G={G} K={K}")
-    blocks = max(1, min(-(-N // (THREADS // 32)), BLOCKS_IN_FLIGHT))
     if kind == "linear":
+        blocks = max(1, min(-(-N // (THREADS // 32)), BLOCKS_IN_FLIGHT))
         gw = min(G, GROUP_WINDOW)
         return LocoPlan(blocks, THREADS, gw, 4 * gw * (THREADS // 32),
                         G <= gw and D % 4 == 0 and D >= 32 * G)
     if kind != "tree":
         raise ValueError(f"loco_plan: kind {kind!r}")
-    smem = n_nodes * (4 * (4 if forest else 3) + 1) + 4 * D
-    return LocoPlan(blocks, THREADS, 0, smem if smem <= SMEM_MAX else 0,
-                    False)
+    R = TREE_ROWS
+    gw = min(G, TREE_GROUP_WINDOW)
+    dp = D | 1
+    xs = dp if 4 * R * dp <= TREE_X_SMEM else 0
+    smem = 4 * ((2 if forest else 1) * gw * (R + 1) + R * xs)
+    return LocoPlan(max(1, -(-N // R)), R, gw, smem, False, xs)
 
 
 class SoftmaxPlan(NamedTuple):
@@ -125,6 +136,7 @@ class SoftmaxPlan(NamedTuple):
     tail_floats: int    # the tail's weights (in shared memory or not)
     tail_in_smem: bool  # staged beside the slots, else read from memory
     smem_bytes: int
+    scratch_floats: int  # the warps' slots in device memory (0: in shared)
 
 
 def loco_softmax_plan(N: int, D: int, G: int, K: int, H: int, C: int,
@@ -138,9 +150,13 @@ def loco_softmax_plan(N: int, D: int, G: int, K: int, H: int, C: int,
     without a tail), and the tail's weights staged beside the slots.  Up to
     8 warps a block, fewer when the slots do not fit ``SMEM_MAX``; the
     tail's weights are read from device memory where not even one warp's
-    slots fit beside them (a wide or deep MLP).  Raises ValueError when one
-    warp's slots alone do not fit, or on a shape no model has.  Any G >= 1
-    and 1 <= K <= G, as in :func:`loco_plan`."""
+    slots fit beside them (a wide or deep MLP).  Where one warp's slots
+    alone do not fit (a layer of ~1,800 units or as many classes), the slots
+    of 8 warps a block live in a device-memory scratch of
+    ``scratch_floats`` (32·((SA + SB) | 1) + H floats a warp in flight, the
+    blocks cut so that it stays within ``SLOT_SCRATCH_BYTES``), with the
+    tail's weights staged where they fit.  Raises ValueError on a shape no
+    model has.  Any G >= 1 and 1 <= K <= G, as in :func:`loco_plan`."""
     tail = tuple(int(t) for t in tail)
     if not 1 <= K <= G or D < 1 or N < 0 or H < 1 or C < 2:
         raise ValueError(f"loco_softmax_plan: need 1 <= K <= G, D >= 1, "
@@ -160,10 +176,13 @@ def loco_softmax_plan(N: int, D: int, G: int, K: int, H: int, C: int,
             if smem <= SMEM_MAX:
                 blocks = max(1, min(-(-N // warps), BLOCKS_IN_FLIGHT))
                 return SoftmaxPlan(blocks, 32 * warps, SA + SB, SB, tw,
-                                   staged, smem)
-    raise ValueError(f"loco_softmax_plan: one warp's slots ({SA + SB} "
-                     f"floats a lane) exceed {SMEM_MAX} bytes of shared "
-                     "memory")
+                                   staged, smem, 0)
+    warps = THREADS // 32
+    staged = 4 * tw <= SMEM_MAX
+    blocks = max(1, min(-(-N // warps), BLOCKS_IN_FLIGHT,
+                        SLOT_SCRATCH_BYTES // (4 * warps * per_warp)))
+    return SoftmaxPlan(blocks, THREADS, SA + SB, SB, tw, staged,
+                       4 * tw if staged else 0, blocks * warps * per_warp)
 
 
 def softmax_layers(model, device):
@@ -319,27 +338,23 @@ def loco_tree(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
                               G, k, strategy)
     if dev.type != "cuda":
         raise ValueError(f"loco_tree: unsupported device {dev}")
-    trees = tree_inputs(model.fitted, dev)
-    feat, thr, leaf_flag, leaf = (trees["feature"], trees["threshold"],
-                                  trees["is_leaf"], trees["leaf"])
+    nodes = tree_nodes(model, col_group, dev)
     N, D = X.shape
-    Tr, T = feat.shape
     link = model.fitted["kind"]                  # "gbt" or "forest"
     if model.fitted.get("task") == "regression":
         link += "_regression"
-    shares = link == "forest"                    # normalised class shares
-    plan = loco_plan("tree", N, D, G, k, Tr * T, shares)
-    leaf_a = leaf[..., -1 if shares else 0].contiguous()
-    leaf_b = leaf.sum(dim=2).contiguous() if shares else None
+    leaf_b = nodes["leaf_b"] if link == "forest" else None
+    plan = loco_plan("tree", N, D, G, k, leaf_b is not None)
     val, idx = _outputs(N, k, dev)
-    launch("loco_tree", _ARGTYPES["loco_tree"], X.data_ptr(),
-           feat.data_ptr(), thr.data_ptr(), leaf_flag.data_ptr(),
-           leaf_a.data_ptr(), 0 if leaf_b is None else leaf_b.data_ptr(),
-           col_group.data_ptr(), val.data_ptr(), idx.data_ptr(), N, D, Tr,
-           T, int(trees["steps"]), G, k, STRATEGIES.index(strategy),
-           LINKS[link],
-           float(trees.get("base", 0.0)), float(trees.get("eta", 0.0)),
-           plan.blocks, plan.threads, plan.smem_bytes, _stream(X))
+    if N:
+        launch("loco_tree", _ARGTYPES["loco_tree"], X.data_ptr(),
+               nodes["records"].data_ptr(),
+               0 if leaf_b is None else leaf_b.data_ptr(), val.data_ptr(),
+               idx.data_ptr(), N, D, nodes["trees"], nodes["T"],
+               nodes["steps"], G, k, STRATEGIES.index(strategy), LINKS[link],
+               nodes["base"], nodes["eta"], plan.group_window,
+               int(plan.x_stride > 0), plan.x_stride, plan.threads,
+               plan.smem_bytes, _stream(X))
     return idx.to(index_dtype(G)), val
 
 
@@ -368,10 +383,13 @@ def loco_softmax(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
     plan = loco_softmax_plan(N, D, G, k, H, C, inp["widths"][1:])
     perm = inp["perm"]
     val, idx = _outputs(N, k, dev)
+    scratch = (torch.empty(plan.scratch_floats, dtype=torch.float32,
+                           device=dev) if plan.scratch_floats else None)
     launch("loco_softmax", _ARGTYPES["loco_softmax"], X.data_ptr(),
            inp["W1"].data_ptr(), inp["b1"].data_ptr(), inp["tw"].data_ptr(),
            dims.data_ptr(), 0 if perm is None else perm.data_ptr(),
-           inp["goff"].data_ptr(), val.data_ptr(), idx.data_ptr(), N, D, G,
+           inp["goff"].data_ptr(), val.data_ptr(), idx.data_ptr(),
+           0 if scratch is None else scratch.data_ptr(), N, D, G,
            k, STRATEGIES.index(strategy), H, C, inp["n_tail"],
            int(inp["relu_in"]), plan.slot - plan.slot_b, plan.slot_b,
            plan.tail_floats, int(plan.tail_in_smem), plan.blocks,
@@ -405,6 +423,47 @@ def softmax_kernel_inputs(model, col_group: torch.Tensor, G: int,
             "perm": (None if bool(torch.equal(sgid, col_group))
                      else perm.to(torch.int32)),
             "goff": goff}
+
+
+def pack_tree_nodes(trees: dict, col_group: torch.Tensor,
+                    forest: bool) -> dict:
+    """``loco_tree``'s view of the trees of :func:`tree_inputs`: int32 [Tr,
+    T, 4] node records {feature (-1 at a leaf), threshold bits, the
+    feature's group in ``col_group`` (-1 at a leaf), leaf_a bits} — leaf_a
+    a forest classifier's last class share, else the node's one value — and
+    for a ``forest`` classifier leaf_b f32 [Tr, T], the sum of its class
+    shares."""
+    feat, leaf = trees["feature"], trees["leaf"]
+    is_leaf = trees["is_leaf"]
+    f = torch.clamp(feat.long(), min=0)
+    records = torch.stack([
+        torch.where(is_leaf, -1, f.to(torch.int32)),
+        trees["threshold"].view(torch.int32),
+        torch.where(is_leaf, -1, col_group.to(torch.int32)[f]),
+        leaf[..., -1 if forest else 0].contiguous().view(torch.int32)],
+        dim=-1).contiguous()
+    return {"records": records,
+            "leaf_b": leaf.sum(dim=2).contiguous() if forest else None}
+
+
+def tree_nodes(model, col_group: torch.Tensor, device) -> dict:
+    """:func:`pack_tree_nodes` of a fitted tree ensemble for ``col_group``
+    on ``device``, packed once and kept on the model (one entry a device
+    and column map), with the walk's sizes: ``trees``, ``T``, ``steps``
+    (depth + 1), ``base`` and ``eta`` (0 for a forest)."""
+    key = (str(device), col_group.cpu().numpy().tobytes())
+    cache = model.__dict__.setdefault("_loco_tree_nodes", {})
+    if key not in cache:
+        f = model.fitted
+        trees = tree_inputs(f, device)
+        forest = f["kind"] == "forest" and f.get("task") != "regression"
+        cache[key] = {**pack_tree_nodes(trees, col_group.to(device), forest),
+                      "trees": trees["feature"].shape[0],
+                      "T": trees["feature"].shape[1],
+                      "steps": trees["steps"],
+                      "base": float(trees.get("base", 0.0)),
+                      "eta": float(trees.get("eta", 0.0))}
+    return cache[key]
 
 
 def tree_inputs(fitted: dict, device) -> dict:

@@ -90,11 +90,52 @@ def masked_aupr_fold_grid(y, S, W):
 
 
 def masked_binary_confusion(y, yhat, w):
-    """Weighted [tp, fp, tn, fn] as one stacked tensor."""
+    """Weighted [..., 4] (tp, fp, tn, fn) over the last axis: y, yhat
+    (hard 0/1 predictions), w broadcast to a common [..., N] (≙
+    ``masked_binary_confusion``, metrics_device.py:116-122)."""
     yp = y > 0.5
     hp = yhat > 0.5
-    return torch.stack([torch.sum(w * (yp & hp)), torch.sum(w * (~yp & hp)),
-                        torch.sum(w * (~yp & ~hp)), torch.sum(w * (yp & ~hp))])
+    return torch.stack([torch.sum(w * (yp & hp), dim=-1),
+                        torch.sum(w * (~yp & hp), dim=-1),
+                        torch.sum(w * (~yp & ~hp), dim=-1),
+                        torch.sum(w * (yp & ~hp), dim=-1)], dim=-1)
+
+
+BINARY_CONF_METRICS = ("Precision", "Recall", "F1", "Error")
+
+
+def binary_conf_metric(conf, metric: str):
+    """Precision, Recall, F1 or Error of [..., 4] (tp, fp, tn, fn) counts,
+    in f64 in the order the JAX package's evaluator takes them on the host
+    (``evaluate_masked``, evaluators.py:241-261): 0 where precision's or
+    recall's denominator, or their sum for F1, is 0; Error over
+    max(tp + fp + tn + fn, 1)."""
+    if metric not in BINARY_CONF_METRICS:
+        raise ValueError(f"binary confusion metric {metric!r}")
+    tp, fp, tn, fn = conf.double().unbind(-1)
+    if metric == "Error":
+        return (fp + fn) / torch.clamp(tp + fp + tn + fn, min=1.0)
+    precision = torch.where(tp + fp > 0, tp / (tp + fp), 0.0)
+    recall = torch.where(tp + fn > 0, tp / (tp + fn), 0.0)
+    if metric == "Precision":
+        return precision
+    if metric == "Recall":
+        return recall
+    return torch.where(precision + recall > 0,
+                       2.0 * precision * recall / (precision + recall), 0.0)
+
+
+def masked_binary_metric_grid(y, P, W, metric: str):
+    """One confusion metric of K hard-prediction columns P [N, K] over W,
+    one shared [N] mask or per-candidate [K, N] masks → [K] f64."""
+    return binary_conf_metric(masked_binary_confusion(y, P.T, W), metric)
+
+
+def masked_binary_metric_fold_grid(y, P, W, metric: str):
+    """The (fold × grid) confusion-metric panel: P [N, F, G] hard
+    predictions, W [F, N] fold masks → [F, G] f64."""
+    return binary_conf_metric(masked_binary_confusion(
+        y, P.permute(1, 2, 0), W[:, None, :]), metric)
 
 
 def masked_threshold_confusion(y, scores, w, thresholds):

@@ -7,7 +7,7 @@ dispatch rule and launch counters are in ``kernels.py``).
 | tree_hist_deep  | ``_fit_tree_unrolled``'s segment-sum histograms (:520-531)     |
 | tree_split      | ``scan_chunk`` xgb gain/argmax/leaf/threshold/value, level writes (:339-381) |
 | tree_split_gini | ``scan_chunk`` gini gain over per-node subsets, level writes (:320-326, :331-381) |
-| tree_split_variance | ``scan_chunk`` variance gain over per-node subsets (:186-191, :331-366) |
+| tree_split_variance | ``scan_chunk`` variance gain over per-node subsets, level writes (:186-191, :212-213, :331-381) |
 | tree_route      | the routing block (:373-391)                                    |
 | tree_walk       | ``_predict_trees_block`` (:668-702)                              |
 """
@@ -28,7 +28,7 @@ _ARGTYPES = {
     "tree_hist_deep": [_P] * 9 + [_L] + [_I] * 21 + [_P],
     "tree_split": [_P] * 18 + [_I] * 11 + [_P],
     "tree_split_gini": [_P] * 17 + [_I] * 15 + [_P],
-    "tree_split_variance": [_P] * 12 + [_I] * 6 + [_P],
+    "tree_split_variance": [_P] * 17 + [_I] * 15 + [_P],
     "tree_route": [_P] * 6 + [_L] + [_I] * 9 + [_P],
     "tree_walk": [_P] * 7 + [_L] + [_I] * 13 + [_P],
 }
@@ -40,7 +40,6 @@ HIST_QUEUE = 64                   # csrc/tree_hist.cu: rows queued a warp
 HIST_MIN_ROWS = 2048              # rows a block at least (its flush's share)
 HIST_BLOCKS = 132 * 2 * 4         # four waves of two blocks on 132 SMs
 SMS = 132                         # the H100's SMs
-SPLIT_D_CHUNK = 1024              # features per shared-memory pass of a split
 SPLIT_THREADS = 256
 SPLIT_TARGET_WARPS = SMS * 16     # warps an xgb split launch aims to fill
 SPLIT_SLICE = 800                 # csrc/tree_split.cu: floats a warp's staging slice
@@ -76,23 +75,6 @@ def _deep_partition(*args) -> None:
         .tree_hist_deep_partition
     fn.argtypes, fn.restype = _PARTITION_ARGTYPES, ctypes.c_int
     cuda_build.check("tree_hist_deep", fn(*args))
-
-
-class SplitPlan(NamedTuple):
-    d_chunk: int        # features per shared-memory pass (a gain and a
-                        # bin each, in dynamic shared memory)
-    n_chunks: int       # passes over the features, argmax carried across
-    threads: int        # threads per (node, lane) block
-
-
-def split_plan(D: int) -> SplitPlan:
-    """The launch plan of ``tree_split_variance`` at D features: the
-    features pass in chunks of at most ``SPLIT_D_CHUNK``.  Any D >= 1 has a
-    plan."""
-    if D < 1:
-        raise ValueError(f"split_plan: D={D}")
-    dc = min(D, SPLIT_D_CHUNK)
-    return SplitPlan(dc, -(-D // dc), SPLIT_THREADS)
 
 
 def _split_warps(K: int, P: int, D: int) -> int:
@@ -144,10 +126,12 @@ def _gini_cost(NB: int, SP: int, HB: int, nf: int, FPS: int,
 
 def gini_split_plan(K: int, P: int, D: int, n_bins: int, C: int,
                     width: Optional[int] = None) -> dict:
-    """How ``tree_split_gini`` (``csrc/tree_split_gini.cu``) launches one
-    gini level of K lanes x P nodes over D features, ``n_bins`` bins and C
-    classes (``width``: the most features any node's subset holds, None
-    without subsets) — the one place that sizes it.  A warp owns a (lane,
+    """How ``tree_split_gini`` and ``tree_split_variance`` (one body,
+    ``csrc/split_node.cuh``) launch one level of K lanes x P nodes over D
+    features, ``n_bins`` bins and C classes (the variance split: C = 2, its
+    two statistics after the count) (``width``: the most features any
+    node's subset holds, None without subsets) — the one place that sizes
+    them.  A warp owns a (lane,
     node), W warps one where the level is shallow (as
     :func:`xgb_split_plan`), each a chunk of ``fc`` features; it compacts
     the features its node may split on into groups of ``FPS`` and stages a
@@ -890,10 +874,10 @@ def variance_gain(left: torch.Tensor, right: torch.Tensor,
 
 def split_gains_variance(hist, totals, fmask, node_mask,
                          min_inst) -> torch.Tensor:
-    """The variance twin's gain table [K, P, D*NB] (see
-    :func:`split_gains_gini`)."""
+    """The variance twin's gain table [K, P, D*NB] over the kernel's bin
+    prefix (``block_prefix``; see :func:`split_gains_gini`)."""
     return _gain_table(hist, totals, fmask, min_inst, variance_gain,
-                       node_mask)
+                       node_mask, block_prefix)
 
 
 def split_gap_variance(hist, totals, fmask, node_mask,
@@ -906,27 +890,48 @@ def split_gap_variance(hist, totals, fmask, node_mask,
 def tree_split_variance_twin(hist, totals, fmask, node_mask, splits,
                              min_inst, min_gain):
     """Plain-PyTorch twin of ``tree_split_variance`` (see
-    :func:`tree_split_variance`)."""
+    :func:`tree_split_variance`): the bin prefix in the JAX package's order
+    (``block_prefix``, as the kernel adds it) and ``_gain_variance``'s f32
+    expression, so that the kernel gives the same bits."""
     return _split_twin(hist, totals, fmask, node_mask, splits, min_inst,
-                       min_gain, lambda lanes: variance_gain)
+                       min_gain, lambda lanes: variance_gain, block_prefix)
+
+
+def variance_leaf(totals: torch.Tensor) -> torch.Tensor:
+    """Mean label of node totals [..., 3] → [..., 1] (≙ ``_leaf_variance``,
+    trees.py:212-213), the division the kernel's epilogue makes."""
+    return totals[..., 1:2] / torch.clamp(totals[..., 0:1], min=1e-12)
 
 
 def tree_split_variance(hist: torch.Tensor, totals: torch.Tensor,
                         fmask: torch.Tensor, node_mask, splits: torch.Tensor,
-                        min_inst: torch.Tensor,
-                        min_gain: torch.Tensor) -> Dict[str, torch.Tensor]:
+                        min_inst: torch.Tensor, min_gain: torch.Tensor,
+                        tree=None, offset: int = 0,
+                        width: Optional[int] = None
+                        ) -> Dict[str, torch.Tensor]:
     """Best variance (regression) split per (lane, node), over each node's
     feature subset.
 
-    hist f32 [K, P, D, NB, 3] and totals f32 [K, P, 3] of (w, w·y, w·y²);
-    fmask bool [D] (the tree's features); node_mask bool [K, P, D] (each
-    node's drawn subset) or None for all features; splits f32 [D, NB-1];
-    min_inst / min_gain f32 [K].  The gain is ``_gain_variance`` over the
-    bin prefix, masked by min_inst on the weighted counts of both sides,
-    both masks and ``bin < NB-1``; the FIRST max over (feature, bin) wins.
+    hist f32 [K, P, D, NB, 3] and totals f32 [K, P, 3] of (w, w·y, w·y²),
+    counts w non-negative; fmask bool [D] (the tree's features); node_mask
+    bool [K, P, D] (each node's drawn subset) or None for all features;
+    splits f32 [D, NB-1]; min_inst / min_gain f32 [K].  The gain is
+    ``_gain_variance`` over the bin prefix (added in the JAX package's
+    order, :func:`block_prefix`), masked by min_inst on the weighted counts
+    of both sides, both masks and ``bin < NB-1``; the FIRST max over
+    (feature, bin) wins.  A node whose count total is below 2·min_inst is a
+    leaf (gain -inf, feature 0, bin 0) without a read of its histogram.
     Returns per-node gain, feature, bin, is_leaf (gain <= min_gain or
-    non-finite) and threshold ``splits[feature, bin]``, each [K, P].  The
-    kernel takes NB <= 127 bins and any D."""
+    non-finite) and threshold ``splits[feature, bin]``, each [K, P], the
+    same bits as :func:`tree_split_variance_twin`, for NB <= 127.  ``tree``
+    = fit_trees' (feature, threshold, is_leaf, leaf [K, T, 1], gain [K,
+    D]): the level's slices at ``offset`` — the leaf value the mean label
+    of the node's totals (:func:`variance_leaf`) — are written and the split
+    nodes' gains added in node order, as :func:`write_level_twin` does.  On
+    the card the gini split's body (``csrc/split_node.cuh``) with the
+    variance impurity, sized by :func:`gini_split_plan` at C = 2; ``width``
+    is the most features any node's subset holds (None: counted here, one
+    wait for the card)."""
     dev = hist.device
     _check("tree_split_variance hist", hist, torch.float32, 5, dev)
     _check("tree_split_variance totals", totals, torch.float32, 3, dev)
@@ -944,26 +949,38 @@ def tree_split_variance(hist: torch.Tensor, totals: torch.Tensor,
         if node_mask.shape != (K, P, D):
             raise ValueError("tree_split_variance: node_mask must be "
                              "[K, P, D]")
+    if tree is not None:
+        _check_tree("tree_split_variance", tree, K, D, P, 1, offset, dev)
     if dev.type == "cpu":
-        return tree_split_variance_twin(hist, totals, fmask, node_mask,
-                                        splits, min_inst, min_gain)
+        out = tree_split_variance_twin(hist, totals, fmask, node_mask,
+                                       splits, min_inst, min_gain)
+        if tree is not None:
+            write_level_twin({**out, "value": variance_leaf(totals)}, tree,
+                             offset)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"tree_split_variance: unsupported device {dev}")
     if NB > 127:
         raise ValueError("tree_split_variance: at most 127 bins (int8 bin "
                          "ids)")
-    plan = split_plan(D)
+    if node_mask is not None and width is None:
+        width = int(node_mask.sum(dim=2).amax())
+    plan = gini_split_plan(K, P, D, NB, 2, width)
     out = {"gain": torch.empty((K, P), dtype=torch.float32, device=dev),
            "feature": torch.empty((K, P), dtype=torch.int32, device=dev),
            "bin": torch.empty((K, P), dtype=torch.int32, device=dev),
            "is_leaf": torch.empty((K, P), dtype=torch.bool, device=dev),
            "threshold": torch.empty((K, P), dtype=torch.float32, device=dev)}
+    level = [t.data_ptr() for t in tree] if tree is not None else [0] * 5
     _launch("tree_split_variance", hist.data_ptr(), totals.data_ptr(),
             fmask.data_ptr(), 0 if node_mask is None else node_mask.data_ptr(),
             splits.data_ptr(), min_inst.data_ptr(), min_gain.data_ptr(),
             *(out[k].data_ptr() for k in ("gain", "feature", "bin",
                                           "is_leaf", "threshold")),
-            K, P, D, NB, plan.d_chunk, plan.threads, _stream(hist))
+            *level, K, P, D, NB, 2, plan["ct"], plan["hb"], plan["W"],
+            plan["fc"], plan["FPS"], plan["FST"], plan["threads"],
+            tree[0].shape[1] if tree is not None else 0, offset,
+            plan["smem"], _stream(hist))
     return out
 
 

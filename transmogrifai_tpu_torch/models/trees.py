@@ -37,7 +37,7 @@ from .base import PredictionModel, PredictorEstimator
 from .linear import _n_classes
 from .tree_kernels import (deep_partition_bytes, gini_leaf, tree_hist,
                            tree_route, tree_split, tree_split_gini,
-                           tree_split_variance, tree_walk)
+                           tree_split_variance, tree_walk, variance_leaf)
 
 MAX_BINS_DEFAULT = 32
 # Device bytes a batch of lanes may hold while its trees grow (statistics,
@@ -118,10 +118,7 @@ class TreeArrays(NamedTuple):
     gain: torch.Tensor       # [K, D] per-feature gain sum over splits
 
 
-def _leaf_variance(totals: torch.Tensor) -> torch.Tensor:
-    """Mean label of node totals [..., 3] → [..., 1] (≙ ``_leaf_variance``,
-    trees.py:212-213)."""
-    return totals[..., 1:2] / torch.clamp(totals[..., 0:1], min=1e-12)
+_leaf_variance = variance_leaf     # ≙ ``_leaf_variance``, trees.py:212-213
 
 
 def lane_bytes(n_rows: int, n_feats: int, n_stats: int, n_bins: int,
@@ -209,8 +206,9 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
     leaf = torch.zeros((K, T, V), dtype=torch.float32, device=dev)
     gain = torch.zeros((K, D), dtype=torch.float32, device=dev)
     row_node = torch.zeros((K, N), dtype=torch.int32, device=dev)
-    # the widest node subset of each level, read once (the gini plan's)
-    widths = ([None] * max_depth if node_masks is None or impurity != "gini"
+    # the widest node subset of each level, read once (the gini and
+    # variance plans')
+    widths = ([None] * max_depth if node_masks is None or impurity == "xgb"
               or dev.type != "cuda"
               else torch.stack([m.sum(dim=2).amax()
                                 for m in node_masks[:max_depth]]).tolist())
@@ -222,29 +220,19 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
                                  with_hist=not bottom, node_mask=nm)
         if bottom:
             break
-        # the xgb and gini kernels write the level's tree arrays in their
+        # the split kernels write the level's tree arrays in their
         # epilogues
         level = (feature, threshold, is_leaf, leaf, gain)
         if impurity == "xgb":
             sp = tree_split(hist, totals, fmask, splits, min_instances,
                             min_gain, lam, tree=level, offset=off)
-        elif impurity == "gini":
-            sp = tree_split_gini(hist, totals, fmask, nm, splits,
-                                 min_instances, min_gain, tree=level,
-                                 offset=off, width=widths[lvl])
         else:
-            sp = tree_split_variance(hist, totals, fmask, nm, splits,
-                                     min_instances, min_gain)
+            split = tree_split_gini if impurity == "gini" else \
+                tree_split_variance
+            sp = split(hist, totals, fmask, nm, splits, min_instances,
+                       min_gain, tree=level, offset=off, width=widths[lvl])
         del hist
         tree_route(B, row_node, sp["feature"], sp["bin"], sp["is_leaf"], off)
-        if impurity == "variance":
-            leaf[:, off:off + P] = node_leaf(totals)
-            lf = sp["is_leaf"]
-            is_leaf[:, off:off + P] = lf
-            feature[:, off:off + P] = torch.where(lf, -1, sp["feature"])
-            threshold[:, off:off + P] = sp["threshold"]
-            gain.scatter_add_(1, sp["feature"].long(),
-                              torch.where(lf, 0.0, sp["gain"]))
     # the bottom level is all leaves
     if impurity == "xgb":
         leaf[:, off:, 0] = -(totals[..., 1] / (totals[..., 2] + lam[:, None]))

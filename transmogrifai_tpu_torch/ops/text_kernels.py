@@ -17,18 +17,27 @@ import torch
 from ..models.kernels import check as _check, launch, stream as _stream
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 4 + [_L, _I, _L, _L, _I, _I, _P]
+_ARGTYPES = [_P] * 4 + [_L, _I, _L, _L, _I, _I, _I, _P]
 _SMEM_MAX = 227 * 1024
 PACKED_MAX_HASHES = 1023     # the sentinel bin H must fit 10 bits
+WINDOW_ROWS = 2              # rows of a tile past one row's tile
+WINDOW_HASHES = 8192         # columns of such a tile (64 KB at R = 2)
 
 
-def tile_rows(num_hashes: int) -> int:
-    """Rows per block: their [R, H] f32 counts fit shared memory, R <= 32."""
+def hash_plan(num_hashes: int) -> dict:
+    """How ``hash_counts`` launches ``num_hashes`` columns: tiles of R rows
+    of whole [R, H] f32 count rows in shared memory, R <= 32, where one row
+    fits (up to 58,112 hashes: one window, WH = H); past that tiles of
+    ``WINDOW_ROWS`` rows x ``WINDOW_HASHES`` columns, a second grid
+    dimension over the column windows.  Any ``num_hashes`` >= 1 has a
+    plan."""
+    if num_hashes < 1:
+        raise ValueError(f"hash_plan: {num_hashes} hashes")
     r = min(32, _SMEM_MAX // (4 * num_hashes))
-    if r < 1:
-        raise ValueError(f"hash_counts: {num_hashes} hashes do not fit one "
-                         "row of the kernel's shared-memory tile")
-    return r
+    if r >= 1:
+        return {"R": r, "WH": num_hashes, "windows": 1}
+    return {"R": WINDOW_ROWS, "WH": WINDOW_HASHES,
+            "windows": -(-num_hashes // WINDOW_HASHES)}
 
 
 def unpack_ids3(words: torch.Tensor) -> torch.Tensor:
@@ -75,7 +84,7 @@ def hash_counts(ids: torch.Tensor, offsets: torch.Tensor,
     ``offsets`` int64 [N + 1]: row n's tokens are stream positions
     ``offsets[n] .. offsets[n+1] - 1``.  Ids >= ``num_hashes`` (the
     sentinel bin of the packed wire's padding) are dropped.  Every cell of
-    the block is written."""
+    the block is written.  Any ``num_hashes`` (:func:`hash_plan`)."""
     dev = ids.device
     _check("hash_counts ids", ids, torch.int32, 1, dev)
     _check("hash_counts offsets", offsets, torch.int64, 1, dev)
@@ -100,8 +109,9 @@ def hash_counts(ids: torch.Tensor, offsets: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"hash_counts: unsupported device {dev}")
     if n:
+        plan = hash_plan(num_hashes)
         launch("hash_counts", _ARGTYPES, ids.data_ptr(), offsets.data_ptr(),
                None if null is None else null.data_ptr(), out.data_ptr(), n,
-               num_hashes, out.shape[1], col0, int(packed),
-               tile_rows(num_hashes), _stream(out))
+               num_hashes, out.shape[1], col0, int(packed), plan["R"],
+               plan["WH"], _stream(out))
     return out
