@@ -127,15 +127,19 @@ Phases (any failure exits non-zero and prints no result line):
 9. multiclass — ``fista_softmax`` against its f64 twin (the fold-0
    screen's 8 lanes and 3 folds x 8 lanes of 4 classes and 8 lanes of 40
    at 1M x 16, the wide form at 200,000 x 1,596) and
-   ``multiclass_confusion`` against its twin (1M rows x 24 candidates of 4
-   and of 40 classes: equal on 0/1 masks, 1e-6 on other weights), each
-   bit-repeatable; then ``bench.run_selector_smoke``'s multiclass workload
+   ``multiclass_confusion`` against its twin (1M rows x 24 candidates of 4,
+   8, 9, 14, 15 and 40 classes, both sides of its thread form's limit:
+   equal on 0/1 masks, 1e-6 on other weights; up to 15 classes on 200,003
+   rows also the bits of its numpy emulation), each bit-repeatable; then
+   ``bench.run_selector_smoke``'s multiclass workload
    (the port's copy of its generator, seed 11: 16 RealNN features around 4
    class centres) at 1,000,000 rows: ``MultiClassificationModelSelector()``
    with no ``models=`` (softmax LR x8, RF x18, ``DataCutter``) trained,
    evaluated (F1 > 0.9) and scored on a fresh 1M batch (seed 12), with its
    train wall, phase and family seconds, per-family best CV F1, peak device
-   memory (< 80 GB) and every kernel's launches read around it; a
+   memory (< 80 GB) and every kernel's launches read around it, and
+   ``multiclass_confusion`` held to its twin at each shape that train
+   launched it, on seeded arrays of that shape; a
    ``torch.profiler`` window over its LR cross-validation (the default LR
    grid); the compact grid, and naive Bayes with the MLP, at 1M; and iris (default and
    compact grids) and the default LR candidates at 4,000 bench rows on the
@@ -158,9 +162,12 @@ Phases (any failure exits non-zero and prints no result line):
 11. softmax explanations — ``RecordInsightsLOCO`` (top-20 of 16 groups) on
    phase 9's multiclass winner (softmax LR) over its 1M x 16 vector, maps
    included, with the launches read around the transform, and
-   ``loco_softmax`` against its twin there, on naive Bayes and the MLP
-   fitted at 1M, on a 40-class model at 1M x 16 and at
-   ``scripts/bench_loco.py``'s 100,000 x 512 with 128 groups;
+   ``loco_softmax`` against its twin there (and against the f64 diffs),
+   on naive Bayes and the MLP fitted at 1M, on a 40-class model at 1M x 16,
+   at ``scripts/bench_loco.py``'s 100,000 x 512 with 128 groups (top-20
+   and top-40) and on 16- and 17-class models (both sides of the row
+   form's widest layer), each row-form case also bit for bit against the
+   warp form on the same inputs;
 12. the repaired card-only refusals — the two-pass FISTA form
    (``fista_wide``) through the wrappers at the shapes no tensor-core
    launch holds (``fista_step`` and ``fista_glm`` at 2,000 x 27,009,
@@ -815,6 +822,11 @@ KERNEL_IDS = {
     "tree_split_variance": ("tree_split_variance_kernel",
                             "tree_split_gain_kernel"),
     "loco_tree": ("loco_tree_kernel",),
+    # both forms' partials and the block reduction
+    "multiclass_confusion": ("confusion_thread_kernel",
+                             "confusion_partials_kernel",
+                             "confusion_reduce_kernel"),
+    "loco_softmax": ("loco_softmax_rows_kernel", "loco_softmax_kernel"),
     # the tensor-core form's, and the earlier one-tile form's
     "fista_glm": ("fista_glm_kernel", "fista_glm_reduce",
                   "glm_reduce_kernel"),
@@ -2165,18 +2177,21 @@ def check_sparse_reference() -> dict:
 # --------------------------------------------------------------------------
 
 LOCO_K = 20                        # RecordInsightsLOCO's default top_k
+THRESHOLD_ROWS = 200_000           # loco_softmax's checks at its threshold
 LOCO_TOL = 1e-5                    # kernel vs twin, of the twin's max|diff|
 BENCH_LOCO = (100_000, 512, 128)   # scripts/bench_loco.py's rows, cols, groups
 
 
 def _loco_case(run, twin, G: int, k: int, strategy: str, reps: int,
-               bytes_moved: float, ops: float, library=None) -> dict:
+               in_bytes: float, ops: float, library=None) -> dict:
     """A LOCO kernel call ``run()`` against ``twin(k)`` (the plain version
     on the same inputs): the kernel's diff of each group it lists within
     LOCO_TOL x max|diff| of the twin's diff of that group, the ranks at
     each of the K places within that of the twin's (so the groups agree
     wherever the twin's rank gap exceeds it), no group listed twice, and
-    the same bits on two launches.  Returns its numbers."""
+    the same bits on two launches.  Its bound counts ``in_bytes`` read and
+    the outputs written in the types the call returns (the indices in
+    ``index_dtype(G)``).  Returns its numbers."""
     import torch
 
     from transmogrifai_tpu_torch.insights_kernels import _rank
@@ -2196,7 +2211,9 @@ def _loco_case(run, twin, G: int, k: int, strategy: str, reps: int,
         raise AssertionError(f"LOCO kernel disagrees with its twin: diff err "
                              f"{err}, rank err {gap}, tolerance {tol}, "
                              f"duplicate groups {dup}")
-    bt, by = bound(bytes_moved, ops)
+    out_bytes = (idx.numel() * idx.element_size()
+                 + val.numel() * val.element_size())
+    bt, by = bound(in_bytes + out_bytes, ops)
     return {"max_abs_err": err, "max_abs_diff": float(fv.abs().max()),
             "ms": time_ms(run, reps), "plain_ms": time_ms(lambda: twin(k), 1),
             "bound_ms": bt, "bound_by": by,
@@ -2244,7 +2261,7 @@ def check_loco_linear(X, model, col_group, G: int, k: int = LOCO_K,
         lambda kk: ik.loco_topk_twin(
             X, lambda Z: ik.loco_score(model, Z), col_group, G, kk,
             strategy), G, k, strategy, reps,
-        4 * N * D + 8 * N * k, 4 * N * D,
+        4 * N * D, 4 * N * D,
         _linear_library(X, model, col_group, G, k) if library else None)
 
 
@@ -2288,7 +2305,7 @@ def check_loco_tree(X, model, col_group, G: int, k: int = LOCO_K,
         lambda kk: ik.loco_topk_twin(
             X, lambda Z: ik.loco_score(model, Z), col_group, G, kk,
             strategy), G, k, strategy, reps,
-        4 * N * D + 8 * N * k,
+        4 * N * D,
         _loco_walk_steps(X, ik.tree_inputs(model.fitted, X.device),
                          col_group, G))
 
@@ -3368,14 +3385,81 @@ def check_softmax_kernel(device="cuda", n: int = N_ROWS, reps: int = 10):
             _kernel_row("fista_softmax", out["wide"])], out
 
 
+CONFUSION_CLASSES = (MC_CLASSES, 8, 9, 14, 15, 40)  # both sides of the
+                                                    # forms' C
+CONFUSION_EMU_ROWS = 200_003       # rows the numpy emulation is held at
+
+
+def _confusion_case(mk, yi, Pd, Wm, G: int, C: int, reps: int,
+                    emulate: bool = False) -> dict:
+    """``multiclass_confusion`` on (yi, Pd, Wm) against its twin: equal
+    where the weights are 0 or 1 (integer sums), else within 1e-6 of the
+    f64 sums relative to max(|sum|, 1); the same bits on two launches; with
+    ``emulate``, on the card, the bits of ``confusion_emulate`` (the
+    kernel's order in numpy).  Returns its numbers: CUDA-event ``ms``, the
+    profiler's ``device_ms`` (``KERNEL_IDS["multiclass_confusion"]``), the
+    twin's and the library's (one weighted ``torch.bincount`` of y·C + p a
+    candidate)."""
+    import torch
+    N, K = Pd.shape
+    conf = mk.multiclass_confusion(yi, Pd, Wm, G, C)
+    if not torch.equal(conf, mk.multiclass_confusion(yi, Pd, Wm, G, C)):
+        raise AssertionError(f"multiclass_confusion (K={K}, C={C}): two "
+                             "launches differ")
+    twin = mk.multiclass_confusion_twin(yi, Pd, Wm.double(), G, C)
+    err = float((conf.double() - twin).abs().max())
+    rel = float(((conf.double() - twin).abs()
+                 / twin.abs().clamp(min=1.0)).max())
+    if bool(((Wm == 0) | (Wm == 1)).all()) and err != 0.0:
+        raise AssertionError(f"multiclass_confusion (K={K}, C={C}): differs "
+                             "from its twin on 0/1 weights")
+    if rel > 1e-6:
+        raise AssertionError(f"multiclass_confusion (K={K}, C={C}): {rel} "
+                             "relative to the f64 sums")
+    emulate = emulate and yi.is_cuda          # the CPU runs the twin
+    plan = mk.confusion_plan(K, C, N, torch.cuda.get_device_properties(
+        yi.device).multi_processor_count) if yi.is_cuda else None
+    if emulate and not np.array_equal(
+            conf.cpu().numpy(), mk.confusion_emulate(
+                yi.cpu().numpy(), Pd.cpu().numpy(), Wm.cpu().numpy(), G,
+                C, plan)):
+        raise AssertionError(f"multiclass_confusion (K={K}, C={C}): not "
+                             "the bits of its emulation")
+    keys = (yi.long() * C)[None, :] + Pd.T.long()
+
+    def bincounts():
+        return [torch.bincount(keys[k], weights=Wm[k // G],
+                               minlength=C * C) for k in range(K)]
+
+    def run():
+        return mk.multiclass_confusion(yi, Pd, Wm, G, C)
+
+    bt, by = bound(4 * N * K + 4 * N + 4 * N * Wm.shape[0] + 4 * K * C * C,
+                   2 * N * K)
+    out = {"candidates": K, "G": G, "classes": C, "rows": N,
+           "plan": plan and plan._asdict(),
+           "max_abs_err": err, "rel_err": rel, "emulated": emulate,
+           "ms": time_ms(run, reps),
+           "device_ms": kernel_device_ms(run, reps,
+                                         "multiclass_confusion")["ms"],
+           "plain_ms": time_ms(
+               lambda: mk.multiclass_confusion_twin(yi, Pd, Wm, G, C),
+               max(2, reps // 4)),
+           "bound_ms": bt, "bound_by": by,
+           "library_ms": time_ms(bincounts, max(2, reps // 4))}
+    del keys
+    return out
+
+
 def check_confusion_kernel(device="cuda", n: int = N_ROWS, reps: int = 20):
     """``multiclass_confusion`` against its twin at the CV panel's shape:
     1M rows x 24 candidates (3 folds x 8, candidate k reading fold k // 8)
-    of 4 and of 40 classes: equal on the 0/1 fold masks, within 1e-6 of
-    the f64 sums on non-0/1 weights, and bit-repeatable.  The library
-    yardstick is one weighted ``torch.bincount`` of y·C + p per candidate.
-    Returns the row of the kernels line (C = 4) and every case's
-    numbers."""
+    of ``CONFUSION_CLASSES`` (the thread form up to 14, the shared form
+    above): equal on the 0/1 fold masks, within 1e-6 of the f64 sums on
+    non-0/1 weights, and bit-repeatable (``_confusion_case``); on the
+    first ``CONFUSION_EMU_ROWS`` rows up to 15 classes also the bits of
+    the numpy emulation of its order.  Returns the row of the kernels
+    line (C = 4) and every case's numbers."""
     import torch
 
     from transmogrifai_tpu_torch import metrics_kernels as mk
@@ -3384,7 +3468,7 @@ def check_confusion_kernel(device="cuda", n: int = N_ROWS, reps: int = 20):
     rng = np.random.default_rng(17)
     K, G = 3 * 8, 8
     out = {}
-    for C in (MC_CLASSES, 40):
+    for C in CONFUSION_CLASSES:
         yc = y if C == MC_CLASSES else rng.integers(0, C, n).astype(
             np.float32)
         P = np.where(rng.random((n, K)) < 0.8, yc[:, None].astype(np.int32),
@@ -3392,47 +3476,76 @@ def check_confusion_kernel(device="cuda", n: int = N_ROWS, reps: int = 20):
         yi = torch.as_tensor(yc.astype(np.int32), device=device)
         Pd = torch.as_tensor(P, device=device)
         Wm = torch.as_tensor(1.0 - _fold_weights(yc), device=device)
-        conf = mk.multiclass_confusion(yi, Pd, Wm, G, C)
-        twin = mk.multiclass_confusion_twin(yi, Pd, Wm, G, C)
-        if not torch.equal(conf, twin):
-            raise AssertionError(f"multiclass_confusion (C={C}): differs "
-                                 "from its twin on 0/1 masks")
         Wr = torch.as_tensor(rng.random((N_FOLDS, n)).astype(np.float32),
                              device=device)
-        got = mk.multiclass_confusion(yi, Pd, Wr, G, C)
-        if not torch.equal(got, mk.multiclass_confusion(yi, Pd, Wr, G, C)):
-            raise AssertionError(f"multiclass_confusion (C={C}): two "
-                                 "launches differ")
-        want = mk.multiclass_confusion_twin(yi, Pd, Wr.double(), G, C)
-        rel = float(((got.double() - want).abs()
-                     / want.abs().clamp(min=1.0)).max())
-        if rel > 1e-6:
-            raise AssertionError(f"multiclass_confusion (C={C}): {rel} "
-                                 "relative to the f64 sums")
-        keys = (yi.long() * C)[None, :] + Pd.T.long()
-
-        def bincounts():
-            return [torch.bincount(keys[k], weights=Wm[k // G],
-                                   minlength=C * C) for k in range(K)]
-
-        bt, by = bound(4 * n * K + 4 * n + 4 * n * N_FOLDS + 4 * K * C * C,
-                       2 * n * K)
-        out[f"classes_{C}"] = {
-            "candidates": K, "classes": C, "rows": n,
-            "plan": mk.confusion_plan(K, C)._asdict(),
-            "max_abs_err": float((conf - twin).abs().max()),
-            "rel_err_weights": rel,
-            "ms": time_ms(lambda: mk.multiclass_confusion(yi, Pd, Wm, G, C),
-                          reps),
-            "plain_ms": time_ms(
-                lambda: mk.multiclass_confusion_twin(yi, Pd, Wm, G, C),
-                max(2, reps // 4)),
-            "bound_ms": bt, "bound_by": by,
-            "library_ms": time_ms(bincounts, max(2, reps // 4))}
-        del Pd, Wm, Wr, keys
+        case = _confusion_case(mk, yi, Pd, Wm, G, C, reps)
+        real = _confusion_case(mk, yi, Pd, Wr, G, C, 2)
+        case["rel_err_weights"] = real["rel_err"]
+        if C <= 15:
+            m = min(n, CONFUSION_EMU_ROWS)
+            for W in (Wm, Wr):
+                _confusion_case(mk, yi[:m], Pd[:m].contiguous(),
+                                W[:, :m].contiguous(), G, C, 1, emulate=True)
+            case["emulated_rows"] = m
+        out[f"classes_{C}"] = case
+        del Pd, Wm, Wr
         torch.cuda.empty_cache()
     return _kernel_row("multiclass_confusion",
                        out[f"classes_{MC_CLASSES}"]), out
+
+
+def record_confusion_calls(run) -> tuple:
+    """``run()`` with the shape (rows, candidates, fold rows, G, C) of every
+    ``multiclass_confusion`` call of the metric panels recorded, and no
+    array kept: the run's peak device memory stays its own.  Returns
+    (run's result, the shapes)."""
+    from transmogrifai_tpu_torch import metrics_device as md
+    calls = []
+    real = md.multiclass_confusion
+
+    def recorded(y, P, Wm, G, C):
+        calls.append((P.shape[0], P.shape[1], Wm.shape[0], G, C))
+        return real(y, P, Wm, G, C)
+
+    md.multiclass_confusion = recorded
+    try:
+        return run(), calls
+    finally:
+        md.multiclass_confusion = real
+
+
+def check_confusion_calls(calls, device="cuda", reps: int = 10) -> dict:
+    """Each distinct (rows, candidates, G, C) shape of ``calls`` (the
+    multiclass train's launches, ``record_confusion_calls``) against the
+    twin (``_confusion_case``), with its count of launches: labels in
+    [0, C), predictions right 80% of the time, 0/1 fold masks (each row in
+    one of the call's folds) and real weights in [0, 1) of the same shape,
+    made from a seed."""
+    import torch
+
+    from transmogrifai_tpu_torch import metrics_kernels as mk
+    rng = np.random.default_rng(23)
+    shapes = {}
+    for c in calls:
+        shapes[c] = shapes.get(c, 0) + 1
+    out = {}
+    for (N, K, F, G, C), count in sorted(shapes.items()):
+        y = rng.integers(0, C, N).astype(np.int32)
+        P = np.where(rng.random((N, K)) < 0.8, y[:, None],
+                     rng.integers(0, C, (N, K))).astype(np.int32)
+        fold = rng.integers(0, F, N)
+        W01 = (fold[None, :] == np.arange(F)[:, None]) | (F == 1)
+        yi, Pd = (torch.as_tensor(a, device=device) for a in (y, P))
+        Wm = torch.as_tensor(W01.astype(np.float32), device=device)
+        Wr = torch.as_tensor(rng.random((F, N)).astype(np.float32),
+                             device=device)
+        out[f"N={N} K={K} G={G} C={C}"] = {
+            "launches": count,
+            **_confusion_case(mk, yi, Pd, Wm, G, C, reps),
+            "rel_err_weights": _confusion_case(
+                mk, yi, Pd, Wr, G, C, 1)["rel_err"]}
+        del yi, Pd, Wm, Wr
+    return out
 
 
 def _mc_key(params: dict) -> tuple:
@@ -3911,28 +4024,92 @@ def _softmax_library(X, model, col_group, G: int, k: int):
     return run
 
 
+def _softmax_diffs_f64(X, model, col_group, G: int, chunk: int = 100_000):
+    """Every group's diff [N, G] in f64 (the model's layers on the masked
+    rows, the last class's softmax), ``chunk`` rows at a time."""
+    import torch
+
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    relu_in, W1, b1, tail = ik.softmax_layers(model, X.device)
+
+    def p_last(Z):
+        a = (torch.clamp(Z, min=0.0) if relu_in else Z) @ W1.double() \
+            + b1.double()
+        for W, b in tail:
+            a = torch.relu(a) @ W.double() + b.double()
+        return torch.softmax(a, dim=-1)[:, -1]
+
+    out = []
+    for i in range(0, X.shape[0], chunk):
+        Z = X[i:i + chunk].double()
+        base = p_last(Z)
+        out.append(torch.stack([base - p_last(Z * (col_group != g).double())
+                                for g in range(G)], dim=1))
+    return torch.cat(out)
+
+
 def check_loco_softmax(X, model, col_group, G: int, k: int = LOCO_K,
                        strategy: str = "abs", reps: int = 10,
                        library: bool = False) -> dict:
-    """``loco_softmax`` on X against its twin (``_loco_case``)."""
+    """``loco_softmax`` on X against its twin (``_loco_case``), with its
+    largest diff error against the f64 diffs and whether its error against
+    the twin is within the CPU tests' rule (1e-6 x max(1, the largest
+    |logit| / 8)), its device ms by the profiler; where the plan takes the
+    row form, that rule held (it fails otherwise) and the same indices and
+    diffs bit for bit as the warp form on the same inputs.  The warp
+    form's shapes report the rule and are not held to it."""
+    import torch
+
     from transmogrifai_tpu_torch import insights_kernels as ik
     N, D = X.shape
     _, W1, _, tail = ik.softmax_layers(model, X.device)
     H = W1.shape[1]
     dims = [H] + [W.shape[1] for W, _ in tail]
     tail_ops = sum(2 * a * b for a, b in zip(dims, dims[1:]))
+
+    def run():
+        return ik.loco_softmax(X, model, col_group, G, k, strategy)
+
     case = _loco_case(
-        lambda: ik.loco_softmax(X, model, col_group, G, k, strategy),
-        lambda kk: ik.loco_topk_twin(
+        run, lambda kk: ik.loco_topk_twin(
             X, lambda Z: ik.loco_score(model, Z), col_group, G, kk,
             strategy), G, k, strategy, reps,
-        4 * N * D + 8 * N * k,
+        4 * N * D,
         4 * N * D * H + N * (G + 1) * (tail_ops + 4 * dims[-1]),
         _softmax_library(X, model, col_group, G, k) if library else None)
-    return {**case, "classes": dims[-1], "first_layer": H,
-            "tail": dims[1:], "rows": N, "features": D,
-            "plan": ik.loco_softmax_plan(N, D, G, k, H, dims[-1],
-                                         dims[1:])._asdict()}
+    plan = ik.loco_softmax_plan(N, D, G, k, H, dims[-1], dims[1:])
+    raw = model.device_scores(X, full=True)["rawPrediction"]
+    tol6 = 1e-6 * max(1.0, float(raw.abs().max()) / 8.0)
+    del raw
+    idx, val = run()
+    f64 = float((val.double() - torch.gather(
+        _softmax_diffs_f64(X, model, col_group, G), 1, idx.long()))
+        .abs().max())
+    out = {**case, "classes": dims[-1], "first_layer": H,
+           "tail": dims[1:], "rows": N, "features": D,
+           "rule_1e6": tol6, "within_rule_1e6": case["max_abs_err"] <= tol6,
+           "max_abs_err_f64": f64,
+           "device_ms": kernel_device_ms(run, reps, "loco_softmax")["ms"],
+           "plan": plan._asdict()}
+    if getattr(plan, "form", "warps") == "rows":
+        if not out["within_rule_1e6"]:
+            raise AssertionError(
+                f"loco_softmax (row form): diff error {case['max_abs_err']}"
+                f" against the twin, past the rule's {tol6}")
+        ri, rv = run()
+        keep = ik.ROW_WIDTH_MAX
+        ik.ROW_WIDTH_MAX = 0
+        try:
+            wi, wv = run()
+            out["warp_form_device_ms"] = kernel_device_ms(
+                run, max(2, reps // 2), "loco_softmax")["ms"]
+        finally:
+            ik.ROW_WIDTH_MAX = keep
+        if not (torch.equal(ri, wi.to(ri.dtype)) and torch.equal(rv, wv)):
+            raise AssertionError("loco_softmax: the row form's lists are not "
+                                 "the warp form's bits")
+        out["warp_form_bits"] = True
+    return out
 
 
 def check_softmax_loco_shapes(X, y, device="cuda") -> dict:
@@ -3943,9 +4120,13 @@ def check_softmax_loco_shapes(X, y, device="cuda") -> dict:
     ``scripts/bench_loco.py``'s 100,000 x 512 with 128 groups (top-20; the
     labels the argmax of random class scores, 20 iterations, as
     ``check_insights_kernels`` fits its LR there), each with its library
-    yardstick.  Returns every case's numbers."""
+    yardstick, and there at k = 40 (the warp form's list in the output);
+    random softmax LRs of 16 and 17 classes on ``THRESHOLD_ROWS`` rows, on
+    both sides of the row form's widest layer.  Returns every case's
+    numbers."""
     import torch
 
+    from transmogrifai_tpu_torch import insights_kernels as ik
     from transmogrifai_tpu_torch.models.linear import (
         LinearPredictionModel, OpLogisticRegression,
         OpMultilayerPerceptronClassifier, OpNaiveBayes)
@@ -3982,7 +4163,15 @@ def check_softmax_loco_shapes(X, y, device="cuda") -> dict:
                                                 library=True)
     out["bench_loco_negative"] = check_loco_softmax(
         Xb, lr, cg_b, g, strategy="negative", reps=2)
+    out["bench_loco_k40"] = check_loco_softmax(Xb, lr, cg_b, g, min(40, g),
+                                               reps=2)
     del Xb
+    # both sides of the row form's widest layer (16): 16 and 17 classes
+    Xt = torch.as_tensor(X[:THRESHOLD_ROWS], device=device)
+    for C in (ik.ROW_WIDTH_MAX, ik.ROW_WIDTH_MAX + 1):
+        out[f"classes_{C}"] = check_loco_softmax(Xt, random_lr(D, C), cg, D,
+                                                 D, reps=3)
+    del Xt
     torch.cuda.empty_cache()
     return out
 
@@ -4243,7 +4432,7 @@ def check_fault_shapes(device="cuda", reps: int = 5, glm_rows: int = N_ROWS):
                 device=device)
         model = MLPClassificationModel(fitted=fitted)
         facts["loco_softmax_" + "x".join(map(str, hidden))] = \
-            check_loco_softmax(X, model, cg, D, D, reps=3)
+            check_loco_softmax(X, model, cg, D, D, reps=3, library=True)
     return rows, facts
 
 
@@ -4559,7 +4748,9 @@ def check_wide_hashes(device="cuda", reps: int = 10) -> dict:
     """``hash_counts`` at 60,000 and 100,003 hashes (unpacked ids, a few
     thousand rows of up to 40 tokens, sentinels inside rows) written at a
     column offset with the null column: the twin's counts exactly, and
-    timed beside the bytes' bound."""
+    timed (CUDA events and the profiler's device ms) beside the bytes'
+    bound, the twin and one ``index_put_(accumulate=True)`` of the same
+    counts into a zeroed [N, H] block."""
     import torch
 
     from transmogrifai_tpu_torch.ops import text_kernels as tk
@@ -4582,12 +4773,29 @@ def check_wide_hashes(device="cuda", reps: int = 10) -> dict:
             raise AssertionError(f"hash_counts at {H} hashes: not the twin's "
                                  "counts")
         bt, by = bound(4 * n * (H + 1) + 4 * flat.size + 8 * (n + 1) + n, 0)
+        keep = torch.as_tensor(flat < H, device=device)
+        rows = torch.repeat_interleave(
+            torch.arange(n, device=device),
+            torch.as_tensor(lens, device=device))[keep]
+        cols = ids.long()[keep]
+        lib = torch.zeros((n, H), device=device)
+        one = torch.ones((), device=device)
+
+        def run():
+            return tk.hash_counts(ids, off, null, H, out=got, col0=2,
+                                  packed=False)
+
         out[f"hashes_{H}"] = {
             "rows": n, "plan": tk.hash_plan(H), "max_abs_err": 0.0,
-            "ms": time_ms(lambda: tk.hash_counts(
-                ids, off, null, H, out=got, col0=2, packed=False), reps),
-            "bound_ms": bt, "bound_by": by}
-        del got, want
+            "ms": time_ms(run, reps),
+            "device_ms": kernel_device_ms(run, reps,
+                                          "hash_counts_kernel")["ms"],
+            "plain_ms": time_ms(lambda: tk.hash_counts_twin(
+                ids, off, null, H, want, 2, False), 3),
+            "bound_ms": bt, "bound_by": by,
+            "library_ms": time_ms(lambda: lib.index_put_(
+                (rows, cols), one, accumulate=True), 3)}
+        del got, want, lib
     return out
 
 
@@ -4623,7 +4831,8 @@ def check_wide_mlp_loco(device="cuda") -> dict:
         lambda: ik.loco_softmax(X, model, cg, D, k),
         lambda kk: ik.loco_topk_twin(X, lambda Z: ik.loco_score(model, Z),
                                      cg, D, kk, "abs"), D, k, "abs", 5,
-        4 * N * D + 8 * N * k, 2 * N * (D * H + (D + 1) * (H * C + H)))
+        4 * N * D, 2 * N * (D * H + (D + 1) * (H * C + H)),
+        _softmax_library(X, model, cg, D, k))
     return {**case, "hidden_layers": list(WIDE_MLP), "rows": N,
             "plan": plan._asdict()}
 
@@ -5070,8 +5279,8 @@ def main() -> int:
     mc_fresh = make_multiclass_data(N_ROWS, MC_FEATS, MC_SCORE_SEED)
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    mc_facts, mc_model, mc_batch = run_multiclass("cuda", mc_X, mc_y,
-                                                  "default", mc_fresh)
+    (mc_facts, mc_model, mc_batch), cf_calls = record_confusion_calls(
+        lambda: run_multiclass("cuda", mc_X, mc_y, "default", mc_fresh))
     mc_launches = kernels.launch_counts()
     mc_facts["peak_device_memory_gb"] = \
         torch.cuda.max_memory_allocated() / 1e9
@@ -5079,6 +5288,13 @@ def main() -> int:
           + json.dumps(mc_facts), flush=True)
     print("multiclass kernel launches: " + json.dumps(mc_launches),
           flush=True)
+    if len(cf_calls) != mc_launches["multiclass_confusion"]:
+        raise AssertionError(f"multiclass_confusion: {len(cf_calls)} calls "
+                             f"recorded, {mc_launches['multiclass_confusion']}"
+                             " launches")
+    print("multiclass_confusion at the train's shapes: "
+          + json.dumps(check_confusion_calls(cf_calls)), flush=True)
+    del cf_calls
     print("profile multiclass LR CV: " + json.dumps(profile_lr_cv(
         mc_model, mc_batch, S.MultiClassificationModelSelector(
             models=[S._lr_candidates()]))), flush=True)

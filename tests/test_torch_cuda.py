@@ -1094,11 +1094,17 @@ def test_fista_softmax_matches_twin_and_repeats_bit_for_bit(cuda, G, D, F,
 
 
 @pytest.mark.parametrize("K,G,C", [(24, 8, 4), (1, 1, 3), (24, 8, 40),
-                                   (5, 5, 300)])
+                                   (5, 5, 300), (24, 8, 8), (24, 8, 9),
+                                   (24, 8, 14), (24, 8, 15), (1, 1, 4),
+                                   (54, 18, 4), (300, 100, 2), (3, 1, 1)])
 def test_multiclass_confusion_matches_twin(cuda, K, G, C):
     """Equal to the twin on 0/1 masks (integer sums), within 1e-6 of the
     f64 sums on other weights, and the same bits on two launches, at every
-    plan: all candidates in a block, candidate chunks, class chunks."""
+    plan: the thread form (C <= 14; candidates past one block's 256
+    threads), the shared form's candidate
+    and class chunks; and the bits
+    of the numpy emulation of its order (``confusion_emulate``) where that
+    fits the host's memory."""
     from transmogrifai_tpu_torch import metrics_kernels as mk
     rng = np.random.default_rng(22)
     N = 100_003
@@ -1118,6 +1124,12 @@ def test_multiclass_confusion_matches_twin(cuda, K, G, C):
     want = mk.multiclass_confusion_twin(y, P, Wr.double(), G, C)
     assert bool(((got.double() - want).abs()
                  <= 1e-6 * want.abs().clamp(min=1.0)).all())
+    plan = mk.confusion_plan(
+        K, C, N, torch.cuda.get_device_properties(0).multi_processor_count)
+    if plan.form != "shared" or K * C * C * plan.threads <= 2_000_000:
+        emu = mk.confusion_emulate(y.cpu().numpy(), P.cpu().numpy(),
+                                   Wr.cpu().numpy(), G, C, plan)
+        assert np.array_equal(got.cpu().numpy(), emu)
 
 
 def test_multiclass_selector_on_the_card_matches_the_twins(cuda):
@@ -1363,6 +1375,41 @@ def test_loco_softmax_matches_twin(cuda, kind, C, G, k, strategy,
             "negative": lambda d: -d}[strategy]
     best = torch.sort(rank(want), dim=1, descending=True).values[:, :k]
     assert float((rank(val.double()) - best).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("kind,C,G,k,strategy,D", [
+    ("multinomial", 4, 16, 16, "abs", 16),           # the multiclass winner
+    ("naive_bayes", 4, 16, 16, "abs", 16),
+    ("mlp", 4, 16, 16, "abs", 16),
+    ("mlp_deep", 4, 24, 12, "negative", 48),
+    ("multinomial", 16, 30, 7, "positive", 48),
+    ("multinomial", 3, 64, 40, "abs", 96),           # k past 32
+    ("multinomial", 4, 96, 20, "abs", 96)])          # the widest row
+def test_loco_softmax_row_form_gives_the_warp_forms_bits(cuda, kind, C, G, k,
+                                                         strategy, D,
+                                                         monkeypatch):
+    """The row form (a row a thread) against the warp form (one warp a row,
+    forced by switching the row form off) on the same inputs: the same
+    indices and the same diffs bit for bit (the same sums in the same
+    order, the same insertion rule), indices written as ``index_dtype(G)``
+    by the kernel itself."""
+    from transmogrifai_tpu_torch import insights_kernels as ik
+    rng = np.random.default_rng(17 + G)
+    N = 20_001
+    X = rng.normal(size=(N, D)).astype(np.float32)
+    cg = rng.permutation(np.arange(D) % G).astype(np.int32)
+    X[:, np.isin(cg, np.arange(0, G, 5))] = 0.0
+    Xd = torch.as_tensor(X, device=cuda)
+    cgd = torch.as_tensor(cg, device=cuda)
+    model = _softmax_model(kind, D, C, rng, cuda)
+    inp = ik.softmax_kernel_inputs(model, cgd, G, cuda)
+    assert ik.loco_softmax_plan(N, D, G, k, inp["H"], C,
+                                inp["widths"][1:]).form == "rows"
+    ri, rv = ik.loco_softmax(Xd, model, cgd, G, k, strategy)
+    assert ri.dtype == ik.index_dtype(G)
+    monkeypatch.setattr(ik, "ROW_WIDTH_MAX", 0)
+    wi, wv = ik.loco_softmax(Xd, model, cgd, G, k, strategy)
+    assert torch.equal(ri, wi) and torch.equal(rv, wv)
 
 
 # --------------------------------------------------------------------------

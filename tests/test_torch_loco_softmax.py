@@ -177,12 +177,37 @@ def test_kernel_layers_reproduce_the_probabilities(models, kind):
     assert inp["perm"] is None
 
 
-def _emulate_kernel(X, inp, G, k):
-    """The kernel's arithmetic in numpy f32 for each row: the base from 32
-    lane partials (column j to lane j % 32) summed in lane order, each
-    group's columns in ``perm`` order subtracted from the dot, the bias, the
-    tail and the softmax of the last class after the max; top-k by |diff|,
-    ties to the lower group."""
+def _row_list(d, k, strategy):
+    """The row form's top-k: each group offered in order and inserted after
+    every entry of equal or higher rank (``loco_push``)."""
+    val, idx = [], []
+    for g, x in enumerate(d):
+        key = _rank(x, strategy)
+        if len(val) < k:
+            val.append(x)
+            idx.append(g)
+            i = len(val) - 1
+        elif key > _rank(val[-1], strategy):
+            i = k - 1
+        else:
+            continue
+        while i > 0 and key > _rank(val[i - 1], strategy):
+            val[i], idx[i] = val[i - 1], idx[i - 1]
+            i -= 1
+        val[i], idx[i] = x, g
+    return idx, val
+
+
+def _emulate_kernel(X, inp, G, k, strategy="abs", form="rows"):
+    """The kernel's arithmetic in numpy f32 for each row, the same in both
+    forms: the base from 32 lane partials (column j to partial j % 32, a
+    fused multiply-add chain each, emulated in f64 where an f32 product is
+    exact) summed in lane order, each group's columns in ``perm`` order (a
+    fused chain) subtracted from the dot, the bias, the tail (each output a
+    fused chain over its inputs) and the softmax of the last class after
+    the max (numpy's exp, not the card's).  The top-k: the row form's list
+    (``_row_list``, indices in ``index_dtype(G)``) or the warp form's rule,
+    a stable sort of the rank (int32 indices)."""
     f32 = np.float32
     W1, b1 = inp["W1"].numpy(), inp["b1"].numpy()
     tw, dims = inp["tw"].numpy(), inp["dims"].tolist()
@@ -191,6 +216,9 @@ def _emulate_kernel(X, inp, G, k):
     goff = inp["goff"].numpy()
     H = dims[0]
 
+    def fma(a, b, c):
+        return (np.float64(a) * b.astype(np.float64) + c).astype(f32)
+
     def prob(a):
         a = a.copy()
         off = 0
@@ -198,37 +226,53 @@ def _emulate_kernel(X, inp, G, k):
             din, dout = dims[i], dims[i + 1]
             a = np.maximum(a, f32(0))
             W = tw[off:off + din * dout].reshape(din, dout)
-            a = (a @ W).astype(f32) + tw[off + din * dout:off + din * dout
-                                         + dout]
+            s = np.zeros(dout, f32)
+            for k_ in range(din):
+                s = fma(a[k_], W[k_], s)
+            a = s + tw[off + din * dout:off + din * dout + dout]
             off += din * dout + dout
         e = np.exp((a - a.max()).astype(f32))
-        return f32(e[-1] / e.sum())
+        total = f32(0)
+        for v in e:
+            total += v
+        return f32(e[-1] / total)
 
     idx, val = [], []
     for x in X:
         phi = np.maximum(x, 0) if inp["relu_in"] else x
         parts = np.zeros((32, H), f32)
         for j in range(len(x)):
-            parts[j % 32] += phi[j] * W1[j]
-        dot = parts.sum(axis=0, dtype=f32)
+            parts[j % 32] = fma(phi[j], W1[j], parts[j % 32])
+        dot = np.zeros(H, f32)
+        for lane in range(32):
+            dot += parts[lane]
         base = prob(dot + b1)
         d = np.empty(G, f32)
         for g in range(G):
             pg = np.zeros(H, f32)
             for c in range(goff[g], goff[g + 1]):
-                pg += phi[perm[c]] * W1[perm[c]]
+                pg = fma(phi[perm[c]], W1[perm[c]], pg)
             d[g] = base - prob((dot - pg) + b1)
-        order = np.argsort(-np.abs(d), kind="stable")[:k]
+        if form == "rows":
+            order, _ = _row_list(d, k, strategy)
+        else:
+            order = np.argsort(-np.asarray([_rank(v, strategy) for v in d]),
+                               kind="stable")[:k]
         idx.append(order)
         val.append(d[order])
-    return np.asarray(idx), np.asarray(val)
+    itype = (np.int16 if ik.index_dtype(G) == torch.int16 else np.int32) \
+        if form == "rows" else np.int32
+    return np.asarray(idx, itype), np.asarray(val, f32)
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_emulated_kernel_matches_the_twin(models, kind):
     """The kernel's arithmetic on its own inputs (scattered groups: a
     ``perm``) against the wrapper's CPU twin, and ``model_loco`` takes the
-    softmax link for every one of these models."""
+    softmax link for every one of these models.  These widths plan the row
+    form (a row a thread), whose lists are the warp form's bit for bit
+    under every strategy: the same sums in the same order, the same
+    insertion rule (ties to the lower group)."""
     X, _, pm = models[kind]
     _, pmeta = _metas()
     groups = pri.loco_groups(pmeta, D)
@@ -240,7 +284,17 @@ def test_emulated_kernel_matches_the_twin(models, kind):
     assert torch.equal(ti, li) and torch.equal(tv, lv)
     inp = ik.softmax_kernel_inputs(pm, cg, G, CPU)
     assert inp["perm"] is not None
+    plan = ik.loco_softmax_plan(60, D, G, G, inp["H"], inp["C"],
+                                inp["widths"][1:])
+    assert plan.form == "rows"
     ei, ev = _emulate_kernel(X[:60], inp, G, G)
+    assert ei.dtype == np.int16
+    for strategy in ik.STRATEGIES:
+        for k in (1, 3, G):
+            ri, rv = _emulate_kernel(X[:60], inp, G, k, strategy)
+            wi, wv = _emulate_kernel(X[:60], inp, G, k, strategy, "warps")
+            np.testing.assert_array_equal(ri, wi)
+            assert rv.tobytes() == wv.tobytes()
     full = np.zeros((60, G), np.float64)
     np.put_along_axis(full, ti.long().numpy(), tv.numpy(), axis=1)
     tol = _tol(pm, X[:60])
@@ -249,16 +303,48 @@ def test_emulated_kernel_matches_the_twin(models, kind):
     np.testing.assert_allclose(np.abs(ev), np.abs(tv.numpy()), atol=tol)
 
 
+@pytest.mark.parametrize("D_,G", [(48, 12), (70, 70), (33, 5)])
+def test_emulated_order_past_32_columns(D_, G):
+    """Past 32 columns a base partial chains two or three columns: a
+    random 4-class multinomial model at D = 33 .. 70 with scattered
+    groups, the emulated kernel within 1e-6 of the twin's diffs, its row
+    lists the warp form's bits."""
+    from transmogrifai_tpu_torch.models.linear import LinearPredictionModel
+    rng = np.random.default_rng(D_ + G)
+    X = rng.normal(size=(40, D_)).astype(np.float32)
+    pm = LinearPredictionModel(fitted={
+        "coef": torch.as_tensor(rng.normal(scale=2.0 / D_ ** 0.5,
+                                           size=(D_, C)).astype(np.float32)),
+        "intercept": torch.as_tensor(rng.normal(size=C).astype(np.float32)),
+        "kind": "multinomial", "n_classes": C})
+    cg = rng.permutation(np.arange(D_) % G).astype(np.int32)
+    cgt = torch.as_tensor(cg)
+    inp = ik.softmax_kernel_inputs(pm, cgt, G, CPU)
+    k = min(G, 5)
+    ri, rv = _emulate_kernel(X, inp, G, k)
+    wi, wv = _emulate_kernel(X, inp, G, k, form="warps")
+    np.testing.assert_array_equal(ri, wi)
+    assert rv.tobytes() == wv.tobytes()
+    ti, tv = ik.loco_softmax(torch.as_tensor(X), pm, cgt, G, G, "abs")
+    full = np.zeros((40, G), np.float64)
+    np.put_along_axis(full, ti.long().numpy(), tv.numpy(), axis=1)
+    np.testing.assert_allclose(rv, np.take_along_axis(full, ri.astype(
+        np.int64), axis=1), atol=TOL)
+
+
 @pytest.mark.parametrize("C_,H,tail,G,K", [
     (4, 4, (), 16, 16), (40, 40, (), 16, 16), (4, 10, (4,), 16, 16),
     (4, 6, (5, 4), 128, 20), (300, 300, (), 3, 2), (2, 2, (), 1, 1),
     (4, 4, (), 512, 40), (900, 900, (), 20, 20), (3, 100, (200, 3), 64, 33)])
-def test_softmax_plan_sizes_any_shape(C_, H, tail, G, K):
-    """Slots of two buffers (the widest of the first layer and every second
-    tail layer; the widest of the others) for every lane of every warp, and
-    the tail's weights, inside one block's shared memory; fewer warps a
-    block for wide models."""
+def test_softmax_plan_sizes_any_shape(C_, H, tail, G, K, monkeypatch):
+    """The warp form's sizing (the row form switched off): slots of two
+    buffers (the widest of the first layer and every second tail layer;
+    the widest of the others) for every lane of every warp, and the tail's
+    weights, inside one block's shared memory; fewer warps a block for wide
+    models."""
+    monkeypatch.setattr(ik, "ROW_WIDTH_MAX", 0)
     plan = ik.loco_softmax_plan(1_000_000, 16, G, K, H, C_, tail)
+    assert plan.form == "warps"
     dims = (H,) + tail
     assert plan.slot_b == (max(dims[1::2]) if tail else 0)
     assert plan.slot == max(dims[0::2]) + plan.slot_b
@@ -271,6 +357,88 @@ def test_softmax_plan_sizes_any_shape(C_, H, tail, G, K):
     assert plan.tail_floats == sum(dims[i] * dims[i + 1] + dims[i + 1]
                                    for i in range(len(tail)))
     assert 1 <= plan.blocks <= ik.BLOCKS_IN_FLIGHT
+
+
+# every shape the plan tests above and below hold, by (N, D, G, K, H, C,
+# tail)
+EARLIER_SHAPES = [
+    (1_000_000, 16, 16, 16, 4, 4, ()), (1_000_000, 16, 16, 16, 40, 40, ()),
+    (1_000_000, 16, 16, 16, 10, 4, (4,)), (1_000_000, 16, 128, 20, 6, 4,
+                                            (5, 4)),
+    (1_000_000, 16, 3, 2, 300, 300, ()), (1_000_000, 16, 1, 1, 2, 2, ()),
+    (1_000_000, 16, 512, 40, 4, 4, ()), (1_000_000, 16, 20, 20, 900, 900,
+                                         ()),
+    (1_000_000, 16, 64, 33, 100, 3, (200, 3)),
+    (1_000_000, 16, 16, 5, 256, 4, (256, 4)),
+    (1_000_000, 16, 16, 5, 900, 4, (4,)), (1_000_000, 16, 16, 5, 512, 4,
+                                           (4,)),
+    (10, 16, 4, 2, 2000, 2000, ()), (1_000_000, 16, 16, 5, 1800, 1800, ()),
+    (1_000_000, 16, 16, 5, 2048, 4, (4,)), (1_000_000, 16, 16, 5, 64, 4,
+                                            (2048, 4)),
+    (1_000, 16, 16, 5, 1800, 4, (4,)), (1_000_000, 16, 16, 5, 1700, 4, (4,)),
+    (1_000_000, 16, 16, 5, 16, 4, (4,)), (100_000, 512, 128, 20, 4, 4, ()),
+    (100_000, 512, 128, 40, 4, 4, ()), (1_000, 16, 16, 5, 2048, 4, (4,))]
+
+
+@pytest.mark.parametrize("shape", EARLIER_SHAPES)
+def test_softmax_plan_still_plans_every_earlier_shape(shape):
+    """Each shape the earlier plan tests hold plans under the threshold,
+    in the form it picks: the row form within one block's shared memory
+    (its 4 (D H + H + tail + R x_stride + 2 K (R + 1)) bytes), every layer
+    within its register width; else the warp form, as sized before."""
+    N, D_, G, K, H, C_, tail = shape
+    plan = ik.loco_softmax_plan(*shape)
+    dims = (H,) + tail
+    tw = sum(dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(tail)))
+    assert plan.tail_floats == tw
+    if plan.form == "rows":
+        R = plan.threads
+        assert R in ik.ROW_ROWS and plan.blocks == max(1, -(-N // R))
+        assert max(dims) <= plan.hm in (4, 8, 16)
+        assert plan.x_stride == D_ | 1 and plan.scratch_floats == 0
+        assert plan.smem_bytes == 4 * (D_ * H + H + tw + R * plan.x_stride
+                                       + 2 * K * (R + 1)) <= ik.SMEM_MAX
+    else:
+        # too wide, too long a row, or the row form's block of 32 rows
+        # past shared memory
+        assert max(dims) > ik.ROW_WIDTH_MAX or D_ > ik.ROW_D_MAX or 4 * (
+            D_ * H + H + tw + 32 * (D_ | 1) + 2 * K * 33) > ik.SMEM_MAX
+        assert plan.hm == 0 and plan.x_stride == 0
+        per_warp = 32 * (plan.slot | 1) + H
+        if plan.scratch_floats:
+            assert 4 * plan.scratch_floats <= ik.SLOT_SCRATCH_BYTES
+        else:
+            assert plan.smem_bytes == 4 * (tw * plan.tail_in_smem
+                                           + plan.threads // 32 * per_warp)
+        assert plan.smem_bytes <= ik.SMEM_MAX
+
+
+@pytest.mark.parametrize("D_,G,K,H,C_,tail,form,rows", [
+    (16, 16, 16, 4, 4, (), "rows", 128),        # the multiclass winner
+    (16, 16, 16, 10, 4, (4,), "rows", 128),     # the 16-10-4 MLP
+    (16, 16, 16, 16, 16, (), "rows", 128),      # at the widest register
+    (16, 16, 16, 17, 17, (), "warps", 0),       # one class past it
+    (16, 16, 16, 16, 4, (17, 4), "warps", 0),   # a tail layer past it
+    (16, 16, 16, 40, 40, (), "warps", 0),       # 40 classes
+    (96, 24, 20, 4, 4, (), "rows", 128),        # the widest row
+    (97, 24, 20, 4, 4, (), "warps", 0),         # a column past it
+    (512, 128, 20, 4, 4, (), "warps", 0),       # bench_loco
+    (1596, 10, 10, 4, 4, (), "warps", 0),       # the transmog width
+    (16, 4000, 4000, 4, 4, (), "warps", 0),     # top-K lists past a block
+    (16, 600, 600, 4, 4, (), "rows", 32),       # fewer rows a block
+    (96, 1000, 200, 16, 16, (), "rows", 64)])
+def test_softmax_plan_chooses_the_form_at_its_threshold(D_, G, K, H, C_, tail,
+                                                        form, rows):
+    """The row form wherever every layer is at most ``ROW_WIDTH_MAX`` (16)
+    wide, the row at most ``ROW_D_MAX`` (96) columns and a block of 128, 64
+    or 32 rows holds its state (the most rows that fit); else the warp
+    form."""
+    plan = ik.loco_softmax_plan(100_000, D_, G, K, H, C_, tail)
+    assert plan.form == form
+    if form == "rows":
+        assert plan.threads == rows
+        assert plan.hm == next(w for w in (4, 8, 16)
+                               if max((H,) + tail) <= w)
 
 
 @pytest.mark.parametrize("H,tail,staged", [

@@ -610,7 +610,10 @@ def test_launch_plans_cover_the_shapes(C, D):
     every C up to 40 fits at the transmogrified width, in shared memory the
     kernel's own carve-up sizes; more than 64 classes, or a width no
     tensor-core launch holds, runs the two-pass form with every lane's
-    classes in one launch; fewer than 2 classes is refused."""
+    classes in one launch; fewer than 2 classes is refused.
+    ``multiclass_confusion`` takes its thread form where a block's cells
+    fit shared memory (up to 14 classes) and its shared form (warps'
+    histograms) above, on an H100 SXM's 132 SMs."""
     L = 24
     plan = lk.softmax_launch_plan(D, L, C)
     if C > lk.TC_COLS or D > 20_000:
@@ -631,12 +634,19 @@ def test_launch_plans_cover_the_shapes(C, D):
     with pytest.raises(ValueError, match="classes"):
         lk.softmax_launch_plan(D, L, 1)
     for K in (1, 24, 300):
-        p = mk.confusion_plan(K, C)
+        p = mk.confusion_plan(K, C, 1_000_000, 132)
         assert p.smem <= mk._SMEM_MAX and 1 <= p.k_chunk <= K
-        assert p.smem == 4 * p.warps * p.k_chunk * p.c_chunk * C
-    assert mk.confusion_plan(24, 4) == mk.ConfusionPlan(24, 4, 8, 12288)
-    big = mk.confusion_plan(3, 400)
-    assert big.c_chunk < 400 and big.warps == 1 and big.k_chunk == 1
+        if mk.thread_form_fits(C):
+            assert p.form == "thread"
+            assert p.smem == 4 * C * C * p.threads
+        else:
+            assert p.form == "shared"
+            assert p.smem == 4 * (p.threads // 32) * p.k_chunk \
+                * p.c_chunk * C
+    assert mk.confusion_plan(24, 4, 1_000_000, 132) == mk.ConfusionPlan(
+        "thread", 24, 4, 240, 10, 528, 15_360)
+    big = mk.confusion_plan(3, 400, 1_000_000, 132)
+    assert big.c_chunk < 400 and big.threads == 32 and big.k_chunk == 1
 
 
 def test_wrappers_check_their_inputs():

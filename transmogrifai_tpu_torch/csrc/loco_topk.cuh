@@ -1,6 +1,7 @@
 // loco_topk.cuh — a row's top-K of leave-one-covariate-out diffs, kept by
-// the warp that computes them; shared by loco_linear.cu, loco_tree.cu and
-// loco_softmax.cu.
+// the warp that computes them, or by the thread that owns the row
+// (loco_push on a list of its own); shared by loco_linear.cu, loco_tree.cu
+// and loco_softmax.cu.
 //
 // Replaces (JAX): the lax.top_k over the [N, G] diff matrix in
 // transmogrifai_tpu/record_insights.py:_device_topk (:150-158).  On the TPU
@@ -34,26 +35,27 @@ __device__ __forceinline__ float loco_sigmoid(float m) {
   return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-m)));
 }
 
-// insert (g, d) into the sorted list of n <= k entries at val / idx
+// insert (g, d) into the sorted list of n <= k entries at val / idx, entry
+// i at val[i * stride] (a thread's own list in a block's interleaved slab)
 __device__ __forceinline__ void loco_push(float* val, int32_t* idx, int k,
                                           int& n, int strategy, int g,
-                                          float d) {
+                                          float d, int stride = 1) {
   const float key = loco_rank(d, strategy);
   int i;
   if (n < k) {
     i = n++;
-  } else if (key > loco_rank(val[k - 1], strategy)) {
+  } else if (key > loco_rank(val[(k - 1) * stride], strategy)) {
     i = k - 1;
   } else {
     return;
   }
-  while (i > 0 && key > loco_rank(val[i - 1], strategy)) {
-    val[i] = val[i - 1];
-    idx[i] = idx[i - 1];
+  while (i > 0 && key > loco_rank(val[(i - 1) * stride], strategy)) {
+    val[i * stride] = val[(i - 1) * stride];
+    idx[i * stride] = idx[(i - 1) * stride];
     --i;
   }
-  val[i] = d;
-  idx[i] = g;
+  val[i * stride] = d;
+  idx[i * stride] = g;
 }
 
 struct WarpTopK {

@@ -10,9 +10,10 @@ and the plain-PyTorch twin (the dispatch rule and launch counters are in
 
 The JAX program runs a ``lax.map`` of G masked forwards ``score(X * m_g)``
 so that [G, N, D] is never formed, then ``lax.top_k`` over the [N, G]
-diffs.  In the three kernels a warp takes a row, computes its G diffs
-(lane i group g0 + i) and keeps the top K as they go
-(``csrc/loco_topk.cuh``), reading X once; none forms ``X * m_g``.
+diffs.  The three kernels read X once and keep each row's top K as they
+go (``csrc/loco_topk.cuh``); none forms ``X * m_g``.  In ``loco_linear``
+and ``loco_softmax``'s warp form a warp takes a row (lane i group g0 + i);
+in ``loco_tree`` and ``loco_softmax``'s row form a thread takes a row.
 ``loco_topk_twin`` computes ``base - score(X * m_g)`` one group at a time,
 the score from the model's own ``device_scores`` (``loco_score``), and
 sorts the rank stably: it is what the CPU runs and what the kernels are
@@ -39,7 +40,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _ARGTYPES = {
     "loco_linear": [_P, _P, _F] + [_P] * 5 + [_L] + [_I] * 9 + [_P],
     "loco_tree": [_P] * 5 + [_L] + [_I] * 8 + [_F, _F] + [_I] * 5 + [_P],
-    "loco_softmax": [_P] * 10 + [_L] + [_I] * 15 + [_P],
+    "loco_softmax": [_P] * 10 + [_L] + [_I] * 19 + [_P],
 }
 STRATEGIES = ("abs", "positive", "negative")
 # kernel codes: loco_linear's links of the margin m — the sigmoid, the
@@ -81,6 +82,9 @@ TREE_ROWS = 128                  # loco_tree: rows (threads) a block, 128 or 256
 TREE_GROUP_WINDOW = 64           # loco_tree: groups a window sums at most
 TREE_X_SMEM = 32 * 1024          # loco_tree: the most bytes of X a block stages
 SLOT_SCRATCH_BYTES = 1 << 30     # loco_softmax: the most device-memory slots
+ROW_WIDTH_MAX = 16               # loco_softmax: the row form's widest layer
+ROW_D_MAX = 96                   # loco_softmax: the row form's widest row
+ROW_ROWS = (128, 64, 32)         # loco_softmax: the row form's rows a block
 
 
 class LocoPlan(NamedTuple):
@@ -137,13 +141,27 @@ class SoftmaxPlan(NamedTuple):
     tail_in_smem: bool  # staged beside the slots, else read from memory
     smem_bytes: int
     scratch_floats: int  # the warps' slots in device memory (0: in shared)
+    form: str = "warps"  # "rows": a row a thread, its state in registers
+    x_stride: int = 0    # rows: the staged rows' stride (odd, >= D)
+    hm: int = 0          # rows: the registers' width (4, 8 or 16)
 
 
 def loco_softmax_plan(N: int, D: int, G: int, K: int, H: int, C: int,
                       tail=()) -> SoftmaxPlan:
     """The launch of ``loco_softmax`` for a first layer H wide and ``tail``
     the widths of the layers after it (the last is C; none for logistic
-    regression and naive Bayes, where H = C): one warp per row, a
+    regression and naive Bayes, where H = C).
+
+    The row form where every layer is at most ``ROW_WIDTH_MAX`` wide, the
+    row at most ``ROW_D_MAX`` columns (a thread walks its columns in
+    series: on an H100 at 100,000 rows it beat the warp form at 96
+    columns, 0.168 against 0.258 ms, tied at 128, 0.305 against 0.304, and
+    lost at 256 and 512, ``scripts/loco_softmax_time.py --widths``) and a
+    block of ``ROW_ROWS`` rows (the most that fits) holds its state in
+    shared memory — W1, b1, the tail's weights, its rows of X at an odd
+    stride ``x_stride`` and its rows' top-K lists, 4 (D H + H + tail + R
+    x_stride + 2 K (R + 1)) bytes: a row a thread, the row's activations
+    in registers ``hm`` wide.  Else the warp form: one warp per row, a
     grid-stride loop over rows, each lane a slot in shared memory of two
     buffers the layers alternate between (the widest of the first layer
     and every second tail layer, and the widest of the others; one buffer
@@ -169,6 +187,14 @@ def loco_softmax_plan(N: int, D: int, G: int, K: int, H: int, C: int,
     SA = max(dims[0::2])
     SB = max(dims[1::2]) if tail else 0
     tw = sum(dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(tail)))
+    if max(dims) <= ROW_WIDTH_MAX and D <= ROW_D_MAX:
+        hm = next(w for w in (4, 8, 16) if max(dims) <= w)
+        xs = D | 1
+        for R in ROW_ROWS:
+            smem = 4 * (D * H + H + tw + R * xs + 2 * K * (R + 1))
+            if smem <= SMEM_MAX:
+                return SoftmaxPlan(max(1, -(-N // R)), R, SA + SB, SB, tw,
+                                   True, smem, 0, "rows", xs, hm)
     per_warp = 32 * ((SA + SB) | 1) + H
     for staged in (True, False):
         for warps in (THREADS // 32, 4, 2, 1):
@@ -382,7 +408,11 @@ def loco_softmax(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
     H, C, dims = inp["H"], inp["C"], inp["dims"]
     plan = loco_softmax_plan(N, D, G, k, H, C, inp["widths"][1:])
     perm = inp["perm"]
-    val, idx = _outputs(N, k, dev)
+    rows = plan.form == "rows"
+    # the row form writes the indices in their final type
+    val = torch.empty((N, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((N, k), dtype=index_dtype(G) if rows else torch.int32,
+                      device=dev)
     scratch = (torch.empty(plan.scratch_floats, dtype=torch.float32,
                            device=dev) if plan.scratch_floats else None)
     launch("loco_softmax", _ARGTYPES["loco_softmax"], X.data_ptr(),
@@ -393,8 +423,9 @@ def loco_softmax(X: torch.Tensor, model, col_group: torch.Tensor, G: int,
            k, STRATEGIES.index(strategy), H, C, inp["n_tail"],
            int(inp["relu_in"]), plan.slot - plan.slot_b, plan.slot_b,
            plan.tail_floats, int(plan.tail_in_smem), plan.blocks,
-           plan.threads, plan.smem_bytes, _stream(X))
-    return idx.to(index_dtype(G)), val
+           plan.threads, plan.smem_bytes, int(rows), plan.x_stride,
+           int(idx.dtype == torch.int16), plan.hm, _stream(X))
+    return (idx if rows else idx.to(index_dtype(G))), val
 
 
 def softmax_kernel_inputs(model, col_group: torch.Tensor, G: int,
