@@ -189,8 +189,21 @@ Phases (any failure exits non-zero and prints no result line):
    (its slots in device memory), ``loco_tree`` at G = 1, 28 and 100 (two
    group windows) under each link and strategy and at k = 40, against
    their twins, and the binary selector's default LR grid ranked by F1 at
-   1M x 28 (its winner printed, the launches read around its train).  The
-   script's own wall time is printed before the card's line.
+   1M x 28 (its winner printed, the launches read around its train);
+14. save, load and score — run on each of the default grid's, the
+   transmog, the sparse, the regression and the multiclass models right
+   after the phase that trained it (while it and its fresh 1M batch are
+   alive): ``save`` to a temp directory (seconds, bundle bytes),
+   ``WorkflowModel.load`` on the card (seconds), the fresh batch scored
+   through the reloaded model's ``ScoreProgram`` and through the eager
+   ``apply_dag``, each required to give the in-memory model's bits (rows/s
+   and peak device memory of both), the kernels' launches read around the
+   ``ScoreProgram`` score alone (``tree_walk`` for a tree winner,
+   ``hash_counts`` for transmog, ``sp_matmat`` for sparse must launch);
+   on the default grid's model also ``local.score_function``'s median ms a
+   record over 200 records (each held to the batch's row) and
+   ``ScoreProgram``'s ms at 1, 64 and 4,096 rows.  The script's own wall
+   time is printed before the card's line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` table (launches: the default
@@ -204,8 +217,10 @@ multiclass default grid's train for ``fista_softmax`` and
 ``fista_glm`` rows, its LOCO transform for ``loco_linear``'s exp-link row,
 the multiclass LOCO transform for the ``loco_softmax`` rows, phase 12's
 estimator fits for the ``fista_wide`` rows, the two fault-width
-``fista_glm`` rows and the 64-bin split rows), the
-one before that the card's name and power limit.
+``fista_glm`` rows and the 64-bin split rows; the ``tree_walk``,
+``hash_counts`` and ``sp_matmat`` rows add phase 14's reloaded scores'
+launches of that kernel), the one before that the card's name and power
+limit.
 Imports nothing of JAX.
 """
 
@@ -4929,6 +4944,189 @@ def check_binary_confusion_selector(device="cuda", n: int = N_ROWS) -> dict:
             "cv_f1": cv, "train_wall_s": wall, "train_auroc": auroc}
 
 
+
+# --------------------------------------------------------------------------
+# phase 14: save, load and score
+# --------------------------------------------------------------------------
+
+BUNDLE_SCORE_SEED = 12             # the default grid's fresh batch
+BUNDLE_RECORDS = 200               # records local.score_function times
+BUNDLE_LATENCY_ROWS = (1, 64, 4096)   # ScoreProgram's small batches
+BUNDLE_LATENCY_REPS = 20
+BUNDLE_TOL = 1e-6                  # a record's scores against the batch's
+
+
+def _prediction(model, scored) -> dict:
+    (name,) = [f.name for f in model.result_features]
+    return dict(scored[name].values)
+
+
+def _require_bits(got: dict, want: dict, what: str) -> None:
+    import torch
+    if sorted(got) != sorted(want) or not all(
+            torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError(f"{what}: not the in-memory model's bits")
+
+
+def _timed(fn, device):
+    """(result, wall s, peak device GB during the call, GB live before)."""
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if device == "cuda"
+            else float("nan"))
+    return out, wall, peak, (base if device == "cuda" else float("nan"))
+
+
+def _uncached(batch):
+    """``batch``'s columns as new ``Column`` instances over the same arrays.
+    The host text profiles (token ids included) and map expansions are
+    cached on the instances, so a score of this copy tokenizes, hashes and
+    uploads afresh, as a score of a new batch does."""
+    import dataclasses
+    return batch.with_columns({k: dataclasses.replace(c)
+                               for k, c in batch.items()})
+
+
+def save_load_score(name: str, model, fresh, needs=(), device="cuda"):
+    """Phase 14 on one model: save its bundle, load it on ``device``, and
+    score ``fresh`` through the reloaded model's ``ScoreProgram`` and
+    through the eager ``apply_dag``, each required to give the in-memory
+    model's bits.  Each path scores its own uncached copy of the columns
+    twice: cold (host text profiles and map expansions made afresh, the
+    cost of a new batch) and then warm (those read from the copy).  The
+    kernels' launches are read around the cold ``ScoreProgram`` score
+    alone.  ``needs``: kernels that score must launch.  Returns (facts,
+    launches, the reloaded model)."""
+    import shutil
+    import tempfile
+
+    from transmogrifai_tpu_torch.dag import apply_dag
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+
+    n = len(fresh)
+    want = _prediction(model, model.score(fresh))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bundle_")
+    try:
+        path = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        model.save(path)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        loaded, load_s, _, _ = _timed(
+            lambda: WorkflowModel.load(path, device=device), device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if loaded.device.type != device:
+        raise AssertionError(f"{name}: loaded on {loaded.device}")
+
+    def program(batch):
+        return _prediction(loaded, loaded.score(batch))
+
+    def eager(batch):
+        return _prediction(loaded, apply_dag(batch.on(device),
+                                             loaded.fitted_dag))
+
+    facts = {"rows": n,
+             "winner": type(loaded.selected_model.best_model).__name__,
+             "save_s": save_s, "bundle_bytes": nbytes, "load_s": load_s}
+    launches = None
+    for label, fn in (("score_program", program), ("apply_dag", eager)):
+        batch = _uncached(fresh)
+        for temp in ("cold", "warm"):
+            if launches is None:
+                kernels.reset_launch_counts()
+            got, wall, peak, base = _timed(lambda: fn(batch), device)
+            if launches is None:
+                launches = kernels.launch_counts()
+            _require_bits(got, want, f"{name}: {label} ({temp}) of the "
+                          "reloaded model")
+            del got
+            facts[f"{label}_{temp}_s"] = wall
+            facts[f"{label}_{temp}_rows_per_s"] = n / wall
+            facts[f"{label}_{temp}_peak_gb"] = peak
+            facts.setdefault("live_gb_before", base)
+        del batch
+    missing = [k for k in needs if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{name}: the reloaded model's score never "
+                             f"launched {missing}")
+    facts.update(bits="equal",
+                 launches={k: v for k, v in launches.items() if v})
+    return facts, launches, loaded
+
+
+def _records(batch, n: int) -> list:
+    """The first ``n`` rows of a numeric raw batch as record dicts."""
+    out = [{} for _ in range(n)]
+    for col_name, col in batch.items():
+        vals = np.asarray(col.values[:n])
+        for i in range(n):
+            out[i][col_name] = float(vals[i])
+    return out
+
+
+def bundle_latencies(loaded, fresh, device="cuda") -> dict:
+    """Per-record ``local.score_function`` latency (median ms over
+    BUNDLE_RECORDS records, each held to the batch score's row) and
+    ``ScoreProgram`` latency at BUNDLE_LATENCY_ROWS rows (median ms of
+    BUNDLE_LATENCY_REPS calls, the device synchronised after each)."""
+    import torch
+
+    from transmogrifai_tpu_torch import local
+
+    (name,) = [f.name for f in loaded.result_features]
+    want = {k: v[:BUNDLE_RECORDS].cpu().numpy()
+            for k, v in _prediction(loaded, loaded.score(
+                fresh.take_rows(np.arange(BUNDLE_RECORDS)))).items()}
+    score = local.score_function(loaded)
+    recs = _records(fresh, BUNDLE_RECORDS)
+    for r in recs[:3]:                    # warm-up
+        score(r)
+    per_record, worst = [], 0.0
+    for i, r in enumerate(recs):
+        t0 = time.perf_counter()
+        out = score(r)[name]
+        per_record.append((time.perf_counter() - t0) * 1e3)
+        if out["prediction"] != float(want["prediction"][i]):
+            raise AssertionError(f"record {i}: prediction "
+                                 f"{out['prediction']} against the batch's "
+                                 f"{want['prediction'][i]}")
+        for base in ("probability", "rawPrediction"):
+            if base in want:
+                row = np.float32([out[f"{base}_{j}"]
+                                  for j in range(want[base].shape[1])])
+                worst = max(worst, float(np.abs(row - want[base][i]).max()))
+    if worst > BUNDLE_TOL:
+        raise AssertionError(f"local scores {worst} from the batch's")
+    facts = {"local_records": BUNDLE_RECORDS,
+             "local_ms_per_record_median": float(np.median(per_record)),
+             "local_ms_per_record_p90": float(np.percentile(per_record, 90)),
+             "local_max_abs_err": worst, "score_program_ms": {}}
+    for rows in BUNDLE_LATENCY_ROWS:
+        sub = fresh.take_rows(np.arange(rows) % len(fresh))
+        times = []
+        for rep in range(BUNDLE_LATENCY_REPS + 2):
+            t0 = time.perf_counter()
+            p = _prediction(loaded, loaded.score(sub))["prediction"]
+            if device == "cuda":
+                torch.cuda.synchronize()
+            if rep >= 2:                  # two warm-up calls
+                times.append((time.perf_counter() - t0) * 1e3)
+            del p
+        facts["score_program_ms"][str(rows)] = float(np.median(times))
+    return facts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4938,7 +5136,26 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from transmogrifai_tpu_torch import cuda_build
+    from transmogrifai_tpu_torch.columns import ColumnBatch
     from transmogrifai_tpu_torch.models import kernels
+
+    # phase 14 runs on each model right after the phase that trained it,
+    # while the model and its fresh batch are alive; its launches are
+    # summed here and added to the kernels' rows at the end
+    bundle_launches: dict = {}
+
+    def bundle_phase(name, model, fresh):
+        tree = type(model.selected_model.best_model).__name__ == \
+            "TreeEnsembleModel"
+        needs = {"transmog": ("hash_counts",),
+                 "sparse": ("sp_matmat",)}.get(name, ()) + \
+            (("tree_walk",) if tree else ())
+        facts, launches, loaded = save_load_score(name, model, fresh, needs)
+        for k, v in launches.items():
+            bundle_launches[k] = bundle_launches.get(k, 0) + v
+        print(f"phase 14 save, load and score ({name}): "
+              + json.dumps(facts), flush=True)
+        return loaded
 
     # phase 1: device and build
     card = nvidia_smi_line()
@@ -5065,6 +5282,12 @@ def main() -> int:
     for r in rows:
         r["launches"] = launches[r["name"]]
     torch.cuda.empty_cache()
+    fresh = multiclass_batch(*make_data(N_ROWS, seed=BUNDLE_SCORE_SEED))
+    loaded = bundle_phase("default_grid", grid_model, fresh)
+    print("phase 14 latencies (default grid, reloaded): " + json.dumps(
+        bundle_latencies(loaded, fresh)), flush=True)
+    del loaded, fresh
+    torch.cuda.empty_cache()
 
     # phase 5: the transmogrification path at 1M rows; the batches are made
     # before the clock starts, hash_counts is checked on a copy of text1
@@ -5094,6 +5317,8 @@ def main() -> int:
     if tm_facts["train_auroc"] <= 0.7:
         raise AssertionError(f"transmog train AuROC "
                              f"{tm_facts['train_auroc']} <= 0.7")
+    torch.cuda.empty_cache()
+    bundle_phase("transmog", tm_model, ColumnBatch(score_cols, N_ROWS))
     del score_cols
     torch.cuda.empty_cache()
     wide_rows, wide_facts = check_wide_fista(tm_model, tm_batch)
@@ -5148,6 +5373,8 @@ def main() -> int:
         raise AssertionError(f"sparse peak device memory "
                              f"{sp_facts['peak_device_memory_gb']} GB >= "
                              f"{SPARSE_PEAK_GB} GB")
+    torch.cuda.empty_cache()
+    bundle_phase("sparse", sp_model, ColumnBatch(score_cols, N_ROWS))
     del score_cols
     torch.cuda.empty_cache()
     print("profile sparse LR CV: " + json.dumps(profile_sparse_cv(
@@ -5236,6 +5463,9 @@ def main() -> int:
         raise AssertionError(f"regression peak device memory "
                              f"{reg_facts['peak_device_memory_gb']} GB")
     torch.cuda.empty_cache()
+    bundle_phase("regression", reg_model, regression_workflow(
+        N_ROWS, "default", "cuda", REG_SCORE_SEED)[1])
+    torch.cuda.empty_cache()
     reg_ins, ins_launches = run_regression_insights(reg_model, reg_batch)
     print("regression insights: " + json.dumps(reg_ins), flush=True)
     if ins_launches["loco_linear"] + ins_launches["loco_tree"] <= 0:
@@ -5311,6 +5541,8 @@ def main() -> int:
     if mc_facts["peak_device_memory_gb"] >= MC_PEAK_GB:
         raise AssertionError(f"multiclass peak device memory "
                              f"{mc_facts['peak_device_memory_gb']} GB")
+    torch.cuda.empty_cache()
+    bundle_phase("multiclass", mc_model, multiclass_batch(*mc_fresh))
     torch.cuda.empty_cache()
     cmp_facts, _, _ = run_multiclass("cuda", mc_X, mc_y, "compact")
     print(f"multiclass compact grid {N_ROWS}x{MC_FEATS}: "
@@ -5465,6 +5697,11 @@ def main() -> int:
     if f1_launches["fista_step"] <= 0:
         raise AssertionError("fista_step never launched on the F1-ranked "
                              "selector")
+    print("phase 14 kernel launches (the five reloaded scores): "
+          + json.dumps(bundle_launches), flush=True)
+    for r in rows:
+        if r["name"] in ("tree_walk", "hash_counts", "sp_matmat"):
+            r["launches"] += bundle_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke wall_s: {time.perf_counter() - t_start:.1f}",

@@ -49,7 +49,11 @@ device memory) like the other LOCO kernels, and ``loco_tree`` also past one
 window of 64 groups and at k past 32; the variance split (the gini body)
 bit-equal to its f32 twin and its epilogue's tree arrays (the mean label)
 equal to the twin's bookkeeping; ``hash_counts`` past 58,112 hashes (column
-windows) equal to its twin.
+windows) equal to its twin; a dense GBT, a transmog and a sparse-text model
+saved on the card and loaded on the card score a fresh batch with the
+in-memory model's bits (through ``ScoreProgram`` and ``apply_dag``, the
+kernels launched), and loaded on the CPU with predictions equal and scores
+within 1e-6.
 """
 
 import numpy as np
@@ -2233,3 +2237,100 @@ def test_fit_trees_gini_on_the_card_equals_the_cpu(cuda):
             assert kernels.launch_counts()["tree_split_gini"] == depth
     for a, b, name in zip(*fits, pt.TreeArrays._fields):
         assert torch.equal(a.cpu(), b), name
+
+
+# --------------------------------------------------------------------------
+# save on the card, load on the card and on the CPU
+# --------------------------------------------------------------------------
+
+def _bundle_case(case, device):
+    """(trained model, fresh batch) of a small port workflow on ``device``:
+    the dense GBT winner, the transmog LR or the sparse-text LR."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import sparse_reference as sr
+    import transmog_reference as tr
+    from transmogrifai_tpu_torch.columns import Column, ColumnBatch
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.models.trees import OpGBTClassifier
+    from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+    from transmogrifai_tpu_torch.selector import (
+        BinaryClassificationModelSelector, ModelCandidate, grid)
+    from transmogrifai_tpu_torch.types import RealNN
+    from transmogrifai_tpu_torch.workflow import Workflow
+    port = "transmogrifai_tpu_torch"
+    n = 3000
+    if case == "transmog":
+        cols, schema = tr.columns(port, n)
+        wf, _, _ = tr.build(port, cols, schema, n, device=device)
+        return wf.train(), ColumnBatch(tr.columns(port, n, seed=7)[0], n)
+    if case == "sparse":
+        wf, _, _ = sr.build(port, n, num_hashes=4096, device=device)
+        return wf.train(), sr.raw_batch(port, [], n, seed=7)
+
+    def dense(seed):
+        rng = np.random.default_rng(seed)
+        X = rng.normal(size=(n, 6)).astype(np.float32)
+        y = (X[:, 0] - X[:, 1] * X[:, 2] > 0).astype(np.float32)
+        return ColumnBatch({"y": Column(RealNN, y), **{
+            f"x{i}": Column(RealNN, X[:, i]) for i in range(6)}}, n)
+    label = FeatureBuilder.RealNN("y").as_response()
+    feats = [FeatureBuilder.RealNN(f"x{i}").as_predictor() for i in range(6)]
+    sel = BinaryClassificationModelSelector(models=[ModelCandidate(
+        OpGBTClassifier(), grid(max_iter=[5], max_depth=[4]),
+        "OpGBTClassifier")])
+    sel.set_input(label, transmogrify(feats))
+    wf = Workflow(device=device).set_input_batch(dense(0))
+    return wf.set_result_features(sel.get_output()).train(), dense(1)
+
+
+def _scores(model, batch):
+    (name,) = [f.name for f in model.result_features]
+    return dict(model.score(batch)[name].values)
+
+
+@pytest.mark.parametrize("case", ["dense_gbt", "transmog", "sparse"])
+def test_saved_on_the_card_reloads_on_the_card_with_the_same_bits(
+        cuda, case, tmp_path):
+    from transmogrifai_tpu_torch.dag import apply_dag
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+    model, fresh = _bundle_case(case, "cuda")
+    want = _scores(model, fresh)
+    model.save(str(tmp_path / "m"))
+    loaded = WorkflowModel.load(str(tmp_path / "m"))
+    assert loaded.device.type == "cuda"
+    kernels.reset_launch_counts()
+    got = _scores(loaded, fresh)
+    need = {"dense_gbt": "tree_walk", "transmog": "hash_counts",
+            "sparse": "sp_matmat"}[case]
+    assert kernels.launch_counts()[need] >= 1
+    (name,) = [f.name for f in loaded.result_features]
+    eager = apply_dag(fresh.on("cuda"), loaded.fitted_dag)[name].values
+    for k in want:
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(eager[k], want[k]), k
+
+
+@pytest.mark.parametrize("case", ["dense_gbt", "transmog", "sparse"])
+def test_saved_on_the_card_loads_on_the_cpu_within_tolerance(cuda, case,
+                                                            tmp_path):
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+    model, fresh = _bundle_case(case, "cuda")
+    want = {k: v.cpu().numpy() for k, v in _scores(model, fresh).items()}
+    model.save(str(tmp_path / "m"))
+    loaded = WorkflowModel.load(str(tmp_path / "m"), device="cpu")
+    got = {k: v.numpy() for k, v in _scores(loaded, fresh).items()}
+    assert sorted(got) == sorted(want)
+    np.testing.assert_array_equal(got["prediction"], want["prediction"])
+    np.testing.assert_allclose(got["probability"], want["probability"],
+                               rtol=0, atol=1e-6)
+    # a margin: 1e-6 absolute or 16 f32 ulps of the value, as across the
+    # packages (tests/test_torch_persistence.py::assert_scores_close)
+    raw = want["rawPrediction"]
+    gap = np.abs(got["rawPrediction"].astype(np.float64) - raw)
+    assert (gap <= np.maximum(1e-6, 16 * np.spacing(np.abs(raw)))).all(), \
+        gap.max()

@@ -207,3 +207,62 @@ def test_the_glm_and_softmax_loco_paths_leave_jax_out():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+NEW_MODULES = ("checkpoint", "compiled", "local", "stages.serialization")
+
+
+@pytest.mark.parametrize("name", NEW_MODULES)
+def test_save_load_and_scoring_modules_are_scanned(name):
+    path = os.path.join(PORT, *name.split(".")) + ".py"
+    assert f"transmogrifai_tpu_torch.{name}" in _port_modules()
+    test_no_source_imports_jax_or_the_jax_package(path)
+
+
+def test_save_load_and_local_scoring_leave_jax_out(tmp_path):
+    """Training on the CPU, saving, loading (a checkpoint root), scoring
+    through ``ScoreProgram`` and one record through
+    ``local.score_function`` load no JAX."""
+    code = ("import json, sys\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import numpy as np\n"
+            "from transmogrifai_tpu_torch import checkpoint, compiled, "
+            "local\n"
+            "from transmogrifai_tpu_torch.stages import serialization\n"
+            "from transmogrifai_tpu_torch.columns import Column, ColumnBatch\n"
+            "from transmogrifai_tpu_torch.features import FeatureBuilder\n"
+            "from transmogrifai_tpu_torch.models.trees import "
+            "OpGBTClassifier\n"
+            "from transmogrifai_tpu_torch.ops.transmogrify import "
+            "transmogrify\n"
+            "from transmogrifai_tpu_torch.selector import ("
+            "BinaryClassificationModelSelector, ModelCandidate, grid)\n"
+            "from transmogrifai_tpu_torch.types import RealNN\n"
+            "from transmogrifai_tpu_torch.workflow import Workflow, "
+            "WorkflowModel\n"
+            "rng = np.random.default_rng(0)\n"
+            "X = rng.normal(size=(200, 3)).astype(np.float32)\n"
+            "y = (X[:, 0] > 0).astype(np.float32)\n"
+            "label = FeatureBuilder.RealNN('y').as_response()\n"
+            "fs = [FeatureBuilder.RealNN(f'x{i}').as_predictor() "
+            "for i in range(3)]\n"
+            "sel = BinaryClassificationModelSelector(models=[ModelCandidate("
+            "OpGBTClassifier(), grid(max_iter=[2], max_depth=[2]), 'gbt')])\n"
+            "sel.set_input(label, transmogrify(fs))\n"
+            "cols = {'y': Column(RealNN, y), **{f'x{i}': Column(RealNN, "
+            "X[:, i]) for i in range(3)}}\n"
+            "b = ColumnBatch(cols, 200)\n"
+            "m = Workflow(device='cpu').set_input_batch(b)"
+            ".set_result_features(sel.get_output()).train()\n"
+            f"root = {str(tmp_path / 'ckpts')!r}\n"
+            "m.save(checkpoint.next_version_dir(root))\n"
+            "r = WorkflowModel.load(root, device='cpu')\n"
+            "r.score(b)\n"
+            "local.score_function(r)({'x0': 1.0, 'x1': 0.0, 'x2': 0.5})\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
+            "or m == 'transmogrifai_tpu' or m.startswith('transmogrifai_tpu.'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

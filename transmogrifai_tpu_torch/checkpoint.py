@@ -1,0 +1,306 @@
+"""Model bundles on disk — the port's copy of the bundle half of
+``transmogrifai_tpu/checkpoint.py`` (:50-380).
+
+A bundle is a directory of files (``op-model.json``, ``params.npz`` and any
+files another build put there) plus a ``MANIFEST.json`` holding the format
+version and a SHA-256 digest of every file.  ``atomic_bundle_write`` stages
+the files in a temp sibling directory, digests and fsyncs them and renames
+the directory into place, so a crash mid-save never leaves a torn bundle;
+``verify_bundle`` checks the version and digests on load and names the
+offending file; ``find_latest_valid`` lets a loader pointed at a checkpoint
+root take its newest bundle that verifies.
+
+The format is the JAX package's, so bundles move both ways between the two
+packages.  Not ported here: the resumable ``SweepCheckpoint``, the
+preemption guard and ``train(resume_from=)`` (JAX :383-639), and the
+telemetry spans and fault-injection points around save and load.  Failures
+the JAX package records into its ambient log go into the ``FailureLog``
+the caller passes (``log``), since the port has no ambient log.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import time
+import uuid
+from contextlib import contextmanager
+from typing import Any, Dict, List, Optional
+
+from .resilience import FailureLog, record_failure
+
+MANIFEST_NAME = "MANIFEST.json"
+# version 2: the manifest digests the whole tree recursively (relative POSIX
+# paths as keys); version-1 bundles stay readable
+BUNDLE_FORMAT_VERSION = 2
+_VERSION_DIR_PREFIX = "ckpt-"
+
+
+class CheckpointError(RuntimeError):
+    """Base of all bundle integrity errors."""
+
+
+class CorruptModelError(CheckpointError):
+    """A bundle failed verification: ``file`` names the offending file ("" for
+    the whole bundle), ``reason`` the failure."""
+
+    def __init__(self, path: str, file: str = "", reason: str = ""):
+        self.path = str(path)
+        self.file = str(file)
+        self.reason = str(reason)
+        at = f"{self.path}/{self.file}" if self.file else self.path
+        super().__init__(f"corrupt model bundle: {at}: "
+                         f"{self.reason or 'integrity check failed'}")
+
+
+class ModelVersionError(CheckpointError):
+    """A bundle's format version is outside what this build reads."""
+
+    def __init__(self, path: str, found: Any,
+                 supported: int = BUNDLE_FORMAT_VERSION):
+        self.path = str(path)
+        self.found = found
+        self.supported = supported
+        super().__init__(
+            f"model bundle {self.path}: format version {found!r} is not "
+            f"readable by this build (supports 1..{supported}); "
+            f"re-save the model with a matching version")
+
+
+def _sha256_file(path: str, chunk: int = 1 << 20) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        while True:
+            b = fh.read(chunk)
+            if not b:
+                break
+            h.update(b)
+    return h.hexdigest()
+
+
+def _fsync_path(path: str) -> None:
+    """fsync a file or directory; a platform that refuses directory fds is
+    passed over."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def write_json_atomic(path: str, payload: Dict[str, Any]) -> None:
+    """Durable small-file write: temp sibling, fsync, rename."""
+    tmp = f"{path}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
+    with open(tmp, "w") as fh:
+        json.dump(payload, fh, indent=2, default=str)
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(tmp, path)
+    _fsync_path(os.path.dirname(os.path.abspath(path)))
+
+
+def write_manifest(dirpath: str, extra: Optional[Dict[str, Any]] = None
+                   ) -> Dict[str, Any]:
+    """Digest every file under ``dirpath`` (recursively) into its
+    ``MANIFEST.json``, keyed by POSIX-style relative path."""
+    files: Dict[str, Dict[str, Any]] = {}
+    for root, dirs, names in os.walk(dirpath):
+        dirs.sort()
+        rel_root = os.path.relpath(root, dirpath)
+        for name in sorted(names):
+            rel = name if rel_root == "." else f"{rel_root}/{name}"
+            rel = rel.replace(os.sep, "/")
+            p = os.path.join(root, name)
+            if rel == MANIFEST_NAME or not os.path.isfile(p):
+                continue
+            files[rel] = {"sha256": _sha256_file(p),
+                          "bytes": os.path.getsize(p)}
+    manifest: Dict[str, Any] = {"formatVersion": BUNDLE_FORMAT_VERSION,
+                                "createdAt": time.time(), "files": files}
+    if extra:
+        manifest.update(extra)
+    with open(os.path.join(dirpath, MANIFEST_NAME), "w") as fh:
+        json.dump(manifest, fh, indent=2)
+        fh.flush()
+        os.fsync(fh.fileno())
+    return manifest
+
+
+@contextmanager
+def atomic_bundle_write(path: str, overwrite: bool = True,
+                        manifest_extra: Optional[Dict[str, Any]] = None):
+    """Yield a temp sibling directory for the caller to fill; on a clean
+    exit write the manifest, fsync everything and rename the directory over
+    ``path`` (an old bundle there is swapped out and removed only after the
+    new one is in place).  On any failure the temp directory is removed and
+    ``path`` is left as it was.  ``overwrite=False`` raises
+    ``FileExistsError`` on a non-empty ``path``."""
+    path = os.path.abspath(path)
+    parent = os.path.dirname(path)
+    os.makedirs(parent, exist_ok=True)
+    if not overwrite and os.path.isdir(path) and os.listdir(path):
+        raise FileExistsError(
+            f"model directory {path!r} is not empty; pass overwrite=True "
+            "to replace it")
+    tmp = os.path.join(
+        parent,
+        f".{os.path.basename(path)}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}")
+    os.makedirs(tmp)
+    try:
+        yield tmp
+        write_manifest(tmp, extra=manifest_extra)
+        for root, _dirs, names in os.walk(tmp, topdown=False):
+            for name in names:
+                _fsync_path(os.path.join(root, name))
+            _fsync_path(root)
+        if os.path.lexists(path):
+            old = f"{tmp}.old"
+            os.rename(path, old)
+            os.rename(tmp, path)
+            shutil.rmtree(old, ignore_errors=True)
+        else:
+            os.rename(tmp, path)
+        _fsync_path(parent)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def read_manifest(path: str) -> Optional[Dict[str, Any]]:
+    """The bundle's manifest, or None for a legacy bundle without one."""
+    mpath = os.path.join(path, MANIFEST_NAME)
+    if not os.path.exists(mpath):
+        return None
+    try:
+        with open(mpath) as fh:
+            return json.load(fh)
+    except (OSError, ValueError) as e:
+        raise CorruptModelError(path, MANIFEST_NAME,
+                                f"unreadable manifest ({e})") from e
+
+
+def verify_bundle(path: str) -> Optional[Dict[str, Any]]:
+    """Check a bundle's format version and every listed file's digest.
+
+    Returns the manifest (None for a legacy bundle); raises
+    ``ModelVersionError`` on version skew and ``CorruptModelError`` naming
+    the first missing or mismatched file.  Files the manifest does not list
+    are not read."""
+    if not os.path.isdir(path):
+        raise FileNotFoundError(
+            f"model bundle directory {path!r} does not exist")
+    manifest = read_manifest(path)
+    if manifest is None:
+        return None
+    version = manifest.get("formatVersion")
+    if not isinstance(version, int) \
+            or not 1 <= version <= BUNDLE_FORMAT_VERSION:
+        raise ModelVersionError(path, version)
+    for name, info in (manifest.get("files") or {}).items():
+        fpath = os.path.join(path, name)
+        if not os.path.exists(fpath):
+            raise CorruptModelError(
+                path, name, "listed in MANIFEST but missing on disk")
+        digest = _sha256_file(fpath)
+        if digest != info.get("sha256"):
+            raise CorruptModelError(
+                path, name, f"SHA-256 mismatch (manifest "
+                f"{str(info.get('sha256'))[:12]}…, disk {digest[:12]}…)")
+    return manifest
+
+
+def is_bundle_dir(path: str) -> bool:
+    """Does ``path`` look like one bundle (rather than a checkpoint root)?"""
+    return os.path.isdir(path) and (
+        os.path.exists(os.path.join(path, MANIFEST_NAME))
+        or os.path.exists(os.path.join(path, "op-model.json")))
+
+
+def _bundle_sort_key(path: str) -> float:
+    try:
+        m = read_manifest(path)
+        if m and isinstance(m.get("createdAt"), (int, float)):
+            return float(m["createdAt"])
+    except CheckpointError:
+        pass
+    try:
+        return os.path.getmtime(path)
+    except OSError:
+        return 0.0
+
+
+def find_latest_valid(root: str, log: Optional[FailureLog] = None) -> str:
+    """The newest bundle under ``root`` that verifies.  Each candidate that
+    fails is recorded in ``log`` (action "skipped") and passed over; raises
+    ``CorruptModelError`` when none verifies."""
+    if not os.path.isdir(root):
+        raise FileNotFoundError(f"checkpoint root {root!r} does not exist")
+    candidates = [os.path.join(root, n) for n in os.listdir(root)
+                  if is_bundle_dir(os.path.join(root, n))]
+    if not candidates:
+        raise FileNotFoundError(
+            f"model directory {root!r} contains neither a model bundle "
+            f"(no op-model.json / {MANIFEST_NAME}) nor any checkpoint "
+            "sub-directories")
+    for cand in sorted(candidates, key=_bundle_sort_key, reverse=True):
+        try:
+            verify_bundle(cand)
+            return cand
+        except (CheckpointError, FileNotFoundError) as e:
+            record_failure(log, "checkpoint", "skipped", e,
+                           point="checkpoint.load", bundle=cand)
+    raise CorruptModelError(
+        root, "", f"no valid checkpoint under root (tried "
+        f"{len(candidates)} candidate(s); see failure log for causes)")
+
+
+def bundle_version(path: str) -> str:
+    """A bundle's identity: its directory name and the manifest's createdAt
+    when there is one (``ckpt-000002@1722800000``)."""
+    base = os.path.basename(os.path.normpath(path))
+    try:
+        m = read_manifest(path)
+    except CheckpointError:
+        m = None
+    created = (m or {}).get("createdAt")
+    if isinstance(created, (int, float)):
+        return f"{base}@{int(created)}"
+    return base
+
+
+def next_version_dir(root: str) -> str:
+    """The next ``ckpt-NNNNNN`` directory under a checkpoint root."""
+    os.makedirs(root, exist_ok=True)
+    ids = []
+    for n in os.listdir(root):
+        if n.startswith(_VERSION_DIR_PREFIX):
+            try:
+                ids.append(int(n[len(_VERSION_DIR_PREFIX):]))
+            except ValueError:
+                pass
+    return os.path.join(root,
+                        f"{_VERSION_DIR_PREFIX}{max(ids, default=0) + 1:06d}")
+
+
+def prune_versions(root: str, keep: int) -> List[str]:
+    """Remove the oldest version directories beyond ``keep``; returns the
+    removed paths."""
+    if keep < 1:
+        raise ValueError("keep must be >= 1")
+    versions = sorted(
+        (os.path.join(root, n) for n in os.listdir(root)
+         if n.startswith(_VERSION_DIR_PREFIX)
+         and os.path.isdir(os.path.join(root, n))),
+        key=_bundle_sort_key, reverse=True)
+    removed = []
+    for path in versions[keep:]:
+        shutil.rmtree(path, ignore_errors=True)
+        removed.append(path)
+    return removed

@@ -39,6 +39,13 @@ def to_device_f32(values, device: DeviceLike):
                            device=device)
 
 
+def host_array(values) -> np.ndarray:
+    """``values`` as a numpy array on the host (a tensor is copied back)."""
+    if isinstance(values, torch.Tensor):
+        return values.detach().cpu().numpy()
+    return np.asarray(values)
+
+
 def device_matrix(values, device: DeviceLike):
     """Contiguous f32 feature matrix on ``device`` (≙ ``device_matrix``); a
     ``SparseMatrix`` stays sparse."""
@@ -75,6 +82,32 @@ class Column:
         dicts never reach the device; a fitted vectorizer lowers them."""
         return (isinstance(self.values, np.ndarray)
                 and self.values.dtype == object)
+
+    def row_value(self, i: int) -> FeatureType:
+        """Row ``i`` as a typed value (≙ ``Column.row_value``,
+        ``transmogrifai_tpu/columns.py:224``; the local-scoring path)."""
+        k = self.kind
+        if isinstance(self.values, dict):
+            d = {"prediction": float(host_array(self.values["prediction"][i]))}
+            for base in ("probability", "rawPrediction"):
+                if base in self.values:
+                    for j, v in enumerate(host_array(self.values[base][i])):
+                        d[f"{base}_{j}"] = float(v)
+            return Prediction(d)
+        if issubclass(k, OPVector):
+            if isinstance(self.values, SparseMatrix):
+                return OPVector(self.values.dense_rows([i])[0].tolist())
+            return OPVector(host_array(self.values[i]).tolist())
+        if self.is_host_object():
+            return k(self.values[i])
+        v = host_array(self.values[i])
+        if self.mask is not None and not bool(host_array(self.mask[i])):
+            return k(None)
+        if issubclass(k, Integral):
+            return k(int(v))
+        if issubclass(k, Binary):
+            return k(bool(v))
+        return k(float(v))
 
 
 class ColumnBatch:

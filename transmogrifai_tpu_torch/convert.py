@@ -74,6 +74,8 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 
 
 def _model_fitted(name: str, fitted: Dict[str, Any], device) -> Dict[str, Any]:
+    """``fitted`` of the model class ``name`` with the arrays its scoring
+    reads as tensors on ``device`` (the table above); the rest as given."""
     out = dict(fitted)
     if name in ("LinearPredictionModel", "GLMPredictionModel"):
         out["coef"] = _tensor(fitted["coef"], device, torch.float32)
@@ -97,6 +99,9 @@ def _model_fitted(name: str, fitted: Dict[str, Any], device) -> Dict[str, Any]:
         leaf = _tensor(fitted["leaf"], device, torch.float32)
         out["leaf"] = leaf if leaf.ndim == 3 else leaf[..., None]
         out["max_depth"] = int(fitted["max_depth"])
+        if "feature_gain" in fitted:
+            out["feature_gain"] = _tensor(fitted["feature_gain"], device,
+                                          torch.float32)
         out.setdefault("kind", "gbt")
         if out["kind"] == "gbt":
             out["eta"] = float(fitted["eta"])

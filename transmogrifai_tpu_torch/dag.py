@@ -3,7 +3,7 @@ FitStagesUtil.computeDAG, FitStagesUtil.scala:173-304)."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from .columns import ColumnBatch
 from .features import Feature
@@ -45,13 +45,18 @@ def prune_batch(batch: ColumnBatch, remaining_stages, keep_names) -> ColumnBatch
     return batch.drop(drop) if drop else batch
 
 
-def apply_dag(batch: ColumnBatch, dag: List[StageLayer]) -> ColumnBatch:
+def apply_dag(batch: ColumnBatch, dag: List[StageLayer],
+              up_to_feature: Optional[Feature] = None) -> ColumnBatch:
     """Apply an already-fitted DAG in order, eagerly on the batch's device
-    (≙ applyTransformationsDAG, OpWorkflowCore.scala:321)."""
+    (≙ applyTransformationsDAG, OpWorkflowCore.scala:321), stopping after
+    the stage that makes ``up_to_feature`` when one is given."""
     for layer in dag:
         for t in layer:
             if not isinstance(t, Transformer):
                 raise TypeError(
                     f"DAG contains unfitted estimator {t}; fit the workflow first")
             batch = t.transform_batch(batch)
+            if up_to_feature is not None and any(
+                    f.name == up_to_feature.name for f in t.output_features):
+                return batch
     return batch

@@ -93,16 +93,34 @@ class FeatureBuilder:
         x = FeatureBuilder.RealNN("x").as_predictor()
         label = FeatureBuilder.RealNN("label").as_response()
 
-    The port reads columnar batches (``Workflow.set_input_batch``), named by
-    feature; record extraction comes with the readers slice."""
+    The port's workflows read columnar batches (``Workflow.set_input_batch``),
+    named by feature; ``extract`` gives local scoring its record extractor
+    (``source``: the same as a Python expression over the record ``r``,
+    which a saved model keeps), ``window`` an aggregation window that is
+    saved but not yet acted on."""
 
     def __init__(self, name: str, kind: Type[FeatureType]):
         self.name = name
         self.kind = kind
+        self._extract = None
+        self._extract_source: Optional[str] = None
+        self._window_ms: Optional[int] = None
+
+    def extract(self, fn, source: Optional[str] = None) -> "FeatureBuilder":
+        self._extract = fn
+        self._extract_source = source
+        return self
+
+    def window(self, window_ms: int) -> "FeatureBuilder":
+        self._window_ms = int(window_ms)
+        return self
 
     def _build(self, is_response: bool) -> Feature:
         from .stages.generator import FeatureGeneratorStage
-        stage = FeatureGeneratorStage(name=self.name, kind=self.kind)
+        stage = FeatureGeneratorStage(
+            name=self.name, kind=self.kind, extract_fn=self._extract,
+            extract_source=self._extract_source,
+            aggregate_window_ms=self._window_ms)
         feat = Feature(self.name, self.kind, is_response, stage, parents=())
         stage._output = feat
         return feat

@@ -41,6 +41,14 @@ class PredictionModel(TransformerModel):
                       ) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
+    def place_fitted(self, device) -> None:
+        """A bundle's arrays as the tensors ``device_scores`` reads, by
+        ``convert``'s table of what each model reads; what the port derives
+        from them (the walk's packed nodes, LOCO's node records) is rebuilt
+        on use."""
+        from ..convert import _model_fitted
+        self.fitted = _model_fitted(type(self).__name__, self.fitted, device)
+
     def transform(self, batch: ColumnBatch) -> Column:
         X = device_matrix(batch[self.input_features[1].name].values,
                           batch.device)

@@ -81,6 +81,9 @@ def one_hot(ids: np.ndarray, cols, device) -> torch.Tensor:
 
 class OneHotModel(TransformerModel):
     out_kind = OPVector
+    # host vocabulary lookup, then the one-hot block on the device
+    is_device_op = False
+    supports_staging = True
 
     def transform(self, batch: ColumnBatch) -> Column:
         track_other = self.get("track_other", True)

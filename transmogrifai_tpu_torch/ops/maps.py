@@ -69,6 +69,9 @@ def _fill_and_interleave(vals: torch.Tensor, pres: torch.Tensor,
 
 class MapVectorizerModel(TransformerModel):
     out_kind = OPVector
+    # host key expansion, then the filled block on the device
+    is_device_op = False
+    supports_staging = True
 
     def transform(self, batch: ColumnBatch) -> Column:
         (f,) = self.input_features

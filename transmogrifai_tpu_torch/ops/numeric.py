@@ -49,6 +49,9 @@ def _value_null_meta(stage) -> VectorMeta:
 class RealVectorizerModel(TransformerModel):
     out_kind = OPVector
 
+    def place_fitted(self, device) -> None:
+        self.fitted["fills"] = to_device_f32(self.fitted["fills"], device)
+
     def transform(self, batch: ColumnBatch) -> Column:
         fills = self.fitted["fills"]
         track_nulls = self.get("track_nulls", True)
@@ -114,6 +117,11 @@ class RealNNVectorizer(Estimator):
         return self._finalize_model(RealNNVectorizerModel(fitted={"meta": meta}))
 
 
+class IntegralVectorizerModel(RealVectorizerModel):
+    """Filled integrals, as ``RealVectorizerModel`` fills reals (its own class
+    name, as the JAX package's bundles name it)."""
+
+
 class IntegralVectorizer(Estimator):
     """Fill missing integrals with the train mode (most frequent value; the
     smallest of equals) + a null indicator (≙ IntegralVectorizer.scala)."""
@@ -138,7 +146,7 @@ class IntegralVectorizer(Estimator):
             else:
                 fills.append(float(self.get("fill_value")))
         meta = _value_null_meta(self)
-        return self._finalize_model(RealVectorizerModel(fitted={
+        return self._finalize_model(IntegralVectorizerModel(fitted={
             "fills": torch.tensor(fills, dtype=torch.float32,
                                   device=batch.device),
             "meta": meta}, **self.params))

@@ -151,6 +151,9 @@ class TextStats:
 
 class SmartTextVectorizerModel(TransformerModel):
     out_kind = OPVector
+    # host profile and token ids, then hash_counts on the device
+    is_device_op = False
+    supports_staging = True
 
     def block_widths(self) -> List[int]:
         """Each input's column count, in output order."""

@@ -72,6 +72,8 @@ class RecordInsightsLOCO(Transformer):
 
     in_kinds = (OPVector,)
     out_kind = TextMap
+    # the kernels write on the device; the maps are host strings
+    is_device_op = False
 
     def __init__(self, model=None, top_k: int = 20, strategy: str = "abs",
                  **params):
@@ -316,6 +318,7 @@ class RecordInsightsCorrModel(TransformerModel):
     [P, D], ``s1``, ``s2`` [D] and ``offset``."""
 
     out_kind = TextMap
+    is_device_op = False
 
     def transform(self, batch: ColumnBatch) -> Column:
         _, vec_f = self.input_features

@@ -130,6 +130,40 @@ class SelectedModel(PredictionModel):
     def device_scores(self, X, full: bool = False):
         return self._best_model.device_scores(X, full=full)
 
+    # -- the winner saved inline (≙ selector.py:182-217) ----------------------
+    def save_extra(self):
+        if self._best_model is None:
+            return {}, {}
+        from .stages.serialization import _is_array
+        inner = self._best_model
+        j = {"bestModelClass": type(inner).__name__,
+             "bestModelParams": {k: v for k, v in inner._params.items()
+                                 if isinstance(v, (str, int, float, bool,
+                                                   list, tuple))
+                                 or v is None},
+             "bestFittedJson": {k: v for k, v in inner.fitted.items()
+                                if not _is_array(v)}}
+        arrays = {f"best/{k}": v for k, v in inner.fitted.items()
+                  if _is_array(v)}
+        return j, arrays
+
+    def load_extra(self, extra_json, arrays):
+        """The winner by class name from ``MODEL_REGISTRY``; a class the
+        registry lacks (``GLMPredictionModel``, as in the JAX package)
+        raises ``KeyError``."""
+        from .models import MODEL_REGISTRY
+        cls = MODEL_REGISTRY[extra_json["bestModelClass"]]
+        fitted = dict(extra_json.get("bestFittedJson") or {})
+        for k, v in arrays.items():
+            if k.startswith("best/"):
+                fitted[k[len("best/"):]] = v
+        self._best_model = cls(fitted=fitted,
+                               **(extra_json.get("bestModelParams") or {}))
+
+    def place_fitted(self, device) -> None:
+        if self._best_model is not None:
+            self._best_model.place_fitted(device)
+
 
 class ModelSelector(Estimator):
     """≙ ModelSelector.scala:114-191."""

@@ -3,14 +3,19 @@ reference: OpPipelineStages.scala:55 and the Unary/Binary/Sequence bases).
 
 Stages operate on columns: a ``Transformer`` maps a ``ColumnBatch`` to its
 output ``Column``; ``Estimator.fit`` returns a fitted ``TransformerModel``.
-Arity is data: ``set_input(*features)`` + ``in_kinds`` validation.
+Arity is data: ``set_input(*features)`` + ``in_kinds`` validation.  The
+persistence hooks (``ctor_args``, ``to_json``, ``save_extra`` /
+``load_extra``; JAX :129-143), the placement flags ``ScoreProgram`` reads
+(``is_device_op`` / ``supports_staging``; JAX :159-167) and the one-row
+``transform_row`` of local scoring (JAX :200-220) are the JAX package's.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence, Tuple, Type
 
-from ..columns import Column, ColumnBatch
+from ..columns import Column, ColumnBatch, column_from_values
+from ..device import DeviceLike
 from ..features import Feature, make_uid
 from ..types import FeatureType
 
@@ -92,12 +97,41 @@ class PipelineStage:
     def output_features(self) -> Tuple[Feature, ...]:
         return (self.get_output(),)
 
+    # ---- serialization -----------------------------------------------------
+    def ctor_args(self) -> Dict[str, Any]:
+        """The constructor parameters a bundle stores (≙ ctor args by
+        reflection, OpPipelineStageReaderWriter.scala)."""
+        return dict(self._params)
+
+    def to_json(self) -> Dict[str, Any]:
+        from .serialization import stage_to_json
+        return stage_to_json(self)
+
+    def save_extra(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """(JSON, named arrays) of nested state a bundle stores beside the
+        stage (``SelectedModel``'s winner); read back by ``load_extra``."""
+        return {}, {}
+
+    def load_extra(self, extra_json: Dict[str, Any],
+                   arrays: Dict[str, Any]) -> None:
+        pass
+
     def __repr__(self):
         return f"{self.operation_name}({self.uid})"
 
 
 class Transformer(PipelineStage):
-    """A fitted/stateless column function (≙ OpTransformer)."""
+    """A fitted/stateless column function (≙ OpTransformer).
+
+    ``is_device_op``: the transform reads device-ready columns (numbers,
+    vectors) and writes device tensors, so ``ScoreProgram`` runs it inside
+    a device segment.  ``supports_staging``: a host-input stage whose
+    transform lowers its strings on the host and then writes its block on
+    the device (the text, pivot and map vectorizers), so it joins a device
+    segment when its inputs are made before the segment."""
+
+    is_device_op: bool = True
+    supports_staging: bool = False
 
     def transform(self, batch: ColumnBatch) -> Column:
         raise NotImplementedError
@@ -105,6 +139,18 @@ class Transformer(PipelineStage):
     def transform_batch(self, batch: ColumnBatch) -> ColumnBatch:
         return batch.with_columns({self.get_output().name:
                                    self.transform(batch)})
+
+    def transform_row(self, row: Dict[str, Any],
+                      device: DeviceLike = None) -> FeatureType:
+        """One record's output for local scoring: the inputs as a one-row
+        batch on ``device`` through ``transform``, row 0 back as a typed
+        value."""
+        cols = {}
+        for f in self.input_features:
+            v = row[f.name]
+            val = v.value if isinstance(v, FeatureType) else v
+            cols[f.name] = column_from_values(f.kind, [val])
+        return self.transform(ColumnBatch(cols, 1, device)).row_value(0)
 
 
 class TransformerModel(Transformer):
@@ -116,6 +162,11 @@ class TransformerModel(Transformer):
         super().__init__(**params)
         self.fitted: Dict[str, Any] = fitted or {}
         self.metadata: Dict[str, Any] = {}
+
+    def place_fitted(self, device) -> None:
+        """Turn the host arrays a bundle gave ``fitted`` into what the
+        transform reads, on ``device``.  Stages whose fitted state is plain
+        JSON and host index arrays keep it as loaded."""
 
 
 class Estimator(PipelineStage):

@@ -5,25 +5,43 @@ OpWorkflowModel.scala:184-394).
 ``train`` runs the optional RawFeatureFilter over the raw columns, drops the
 features it rejects from every stage's inputs, reconstructs the stage DAG
 from the result features, fits it layer by layer on the workflow's device
-and returns a ``WorkflowModel``.  Scoring
-applies the fitted stages in DAG order, eagerly, on the device; the JAX
-package's compiled ``ScoreProgram`` and save/load come with later slices.
-``summary()`` / ``summary_pretty()`` report the fitted model's insights.
+(``apply_dag``'s eager pass) and returns a ``WorkflowModel``.  The model
+scores through its ``ScoreProgram`` (``compiled.py``) on its device, and
+``save`` / ``load`` write and read the JAX package's bundle format
+(``op-model.json``, ``params.npz`` and a ``MANIFEST.json`` of SHA-256
+digests, ``checkpoint.py``), so bundles move both ways between the two
+packages.  ``summary()`` / ``summary_pretty()`` report the fitted model's
+insights.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
+from .checkpoint import (MANIFEST_NAME, CorruptModelError,
+                         atomic_bundle_write, find_latest_valid,
+                         is_bundle_dir, verify_bundle)
 from .columns import ColumnBatch, to_device_f32
 from .dag import apply_dag, compute_dag, dag_stages, prune_batch
 from .device import DeviceLike, resolve_device
 from .features import Feature
-from .stages.base import Estimator, Transformer
+from .resilience import FailureLog, record_failure
+from .stages.base import Estimator, PipelineStage, Transformer
+from .stages.generator import FeatureGeneratorStage
+from .stages.serialization import (feature_to_json, kind_by_name,
+                                   stage_fitted_arrays, stage_from_json,
+                                   stage_to_json)
 from .types import Prediction
+
+MODEL_JSON = "op-model.json"
+PARAMS_NPZ = "params.npz"
 
 
 def _sync(device: torch.device) -> None:
@@ -146,9 +164,13 @@ class WorkflowModel:
         self.raw_features = list(raw_features)
         self.device = resolve_device(device)
         self._input_batch: Optional[ColumnBatch] = None
+        self._score_program = None
         self.phase_seconds: Dict[str, float] = {}
         self.blacklisted: List[Feature] = []
         self.rff_results = None
+        self.parameters: Dict[str, Any] = {}
+        # what save dropped and load did without ("swallowed", "degraded")
+        self.failure_log: Optional[FailureLog] = None
 
     @property
     def stages(self) -> List[Transformer]:
@@ -160,41 +182,113 @@ class WorkflowModel:
         return next((s for s in self.stages if isinstance(s, SelectedModel)),
                     None)
 
-    def _apply(self, batch: Optional[ColumnBatch]) -> ColumnBatch:
+    def _raw_batch(self, batch: Optional[ColumnBatch]) -> ColumnBatch:
         if batch is None:
             batch = self._input_batch
         if batch is None:
             raise ValueError("no batch to score — pass one or train on an "
                              "input batch")
-        return apply_dag(batch.on(self.device), self.fitted_dag)
+        return batch.on(self.device)
 
-    def score(self, batch: Optional[ColumnBatch] = None) -> ColumnBatch:
+    # -- scoring -------------------------------------------------------------
+    def score_program(self):
+        """The fitted DAG as a ``compiled.ScoreProgram``, kept on the
+        model."""
+        if self._score_program is None:
+            from .compiled import ScoreProgram
+            self._score_program = ScoreProgram(
+                self.fitted_dag, [f.name for f in self.result_features])
+        return self._score_program
+
+    def score(self, batch: Optional[ColumnBatch] = None,
+              keep_raw_features: bool = False,
+              keep_intermediate_features: bool = False) -> ColumnBatch:
         """≙ OpWorkflowModel.score:255 — the result-feature columns (plus
-        ``key`` when the batch has one)."""
-        scored = self._apply(batch)
+        ``key`` when the batch has one, and the raw columns with
+        ``keep_raw_features``) through the score program; every column
+        with ``keep_intermediate_features``."""
+        scored = self.score_program()(
+            self._raw_batch(batch),
+            keep_intermediate=keep_intermediate_features)
+        if keep_intermediate_features:
+            return scored
         keep = [f.name for f in self.result_features if f.name in scored]
+        if keep_raw_features:
+            keep = [f.name for f in self.raw_features if f.name in scored] \
+                + keep
         if "key" in scored:
             keep = ["key"] + keep
         return scored.select(list(dict.fromkeys(keep)))
 
-    def evaluate(self, evaluator, batch: Optional[ColumnBatch] = None
-                 ) -> Dict[str, Any]:
+    def score_fn(self):
+        """≙ scoreFn: batch → scored batch."""
+        return lambda batch: self.score(batch)
+
+    def evaluate(self, evaluator, label_feature: Optional[Feature] = None,
+                 batch: Optional[ColumnBatch] = None) -> Dict[str, Any]:
         """≙ OpWorkflowModel.evaluate:320 — the evaluator's metric panel on
-        the scored rows, computed on the device."""
-        scored = self._apply(batch)
-        sm = self.selected_model
-        label = (sm.input_features[0] if sm is not None
-                 else next((f for f in self.raw_features if f.is_response),
-                           None))
-        if label is None or label.name not in scored:
-            raise ValueError("evaluate: the scoring data has no label column")
+        the scored rows, computed on the device.  The label is
+        ``label_feature``, else the selector's label input, else the raw
+        response (JAX workflow.py:590-657)."""
+        raw = self._raw_batch(batch)
+        label = label_feature
+        if label is None:
+            sm = self.selected_model
+            if sm is not None and sm.input_features:
+                label = sm.input_features[0]
+        if label is None:
+            label = next((f for f in self.raw_features if f.is_response),
+                         None)
+        if label is None:
+            raise ValueError(
+                "evaluate: no response feature in the model's raw features — "
+                "pass label_feature explicitly")
+        program = self.score_program()
+        try:
+            scored = program(raw)
+        except KeyError as e:
+            raise ValueError(
+                f"evaluate: column {e.args[0]!r} required by the DAG is "
+                "missing from the scoring data — evaluation needs labelled "
+                "rows (use score() for label-free data)") from e
+        has_intermediate = False
+        if label.name not in scored:
+            # a label the DAG computes lives in a column the lean pass drops
+            scored = program(raw, keep_intermediate=True)
+            has_intermediate = True
+        if label.name not in scored:
+            raise ValueError(
+                f"evaluate: response column {label.name!r} is not present in "
+                "the scoring data — evaluation needs labelled rows (use "
+                "score() for label-free data)")
         pred_f = next((f for f in self.result_features
                        if f.kind is Prediction), None)
         if pred_f is None:
-            raise ValueError("evaluate: no Prediction-typed result feature")
+            # any dict-valued (Prediction-shaped) result column
+            if not has_intermediate:
+                scored = program(raw, keep_intermediate=True)
+            pred_f = next((f for f in self.result_features
+                           if f.name in scored
+                           and isinstance(scored[f.name].values, dict)), None)
+        if pred_f is None:
+            raise ValueError(
+                "evaluate: no Prediction-typed result feature on this model; "
+                f"result features: {[f.name for f in self.result_features]}")
         y = to_device_f32(scored[label.name].values, self.device)
         return evaluator.evaluate_all_device(
             y, dict(scored[pred_f.name].values), torch.ones_like(y)).to_json()
+
+    def score_and_evaluate(self, evaluator, **kw):
+        return self.score(**kw), self.evaluate(evaluator,
+                                               batch=kw.get("batch"))
+
+    def compute_data_up_to(self, feature: Feature,
+                           batch: Optional[ColumnBatch] = None
+                           ) -> ColumnBatch:
+        """≙ computeDataUpTo (OpWorkflowCore.scala:299): the eager pass up to
+        the stage that makes ``feature``."""
+        return apply_dag(self._raw_batch(batch), self.fitted_dag,
+                         up_to_feature=feature)
 
     # -- insights -------------------------------------------------------------
     def summary(self) -> Dict[str, Any]:
@@ -208,3 +302,183 @@ class WorkflowModel:
         evaluation and the top raw-feature contributions."""
         from .insights import ModelInsights
         return ModelInsights.extract(self).pretty()
+
+    # -- persistence (≙ OpWorkflowModelWriter / Reader) ----------------------
+    def save(self, path: str, overwrite: bool = True) -> None:
+        """Atomically write the model bundle to ``path`` (JAX
+        workflow.py:681-802): staged in a temp sibling, digested into a
+        ``MANIFEST.json``, fsynced and renamed into place.
+        ``overwrite=False`` raises ``FileExistsError`` on a non-empty
+        ``path``.  No AOT executables, drift baselines, schema contract or
+        telemetry are written (the JAX package loads such a bundle,
+        recording each as degraded)."""
+        if self.failure_log is None:
+            self.failure_log = FailureLog()
+        with atomic_bundle_write(path, overwrite=overwrite,
+                                 manifest_extra={"kind": "workflow-model"}
+                                 ) as tmp:
+            self._write_bundle_files(tmp)
+
+    def _write_bundle_files(self, path: str) -> None:
+        all_feats: Dict[str, Feature] = {}
+        for rf in self.result_features:
+            for f in rf.all_features():
+                all_feats[f.uid] = f
+        stages_json, arrays = [], {}
+        for layer_i, layer in enumerate(self.fitted_dag):
+            for st in layer:
+                d = stage_to_json(st, self.failure_log)
+                d["layer"] = layer_i
+                d["outputFeatures"] = [f.uid for f in st.output_features]
+                stages_json.append(d)
+                arrays.update(stage_fitted_arrays(st))
+        raw_json = []
+        for f in self.raw_features:
+            st = f.origin_stage
+            if f.uid not in all_feats \
+                    or not isinstance(st, FeatureGeneratorStage):
+                continue
+            d = {"uid": st.uid, "name": st.name, "type": f.kind.__name__,
+                 "isResponse": f.is_response, "outputFeature": f.uid}
+            if st.get("aggregate_window_ms") is not None:
+                d["aggregateWindowMs"] = int(st.get("aggregate_window_ms"))
+            if st.extract_source:
+                d["extractSource"] = st.extract_source
+            elif st.has_custom_extract:
+                warnings.warn(
+                    f"feature {st.name!r} has a custom extract function "
+                    "with no source text; the reloaded model will fall "
+                    "back to by-name record lookup — pass "
+                    "FeatureBuilder.extract(fn, source='<expr over r>') "
+                    "to persist it", stacklevel=3)
+            raw_json.append(d)
+        manifest = {
+            "uid": "OpWorkflowModel",
+            "resultFeaturesUids": [f.uid for f in self.result_features],
+            "blacklistedFeaturesUids": [f.uid for f in self.blacklisted],
+            "rawFeatures": raw_json,
+            "allFeatures": [feature_to_json(f) for f in all_feats.values()],
+            "stages": stages_json,
+            "parameters": self.parameters,
+            "rawFeatureFilterResults": (
+                self.rff_results.to_json() if self.rff_results is not None
+                else None),
+        }
+        with open(os.path.join(path, MODEL_JSON), "w") as fh:
+            json.dump(manifest, fh, indent=2, default=str)
+        np.savez_compressed(os.path.join(path, PARAMS_NPZ), **arrays)
+
+    @staticmethod
+    def load(path: str, device: DeviceLike = None) -> "WorkflowModel":
+        """≙ OpWorkflowModelReader (JAX workflow.py:804-931): stages →
+        features → model, the fitted tensors on ``device`` (CUDA unless the
+        caller asks for the CPU).
+
+        ``path`` is one bundle or a checkpoint root of ``ckpt-NNNNNN``
+        bundles, where the newest bundle that verifies is loaded (each one
+        passed over is recorded "skipped").  A bundle with a
+        ``MANIFEST.json`` has its version and every digest checked
+        (``ModelVersionError`` / ``CorruptModelError`` naming the file); a
+        legacy bundle without one loads with a warning.  Files of subsystems
+        the port has not ported (AOT executables, drift baselines, the
+        schema contract, telemetry) are digest-checked, not read, and
+        recorded "degraded".  The model's ``failure_log`` holds the
+        records."""
+        dev = resolve_device(device)
+        log = FailureLog()
+        if not os.path.isdir(path):
+            raise FileNotFoundError(
+                f"model directory {path!r} does not exist")
+        if not is_bundle_dir(path):
+            path = find_latest_valid(path, log)
+        manifest_meta = verify_bundle(path)
+        if manifest_meta is None:
+            warnings.warn(
+                f"model bundle {path!r} has no MANIFEST.json (saved by a "
+                "pre-checkpointing build); loading without integrity "
+                "verification", stacklevel=2)
+            record_failure(log, "checkpoint", "degraded",
+                           "legacy bundle without MANIFEST",
+                           point="checkpoint.load", bundle=path)
+        json_path = os.path.join(path, MODEL_JSON)
+        if not os.path.exists(json_path):
+            raise CorruptModelError(path, MODEL_JSON,
+                                    "model description file is missing")
+        with open(json_path) as fh:
+            manifest = json.load(fh)
+        npz_path = os.path.join(path, PARAMS_NPZ)
+        if os.path.exists(npz_path):
+            with np.load(npz_path, allow_pickle=False) as z:
+                arrays = dict(z)
+        elif manifest_meta is not None and \
+                PARAMS_NPZ in (manifest_meta.get("files") or {}):
+            raise CorruptModelError(path, PARAMS_NPZ,
+                                    "fitted-parameter file is missing")
+        else:
+            arrays = {}   # a legacy bundle may have no arrays
+
+        stages_by_uid: Dict[str, PipelineStage] = {}
+        layers: Dict[int, List[PipelineStage]] = {}
+        for d in manifest["stages"]:
+            st = stage_from_json(d, arrays, dev)
+            stages_by_uid[d["uid"]] = st
+            layers.setdefault(d["layer"], []).append(st)
+        raw_gens: Dict[str, FeatureGeneratorStage] = {}
+        for d in manifest["rawFeatures"]:
+            raw_gens[d["uid"]] = FeatureGeneratorStage(
+                name=d["name"], kind=kind_by_name(d["type"]), uid=d["uid"],
+                aggregate_window_ms=d.get("aggregateWindowMs"),
+                extract_source=d.get("extractSource"))
+
+        feats: Dict[str, Feature] = {}
+        feat_json = {d["uid"]: d for d in manifest["allFeatures"]}
+
+        def build_feature(uid: str) -> Feature:
+            if uid in feats:
+                return feats[uid]
+            d = feat_json[uid]
+            parents = tuple(build_feature(p) for p in d.get("parents", ()))
+            origin = None
+            if d.get("originStage"):
+                origin = (stages_by_uid.get(d["originStage"])
+                          or raw_gens.get(d["originStage"]))
+            f = Feature(d["name"], kind_by_name(d["type"]), d["isResponse"],
+                        origin, parents, uid=uid)
+            feats[uid] = f
+            return f
+
+        for uid in feat_json:
+            build_feature(uid)
+        for d in manifest["stages"]:
+            st = stages_by_uid[d["uid"]]
+            st.input_features = tuple(feats[u] for u in d["inputFeatures"])
+            outs = tuple(feats[u] for u in d.get("outputFeatures", ()))
+            if outs:
+                st._output = outs[0]
+                for f in outs:
+                    f.origin_stage = st
+        for d in manifest["rawFeatures"]:
+            gen = raw_gens[d["uid"]]
+            f = feats[d["outputFeature"]]
+            gen._output = f
+            f.origin_stage = gen
+
+        model = WorkflowModel(
+            [feats[u] for u in manifest["resultFeaturesUids"]],
+            [layers[i] for i in sorted(layers)],
+            sorted((f for f in feats.values()
+                    if f.is_raw and f.origin_stage is not None),
+                   key=lambda f: f.name), dev)
+        model.blacklisted = [feats[u] for u in
+                             manifest.get("blacklistedFeaturesUids", ())
+                             if u in feats]
+        model.parameters = manifest.get("parameters") or {}
+        unread = sorted({name.split("/", 1)[0] for name in
+                         (manifest_meta or {}).get("files") or {}}
+                        - {MODEL_JSON, PARAMS_NPZ, MANIFEST_NAME})
+        if unread:
+            record_failure(log, "checkpoint", "degraded",
+                           f"bundle files this build does not read: {unread}",
+                           point="checkpoint.load", bundle=path)
+        model.failure_log = log
+        return model
