@@ -202,8 +202,35 @@ Phases (any failure exits non-zero and prints no result line):
    ``hash_counts`` for transmog, ``sp_matmat`` for sparse must launch);
    on the default grid's model also ``local.score_function``'s median ms a
    record over 200 records (each held to the batch's row) and
-   ``ScoreProgram``'s ms at 1, 64 and 4,096 rows.  The script's own wall
-   time is printed before the card's line.
+   ``ScoreProgram``'s ms at 1, 64 and 4,096 rows;
+15. serving — the port's HTTP server (``serving.start_server``) on phase
+   14's default-grid bundle, copied under a checkpoint root as version 1
+   (warm-up seconds, the padding ladder, ``warmup_builds_total``): 16
+   clients x 200 one-record JSON requests of fresh rows (p50 / p99,
+   requests/s, the batches and rows ``/metrics`` counted, so the mean
+   coalesced batch, the engine's batch latency, ``tree_walk``'s
+   launches); columnar requests of 1,024 rows on a second server with
+   ``max_batch=1024`` (rows/s, p50 / p99); every reply held to the
+   reloaded model's score of the same rows (predictions equal,
+   probabilities within 1e-6, the version a ``ckpt-`` of the root); 8
+   clients x 50 requests with the model saved as version 2 and
+   ``reload_now()`` called halfway (every request answered; the replies
+   tagged by version); 422 with the JAX package's violation kinds for a
+   NaN and for a string in a numeric field, 400 for a malformed columnar
+   body, 429 + ``Retry-After`` past ``queue_bound=2``; the transmog and
+   sparse bundles served one columnar request each (1,024 and 64 rows;
+   ``hash_counts`` and ``sp_matmat`` must launch), and one sparse
+   ``ScoreProgram`` pass of 64 rows split into host and device ms
+   (``sparse_pass_split``, with the combiner's metadata rebuilt and kept);
+   the version-1 root
+   served again by a fresh process (``SERVE_FRESH_CHILD``: 16 clients x
+   25 JSON requests, 4 columnar ones of 64 rows), whose warm-up must load
+   ``tree_walk``'s library (``warmup_builds_total`` >= 1), as no process
+   that trained first can show.  It fails on any
+   kernel or native build after warm-up (``online_builds_total``), a
+   demoted engine or a "degraded" / "fallback" / "dead_letter" event,
+   and prints a ``serving:`` line.  The script's own wall time is
+   printed before the card's line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` table (launches: the default
@@ -219,18 +246,21 @@ the multiclass LOCO transform for the ``loco_softmax`` rows, phase 12's
 estimator fits for the ``fista_wide`` rows, the two fault-width
 ``fista_glm`` rows and the 64-bin split rows; the ``tree_walk``,
 ``hash_counts`` and ``sp_matmat`` rows add phase 14's reloaded scores'
-launches of that kernel), the one before that the card's name and power
-limit.
+and phase 15's served traffic's launches of that kernel), the one before
+that the card's name and power limit.
 Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import atexit
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -4995,7 +5025,8 @@ def _uncached(batch):
                                for k, c in batch.items()})
 
 
-def save_load_score(name: str, model, fresh, needs=(), device="cuda"):
+def save_load_score(name: str, model, fresh, needs=(), device="cuda",
+                    keep=None):
     """Phase 14 on one model: save its bundle, load it on ``device``, and
     score ``fresh`` through the reloaded model's ``ScoreProgram`` and
     through the eager ``apply_dag``, each required to give the in-memory
@@ -5003,8 +5034,9 @@ def save_load_score(name: str, model, fresh, needs=(), device="cuda"):
     twice: cold (host text profiles and map expansions made afresh, the
     cost of a new batch) and then warm (those read from the copy).  The
     kernels' launches are read around the cold ``ScoreProgram`` score
-    alone.  ``needs``: kernels that score must launch.  Returns (facts,
-    launches, the reloaded model)."""
+    alone.  ``needs``: kernels that score must launch.  With ``keep`` the
+    bundle is saved to ``keep/name`` and left there (phase 15 serves it).
+    Returns (facts, launches, the reloaded model)."""
     import shutil
     import tempfile
 
@@ -5014,7 +5046,7 @@ def save_load_score(name: str, model, fresh, needs=(), device="cuda"):
 
     n = len(fresh)
     want = _prediction(model, model.score(fresh))
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_bundle_")
+    tmp = keep or tempfile.mkdtemp(prefix="chip_smoke_bundle_")
     try:
         path = os.path.join(tmp, name)
         t0 = time.perf_counter()
@@ -5025,7 +5057,8 @@ def save_load_score(name: str, model, fresh, needs=(), device="cuda"):
         loaded, load_s, _, _ = _timed(
             lambda: WorkflowModel.load(path, device=device), device)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if keep is None:
+            shutil.rmtree(tmp, ignore_errors=True)
     if loaded.device.type != device:
         raise AssertionError(f"{name}: loaded on {loaded.device}")
 
@@ -5127,6 +5160,596 @@ def bundle_latencies(loaded, fresh, device="cuda") -> dict:
     return facts
 
 
+# --------------------------------------------------------------------------
+# phase 15: serving
+# --------------------------------------------------------------------------
+
+SERVE_CLIENTS, SERVE_REQUESTS = 16, 200     # one-record JSON requests
+SERVE_RELOAD_CLIENTS, SERVE_RELOAD_REQUESTS = 8, 50
+SERVE_COLUMNAR_ROWS, SERVE_COLUMNAR_REQUESTS = 1024, 16
+SERVE_SPARSE_ROWS = 64
+SERVE_ROWS = (SERVE_CLIENTS * SERVE_REQUESTS
+              + SERVE_RELOAD_CLIENTS * SERVE_RELOAD_REQUESTS
+              + SERVE_COLUMNAR_ROWS * SERVE_COLUMNAR_REQUESTS)
+SERVE_TOL = 1e-6                   # a served probability against the model's
+SERVE_BAD_EVENTS = ("degraded", "fallback", "dead_letter")
+SERVE_FRESH_REQUESTS, SERVE_FRESH_COLUMNAR = 25, 4   # the fresh process's
+SERVE_FRESH_TIMEOUT_S = 300
+
+
+def _conn(port: int):
+    import http.client
+    return http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+
+
+def _call(conn, method: str, path: str, body=None,
+          ctype: str = "application/json"):
+    """(status, body bytes, headers) of one request on a kept-alive
+    connection."""
+    conn.request(method, path, body=body,
+                 headers={"Content-Type": ctype} if body is not None else {})
+    r = conn.getresponse()
+    return r.status, r.read(), dict(r.getheaders())
+
+
+def _host_scores(model, batch) -> dict:
+    return {k: v.cpu().numpy() for k, v in
+            _prediction(model, model.score(batch)).items()}
+
+
+def _check_json_row(res: dict, ref: dict, i: int, what: str) -> float:
+    """A JSON result row against row ``i`` of the model's scores: the
+    prediction equal, the probabilities within SERVE_TOL; returns the
+    largest probability gap."""
+    if res["prediction"] != float(ref["prediction"][i]):
+        raise AssertionError(f"{what}: row {i} prediction {res['prediction']}"
+                             f" against the model's {ref['prediction'][i]}")
+    gap = max(abs(res[f"probability_{j}"] - float(ref["probability"][i, j]))
+              for j in range(ref["probability"].shape[1]))
+    if gap > SERVE_TOL:
+        raise AssertionError(f"{what}: row {i} probability {gap} off")
+    return gap
+
+
+def _check_arrays(arrays: dict, pred: str, ref: dict, what: str) -> float:
+    """Decoded columnar result arrays against the model's scores."""
+    got = np.asarray(arrays[f"{pred}.prediction"][0])
+    if not np.array_equal(got, ref["prediction"].astype(np.float64)):
+        raise AssertionError(f"{what}: predictions differ from the model's")
+    gap = max(float(np.abs(np.asarray(arrays[f"{pred}.probability_{j}"][0])
+                           - ref["probability"][:, j]).max())
+              for j in range(ref["probability"].shape[1]))
+    if gap > SERVE_TOL:
+        raise AssertionError(f"{what}: probabilities {gap} off")
+    return gap
+
+
+def wire_body(batch, lo: int, hi: int) -> bytes:
+    """Rows [lo, hi) of a raw host batch in the columnar wire format: text
+    as utf8, numerics as f32 / i64 / bool with their presence masks.  Maps
+    and lists have no columnar v1 encoding and are left out (the server
+    reads them as absent in every row)."""
+    from transmogrifai_tpu_torch.serving import wire
+    from transmogrifai_tpu_torch.types import (Binary, Date, Integral,
+                                               is_numeric_kind, is_text_kind)
+    cols = []
+    for name, col in batch.items():
+        k = col.kind
+        if is_text_kind(k):
+            vals = list(col.values[lo:hi])
+            cols.append((name, wire.UTF8, vals,
+                         np.array([v is not None for v in vals])))
+        elif is_numeric_kind(k) and not col.is_host_object():
+            code = (wire.BOOL if issubclass(k, Binary) else wire.I64
+                    if issubclass(k, (Integral, Date)) else wire.F32)
+            mask = None if col.mask is None else np.asarray(col.mask[lo:hi])
+            cols.append((name, code, np.asarray(col.values[lo:hi]), mask))
+    return wire.encode_arrays(cols, hi - lo)
+
+
+def _json_traffic(port: int, records: list, clients: int, per_client: int,
+                  midway=None):
+    """``clients`` threads, each posting ``per_client`` one-record JSON
+    requests on its own connection; ``midway()`` runs once half of them
+    have answered.  Returns (replies, latencies in s, wall s)."""
+    import threading
+    n = clients * per_client
+    replies, lat, errors = [None] * n, [0.0] * n, []
+    done = [0]
+    lock = threading.Lock()
+    start = threading.Barrier(clients + 1)
+
+    def client(c):
+        conn = _conn(port)
+        start.wait()
+        try:
+            for j in range(per_client):
+                i = c * per_client + j
+                t0 = time.perf_counter()
+                status, body, _ = _call(conn, "POST", "/v1/score",
+                                        json.dumps(records[i]).encode())
+                lat[i] = time.perf_counter() - t0
+                if status != 200:
+                    errors.append((i, status, body[:200]))
+                replies[i] = json.loads(body)
+                with lock:
+                    done[0] += 1
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append((None, type(e).__name__, str(e)))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    if midway is not None:
+        while done[0] < n // 2 and not errors:
+            time.sleep(0.001)
+        midway()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"{len(errors)} failed requests, e.g. "
+                             f"{errors[:3]}")
+    return replies, lat, wall
+
+
+def _latency_facts(lat: list, wall: float, n: int, unit: str) -> dict:
+    ms = np.asarray(lat) * 1e3
+    return {"requests": len(lat), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "wall_s": wall,
+            f"{unit}_per_s": n / wall}
+
+
+def _batch_ms(engine) -> dict:
+    """The engine's batch latency (p50 / p99 ms; the histogram's
+    interpolated quantiles): the time from a batch's dispatch to its
+    results on the host, queue and HTTP excluded."""
+    snap = engine.batch_latency.snapshot()
+    return {"count": snap["count"], "p50": snap["p50"] * 1e3,
+            "p99": snap["p99"] * 1e3}
+
+
+def _metric(text: str, name: str) -> float:
+    full = f"transmogrifai_serving_{name} "
+    return float(next(ln for ln in text.splitlines()
+                      if ln.startswith(full)).split()[1])
+
+
+def _serve(root: str, max_batch: int, device: str):
+    """(server, thread, warm-up s) of the port's server on ``root``; its
+    queue admits four batches (at least the default 256 rows)."""
+    from transmogrifai_tpu_torch.serving import start_server
+    t0 = time.perf_counter()
+    srv, th = start_server(root, port=0, max_batch=max_batch,
+                           queue_bound=max(256, 4 * max_batch),
+                           device=device)
+    return srv, th, time.perf_counter() - t0
+
+
+def _shed_429(srv) -> dict:
+    """Two requests in flight behind the held device lock with
+    ``queue_bound=2``, then a third: it must get 429 + Retry-After."""
+    import threading
+    eng = srv.engine
+    old, eng.queue_bound = eng.queue_bound, 2
+    codes = []
+
+    def post(payload):
+        conn = _conn(srv.port)
+        try:
+            codes.append(_call(conn, "POST", "/v1/score",
+                               json.dumps(payload).encode())[0])
+        finally:
+            conn.close()
+    try:
+        with eng._score_lock:
+            t1 = threading.Thread(target=post, args=({},))
+            t1.start()
+            time.sleep(0.2)               # the batcher holds it, waiting
+            t2 = threading.Thread(target=post, args=([{}, {}],))
+            t2.start()
+            deadline = time.monotonic() + 30
+            while eng.queue_depth != 2 and time.monotonic() < deadline:
+                time.sleep(0.002)
+            conn = _conn(srv.port)
+            status, body, headers = _call(conn, "POST", "/v1/score", b"{}")
+            conn.close()
+        t1.join(timeout=60)
+        t2.join(timeout=60)
+    finally:
+        eng.queue_bound = old
+    if status != 429 or "Retry-After" not in headers:
+        raise AssertionError(f"shed: {status} {headers} (want 429 with "
+                             "Retry-After)")
+    if sorted(codes) != [200, 200]:
+        raise AssertionError(f"the two held requests answered {codes}")
+    return {"status": status, "retry_after": headers["Retry-After"],
+            "held": sorted(codes)}
+
+
+def _quality_replies(srv, record: dict, field: str, body: bytes) -> dict:
+    """422 with the JAX package's violation kinds for a NaN and for a
+    string in the numeric ``field``, 400 for a malformed columnar body,
+    then 429 (``_shed_429``)."""
+    from transmogrifai_tpu_torch.serving import wire
+    conn = _conn(srv.port)
+    out = {}
+    try:
+        for label, value, kinds in (
+                ("nan", float("nan"), ["NonFiniteValue"]),
+                ("string", "abc", ["TypeMismatch", "NonCoercibleValue"])):
+            rec = dict(record)
+            rec[field] = value
+            status, reply, _ = _call(conn, "POST", "/v1/score",
+                                     json.dumps(rec).encode())
+            got = [v["kind"] for v in json.loads(reply).get("violations",
+                                                            [])]
+            if status != 422 or got != kinds:
+                raise AssertionError(f"{label}: {status} {got}, want 422 "
+                                     f"{kinds}")
+            out[label] = {"status": status, "kinds": got}
+        status, reply, _ = _call(conn, "POST", "/v1/score", body[:12],
+                                 wire.CONTENT_TYPE)
+        if status != 400 or json.loads(reply)["error"] != \
+                "malformed columnar body":
+            raise AssertionError(f"malformed columnar: {status} {reply!r}")
+        out["malformed_columnar"] = {"status": status}
+    finally:
+        conn.close()
+    out["overload"] = _shed_429(srv)
+    return out
+
+
+def _columnar_traffic(srv, batch, rows: int, requests: int, model,
+                      pred: str, what: str):
+    """``requests`` columnar requests of ``rows`` rows, one after another,
+    each held to ``model``'s score of the body it sent; (facts, largest
+    probability gap)."""
+    from transmogrifai_tpu_torch.serving import wire
+    conn = _conn(srv.port)
+    lat, worst = [], 0.0
+    versions = set()
+    t0 = time.perf_counter()
+    try:
+        for r in range(requests):
+            lo = (r * rows) % max(1, len(batch) - rows + 1)
+            body = wire_body(batch, lo, lo + rows)
+            t1 = time.perf_counter()
+            status, reply, headers = _call(conn, "POST", "/v1/score", body,
+                                           wire.CONTENT_TYPE)
+            lat.append(time.perf_counter() - t1)
+            if status != 200:
+                raise AssertionError(f"{what}: columnar {status} "
+                                     f"{reply[:200]!r}")
+            versions.add(headers["X-Model-Version"])
+            ref = _host_scores(model, wire.decode_batch(body,
+                                                        model.raw_features))
+            worst = max(worst, _check_arrays(wire.decode_response(reply),
+                                             pred, ref, what))
+    finally:
+        conn.close()
+    wall = time.perf_counter() - t0
+    facts = _latency_facts(lat, wall, rows * requests, "rows")
+    facts["versions"] = sorted(versions)
+    return facts, worst
+
+
+def sparse_pass_split(model, batch, device="cuda", reps: int = 5) -> dict:
+    """One ``ScoreProgram`` pass of the sparse bundle over ``batch`` (a
+    served request's rows, fresh columns each pass), with the combiner's
+    flattened column metadata rebuilt before the pass (as every pass did
+    before the combiner kept it) and kept: for each, the median wall ms of
+    ``reps`` unprofiled passes, and one profiled pass's wall ms, device
+    busy ms (the union of its kernels' intervals) and kernel count; the
+    rest of the wall is the host's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from transmogrifai_tpu_torch.ops.combiner import VectorsCombiner
+    combiners = [s for s in model.stages if isinstance(s, VectorsCombiner)]
+    out = {}
+    for mode in ("metadata_rebuilt", "metadata_kept"):
+        def one():
+            if mode == "metadata_rebuilt":
+                for c in combiners:
+                    c._meta_cache = None
+            t0 = time.perf_counter()
+            model.score(_uncached(batch))       # the ScoreProgram pass
+            if device == "cuda":
+                torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        one()
+        plain = float(np.median([one() for _ in range(reps)]))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = one()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        busy, end = 0.0, -np.inf
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        out[mode] = {"ms": plain, "window_ms": wall,
+                     "device_busy_ms": busy / 1e3,
+                     "host_ms": wall - busy / 1e3,
+                     "device_kernels": len(spans)}
+    return out
+
+
+# A fresh process serving a checkpoint root (argv[2]) with the repository on
+# argv[1]: its first line is written once the warm-up is done, its second
+# once a line comes on its standard input, then it drains and exits.
+SERVE_FRESH_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from transmogrifai_tpu_torch.models import kernels
+from transmogrifai_tpu_torch.serving import start_server
+srv, th = start_server(sys.argv[2], port=0, max_batch=int(sys.argv[3]),
+                       device=sys.argv[4])
+eng = srv.engine
+kernels.reset_launch_counts()
+print(json.dumps({"port": srv.port, "device": str(eng.device),
+                  "warmup_builds_total":
+                      eng.stats()["counters"]["warmup_builds_total"]}),
+      flush=True)
+sys.stdin.readline()
+s = eng.stats()
+print(json.dumps({
+    "launches": kernels.launch_counts(),
+    "online_builds_total": s["counters"]["online_builds_total"],
+    "fallback_batches_total": s["counters"].get("fallback_batches_total", 0),
+    "compiled_path_active": s["compiled_path_active"],
+    "bad_events": [[e.action, e.point, str(e.cause)]
+                   for e in eng.failure_log.events
+                   if e.action in ("degraded", "fallback", "dead_letter")]}),
+      flush=True)
+srv.drain_and_close()
+th.join(timeout=10)
+"""
+
+
+def _fresh_process_serving(root: str, records: list, ref: dict, rows,
+                           model, pred: str, device: str) -> dict:
+    """Phase 15 step 8: the root served by a process that has loaded no
+    library yet (``SERVE_FRESH_CHILD``), so its warm-up is what first loads
+    ``tree_walk``'s library.  16 clients x SERVE_FRESH_REQUESTS JSON
+    requests and SERVE_FRESH_COLUMNAR columnar requests of 64 rows, each
+    held to ``model``'s scores; returns the child's facts (its warm-up and
+    online builds, launches after warm-up, compiled path, bad events)."""
+    import threading
+    import types
+    log = tempfile.NamedTemporaryFile("w+", suffix=".log", delete=False)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SERVE_FRESH_CHILD, ROOT, root, "64", device],
+        cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log,
+        text=True)
+    guard = threading.Timer(SERVE_FRESH_TIMEOUT_S, proc.kill)
+    guard.start()
+    try:
+        up = proc.stdout.readline()
+        if not up:
+            log.seek(0)
+            raise AssertionError("the fresh serving process died: "
+                                 + log.read()[-3000:])
+        facts = json.loads(up)
+        facts["start_s"] = time.perf_counter() - t0
+        n = SERVE_CLIENTS * SERVE_FRESH_REQUESTS
+        replies, lat, wall = _json_traffic(facts["port"], records[:n],
+                                           SERVE_CLIENTS,
+                                           SERVE_FRESH_REQUESTS)
+        worst = max(_check_json_row(r["result"][pred], ref, i, "fresh json")
+                    for i, r in enumerate(replies))
+        cfacts, cworst = _columnar_traffic(
+            types.SimpleNamespace(port=facts["port"]), rows, 64,
+            SERVE_FRESH_COLUMNAR, model, pred, "fresh columnar")
+        facts["json"] = _latency_facts(lat, wall, n, "requests")
+        facts["columnar_rows_per_s"] = cfacts["rows_per_s"]
+        facts["max_abs_err"] = max(worst, cworst)
+        proc.stdin.write("stop\n")
+        proc.stdin.flush()
+        done = proc.stdout.readline()
+        if not done:
+            log.seek(0)
+            raise AssertionError("the fresh serving process died: "
+                                 + log.read()[-3000:])
+        facts.update(json.loads(done))
+        facts["exit_code"] = proc.wait(timeout=60)
+    finally:
+        guard.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()
+        os.unlink(log.name)
+    return facts
+
+
+def run_serving(cases: dict, device="cuda") -> tuple:
+    """Phase 15: the port's server on phase 14's saved bundles.
+    ``cases``: name → (bundle path, the reloaded model phase 14 held to
+    the trained model's bits, raw host rows) for "default_grid",
+    "transmog" and "sparse"; every served score is held to that model's
+    score of the same rows.  Returns (facts, the served traffic's launches
+    by kernel)."""
+    import shutil
+
+    import torch
+
+    from transmogrifai_tpu_torch.checkpoint import next_version_dir
+    from transmogrifai_tpu_torch.models import kernels
+
+    bundle, model, rows = cases["default_grid"]
+    (pred,) = [f.name for f in model.result_features]
+    root = os.path.join(os.path.dirname(bundle), "serve_root")
+    shutil.copytree(bundle, next_version_dir(root))
+    ref = _host_scores(model, rows)
+    records = _records(rows, SERVE_CLIENTS * SERVE_REQUESTS
+                       + SERVE_RELOAD_CLIENTS * SERVE_RELOAD_REQUESTS)
+    launches: dict = {}
+
+    def add_launches():
+        for k, v in kernels.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+
+    facts: dict = {}
+    servers = []
+    t_phase = time.perf_counter()
+    try:
+        # 1-2: 16 clients of one-record JSON requests, max_batch 64
+        srv, th, warm_s = _serve(root, 64, device)
+        servers.append((srv, th))
+        eng = srv.engine
+        facts["warmup_s"] = warm_s
+        facts["ladder"] = eng.ladder
+        facts["warmup_builds_total"] = \
+            eng.stats()["counters"]["warmup_builds_total"]
+        on_card = device == "cuda"    # the CPU twins count no launches
+        if on_card:
+            torch.cuda.synchronize()
+            seg0 = torch.cuda.memory_stats()["segment.all.allocated"]
+        n = SERVE_CLIENTS * SERVE_REQUESTS
+        kernels.reset_launch_counts()
+        replies, lat, wall = _json_traffic(srv.port, records, SERVE_CLIENTS,
+                                           SERVE_REQUESTS)
+        walk = kernels.launch_counts()["tree_walk"]
+        add_launches()
+        conn = _conn(srv.port)
+        metrics = _call(conn, "GET", "/metrics")[1].decode()
+        conn.close()
+        batches = _metric(metrics, "batches_total")
+        batch_rows = _metric(metrics, "batch_rows_total")
+        versions = {f for f in os.listdir(root) if f.startswith("ckpt-")}
+        worst = 0.0
+        for i, r in enumerate(replies):
+            if r["modelVersion"].split("@")[0] not in versions:
+                raise AssertionError(f"reply {i} tagged {r['modelVersion']}")
+            worst = max(worst, _check_json_row(r["result"][pred], ref, i,
+                                               "json"))
+        facts["json"] = {**_latency_facts(lat, wall, n, "requests"),
+                         "clients": SERVE_CLIENTS, "batches": batches,
+                         "batch_rows": batch_rows,
+                         "mean_batch": batch_rows / max(batches, 1),
+                         "batch_ms": _batch_ms(eng),
+                         "tree_walk_launches": walk,
+                         "max_abs_err": worst}
+        if walk <= 0 and on_card:
+            raise AssertionError("tree_walk never launched while serving")
+
+        # 3: columnar requests of 1,024 rows on a second server
+        srv2, th2, warm2 = _serve(root, SERVE_COLUMNAR_ROWS, device)
+        servers.append((srv2, th2))
+        kernels.reset_launch_counts()
+        col_rows = rows.take_rows(np.arange(
+            len(records), len(records)
+            + SERVE_COLUMNAR_ROWS * SERVE_COLUMNAR_REQUESTS) % len(rows))
+        cfacts, cworst = _columnar_traffic(
+            srv2, col_rows, SERVE_COLUMNAR_ROWS, SERVE_COLUMNAR_REQUESTS,
+            model, pred, "columnar")
+        add_launches()
+        facts["columnar"] = {**cfacts, "warmup_s": warm2,
+                             "batch_ms": _batch_ms(srv2.engine),
+                             "max_abs_err": cworst}
+        if on_card:
+            torch.cuda.synchronize()
+            facts["allocator_segments_grown"] = (
+                torch.cuda.memory_stats()["segment.all.allocated"] - seg0)
+
+        # 5: version 2 saved and swapped in mid-traffic
+        def swap():
+            model.save(next_version_dir(root))
+            if not eng.reload_now():
+                raise AssertionError("reload_now swapped nothing")
+        kernels.reset_launch_counts()
+        replies, lat, wall = _json_traffic(
+            srv.port, records[n:], SERVE_RELOAD_CLIENTS,
+            SERVE_RELOAD_REQUESTS, midway=swap)
+        add_launches()
+        tags: dict = {}
+        for i, r in enumerate(replies):
+            tag = r["modelVersion"].split("@")[0]
+            tags[tag] = tags.get(tag, 0) + 1
+            _check_json_row(r["result"][pred], ref, n + i, "reload")
+        if sorted(tags) != ["ckpt-000001", "ckpt-000002"]:
+            raise AssertionError(f"reload: replies tagged {tags}")
+        facts["reload"] = {**_latency_facts(lat, wall, len(replies),
+                                            "requests"), "tagged": tags}
+
+        # 6: the quality screen and overload
+        facts["quality"] = _quality_replies(
+            srv, records[0], "f0", wire_body(rows, 0, 4))
+
+        # 7: the transmog and sparse bundles, one columnar request each
+        for name, rows_n, need in (("transmog", SERVE_COLUMNAR_ROWS,
+                                    "hash_counts"),
+                                   ("sparse", SERVE_SPARSE_ROWS,
+                                    "sp_matmat")):
+            path, m, batch = cases[name]
+            (p,) = [f.name for f in m.result_features]
+            s3, t3, w3 = _serve(path, rows_n, device)
+            servers.append((s3, t3))
+            kernels.reset_launch_counts()
+            f3, g3 = _columnar_traffic(s3, batch, rows_n, 1, m, p, name)
+            got = kernels.launch_counts()[need]
+            add_launches()
+            if got <= 0 and on_card:
+                raise AssertionError(f"{name}: {need} never launched while "
+                                     "serving")
+            facts[name] = {**f3, "warmup_s": w3, f"{need}_launches": got,
+                           "max_abs_err": g3}
+        facts["sparse"]["pass_split"] = sparse_pass_split(
+            cases["sparse"][1], cases["sparse"][2], device)
+
+        # 8: the default grid's root served by a fresh process, whose
+        # warm-up must load tree_walk's library and whose traffic none
+        fresh = _fresh_process_serving(root, records, ref, rows, model,
+                                       pred, device)
+        facts["fresh_process"] = fresh
+        for k, v in fresh["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        if on_card and fresh["warmup_builds_total"] < 1:
+            raise AssertionError("the fresh process's warm-up loaded no "
+                                 "library: the build count cannot see it")
+        if on_card and fresh["launches"]["tree_walk"] <= 0:
+            raise AssertionError("tree_walk never launched in the fresh "
+                                 "serving process")
+        if fresh["exit_code"] != 0:
+            raise AssertionError(f"the fresh serving process exited "
+                                 f"{fresh['exit_code']}")
+
+        # 9: the gates
+        stats = [s.engine.stats() for s, _ in servers]
+        online = (sum(st["counters"]["online_builds_total"] for st in stats)
+                  + fresh["online_builds_total"])
+        bad = [(e.action, e.point, e.cause) for s, _ in servers
+               for e in s.engine.failure_log.events
+               if e.action in SERVE_BAD_EVENTS] + fresh["bad_events"]
+        facts["online_builds_total"] = online
+        facts["compiled_path_active"] = (
+            all(st["compiled_path_active"] for st in stats)
+            and fresh["compiled_path_active"])
+        facts["bad_events"] = bad
+        if online != 0:
+            raise AssertionError(f"{online} kernel builds after warm-up")
+        if not facts["compiled_path_active"] or bad \
+                or fresh["fallback_batches_total"]:
+            raise AssertionError(f"served around the compiled path: {bad}")
+        facts["wall_s"] = time.perf_counter() - t_phase
+    finally:
+        for srv, th in servers:
+            srv.drain_and_close()
+            th.join(timeout=10)
+    return facts, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5141,8 +5764,15 @@ def main() -> int:
 
     # phase 14 runs on each model right after the phase that trained it,
     # while the model and its fresh batch are alive; its launches are
-    # summed here and added to the kernels' rows at the end
+    # summed here and added to the kernels' rows at the end.  Phase 15
+    # serves three of its bundles, kept in serve_dir with their rows
     bundle_launches: dict = {}
+    serve_dir = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    atexit.register(shutil.rmtree, serve_dir, True)
+    serve_rows = {"default_grid": SERVE_ROWS,
+                  "transmog": SERVE_COLUMNAR_ROWS,
+                  "sparse": SERVE_SPARSE_ROWS}
+    serve_cases: dict = {}
 
     def bundle_phase(name, model, fresh):
         tree = type(model.selected_model.best_model).__name__ == \
@@ -5150,7 +5780,13 @@ def main() -> int:
         needs = {"transmog": ("hash_counts",),
                  "sparse": ("sp_matmat",)}.get(name, ()) + \
             (("tree_walk",) if tree else ())
-        facts, launches, loaded = save_load_score(name, model, fresh, needs)
+        keep = serve_dir if name in serve_rows else None
+        facts, launches, loaded = save_load_score(name, model, fresh, needs,
+                                                  keep=keep)
+        if keep:
+            serve_cases[name] = (os.path.join(serve_dir, name), loaded,
+                                 fresh.take_rows(np.arange(serve_rows[name])
+                                                 % len(fresh)))
         for k, v in launches.items():
             bundle_launches[k] = bundle_launches.get(k, 0) + v
         print(f"phase 14 save, load and score ({name}): "
@@ -5699,9 +6335,19 @@ def main() -> int:
                              "selector")
     print("phase 14 kernel launches (the five reloaded scores): "
           + json.dumps(bundle_launches), flush=True)
+    torch.cuda.empty_cache()
+
+    # phase 15: serving phase 14's bundles over HTTP
+    serve_facts, serve_launches = run_serving(serve_cases)
+    del serve_cases
+    print("phase 15 kernel launches (served traffic): "
+          + json.dumps({k: v for k, v in serve_launches.items() if v}),
+          flush=True)
+    print("serving: " + json.dumps(serve_facts), flush=True)
     for r in rows:
         if r["name"] in ("tree_walk", "hash_counts", "sp_matmat"):
-            r["launches"] += bundle_launches.get(r["name"], 0)
+            r["launches"] += bundle_launches.get(r["name"], 0) \
+                + serve_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke wall_s: {time.perf_counter() - t_start:.1f}",

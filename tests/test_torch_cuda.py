@@ -2334,3 +2334,83 @@ def test_saved_on_the_card_loads_on_the_cpu_within_tolerance(cuda, case,
     gap = np.abs(got["rawPrediction"].astype(np.float64) - raw)
     assert (gap <= np.maximum(1e-6, 16 * np.spacing(np.abs(raw)))).all(), \
         gap.max()
+
+
+# serves a bundle on the card in a fresh process: argv[1] the checkpoint
+# root, argv[2] a JSON file of records; prints the served rows, the columnar
+# arrays of the first 16, the launches after warm-up and the engine's facts
+_SERVE_FRESH = """
+import json, sys, threading
+import numpy as np
+from transmogrifai_tpu_torch.models import kernels
+from transmogrifai_tpu_torch.serving import ScoringEngine, wire
+recs = json.load(open(sys.argv[2]))
+eng = ScoringEngine(sys.argv[1], max_batch=16)
+(name,) = [f.name for f in eng._entry.model.result_features]
+kernels.reset_launch_counts()
+out = [None] * len(recs)
+
+def client(c):
+    for i in range(c, len(recs), 8):
+        out[i] = eng.score_record(recs[i], timeout_s=120)[0][name]
+threads = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(timeout=300)
+arrays, _ = eng.score_columns(wire.decode_batch(
+    wire.encode_records(recs[:16]), eng.raw_features), timeout_s=120)
+s = eng.stats()
+print(json.dumps({
+    "device": str(eng.device), "rows": out,
+    "columnar": np.asarray(arrays[name + ".prediction"][0]).tolist(),
+    "launches": kernels.launch_counts(), "counters": s["counters"],
+    "compiled_path_active": s["compiled_path_active"],
+    "bad": [e.action for e in eng.failure_log.events
+            if e.action in ("degraded", "fallback", "dead_letter")]}))
+eng.close()
+"""
+
+
+def test_serving_a_gbt_bundle_on_the_card_builds_nothing_online(cuda,
+                                                                 tmp_path):
+    """A small GBT bundle served on the card by a fresh process: its
+    warm-up is what first loads ``tree_walk``'s library
+    (``warmup_builds_total`` at least 1), and after it no kernel or native
+    library is built or first loaded (``online_builds_total`` 0); every
+    batch goes through the score program (``tree_walk`` launched), and the
+    served scores equal the in-memory model's score of the same rows
+    (predictions, probabilities within 1e-6)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from transmogrifai_tpu_torch.checkpoint import next_version_dir
+    model, fresh = _bundle_case("dense_gbt", "cuda")
+    root = str(tmp_path / "ckpts")
+    model.save(next_version_dir(root))
+    want = {k: v.cpu().numpy() for k, v in _scores(model, fresh).items()}
+    cols = {k: np.asarray(c.values) for k, c in fresh.items()}
+    recs = [{k: float(v[i]) for k, v in cols.items()} for i in range(64)]
+    rec_file = tmp_path / "records.json"
+    rec_file.write_text(json.dumps(recs))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _SERVE_FRESH, root,
+                          str(rec_file)], cwd=repo, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["device"].startswith("cuda")
+    for i, r in enumerate(got["rows"]):
+        assert r["prediction"] == want["prediction"][i]
+        for j in range(2):
+            assert abs(r[f"probability_{j}"]
+                       - want["probability"][i, j]) <= 1e-6
+    np.testing.assert_array_equal(got["columnar"], want["prediction"][:16])
+    assert got["launches"]["tree_walk"] > 0
+    assert got["counters"]["warmup_builds_total"] >= 1
+    assert got["counters"]["online_builds_total"] == 0
+    assert got["compiled_path_active"]
+    assert got["counters"].get("fallback_batches_total", 0) == 0
+    assert not got["bad"]

@@ -349,7 +349,7 @@ def test_jax_bundle_with_aot_executables_loads_in_the_port(bundle_root):
     model = PortModel.load(path, device="cpu")
     assert_scores_close(score(model, PORT, "dense_lr"), want)
     (ev,) = model.failure_log.by_action("degraded")
-    assert "aot-" in ev.cause and ev.detail["point"] == "checkpoint.load"
+    assert "aot-" in ev.cause and ev.point == "checkpoint.load"
 
 
 def test_reloaded_fitted_state_has_the_trained_dtypes_and_device(
@@ -454,7 +454,7 @@ def test_manifest_digests_every_file(port_model, tmp_path):
     m = json.loads((tmp_path / "m" / MANIFEST_NAME).read_text())
     assert m["formatVersion"] == BUNDLE_FORMAT_VERSION
     assert m["kind"] == "workflow-model"
-    assert set(m["files"]) == {"op-model.json", "params.npz"}
+    assert set(m["files"]) == {"op-model.json", "params.npz", "schema.json"}
     for info in m["files"].values():
         assert len(info["sha256"]) == 64 and info["bytes"] > 0
 
@@ -499,7 +499,7 @@ def test_checkpoint_root_falls_back_to_its_newest_valid_bundle(port_model,
     loaded = PortModel.load(str(root), device="cpu")
     (skip,) = loaded.failure_log.by_action("skipped")
     assert "ckpt-000002" in skip.detail["bundle"]
-    assert skip.detail["point"] == "checkpoint.load"
+    assert skip.point == "checkpoint.load"
     assert_scores_equal(score(loaded, PORT, "dense_lr"), want)
     os.remove(os.path.join(v1, "op-model.json"))
     with pytest.raises(CorruptModelError, match="no valid checkpoint"):
@@ -527,7 +527,7 @@ def test_legacy_bundle_without_manifest_loads_with_a_warning(port_model,
     with pytest.warns(UserWarning, match="MANIFEST"):
         loaded = PortModel.load(str(p), device="cpu")
     (ev,) = loaded.failure_log.by_action("degraded")
-    assert ev.detail["point"] == "checkpoint.load"
+    assert ev.point == "checkpoint.load"
     assert_scores_equal(score(loaded, PORT, "dense_lr"), want)
 
 

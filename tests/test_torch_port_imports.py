@@ -266,3 +266,53 @@ def test_save_load_and_local_scoring_leave_jax_out(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+SERVING_MODULES = ("serving", "serving.engine", "serving.server",
+                   "serving.wire", "serving.overload", "quality",
+                   "telemetry", "resilience")
+
+
+@pytest.mark.parametrize("name", SERVING_MODULES)
+def test_serving_quality_and_telemetry_modules_are_scanned(name):
+    path = os.path.join(PORT, *name.split("."))
+    path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
+            else path + ".py")
+    assert f"transmogrifai_tpu_torch.{name}" in _port_modules()
+    test_no_source_imports_jax_or_the_jax_package(path)
+
+
+def test_serving_leaves_jax_out(tmp_path):
+    """Training on the CPU, saving under a checkpoint root, serving it over
+    HTTP (a JSON record, a columnar body, a record the contract rejects)
+    and draining load no JAX."""
+    code = ("import json, sys, urllib.request, urllib.error\n"
+            "sys.path.insert(0, 'tests')\n"
+            "from test_torch_serving import _train_port\n"
+            "from transmogrifai_tpu_torch.checkpoint import "
+            "next_version_dir\n"
+            "from transmogrifai_tpu_torch.serving import start_server, wire\n"
+            f"root = {str(tmp_path / 'ckpts')!r}\n"
+            "_train_port(0, False).save(next_version_dir(root))\n"
+            "srv, th = start_server(root, port=0, max_batch=4, "
+            "device='cpu')\n"
+            "url = f'http://127.0.0.1:{srv.port}/v1/score'\n"
+            "def post(body, ctype):\n"
+            "    req = urllib.request.Request(url, data=body, "
+            "headers={'Content-Type': ctype})\n"
+            "    try:\n"
+            "        return urllib.request.urlopen(req).status\n"
+            "    except urllib.error.HTTPError as e:\n"
+            "        return e.code\n"
+            "codes = [post(b'{\"x\": 1.0}', 'application/json'), "
+            "post(wire.encode_records([{'x': 2.0}]), wire.CONTENT_TYPE), "
+            "post(b'{\"x\": \"abc\"}', 'application/json')]\n"
+            "assert codes == [200, 200, 422], codes\n"
+            "srv.drain_and_close()\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
+            "or m == 'transmogrifai_tpu' or m.startswith('transmogrifai_tpu.'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

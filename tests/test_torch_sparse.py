@@ -348,6 +348,41 @@ def test_vectors_combiner_goes_sparse_with_the_same_layout():
                                   _np(out.values.to_dense())[[4, 4, 0]])
 
 
+def test_vectors_combiner_reuses_its_metadata_while_the_blocks_do():
+    """Blocks that hand back the same metadata objects (a fitted
+    vectorizer's) get the same flattened metadata object, equal to a fresh
+    ``VectorMeta.flatten``; a block with new metadata gets it rebuilt."""
+    from transmogrifai_tpu_torch import types as T
+    from transmogrifai_tpu_torch.columns import Column, ColumnBatch
+    from transmogrifai_tpu_torch.features import Feature
+    from transmogrifai_tpu_torch.ops.combiner import VectorsCombiner
+    from transmogrifai_tpu_torch.vector_meta import (VectorColumnMeta,
+                                                     VectorMeta)
+
+    def meta(name, n):
+        return VectorMeta(name, [VectorColumnMeta(name, "Text", None, None,
+                                                  f"h{i}", i)
+                                 for i in range(n)])
+    r, c, v, n, d = _coo(8, n=20, d=9)
+    sm = pm.SparseMatrix.from_coo(r, c, v, n, d, device=CPU)
+    dense = torch.ones(n, 2)
+    ma, mb = meta("a", 2), meta("b", 9)
+
+    def batch(mb):
+        return ColumnBatch({"a": Column(T.OPVector, dense, meta=ma),
+                            "b": Column(T.OPVector, sm, meta=mb)}, n, CPU)
+    comb = VectorsCombiner().set_input(
+        *[Feature(k, T.OPVector, False, None, parents=()) for k in "ab"])
+    first = comb.transform(batch(mb)).meta
+    assert comb.transform(batch(mb)).meta is first
+    assert first == VectorMeta.flatten(comb.output_name(), [ma, mb])
+    assert [col.index for col in first.columns] == list(range(11))
+    other = meta("b", 3)
+    again = comb.transform(batch(other)).meta
+    assert again is not first and again.size == 5
+    assert again == VectorMeta.flatten(comb.output_name(), [ma, other])
+
+
 # --------------------------------------------------------------------------
 # the sparse fitters
 # --------------------------------------------------------------------------

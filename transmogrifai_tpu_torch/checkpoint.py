@@ -11,9 +11,11 @@ offending file; ``find_latest_valid`` lets a loader pointed at a checkpoint
 root take its newest bundle that verifies.
 
 The format is the JAX package's, so bundles move both ways between the two
-packages.  Not ported here: the resumable ``SweepCheckpoint``, the
-preemption guard and ``train(resume_from=)`` (JAX :383-639), and the
-telemetry spans and fault-injection points around save and load.  Failures
+packages.  ``preemption_guard`` and ``shutdown_requested`` (JAX :545-639)
+turn SIGTERM / SIGINT into a cooperative stop flag, which the server's
+``serve_main`` polls to drain before it exits.  Not ported here: the
+resumable ``SweepCheckpoint`` and ``train(resume_from=)`` (JAX :383-540),
+and the telemetry spans and fault-injection points around save and load.  Failures
 the JAX package records into its ambient log go into the ``FailureLog``
 the caller passes (``log``), since the port has no ambient log.
 """
@@ -24,12 +26,15 @@ import hashlib
 import json
 import os
 import shutil
+import signal
+import threading
 import time
 import uuid
 from contextlib import contextmanager
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
-from .resilience import FailureLog, record_failure
+from .resilience import (FailureLog, InjectedFault, maybe_inject,
+                         record_failure)
 
 MANIFEST_NAME = "MANIFEST.json"
 # version 2: the manifest digests the whole tree recursively (relative POSIX
@@ -304,3 +309,96 @@ def prune_versions(root: str, keep: int) -> List[str]:
         shutil.rmtree(path, ignore_errors=True)
         removed.append(path)
     return removed
+
+
+# --------------------------------------------------------------------------
+# preemption-aware shutdown
+# --------------------------------------------------------------------------
+
+class PreemptionGuard:
+    """Cooperative stop flag set by SIGTERM / SIGINT or an injected
+    preemption; loops poll ``shutdown_requested()`` at their boundaries
+    and wind down instead of dying mid-write.  The request is recorded
+    "preempted" in ``log``."""
+
+    def __init__(self, stage: str = "train",
+                 log: Optional[FailureLog] = None):
+        self.stage = stage
+        self.log = log
+        self.stop_requested = False
+        self.reason = ""
+
+    def request_stop(self, reason: Any) -> None:
+        if not self.stop_requested:
+            self.stop_requested = True
+            self.reason = str(reason)
+            record_failure(self.log, self.stage, "preempted", reason,
+                           point="preemption")
+
+
+_GUARD: Optional[PreemptionGuard] = None
+_GUARD_DEPTH = 0
+_GUARD_LOCK = threading.Lock()
+_PREV_HANDLERS: Dict[int, Any] = {}
+
+
+def _signal_handler(signum, frame):  # pragma: no cover — exercised via kill
+    guard = _GUARD
+    if guard is None:
+        return
+    if guard.stop_requested:
+        raise KeyboardInterrupt(
+            f"second signal {signum} during graceful shutdown")
+    guard.request_stop(f"signal {signum}")
+
+
+@contextmanager
+def preemption_guard(stage: str = "train",
+                     signals: Sequence[int] = (signal.SIGTERM, signal.SIGINT),
+                     log: Optional[FailureLog] = None):
+    """Install the SIGTERM / SIGINT → graceful-stop handler for the dynamic
+    extent (≙ checkpoint.py:584).  Re-entrant: nested guards share one flag
+    and only the outermost installs and restores the handlers.  Off the
+    main thread, where Python forbids ``signal.signal``, the guard still
+    answers injected preemptions and records "degraded" in ``log``."""
+    global _GUARD, _GUARD_DEPTH
+    with _GUARD_LOCK:
+        _GUARD_DEPTH += 1
+        if _GUARD is None:
+            _GUARD = PreemptionGuard(stage, log)
+            try:
+                for s in signals:
+                    _PREV_HANDLERS[s] = signal.signal(s, _signal_handler)
+            except ValueError as e:   # not the main thread
+                record_failure(log, stage, "degraded", e,
+                               point="preemption.install",
+                               fallback="injection-only preemption checks")
+        guard = _GUARD
+    try:
+        yield guard
+    finally:
+        with _GUARD_LOCK:
+            _GUARD_DEPTH -= 1
+            if _GUARD_DEPTH == 0:
+                for s, h in _PREV_HANDLERS.items():
+                    try:
+                        signal.signal(s, h)
+                    except (ValueError, OSError):
+                        pass
+                _PREV_HANDLERS.clear()
+                _GUARD = None
+
+
+def shutdown_requested(key: Any = None) -> bool:
+    """Has a graceful stop been requested, by a signal or by the
+    ``preemption`` injection point at ``key``?"""
+    guard = _GUARD
+    if guard is not None and guard.stop_requested:
+        return True
+    try:
+        maybe_inject("preemption", key=key)
+    except InjectedFault as e:
+        if guard is not None:
+            guard.request_stop(e)
+        return True
+    return False

@@ -35,6 +35,14 @@ a device segment raises to the caller; nothing is re-run on another path.
 lowers its strings on the host and writes its block on the device
 (``ops/text.py``, ``ops/categorical.py``, ``ops/maps.py``), so the segment
 calls it as it calls any stage.
+
+``build_count()`` stands where the JAX package's ``trace_count()`` (JAX
+:59) stands for serving: what a first call can still cost in eager PyTorch
+is not a trace but the first build or load of a library — a kernel's
+``nvcc`` build and ``dlopen`` (``cuda_build.load``) or a native helper's
+(``native.load``).  It counts every library this process has compiled or
+first loaded, so a serving engine that reads it before and after a batch
+sees whether the batch paid for one.
 """
 
 from __future__ import annotations
@@ -47,6 +55,13 @@ import torch
 from .columns import Column, ColumnBatch, to_device_f32
 from .stages.base import Transformer
 from .types import OPVector, Prediction, is_numeric_kind
+
+
+def build_count() -> int:
+    """Kernel and native libraries this process has compiled or first
+    loaded (see the module docstring)."""
+    from . import cuda_build, native
+    return cuda_build.build_count() + native.build_count()
 
 
 def _kind_arrayish(kind) -> bool:

@@ -35,6 +35,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+_builds = 0      # libraries this process compiled or first loaded
+
+
+def build_count() -> int:
+    """How many libraries this process has compiled or loaded for the first
+    time (``compiled.build_count`` sums it with its twin)."""
+    return _builds
 
 
 def nvcc_path() -> str:
@@ -62,6 +70,12 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
+def _count_build() -> None:
+    global _builds
+    with _count_lock:
+        _builds += 1
+
+
 def build_all(names: Iterable[str] = KERNEL_SOURCES,
               verbose: bool = False) -> Dict[str, str]:
     """Compile every missing library in parallel; returns name → path.
@@ -87,6 +101,7 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES,
             failed.append(f"{n}: nvcc exited {proc.returncode}\n{out}")
             continue
         os.replace(tmp, path)
+        _count_build()
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return paths
@@ -104,6 +119,7 @@ def load(name: str, argtypes) -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _libs[name] = lib
+            _count_build()
     return lib
 
 

@@ -33,6 +33,14 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 _mods: Dict[str, ModuleType] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+_builds = 0      # libraries this process compiled or first loaded
+
+
+def build_count() -> int:
+    """How many libraries this process has compiled or loaded for the first
+    time (``compiled.build_count`` sums it with its twin)."""
+    return _builds
 
 
 def _flags():
@@ -45,6 +53,12 @@ def _lib_path(name: str) -> str:
     with open(os.path.join(SRC_DIR, f"{name}.cpp"), "rb") as fh:
         digest = hashlib.sha256(fh.read() + " ".join(_flags()).encode())
     return os.path.join(BUILD_DIR, f"_{name}-{digest.hexdigest()[:16]}.so")
+
+
+def _count_build() -> None:
+    global _builds
+    with _count_lock:
+        _builds += 1
 
 
 def build_all(names: Iterable[str] = NATIVE_SOURCES) -> Dict[str, str]:
@@ -70,6 +84,7 @@ def build_all(names: Iterable[str] = NATIVE_SOURCES) -> Dict[str, str]:
             failed.append(f"{n}: g++ exited {proc.returncode}\n{out}")
             continue
         os.replace(tmp, path)
+        _count_build()
     if failed:
         raise RuntimeError("native helper build failed:\n" + "\n".join(failed))
     return paths
@@ -86,4 +101,5 @@ def load(name: str) -> ModuleType:
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
             _mods[name] = mod
+            _count_build()
     return mod

@@ -10,15 +10,27 @@ is saved as that text and rebuilt from it on load, as the JAX package does
 (JAX :40-45).  The port's workflows take columnar input
 (``Workflow.set_input_batch``); monoid aggregation comes with the
 aggregators slice, so ``aggregate_window_ms`` is kept and saved but not
-acted on.
+acted on.  ``extract_column`` builds a raw column from records with the
+monoid zero of a non-nullable kind where a record has no value
+(``non_nullable_empty_value``, JAX :19), as the serving engine's batches
+and the columnar wire decoder need.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Type
+from typing import Any, Callable, Dict, Iterable, Optional, Type
 
-from ..types import FeatureType
+from ..columns import Column, column_from_values
+from ..types import FeatureType, Prediction
 from .base import PipelineStage
+
+
+def non_nullable_empty_value(kind: Type[FeatureType]):
+    """The value a non-nullable kind takes when nothing was observed (≙ the
+    reference's monoid zeros: SumRealNN → 0)."""
+    if issubclass(kind, Prediction):
+        return {"prediction": 0.0}
+    return 0.0
 
 
 class FeatureGeneratorStage(PipelineStage):
@@ -42,6 +54,14 @@ class FeatureGeneratorStage(PipelineStage):
 
     def output_name(self) -> str:
         return self.name
+
+    def extract_column(self, records: Iterable[Dict[str, Any]]) -> Column:
+        """The raw column of ``records`` (JAX :55-65)."""
+        vals = [self.extract_fn(r) for r in records]
+        if self.kind.non_nullable:
+            zero = non_nullable_empty_value(self.kind)
+            vals = [zero if v is None else v for v in vals]
+        return column_from_values(self.kind, vals)
 
     def ctor_args(self) -> Dict[str, Any]:
         return {"name": self.name, "kind": self.kind.__name__,

@@ -171,6 +171,8 @@ class WorkflowModel:
         self.parameters: Dict[str, Any] = {}
         # what save dropped and load did without ("swallowed", "degraded")
         self.failure_log: Optional[FailureLog] = None
+        # the data-quality contract a load read (quality.RawSchema)
+        self.raw_schema = None
 
     @property
     def stages(self) -> List[Transformer]:
@@ -309,9 +311,11 @@ class WorkflowModel:
         workflow.py:681-802): staged in a temp sibling, digested into a
         ``MANIFEST.json``, fsynced and renamed into place.
         ``overwrite=False`` raises ``FileExistsError`` on a non-empty
-        ``path``.  No AOT executables, drift baselines, schema contract or
-        telemetry are written (the JAX package loads such a bundle,
-        recording each as degraded)."""
+        ``path``.  The bundle carries the data-quality contract
+        (``schema.json``, ``quality.RawSchema``, range hints from the
+        training batch).  No AOT executables, drift baselines or telemetry
+        are written (the JAX package loads such a bundle, recording each as
+        degraded)."""
         if self.failure_log is None:
             self.failure_log = FailureLog()
         with atomic_bundle_write(path, overwrite=overwrite,
@@ -367,6 +371,16 @@ class WorkflowModel:
         with open(os.path.join(path, MODEL_JSON), "w") as fh:
             json.dump(manifest, fh, indent=2, default=str)
         np.savez_compressed(os.path.join(path, PARAMS_NPZ), **arrays)
+        # the data-quality contract (JAX workflow.py:779-791): raw kinds,
+        # nullability and training-range hints, under the manifest's
+        # digests; a failed write never fails the save
+        try:
+            from .quality import RawSchema
+            RawSchema.derive(self.raw_features,
+                             batch=self._input_batch).save(path)
+        except Exception as e:  # noqa: BLE001 — serving re-derives it
+            record_failure(self.failure_log, "workflow.save", "swallowed",
+                           e, point="checkpoint.save", detail="schema.json")
 
     @staticmethod
     def load(path: str, device: DeviceLike = None) -> "WorkflowModel":
@@ -379,11 +393,13 @@ class WorkflowModel:
         passed over is recorded "skipped").  A bundle with a
         ``MANIFEST.json`` has its version and every digest checked
         (``ModelVersionError`` / ``CorruptModelError`` naming the file); a
-        legacy bundle without one loads with a warning.  Files of subsystems
-        the port has not ported (AOT executables, drift baselines, the
-        schema contract, telemetry) are digest-checked, not read, and
-        recorded "degraded".  The model's ``failure_log`` holds the
-        records."""
+        legacy bundle without one loads with a warning.  The data-quality
+        contract is ``model.raw_schema``: the bundle's ``schema.json``, or
+        one re-derived from the raw features when the bundle has none
+        (JAX :926-930).  Files of subsystems the port has not ported (AOT
+        executables, drift baselines, telemetry) are digest-checked, not
+        read, and recorded "degraded".  The model's ``failure_log`` holds
+        the records."""
         dev = resolve_device(device)
         log = FailureLog()
         if not os.path.isdir(path):
@@ -473,9 +489,15 @@ class WorkflowModel:
                              manifest.get("blacklistedFeaturesUids", ())
                              if u in feats]
         model.parameters = manifest.get("parameters") or {}
+        from .quality import SCHEMA_JSON, RawSchema
+        # a re-derived contract lists the fields in the bundle's order, as
+        # the JAX package's does (its loaded raw features are not sorted)
+        model.raw_schema = RawSchema.for_model(
+            model, path, log, [f for f in feats.values()
+                               if f.is_raw and f.origin_stage is not None])
         unread = sorted({name.split("/", 1)[0] for name in
                          (manifest_meta or {}).get("files") or {}}
-                        - {MODEL_JSON, PARAMS_NPZ, MANIFEST_NAME})
+                        - {MODEL_JSON, PARAMS_NPZ, MANIFEST_NAME, SCHEMA_JSON})
         if unread:
             record_failure(log, "checkpoint", "degraded",
                            f"bundle files this build does not read: {unread}",
