@@ -5750,6 +5750,321 @@ def run_serving(cases: dict, device="cuda") -> tuple:
     return facts, launches
 
 
+# --------------------------------------------------------------------------
+# phase 16: training control — resume, workflow CV, sanitizers, the screen
+# --------------------------------------------------------------------------
+
+SCREEN_FRACTIONS = (0.005, 0.2)    # quarantined and trained; past 0.1: raises
+SCREEN_SEED = 16
+
+
+def _sync(device) -> None:
+    import torch
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _validation(model) -> list:
+    return [(r.model_name, r.params, r.metric_values, r.raced_out)
+            for r in model.selected_model.summary.validation_results]
+
+
+def _same_bits(a, b) -> bool:
+    """Fitted state equal bit for bit (tensors and arrays by their bytes)."""
+    import torch
+    if isinstance(a, (torch.Tensor, np.ndarray)):
+        if not isinstance(b, type(a)):
+            return False
+        ha = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+        hb = b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else b
+        return (ha.dtype == hb.dtype and ha.shape == hb.shape
+                and ha.tobytes() == hb.tobytes())
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(_same_bits(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same_bits(x, z) for x, z in zip(a, b)))
+    return a == b
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def _flushes(*cps) -> list:
+    return [{"seconds": f["seconds"], "npz_bytes": f["npzBytes"]}
+            for cp in cps if cp is not None for f in cp.flushes]
+
+
+# a GBT family fit again after a resume: its statistics are f32 sums that
+# tree_hist adds with atomics in a run-dependent order (csrc/tree_hist.cu),
+# so its CV metrics hold the uninterrupted train's to the tolerance the port
+# holds the JAX package's metrics to, not bit for bit
+RESUME_REFIT_TOL = 1e-4
+
+
+def _held_validation(part: str, got: list, want: list, exact) -> float:
+    """``got``'s validation results against ``want``'s: the same candidates,
+    params and racing marks, and the same metric bits for the families in
+    ``exact``; the others within RESUME_REFIT_TOL.  Returns their largest
+    difference."""
+    if [(a[0], a[1], a[3], sorted(a[2])) for a in got] != \
+            [(b[0], b[1], b[3], sorted(b[2])) for b in want]:
+        raise AssertionError(f"resume ({part}): other candidates than the "
+                             "uninterrupted train's")
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a[0] in exact:
+            if a[2] != b[2]:
+                raise AssertionError(f"resume ({part}): {a[0]} {a[1]} "
+                                     f"metrics {a[2]} != {b[2]}")
+            continue
+        d = max((abs(a[2][k] - b[2][k]) for k in a[2]), default=0.0)
+        if not d <= RESUME_REFIT_TOL:
+            raise AssertionError(f"resume ({part}): {a[0]} {a[1]} metrics "
+                                 f"{a[2]} vs {b[2]} (|diff| {d})")
+        worst = max(worst, d)
+    return worst
+
+
+def run_resume(X, y, device="cuda") -> dict:
+    """Phase 16's resume check on the bench set at ``X``'s full width,
+    unraced so each family is checkpointed after round A: an uninterrupted
+    train; a train preempted at the forest's boundary (one family in the
+    sweep); a resume with LR's fit armed (LR must be replayed; the winner,
+    the validation results, the train AuROC and the refit's arrays equal
+    the uninterrupted train's, no "skipped" event); a resume of the sealed
+    sweep with every family's fit armed (only the winner's refit runs, and
+    the results are the resumed train's, bit for bit).  LR (no float
+    atomics) and the forest (integer statistics) must match bit for bit,
+    replayed or fit again; a GBT family fit again is held to
+    RESUME_REFIT_TOL.  Returns the facts with each train's wall and
+    launches."""
+    from transmogrifai_tpu_torch.checkpoint import (SweepCheckpoint,
+                                                    TrainingPreempted)
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.resilience import (FaultInjector,
+                                                    inject_faults)
+    root = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    atexit.register(shutil.rmtree, root, True)
+    sweep = os.path.join(root, "sweep")
+    ev = Evaluators.BinaryClassification.auROC()
+    families = ("OpLogisticRegression", "OpRandomForestClassifier",
+                "OpGBTClassifier")
+
+    def train(resume_from=None, **fail_keys):
+        wf, batch = build_workflow(X, y, device)
+        wf.result_features[0].origin_stage.validator.racing = False
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        with inject_faults(FaultInjector(fail_keys=fail_keys)):
+            model = wf.train(resume_from=resume_from)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        return model, batch, wall, _launch_delta(before,
+                                                 kernels.launch_counts())
+
+    full, batch, full_wall, full_l = train()
+    full_auroc = float(full.evaluate(ev, batch=batch)["AuROC"])
+    try:
+        train(sweep, preemption=["OpRandomForestClassifier"])
+        raise AssertionError("resume: no TrainingPreempted at the forest")
+    except TrainingPreempted as e:
+        pre = e
+    if len(SweepCheckpoint(sweep)) != 1 or \
+            not pre.failure_log.by_action("preempted"):
+        raise AssertionError("resume: the preempted train did not leave "
+                             "exactly one family and a 'preempted' event")
+    res, _, res_wall, res_l = train(
+        sweep, **{"selector.candidate_fit": ["OpLogisticRegression"]})
+    sealed, _, sealed_wall, sealed_l = train(
+        sweep, **{"selector.candidate_fit": list(families)})
+    best = full.selected_model
+    refit_diff = _held_validation(
+        "resumed", _validation(res), _validation(full),
+        ("OpLogisticRegression", "OpRandomForestClassifier"))
+    _held_validation("sealed", _validation(sealed), _validation(res),
+                     families)
+    for name, m, n_resumed in (("resumed", res, 2), ("sealed", sealed, 4)):
+        resumed = [e for e in m.failure_log if e.action == "resumed"]
+        if len(resumed) != n_resumed or not any(
+                e.stage == "OpLogisticRegression" for e in resumed):
+            raise AssertionError(f"resume ({name}): resumed events "
+                                 f"{[e.stage for e in resumed]}")
+        if m.failure_log.by_action("skipped"):
+            raise AssertionError(f"resume ({name}): a family was refit")
+        sm = m.selected_model
+        if sm.summary.best_model_name != best.summary.best_model_name or \
+                not _same_bits(sm.best_model.fitted, best.best_model.fitted):
+            raise AssertionError(f"resume ({name}): the winner or its refit "
+                                 "arrays differ")
+        if float(m.evaluate(ev, batch=batch)["AuROC"]) != full_auroc:
+            raise AssertionError(f"resume ({name}): train AuROC differs")
+    if set(sealed.selected_model.selector_seconds) != {"refit",
+                                                       "train_evaluation"}:
+        raise AssertionError("resume (sealed): the sweep ran a family")
+    return {
+        "winner": best.summary.best_model_name, "train_auroc": full_auroc,
+        "full_train_wall_s": full_wall, "resumed_train_wall_s": res_wall,
+        "sealed_refit_wall_s": sealed_wall,
+        "gbt_refit_max_abs_diff": refit_diff,
+        "tree_hist_launches": {"full": full_l["tree_hist"],
+                               "resumed": res_l["tree_hist"],
+                               "sealed": sealed_l["tree_hist"]},
+        "flushes": _flushes(pre.sweep_checkpoint, res.sweep_checkpoint,
+                            sealed.sweep_checkpoint),
+        "sweep_npz_bytes": os.path.getsize(os.path.join(sweep,
+                                                        "sweep.npz")),
+        "full_launches": {k: v for k, v in full_l.items() if v}}
+
+
+def run_workflow_cv(cols, schema, n: int, p5_facts: dict,
+                    device="cuda") -> dict:
+    """Phase 16's workflow CV on phase 5's transmog workflow at ``n`` rows:
+    'during' must hold the SanityChecker, three in-fold groups must run
+    (SanityChecker fit four times: all rows, then each fold's training
+    rows), every candidate's CV metric finite, the checked width phase 5's
+    and train AuROC > 0.7; the peak device memory above what was allocated
+    before may pass phase 5's peak by at most one n x (kept columns) f32
+    matrix, the fold matrix resident beside the full-data one."""
+    import math
+
+    import torch
+
+    from transmogrifai_tpu_torch.dag import compute_dag, cut_dag
+    from transmogrifai_tpu_torch.preparators.sanity_checker import \
+        SanityChecker
+    tr = _transmog_ref()
+    wf, batch, pred = tr.build(PORT, cols, schema, n, device=device)
+    wf.with_workflow_cv()
+    during = cut_dag(compute_dag([pred]), pred.origin_stage)[1]
+    if "SanityChecker" not in {s.operation_name for l in during for s in l}:
+        raise AssertionError("workflow CV: 'during' lacks the SanityChecker")
+    fits = []
+    real = SanityChecker.fit
+
+    def counted(self, b):
+        fits.append(len(b))
+        return real(self, b)
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    SanityChecker.fit = counted
+    try:
+        t0 = time.perf_counter()
+        model = wf.train()
+        _sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        SanityChecker.fit = real
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    facts = {**tr.facts(PORT, model, batch), "train_wall_s": wall,
+             "phase5_train_wall_s": p5_facts["train_wall_s"],
+             "sanity_checker_fits_rows": fits,
+             "peak_device_memory_gb": peak,
+             "phase5_peak_device_memory_gb": p5_facts["peak_device_memory_gb"],
+             "racing_notes": [e.cause for e in model.failure_log
+                              if e.point == "selector.racing"]}
+    matrix_gb = n * facts["width"] * 4 / 1e9
+    facts["peak_limit_gb"] = p5_facts["peak_device_memory_gb"] + matrix_gb
+    if len(fits) != 1 + N_FOLDS or fits[0] != n:
+        raise AssertionError(f"workflow CV: SanityChecker fits {fits}, "
+                             f"expected all {n} rows then {N_FOLDS} folds")
+    if facts["width"] != TRANSMOG_WIDTH:
+        raise AssertionError(f"workflow CV width {facts['width']}")
+    if not all(math.isfinite(v) for v in facts["cv_aupr"].values()):
+        raise AssertionError(f"workflow CV metrics {facts['cv_aupr']}")
+    if facts["train_auroc"] <= 0.7:
+        raise AssertionError(f"workflow CV train AuROC "
+                             f"{facts['train_auroc']} <= 0.7")
+    if peak > facts["peak_limit_gb"]:
+        raise AssertionError(f"workflow CV peak {peak} GB > "
+                             f"{facts['peak_limit_gb']} GB")
+    return facts
+
+
+def run_purity(model, batch, device="cuda") -> dict:
+    """The purity audit on a fitted model over its raw batch on the card:
+    every transformer applied twice must give the same bits."""
+    import torch
+
+    from transmogrifai_tpu_torch.sanitizer import audit_dag_purity
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n = audit_dag_purity(model.fitted_dag, batch.on(device))
+    _sync(device)
+    return {"stages_audited": n, "wall_s": time.perf_counter() - t0,
+            "peak_device_memory_gb":
+                (torch.cuda.max_memory_allocated() - base) / 1e9}
+
+
+def run_sanitized(X, y, plain_wall: float, device="cuda") -> dict:
+    """The bench set (unraced, as the resume check's) trained under all
+    three sanitizers: the NaN guard, the purity audit (each transformer
+    applied twice on the card, the same bits) and the serialization
+    audit."""
+    wf, batch = build_workflow(X, y, device)
+    wf.result_features[0].origin_stage.validator.racing = False
+    wf.with_sanitizers(nan_check=True, purity_check=True,
+                       serialization_check=True)
+    t0 = time.perf_counter()
+    model = wf.train()
+    _sync(device)
+    return {"train_wall_s": time.perf_counter() - t0,
+            "plain_train_wall_s": plain_wall,
+            "purity_audit_s": model.phase_seconds["purity_audit"],
+            "winner": model.selected_model.summary.best_model_name}
+
+
+def run_screen(X, y, device="cuda") -> dict:
+    """The train-time screen at ``X``'s size: SCREEN_FRACTIONS of the rows
+    given a NaN or an inf in one column.  0.5%: those rows quarantined (one
+    event, the count in its cause) and the train succeeds; 20%:
+    ``DataQualityError`` with that count."""
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.quality import DataQualityError
+    rng = np.random.default_rng(SCREEN_SEED)
+    n = len(y)
+    out = {}
+    for frac in SCREEN_FRACTIONS:
+        k = int(round(frac * n))
+        rows = rng.choice(n, size=k, replace=False)
+        Xp = X.copy()
+        Xp[rows, rows % X.shape[1]] = np.where(rows % 2, np.inf, np.nan)
+        wf, _ = build_workflow(Xp, y, device)
+        t0 = time.perf_counter()
+        try:
+            model = wf.train()
+        except DataQualityError as e:
+            if frac <= 0.1 or (e.quarantined, e.total) != (k, n):
+                raise
+            out[f"fraction_{frac}"] = {
+                "raised": "DataQualityError", "quarantined": e.quarantined,
+                "wall_s": time.perf_counter() - t0}
+            continue
+        _sync(device)
+        wall = time.perf_counter() - t0
+        if frac > 0.1:
+            raise AssertionError(f"screen: {frac:.0%} non-finite rows "
+                                 "trained")
+        evs = model.failure_log.by_action("quarantined")
+        if len(evs) != 1 or not evs[0].cause.startswith(f"{k} row(s)"):
+            raise AssertionError(f"screen: events {evs}")
+        _, clean = build_workflow(X, y, device)
+        auroc = float(model.evaluate(Evaluators.BinaryClassification.auROC(),
+                                     batch=clean)["AuROC"])
+        if auroc <= 0.7:
+            raise AssertionError(f"screen: train AuROC {auroc} <= 0.7")
+        out[f"fraction_{frac}"] = {
+            "quarantined": k, "train_wall_s": wall,
+            "screen_s": model.phase_seconds["quality"],
+            "train_auroc": auroc}
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5792,6 +6107,20 @@ def main() -> int:
         print(f"phase 14 save, load and score ({name}): "
               + json.dumps(facts), flush=True)
         return loaded
+
+    # phase 16 runs in parts: workflow CV and the transmog purity audit on
+    # phase 5's columns and model, the sparse purity audit on phase 6's,
+    # the rest after phase 15; each part's launches are read around it and
+    # summed here
+    p16_launches: dict = {}
+
+    def add_p16(launches, part, needs=()):
+        missing = [k for k in needs if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"phase 16 ({part}): kernels never "
+                                 f"launched: {missing}")
+        for k, v in launches.items():
+            p16_launches[k] = p16_launches.get(k, 0) + v
 
     # phase 1: device and build
     card = nvidia_smi_line()
@@ -5962,6 +6291,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("profile transmog LR CV: " + json.dumps(profile_lr_cv(
         tm_model, tm_batch, transmog_lr_selector())), flush=True)
+    torch.cuda.empty_cache()
+    # phase 16, on phase 5's columns: the workflow under workflow CV, then
+    # the purity audit on phase 5's model (hash_counts twice on the card)
+    kernels.reset_launch_counts()
+    wcv_facts = run_workflow_cv(cols, schema, N_ROWS, tm_facts)
+    add_p16(kernels.launch_counts(), "workflow_cv")
+    print("phase 16 workflow CV (transmog): " + json.dumps(wcv_facts),
+          flush=True)
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    print("phase 16 purity audit (transmog): " + json.dumps(
+        run_purity(tm_model, tm_batch)), flush=True)
+    add_p16(kernels.launch_counts(), "purity_transmog", ("hash_counts",))
     del cols
     torch.cuda.empty_cache()
     print(f"transmog reference runs ({TRANSMOG_REF_ROWS} rows): "
@@ -6015,6 +6357,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("profile sparse LR CV: " + json.dumps(profile_sparse_cv(
         sp_model, sp_batch)), flush=True)
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    print("phase 16 purity audit (sparse): " + json.dumps(
+        run_purity(sp_model, sp_batch)), flush=True)
+    add_p16(kernels.launch_counts(), "purity_sparse", ("sp_matmat",))
     del sp_model, sp_batch
     torch.cuda.empty_cache()
     print(f"sparse reference runs ({SPARSE_REF_ROWS} rows): "
@@ -6344,10 +6691,41 @@ def main() -> int:
           + json.dumps({k: v for k, v in serve_launches.items() if v}),
           flush=True)
     print("serving: " + json.dumps(serve_facts), flush=True)
+    torch.cuda.empty_cache()
+
+    # phase 16: resume a preempted sweep, the sanitizers and the train-time
+    # screen on the bench set at 1M x 28
+    t16 = time.perf_counter()
+    X, y = make_data(N_ROWS)
+    kernels.reset_launch_counts()
+    resume_facts = run_resume(X, y)
+    add_p16(kernels.launch_counts(), "resume",
+            ("tree_hist", "tree_split", "tree_split_gini", "tree_route",
+             "tree_walk", "fista_step"))
+    print("phase 16 resume (bench set, unraced): " + json.dumps(resume_facts),
+          flush=True)
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    san_facts = run_sanitized(X, y, resume_facts["full_train_wall_s"])
+    add_p16(kernels.launch_counts(), "sanitizers", ("tree_walk",))
+    print("phase 16 sanitizers (bench set): " + json.dumps(san_facts),
+          flush=True)
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    screen_facts = run_screen(X, y)
+    add_p16(kernels.launch_counts(), "screen")
+    print("phase 16 train-time screen: " + json.dumps(screen_facts),
+          flush=True)
+    del X, y
+    torch.cuda.empty_cache()
+    print(f"phase 16 kernel launches: {json.dumps(p16_launches)}; "
+          f"wall of its last part {time.perf_counter() - t16:.1f} s",
+          flush=True)
     for r in rows:
         if r["name"] in ("tree_walk", "hash_counts", "sp_matmat"):
             r["launches"] += bundle_launches.get(r["name"], 0) \
                 + serve_launches.get(r["name"], 0)
+        r["launches"] += p16_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke wall_s: {time.perf_counter() - t_start:.1f}",

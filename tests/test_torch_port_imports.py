@@ -316,3 +316,34 @@ def test_serving_leaves_jax_out(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+TRAINING_MODULES = ("sanitizer", "dag", "tuning", "selector", "workflow",
+                    "stages.base")
+
+
+@pytest.mark.parametrize("name", TRAINING_MODULES)
+def test_training_control_modules_are_scanned(name):
+    path = os.path.join(PORT, *name.split(".")) + ".py"
+    assert f"transmogrifai_tpu_torch.{name}" in _port_modules()
+    test_no_source_imports_jax_or_the_jax_package(path)
+
+
+def test_training_control_leaves_jax_out():
+    """``chip_smoke``'s phase-16 resume check (an uninterrupted train, one
+    preempted at the forest, a resume and a sealed resume from its sweep
+    checkpoint), then a workflow-CV train under the NaN guard, on the CPU
+    at 600 rows, load no JAX."""
+    code = ("import json, sys\n"
+            "import chip_smoke as cs\n"
+            "X, y = cs.make_data(600)\n"
+            "cs.run_resume(X, y, 'cpu')\n"
+            "wf, b = cs.build_workflow(X, y, 'cpu')\n"
+            "wf.with_workflow_cv().with_sanitizers(nan_check=True).train()\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
+            "or m == 'transmogrifai_tpu' or m.startswith('transmogrifai_tpu.'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -287,6 +287,35 @@ def test_finite_row_mask_on_tensors_and_arrays_is_the_jax_packages():
         np.testing.assert_array_equal(t.numpy(), want)
 
 
+@pytest.mark.parametrize("poison", [(), ((3, 1, np.nan),),
+                                    ((0, 0, np.inf), (9, 2, -np.inf),
+                                     (9, 3, np.nan))])
+def test_column_views_of_one_matrix_screen_as_in_the_jax_package(poison):
+    """Columns that are ``X[:, j]`` views of one row-major matrix (checked
+    first by one pass over the matrix) give the JAX package's rows and
+    violations, absent cells passing, clean or not."""
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(12, 4)).astype(np.float32)
+    for r, c, v in poison:
+        X[r, c] = v
+    mask = np.ones(12, bool)
+    mask[9] = False
+    got, want = {}, {}
+    for pkg, mod, out in (("transmogrifai_tpu_torch", Q, got),
+                          ("transmogrifai_tpu", JQ, want)):
+        import importlib
+        C = importlib.import_module(f"{pkg}.columns")
+        T = importlib.import_module(f"{pkg}.types")
+        cols = {f"f{j}": C.Column(T.Real, X[:, j],
+                                  mask if j >= 2 else None)
+                for j in range(4)}
+        rows = mod.batch_nonfinite_rows(C.ColumnBatch(cols, 12))
+        out.update({k: [v.to_json() for v in vs] for k, vs in rows.items()})
+    assert got == want
+    assert sorted(got) == sorted({r for r, c, _ in poison
+                                  if not (r == 9 and c >= 2)})
+
+
 def test_batch_and_result_guards_are_the_jax_packages():
     jb, pb = _batch(JAX), _batch(PORT)
     jb["score"].values[4] = np.inf

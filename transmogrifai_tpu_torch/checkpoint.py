@@ -11,13 +11,22 @@ offending file; ``find_latest_valid`` lets a loader pointed at a checkpoint
 root take its newest bundle that verifies.
 
 The format is the JAX package's, so bundles move both ways between the two
-packages.  ``preemption_guard`` and ``shutdown_requested`` (JAX :545-639)
-turn SIGTERM / SIGINT into a cooperative stop flag, which the server's
-``serve_main`` polls to drain before it exits.  Not ported here: the
-resumable ``SweepCheckpoint`` and ``train(resume_from=)`` (JAX :383-540),
-and the telemetry spans and fault-injection points around save and load.  Failures
-the JAX package records into its ambient log go into the ``FailureLog``
-the caller passes (``log``), since the port has no ambient log.
+packages.  ``SweepCheckpoint`` (JAX :383-510) is the resumable record of a
+selector sweep: one such bundle holding ``sweep.json`` (each completed
+candidate family's grid scores under a content signature that is equal in
+both packages) and ``sweep.npz`` (its fitted arrays), so a sweep written by
+either package resumes in the other.  ``Workflow.train(resume_from=)``
+makes one and hands it down to the validator; the JAX package's ambient
+stack (``use_sweep_checkpoint``, JAX :518-540) is not ported.
+``preemption_guard`` and ``shutdown_requested`` (JAX :545-639) turn
+SIGTERM / SIGINT into a cooperative stop flag, which the validator polls at
+each candidate family's boundary (``TrainingPreempted``) and the server's
+``serve_main`` polls to drain before it exits.  The flag is the one global
+here, as signals are per process.  A ``checkpoint.save`` fault injected at
+the commit of a bundle (key: the bundle's directory name) leaves the old
+bundle in place, as in the JAX package.  Not ported: the telemetry spans
+around save and load.  Failures the JAX package records into its ambient
+log go into the ``FailureLog`` the caller passes (``log``).
 """
 
 from __future__ import annotations
@@ -32,6 +41,9 @@ import time
 import uuid
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
 
 from .resilience import (FailureLog, InjectedFault, maybe_inject,
                          record_failure)
@@ -72,6 +84,23 @@ class ModelVersionError(CheckpointError):
             f"model bundle {self.path}: format version {found!r} is not "
             f"readable by this build (supports 1..{supported}); "
             f"re-save the model with a matching version")
+
+
+class TrainingPreempted(RuntimeError):
+    """``train()`` stopped at a candidate family's boundary after a
+    preemption signal or an injected preemption (≙ JAX :97-110).
+    ``resume_from`` names the sweep checkpoint to pass back to
+    ``train(resume_from=...)``; ``failure_log`` is the train's log and
+    ``sweep_checkpoint`` its ``SweepCheckpoint`` (with its ``flushes``)."""
+
+    def __init__(self, message: str, resume_from: Optional[str] = None):
+        self.resume_from = resume_from
+        # set by Workflow.train on the way out
+        self.failure_log = None
+        self.sweep_checkpoint = None
+        if resume_from:
+            message = f"{message} (resume with resume_from={resume_from!r})"
+        super().__init__(message)
 
 
 def _sha256_file(path: str, chunk: int = 1 << 20) -> str:
@@ -160,6 +189,7 @@ def atomic_bundle_write(path: str, overwrite: bool = True,
     os.makedirs(tmp)
     try:
         yield tmp
+        maybe_inject("checkpoint.save", key=os.path.basename(path))
         write_manifest(tmp, extra=manifest_extra)
         for root, _dirs, names in os.walk(tmp, topdown=False):
             for name in names:
@@ -309,6 +339,178 @@ def prune_versions(root: str, keep: int) -> List[str]:
         shutil.rmtree(path, ignore_errors=True)
         removed.append(path)
     return removed
+
+
+# --------------------------------------------------------------------------
+# resumable selector sweeps
+# --------------------------------------------------------------------------
+
+SWEEP_JSON = "sweep.json"
+SWEEP_NPZ = "sweep.npz"
+
+
+def _host_copies(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """``tensors`` as numpy arrays, with one device-to-host copy for each
+    (device, dtype) group: the group is flattened into one tensor on its
+    device, copied back and split."""
+    out: List[Optional[np.ndarray]] = [None] * len(tensors)
+    groups: Dict[Any, List[int]] = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault((t.device, t.dtype), []).append(i)
+    for idx in groups.values():
+        flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+        host = flat.cpu().numpy()
+        at = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = host[at:at + n].reshape(tuple(tensors[i].shape))
+            at += n
+    return out
+
+
+class SweepCheckpoint:
+    """Durable record of the completed candidate families of a selector
+    sweep (≙ ``SweepCheckpoint``, JAX :383-515).
+
+    One bundle directory (atomic and digested like a model bundle) holding
+    ``sweep.json``, each family's grid scores keyed by its content signature
+    (model name, candidate index, grid, racing configuration), and
+    ``sweep.npz``, the fitted arrays of an unraced family's (fold x grid)
+    block under ``{sig}/f{f}/g{g}/{key}``.  A family whose signature is
+    present is complete: a resumed sweep replays its scores instead of
+    fitting it again."""
+
+    def __init__(self, path: str):
+        self.path = os.path.abspath(path)
+        self._candidates: Dict[str, Dict[str, Any]] = {}
+        self._arrays: Dict[str, np.ndarray] = {}
+        self.winner: Optional[Dict[str, Any]] = None
+        # wall seconds and sweep.npz bytes of each flush, in order
+        self.flushes: List[Dict[str, float]] = []
+        if os.path.isdir(self.path) and \
+                os.path.exists(os.path.join(self.path, SWEEP_JSON)):
+            self._load()
+
+    @staticmethod
+    def candidate_signature(model_name: str, candidate_index: int,
+                            grid: Sequence[Dict[str, Any]],
+                            racing: Optional[Dict[str, Any]] = None) -> str:
+        """The JAX package's content hash (JAX :409-424), so a signature is
+        the same string in both packages: a result replays only when the
+        model, its position, its whole grid and the sweep's racing
+        configuration are unchanged."""
+        payload = json.dumps(
+            {"model": model_name, "index": int(candidate_index),
+             "grid": [dict(sorted(g.items())) for g in grid],
+             "racing": dict(sorted((racing or {}).items()))},
+            sort_keys=True, default=str)
+        return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+    def _load(self) -> None:
+        verify_bundle(self.path)
+        with open(os.path.join(self.path, SWEEP_JSON)) as fh:
+            data = json.load(fh)
+        self._candidates = dict(data.get("candidates") or {})
+        self.winner = data.get("winner")
+        npz = os.path.join(self.path, SWEEP_NPZ)
+        if os.path.exists(npz):
+            with np.load(npz, allow_pickle=False) as z:
+                self._arrays = dict(z)
+
+    def flush(self) -> None:
+        """Atomically rewrite the whole sweep bundle."""
+        t0 = time.perf_counter()
+        with atomic_bundle_write(self.path, overwrite=True,
+                                 manifest_extra={"kind": "selector-sweep"}
+                                 ) as tmp:
+            with open(os.path.join(tmp, SWEEP_JSON), "w") as fh:
+                json.dump({"formatVersion": BUNDLE_FORMAT_VERSION,
+                           "candidates": self._candidates,
+                           "winner": self.winner}, fh, indent=2, default=str)
+            np.savez_compressed(os.path.join(tmp, SWEEP_NPZ), **self._arrays)
+            npz_bytes = os.path.getsize(os.path.join(tmp, SWEEP_NPZ))
+        self.flushes.append({"seconds": time.perf_counter() - t0,
+                             "npzBytes": npz_bytes})
+
+    def __contains__(self, sig: str) -> bool:
+        return sig in self._candidates
+
+    def __len__(self) -> int:
+        return len(self._candidates)
+
+    def results_for(self, sig: str) -> Optional[List[Dict[str, Any]]]:
+        entry = self._candidates.get(sig)
+        return None if entry is None else list(entry.get("results") or [])
+
+    def record_candidate(self, sig: str, model_name: str,
+                         candidate_index: int,
+                         results: Sequence[Dict[str, Any]],
+                         fitted_grid: Optional[Sequence[Sequence[Any]]] = None
+                         ) -> None:
+        """Add a completed family: ``results`` is its per-grid-point score
+        list ``[{"params", "metricValues", "racedOut"}]``; its (fold x grid)
+        fitted state, when given, splits into JSON values and npz arrays as
+        a stage's state does (JAX :452-486), the device tensors copied back
+        together (``_host_copies``)."""
+        from .stages.serialization import _is_array, _json_safe
+
+        entry: Dict[str, Any] = {
+            "modelName": model_name, "candidateIndex": int(candidate_index),
+            "results": [dict(r) for r in results]}
+        if fitted_grid is not None:
+            keys: List[str] = []
+            tensors: List[torch.Tensor] = []
+            fitted_json: List[List[Optional[Dict[str, Any]]]] = []
+            for f, row in enumerate(fitted_grid):
+                jrow: List[Optional[Dict[str, Any]]] = []
+                for g, fitted in enumerate(row):
+                    if not isinstance(fitted, dict):
+                        jrow.append(None)
+                        continue
+                    cell: Dict[str, Any] = {}
+                    for k, v in fitted.items():
+                        key = f"{sig}/f{f}/g{g}/{k}"
+                        if isinstance(v, torch.Tensor):
+                            keys.append(key)
+                            tensors.append(v)
+                        elif _is_array(v):
+                            self._arrays[key] = np.asarray(v)
+                        else:
+                            cell[k] = _json_safe(v, None)
+                    jrow.append(cell)
+                fitted_json.append(jrow)
+            self._arrays.update(zip(keys, _host_copies(tensors)))
+            entry["fittedJson"] = fitted_json
+        self._candidates[sig] = entry
+
+    def fitted_grid(self, sig: str) -> Optional[List[List[Any]]]:
+        """A completed family's (fold x grid) fitted state, arrays on the
+        host."""
+        entry = self._candidates.get(sig)
+        if entry is None or "fittedJson" not in entry:
+            return None
+        out: List[List[Any]] = []
+        for f, jrow in enumerate(entry["fittedJson"]):
+            row: List[Any] = []
+            for g, cell in enumerate(jrow):
+                if cell is None:
+                    row.append(None)
+                    continue
+                fitted = dict(cell)
+                prefix = f"{sig}/f{f}/g{g}/"
+                for k, v in self._arrays.items():
+                    if k.startswith(prefix):
+                        fitted[k[len(prefix):]] = v
+                row.append(fitted)
+            out.append(row)
+        return out
+
+    def set_winner(self, model_name: str, params: Dict[str, Any],
+                   metric: float) -> None:
+        """Seal the sweep with its winner and flush."""
+        self.winner = {"modelName": model_name, "params": dict(params),
+                       "metric": float(metric)}
+        self.flush()
 
 
 # --------------------------------------------------------------------------

@@ -22,9 +22,11 @@ and non-finite guards (port of ``transmogrifai_tpu/quality.py``).
 
 Unlike the JAX package nothing here is ambient: ``screen_records`` and
 ``screen_batch`` take the ``QualityConfig`` (no config, no screening), the
-``FailureLog`` and the ``MetricsRegistry`` they report into.  The
-training-time sanitizers (``sanitizer.py``, ``Workflow.with_sanitizers``)
-are not ported yet.
+``FailureLog`` and the ``MetricsRegistry`` they report into.
+``Workflow.train`` runs ``screen_batch`` on its input batch, with the
+config its ``parameters["quality"]`` resolves to and the train's log, as
+the JAX package's train does (JAX workflow.py:271-289); the training-time
+sanitizers are ``sanitizer.py`` (``Workflow.with_sanitizers``).
 """
 
 from __future__ import annotations
@@ -449,8 +451,14 @@ def batch_nonfinite_rows(batch, schema: Optional[RawSchema] = None
                          ) -> Dict[int, List[Violation]]:
     """Row → violations for non-finite values at present positions of the
     float host columns of a raw ``ColumnBatch``: what is about to be
-    uploaded to the device."""
+    uploaded to the device.
+
+    Columns that are strided views of one C-contiguous 2-D array (``X[:, j]``
+    of a row-major matrix) are first checked together by one pass over that
+    array: where it is all finite, none of its columns needs a pass of its
+    own, each of which would read every cache line of the array again."""
     out: Dict[int, List[Violation]] = {}
+    finite_base: Dict[int, bool] = {}
     for name, col in batch.items():
         vals = getattr(col, "values", None)
         if not isinstance(vals, np.ndarray) or \
@@ -460,6 +468,14 @@ def batch_nonfinite_rows(batch, schema: Optional[RawSchema] = None
                 not is_numeric_kind(schema.fields[name].kind) and \
                 not issubclass(schema.fields[name].kind, OPVector):
             continue
+        base = vals.base
+        if vals.ndim == 1 and isinstance(base, np.ndarray) and \
+                base.ndim == 2 and base.flags.c_contiguous and \
+                base.dtype == vals.dtype and base.shape[0] == len(vals):
+            if id(base) not in finite_base:
+                finite_base[id(base)] = bool(np.isfinite(base).all())
+            if finite_base[id(base)]:
+                continue
         ok = finite_row_mask(vals, getattr(col, "mask", None))
         for i in np.nonzero(~np.asarray(ok))[0]:
             out.setdefault(int(i), []).append(Violation(

@@ -11,16 +11,18 @@ A candidate family that cannot fit the feature matrix (a tree family on a
 NaN metrics and one "skipped" event here, and the sweep goes on.  The
 selector raises ``AllCandidatesFailed`` only when no candidate is left.
 
-Unlike the JAX package there is no ambient, process-global log: the
-validator owns one ``FailureLog`` per ``validate`` call and hands it to the
-``SelectedModel`` it builds (``failure_log``), ``WorkflowModel.save`` /
+Unlike the JAX package there is no ambient, process-global log: a train
+owns one ``FailureLog`` (``Workflow.train`` hands it to the selector and
+the validator, which record skipped, resumed and degraded work into it, and
+leaves it on the model as ``failure_log``), ``WorkflowModel.save`` /
 ``load`` record into the model's ``failure_log`` ("swallowed", ≙
 stages/serialization.py:67-91; "degraded", ≙ workflow.py:816-931), and a
 serving engine owns the log its breakers, its ``run_with_deadline`` calls
 and its batcher record into (``ScoringEngine.failure_log``).  An explicit
 log keeps two engines, or an engine and a training run, in one process
 from writing into each other's records, which an ambient stack shared by
-threads cannot.  ``RetryPolicy`` is not ported yet.
+threads cannot.  ``RetryPolicy`` is not ported: its callers, the streaming
+runner and the tenant registry, are not either.
 """
 
 from __future__ import annotations
@@ -31,12 +33,6 @@ import time
 from contextlib import contextmanager
 from typing import (Any, Callable, Dict, Iterable, List, NamedTuple,
                     Optional, Tuple)
-
-# the exceptions of a candidate fit that mean "this family cannot fit this
-# matrix" (≙ the skip at transmogrifai_tpu/tuning.py:1395-1407): anything
-# else still raises
-SKIPPABLE = (NotImplementedError, TypeError)
-
 
 class AllCandidatesFailed(RuntimeError):
     """Every (model x grid-point) candidate of a selector sweep failed;
@@ -53,6 +49,13 @@ class AllCandidatesFailed(RuntimeError):
 
 class InjectedFault(RuntimeError):
     """Raised by ``FaultInjector`` at an armed injection point."""
+
+
+# the exceptions of a candidate fit that mean "this family cannot fit this
+# matrix" (≙ the skip at transmogrifai_tpu/tuning.py:1395-1407), and a fault
+# injected at the ``selector.candidate_fit`` seam: anything else (a CUDA
+# error, an out-of-memory, a failed kernel build) still raises
+SKIPPABLE = (NotImplementedError, TypeError, InjectedFault)
 
 
 class WatchdogTimeout(TimeoutError):
@@ -101,6 +104,7 @@ class FailureLog:
                "recovered",    # a path came back after a failure
                "shed",         # admission control refused work up front
                "preempted",    # a graceful stop was requested
+               "resumed",      # work replayed from a sweep checkpoint
                "breaker_open",       # circuit breaker tripped
                "breaker_half_open",  # breaker probing for recovery
                "breaker_closed")     # breaker recovered

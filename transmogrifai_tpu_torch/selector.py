@@ -192,7 +192,14 @@ class ModelSelector(Estimator):
             y_dev, dev_out, torch.ones_like(y_dev)).to_json()
             for ev in self.evaluators}
 
-    def fit(self, batch: ColumnBatch) -> SelectedModel:
+    def fit(self, batch: ColumnBatch, *, in_fold_dag=None, sweep=None,
+            log: Optional[FailureLog] = None) -> SelectedModel:
+        """≙ selector.py:391-478.  ``in_fold_dag``, ``sweep`` and ``log``
+        go to ``OpValidator.validate`` (workflow-CV's 'during' DAG, the
+        train's ``SweepCheckpoint`` and ``FailureLog``).  The sweep is
+        sealed with the winner (``set_winner``); a failure to persist it is
+        recorded "degraded".  A sweep replayed whole still refits its
+        winner on all rows, and that is all it runs."""
         label_f, feats_f = self.input_features
         holdout = None
         if self.splitter is not None:
@@ -200,7 +207,9 @@ class ModelSelector(Estimator):
                 batch, holdout = self.splitter.split(batch)
             batch = self.splitter.pre_validation_prepare(batch, label_f.name)
         result = self.validator.validate(self.models, batch, label_f.name,
-                                         feats_f.name, splitter=self.splitter)
+                                         feats_f.name, splitter=self.splitter,
+                                         in_fold_dag=in_fold_dag,
+                                         sweep=sweep, log=log)
         train_batch = batch
         if self.splitter is not None:
             # ≙ selector.py:401-404: the refit sees the prepared rows
@@ -264,6 +273,14 @@ class ModelSelector(Estimator):
         model.metadata["summary"] = summary.to_json()
         model.fitted = {"best_model_class": type(best_model).__name__,
                         "best_metric": float(result.best_metric)}
+        if sweep is not None:
+            try:
+                sweep.set_winner(result.best.model_name, result.best_params,
+                                 float(result.best_metric))
+            except Exception as e:  # noqa: BLE001 — durability only
+                result.failure_log.record(
+                    "selector", "degraded", e, point="checkpoint.save",
+                    fallback="winner not persisted")
         return self._finalize_model(model)
 
 

@@ -12,7 +12,7 @@ persistence hooks (``ctor_args``, ``to_json``, ``save_extra`` /
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple, Type
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Type
 
 from ..columns import Column, ColumnBatch, column_from_values
 from ..device import DeviceLike
@@ -151,6 +151,28 @@ class Transformer(PipelineStage):
             val = v.value if isinstance(v, FeatureType) else v
             cols[f.name] = column_from_values(f.kind, [val])
         return self.transform(ColumnBatch(cols, 1, device)).row_value(0)
+
+
+class LambdaTransformer(Transformer):
+    """A user's column function as a stage (≙ Unary/Binary/...
+    LambdaTransformer; JAX :250-268): ``fn`` receives the input columns
+    positionally and returns the output ``Column``.  Other keyword
+    arguments are stage params."""
+
+    def __init__(self, fn: Callable[..., Column],
+                 out_kind: Type[FeatureType], name: Optional[str] = None,
+                 **params):
+        super().__init__(**params)
+        self.fn = fn
+        self.out_kind = out_kind
+        self._name = name
+
+    @property
+    def operation_name(self) -> str:
+        return self._name or f"Lambda[{getattr(self.fn, '__name__', 'fn')}]"
+
+    def transform(self, batch: ColumnBatch) -> Column:
+        return self.fn(*(batch[f.name] for f in self.input_features))
 
 
 class TransformerModel(Transformer):

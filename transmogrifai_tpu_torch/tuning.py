@@ -17,8 +17,10 @@ candidate has a finite metric.  A family with no batched panel (naive
 Bayes, the MLP) is scored candidate by candidate on its ``device_scores``.
 A splitter that reweights the training folds (``DataCutter`` dropping
 labels) does so through ``validation_prepare_weights`` on the training
-weights only; the validation masks stay.  The JAX package's mesh,
-memory-governor, supervisor, checkpoint, AOT and telemetry seams have no
+weights only; the validation masks stay.  The sweep checkpoint, the
+preemption boundaries, the fault-injection seams and workflow-level CV's
+in-fold groups are the JAX package's (see ``OpValidator.validate``); its
+mesh, memory-governor, supervisor, AOT and telemetry seams have no
 counterpart here.
 """
 
@@ -36,7 +38,8 @@ import torch
 from .columns import ColumnBatch, device_matrix, to_device_f32
 from .evaluators import OpEvaluatorBase
 from .models.trees import predict_trees_sum_grouped
-from .resilience import SKIPPABLE, AllCandidatesFailed, FailureLog
+from .resilience import (SKIPPABLE, AllCandidatesFailed, FailureLog,
+                         InjectedFault, maybe_inject)
 from .sparse.matrix import SparseMatrix
 
 _NO_FOLD = 255      # assignment of a row that is in no validation fold
@@ -374,37 +377,79 @@ class OpValidator:
     # -- main entry -----------------------------------------------------------
     def validate(self, candidates: Sequence[ModelCandidate], batch: ColumnBatch,
                  label: str, features: str,
-                 splitter: Optional[Splitter] = None) -> ValidationResult:
-        """Run the CV grid over ``batch`` on ``batch.device`` (≙ the
-        single-device dense path of ``_validate_impl``, with racing at
+                 splitter: Optional[Splitter] = None, *,
+                 in_fold_dag: Optional[List[List[Any]]] = None,
+                 sweep=None, log: Optional[FailureLog] = None
+                 ) -> ValidationResult:
+        """Run the CV grid over ``batch`` on ``batch.device`` (≙
+        ``_validate_impl``'s single-device path, with racing at
         tuning.py:819-875 and :1433-1620).  ``splitter`` prepares each
-        training fold's weights (tuning.py:1162-1180)."""
+        training fold's weights (tuning.py:1162-1180).
+
+        ``log`` is the train's ``FailureLog`` (a new one when None).
+        ``sweep`` is a ``checkpoint.SweepCheckpoint``: a family whose
+        signature it holds is replayed, recorded "resumed" (tuning.py:
+        855-895), and every family completed here is flushed to it, an
+        unraced one after round A with its fitted grid, a raced one after
+        round B without (:1006-1027, :1526-1634); a failed flush is
+        recorded "degraded" and the sweep goes on.  At each family's round-A
+        and round-B boundary a requested stop (``shutdown_requested``,
+        sticky) wins over starting it, and once the completed families are
+        flushed ``TrainingPreempted`` is raised.  ``in_fold_dag`` is the
+        workflow-CV 'during' DAG: each fold is its own group, whose feature
+        matrix comes from a deep copy of the DAG fit on the fold's training
+        rows and applied to every row, one fold's matrix resident at a
+        time (:951-970); such a sweep runs unraced, with a "degraded"
+        record, and takes no checkpoint (:829-841, :868)."""
+        from .checkpoint import TrainingPreempted, shutdown_requested
+        log = log if log is not None else FailureLog()
         dev = batch.device
         y_all = np.asarray(batch[label].values, dtype=np.float64)
         splits = self.splits(y_all)
         F = len(splits)
-        X = device_matrix(batch[features].values, dev)
-        y = to_device_f32(np.asarray(batch[label].values, np.float32), dev)
-        assign = np.full(len(y_all), _NO_FOLD, np.uint8)
-        for f, (_, va_idx) in enumerate(splits):
-            assign[va_idx] = f
-        W, VA = _fold_masks_from_assignment(torch.as_tensor(assign, device=dev), F)
-        if splitter is not None and (
-                type(splitter).validation_prepare_weights
-                is not Splitter.validation_prepare_weights):
-            rows = [(assign != f).astype(np.float32) for f in range(F)]
-            prepared = [splitter.validation_prepare_weights(y_all, w)
-                        for w in rows]
-            if any(p is not w for p, w in zip(prepared, rows)):
-                W = torch.as_tensor(np.stack(prepared), dtype=torch.float32,
-                                    device=dev)
-
-        raced = [self.racing and F >= 2
+        race_path_ok = not in_fold_dag and F >= 2
+        if self.racing and not race_path_ok:
+            reason = ("in-fold DAG refits feature stages per fold"
+                      if in_fold_dag else
+                      "single train/validation split (racing needs >= 2 "
+                      "folds)")
+            log.record("validator", "degraded", f"racing disabled: {reason}",
+                       point="selector.racing",
+                       validation_type=self.validation_type)
+        raced = [self.racing and race_path_ok
                  and self._survivor_count(len(c.grid)) < len(c.grid)
                  for c in candidates]
         results: Dict[Tuple[int, int], ValidatedCandidate] = {}
         seconds: Dict[str, float] = defaultdict(float)
-        log = FailureLog()
+
+        if in_fold_dag:
+            sweep = None
+        sigs: List[str] = []
+        replayed = set()
+        if sweep is not None:
+            for ci, cand in enumerate(candidates):
+                racing = ({"enabled": True, "eta": self.racing_eta,
+                           "minSurvivors": self.racing_min_survivors}
+                          if raced[ci] else {"enabled": False})
+                sig = sweep.candidate_signature(cand.model_name, ci,
+                                                cand.grid, racing=racing)
+                sigs.append(sig)
+                stored = sweep.results_for(sig)
+                if stored is None:
+                    continue
+                replayed.add(ci)
+                for gi, r in enumerate(stored):
+                    results[(ci, gi)] = ValidatedCandidate(
+                        cand.model_name, dict(r.get("params") or {}),
+                        [float(v) for v in (r.get("metricValues") or [])],
+                        candidate_index=ci,
+                        raced_out=bool(r.get("racedOut", False)))
+                log.record(cand.model_name, "resumed",
+                           f"replayed {len(stored)} grid point(s) from "
+                           "sweep checkpoint", point="checkpoint.load",
+                           candidate_index=ci)
+        live = [ci for ci in range(len(candidates)) if ci not in replayed]
+        preempted: List[str] = []
 
         def record(cand, ci, gi, params, metric):
             key = (ci, gi)
@@ -413,57 +458,140 @@ class OpValidator:
                     cand.model_name, dict(params), [], candidate_index=ci)
             results[key].metric_values.append(float(metric))
 
-        def fit_and_score(cand, ci, grid, f0, n_folds, grid_index):
-            t0 = device_wall_clock(dev)
+        def checkpoint_family(ci, cand, fitted_grid):
+            entry = [{"params": r.params, "metricValues": r.metric_values,
+                      "racedOut": r.raced_out}
+                     for r in (results.get((ci, gi))
+                               for gi in range(len(cand.grid)))
+                     if r is not None]
             try:
-                fitted = cand.estimator.fit_arrays_grid(
-                    X, y, W[f0:f0 + n_folds], grid)
-            except SKIPPABLE as e:
-                # the family cannot fit this matrix: NaN rows, one record
-                log.record(cand.model_name, "skipped", e,
-                           folds=list(range(f0, f0 + n_folds)),
-                           grid_indices=list(grid_index))
-                fitted = None
-            panel = (np.full((n_folds, len(grid)), np.nan) if fitted is None
-                     else self._panel(cand, grid, fitted, X, y,
-                                      VA[f0:f0 + n_folds]))
-            for f in range(n_folds):
-                for j, params in enumerate(grid):
-                    record(cand, ci, grid_index[j], params, panel[f, j])
-            seconds[cand.model_name] += device_wall_clock(dev) - t0
+                sweep.record_candidate(sigs[ci], cand.model_name, ci, entry,
+                                       fitted_grid=fitted_grid)
+                sweep.flush()
+            except Exception as e:  # noqa: BLE001 — durability only
+                log.record(cand.model_name, "degraded", e,
+                           point="checkpoint.save",
+                           fallback="sweep continues unpersisted")
 
-        # round A: raced families screen the full grid on fold 0; unraced
-        # families run their full CV block
-        for ci, cand in enumerate(candidates):
-            fit_and_score(cand, ci, cand.grid, 0, 1 if raced[ci] else F,
-                          list(range(len(cand.grid))))
+        def fold_groups():
+            """(feature matrix, fold splits) groups: one matrix for every
+            fold, or with ``in_fold_dag`` one per fold, made from that
+            fold's refit of the DAG."""
+            if not live:
+                return
+            if not in_fold_dag:
+                yield device_matrix(batch[features].values, dev), splits
+                return
+            from .dag import apply_dag, fit_dag
+            # the DAG's own inputs only: take_rows copies every column
+            made = {f.name for layer in in_fold_dag for s in layer
+                    for f in s.output_features}
+            inputs = batch.select(sorted(
+                ({f.name for layer in in_fold_dag for s in layer
+                  for f in s.input_features} | {label, features}) - made))
+            for tr_idx, va_idx in splits:
+                dag_copy = [[copy.deepcopy(s) for s in layer]
+                            for layer in in_fold_dag]
+                # nothing of the training rows' batch outlives the fit
+                fitted_dag = fit_dag(inputs.take_rows(tr_idx), dag_copy)[1]
+                yield (device_matrix(apply_dag(inputs, fitted_dag)[features]
+                                     .values, dev), [(tr_idx, va_idx)])
 
-        # round B: rank each raced family's fold-0 screen in the evaluator's
-        # direction (ties and NaNs break by grid position), prune past the
-        # survivor floor, fit + score the survivors on the remaining folds
-        sign = 1.0 if self.evaluator.is_larger_better else -1.0
-        for ci, cand in enumerate(candidates):
-            if not raced[ci]:
-                continue
-            G = len(cand.grid)
+        y = to_device_f32(np.asarray(batch[label].values, np.float32), dev)
+        for X, fsplits in fold_groups():
+            W, VA = self._fold_masks(fsplits, len(y_all), y_all, splitter,
+                                     dev)
+            Fg = len(fsplits)
 
-            def keyf(gi):
-                v = results[(ci, gi)].metric_values[0]
-                return sign * v if np.isfinite(v) else -np.inf
+            def fit_and_score(cand, ci, grid, f0, n_folds, grid_index):
+                t0 = device_wall_clock(dev)
+                try:
+                    maybe_inject("selector.candidate_fit",
+                                 key=cand.model_name)
+                    fitted = cand.estimator.fit_arrays_grid(
+                        X, y, W[f0:f0 + n_folds], grid)
+                except SKIPPABLE as e:
+                    # the family cannot fit this matrix: NaN rows, one record
+                    log.record(cand.model_name, "skipped", e,
+                               point="selector.candidate_fit",
+                               folds=list(range(f0, f0 + n_folds)),
+                               grid_indices=list(grid_index))
+                    fitted = None
+                panel = np.full((n_folds, len(grid)), np.nan)
+                if fitted is not None:
+                    try:
+                        maybe_inject("selector.candidate_metric",
+                                     key=cand.model_name)
+                        panel = self._panel(cand, grid, fitted, X, y,
+                                            VA[f0:f0 + n_folds])
+                    except InjectedFault as e:
+                        log.record(cand.model_name, "skipped", e,
+                                   point="selector.candidate_metric",
+                                   folds=list(range(f0, f0 + n_folds)))
+                for f in range(n_folds):
+                    for j, params in enumerate(grid):
+                        record(cand, ci, grid_index[j], params, panel[f, j])
+                seconds[cand.model_name] += device_wall_clock(dev) - t0
+                return fitted
 
-            order = sorted(range(G), key=lambda gi: (-keyf(gi), gi))
-            S = self._survivor_count(G)
-            for gi in order[S:]:
-                results[(ci, gi)].raced_out = True
-            survivors = sorted(order[:S])
-            fit_and_score(cand, ci, [dict(cand.grid[g]) for g in survivors],
-                          1, F - 1, survivors)
+            # round A: raced families screen the full grid on fold 0;
+            # unraced families run their full CV block and are checkpointed
+            for ci, cand in enumerate(candidates):
+                if ci in replayed:
+                    continue
+                if shutdown_requested(key=cand.model_name):
+                    preempted.append(cand.model_name)
+                    continue
+                fitted = fit_and_score(cand, ci, cand.grid, 0,
+                                       1 if raced[ci] else Fg,
+                                       list(range(len(cand.grid))))
+                if sweep is not None and not raced[ci]:
+                    checkpoint_family(ci, cand, fitted)
+                del fitted
+
+            # round B: rank each raced family's fold-0 screen in the
+            # evaluator's direction (ties and NaNs break by grid position),
+            # prune past the survivor floor, fit + score the survivors on
+            # the remaining folds
+            sign = 1.0 if self.evaluator.is_larger_better else -1.0
+            for ci, cand in enumerate(candidates):
+                if not raced[ci] or ci in replayed \
+                        or cand.model_name in preempted:
+                    continue
+                G = len(cand.grid)
+
+                def keyf(gi):
+                    v = results[(ci, gi)].metric_values[0]
+                    return sign * v if np.isfinite(v) else -np.inf
+
+                order = sorted(range(G), key=lambda gi: (-keyf(gi), gi))
+                S = self._survivor_count(G)
+                for gi in order[S:]:
+                    results[(ci, gi)].raced_out = True
+                if shutdown_requested(key=cand.model_name):
+                    preempted.append(cand.model_name)
+                    continue
+                survivors = sorted(order[:S])
+                fit_and_score(cand, ci, [dict(cand.grid[g])
+                                         for g in survivors],
+                              1, F - 1, survivors)
+                if sweep is not None:
+                    checkpoint_family(ci, cand, None)
+            del X, W, VA
+
+        if preempted:
+            raise TrainingPreempted(
+                "selector sweep stopped before candidate(s) "
+                + ", ".join(sorted(set(preempted))),
+                resume_from=sweep.path if sweep is not None else None)
 
         all_results = list(results.values())
+        sign = 1.0 if self.evaluator.is_larger_better else -1.0
         scored = [(sign * r.mean_metric, r) for r in all_results
                   if np.isfinite(r.mean_metric) and not r.raced_out]
         if not scored:
-            causes = {e.stage: e.cause for e in log.events}
+            causes = {e.stage: e.cause for e in log.events
+                      if e.point.startswith("selector.") and e.cause}
             for cand in candidates:
                 causes.setdefault(cand.model_name,
                                   "no finite validation metric")
@@ -483,6 +611,28 @@ class OpValidator:
             metric_name=self.evaluator.default_metric,
             is_larger_better=self.evaluator.is_larger_better,
             family_seconds=dict(seconds), failure_log=log)
+
+    def _fold_masks(self, splits, n: int, y_all: np.ndarray,
+                    splitter: Optional[Splitter], dev):
+        """(training weights [F, N], validation masks [F, N]) of ``splits``
+        from one uint8 fold assignment, the training weights prepared by
+        ``splitter`` when it reweights them."""
+        F = len(splits)
+        assign = np.full(n, _NO_FOLD, np.uint8)
+        for f, (_, va_idx) in enumerate(splits):
+            assign[va_idx] = f
+        W, VA = _fold_masks_from_assignment(
+            torch.as_tensor(assign, device=dev), F)
+        if splitter is not None and (
+                type(splitter).validation_prepare_weights
+                is not Splitter.validation_prepare_weights):
+            rows = [(assign != f).astype(np.float32) for f in range(F)]
+            prepared = [splitter.validation_prepare_weights(y_all, w)
+                        for w in rows]
+            if any(p is not w for p, w in zip(prepared, rows)):
+                W = torch.as_tensor(np.stack(prepared), dtype=torch.float32,
+                                    device=dev)
+        return W, VA
 
 
 class OpCrossValidation(OpValidator):

@@ -2,16 +2,25 @@
 ``transmogrifai_tpu/workflow.py``; reference: OpWorkflow.scala:207,344,
 OpWorkflowModel.scala:184-394).
 
-``train`` runs the optional RawFeatureFilter over the raw columns, drops the
-features it rejects from every stage's inputs, reconstructs the stage DAG
-from the result features, fits it layer by layer on the workflow's device
-(``apply_dag``'s eager pass) and returns a ``WorkflowModel``.  The model
-scores through its ``ScoreProgram`` (``compiled.py``) on its device, and
-``save`` / ``load`` write and read the JAX package's bundle format
-(``op-model.json``, ``params.npz`` and a ``MANIFEST.json`` of SHA-256
-digests, ``checkpoint.py``), so bundles move both ways between the two
-packages.  ``summary()`` / ``summary_pretty()`` report the fitted model's
-insights.
+``train`` screens the input batch for non-finite numeric values
+(``quality.screen_batch`` under ``QualityConfig.resolve(parameters
+["quality"])``, on by default), runs the optional RawFeatureFilter over the
+raw columns, drops the features it rejects from every stage's inputs,
+reconstructs the stage DAG from the result features, fits it layer by layer
+on the workflow's device and returns a ``WorkflowModel``.  Around that fit:
+``train(resume_from=)`` replays the candidate families a
+``SweepCheckpoint`` holds and flushes each one it completes, and a
+preemption signal stops it at a family boundary with ``TrainingPreempted``;
+``with_workflow_cv()`` cuts the DAG at the model selector and refits its
+label-consuming feature stages inside each fold; ``with_sanitizers()``
+runs the NaN guard, the purity audit and the serialization audit
+(``sanitizer.py``).  The train's ``FailureLog`` is ``model.failure_log``.
+The model scores through its ``ScoreProgram`` (``compiled.py``) on its
+device, and ``save`` / ``load`` write and read the JAX package's bundle
+format (``op-model.json``, ``params.npz`` and a ``MANIFEST.json`` of
+SHA-256 digests, ``checkpoint.py``), so bundles move both ways between the
+two packages.  ``summary()`` / ``summary_pretty()`` report the fitted
+model's insights.
 """
 
 from __future__ import annotations
@@ -25,11 +34,12 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .checkpoint import (MANIFEST_NAME, CorruptModelError,
-                         atomic_bundle_write, find_latest_valid,
-                         is_bundle_dir, verify_bundle)
+from .checkpoint import (MANIFEST_NAME, CorruptModelError, SweepCheckpoint,
+                         TrainingPreempted, atomic_bundle_write,
+                         find_latest_valid, is_bundle_dir, preemption_guard,
+                         verify_bundle)
 from .columns import ColumnBatch, to_device_f32
-from .dag import apply_dag, compute_dag, dag_stages, prune_batch
+from .dag import apply_dag, compute_dag, cut_dag, dag_stages, prune_batch
 from .device import DeviceLike, resolve_device
 from .features import Feature
 from .resilience import FailureLog, record_failure
@@ -57,11 +67,22 @@ class Workflow:
         self.result_features: tuple = ()
         self.raw_features: List[Feature] = []
         self.blacklisted: List[Feature] = []
+        self.parameters: Dict[str, Any] = {}
         self._input_batch: Optional[ColumnBatch] = None
         self._raw_feature_filter = None
+        self._workflow_cv = False
+        self._sanitizers: Dict[str, bool] = {}
 
     def set_input_batch(self, batch: ColumnBatch) -> "Workflow":
         self._input_batch = batch
+        return self
+
+    def set_parameters(self, params: Dict[str, Any]) -> "Workflow":
+        """The run's parameters (≙ OpParams; JAX workflow.py:61), copied
+        onto the trained model and saved in its bundle.  ``train`` reads
+        ``params["quality"]`` (camelCase keys: ``enabled``, ``policy``,
+        ``maxQuarantineFraction``)."""
+        self.parameters = dict(params)
         return self
 
     def set_result_features(self, *features: Feature) -> "Workflow":
@@ -80,6 +101,25 @@ class Workflow:
         the raw features first (``filters.RawFeatureFilter(**kw)``)."""
         from .filters import RawFeatureFilter
         self._raw_feature_filter = RawFeatureFilter(**kw)
+        return self
+
+    def with_workflow_cv(self) -> "Workflow":
+        """≙ withWorkflowCV (OpWorkflowCore.scala:104; JAX
+        workflow.py:104): refit the label-consuming feature stages that
+        feed the model selector inside each CV fold (``dag.cut_dag``)."""
+        self._workflow_cv = True
+        return self
+
+    def with_sanitizers(self, nan_check: bool = False,
+                        purity_check: bool = True,
+                        serialization_check: bool = True) -> "Workflow":
+        """Opt-in checks during ``train`` (``sanitizer.py``; JAX
+        workflow.py:110-121): ``nan_check`` runs the NaN guard over the
+        fit, ``purity_check`` applies every fitted transformer twice and
+        wants the same bits, ``serialization_check`` wants every stage's
+        params to survive ``stage_to_json``."""
+        self._sanitizers = {"nan": nan_check, "purity": purity_check,
+                            "serialization": serialization_check}
         return self
 
     def _apply_blacklist(self) -> None:
@@ -106,15 +146,64 @@ class Workflow:
                 f"RawFeatureFilter removed all inputs of result feature(s) "
                 f"{lost}; relax the filter thresholds or protect features")
 
-    def train(self) -> "WorkflowModel":
-        """≙ OpWorkflow.train:344 on the plain (no workflow-CV) path.
-        ``model.phase_seconds`` holds the wall time of the RawFeatureFilter
-        and of each stage type (fit and transform of all its stages, the
-        device's queued work included)."""
+    def train(self, resume_from: Optional[str] = None) -> "WorkflowModel":
+        """≙ OpWorkflow.train:344 (JAX workflow.py:220-321).
+
+        The train owns one ``FailureLog``, which becomes
+        ``model.failure_log``: the quality screen's quarantines, the
+        validator's skipped, resumed and degraded work, and later what
+        ``save`` drops.  ``resume_from`` names a sweep-checkpoint directory
+        (``checkpoint.SweepCheckpoint``): each completed candidate family
+        is flushed there, and a train pointed at the same directory replays
+        those families instead of fitting them again ("resumed" events).
+        For the extent of the call SIGTERM / SIGINT request a stop at the
+        next family boundary: the completed families are flushed and
+        ``TrainingPreempted`` (carrying ``resume_from``, the log as
+        ``failure_log`` and the checkpoint as ``sweep_checkpoint``) is
+        raised instead of dying mid-write.  The model keeps the checkpoint
+        as ``sweep_checkpoint``."""
         if self._input_batch is None:
             raise ValueError("no input batch set — call set_input_batch first")
-        batch = self._input_batch.on(self.device)
+        log = FailureLog()
+        sweep = SweepCheckpoint(resume_from) if resume_from is not None \
+            else None
+        try:
+            with preemption_guard("train", log=log):
+                if sweep is not None and len(sweep):
+                    log.record("train", "resumed",
+                               f"sweep checkpoint with {len(sweep)} "
+                               "completed candidate(s)",
+                               point="checkpoint.load",
+                               resume_from=sweep.path)
+                return self._train_guarded(log, sweep)
+        except TrainingPreempted as e:
+            e.failure_log = log
+            e.sweep_checkpoint = sweep
+            raise
+
+    def _train_guarded(self, log: FailureLog,
+                       sweep: Optional[SweepCheckpoint]) -> "WorkflowModel":
+        """The body of ``train``: screen → RawFeatureFilter → fit (plain or
+        workflow-CV, under the NaN guard) → purity audit.
+        ``model.phase_seconds`` holds the wall time of the quality screen,
+        the RawFeatureFilter and each stage type (fit and transform of all
+        its stages, the device's queued work included)."""
+        from .quality import QualityConfig, screen_batch
+        from .sanitizer import (audit_dag_purity, audit_stage_serialization,
+                                nan_guard)
         phases: Dict[str, float] = {}
+        batch = self._input_batch
+        # the train-time screen (JAX workflow.py:271-289): rows with NaN or
+        # ±inf at present positions of numeric columns are dropped before
+        # anything reaches the device; past maxQuarantineFraction,
+        # DataQualityError
+        qcfg = QualityConfig.resolve(self.parameters.get("quality"))
+        if qcfg.enabled:
+            t0 = time.perf_counter()
+            batch = screen_batch(batch, self.raw_features, qcfg,
+                                 stage="train", log=log)
+            phases["quality"] = time.perf_counter() - t0
+        batch = batch.on(self.device)
         rff_results = None
         if self._raw_feature_filter is not None:
             t0 = time.perf_counter()
@@ -124,32 +213,74 @@ class Workflow:
             self._apply_blacklist()
             phases["RawFeatureFilter"] = time.perf_counter() - t0
         dag = compute_dag(self.result_features)
-        keep = ({f.name for f in self.raw_features}
-                | {f.name for f in self.result_features} | {"key"})
-        fitted_dag = []
-        for i, layer in enumerate(dag):
-            models = []
-            for st in layer:
-                t0 = time.perf_counter()
-                m = st.fit(batch) if isinstance(st, Estimator) else st
-                if not isinstance(m, Transformer):
-                    raise TypeError(
-                        f"stage {m} is neither Transformer nor Estimator")
-                batch = m.transform_batch(batch)
-                _sync(self.device)
-                tag = type(st).__name__
-                phases[tag] = phases.get(tag, 0.0) + time.perf_counter() - t0
-                models.append(m)
-            fitted_dag.append(models)
-            batch = prune_batch(batch, (s for l in dag[i + 1:] for s in l),
-                                keep)
+        if self._sanitizers.get("serialization"):
+            audit_stage_serialization(dag_stages(dag))
+        raw_batch = batch if self._sanitizers.get("purity") else None
+        with nan_guard(self._sanitizers.get("nan", False)) as nan_check:
+            fitted_dag = self._fit(batch, dag, phases, nan_check, sweep, log)
+        if raw_batch is not None:
+            t0 = time.perf_counter()
+            audit_dag_purity(fitted_dag, raw_batch)
+            _sync(self.device)
+            phases["purity_audit"] = time.perf_counter() - t0
         model = WorkflowModel(self.result_features, fitted_dag,
                               self.raw_features, self.device)
         model._input_batch = self._input_batch
         model.phase_seconds = phases
         model.blacklisted = list(self.blacklisted)
         model.rff_results = rff_results
+        model.parameters = dict(self.parameters)
+        model.failure_log = log
+        model.sweep_checkpoint = sweep
         return model
+
+    def _fit(self, batch: ColumnBatch, dag, phases: Dict[str, float],
+             nan_check, sweep, log: FailureLog) -> List[List[Transformer]]:
+        """Fit the DAG layer by layer, releasing each column once no later
+        stage reads it.  With workflow CV the DAG is cut around the model
+        selector (``cut_dag``, JAX workflow.py:452-502): 'before' and
+        'during' are fit on all rows (the final model's feature stages),
+        then the selector refits 'during' inside each fold, so the columns
+        'during' reads stay until the selector is fit."""
+        from .selector import ModelSelector
+        selector = next((s for s in dag_stages(dag)
+                         if isinstance(s, ModelSelector)), None)
+        during: List[List[PipelineStage]] = []
+        if self._workflow_cv and selector is not None:
+            before, during, after = cut_dag(dag, selector)
+            dag = before + during + after
+        keep = ({f.name for f in self.raw_features}
+                | {f.name for f in self.result_features} | {"key"})
+        fitted_dag: List[List[Transformer]] = []
+        selector_fitted = False
+        for i, layer in enumerate(dag):
+            models = []
+            for st in layer:
+                t0 = time.perf_counter()
+                if st is selector:
+                    m = st.fit(batch, in_fold_dag=during or None,
+                               sweep=sweep, log=log)
+                    selector_fitted = True
+                elif isinstance(st, Estimator):
+                    m = st.fit(batch)
+                else:
+                    m = st
+                if not isinstance(m, Transformer):
+                    raise TypeError(
+                        f"stage {m} is neither Transformer nor Estimator")
+                batch = m.transform_batch(batch)
+                if nan_check is not None:
+                    nan_check(m, batch)
+                _sync(self.device)
+                tag = type(st).__name__
+                phases[tag] = phases.get(tag, 0.0) + time.perf_counter() - t0
+                models.append(m)
+            fitted_dag.append(models)
+            remaining = [s for l in dag[i + 1:] for s in l]
+            if during and not selector_fitted:
+                remaining += dag_stages(during)
+            batch = prune_batch(batch, remaining, keep)
+        return fitted_dag
 
 
 class WorkflowModel:
@@ -173,6 +304,8 @@ class WorkflowModel:
         self.failure_log: Optional[FailureLog] = None
         # the data-quality contract a load read (quality.RawSchema)
         self.raw_schema = None
+        # the SweepCheckpoint a train(resume_from=) flushed to
+        self.sweep_checkpoint = None
 
     @property
     def stages(self) -> List[Transformer]:
