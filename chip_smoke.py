@@ -24,7 +24,10 @@ Phases (any failure exits non-zero and prints no result line):
    node group) at level 11 of depth-12 trees (a 50-tree forest member with
    node subsets; GBT statistics) and ``tree_walk`` through depth-12
    members; every ``tree_walk`` shape is held to its twin within 1e-6 and
-   to its own bits on a second launch;
+   to its own bits on a second launch; ``tree_hist`` and ``tree_hist_deep``
+   on GBT statistics (fixed point) are held to the emulation's bits
+   (``tree_hist_fixed_twin``), to their own on a second launch and with
+   the rows permuted;
 3. bench set — the dense binary workload of ``bench.run_dense``: 28 RealNN
    features → transmogrify → sanity_check →
    BinaryClassificationModelSelector (3-fold CV with racing over logistic
@@ -230,7 +233,30 @@ Phases (any failure exits non-zero and prints no result line):
    kernel or native build after warm-up (``online_builds_total``), a
    demoted engine or a "degraded" / "fallback" / "dead_letter" event,
    and prints a ``serving:`` line.  The script's own wall time is
-   printed before the card's line.
+   printed before the card's line;
+16. training control — the bench set resumed after a preemption (every
+   family, a GBT fit again too, held to the uninterrupted train bit for
+   bit), the default grid's ``OpGBTClassifier`` and the regression default
+   grid's ``OpGBTRegressor`` and ``OpRandomForestRegressor`` each trained
+   twice at 1M rows with the same CV metric and tree-array bits (the tree
+   histograms sum float statistics in fixed point), workflow CV, the
+   sanitizers and the train-time screen;
+17. more feature kinds — ``scripts/kinds_reference.py``'s workflow at
+   1,000,000 rows of ``synthetic.make_kinds_columns`` (Dates, a DateTime
+   and its ``to_time_period``, a DateList, two MultiPickLists, a
+   Geolocation, Reals through ``auto_bucketize`` and a fixed ``bucketize``,
+   a RealMap through ``DecisionTreeNumericMapBucketizer``) → transmogrify
+   → sanity_check → the binary selector with ``model_types_to_use`` LR and
+   GBT (3-fold CV): the train wall and its stages' seconds, the
+   bucketizers' fit seconds with their ``tree_hist`` / ``tree_split_gini``
+   / ``tree_route`` launches counted around them alone, their splits equal
+   to the port's CPU fit of each column and map key, exactly the two
+   families, train AuROC > 0.7, the peak; the same workflow with
+   ``use_train_validation_split`` (LR only: ``TrainValidationSplit``,
+   trainRatio 0.75, racing "degraded"); the calibrators and scalers on a
+   RealNN score column, the card's batch against its CPU copy; phase 14's
+   checks on its bundle and a fresh 1M batch; and the workflow at
+   ``KINDS_REF_ROWS`` held to the JAX package's CPU run (``KINDS_REF``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` table (launches: the default
@@ -246,8 +272,9 @@ the multiclass LOCO transform for the ``loco_softmax`` rows, phase 12's
 estimator fits for the ``fista_wide`` rows, the two fault-width
 ``fista_glm`` rows and the 64-bin split rows; the ``tree_walk``,
 ``hash_counts`` and ``sp_matmat`` rows add phase 14's reloaded scores'
-and phase 15's served traffic's launches of that kernel), the one before
-that the card's name and power limit.
+and phase 15's served traffic's launches of that kernel, and every row
+phases 16's and 17's launches), the one before that the card's name and
+power limit.
 Imports nothing of JAX.
 """
 
@@ -549,10 +576,13 @@ def check_kernels(device, n: int = N_ROWS, reps: int = 20):
     lib_out = torch.zeros((K * P * D * N_BINS, S), device=device)
     bt, by = bound(B.numel() + 4 * row_node.numel() + 4 * stats.numel()
                    + 4 * (hist.numel() + tot.numel()), at * D * S)
+    print("tree_hist fixed point (GBT level): "
+          + json.dumps(fixed_point_case(tk, B, row_node, stats, off, P)),
+          flush=True)
     rows.append({
         "name": "tree_hist", "max_abs_err": hist_err,
-        "ms": time_ms(lambda: tk.tree_hist(B, row_node, stats, off, P,
-                                           N_BINS), reps),
+        "ms": time_ms(lambda sc=tk.hist_scale(stats): tk.tree_hist(
+            B, row_node, stats, off, P, N_BINS, scale=sc), reps),
         "plain_ms": time_ms(lambda: tk.tree_hist_twin(B, row_node, stats, off,
                                                       P, N_BINS), 3),
         "bound_ms": bt, "bound_by": by,
@@ -741,6 +771,53 @@ def _check_hist(tk, B, row_node, stats, off: int, P: int, with_hist: bool):
                              f"its twin in {bad} histogram cells and "
                              f"{bad_tot} node totals")
     return hist, tot, err
+
+
+def fixed_point_case(tk, B, row_node, stats, off: int, P: int,
+                     node_mask=None, seed: int = 0) -> dict:
+    """``tree_hist`` on float statistics (fixed point: ``hist_scale``) at
+    one level, held bit for bit to itself on a second launch, to a launch
+    with the rows permuted and, lane by lane, to the CPU rule's emulation
+    (``tree_hist_fixed_twin``: each value rounded to v·2^e, exact integer
+    sums, one conversion to f32).  Returns the route and what held."""
+    import torch
+    scale = tk.hist_scale(stats)
+    if not scale.fixed:
+        raise AssertionError("fixed_point_case: integer statistics")
+    K = row_node.shape[0]
+    h1, t1 = tk.tree_hist(B, row_node, stats, off, P, N_BINS,
+                          node_mask=node_mask, scale=scale)
+    h2, t2 = tk.tree_hist(B, row_node, stats, off, P, N_BINS,
+                          node_mask=node_mask, scale=scale)
+    if not (torch.equal(h1, h2) and torch.equal(t1, t2)):
+        raise AssertionError(f"tree_hist ({K} lanes, P {P}): two launches "
+                             "on the same inputs differ in their bits")
+    del h2, t2
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(
+        B.shape[0]), device=B.device)
+    h3, t3 = tk.tree_hist(B[perm].contiguous(),
+                          row_node[:, perm].contiguous(),
+                          stats[:, perm].contiguous(), off, P, N_BINS,
+                          node_mask=node_mask)
+    if not (torch.equal(h1, h3) and torch.equal(t1, t3)):
+        raise AssertionError(f"tree_hist ({K} lanes, P {P}): the rows "
+                             "permuted change the bits")
+    del h3, t3, perm
+    for k in range(K):
+        sl = slice(k, k + 1)
+        he, te = tk.tree_hist_fixed_twin(
+            B, row_node[sl], stats[sl], off, P, N_BINS,
+            node_mask=None if node_mask is None else node_mask[sl],
+            scale=scale._replace(exponent=scale.exponent[sl]))
+        if not (torch.equal(h1[sl], he) and torch.equal(t1[sl], te)):
+            raise AssertionError(f"tree_hist ({K} lanes, P {P}, lane {k}): "
+                                 "not the fixed-point emulation's bits")
+        del he, te
+    plan = tk.hist_plan(B.shape[0], B.shape[1], K, P, N_BINS,
+                        stats.shape[2], True, None, 8)
+    return {"lanes": K, "P": P, "route": plan["route"],
+            "same_bits_twice": True, "same_bits_rows_permuted": True,
+            "emulation_bits": True}
 
 
 def _check_split(tk, hist, tot, fmask, node_mask, splits, min_inst,
@@ -1248,8 +1325,10 @@ def check_deep_kernels(device, n: int = N_ROWS, reps: int = 5):
     if device == "cuda" and kernels.launch_counts()["tree_hist_deep"] != 1:
         raise AssertionError("level 11 did not run tree_hist_deep")
     err = lane_check("forest", hist, tot, stats, row_node, mask)
-    facts["forest_hist_ms"] = time_ms(lambda: tk.tree_hist(
-        B, row_node, stats, off, P, N_BINS, node_mask=mask), reps)
+    facts["forest_hist_ms"] = time_ms(lambda sc=tk.hist_scale(stats):
+                                      tk.tree_hist(B, row_node, stats, off,
+                                                   P, N_BINS, node_mask=mask,
+                                                   scale=sc), reps)
     # the twin's gain tables at 150 x 2048 nodes take tens of GB: it is
     # timed on the first 16 lanes, beside the kernel on the same
     facts["forest_split_gini"] = gini_split_case(
@@ -1272,8 +1351,10 @@ def check_deep_kernels(device, n: int = N_ROWS, reps: int = 5):
     grn = row_node[:6].contiguous()
     h, t = tk.tree_hist(B, grn, gstats, off, P, N_BINS)
     err = max(err, lane_check("gbt", h, t, gstats, grn, None))
-    facts["gbt_6_lanes_ms"] = time_ms(lambda: tk.tree_hist(
-        B, grn, gstats, off, P, N_BINS), reps)
+    facts["gbt_fixed_point"] = fixed_point_case(tk, B, grn, gstats, off, P)
+    facts["gbt_6_lanes_ms"] = time_ms(lambda sc=tk.hist_scale(gstats):
+                                      tk.tree_hist(B, grn, gstats, off, P,
+                                                   N_BINS, scale=sc), reps)
     gmi, gmg, glam = (torch.tensor(v, dtype=torch.float32, device=device)
                       for v in zip(*((a, b, 1.0) for a, b in points)))
     facts["gbt_split"] = split_case(tk, h, t, fmask, sp_t, gmi, gmg, glam,
@@ -1302,8 +1383,8 @@ def check_deep_kernels(device, n: int = N_ROWS, reps: int = 5):
     row = {"name": "tree_hist_deep", "route": "cuda",
            "source": "transmogrifai_tpu_torch/csrc/tree_hist_deep.cu",
            "replaces": kernels.REPLACES["tree_hist_deep"], "max_abs_err": err,
-           "ms": time_ms(lambda: tk.tree_hist(B, rn8, st8, off, P, N_BINS,
-                                              node_mask=m8), reps),
+           "ms": time_ms(lambda sc=tk.hist_scale(st8): tk.tree_hist(
+               B, rn8, st8, off, P, N_BINS, node_mask=m8, scale=sc), reps),
            "plain_ms": time_ms(lambda: tk.tree_hist_twin(
                B, rn8, st8, off, P, N_BINS, node_mask=m8), 3),
            "bound_ms": bt, "bound_by": by,
@@ -1386,12 +1467,18 @@ def hist_case(tk, B, row_node, stats, off: int, P: int, node_mask=None,
     totals written once; f32 adds of the live rows' cells), the twin's time
     and the time of ``index_put_(accumulate=True)`` on the live (row,
     feature) elements with the indices precomputed — both in calls of
-    ``HIST_LANE_CHUNK`` lanes, summed, where more lanes would not fit."""
+    ``HIST_LANE_CHUNK`` lanes, summed, where more lanes would not fit.  The
+    kernel is timed as ``fit_trees`` calls it: the statistics' scale
+    (``hist_scale``) read once before."""
     import torch
     K, N = row_node.shape
     D, S = B.shape[1], stats.shape[2]
+    # the fit's scale, read once a fit_trees call (a checkout without
+    # fixed-point histograms has none)
+    fit = ({"scale": tk.hist_scale(stats)} if hasattr(tk, "hist_scale")
+           else {})
     hist, tot = tk.tree_hist(B, row_node, stats, off, P, N_BINS,
-                             node_mask=node_mask)
+                             node_mask=node_mask, **fit)
     err = 0.0
     if check:
         if node_mask is not None:
@@ -1467,8 +1554,8 @@ def hist_case(tk, B, row_node, stats, off: int, P: int, node_mask=None,
             "rows_live": int(live.sum()), "cells": cells,
             "max_abs_err": err,
             "ms": time_ms(lambda: tk.tree_hist(B, row_node, stats, off, P,
-                                               N_BINS, node_mask=node_mask),
-                          reps),
+                                               N_BINS, node_mask=node_mask,
+                                               **fit), reps),
             "plain_ms": plain, "bound_ms": bt, "bound_by": by,
             "library_ms": lib}
 
@@ -4646,8 +4733,10 @@ def check_deep_hist_levels(device="cuda", n: int = N_ROWS,
     for kind, lanes, level in cases:
         make = forest_level_inputs if kind == "forest" else gbt_level_inputs
         inp = make(device, n, lanes, level, data=data)
+        fixed = tk.hist_scale(inp["stats"]).fixed
         plan = tk.hist_plan(n, inp["B"].shape[1], lanes, inp["P"], N_BINS, 3,
-                            True, 5 if kind == "forest" else None)
+                            True, 5 if kind == "forest" else None,
+                            8 if fixed else 4)
         if plan["route"] != "deep":
             raise AssertionError(f"{kind} level {level} did not plan the "
                                  "deep route")
@@ -4669,6 +4758,10 @@ def check_deep_hist_levels(device="cuda", n: int = N_ROWS,
         facts[key]["plan"] = {k: plan[k] for k in (
             "Pg", "NG", "NC", "Wc", "blocks")}
         facts[key]["plan"]["R"] = R
+        if fixed:
+            facts[key]["fixed_point"] = fixed_point_case(
+                tk, inp["B"], inp["row_node"], inp["stats"], inp["offset"],
+                inp["P"], inp["mask"])
         rows.append(_kernel_row("tree_hist_deep", facts[key]))
         del inp
         torch.cuda.empty_cache()
@@ -4761,16 +4854,17 @@ def count_hist_shapes(run) -> tuple:
     real = pt.tree_hist
 
     def counted(B, row_node, stats, offset, P, n_bins, with_hist=True,
-                node_mask=None):
+                node_mask=None, scale=None):
         plan = tk.hist_plan(B.shape[0], B.shape[1], row_node.shape[0], P,
-                            n_bins, stats.shape[2], with_hist)
+                            n_bins, stats.shape[2], with_hist, None,
+                            8 if scale is not None and scale.fixed else 4)
         key = (f"K={row_node.shape[0]} P={P} "
                f"{'hist' if with_hist else 'totals'}"
                f"{' subsets' if node_mask is not None else ''} "
                f"{plan['route']}")
         tally[key] = tally.get(key, 0) + 1
         return real(B, row_node, stats, offset, P, n_bins, with_hist,
-                    node_mask)
+                    node_mask, scale)
 
     pt.tree_hist = counted
     try:
@@ -5797,35 +5891,19 @@ def _flushes(*cps) -> list:
             for cp in cps if cp is not None for f in cp.flushes]
 
 
-# a GBT family fit again after a resume: its statistics are f32 sums that
-# tree_hist adds with atomics in a run-dependent order (csrc/tree_hist.cu),
-# so its CV metrics hold the uninterrupted train's to the tolerance the port
-# holds the JAX package's metrics to, not bit for bit
-RESUME_REFIT_TOL = 1e-4
-
-
-def _held_validation(part: str, got: list, want: list, exact) -> float:
+def _held_validation(part: str, got: list, want: list) -> None:
     """``got``'s validation results against ``want``'s: the same candidates,
-    params and racing marks, and the same metric bits for the families in
-    ``exact``; the others within RESUME_REFIT_TOL.  Returns their largest
-    difference."""
+    params and racing marks and the same metric bits, every family — a
+    family fit again too, since the tree histograms sum float statistics
+    in fixed point (csrc/tree_hist.cuh), the same bits on every launch."""
     if [(a[0], a[1], a[3], sorted(a[2])) for a in got] != \
             [(b[0], b[1], b[3], sorted(b[2])) for b in want]:
         raise AssertionError(f"resume ({part}): other candidates than the "
                              "uninterrupted train's")
-    worst = 0.0
     for a, b in zip(got, want):
-        if a[0] in exact:
-            if a[2] != b[2]:
-                raise AssertionError(f"resume ({part}): {a[0]} {a[1]} "
-                                     f"metrics {a[2]} != {b[2]}")
-            continue
-        d = max((abs(a[2][k] - b[2][k]) for k in a[2]), default=0.0)
-        if not d <= RESUME_REFIT_TOL:
-            raise AssertionError(f"resume ({part}): {a[0]} {a[1]} metrics "
-                                 f"{a[2]} vs {b[2]} (|diff| {d})")
-        worst = max(worst, d)
-    return worst
+        if a[2] != b[2]:
+            raise AssertionError(f"resume ({part}): {a[0]} {a[1]} "
+                                 f"metrics {a[2]} != {b[2]}")
 
 
 def run_resume(X, y, device="cuda") -> dict:
@@ -5836,10 +5914,9 @@ def run_resume(X, y, device="cuda") -> dict:
     the validation results, the train AuROC and the refit's arrays equal
     the uninterrupted train's, no "skipped" event); a resume of the sealed
     sweep with every family's fit armed (only the winner's refit runs, and
-    the results are the resumed train's, bit for bit).  LR (no float
-    atomics) and the forest (integer statistics) must match bit for bit,
-    replayed or fit again; a GBT family fit again is held to
-    RESUME_REFIT_TOL.  Returns the facts with each train's wall and
+    the results are the resumed train's, bit for bit).  Every family must
+    match bit for bit, replayed or fit again (GBT's float statistics sum in
+    fixed point).  Returns the facts with each train's wall and
     launches."""
     from transmogrifai_tpu_torch.checkpoint import (SweepCheckpoint,
                                                     TrainingPreempted)
@@ -5882,11 +5959,8 @@ def run_resume(X, y, device="cuda") -> dict:
     sealed, _, sealed_wall, sealed_l = train(
         sweep, **{"selector.candidate_fit": list(families)})
     best = full.selected_model
-    refit_diff = _held_validation(
-        "resumed", _validation(res), _validation(full),
-        ("OpLogisticRegression", "OpRandomForestClassifier"))
-    _held_validation("sealed", _validation(sealed), _validation(res),
-                     families)
+    _held_validation("resumed", _validation(res), _validation(full))
+    _held_validation("sealed", _validation(sealed), _validation(res))
     for name, m, n_resumed in (("resumed", res, 2), ("sealed", sealed, 4)):
         resumed = [e for e in m.failure_log if e.action == "resumed"]
         if len(resumed) != n_resumed or not any(
@@ -5909,7 +5983,7 @@ def run_resume(X, y, device="cuda") -> dict:
         "winner": best.summary.best_model_name, "train_auroc": full_auroc,
         "full_train_wall_s": full_wall, "resumed_train_wall_s": res_wall,
         "sealed_refit_wall_s": sealed_wall,
-        "gbt_refit_max_abs_diff": refit_diff,
+        "gbt_refit_same_bits": True,
         "tree_hist_launches": {"full": full_l["tree_hist"],
                                "resumed": res_l["tree_hist"],
                                "sealed": sealed_l["tree_hist"]},
@@ -5918,6 +5992,75 @@ def run_resume(X, y, device="cuda") -> dict:
         "sweep_npz_bytes": os.path.getsize(os.path.join(sweep,
                                                         "sweep.npz")),
         "full_launches": {k: v for k, v in full_l.items() if v}}
+
+
+REPEAT_FAMILIES = (("OpGBTClassifier", "binary", "_gbt_classifier"),
+                   ("OpGBTRegressor", "regression", "_gbt_regressor"),
+                   ("OpRandomForestRegressor", "regression",
+                    "_rf_regressor"))
+
+
+def run_repeat_fits(device="cuda", n: int = N_ROWS) -> dict:
+    """Phase 16's repeat check of the fixed-point histograms: the default
+    grid's ``OpGBTClassifier`` on the bench set and the regression default
+    grid's ``OpGBTRegressor`` and ``OpRandomForestRegressor`` on the
+    regression rows, each at ``n`` rows, trained twice as the only family
+    of its selector (3-fold CV, the winner refit): the same candidates, CV
+    metric bits, winner and refit tree arrays bit for bit.  Returns each
+    family's two train walls and its ``tree_hist`` / ``tree_hist_deep``
+    launches a train."""
+    import torch
+
+    from transmogrifai_tpu_torch import selector as S
+    from transmogrifai_tpu_torch.columns import Column, ColumnBatch
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
+    from transmogrifai_tpu_torch.synthetic import make_regression_data
+    from transmogrifai_tpu_torch.types import RealNN
+    from transmogrifai_tpu_torch.workflow import Workflow
+
+    data = {"binary": make_data(n),
+            "regression": make_regression_data(n, REG_FEATS, 11)}
+    out = {}
+    for name, kind, cand in REPEAT_FAMILIES:
+        X, y = data[kind]
+        runs = []
+        for _ in range(2):
+            label = FeatureBuilder.RealNN("label").as_response()
+            feats = [FeatureBuilder.RealNN(f"f{i}").as_predictor()
+                     for i in range(X.shape[1])]
+            cls = (S.BinaryClassificationModelSelector if kind == "binary"
+                   else S.RegressionModelSelector)
+            sel = cls(models=[getattr(S, cand)()])
+            sel.set_input(label, transmogrify(feats))
+            cols = {"label": Column(RealNN, y)}
+            for i in range(X.shape[1]):
+                cols[f"f{i}"] = Column(RealNN, X[:, i])
+            wf = Workflow(device=device).set_input_batch(
+                ColumnBatch(cols, n)).set_result_features(sel.get_output())
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            model = wf.train()
+            _sync(device)
+            runs.append((model, time.perf_counter() - t0,
+                         _launch_delta(before, kernels.launch_counts())))
+        (a, wa, la), (b, wb, _) = runs
+        if _validation(a) != _validation(b):
+            raise AssertionError(f"repeat fit ({name}): CV metrics differ: "
+                                 f"{_validation(a)} vs {_validation(b)}")
+        sa, sb = a.selected_model, b.selected_model
+        if sa.summary.best_model_name != name or \
+                not _same_bits(sa.best_model.fitted, sb.best_model.fitted):
+            raise AssertionError(f"repeat fit ({name}): the refit tree "
+                                 "arrays differ")
+        out[name] = {"train_wall_s": [wa, wb], "candidates":
+                     len(sa.summary.validation_results),
+                     "tree_hist_launches": la["tree_hist"],
+                     "tree_hist_deep_launches": la["tree_hist_deep"]}
+        del runs, a, b
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_workflow_cv(cols, schema, n: int, p5_facts: dict,
@@ -6063,6 +6206,285 @@ def run_screen(X, y, device="cuda") -> dict:
             "screen_s": model.phase_seconds["quality"],
             "train_auroc": auroc}
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 17: more feature kinds
+# --------------------------------------------------------------------------
+
+# the JAX package's CPU run of phase 17's workflow, its map bucketizer
+# without null tracking (the JAX package's with it writes each split key's
+# null column twice and its SanityChecker raises), at KINDS_REF_ROWS rows:
+#   PYTHONPATH=. JAX_PLATFORMS=cpu python scripts/kinds_reference.py \
+#       --package jax --rows 5000
+# (1,449 s on the CPU; the port's CPU run, --package torch --device cpu,
+# gave the same checked width, winner and train AuROC, its LR AuPRs within
+# 1.2e-6 and its GBT AuPRs within 4.5e-3: deep GBT trees part on one-ulp
+# gain gaps, ROADMAP "Reference behaviours").  The card's port holds the
+# candidates, the winner and the checked width exactly, the train AuROC
+# and each LR AuPR within 1e-4 and each GBT AuPR within 1e-2
+# (KINDS_REF_TOL: 2x the CPU runs' gap)
+KINDS_REF_ROWS = 5_000
+KINDS_REF_PARAMS = {"OpLogisticRegression": ("reg_param", "elastic_net_param"),
+                    "OpGBTClassifier": ("max_depth", "min_instances_per_node",
+                                        "min_info_gain")}
+KINDS_REF = {
+    "checked_width": 463, "winner": "OpLogisticRegression",
+    "train_auroc": 0.9386298656463623,
+    # (family, its KINDS_REF_PARAMS, CV AuPR)
+    "cv_aupr": [
+        ("OpLogisticRegression", (0.001, 0.1), 0.8864704966545105),
+        ("OpLogisticRegression", (0.001, 0.5), 0.8912584185600281),
+        ("OpLogisticRegression", (0.01, 0.1), 0.8990752696990967),
+        ("OpLogisticRegression", (0.01, 0.5), 0.9077740510304769),
+        ("OpLogisticRegression", (0.1, 0.1), 0.9062711199124655),
+        ("OpLogisticRegression", (0.1, 0.5), 0.8926313519477844),
+        ("OpLogisticRegression", (0.2, 0.1), 0.9022058844566345),
+        ("OpLogisticRegression", (0.2, 0.5), 0.846084475517273),
+        ("OpGBTClassifier", (3, 10, 0.001), 0.8818145990371704),
+        ("OpGBTClassifier", (3, 10, 0.01), 0.8818145990371704),
+        ("OpGBTClassifier", (3, 10, 0.1), 0.8818145990371704),
+        ("OpGBTClassifier", (3, 100, 0.001), 0.8848638534545898),
+        ("OpGBTClassifier", (3, 100, 0.01), 0.8848638534545898),
+        ("OpGBTClassifier", (3, 100, 0.1), 0.8848638534545898),
+        ("OpGBTClassifier", (6, 10, 0.001), 0.8877368370691935),
+        ("OpGBTClassifier", (6, 10, 0.01), 0.886739194393158),
+        ("OpGBTClassifier", (6, 10, 0.1), 0.8828977346420288),
+        ("OpGBTClassifier", (6, 100, 0.001), 0.8896563450495402),
+        ("OpGBTClassifier", (6, 100, 0.01), 0.8871137499809265),
+        ("OpGBTClassifier", (6, 100, 0.1), 0.8900924921035767),
+        ("OpGBTClassifier", (12, 10, 0.001), 0.8706642389297485),
+        ("OpGBTClassifier", (12, 10, 0.01), 0.8693356513977051),
+        ("OpGBTClassifier", (12, 10, 0.1), 0.87433260679245),
+        ("OpGBTClassifier", (12, 100, 0.001), 0.8893122871716818),
+        ("OpGBTClassifier", (12, 100, 0.01), 0.8893331487973531),
+        ("OpGBTClassifier", (12, 100, 0.1), 0.8882339199384054)
+    ]}
+KINDS_REF_TOL = {"OpLogisticRegression": 1e-4, "OpGBTClassifier": 1e-2}
+BUCKETIZER_KERNELS = ("tree_hist", "tree_split_gini", "tree_route")
+
+
+def _kinds_ref():
+    """``scripts/kinds_reference.py``: phase 17's workflow and the numbers
+    it is held to, shared with the JAX-side run."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import kinds_reference
+    return kinds_reference
+
+
+def time_bucketizer_fits(run, device="cuda") -> tuple:
+    """``run()`` with each decision-tree bucketizer's fit timed (between two
+    synchronizations), its tree kernels' launches counted around that fit
+    alone and its fitted model kept.  Returns (run's result, the fits)."""
+    from transmogrifai_tpu_torch.models import kernels
+    from transmogrifai_tpu_torch.ops import bucketizers as bk
+    fits = []
+    reals = {cls: cls.fit for cls in (bk.DecisionTreeNumericBucketizer,
+                                      bk.DecisionTreeNumericMapBucketizer)}
+
+    def timed(real):
+        def fit(self, batch):
+            _sync(device)
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            model = real(self, batch)
+            _sync(device)
+            d = _launch_delta(before, kernels.launch_counts())
+            fits.append({"stage": type(self).__name__,
+                         "input": self.input_features[1].name,
+                         "seconds": time.perf_counter() - t0,
+                         "launches": {k: d[k] for k in BUCKETIZER_KERNELS},
+                         "model": model})
+            return model
+        return fit
+
+    for cls, real in reals.items():
+        cls.fit = timed(real)
+    try:
+        return run(), fits
+    finally:
+        for cls, real in reals.items():
+            cls.fit = real
+
+
+def check_bucketizer_splits(fits, cols) -> int:
+    """Each bucketizer fitted on the card (``time_bucketizer_fits``) against
+    the port's CPU fit of the same column (every map key alone): the same
+    thresholds exactly.  Returns the columns and keys checked."""
+    from transmogrifai_tpu_torch.ops.bucketizers import \
+        tree_splits_for_feature
+    y = np.asarray(cols["label"].values, np.float64)
+    checked = 0
+    for f in fits:
+        model = f["model"].fitted
+        if f["stage"] == "DecisionTreeNumericBucketizer":
+            col = cols[f["input"]]
+            x = np.asarray(col.values, np.float64)
+            p = np.asarray(col.mask, bool) & ~np.isnan(x)
+            want = {f["input"]: tree_splits_for_feature(x[p], y[p],
+                                                        device="cpu")}
+            got = {f["input"]: np.asarray(model["splits"])[1:-1]}
+        else:
+            from transmogrifai_tpu_torch.ops.map_profile import expand_maps
+            exp = expand_maps(cols[f["input"]].values)
+            at = exp.key_index()
+            want, got = {}, {}
+            for k in model["keys"]:
+                x = exp.vals[:, at[k]]
+                p = ~np.isnan(x)
+                want[k] = tree_splits_for_feature(x[p], y[p], device="cpu")
+                got[k] = np.asarray(model["splits_by_key"][k])[1:-1]
+        for k in want:
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"{f['stage']} ({k}): the card's "
+                                     f"splits {got[k]} != the CPU fit's "
+                                     f"{want[k]}")
+            checked += 1
+    return checked
+
+
+def check_calibrators(model, pred, b, device="cuda") -> dict:
+    """PercentileCalibrator, IsotonicRegressionCalibrator (label, score)
+    and a ScalerTransformer with its DescalerTransformer, once each on a
+    RealNN score column of the batch (the winner's probability of class
+    1), each fitted and applied on the card's batch and on its CPU copy:
+    the same outputs (host numpy work either way), percentiles in
+    [0, 99], the isotonic fit non-decreasing in the score and the
+    descaled score within 1e-6 of the score."""
+    from transmogrifai_tpu_torch.columns import Column, ColumnBatch, host_array
+    from transmogrifai_tpu_torch.features import FeatureBuilder
+    from transmogrifai_tpu_torch.ops import bucketizers as bk
+    from transmogrifai_tpu_torch.types import RealNN
+    n = len(b)
+    score = host_array(model.score(b)[pred.name].values["probability"]
+                       )[:, 1].astype(np.float32)
+    outs, secs = {}, {}
+    for dev in (device, "cpu"):
+        label = FeatureBuilder.RealNN("label").as_response()
+        sf = FeatureBuilder.RealNN("score").as_predictor()
+        pc = bk.PercentileCalibrator()
+        pc.set_input(sf)
+        iso = bk.IsotonicRegressionCalibrator()
+        iso.set_input(label, sf)
+        scaled = sf.scale("Linear", {"slope": 2.5, "intercept": -1.0})
+        back = scaled.descale(scaled)
+        cb = ColumnBatch({"label": b["label"],
+                          "score": Column(RealNN, score)}, n, device=dev)
+        t0 = time.perf_counter()
+        got = {"percentile": pc.fit(cb).transform(cb).values,
+               "isotonic": iso.fit(cb).transform(cb).values}
+        sc = scaled.origin_stage.transform(cb)
+        got["scaled"] = sc.values
+        got["descaled"] = back.origin_stage.transform(
+            cb.with_columns({scaled.name: sc})).values
+        secs[dev] = time.perf_counter() - t0
+        outs[dev] = {k: np.asarray(host_array(v)) for k, v in got.items()}
+    for k in outs["cpu"]:
+        if not np.array_equal(outs[device][k], outs["cpu"][k]):
+            raise AssertionError(f"{k}: the card's batch and the CPU's differ")
+    o = outs["cpu"]
+    order = np.argsort(score, kind="stable")
+    if not (0 <= o["percentile"].min() and o["percentile"].max() <= 99) or \
+            (np.diff(o["isotonic"][order]) < 0).any() or \
+            np.abs(o["descaled"] - score).max() > 1e-6:
+        raise AssertionError("calibrators: percentiles out of range, a "
+                             "falling isotonic fit or a scale not undone")
+    return {"rows": n, "seconds": secs,
+            "distinct_percentiles": int(len(np.unique(o["percentile"])))}
+
+
+def run_more_kinds(device="cuda", n: int = N_ROWS) -> tuple:
+    """Phase 17 at ``n`` rows (``scripts/kinds_reference.py``'s workflow
+    over ``synthetic.make_kinds_columns``, the map bucketizer with its
+    default null tracking): ``Workflow.train()`` with the bucketizers'
+    fits timed and their tree kernels counted alone, their splits against
+    the CPU fit, the checked width, the candidates (exactly LR and GBT),
+    the winner, the CV metrics and train AuROC > 0.7, the peak device
+    memory; then the same workflow with ``use_train_validation_split=True``
+    over LR only (its summary ``TrainValidationSplit`` with trainRatio
+    0.75, racing recorded "degraded"); then the calibrators and scalers.
+    Returns (facts, model, a fresh batch of ``n`` rows)."""
+    import torch
+    kr = _kinds_ref()
+    t0 = time.perf_counter()
+    b, schema = kr.batch(PORT, n, 17, device)
+    data_s = time.perf_counter() - t0
+    wf, pred, checked = kr.build(PORT, b, schema, True, device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, fits = time_bucketizer_fits(wf.train, device)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    f = kr.facts(PORT, model, b, checked)
+    if {c[0] for c in f["cv_aupr"]} != set(kr.FAMILIES) or \
+            f["validation_type"] != "CrossValidation":
+        raise AssertionError(f"phase 17: candidates {f['cv_aupr']}")
+    if not f["train_auroc"] > 0.7:
+        raise AssertionError(f"phase 17: train AuROC {f['train_auroc']}")
+    n_split = check_bucketizer_splits(fits, {k: b[k] for k in b.names()})
+    tvs_wf, _, _ = kr.build(PORT, b, schema, True, device,
+                            use_train_validation_split=True,
+                            model_types_to_use=["OpLogisticRegression"])
+    t1 = time.perf_counter()
+    tvs = tvs_wf.train()
+    tvs_wall = time.perf_counter() - t1
+    ts = tvs.selected_model.summary
+    degraded = [e for e in tvs.failure_log
+                if e.action == "degraded" and e.point == "selector.racing"]
+    if ts.validation_type != "TrainValidationSplit" or \
+            ts.validation_parameters.get("trainRatio") != 0.75 or \
+            "numFolds" in ts.validation_parameters or len(degraded) != 1 or \
+            {r.model_name for r in ts.validation_results} != \
+            {"OpLogisticRegression"}:
+        raise AssertionError(f"phase 17 TVS: {ts.validation_type} "
+                             f"{ts.validation_parameters} {degraded}")
+    cal = check_calibrators(model, pred, b, device)
+    del tvs, tvs_wf
+    fresh, _ = kr.batch(PORT, n, 23, device)
+    facts = {
+        "rows": n, "data_s": data_s, "train_wall_s": wall,
+        "phase_seconds": model.phase_seconds, **f,
+        "bucketizer_fits": [{k: v for k, v in x.items() if k != "model"}
+                            for x in fits],
+        "bucketizer_fit_s": sum(x["seconds"] for x in fits),
+        "bucketizer_launches": {k: sum(x["launches"][k] for x in fits)
+                                for k in BUCKETIZER_KERNELS},
+        "splits_checked_against_cpu": n_split,
+        "peak_device_memory_gb": peak,
+        "tvs": {"train_wall_s": tvs_wall, "winner": ts.best_model_name,
+                "validation_parameters": ts.validation_parameters,
+                "cv_aupr": [float(r.metric_values["AuPR"])
+                            for r in ts.validation_results]},
+        "calibrators": cal}
+    return facts, model, fresh
+
+
+def check_kinds_reference(device="cuda") -> dict:
+    """Phase 17's workflow at KINDS_REF_ROWS on the card against the JAX
+    package's CPU run (KINDS_REF): candidates, winner and checked width
+    equal, each family's CV AuPRs within its KINDS_REF_TOL and the train
+    AuROC within 1e-4."""
+    kr = _kinds_ref()
+    b, schema = kr.batch(PORT, KINDS_REF_ROWS, 17, device)
+    wf, _, checked = kr.build(PORT, b, schema, False, device)
+    got = kr.facts(PORT, wf.train(), b, checked)
+    want = KINDS_REF
+    if [(c[0], tuple(json.loads(c[1])[k] for k in KINDS_REF_PARAMS[c[0]]))
+            for c in got["cv_aupr"]] != [c[:2] for c in want["cv_aupr"]] \
+            or got["winner"] != want["winner"] or \
+            got["checked_width"] != want["checked_width"]:
+        raise AssertionError(f"phase 17 reference: {got} vs {want}")
+    gaps = {name: 0.0 for name in KINDS_REF_TOL}
+    for a, c in zip(got["cv_aupr"], want["cv_aupr"]):
+        gaps[a[0]] = max(gaps[a[0]], abs(a[2] - c[2]))
+    auroc_gap = abs(got["train_auroc"] - want["train_auroc"])
+    if any(gaps[k] > KINDS_REF_TOL[k] for k in gaps) or auroc_gap > 1e-4:
+        raise AssertionError(f"phase 17 reference: CV AuPR gaps {gaps}, "
+                             f"train AuROC gap {auroc_gap}: {got} vs {want}")
+    return {"rows": KINDS_REF_ROWS, "cv_aupr_max_abs_diff": gaps,
+            "train_auroc_abs_diff": auroc_gap, "winner": got["winner"],
+            "checked_width": got["checked_width"]}
 
 
 def main() -> int:
@@ -6706,6 +7128,14 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
+    repeat_facts = run_repeat_fits()
+    add_p16(kernels.launch_counts(), "repeat_fits",
+            ("tree_hist", "tree_hist_deep", "tree_split",
+             "tree_split_variance", "tree_route", "tree_walk"))
+    print("phase 16 repeat fits (fixed-point histograms): "
+          + json.dumps(repeat_facts), flush=True)
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
     san_facts = run_sanitized(X, y, resume_facts["full_train_wall_s"])
     add_p16(kernels.launch_counts(), "sanitizers", ("tree_walk",))
     print("phase 16 sanitizers (bench set): " + json.dumps(san_facts),
@@ -6721,11 +7151,36 @@ def main() -> int:
     print(f"phase 16 kernel launches: {json.dumps(p16_launches)}; "
           f"wall of its last part {time.perf_counter() - t16:.1f} s",
           flush=True)
+
+    # phase 17: dates, geolocations, multi-pick-lists and the bucketizers
+    # at 1M rows, the launches read around its two trains; then its bundle
+    # (phase 14's checks, launches of its own) and the reference run
+    t17 = time.perf_counter()
+    kernels.reset_launch_counts()
+    kinds_facts, kinds_model, kinds_fresh = run_more_kinds()
+    p17_launches = kernels.launch_counts()
+    print("phase 17 more kinds: " + json.dumps(kinds_facts), flush=True)
+    print("phase 17 kernel launches: " + json.dumps(p17_launches), flush=True)
+    missing = [k for k in BUCKETIZER_KERNELS + ("tree_split", "fista_step",
+                                                "tree_walk")
+               if p17_launches[k] <= 0 or (
+                   k in BUCKETIZER_KERNELS
+                   and kinds_facts["bucketizer_launches"][k] <= 0)]
+    if missing:
+        raise AssertionError(f"kernels never launched in phase 17: {missing}")
+    bundle_phase("more_kinds", kinds_model, kinds_fresh)
+    del kinds_model, kinds_fresh
+    torch.cuda.empty_cache()
+    print("phase 17 reference: " + json.dumps(check_kinds_reference()),
+          flush=True)
+    torch.cuda.empty_cache()
+    print(f"phase 17 wall {time.perf_counter() - t17:.1f} s", flush=True)
     for r in rows:
         if r["name"] in ("tree_walk", "hash_counts", "sp_matmat"):
             r["launches"] += bundle_launches.get(r["name"], 0) \
                 + serve_launches.get(r["name"], 0)
-        r["launches"] += p16_launches.get(r["name"], 0)
+        r["launches"] += p16_launches.get(r["name"], 0) \
+            + p17_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke wall_s: {time.perf_counter() - t_start:.1f}",

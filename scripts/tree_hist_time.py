@@ -18,8 +18,11 @@ the GBT's ``--gbt-lanes`` at the deepest of them with every feature
 shallow forest levels.  Each shape is held to the f64 twin lane by lane,
 then timed beside its bound, the twin's time and ``index_put_``'s
 (``chip_smoke.hist_case``; a deep level that disagrees is timed all the
-same and its line says so: the parent of a change may miss the rule); ``--kernel-times`` adds each kernel's device
-ms a call (``chip_smoke.kernel_ms``).  ``--profile`` trains the default grid at
+same and its line says so: the parent of a change may miss the rule);
+``--kernel-times`` adds each kernel's device ms a call
+(``chip_smoke.kernel_ms``), the GBT level's too.  A checkout whose
+``tree_hist`` takes the fit's fixed-point scale (``hist_scale``) is timed
+with it read once before, as ``fit_trees`` calls it.  ``--profile`` trains the default grid at
 ``--rows`` once and runs ``torch.profiler`` windows over its forest and
 its GBT candidates' cross-validation on the model's own vector
 (``chip_smoke.profile_lr_cv``: device-busy share, top kernels; the
@@ -81,8 +84,15 @@ def main() -> int:
         print(json.dumps(r), flush=True)
 
     g = cs.kernel_inputs("cuda", args.rows)
-    record("gbt level", cs.hist_case(tk, g["B"], g["row_node"], g["stats"],
-                                     g["offset"], g["P"], reps=20))
+    r = cs.hist_case(tk, g["B"], g["row_node"], g["stats"], g["offset"],
+                     g["P"], reps=20)
+    if args.kernel_times:
+        fit = ({"scale": tk.hist_scale(g["stats"])}
+               if hasattr(tk, "hist_scale") else {})
+        r["kernel_ms"] = cs.kernel_ms(lambda: tk.tree_hist(
+            g["B"], g["row_node"], g["stats"], g["offset"], g["P"],
+            cs.N_BINS, **fit), 20)
+    record("gbt level", r)
     del g
     torch.cuda.empty_cache()
     ints = lambda v: [int(x) for x in v.split(",") if x]   # noqa: E731
@@ -108,8 +118,11 @@ def main() -> int:
             r = cs.hist_case(*args_, args.reps, check=False)
             r["disagrees_with_twin"] = str(e)
         if args.kernel_times:
+            fit = ({"scale": tk.hist_scale(inp["stats"])}
+                   if hasattr(tk, "hist_scale") else {})
             r["kernel_ms"] = cs.kernel_ms(lambda: tk.tree_hist(
-                *args_[1:6], cs.N_BINS, node_mask=inp["mask"]), args.reps)
+                *args_[1:6], cs.N_BINS, node_mask=inp["mask"], **fit),
+                args.reps)
         return r
 
     deep = ints(args.deep)

@@ -8,7 +8,8 @@ machines need not have).
 Tolerances: routing exact (in place, on copies of the ids); the walk exact
 per (row, tree) and 1e-6 on sums; histograms within 1e-5 of each cell's
 absolute mass of the twin run in f64
-(f32 atomics reorder the sums; a serial f32 sum drifts further at 10^5 rows);
+(float statistics sum in fixed point, the values rounded to v·2^e; a
+serial f32 sum drifts further at 10^5 rows);
 the xgb split bit-equal to its twin (the same bin-prefix order and f32
 expression), and against the twin run in f64 its gains within 1e-5 of
 |gain| + the parent score G²/(H+λ) they are a difference of, choices
@@ -1774,7 +1775,8 @@ def test_tree_hist_deep_plans_match_twin(cuda, monkeypatch, N, D, K, P, S,
         rn[:, : N * 3 // 4] = P - 1 + torch.arange(N * 3 // 4,
                                                    device=cuda)[None] % 3
     width = int(mask.sum(dim=2).amax()) if masked else None
-    plan = tk.hist_plan(N, D, K, P, nb, S, True, width)
+    plan = tk.hist_plan(N, D, K, P, nb, S, True, width,
+                        8 if tk.hist_scale(st).fixed else 4)
     assert plan["route"] == "deep"
     if groups:
         assert plan["windows"] > 1

@@ -205,23 +205,38 @@ def test_walk_plan_at_the_main_path_shapes(D, V):
 def test_lane_bytes_counts_the_deep_partition():
     """On the card a lane whose deepest level takes ``tree_hist_deep``
     books its partition (a (6 + 4·S)-byte record a row and the group runs)
-    beside its rows and histogram; shallow trees and the CPU book none."""
+    beside its rows and histogram, and a lane of fixed-point statistics
+    (any but integer counts) the histogram's 64-bit sums too, its deep
+    route starting a level earlier (8-byte cells); shallow trees and the
+    CPU book no partition."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     N, D, S, NB = 1_000_000, 28, 3, 32
     rows = 4 * N * (2 * S + 4)
     for depth in (3, 6, 8):
+        assert pt.lane_bytes(N, D, S, NB, depth, cuda, fixed_point=False) \
+            == rows + 4 * (1 << (depth - 1)) * D * NB * S
+    for depth in (3, 6, 7):
         assert pt.lane_bytes(N, D, S, NB, depth, cuda) == \
-            rows + 4 * (1 << (depth - 1)) * D * NB * S
+            rows + 3 * 4 * (1 << (depth - 1)) * D * NB * S
+    assert tk.hist_plan(N, D, 1, 64, NB, S, cell_bytes=8)["route"] == \
+        "shared"
+    assert tk.hist_plan(N, D, 1, 128, NB, S, cell_bytes=8)["route"] == "deep"
+    assert tk.hist_plan(N, D, 1, 128, NB, S)["route"] == "shared"
     plan = tk.hist_plan(N, D, 1, 2048, NB, S)
     assert plan["route"] == "deep"
     part = (6 + 4 * S) * N + 8 * plan["NG"] * plan["nseg"]
     assert tk.deep_partition_bytes(N, D, 2048, NB, S) == part
-    assert pt.lane_bytes(N, D, S, NB, 12, cuda) == \
+    assert pt.lane_bytes(N, D, S, NB, 12, cuda, fixed_point=False) == \
         rows + 4 * 2048 * D * NB * S + part
+    plan8 = tk.hist_plan(N, D, 1, 2048, NB, S, cell_bytes=8)
+    part8 = (6 + 4 * S) * N + 8 * plan8["NG"] * plan8["nseg"]
+    assert tk.deep_partition_bytes(N, D, 2048, NB, S, 8) == part8
+    assert pt.lane_bytes(N, D, S, NB, 12, cuda) == \
+        rows + 3 * 4 * 2048 * D * NB * S + part8
     assert pt.lane_bytes(N, D, S, NB, 12, cpu) == \
         rows + 3 * 4 * 2048 * D * NB * S + N * D * (8 + 4 * S)
-    # the card's budget still batches the default grid's depth-12 forests
-    # (300 lanes a fold) in two batches
-    per = pt.lane_bytes(N, D, S, NB, 12, cuda)
+    # the card's budget still batches the default grid's depth-12
+    # classification forests (300 lanes a fold) in two batches
+    per = pt.lane_bytes(N, D, S, NB, 12, cuda, fixed_point=False)
     assert [s.stop - s.start for s in pt.lane_batches(300, per, cuda)] == \
         [150, 150]

@@ -293,9 +293,10 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
 def test_other_feature_kinds_name_the_slice_that_brings_them():
     from transmogrifai_tpu_torch.features import FeatureBuilder
     from transmogrifai_tpu_torch.ops.transmogrify import transmogrify
-    # real maps arrive with the transmog slice; dates still wait for theirs
+    # dates arrive with the dates-and-bucketizers slice; text lists still
+    # wait for theirs
     with pytest.raises(NotImplementedError, match="later slice"):
-        transmogrify([FeatureBuilder.Date("d").as_predictor()])
+        transmogrify([FeatureBuilder.TextList("t").as_predictor()])
 
 
 @pytest.mark.parametrize("spearman", [False, True])

@@ -28,7 +28,19 @@ order).  The dicts this slice reads, by the fitted stage's class name:
   (the ``SelectedModel`` forms above; the stage keeps its own ``top_k`` and
   ``strategy``);
 * ``RecordInsightsCorrModel``: ``corr`` [P, D], ``s1``, ``s2`` [D] and
-  ``offset``.
+  ``offset``;
+* ``DateToUnitCircleModel`` / ``DateListVectorizerModel``: nothing;
+  ``GeolocationVectorizerModel``: ``fills`` [F, 3];
+  ``MultiPickListVectorizerModel``: ``top_values`` (feature name → its
+  pivot's values, in column order);
+* ``DecisionTreeNumericBucketizerModel``: ``splits`` [B + 1] (empty: no
+  split); ``DecisionTreeNumericMapBucketizerModel``: ``keys`` and
+  ``splits_by_key`` (key → splits); ``PercentileCalibratorModel``:
+  ``splits``; ``IsotonicRegressionCalibratorModel``: ``boundaries`` and
+  ``predictions``;
+* ``NumericBucketizer``, ``ScalerTransformer``, ``DescalerTransformer``,
+  ``TimePeriodTransformer``: nothing (their parameters are the stage's
+  own).
 
 A ``SanityCheckerModel`` may also carry ``input_vector_meta`` (the JSON of
 its input vector's meta), which ``WorkflowModel.summary`` reads for lineage.
@@ -53,7 +65,12 @@ from .models.linear import (GLM_FAMILY_LOSS, GLMPredictionModel,
                             LinearPredictionModel, MLPClassificationModel,
                             NaiveBayesModel)
 from .models.trees import TreeEnsembleModel
+from .ops import bucketizers as bk
+from .ops.collections import MultiPickListVectorizer
 from .ops.combiner import VectorsCombiner
+from .ops.dates import (DateListVectorizer, DateToUnitCircleVectorizer,
+                        TimePeriodTransformer)
+from .ops.geo import GeolocationVectorizer
 from .ops.numeric import RealNNVectorizer, RealVectorizer, RealVectorizerModel
 from .preparators.sanity_checker import SanityChecker, SanityCheckerModel
 from .record_insights import (RecordInsightsCorr, RecordInsightsCorrModel,
@@ -149,9 +166,54 @@ def fitted_stage(stage, params: Dict[str, Any], device: torch.device):
             raise ValueError(f"convert: {type(stage).__name__} needs "
                              f"{want!r} parameters, got {name!r}")
 
-    if isinstance(stage, VectorsCombiner):
-        expect("VectorsCombiner")
+    if isinstance(stage, (VectorsCombiner, TimePeriodTransformer,
+                          bk.NumericBucketizer, bk.ScalerTransformer,
+                          bk.DescalerTransformer)):
+        expect(type(stage).__name__)
         return stage
+    if isinstance(stage, DateToUnitCircleVectorizer):
+        expect("DateToUnitCircleModel")
+        return stage.fit(None)
+    if isinstance(stage, DateListVectorizer):
+        expect("DateListVectorizerModel")
+        return stage.fit(None)
+    if isinstance(stage, GeolocationVectorizer):
+        expect("GeolocationVectorizerModel")
+        return stage.model(params["fills"])
+    if isinstance(stage, MultiPickListVectorizer):
+        expect("MultiPickListVectorizerModel")
+        return stage.model({k: [str(v) for v in vs]
+                            for k, vs in params["top_values"].items()})
+    if isinstance(stage, bk.DecisionTreeNumericBucketizer):
+        expect("DecisionTreeNumericBucketizerModel")
+        splits = np.asarray(params["splits"], np.float64)
+        return stage._finalize_model(bk.DecisionTreeNumericBucketizerModel(
+            fitted={"should_split": len(splits) > 0, "splits": splits},
+            **stage.params))
+    if isinstance(stage, bk.DecisionTreeNumericMapBucketizer):
+        expect("DecisionTreeNumericMapBucketizerModel")
+        return stage._finalize_model(
+            bk.DecisionTreeNumericMapBucketizerModel(fitted={
+                "keys": [str(k) for k in params["keys"]],
+                "splits_by_key": {str(k): np.asarray(v, np.float64)
+                                  for k, v in params["splits_by_key"].items()}},
+                **stage.params))
+    if isinstance(stage, bk.PercentileCalibrator):
+        expect("PercentileCalibratorModel")
+        splits = np.asarray(params["splits"], np.float64)
+        model = bk.PercentileCalibratorModel(
+            fitted={"splits": splits, "actual_num_buckets": len(splits)},
+            **stage.params)
+        model.metadata["origSplits"] = [float(v) for v in splits]
+        return stage._finalize_model(model)
+    if isinstance(stage, bk.IsotonicRegressionCalibrator):
+        expect("IsotonicRegressionCalibratorModel")
+        return stage._finalize_model(bk.IsotonicRegressionCalibratorModel(
+            fitted={"boundaries": np.asarray(params["boundaries"],
+                                             np.float64),
+                    "predictions": np.asarray(params["predictions"],
+                                              np.float64)},
+            **stage.params))
     if isinstance(stage, RealNNVectorizer):
         expect("RealNNVectorizerModel")
         return stage.fit(None)

@@ -31,34 +31,40 @@
 //   cells.  So every lane works on a live row, the node id and statistics
 //   of a row are read once per (lane, node group, chunk) and there is no
 //   division in the row loop.  At the end the block adds its non-zero cells
-//   into the global histogram with f32 atomics (cells of features outside a
+//   into the global histogram with atomics (cells of features outside a
 //   node's subset stay at the zero the wrapper wrote), and the chunk-0
 //   blocks add the node totals, which count every live row whatever the
 //   mask: a node's total is the sum over the bins of its first slot (every
 //   live row lands in one of them), so the rows add no atomics for it; only
 //   a node with no slot in the block (and the totals-only bottom level)
-//   adds its rows' statistics one by one.  The f32 atomics make the sums' order change from run
-//   to run; a forest's statistics are integer counts, whose f32 sums are
-//   exact in any order.
+//   adds its rows' statistics one by one.  The cells (tree_hist.cuh): f32
+//   where every statistic is an integer and every lane's sums stay below
+//   2^24 (a classification forest's counts: exact in any order); otherwise
+//   fixed point — 64-bit integer cells in shared memory and in the global
+//   sums (hist64 / tot64), converted to f32 once at the end — so a GBT's or
+//   a regression forest's float statistics sum to the same bits on every
+//   launch, whatever order the atomics take.
 //
 // A level whose nodes do not fit one block's shared memory (the wrapper's
-// rule: 2·P·NB·S·4 bytes above 99 KB) goes to tree_hist_deep.cu instead.
+// rule: 2·P·NB·S·(4 or 8 bytes a cell) above 99 KB) goes to
+// tree_hist_deep.cu instead.
 //
 // Bound: device-memory bytes.  Per level it must read B once (N*D bytes),
 // each lane's node ids (4N) and statistics (4SN) — at 1M x 28, S = 3: 28 MB
-// plus 16 MB a lane — and write the histogram.
+// plus 16 MB a lane — and write the histogram (fixed point: its 64-bit
+// sums written, read and converted as well).
 #include "tree_hist.cuh"
 
 #define HIST_QUEUE 64                 // per warp: rows waiting for a warp
 
-template <int SR>
+template <int SR, typename C>
 __global__ void __launch_bounds__(512) tree_hist_kernel(
     const int8_t* __restrict__ B, const int32_t* __restrict__ row_node,
     const float* __restrict__ stats, const uint8_t* __restrict__ node_mask,
-    float* __restrict__ hist, float* __restrict__ totals, long long N, int D,
-    int NB, int S, int offset, int P, int Pg, int NG, int Dc, int NC, int Wc,
-    long long RB, int with_hist) {
-  extern __shared__ float sm[];
+    const int* __restrict__ ex, C* __restrict__ hist, C* __restrict__ totals,
+    long long N, int D, int NB, int S, int offset, int P, int Pg, int NG,
+    int Dc, int NC, int Wc, long long RB, int with_hist) {
+  extern __shared__ __align__(16) unsigned char hist_sm[];
   const int g = blockIdx.x % NG;
   const int c = (blockIdx.x / NG) % NC;
   const int k = blockIdx.x / (NG * NC);
@@ -68,12 +74,16 @@ __global__ void __launch_bounds__(512) tree_hist_kernel(
   const bool masked = node_mask != nullptr && with_hist;
   const bool do_tot = c == 0;
   const int hsize = with_hist ? Pg * Wc * NB * S : 0;
-  float* hcell = sm;                             // [Pg][Wc][NB][S]
-  float* tot = hcell + hsize;                    // [Pg][S]
+  C* hcell = (C*)hist_sm;                        // [Pg][Wc][NB][S]
+  C* tot = hcell + hsize;                        // [Pg][S]
   int* queue = (int*)(tot + Pg * S);             // per warp: n[64], p[64]
   int* cnt_s = queue + (blockDim.x >> 5) * 2 * HIST_QUEUE;   // [Pg]
-  int16_t* flist = (int16_t*)(cnt_s + Pg);       // [Pg][Wc] features - d0
-  for (int i = threadIdx.x; i < hsize + Pg * S; i += blockDim.x) sm[i] = 0.f;
+  int* exs = cnt_s + Pg;                         // [S] exponents
+  int16_t* flist = (int16_t*)(exs + S);          // [Pg][Wc] features - d0
+  for (int i = threadIdx.x; i < hsize + Pg * S; i += blockDim.x)
+    hcell[i] = (C)0;
+  for (int i = threadIdx.x; i < S; i += blockDim.x)
+    exs[i] = ex != nullptr ? ex[(long long)k * S + i] : 0;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
@@ -98,9 +108,9 @@ __global__ void __launch_bounds__(512) tree_hist_kernel(
   auto drain = [&](int n, int p, bool on) {
     if (!on) return;
     const int cnt = !with_hist ? 0 : masked ? cnt_s[p] : dc;
-    hist_row<SR>(hcell, tot, B + (long long)n * D, sk + (long long)n * S, S,
-                 flist, cnt, p, Wc, NB * S, d0, dc, masked, words, with_hist,
-                 do_tot, lane);
+    hist_row<SR, C>(hcell, tot, B + (long long)n * D, sk + (long long)n * S,
+                    S, exs, flist, cnt, p, Wc, NB * S, d0, dc, masked, words,
+                    with_hist, do_tot, lane);
   };
 
   for (long long base = r0 + 64LL * warp; base < r1; base += 64LL * nw) {
@@ -150,8 +160,8 @@ __global__ void __launch_bounds__(512) tree_hist_kernel(
   if (with_hist) {
     const int per_node = Wc * NB * S;
     for (int i = threadIdx.x; i < hsize; i += blockDim.x) {
-      const float v = hcell[i];
-      if (v == 0.f) continue;
+      const C v = hcell[i];
+      if (v == (C)0) continue;
       const int p = i / per_node;
       const int rest = i - p * per_node;
       const int t = rest / (NB * S);
@@ -162,63 +172,95 @@ __global__ void __launch_bounds__(512) tree_hist_kernel(
     }
   }
   if (do_tot)
-    hist_flush_totals(totals + ((long long)k * P + p0) * S, S, tot, hcell,
-                      cnt_s, Pg, Wc, NB * S, NB, S, masked, dc, with_hist);
+    hist_flush_totals<C, C>(totals + ((long long)k * P + p0) * S, S, tot,
+                            hcell, cnt_s, Pg, Wc, NB * S, NB, S, masked, dc,
+                            with_hist);
 }
 
-// the shared-memory bytes of one block (models/tree_kernels.hist_plan adds
-// the same terms)
+// the shared-memory bytes of one block with cells of cb bytes
+// (models/tree_kernels.hist_plan adds the same terms)
 static size_t hist_smem(int Pg, int Wc, int NB, int S, int threads,
-                        int with_hist) {
-  const size_t floats = (with_hist ? (size_t)Pg * Wc * NB * S : 0) +
-                        (size_t)Pg * S;
-  const size_t ints = (size_t)(threads / 32) * 2 * HIST_QUEUE + Pg;
-  return 4 * (floats + ints) + 2 * (size_t)Pg * Wc;
+                        int with_hist, int cb) {
+  const size_t cells = (with_hist ? (size_t)Pg * Wc * NB * S : 0) +
+                       (size_t)Pg * S;
+  const size_t ints = (size_t)(threads / 32) * 2 * HIST_QUEUE + Pg + S;
+  return cb * cells + 4 * ints + 2 * (size_t)Pg * Wc;
 }
 
-template <int SR>
+template <int SR, typename C>
 static int launch_sr(const void* B, const void* row_node, const void* stats,
-                     const void* node_mask, void* hist, void* totals,
-                     long long N, int D, int NB, int S, int K, int offset,
-                     int P, int Pg, int NG, int Dc, int NC, int Wc,
-                     long long RB, int R, int threads, size_t smem,
+                     const void* node_mask, const void* ex, void* hist,
+                     void* totals, long long N, int D, int NB, int S, int K,
+                     int offset, int P, int Pg, int NG, int Dc, int NC,
+                     int Wc, long long RB, int R, int threads, size_t smem,
                      int with_hist, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      tree_hist_kernel<SR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tree_hist_kernel<SR, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)K * NG * NC, R);
-  tree_hist_kernel<SR><<<grid, threads, smem, s>>>(
+  tree_hist_kernel<SR, C><<<grid, threads, smem, s>>>(
       (const int8_t*)B, (const int32_t*)row_node, (const float*)stats,
-      (const uint8_t*)node_mask, (float*)hist, (float*)totals, N, D, NB, S,
-      offset, P, Pg, NG, Dc, NC, Wc, RB, with_hist);
+      (const uint8_t*)node_mask, (const int*)ex, (C*)hist, (C*)totals, N, D,
+      NB, S, offset, P, Pg, NG, Dc, NC, Wc, RB, with_hist);
   return (int)cudaGetLastError();
 }
 
+template <typename C>
+static int launch_c(const void* B, const void* row_node, const void* stats,
+                    const void* node_mask, const void* ex, void* hist,
+                    void* totals, long long N, int D, int NB, int S, int K,
+                    int offset, int P, int Pg, int NG, int Dc, int NC, int Wc,
+                    long long RB, int R, int threads, size_t smem,
+                    int with_hist, cudaStream_t s) {
+#define HIST(SR_)                                                            \
+  return launch_sr<SR_, C>(B, row_node, stats, node_mask, ex, hist, totals,  \
+                           N, D, NB, S, K, offset, P, Pg, NG, Dc, NC, Wc,    \
+                           RB, R, threads, smem, with_hist, s)
+  if (S <= 3) HIST(3);
+  if (S <= 5) HIST(5);
+  HIST(8);
+#undef HIST
+}
+
+// One level.  ex null: every statistic an integer (sums below 2^24), f32
+// cells added into hist [K, P, D, NB, S] and totals [K, P, S] (zeroed by
+// the wrapper).  ex int32 [K, S] (the fixed-point exponents): 64-bit cells
+// added into hist64 and tot64 (zeroed by the wrapper), then converted into
+// hist and totals.
 extern "C" int tree_hist_launch(const void* B, const void* row_node,
                                 const void* stats, const void* node_mask,
-                                void* hist, void* totals, long long N, int D,
-                                int NB, int S, int K, int offset, int P,
-                                int Pg, int NG, int Dc, int NC, int Wc,
+                                const void* ex, void* hist, void* totals,
+                                void* hist64, void* tot64, long long N,
+                                int D, int NB, int S, int K, int offset,
+                                int P, int Pg, int NG, int Dc, int NC, int Wc,
                                 long long RB, int R, int threads, int smem,
                                 int with_hist, void* stream) {
+  const bool fixed = ex != nullptr;
   if (K < 1 || P < 1 || Pg < 1 || NG < 1 || NC < 1 || R < 1 || R > 65535 ||
       RB < 1 || threads % 32 || threads < 32 || threads > 512 ||
-      N >= (1LL << 31) || (with_hist && (Dc < 1 || Dc > 32767 || Wc < 1 || NB > 127)) ||
-      (size_t)smem != hist_smem(Pg, Wc, NB, S, threads, with_hist) ||
-      (long long)K * NG * NC > 0x7fffffffLL)
+      N >= (1LL << 31) ||
+      (with_hist && (Dc < 1 || Dc > 32767 || Wc < 1 || NB > 127)) ||
+      (size_t)smem != hist_smem(Pg, Wc, NB, S, threads, with_hist,
+                                fixed ? 8 : 4) ||
+      (long long)K * NG * NC > 0x7fffffffLL ||
+      (fixed && (tot64 == nullptr || (with_hist && hist64 == nullptr))))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const size_t sz = (size_t)smem;
-  if (S <= 3)
-    return launch_sr<3>(B, row_node, stats, node_mask, hist, totals, N, D, NB,
-                        S, K, offset, P, Pg, NG, Dc, NC, Wc, RB, R, threads,
-                        sz, with_hist, s);
-  if (S <= 5)
-    return launch_sr<5>(B, row_node, stats, node_mask, hist, totals, N, D, NB,
-                        S, K, offset, P, Pg, NG, Dc, NC, Wc, RB, R, threads,
-                        sz, with_hist, s);
-  return launch_sr<8>(B, row_node, stats, node_mask, hist, totals, N, D, NB,
-                      S, K, offset, P, Pg, NG, Dc, NC, Wc, RB, R, threads, sz,
-                      with_hist, s);
+  if (!fixed)
+    return launch_c<float>(B, row_node, stats, node_mask, nullptr, hist,
+                           totals, N, D, NB, S, K, offset, P, Pg, NG, Dc, NC,
+                           Wc, RB, R, threads, sz, with_hist, s);
+  int err = launch_c<fixed_t>(B, row_node, stats, node_mask, ex, hist64,
+                              tot64, N, D, NB, S, K, offset, P, Pg, NG, Dc,
+                              NC, Wc, RB, R, threads, sz, with_hist, s);
+  if (err) return err;
+  if (with_hist) {
+    const long long cells = (long long)P * D * NB * S;
+    err = fixed_convert(hist64, hist, ex, K, cells, 0, cells, S, s);
+    if (err) return err;
+  }
+  return fixed_convert(tot64, totals, ex, K, (long long)P * S, 0,
+                       (long long)P * S, S, s);
 }

@@ -3,7 +3,22 @@
 // [Pg][Wc][SS] cells (each node's "slots": the features of a feature
 // chunk, or with a node mask only those of the node's subset, compacted;
 // a slot holds NB bins x sc statistics at stride SS >= NB·sc) and [Pg][sc]
-// totals, f32 or, where every statistic is an integer, int32.
+// totals.
+//
+// The cells' type C follows the launch's statistics
+// (models/tree_kernels.hist_scale reads them once a fit):
+//   - every statistic an integer and every lane's sums below 2^24 (a
+//     classification forest's counts): f32 cells in tree_hist.cu, int32
+//     cells in tree_hist_deep.cu — exact in any order;
+//   - otherwise (GBT's (w, g, h), a regression forest's (w, wy, wy²)):
+//     fixed point.  Each (lane, statistic) has a power-of-two scale 2^e
+//     with max|v|·2^e·N <= 2^62, each row's value is rounded once to the
+//     integer v·2^e and the cells are 64-bit integers, each added as two
+//     32-bit integer adds with the carry (shared_add; shared float adds
+//     are compare-and-swap loops).
+//     An integer sum does not depend on the order of its adds, so every
+//     launch gives the same bits; one conversion writes each sum, rounded
+//     once to f32, times 2^-e.
 //
 //   hist_build_slots  each node's slots from its mask, in feature order;
 //   hist_row          one row's statistics into its node's slots (and, for a
@@ -11,7 +26,8 @@
 //   hist_flush_totals the node totals: a node's total is the sum over the
 //                     bins of its first slot (every live row of the node
 //                     added into exactly one of them), plus the rows added
-//                     one by one where the node has no slot.
+//                     one by one where the node has no slot;
+//   fixed_convert     the 64-bit sums of a range of cells to f32.
 //
 // Adding zero changes no sum, so rows and statistics that are zero are
 // skipped wherever that saves an atomic.
@@ -19,16 +35,68 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+typedef unsigned long long fixed_t;   // a fixed-point cell (two's complement)
+
+// 2^e as a double, for -1022 <= e <= 1023
+__device__ __forceinline__ double pow2(int e) {
+  return __longlong_as_double((long long)(1023 + e) << 52);
+}
+
+// a fixed-point sum as f32: rounded once, then scaled (exactly) by 2^-e
+__device__ __forceinline__ float fixed_f32(fixed_t s, int e) {
+  return ldexpf(__ll2float_rn((long long)s), -e);
+}
+
+// a statistic's value in a cell of type C (e: its fixed-point exponent),
+// and (tree_hist_deep's cells) a cell's sum as f32
+template <typename C> struct Cell;
+template <> struct Cell<float> {
+  static __device__ __forceinline__ float of(float v, int) { return v; }
+};
+template <> struct Cell<int> {
+  static __device__ __forceinline__ int of(float v, int) { return (int)v; }
+  static __device__ __forceinline__ float f32(int v, int) { return (float)v; }
+};
+template <> struct Cell<fixed_t> {
+  // v·2^e is exact in f64; rounded once, to nearest even
+  static __device__ __forceinline__ fixed_t of(float v, int e) {
+    return (fixed_t)__double2ll_rn((double)v * pow2(e));
+  }
+  static __device__ __forceinline__ float f32(fixed_t v, int e) {
+    return fixed_f32(v, e);
+  }
+};
+
+// v added into the shared cell h: atomicAdd for f32 and int32 cells; a
+// 64-bit cell as two 32-bit adds — the low word's, whose carry (the old
+// word plus v's low half wrapping past 2^32) joins the high word's add.
+// atomicAdd on a shared u64 measured 1.7x slower (tree_hist_deep at GBT
+// level 11, 6 lanes: 4.46 against 2.63 ms, "NVIDIA H100 80GB HBM3, 700.00
+// W", scripts/tree_hist_time.py).  Each wrap is counted by the add that
+// made it, so the cell's 64-bit sum is exact once the block syncs.
+template <typename C>
+__device__ __forceinline__ void shared_add(C* h, C v) { atomicAdd(h, v); }
+template <>
+__device__ __forceinline__ void shared_add<fixed_t>(fixed_t* h, fixed_t v) {
+  unsigned* w = (unsigned*)h;                    // little endian: lo, hi
+  const unsigned lo = (unsigned)v;
+  unsigned hi = (unsigned)(v >> 32);
+  if (lo) {
+    const unsigned old = atomicAdd(w, lo);
+    hi += old + lo < old;
+  }
+  if (hi) atomicAdd(w + 1, hi);
+}
+
 // the cells of one row: its statistics j0..j0+SR into the slots of node p
 // (smem cells [Pg][Wc][SS], slot stride SS >= NB·S: bin b's S statistics
-// at b·S).  C is the cells' type: float, or int where every statistic is
-// an integer (native shared atomics; float adds are CAS loops).  PRE: a
-// masked row's bins of its first 8 slots are loaded before its adds.
-template <int SR, typename C = float, bool PRE = false>
+// at b·S), cv their cell values.  PRE: a masked row's bins of its first 8
+// slots are loaded before its adds.
+template <int SR, typename C, bool PRE = false>
 __device__ __forceinline__ void add_row(
     C* __restrict__ hcell, const int8_t* __restrict__ brow,
     const int16_t* __restrict__ flist, int cnt, int p, int Wc, int SS, int S,
-    int j0, const float (&sv)[SR], int d0, int dc, bool masked, bool words,
+    int j0, const C (&cv)[SR], int d0, int dc, bool masked, bool words,
     int rot) {
   const int cell0 = p * Wc;
   if (masked) {
@@ -56,7 +124,7 @@ __device__ __forceinline__ void add_row(
       C* h = hcell + (cell0 + t) * SS + b * S + j0;
 #pragma unroll
       for (int j = 0; j < SR; ++j)
-        if (sv[j] != 0.f) atomicAdd(h + j, (C)sv[j]);
+        if (cv[j] != (C)0) shared_add(h + j, cv[j]);
     }
     return;
   }
@@ -80,7 +148,7 @@ __device__ __forceinline__ void add_row(
         C* h = hcell + (cell0 + 4 * q + u) * SS + b * S + j0;
 #pragma unroll
         for (int j = 0; j < SR; ++j)
-          if (sv[j] != 0.f) atomicAdd(h + j, (C)sv[j]);
+          if (cv[j] != (C)0) shared_add(h + j, cv[j]);
       }
     }
     t = 4 * nw4;
@@ -90,7 +158,7 @@ __device__ __forceinline__ void add_row(
     C* h = hcell + (cell0 + t) * SS + b * S + j0;
 #pragma unroll
     for (int j = 0; j < SR; ++j)
-      if (sv[j] != 0.f) atomicAdd(h + j, (C)sv[j]);
+      if (cv[j] != (C)0) shared_add(h + j, cv[j]);
   }
 }
 
@@ -120,36 +188,40 @@ __device__ __forceinline__ void hist_build_slots(
 
 // one live row (statistics s[0..sc), bins brow) of node p: into the node's
 // totals where it has no slot here (cnt == 0, and the block adds totals),
-// and into its slots' cells (slot stride SS), SR statistics a pass
-template <int SR, typename C = float, bool PRE = false>
+// and into its slots' cells (slot stride SS), SR statistics a pass; ex:
+// the statistics' fixed-point exponents (shared memory)
+template <int SR, typename C, bool PRE = false>
 __device__ __forceinline__ void hist_row(
     C* __restrict__ hcell, C* __restrict__ tot,
     const int8_t* __restrict__ brow, const float* __restrict__ s, int sc,
-    const int16_t* __restrict__ flist, int cnt, int p, int Wc, int SS,
-    int d0, int dc, bool masked, bool words, bool with_hist, bool do_tot,
-    int rot) {
+    const int* __restrict__ ex, const int16_t* __restrict__ flist, int cnt,
+    int p, int Wc, int SS, int d0, int dc, bool masked, bool words,
+    bool with_hist, bool do_tot, int rot) {
   if (do_tot && cnt == 0)
     for (int j = 0; j < sc; ++j) {
-      const float v = __ldg(s + j);
-      if (v != 0.f) atomicAdd(tot + p * sc + j, (C)v);
+      const C v = Cell<C>::of(__ldg(s + j), ex[j]);
+      if (v != (C)0) shared_add(tot + p * sc + j, v);
     }
   if (!with_hist) return;
   for (int j0 = 0; j0 < sc; j0 += SR) {
-    float sv[SR];
+    C cv[SR];
 #pragma unroll
-    for (int j = 0; j < SR; ++j) sv[j] = j0 + j < sc ? __ldg(s + j0 + j) : 0.f;
-    add_row<SR, C, PRE>(hcell, brow, flist, cnt, p, Wc, SS, sc, j0, sv, d0,
+    for (int j = 0; j < SR; ++j)
+      cv[j] = j0 + j < sc ? Cell<C>::of(__ldg(s + j0 + j), ex[j0 + j])
+                          : (C)0;
+    add_row<SR, C, PRE>(hcell, brow, flist, cnt, p, Wc, SS, sc, j0, cv, d0,
                         dc, masked, words, rot);
   }
 }
 
 // the totals of nodes 0..pn-1 into gt (node p's statistic j at
-// gt[p * S_out + j]; f32 atomics of the non-zero sums): tot plus, for a
-// node with a slot here (masked ? cnt_s[p] : dc) > 0, its first slot's
-// bins (slot stride SS)
-template <typename C = float>
+// gt[p * S_out + j], atomics of the non-zero sums; G: f32 for integer
+// cells, whose sums are exact, fixed_t for fixed-point ones): tot plus,
+// for a node with a slot here (masked ? cnt_s[p] : dc) > 0, its first
+// slot's bins (slot stride SS)
+template <typename C, typename G>
 __device__ __forceinline__ void hist_flush_totals(
-    float* __restrict__ gt, int S_out, const C* __restrict__ tot,
+    G* __restrict__ gt, int S_out, const C* __restrict__ tot,
     const C* __restrict__ hcell, const int* __restrict__ cnt_s, int pn,
     int Wc, int SS, int NB, int sc, bool masked, int dc, bool with_hist) {
   for (int i = threadIdx.x; i < pn * sc; i += blockDim.x) {
@@ -157,6 +229,33 @@ __device__ __forceinline__ void hist_flush_totals(
     C v = tot[i];
     if (with_hist && (masked ? cnt_s[p] : dc) > 0)
       for (int b = 0; b < NB; ++b) v += hcell[p * Wc * SS + b * sc + j];
-    if (v != (C)0) atomicAdd(gt + (long long)p * S_out + j, (float)v);
+    if (v != (C)0) atomicAdd(gt + (long long)p * S_out + j, (G)v);
   }
+}
+
+// cells [k][lo, lo + n) of K lanes (lane stride `stride` cells, statistic
+// j = cell % S, exponents ex[k·S + j]): the 64-bit sums of src as f32 in
+// dst
+__global__ void __launch_bounds__(256) fixed_convert_kernel(
+    const fixed_t* __restrict__ src, float* __restrict__ dst,
+    const int* __restrict__ ex, int K, long long stride, long long lo,
+    long long n, int S) {
+  const long long total = (long long)K * n;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const long long k = i / n;
+    const long long c = k * stride + lo + (i - k * n);
+    dst[c] = fixed_f32(src[c], __ldg(ex + k * S + (int)(c % S)));
+  }
+}
+
+static int fixed_convert(const void* src, void* dst, const void* ex, int K,
+                         long long stride, long long lo, long long n, int S,
+                         cudaStream_t s) {
+  if (K < 1 || n < 1) return 0;
+  const long long need = ((long long)K * n + 255) / 256;
+  const long long blocks = need < 132 * 16 ? need : 132 * 16;
+  fixed_convert_kernel<<<(unsigned)blocks, 256, 0, s>>>(
+      (const fixed_t*)src, (float*)dst, (const int*)ex, K, stride, lo, n, S);
+  return (int)cudaGetLastError();
 }

@@ -28,10 +28,8 @@
 //    group's block reads its rows' records coalesced instead of gathering
 //    them from rows that the other groups' rows sit between (a gather
 //    re-reads, per group, nearly every sector of the lane: 5x at level 8,
-//    35x at level 11).  Row order within a group is free: a forest's
-//    statistics are integer counts, exact in any order, and other sums
-//    are held to 1e-5 of their mass.  The partition also notes whether
-//    every statistic of a lane is an integer (info).
+//    35x at level 11).  Row order within a group is free: every cell sums
+//    integers (below).
 // 2. deep_group_rows_kernel — each lane's largest group and all live rows,
 //    which the wrapper reads back (one wait for the card) to choose R, the
 //    blocks that share a group's segments (see tree_hist_deep_partition).
@@ -42,17 +40,24 @@
 //    shared memory (tree_hist.cuh: the slot layout, add_row and the
 //    node-total rule of tree_hist.cu).  A slot's stride is odd (NB·S + 1
 //    where that is even), so the same bin of different slots falls in
-//    different banks; a lane whose statistics are all integers — a
-//    forest's Poisson counts — adds into int32 cells, because
-//    shared-memory float adds are compare-and-swap loops and int adds are
-//    native, and its sums are exact.  Where one block holds all of the
-//    group's rows (R = 1) it writes every cell of its nodes in the chunk,
-//    kept cells and zeros, with plain coalesced stores (a warp a node, 32
+//    different banks (for 8-byte cells, different bank pairs).  Shared
+//    float adds are compare-and-swap loops and integer adds are native,
+//    and integer sums are exact in any order: a launch whose statistics
+//    are all integers with sums below 2^24 (a forest's Poisson counts)
+//    adds into int32 cells, any other into 64-bit fixed-point cells
+//    (tree_hist.cuh: each row's value rounded once to v·2^e), so a GBT's
+//    or a regression forest's level sums to the same bits on every
+//    launch.  Where one block holds all of the group's rows (R = 1) it
+//    writes every cell of its nodes in the chunk, kept cells and zeros,
+//    converted to f32, with plain coalesced stores (a warp a node, 32
 //    consecutive floats a store), so nothing zero-fills the histogram;
-//    with R > 1 the launch zeroes the window's cells and the blocks add
-//    their non-zero cells with atomics.  Cells outside a node's subset
-//    read 0 either way.  Chunk-0 blocks add the node totals (f32 atomics
-//    into zeroed totals).
+//    with R > 1 the launch zeroes the window's cells of the integer sums
+//    (the f32 histogram itself for int32 cells, hist64 for fixed point),
+//    the blocks add their non-zero cells with atomics, and fixed-point
+//    sums are converted once after.  Cells outside a node's subset read
+//    0 either way.  Chunk-0 blocks add the node totals (atomics into
+//    zeroed totals: f32 of exact integer sums, or tot64, converted after
+//    the last window).
 //
 // A level past HIST_DEEP_MAX_GROUPS groups (beyond 2,048 nodes) is
 // launched in windows of nodes, a partition and a launch each (int16 group
@@ -113,8 +118,7 @@ __device__ void scan_groups(int* __restrict__ a, int n, int* __restrict__ ws,
 __global__ void __launch_bounds__(PART_THREADS) deep_partition_kernel(
     const int32_t* __restrict__ row_node, const float* __restrict__ stats,
     int32_t* __restrict__ idx, int16_t* __restrict__ pl,
-    float* __restrict__ ss, int2* __restrict__ runs, int2* __restrict__ info,
-    long long N, int S, int first, int Pn, int Pg, int NG, int SEG,
+    float* __restrict__ ss, int2* __restrict__ runs, long long N, int S, int first, int Pn, int Pg, int NG, int SEG,
     int nseg) {
   extern __shared__ int psm[];
   int* cnt = psm;                                   // [NG]
@@ -129,8 +133,6 @@ __global__ void __launch_bounds__(PART_THREADS) deep_partition_kernel(
   const int32_t* rn = row_node + k * N + n0;
   const float* sk = stats + (k * N + n0) * S;
   const int lane = threadIdx.x & 31;
-  bool frac = false;                     // a statistic that is no integer
-  float vmax = 0.f;                      // (below 2^24) in the level
   // PART_UNROLL rows a thread at once, their node ids and statistics
   // loaded together; a warp's rows of one group take one counter atomic
   // (match_any)
@@ -152,8 +154,6 @@ __global__ void __launch_bounds__(PART_THREADS) deep_partition_kernel(
         const float raw = __ldg(s + j);            // not waiting on node[u]
         const float v = in ? raw : 0.f;
         live[u] |= v != 0.f;
-        frac |= v != rintf(v) || !(fabsf(v) < 16777216.f);
-        vmax = fmaxf(vmax, fabsf(v));
       }
     }
 #pragma unroll
@@ -166,10 +166,6 @@ __global__ void __launch_bounds__(PART_THREADS) deep_partition_kernel(
         atomicAdd(cnt + g, __popc(peers));
     }
   }
-  // the lane's statistics: all integers, and their largest magnitude
-  if (__any_sync(0xffffffffu, frac) && lane == 0) atomicOr(&info[k].x, 1);
-  const int vm = __reduce_max_sync(0xffffffffu, frac ? 0 : (int)vmax);
-  if (lane == 0 && vm > 0) atomicMax(&info[k].y, vm);
   __syncthreads();
   scan_groups(cnt, NG, ws, runs + k * NG * nseg + blockIdx.x, nseg);
   __syncthreads();
@@ -240,18 +236,22 @@ __global__ void __launch_bounds__(256) deep_group_rows_kernel(
 // 2. the group histograms
 // ---------------------------------------------------------------------------
 
-// one block's work with cells of type C (float, or int for a lane whose
-// statistics are all integers: native shared atomics, exact sums)
-template <int SR, typename C>
+// one block's work with cells of type C: int (a launch whose statistics
+// are all integers, sums below 2^24: their f32 atomics into G = float
+// device memory are exact) or fixed_t (fixed point: G = fixed_t sums in
+// hacc / tacc, converted after).  hist: the f32 histogram the owner block
+// (R = 1) writes whole; hacc: the sums the R > 1 blocks add into; ex: the
+// lane's statistics' exponents (fixed point)
+template <int SR, typename C, typename G>
 __device__ __forceinline__ void deep_block(
     C* __restrict__ hcell, const int8_t* __restrict__ B,
     const uint8_t* __restrict__ node_mask, const int32_t* __restrict__ idx,
     const int16_t* __restrict__ pl, const float* __restrict__ ss,
-    const int2* __restrict__ runs, float* __restrict__ hist,
-    float* __restrict__ totals, long long N, int D, int NB, int S, int P,
-    int wlo, int Pg, int pn, int p0, int g, int NG, int d0, int dc, int s_lo,
-    int sc, int Wc, int SS, int SEG, int nseg, int R, long long k,
-    bool masked, bool with_hist) {
+    const int2* __restrict__ runs, const int* __restrict__ ex,
+    float* __restrict__ hist, G* __restrict__ hacc, G* __restrict__ tacc,
+    long long N, int D, int NB, int S, int P, int wlo, int Pg, int pn,
+    int p0, int g, int NG, int d0, int dc, int s_lo, int sc, int Wc, int SS,
+    int SEG, int nseg, int R, long long k, bool masked, bool with_hist) {
   const int2* rk = runs + (k * NG + g) * nseg;
   const int b0 = (int)((long long)blockIdx.y * nseg / R);
   const int b1 = (int)((long long)(blockIdx.y + 1) * nseg / R);
@@ -264,9 +264,12 @@ __device__ __forceinline__ void deep_block(
   const int hsize = with_hist ? Pg * Wc * SS : 0;
   C* tot = hcell + hsize;                        // [Pg][sc]
   int* cnt_s = (int*)(tot + Pg * sc);            // [Pg]
-  int16_t* flist = (int16_t*)(cnt_s + Pg);       // [Pg][Wc] features - d0
+  int* exs = cnt_s + Pg;                         // [sc] exponents
+  int16_t* flist = (int16_t*)(exs + sc);         // [Pg][Wc] features - d0
   for (int i = threadIdx.x; i < hsize + Pg * sc; i += blockDim.x)
     hcell[i] = (C)0;
+  for (int i = threadIdx.x; i < sc; i += blockDim.x)
+    exs[i] = ex != nullptr ? ex[k * S + s_lo + i] : 0;
   const long long node0 = k * P + wlo + p0;      // the group's first cell row
   if (masked)
     hist_build_slots(node_mask + node0 * D, Pg, pn, D, d0, dc, Wc, flist,
@@ -289,20 +292,21 @@ __device__ __forceinline__ void deep_block(
       const int p = __ldg(pl + a);
       const int cnt = !with_hist ? 0 : masked ? cnt_s[p] : dc;
       hist_row<SR, C, true>(hcell, tot, B + (long long)n * D,
-                            ss + a * S + s_lo, sc, flist, cnt, p, Wc, SS, d0,
-                            dc, masked, words, with_hist, do_tot, lane);
+                            ss + a * S + s_lo, sc, exs, flist, cnt, p, Wc,
+                            SS, d0, dc, masked, words, with_hist, do_tot,
+                            lane);
     }
   }
   __syncthreads();
 
-  // the cells of the block's nodes in the chunk: stored whole (kept cells
-  // and zeros) where the block holds all the group's rows, else the
-  // non-zero kept cells added
+  // the cells of the block's nodes in the chunk: stored whole, as f32
+  // (kept cells and zeros), where the block holds all the group's rows,
+  // else the non-zero kept cells added into the sums
   if (with_hist) {
     const bool owner = R == 1;
     const int NBS = NB * sc;
     for (int p = warp; p < pn; p += nw) {
-      float* out = hist + ((node0 + p) * D + d0) * NB * S + s_lo;
+      const long long cell = ((node0 + p) * D + d0) * NB * S + s_lo;
       const int cnt = masked ? cnt_s[p] : dc;
       int t = 0;
       for (int dl = 0; dl < dc; ++dl) {
@@ -310,34 +314,35 @@ __device__ __forceinline__ void deep_block(
         if (masked) slot = t < cnt && flist[p * Wc + t] == dl ? t++ : -1;
         if (slot < 0 && !owner) continue;
         const C* src = hcell + (p * Wc + max(slot, 0)) * SS;
-        float* dst = out + (long long)dl * NB * S;
+        const long long c0 = cell + (long long)dl * NB * S;
         for (int e = lane; e < NBS; e += 32) {
-          const float v = slot >= 0 ? (float)src[e] : 0.f;
-          const int o = sc == S ? e : (e / sc) * S + e % sc;
+          const C v = slot >= 0 ? src[e] : (C)0;
+          const int j = e % sc;
+          const int o = sc == S ? e : (e / sc) * S + j;
           if (owner)
-            dst[o] = v;
-          else if (v != 0.f)
-            atomicAdd(dst + o, v);
+            hist[c0 + o] = Cell<C>::f32(v, exs[j]);
+          else if (v != (C)0)
+            atomicAdd(hacc + c0 + o, (G)v);
         }
       }
     }
   }
   if (do_tot)
-    hist_flush_totals<C>(totals + (k * P + wlo + p0) * S + s_lo, S, tot,
-                         hcell, cnt_s, pn, Wc, SS, NB, sc, masked, dc,
-                         with_hist);
+    hist_flush_totals<C, G>(tacc + (k * P + wlo + p0) * S + s_lo, S, tot,
+                            hcell, cnt_s, pn, Wc, SS, NB, sc, masked, dc,
+                            with_hist);
 }
 
-template <int SR>
+template <int SR, typename C, typename G>
 __global__ void __launch_bounds__(384, 2) tree_hist_deep_kernel(
     const int8_t* __restrict__ B, const uint8_t* __restrict__ node_mask,
     const int32_t* __restrict__ idx, const int16_t* __restrict__ pl,
     const float* __restrict__ ss, const int2* __restrict__ runs,
-    const int2* __restrict__ info, float* __restrict__ hist,
-    float* __restrict__ totals, long long N, int D, int NB, int S, int P,
-    int wlo, int Pn, int Pg, int NG, int Dc, int NC, int Wc, int SS, int Sc,
-    int NSC, int SEG, int nseg, int R, int with_hist) {
-  extern __shared__ float sm[];
+    const int* __restrict__ ex, float* __restrict__ hist,
+    G* __restrict__ hacc, G* __restrict__ tacc, long long N, int D, int NB,
+    int S, int P, int wlo, int Pn, int Pg, int NG, int Dc, int NC, int Wc,
+    int SS, int Sc, int NSC, int SEG, int nseg, int R, int with_hist) {
+  extern __shared__ __align__(16) unsigned char deep_sm[];
   int bx = blockIdx.x;
   const int g = bx % NG;
   bx /= NG;
@@ -353,69 +358,59 @@ __global__ void __launch_bounds__(384, 2) tree_hist_deep_kernel(
   const int s_lo = q * Sc;
   const int sc = min(Sc, S - s_lo);
   const bool masked = node_mask != nullptr && with_hist;
-  // integer cells where every statistic of the lane is an integer and no
-  // cell's sum of at most N rows can pass 2^31
-  const int2 li = info[k];
-  if (li.x == 0 && (long long)li.y * N < (1LL << 31))
-    deep_block<SR, int>((int*)sm, B, node_mask, idx, pl, ss, runs, hist,
-                        totals, N, D, NB, S, P, wlo, Pg, pn, p0, g, NG, d0,
-                        dc, s_lo, sc, Wc, SS, SEG, nseg, R, k, masked,
-                        with_hist);
-  else
-    deep_block<SR, float>(sm, B, node_mask, idx, pl, ss, runs, hist, totals,
-                          N, D, NB, S, P, wlo, Pg, pn, p0, g, NG, d0, dc,
-                          s_lo, sc, Wc, SS, SEG, nseg, R, k, masked,
-                          with_hist);
+  deep_block<SR, C, G>((C*)deep_sm, B, node_mask, idx, pl, ss, runs, ex,
+                       hist, hacc, tacc, N, D, NB, S, P, wlo, Pg, pn, p0, g,
+                       NG, d0, dc, s_lo, sc, Wc, SS, SEG, nseg, R, k, masked,
+                       with_hist);
 }
 
-// the shared-memory bytes of one block of each kernel
+// the shared-memory bytes of one block of each kernel, cells of cb bytes
 // (models/tree_kernels.hist_deep_plan adds the same terms)
-static size_t deep_smem(int Pg, int Wc, int SS, int Sc, int with_hist) {
+static size_t deep_smem(int Pg, int Wc, int SS, int Sc, int with_hist,
+                        int cb) {
   const size_t cells = (with_hist ? (size_t)Pg * Wc * SS : 0) +
                        (size_t)Pg * Sc;
-  return 4 * (cells + Pg) + (with_hist ? 2 * (size_t)Pg * Wc : 0);
+  return cb * cells + 4 * ((size_t)Pg + Sc) +
+         (with_hist ? 2 * (size_t)Pg * Wc : 0);
 }
 
 static size_t part_smem(int NG, int SEG) {
   return 4 * ((size_t)NG + 32 + (size_t)SEG) + 2 * (size_t)SEG;
 }
 
-template <int SR>
+template <int SR, typename C, typename G>
 static int launch_sr(const void* B, const void* node_mask, const void* idx,
                      const void* pl, const void* ss, const void* runs,
-                     const void* info, void* hist, void* totals, long long N,
-                     int D, int NB, int S, int K, int P, int wlo, int Pn,
-                     int Pg, int NG, int Dc, int NC, int Wc, int SS, int Sc,
-                     int NSC, int SEG, int nseg, int R, int threads,
+                     const void* ex, void* hist, void* hacc, void* tacc,
+                     long long N, int D, int NB, int S, int K, int P, int wlo,
+                     int Pn, int Pg, int NG, int Dc, int NC, int Wc, int SS,
+                     int Sc, int NSC, int SEG, int nseg, int R, int threads,
                      size_t smem, int with_hist, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      tree_hist_deep_kernel<SR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      tree_hist_deep_kernel<SR, C, G>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((long long)K * NG * NC * NSC), R);
-  tree_hist_deep_kernel<SR><<<grid, threads, smem, s>>>(
+  tree_hist_deep_kernel<SR, C, G><<<grid, threads, smem, s>>>(
       (const int8_t*)B, (const uint8_t*)node_mask, (const int32_t*)idx,
       (const int16_t*)pl, (const float*)ss, (const int2*)runs,
-      (const int2*)info, (float*)hist, (float*)totals, N, D, NB, S, P, wlo,
+      (const int*)ex, (float*)hist, (G*)hacc, (G*)tacc, N, D, NB, S, P, wlo,
       Pn, Pg, NG, Dc, NC, Wc, SS, Sc, NSC, SEG, nseg, R, with_hist);
   return (int)cudaGetLastError();
 }
 
 // The first stage of one window of nodes [wlo, wlo + Pn) of a level at
 // heap offset `offset`: the partition into the wrapper's scratch — the
-// records idx int32 [K, N], pl int16 [K, N] and ss f32 [K, N, S], runs
-// int2 [K, NG, nseg] and info int2 [K] (zeroed: each lane's non-integer
-// flag and largest statistic) — and stat uint64 [2] (zeroed here): the
-// largest group's rows and all live rows.  The wrapper reads stat back
-// (one wait for the card) and chooses R from it
-// (models/tree_kernels.hist_deep_split): rows concentrate in a few nodes
-// of a deep level of a real tree, and one block a group would leave those
-// groups' blocks with nearly all the work.
+// records idx int32 [K, N], pl int16 [K, N] and ss f32 [K, N, S] and runs
+// int2 [K, NG, nseg] — and stat uint64 [2] (zeroed here): the largest
+// group's rows and all live rows.  The wrapper reads stat back (one wait
+// for the card) and chooses R from it (models/tree_kernels.hist_deep_split):
+// rows concentrate in a few nodes of a deep level of a real tree, and one
+// block a group would leave those groups' blocks with nearly all the work.
 extern "C" int tree_hist_deep_partition(
     const void* row_node, const void* stats, void* idx, void* pl, void* ss,
-    void* runs, void* info, void* stat, long long N, int S, int K,
-    int offset, int Pn, int Pg, int NG, int SEG, int nseg, int psmem,
-    void* stream) {
+    void* runs, void* stat, long long N, int S, int K, int offset, int Pn,
+    int Pg, int NG, int SEG, int nseg, int psmem, void* stream) {
   if (K < 1 || K > 65535 || N < 1 || N >= (1LL << 31) || S < 1 || Pg < 1 ||
       Pg > 32768 || NG < 1 || NG > HIST_DEEP_MAX_GROUPS ||
       (long long)Pg * NG < Pn || Pn < 1 || offset < 0 || SEG < 32 ||
@@ -430,8 +425,8 @@ extern "C" int tree_hist_deep_partition(
   deep_partition_kernel<<<dim3((unsigned)nseg, K), PART_THREADS, psmem,
                           s>>>(
       (const int32_t*)row_node, (const float*)stats, (int32_t*)idx,
-      (int16_t*)pl, (float*)ss, (int2*)runs, (int2*)info, N, S, offset, Pn,
-      Pg, NG, SEG, nseg);
+      (int16_t*)pl, (float*)ss, (int2*)runs, N, S, offset, Pn, Pg, NG, SEG,
+      nseg);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   unsigned long long* st = (unsigned long long*)stat;
@@ -442,16 +437,23 @@ extern "C" int tree_hist_deep_partition(
 }
 
 // The histograms of the window [wlo, wlo + Pn) from its partition, R
-// blocks sharing each group's segments; with R > 1 the window's cells of
-// hist are zeroed here and the blocks add into them, with R = 1 each block
-// writes its nodes' cells whole.  totals: zeroed by the wrapper.
+// blocks sharing each group's segments.  ex null: every statistic an
+// integer with sums below 2^24 — int32 cells, their sums added into hist
+// (R > 1: its window's cells zeroed here) and totals (zeroed by the
+// wrapper) as f32.  ex int32 [K, S] (the fixed-point exponents): 64-bit
+// cells; with R > 1 the window's cells of hist64 are zeroed here, the
+// blocks add into them and they are converted into hist after; the totals'
+// sums go into tot64 (zeroed by the wrapper), converted into totals when
+// `last` (the level's last window).  With R = 1 each block writes its
+// nodes' cells of hist whole.
 extern "C" int tree_hist_deep_launch(
     const void* B, const void* node_mask, const void* idx, const void* pl,
-    const void* ss, const void* runs, const void* info, void* hist,
-    void* totals, long long N, int D, int NB, int S, int K, int P, int wlo,
-    int Pn, int Pg, int NG, int Dc, int NC, int Wc, int SS, int Sc, int NSC,
-    int SEG, int nseg, int R, int threads, int smem, int with_hist,
-    void* stream) {
+    const void* ss, const void* runs, const void* ex, void* hist,
+    void* totals, void* hist64, void* tot64, long long N, int D, int NB,
+    int S, int K, int P, int wlo, int Pn, int Pg, int NG, int Dc, int NC,
+    int Wc, int SS, int Sc, int NSC, int SEG, int nseg, int R, int threads,
+    int smem, int with_hist, int last, void* stream) {
+  const bool fixed = ex != nullptr;
   if (K < 1 || K > 65535 || N < 1 || N >= (1LL << 31) || S < 1 || Pg < 1 ||
       Pg > 32768 || NG < 1 || NG > HIST_DEEP_MAX_GROUPS ||
       (long long)Pg * NG < Pn || Pn < 1 || wlo < 0 || wlo + Pn > P ||
@@ -462,25 +464,48 @@ extern "C" int tree_hist_deep_launch(
       (with_hist && (Dc < 1 || Dc > 32767 || NC < 1 ||
                      (long long)Dc * NC < D || Wc < 1 || NB > 127 ||
                      SS < NB * Sc)) ||
-      (size_t)smem != deep_smem(Pg, Wc, SS, Sc, with_hist) ||
-      (long long)K * NG * NC * NSC > 0x7fffffffLL)
+      (size_t)smem != deep_smem(Pg, Wc, SS, Sc, with_hist, fixed ? 8 : 4) ||
+      (long long)K * NG * NC * NSC > 0x7fffffffLL ||
+      (fixed && (tot64 == nullptr ||
+                 (R > 1 && with_hist && hist64 == nullptr))))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  const size_t node_cells = (size_t)D * NB * S;
+  void* hacc = fixed ? hist64 : hist;
+  void* tacc = fixed ? tot64 : totals;
   if (R > 1 && with_hist) {
-    const size_t cell = (size_t)D * NB * S * sizeof(float);   // a node
+    const size_t cb = fixed ? 8 : 4;
     const cudaError_t err = cudaMemset2DAsync(
-        (float*)hist + (size_t)wlo * D * NB * S, (size_t)P * cell, 0,
-        (size_t)Pn * cell, K, s);
+        (char*)hacc + cb * wlo * node_cells, cb * P * node_cells, 0,
+        cb * Pn * node_cells, K, s);
     if (err != cudaSuccess) return (int)err;
   }
   const int nc = with_hist ? NC : 1;
   const size_t sz = (size_t)smem;
-#define DEEP(SR_)                                                           \
-  return launch_sr<SR_>(B, node_mask, idx, pl, ss, runs, info, hist, totals, \
-                        N, D, NB, S, K, P, wlo, Pn, Pg, NG, Dc, nc, Wc, SS,  \
-                        Sc, NSC, SEG, nseg, R, threads, sz, with_hist, s)
-  if (Sc <= 3) DEEP(3);
-  if (Sc <= 5) DEEP(5);
-  DEEP(8);
+  int err;
+#define DEEP(SR_, C_, G_)                                                    \
+  err = launch_sr<SR_, C_, G_>(B, node_mask, idx, pl, ss, runs, ex, hist,     \
+                               hacc, tacc, N, D, NB, S, K, P, wlo, Pn, Pg,    \
+                               NG, Dc, nc, Wc, SS, Sc, NSC, SEG, nseg, R,     \
+                               threads, sz, with_hist, s)
+  if (!fixed) {
+    if (Sc <= 3) DEEP(3, int, float);
+    else if (Sc <= 5) DEEP(5, int, float);
+    else DEEP(8, int, float);
+    return err;
+  }
+  if (Sc <= 3) DEEP(3, fixed_t, fixed_t);
+  else if (Sc <= 5) DEEP(5, fixed_t, fixed_t);
+  else DEEP(8, fixed_t, fixed_t);
 #undef DEEP
+  if (err) return err;
+  if (R > 1 && with_hist) {
+    err = fixed_convert(hist64, hist, ex, K, (long long)(P * node_cells),
+                        (long long)(wlo * node_cells),
+                        (long long)(Pn * node_cells), S, s);
+    if (err) return err;
+  }
+  return last ? fixed_convert(tot64, totals, ex, K, (long long)P * S, 0,
+                              (long long)P * S, S, s)
+              : 0;
 }

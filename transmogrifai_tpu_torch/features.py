@@ -2,9 +2,10 @@
 reference: FeatureLike.scala:50, FeatureBuilder.scala:48).
 
 A ``Feature`` is a lazy symbolic column: name + kind + origin stage + parents.
-The workflow reconstructs the stage DAG by DFS over ``parent_stages``.  This
-slice carries the DSL sugar the dense main path uses: ``transmogrify`` and
-``sanity_check``.
+The workflow reconstructs the stage DAG by DFS over ``parent_stages``.  The
+DSL sugar the port carries: ``transmogrify``, ``sanity_check``, the
+bucketizers' ``auto_bucketize``, ``bucketize``, ``scale`` and ``descale``, and
+the dates' ``to_unit_circle`` and ``to_time_period``.
 """
 
 from __future__ import annotations
@@ -85,6 +86,40 @@ class Feature:
         st = SanityChecker(**kw)
         st.set_input(self, feature_vector)
         return st.get_output()
+
+    def auto_bucketize(self, label: "Feature", **kw) -> "Feature":
+        """Label-driven decision-tree bucketization
+        (≙ RichNumericFeature.autoBucketize)."""
+        from .ops.bucketizers import DecisionTreeNumericBucketizer
+        st = DecisionTreeNumericBucketizer(**kw)
+        st.set_input(label, self)
+        return st.get_output()
+
+    def bucketize(self, splits, **kw) -> "Feature":
+        """Fixed-split bucketization (≙ RichNumericFeature.bucketize)."""
+        from .ops.bucketizers import NumericBucketizer
+        return self.transform_with(NumericBucketizer(splits=splits, **kw))
+
+    def scale(self, scaling_type: str = "Linear", scaling_args=None,
+              **kw) -> "Feature":
+        from .ops.bucketizers import ScalerTransformer
+        return self.transform_with(ScalerTransformer(
+            scaling_type=scaling_type, scaling_args=scaling_args, **kw))
+
+    def descale(self, scaled: "Feature", **kw) -> "Feature":
+        from .ops.bucketizers import DescalerTransformer
+        return self.transform_with(DescalerTransformer(**kw), scaled)
+
+    def to_unit_circle(self, **kw) -> "Feature":
+        """sin / cos of date periods (≙ RichDateFeature.toUnitCircle)."""
+        from .ops.dates import DateToUnitCircleVectorizer
+        return self.transform_with(DateToUnitCircleVectorizer(**kw))
+
+    def to_time_period(self, period: str = "DayOfWeek") -> "Feature":
+        """A date's period as an integral (≙ RichDateFeature
+        .toTimePeriod)."""
+        from .ops.dates import TimePeriodTransformer
+        return self.transform_with(TimePeriodTransformer(period=period))
 
 
 class FeatureBuilder:

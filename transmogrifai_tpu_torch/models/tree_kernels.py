@@ -24,8 +24,8 @@ from .kernels import check as _check, launch, stream as _stream
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "tree_hist": [_P] * 6 + [_L] + [_I] * 11 + [_L] + [_I] * 4 + [_P],
-    "tree_hist_deep": [_P] * 9 + [_L] + [_I] * 21 + [_P],
+    "tree_hist": [_P] * 9 + [_L] + [_I] * 11 + [_L] + [_I] * 4 + [_P],
+    "tree_hist_deep": [_P] * 11 + [_L] + [_I] * 22 + [_P],
     "tree_split": [_P] * 18 + [_I] * 11 + [_P],
     "tree_split_gini": [_P] * 17 + [_I] * 15 + [_P],
     "tree_split_variance": [_P] * 17 + [_I] * 15 + [_P],
@@ -61,7 +61,10 @@ WALK_X_SMEM = 64 * 1024           # the most bytes of X rows a walk block stages
 WALK_TOP = 15                     # the most nodes a tree a walk block stages
 
 
-_PARTITION_ARGTYPES = [_P] * 8 + [_L] + [_I] * 9 + [_P]
+_PARTITION_ARGTYPES = [_P] * 7 + [_L] + [_I] * 9 + [_P]
+FIXED_POINT_BITS = 62             # max|v|·2^e·N stays within 2^62
+INTEGER_SUM_LIMIT = 1 << 23       # integer cells: f32 sums of magnitudes
+                                  # below it (a cell's sum below 2^24)
 
 
 def _launch(name: str, *args) -> None:
@@ -180,24 +183,28 @@ def gini_split_plan(K: int, P: int, D: int, n_bins: int, C: int,
 # --------------------------------------------------------------------------
 
 def _hist_smem(Pg: int, Wc: int, n_bins: int, S: int, threads: int,
-               with_hist: bool) -> int:
+               with_hist: bool, cell_bytes: int = 4) -> int:
     """Shared-memory bytes of one ``tree_hist`` block (``csrc/tree_hist.cu``'s
     ``hist_smem`` adds the same terms): the group's cells [Pg, Wc, NB, S]
-    and totals [Pg, S] (f32), each warp's queue of (row, node) and the
-    nodes' slot counts (int32), the slots' features (int16)."""
-    floats = (Pg * Wc * n_bins * S if with_hist else 0) + Pg * S
-    ints = threads // 32 * 2 * HIST_QUEUE + Pg
-    return 4 * (floats + ints) + 2 * Pg * Wc
+    and totals [Pg, S] (f32, or 8-byte fixed point), each warp's queue of
+    (row, node), the nodes' slot counts and the statistics' exponents
+    (int32), the slots' features (int16)."""
+    cells = (Pg * Wc * n_bins * S if with_hist else 0) + Pg * S
+    ints = threads // 32 * 2 * HIST_QUEUE + Pg + S
+    return cell_bytes * cells + 4 * ints + 2 * Pg * Wc
 
 
 def hist_plan(N: int, D: int, K: int, P: int, n_bins: int, S: int,
-              with_hist: bool = True, width: Optional[int] = None) -> dict:
+              with_hist: bool = True, width: Optional[int] = None,
+              cell_bytes: int = 4) -> dict:
     """How ``tree_hist`` launches one level of K lanes (N rows, D features,
     P nodes, S statistics; ``width`` the most features any node's subset
-    holds, None without a node mask).  The deep route (``tree_hist_deep``,
-    sized by :func:`hist_deep_plan`) where two copies of the level's
-    P·NB·S histogram cells would not fit ``_HIST_SMEM_TARGET`` (totals
-    only: where P·S do not fit a block); else ``tree_hist`` blocks of ``HIST_THREADS`` threads, each
+    holds, None without a node mask; ``cell_bytes`` 4 for f32 or int32
+    cells, 8 for fixed point: :func:`hist_scale`).  The deep route
+    (``tree_hist_deep``, sized by :func:`hist_deep_plan`) where two copies
+    of the level's P·NB·S histogram cells would not fit
+    ``_HIST_SMEM_TARGET`` (totals only: where P·S do not fit a block);
+    else ``tree_hist`` blocks of ``HIST_THREADS`` threads, each
     holding Pg nodes x Wc slots x NB bins x S in ``HIST_SMEM_BUDGET`` (two
     blocks an SM): a node's slots are the features of its subset (at most
     ``width``) or all D, in feature chunks of Dc only where one node's
@@ -210,14 +217,15 @@ def hist_plan(N: int, D: int, K: int, P: int, n_bins: int, S: int,
     if min(N, D, K, P, n_bins, S) < 1:
         raise ValueError(f"hist_plan: N={N} D={D} K={K} P={P} "
                          f"NB={n_bins} S={S}")
-    if (P * S * 4 > _HIST_SMEM_MAX if not with_hist
-            else 2 * P * n_bins * S * 4 > _HIST_SMEM_TARGET):
-        return hist_deep_plan(N, D, K, P, n_bins, S, with_hist, width)
+    cb = cell_bytes
+    if (P * S * cb > _HIST_SMEM_MAX if not with_hist
+            else 2 * P * n_bins * S * cb > _HIST_SMEM_TARGET):
+        return hist_deep_plan(N, D, K, P, n_bins, S, with_hist, width, cb)
     threads = HIST_THREADS
     if with_hist:
         W = D if width is None else max(1, min(width, D))
         Dc = min(D, 32767)
-        while _hist_smem(1, min(W, Dc), n_bins, S, threads, True) \
+        while _hist_smem(1, min(W, Dc), n_bins, S, threads, True, cb) \
                 > HIST_SMEM_BUDGET and Dc > 1:
             Dc = -(-Dc // 2)
         Wc = min(W, Dc)
@@ -225,7 +233,7 @@ def hist_plan(N: int, D: int, K: int, P: int, n_bins: int, S: int,
         Dc, Wc = D, 0
     NC = -(-D // Dc)
     Pg = P
-    while _hist_smem(Pg, Wc, n_bins, S, threads, with_hist) \
+    while _hist_smem(Pg, Wc, n_bins, S, threads, with_hist, cb) \
             > HIST_SMEM_BUDGET and Pg > 1:
         Pg = -(-Pg // 2)
     NG = -(-P // Pg)
@@ -241,17 +249,20 @@ def hist_plan(N: int, D: int, K: int, P: int, n_bins: int, S: int,
     return {"route": "shared", "threads": threads, "Pg": Pg, "NG": NG,
             "Dc": Dc, "NC": NC, "Wc": Wc, "RB": RB, "R": R,
             "blocks": lanes * R,
-            "smem": _hist_smem(Pg, Wc, n_bins, S, threads, with_hist)}
+            "smem": _hist_smem(Pg, Wc, n_bins, S, threads, with_hist, cb)}
 
 
-def _deep_smem(Pg: int, Wc: int, SS: int, Sc: int, with_hist: bool) -> int:
+def _deep_smem(Pg: int, Wc: int, SS: int, Sc: int, with_hist: bool,
+               cell_bytes: int = 4) -> int:
     """Shared-memory bytes of one ``tree_hist_deep`` histogram block
     (``csrc/tree_hist_deep.cu``'s ``deep_smem`` adds the same terms): the
     group's cells [Pg, Wc, SS] (a slot's NB x Sc cells at stride SS) and
-    totals [Pg, Sc] (f32 or int32), the nodes' slot counts (int32) and the
-    slots' features (int16)."""
+    totals [Pg, Sc] (int32, or 8-byte fixed point), the nodes' slot counts
+    and the statistics' exponents (int32) and the slots' features
+    (int16)."""
     cells = (Pg * Wc * SS if with_hist else 0) + Pg * Sc
-    return 4 * (cells + Pg) + (2 * Pg * Wc if with_hist else 0)
+    return (cell_bytes * cells + 4 * (Pg + Sc)
+            + (2 * Pg * Wc if with_hist else 0))
 
 
 def _slot_stride(n_bins: int, Sc: int) -> int:
@@ -268,11 +279,12 @@ def _part_smem(NG: int, SEG: int) -> int:
 
 
 def hist_deep_plan(N: int, D: int, K: int, P: int, n_bins: int, S: int,
-                   with_hist: bool = True,
-                   width: Optional[int] = None) -> dict:
+                   with_hist: bool = True, width: Optional[int] = None,
+                   cell_bytes: int = 4) -> dict:
     """How ``tree_hist_deep`` launches one deep level of K lanes (N rows, D
     features, P nodes, S statistics; ``width`` the most features any node's
-    subset holds, None without a node mask).  The one place that sizes it:
+    subset holds, None without a node mask; ``cell_bytes`` 4 for int32
+    cells, 8 for fixed point).  The one place that sizes it:
 
     - a block holds Sc of the S statistics (all of them unless one slot of
       NB·S cells would not fit ``HIST_SMEM_BUDGET``: then NSC near-equal
@@ -306,21 +318,23 @@ def hist_deep_plan(N: int, D: int, K: int, P: int, n_bins: int, S: int,
     budget = HIST_SMEM_BUDGET
     W = D if width is None else max(1, min(width, D))
     Sc = S
+    cb = cell_bytes
     while (_deep_smem(1, 1 if with_hist else 0, _slot_stride(n_bins, Sc), Sc,
-                      with_hist) > budget and Sc > 1):
+                      with_hist, cb) > budget and Sc > 1):
         Sc = -(-Sc // 2)
     NSC = -(-S // Sc)
     Sc = -(-S // NSC)
     SS = _slot_stride(n_bins, Sc)
     if with_hist:
         Dc = min(D, 32767)
-        while _deep_smem(1, min(W, Dc), SS, Sc, True) > budget and Dc > 1:
+        while _deep_smem(1, min(W, Dc), SS, Sc, True, cb) > budget \
+                and Dc > 1:
             Dc = -(-Dc // 2)
         Wc, NC = min(W, Dc), -(-D // Dc)
     else:
         Dc, Wc, NC = D, 0, 1
     Pg = max(1, min(P, 32768,
-                    budget // _deep_smem(1, Wc, SS, Sc, with_hist)))
+                    budget // _deep_smem(1, Wc, SS, Sc, with_hist, cb)))
     Pw = min(P, Pg * HIST_DEEP_MAX_GROUPS)
     NG = -(-Pw // Pg)
     Pg = -(-Pw // NG)
@@ -331,7 +345,7 @@ def hist_deep_plan(N: int, D: int, K: int, P: int, n_bins: int, S: int,
             "NSC": NSC, "Pw": Pw, "windows": -(-P // Pw), "SEG": SEG,
             "nseg": nseg, "min_rows": HIST_DEEP_MIN_ROWS,
             "target_blocks": HIST_BLOCKS, "blocks": K * NG * NC * NSC,
-            "smem": _deep_smem(Pg, Wc, SS, Sc, with_hist),
+            "smem": _deep_smem(Pg, Wc, SS, Sc, with_hist, cb),
             "psmem": _part_smem(NG, SEG),
             "partition_bytes": (6 + 4 * S) * K * N + 8 * K * NG * nseg}
 
@@ -347,12 +361,98 @@ def hist_deep_split(plan: dict, max_rows: int, live_rows: int) -> int:
 
 
 def deep_partition_bytes(N: int, D: int, P: int, n_bins: int,
-                         S: int) -> int:
+                         S: int, cell_bytes: int = 4) -> int:
     """Device bytes a lane's ``tree_hist_deep`` partition takes at a level
     of P nodes (every feature: the most node groups), 0 where the level
     does not take the deep route."""
-    plan = hist_plan(N, D, 1, P, n_bins, S)
+    plan = hist_plan(N, D, 1, P, n_bins, S, cell_bytes=cell_bytes)
     return plan["partition_bytes"] if plan["route"] == "deep" else 0
+
+
+class HistScale(NamedTuple):
+    """How ``tree_hist`` sums a fit's statistics (:func:`hist_scale`)."""
+    exponent: torch.Tensor   # int32 [K, S]: each statistic's scale 2^e
+    fixed: bool              # fixed point (else integer cells)
+
+
+def hist_scale(stats: torch.Tensor) -> HistScale:
+    """The cells of a fit's histograms, read once a fit from its statistics
+    f32 [K, N, S] (a tree's statistics do not change between its levels;
+    one wait for the card).
+
+    Every statistic an integer and every (lane, statistic)'s sum of
+    magnitudes below ``INTEGER_SUM_LIMIT`` (2^23, summed in f32: far
+    inside the 2^24 that keeps an f32 cell's integer sums exact) — a
+    classification forest's counts: integer cells (f32 in ``tree_hist``,
+    int32 in ``tree_hist_deep``), exact in any order.  Otherwise fixed point: each
+    (lane, statistic) gets the exponent e = 62 - L - E, where 2^L >= N and
+    the largest magnitude is below 2^E (``torch.frexp``; e = 0 for an
+    all-zero statistic), so that N rows of values rounded to integers
+    v·2^e sum within 2^62 in 64-bit cells, and each value loses only its
+    bits below 2^-e (about 2^-42 of the largest at 1M rows).  A statistic
+    that is not finite raises ``ValueError``."""
+    K, N, S = stats.shape
+    L = max(N - 1, 0).bit_length()
+    amax = torch.zeros((K, S), dtype=stats.dtype, device=stats.device)
+    total = torch.zeros((K, S), dtype=stats.dtype, device=stats.device)
+    frac = torch.zeros((), dtype=torch.bool, device=stats.device)
+    step = max(1, (64 << 20) // max(N * S, 1))      # lanes a pass: 256 MB
+    for a in range(0, K, step):
+        chunk = stats[a:a + step]
+        if N:
+            lo, hi = torch.aminmax(chunk, dim=1)
+            amax[a:a + step] = torch.maximum(hi, -lo)
+        total[a:a + step] = chunk.abs().sum(dim=1)
+        frac |= (chunk != torch.round(chunk)).any()
+    bad, integer = torch.stack([
+        ~torch.isfinite(amax).all(),
+        ~frac & (total < INTEGER_SUM_LIMIT).all()]).tolist()
+    if bad:
+        raise ValueError("tree_hist: a statistic is not finite (NaN or "
+                         "infinite): no fixed-point scale can hold it")
+    E = torch.frexp(amax).exponent
+    ex = torch.where(amax > 0, FIXED_POINT_BITS - L - E, 0).to(torch.int32)
+    return HistScale(ex.contiguous(), not integer)
+
+
+def fixed_point_sums(values: torch.Tensor, exponent: torch.Tensor
+                     ) -> torch.Tensor:
+    """``values`` [..., S] rounded to the integers v·2^e of their
+    statistic's ``exponent`` [S] (exact in f64, rounded once to nearest
+    even): int64, as the kernels' cells add them (``csrc/tree_hist.cuh``,
+    ``Cell<fixed_t>::of``)."""
+    scale = torch.ldexp(torch.ones((), dtype=torch.float64),
+                        exponent.to(torch.float64))
+    return torch.round(values.double() * scale).to(torch.int64)
+
+
+def fixed_point_f32(sums: torch.Tensor, exponent: torch.Tensor
+                    ) -> torch.Tensor:
+    """int64 sums [..., S] as f32: rounded once to f32, times 2^-e (exact
+    in f64; ``fixed_f32``)."""
+    scale = torch.ldexp(torch.ones((), dtype=torch.float64),
+                        -exponent.to(torch.float64))
+    return (sums.to(torch.float32).double() * scale).to(torch.float32)
+
+
+def tree_hist_fixed_twin(B, row_node, stats, offset: int, P: int,
+                         n_bins: int, with_hist: bool = True,
+                         node_mask=None, scale: Optional[HistScale] = None):
+    """The kernels' fixed-point sums emulated on the wrapper's arrays: each
+    live row's statistics rounded to v·2^e (:func:`hist_scale`'s
+    exponents), the integers summed exactly (int64 ``index_add_``: the
+    same in any order), each sum converted to f32 once — the bits
+    ``tree_hist`` and ``tree_hist_deep`` give a fixed-point launch."""
+    scale = hist_scale(stats) if scale is None else scale
+    K = row_node.shape[0]
+    ex = scale.exponent
+    q = fixed_point_sums(stats, ex[:, None, :])
+    hist, totals = tree_hist_twin(B, row_node, q, offset, P, n_bins,
+                                  with_hist, node_mask)
+    totals = fixed_point_f32(totals, ex[:, None, :])
+    if hist is not None:
+        hist = fixed_point_f32(hist, ex.reshape(K, 1, 1, 1, -1))
+    return hist, totals
 
 
 def tree_hist_twin(B, row_node, stats, offset: int, P: int, n_bins: int,
@@ -387,7 +487,7 @@ def tree_hist_twin(B, row_node, stats, offset: int, P: int, n_bins: int,
 
 def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
               offset: int, P: int, n_bins: int, with_hist: bool = True,
-              node_mask=None):
+              node_mask=None, scale: Optional[HistScale] = None):
     """Histograms of one tree level for K lanes at once.
 
     B int8 [N, D] bin ids (< n_bins); row_node int32 [K, N] heap node ids;
@@ -397,11 +497,15 @@ def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
     ``node_mask`` bool [K, P, D] (each node's feature subset) leaves the
     cells of features outside a node's subset at zero; None keeps every
     feature.  Rows whose statistics are all zero add nothing (exact: adding
-    zero changes no sum).  :func:`hist_plan` sizes the launch, with node
+    zero changes no sum).  ``scale``: the fit's :func:`hist_scale`, read
+    here where it is None.  On the card the sums are exact integers —
+    integer statistics' own, or fixed point (:func:`tree_hist_fixed_twin`
+    gives their bits) — so a launch repeats bit for bit whatever the order
+    of its atomics.  :func:`hist_plan` sizes the launch, with node
     subsets slots for the most features any node's subset holds (counted
     here: one wait for the card): a level whose nodes fit shared memory
     runs ``tree_hist``; a deeper one ``tree_hist_deep`` (rows partitioned
-    by node group, each group's cells in shared memory; the histogram is
+    by node group, each group's cells in shared memory; the sums are
     zero-filled only where :func:`hist_deep_split` gives a group's rows to
     several blocks: one wait for the card)."""
     dev = B.device
@@ -423,48 +527,70 @@ def tree_hist(B: torch.Tensor, row_node: torch.Tensor, stats: torch.Tensor,
         raise ValueError(f"tree_hist: unsupported device {dev}")
     if N >= 1 << 31:
         raise ValueError("tree_hist: at most 2^31 - 1 rows")
+    scale = hist_scale(stats) if scale is None else scale
+    if scale.exponent.shape != (K, S) or scale.exponent.device != dev:
+        raise ValueError("tree_hist: scale must be the statistics' [K, S] "
+                         "exponents on their device")
+    fixed = scale.fixed
+    ex_ptr = scale.exponent.data_ptr() if fixed else 0
     width = (int(node_mask.sum(dim=2).amax())
              if node_mask is not None and with_hist else None)
-    plan = hist_plan(N, D, K, P, n_bins, S, with_hist, width)
+    plan = hist_plan(N, D, K, P, n_bins, S, with_hist, width,
+                     8 if fixed else 4)
     totals = torch.zeros((K, P, S), dtype=torch.float32, device=dev)
+    tot64 = (torch.zeros((K, P, S), dtype=torch.int64, device=dev)
+             if fixed else None)
     mask_ptr = 0 if node_mask is None or not with_hist \
         else node_mask.data_ptr()
+    ptr = (lambda t: 0 if t is None else t.data_ptr())
     if plan["route"] == "deep":
         hist = totals
         if with_hist:
             hist = torch.empty((K, P, D, n_bins, S), dtype=torch.float32,
                                device=dev)
+        hist64 = None
         idx = torch.empty((K, N), dtype=torch.int32, device=dev)
         pl = torch.empty((K, N), dtype=torch.int16, device=dev)
         ss = torch.empty((K, N, S), dtype=torch.float32, device=dev)
         runs = torch.empty((K, plan["NG"], plan["nseg"], 2),
                            dtype=torch.int32, device=dev)
-        info = torch.zeros((K, 2), dtype=torch.int32, device=dev)
         stat = torch.empty(2, dtype=torch.int64, device=dev)
         for wlo in range(0, P, plan["Pw"]):
             Pn = min(plan["Pw"], P - wlo)
             _deep_partition(row_node.data_ptr(), stats.data_ptr(),
                             idx.data_ptr(), pl.data_ptr(), ss.data_ptr(),
-                            runs.data_ptr(), info.data_ptr(), stat.data_ptr(),
-                            N, S, K, offset + wlo, Pn, plan["Pg"], plan["NG"],
+                            runs.data_ptr(), stat.data_ptr(), N, S, K,
+                            offset + wlo, Pn, plan["Pg"], plan["NG"],
                             plan["SEG"], plan["nseg"], plan["psmem"],
                             _stream(B))
             R = hist_deep_split(plan, *stat.tolist())
+            if fixed and with_hist and R > 1 and hist64 is None:
+                hist64 = torch.empty((K, P, D, n_bins, S), dtype=torch.int64,
+                                     device=dev)
             _launch("tree_hist_deep", B.data_ptr(), mask_ptr, idx.data_ptr(),
-                    pl.data_ptr(), ss.data_ptr(), runs.data_ptr(),
-                    info.data_ptr(), hist.data_ptr(), totals.data_ptr(), N,
-                    D, n_bins, S, K, P, wlo, Pn, *(plan[k] for k in (
-                        "Pg", "NG", "Dc", "NC", "Wc", "SS", "Sc", "NSC",
-                        "SEG", "nseg")), R, plan["threads"], plan["smem"],
-                    int(with_hist), _stream(B))
+                    pl.data_ptr(), ss.data_ptr(), runs.data_ptr(), ex_ptr,
+                    hist.data_ptr(), totals.data_ptr(), ptr(hist64),
+                    ptr(tot64), N, D, n_bins, S, K, P, wlo, Pn,
+                    *(plan[k] for k in ("Pg", "NG", "Dc", "NC", "Wc", "SS",
+                                        "Sc", "NSC", "SEG", "nseg")),
+                    R, plan["threads"], plan["smem"], int(with_hist),
+                    int(wlo + Pn == P), _stream(B))
         return (hist if with_hist else None), totals
-    hist = (torch.zeros((K, P, D, n_bins, S), dtype=torch.float32, device=dev)
-            if with_hist else totals)
+    if fixed:
+        hist = (torch.empty((K, P, D, n_bins, S), dtype=torch.float32,
+                            device=dev) if with_hist else totals)
+        hist64 = (torch.zeros((K, P, D, n_bins, S), dtype=torch.int64,
+                              device=dev) if with_hist else None)
+    else:
+        hist = (torch.zeros((K, P, D, n_bins, S), dtype=torch.float32,
+                            device=dev) if with_hist else totals)
+        hist64 = None
     _launch("tree_hist", B.data_ptr(), row_node.data_ptr(), stats.data_ptr(),
-            mask_ptr, hist.data_ptr(), totals.data_ptr(),
-            N, D, n_bins, S, K, offset, P, plan["Pg"], plan["NG"], plan["Dc"],
-            plan["NC"], plan["Wc"], plan["RB"], plan["R"], plan["threads"],
-            plan["smem"], int(with_hist), _stream(B))
+            mask_ptr, ex_ptr, hist.data_ptr(), totals.data_ptr(),
+            ptr(hist64), ptr(tot64), N, D, n_bins, S, K, offset, P,
+            plan["Pg"], plan["NG"], plan["Dc"], plan["NC"], plan["Wc"],
+            plan["RB"], plan["R"], plan["threads"], plan["smem"],
+            int(with_hist), _stream(B))
     return (hist if with_hist else None), totals
 
 

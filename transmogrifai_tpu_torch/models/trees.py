@@ -35,9 +35,10 @@ from ..columns import device_matrix, to_device_f32
 from ..device import tensor_device
 from .base import PredictionModel, PredictorEstimator
 from .linear import _n_classes
-from .tree_kernels import (deep_partition_bytes, gini_leaf, tree_hist,
-                           tree_route, tree_split, tree_split_gini,
-                           tree_split_variance, tree_walk, variance_leaf)
+from .tree_kernels import (deep_partition_bytes, gini_leaf, hist_scale,
+                           tree_hist, tree_route, tree_split,
+                           tree_split_gini, tree_split_variance, tree_walk,
+                           variance_leaf)
 
 MAX_BINS_DEFAULT = 32
 # Device bytes a batch of lanes may hold while its trees grow (statistics,
@@ -122,7 +123,8 @@ _leaf_variance = variance_leaf     # ≙ ``_leaf_variance``, trees.py:212-213
 
 
 def lane_bytes(n_rows: int, n_feats: int, n_stats: int, n_bins: int,
-               max_depth: int, device: torch.device) -> int:
+               max_depth: int, device: torch.device,
+               fixed_point: bool = True) -> int:
     """Bytes one lane holds while its tree grows: its statistics and node
     ids, each twice (the caller's temporaries while it builds the
     statistics; the ids' second copy is a margin since ``tree_route``
@@ -131,15 +133,18 @@ def lane_bytes(n_rows: int, n_feats: int, n_stats: int, n_bins: int,
     ``4·N·(2·S + 4)``; and the widest level's histogram (2^(depth-1) nodes ×
     D × bins × S f32).  On the card a level that takes ``tree_hist_deep``
     adds its partition (each row's record, ``(6 + 4·S)·N``, and the group
-    runs: ``tree_kernels.deep_partition_bytes``).  The CPU twins add ~2
+    runs: ``tree_kernels.deep_partition_bytes``), and ``fixed_point``
+    statistics (``tree_kernels.hist_scale``: any but integer counts) the
+    histogram's 64-bit sums (twice its f32 bytes).  The CPU twins add ~2
     histograms (the empty-node test, the split's tables at non-empty nodes)
     and the scatter's indices and values (``N·D·(8 + 4·S)``)."""
     widest = 1 << max(max_depth - 1, 0)
     hist = 4 * widest * n_feats * n_bins * n_stats
     rows = 4 * n_rows * (2 * n_stats + 4)
     if device.type == "cuda":
-        return rows + hist + deep_partition_bytes(n_rows, n_feats, widest,
-                                                  n_bins, n_stats)
+        return (rows + hist * (3 if fixed_point else 1)
+                + deep_partition_bytes(n_rows, n_feats, widest, n_bins,
+                                       n_stats, 8 if fixed_point else 4))
     return rows + 3 * hist + n_rows * n_feats * (8 + 4 * n_stats)
 
 
@@ -207,17 +212,19 @@ def fit_trees(B: torch.Tensor, splits: torch.Tensor, stats: torch.Tensor,
     gain = torch.zeros((K, D), dtype=torch.float32, device=dev)
     row_node = torch.zeros((K, N), dtype=torch.int32, device=dev)
     # the widest node subset of each level, read once (the gini and
-    # variance plans')
+    # variance plans'), and how the histograms sum the statistics
     widths = ([None] * max_depth if node_masks is None or impurity == "xgb"
               or dev.type != "cuda"
               else torch.stack([m.sum(dim=2).amax()
                                 for m in node_masks[:max_depth]]).tolist())
+    scale = hist_scale(stats) if dev.type == "cuda" else None
     for lvl in range(max_depth + 1):
         off, P = (1 << lvl) - 1, 1 << lvl
         bottom = lvl == max_depth
         nm = None if node_masks is None or bottom else node_masks[lvl]
         hist, totals = tree_hist(B, row_node, stats, off, P, n_bins,
-                                 with_hist=not bottom, node_mask=nm)
+                                 with_hist=not bottom, node_mask=nm,
+                                 scale=scale)
         if bottom:
             break
         # the split kernels write the level's tree arrays in their
@@ -435,7 +442,10 @@ def _forest_grid_fit(B, splits, base_stats, fold_w, draws: ForestDraws,
     subsets = (None if draws.subsets is None
                else [m.to(dev) for m in draws.subsets])
     fmask = torch.ones(D, dtype=torch.bool, device=dev)
-    per_lane = lane_bytes(N, D, base_stats.shape[1], n_bins, max_depth, dev)
+    # a classification forest's statistics are integer counts (integer
+    # cells); a regression forest's take fixed point
+    per_lane = lane_bytes(N, D, base_stats.shape[1], n_bins, max_depth, dev,
+                          fixed_point=impurity != "gini")
     parts = []
     for sl in lane_batches(Kc, per_lane, dev):
         w = torch.empty((sl.stop - sl.start, N), dtype=torch.float32,

@@ -108,7 +108,7 @@ class MapVectorizer(Estimator):
             raise NotImplementedError(
                 f"MapVectorizer: {f.kind.__name__} (values of "
                 f"{map_value_kind(f.kind).__name__}) arrives with a later "
-                "slice of the port (ROADMAP queue 1 item 10)")
+                "slice of the port (ROADMAP queue 1 item 7)")
         col = batch[f.name]
         exp = map_expansion(col)
         if exp is not None:

@@ -5,9 +5,11 @@ defaults at TransmogrifierDefaults:52-88).
 Groups input features by kind, applies the default vectorizer per group and
 combines the blocks with VectorsCombiner, the groups in sorted order as in
 the JAX package.  The port vectorizes reals, integrals, binaries, pick-lists
-and their categorical siblings, free text (SmartTextVectorizer) and
-numeric-valued maps; every other kind raises ``NotImplementedError`` naming
-the slice of the port that brings it.
+and their categorical siblings, free text (SmartTextVectorizer),
+numeric-valued maps, dates and date lists, multi-pick-lists and
+geolocations; every other kind (text lists, the specialised text kinds,
+maps of other values) raises ``NotImplementedError`` naming the queue item
+of the port that brings it.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ from typing import Dict, List, Sequence, Type
 
 from ..features import Feature
 from ..types import (ID, URL, Base64, Binary, City, ComboBox, Country,
-                     Currency, Date, DateTime, Email, FeatureType, Geolocation,
-                     Integral, OPMap, OPVector, Percent, Phone, PickList,
-                     PostalCode, Real, RealNN, State, Street, Text, TextArea,
+                     Currency, Date, DateList, DateTime, DateTimeList, Email,
+                     FeatureType, Geolocation, Integral, MultiPickList, OPMap,
+                     OPVector, Percent, Phone, PickList, PostalCode, Real,
+                     RealNN, State, Street, Text, TextArea, TextList,
                      map_value_kind)
 
 
@@ -49,7 +52,7 @@ _CATEGORICAL = (PickList, ComboBox, ID, Country, State, City, PostalCode,
 def _later(kind: Type[FeatureType], what: str) -> NotImplementedError:
     return NotImplementedError(
         f"transmogrify: {kind.__name__} features ({what}) arrive with a later "
-        "slice of the port (ROADMAP queue 1 item 10)")
+        "slice of the port (ROADMAP queue 1 item 7)")
 
 
 def _group_key(kind: Type[FeatureType]) -> str:
@@ -58,7 +61,7 @@ def _group_key(kind: Type[FeatureType]) -> str:
     if issubclass(kind, Binary):
         return "binary"
     if issubclass(kind, (Date, DateTime)):
-        raise _later(kind, "dates")
+        return "date"
     if issubclass(kind, Integral):
         return "integral"
     if issubclass(kind, (Real, Percent, Currency)):
@@ -69,6 +72,14 @@ def _group_key(kind: Type[FeatureType]) -> str:
         raise _later(kind, "specialised text")
     if issubclass(kind, (TextArea, Text)):
         return "text"
+    if issubclass(kind, TextList):
+        raise _later(kind, "text lists")
+    if issubclass(kind, (DateList, DateTimeList)):
+        return "datelist"
+    if issubclass(kind, MultiPickList):
+        return "multipicklist"
+    if issubclass(kind, Geolocation):
+        return "geolocation"
     if issubclass(kind, OPVector):
         return "vector"
     if issubclass(kind, OPMap):
@@ -77,9 +88,7 @@ def _group_key(kind: Type[FeatureType]) -> str:
                 vk, (Binary, Date)):
             return "map"
         raise _later(kind, "maps of non-numeric values")
-    if issubclass(kind, Geolocation):
-        raise _later(kind, "geolocations")
-    raise _later(kind, "collections")
+    raise TypeError(f"transmogrify: unsupported feature kind {kind.__name__}")
 
 
 def transmogrify(features: Sequence[Feature],
@@ -92,7 +101,10 @@ def transmogrify(features: Sequence[Feature],
                  ) -> Feature:
     """Auto-vectorize a feature list into one OPVector feature."""
     from .categorical import OneHotEstimator
+    from .collections import MultiPickListVectorizer
     from .combiner import VectorsCombiner
+    from .dates import DateListVectorizer, DateToUnitCircleVectorizer
+    from .geo import GeolocationVectorizer
     from .maps import MapVectorizer
     from .numeric import (BinaryVectorizer, IntegralVectorizer,
                           RealNNVectorizer, RealVectorizer)
@@ -127,6 +139,15 @@ def transmogrify(features: Sequence[Feature],
         elif key == "categorical":
             st = OneHotEstimator(top_k=top_k, min_support=min_support,
                                  track_nulls=track_nulls)
+        elif key == "date":
+            st = DateToUnitCircleVectorizer(track_nulls=track_nulls)
+        elif key == "datelist":
+            st = DateListVectorizer(track_nulls=track_nulls)
+        elif key == "multipicklist":
+            st = MultiPickListVectorizer(top_k=top_k, min_support=min_support,
+                                         track_nulls=track_nulls)
+        elif key == "geolocation":
+            st = GeolocationVectorizer(track_nulls=track_nulls)
         else:  # text
             st = SmartTextVectorizer(
                 max_cardinality=max_categorical_cardinality, top_k=top_k,

@@ -30,7 +30,8 @@ from .models.base import PredictionModel, extract_xy
 from .resilience import FailureLog
 from .stages.base import Estimator
 from .tuning import (DataCutter, DataSplitter, ModelCandidate,
-                     OpCrossValidation, OpValidator, Splitter,
+                     OpCrossValidation, OpTrainValidationSplit,
+                     OpValidator, Splitter,
                      device_wall_clock)
 from .types import OPVector, Prediction, RealNN
 
@@ -175,11 +176,22 @@ class ModelSelector(Estimator):
 
     def __init__(self, validator: OpValidator, splitter: Optional[Splitter],
                  models: Sequence[ModelCandidate],
-                 evaluators: Sequence[OpEvaluatorBase] = (), **kw):
+                 evaluators: Sequence[OpEvaluatorBase] = (),
+                 model_types_to_use: Optional[Sequence[str]] = None, **kw):
         super().__init__(**kw)
         self.validator = validator
         self.splitter = splitter
         self.models = list(models)
+        if model_types_to_use is not None:
+            # ≙ setModelsToTry / modelTypesToUse (selector.py:236-245)
+            wanted = set(model_types_to_use)
+            known = {c.model_name for c in self.models}
+            unknown = wanted - known
+            if unknown:
+                raise ValueError(
+                    f"model_types_to_use: unknown model types "
+                    f"{sorted(unknown)}; available: {sorted(known)}")
+            self.models = [c for c in self.models if c.model_name in wanted]
         self.evaluators = list(evaluators)
 
     def output_name(self) -> str:
@@ -242,7 +254,10 @@ class ModelSelector(Estimator):
                 "seed": v.seed, "stratify": v.stratify,
                 # the families fit one after another: no thread pool
                 "parallelism": 1,
-                "numFolds": getattr(v, "num_folds", None),
+                **({"numFolds": v.num_folds}
+                   if isinstance(v, OpCrossValidation) else
+                   {"trainRatio": v.train_ratio}
+                   if isinstance(v, OpTrainValidationSplit) else {}),
                 "racing": {"enabled": v.racing, "eta": v.racing_eta,
                            "minSurvivors": v.racing_min_survivors}},
             # the splitter's settings and what it prepared (≙
@@ -347,9 +362,13 @@ class BinaryClassificationModelSelector(ModelSelector):
                  validation_metric: Optional[OpEvaluatorBase] = None,
                  splitter: Optional[Splitter] = None,
                  models: Optional[Sequence[ModelCandidate]] = None,
-                 stratify: bool = False, **kw):
+                 stratify: bool = False,
+                 use_train_validation_split: bool = False,
+                 train_ratio: float = 0.75, **kw):
         ev = validation_metric or Evaluators.BinaryClassification.auPR()
-        validator = OpCrossValidation(num_folds, ev, seed, stratify)
+        validator = (OpTrainValidationSplit(train_ratio, ev, seed, stratify)
+                     if use_train_validation_split
+                     else OpCrossValidation(num_folds, ev, seed, stratify))
         if models is None:
             models = [_lr_candidates(), _rf_classifier(), _gbt_classifier(),
                       _svc_candidates()]

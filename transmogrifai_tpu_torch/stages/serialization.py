@@ -37,9 +37,13 @@ def _is_array(v: Any) -> bool:
 _STAGE_MODULES = [
     "transmogrifai_tpu_torch.stages.generator",
     "transmogrifai_tpu_torch.ops.numeric",
+    "transmogrifai_tpu_torch.ops.bucketizers",
     "transmogrifai_tpu_torch.ops.categorical",
     "transmogrifai_tpu_torch.ops.text",
+    "transmogrifai_tpu_torch.ops.dates",
+    "transmogrifai_tpu_torch.ops.geo",
     "transmogrifai_tpu_torch.ops.maps",
+    "transmogrifai_tpu_torch.ops.collections",
     "transmogrifai_tpu_torch.ops.combiner",
     "transmogrifai_tpu_torch.models.linear",
     "transmogrifai_tpu_torch.models.trees",

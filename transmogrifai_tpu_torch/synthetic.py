@@ -18,6 +18,13 @@ of sd 0.3.
 Multiclass rows (its multiclass half) hold one of 4 class labels and 16
 features drawn around that class's centre (centres of sd 2.5, unit noise).
 
+More-kinds rows (``make_kinds_columns``) hold 2 Dates (one 5% null), a
+DateTime, a DateList of 0-3 past dates, 2 MultiPickLists of 1-4 of 10
+options, a Geolocation (5% null), 8 Reals (5% null each) and a RealMap of
+20 keys (each 30% present); the binary label depends on the DateTime's hour
+of day, option o3 of the first MultiPickList, the latitude and a step of
+r0 at 0.5.
+
 GLM rows (insurance claim frequency and severity) hold 16 standard-normal
 features and a label with log link: a count y ~ Poisson(exp(0.3 + X w)) or
 a strictly positive amount y ~ Gamma(shape 2, scale exp(0.3 + X w) / 2),
@@ -32,7 +39,8 @@ from typing import Dict, Tuple, Type
 import numpy as np
 
 from .columns import Column, text_column
-from .types import FeatureType, PickList, Real, RealMap, RealNN, Text
+from .types import (Date, DateList, DateTime, FeatureType, Geolocation,
+                    MultiPickList, PickList, Real, RealMap, RealNN, Text)
 
 TRANSMOG_SCHEMA: Dict[str, Type[FeatureType]] = {
     "label": RealNN, "text1": Text, "text2": Text, "text3": Text,
@@ -192,3 +200,89 @@ def make_glm_data(n: int, family: str, d: int = 16, seed: int = 21
     else:
         raise ValueError(f"make_glm_data: family {family!r}")
     return X, y.astype(np.float32)
+
+
+KINDS_SCHEMA: Dict[str, Type[FeatureType]] = {
+    "label": RealNN, "d1": Date, "d2": Date, "dt": DateTime, "dl": DateList,
+    "mpl1": MultiPickList, "mpl2": MultiPickList, "geo": Geolocation,
+    **{f"r{j}": Real for j in range(8)}, "rmap": RealMap}
+KINDS_BASE_MS = 1_500_000_000_000
+_DAY_MS = 86_400_000
+
+
+def make_kinds_columns(n: int, seed: int = 17
+                       ) -> Tuple[Dict[str, Column], Dict[str, type]]:
+    """(columns by name, schema) of ``n`` more-kinds rows (the module
+    docstring): dates as int64 epoch milliseconds, lists, sets and maps as
+    host objects."""
+    rng = np.random.default_rng(seed)
+    day = rng.integers(0, 365, size=(3, n)).astype(np.int64)
+    ms = rng.integers(0, 3_600_000, size=(3, n)).astype(np.int64)
+    hour = rng.integers(0, 24, size=(3, n)).astype(np.int64)
+    dates = KINDS_BASE_MS + day * _DAY_MS + hour * 3_600_000 + ms
+    d1_null = rng.random(n) < 0.05
+
+    n_dl = rng.integers(0, 4, size=n)
+    dl_days = rng.integers(1, 400, size=(n, 3)).astype(np.int64)
+    dl = np.empty(n, dtype=object)
+    dl[:] = [ds[:k] for k, ds in zip(
+        n_dl.tolist(), (KINDS_BASE_MS - dl_days * _DAY_MS).tolist())]
+
+    opts = np.asarray([f"o{j}" for j in range(10)], dtype=object)
+
+    def mpl():
+        k = rng.integers(1, 5, size=n)
+        order = np.argsort(rng.random((n, 10)), axis=1)[:, :4]
+        out = np.empty(n, dtype=object)
+        out[:] = [set(o[:kk]) for kk, o in zip(k.tolist(),
+                                               opts[order].tolist())]
+        return out, (order == 3) & (np.arange(4)[None, :] < k[:, None])
+
+    mpl1, has_o3 = mpl()
+    mpl2, _ = mpl()
+
+    lat = rng.uniform(-60.0, 60.0, size=n)
+    lon = rng.uniform(-180.0, 180.0, size=n)
+    acc = rng.uniform(1.0, 10.0, size=n)
+    geo_null = rng.random(n) < 0.05
+    geo = np.empty(n, dtype=object)
+    for i, (a, b, c, nl) in enumerate(zip(lat.tolist(), lon.tolist(),
+                                         acc.tolist(), geo_null.tolist())):
+        geo[i] = None if nl else [a, b, c]
+
+    rvals = rng.normal(size=(n, 8)).astype(np.float32)
+    rnull = rng.random((n, 8)) < 0.05
+    mvals = rng.normal(size=(n, 20))
+    mpresent = rng.random((n, 20)) < 0.3
+    keys = [f"k{j:02d}" for j in range(20)]
+    rows, cols = np.nonzero(mpresent)           # row-major: each row's keys
+    ks = np.asarray(keys, dtype=object)[cols].tolist()   # in key order
+    vs = mvals[rows, cols].tolist()
+    ends = np.searchsorted(rows, np.arange(n + 1)).tolist()
+    rmap = np.empty(n, dtype=object)
+    rmap[:] = [dict(zip(ks[a:b], vs[a:b]))
+               for a, b in zip(ends[:-1], ends[1:])]
+
+    logits = (1.5 * np.sin(2 * np.pi * hour[2] / 24.0)
+              + 1.2 * has_o3.any(axis=1)
+              + 0.03 * np.where(geo_null, 0.0, lat)
+              + 1.5 * (np.where(rnull[:, 0], 0.0, rvals[:, 0]) > 0.5)
+              + 0.5 * np.where(mpresent[:, 0], mvals[:, 0], 0.0) - 1.0)
+    y = (logits + rng.normal(size=n) > 0).astype(np.float32)
+
+    cols = {
+        "label": Column(RealNN, y),
+        "d1": Column(Date, np.where(d1_null, 0, dates[0]), mask=~d1_null),
+        "d2": Column(Date, dates[1], mask=np.ones(n, bool)),
+        "dt": Column(DateTime, dates[2], mask=np.ones(n, bool)),
+        "dl": Column(DateList, dl),
+        "mpl1": Column(MultiPickList, mpl1),
+        "mpl2": Column(MultiPickList, mpl2),
+        "geo": Column(Geolocation, geo),
+        "rmap": Column(RealMap, rmap),
+    }
+    for j in range(8):
+        cols[f"r{j}"] = Column(Real, np.where(rnull[:, j], np.float32(np.nan),
+                                              rvals[:, j]),
+                               mask=~rnull[:, j])
+    return cols, dict(KINDS_SCHEMA)

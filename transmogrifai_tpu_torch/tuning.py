@@ -656,3 +656,25 @@ class OpCrossValidation(OpValidator):
         return [(np.concatenate([folds[j] for j in range(self.num_folds)
                                  if j != i]), folds[i])
                 for i in range(self.num_folds)]
+
+
+class OpTrainValidationSplit(OpValidator):
+    """One train / validation split (≙ OpTrainValidationSplit.scala);
+    default 75 / 25.  The JAX package's permutation draw (tuning.py:
+    1710-1717), so the split matches it bit for bit.  A single split runs
+    unraced ("degraded" at ``selector.racing``: racing needs two folds)."""
+
+    validation_type = "TrainValidationSplit"
+
+    def __init__(self, train_ratio: float = 0.75,
+                 evaluator: Optional[OpEvaluatorBase] = None, seed: int = 42,
+                 stratify: bool = False, **kw):
+        super().__init__(evaluator, seed, stratify, **kw)
+        self.train_ratio = float(train_ratio)
+
+    def splits(self, y: np.ndarray):
+        n = len(y)
+        rng = np.random.default_rng(self.seed)
+        perm = self._stratified_perm(y, rng) if self.stratify else rng.permutation(n)
+        n_tr = int(round(n * self.train_ratio))
+        return [(perm[:n_tr], perm[n_tr:])]
